@@ -1,0 +1,21 @@
+"""mojo_opset_tpu_torch — the PyTorch + CUDA port of the JAX
+package beside it.
+
+The ``Mojo*`` op contracts with a plain PyTorch golden tier (``ref``) and
+hand-written Hopper kernels (``cuda``), the paged-KV serving runtime, and
+the Qwen3 dense model. ``MOJO_BACKEND`` in {ref, cuda} picks a tier when an
+op is constructed; the default is ``cuda``, whose kernel wrappers run
+their plain versions on CPU tensors.
+
+Import order matters for dispatch: core classes create per-op registries;
+importing the backend package afterwards registers the cuda tier.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from mojo_opset_tpu_torch.core import BackendNotAvailable, MojoBackendRegistry, MojoOperator  # noqa: F401
+from mojo_opset_tpu_torch.core.operators import *  # noqa: F401,F403
+
+import mojo_opset_tpu_torch.backends.cuda  # noqa: F401,E402

@@ -1,0 +1,137 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+All sources under ``mojo_opset_tpu_torch/csrc/`` compile with one ``nvcc``
+call into ``_build/libmojo_kernels-<hash>.so``, where the hash covers the
+sources and the flags, so an edited kernel rebuilds and an unchanged one
+loads from disk. Each entry point is ``extern "C"``: raw pointers, ints
+and floats, the CUDA stream last; it returns ``cudaGetLastError()``.
+
+Nothing here runs at import: the CPU tests import every module on a
+machine without ``nvcc``. A failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of every entry point, the trailing stream included
+SIGNATURES = {
+    "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mojo_paged_decode": (_P,) * 6 + (_I,) * 9 + (_F, _I, _I, _P),
+    "mojo_paged_prefill": (_P,) * 7 + (_I,) * 10 + (_F, _I, _I, _P),
+}
+
+_CUDA_ERRORS = {
+    1: "cudaErrorInvalidValue",
+    2: "cudaErrorMemoryAllocation",
+    9: "cudaErrorInvalidConfiguration",
+    98: "cudaErrorInvalidDeviceFunction",
+    209: "cudaErrorNoKernelImageForDevice",
+    700: "cudaErrorIllegalAddress",
+    719: "cudaErrorLaunchFailure",
+}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH, /usr/local/cuda/bin): the cuda tier's kernels are built "
+            "from mojo_opset_tpu_torch/csrc with the CUDA toolkit at first use. "
+            "Tensors on the CPU need no build; MOJO_BACKEND=ref selects the plain tier."
+        )
+    return nvcc
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libmojo_kernels-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    target = library_path()
+    if target.exists():
+        return target
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cu_files = [str(p) for p in sources() if p.suffix == ".cu"]
+        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu_files], check=True)
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return target
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` on ``device``'s current stream; raise on a
+    non-zero CUDA error."""
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc} ({_CUDA_ERRORS.get(rc, 'see cudaError_t')})")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernels take float32, float16 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def require(cond: bool, msg: str) -> None:
+    """Input check of a kernel wrapper: a ValueError the caller can act on."""
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_device(device: torch.device, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        require(t.device == device, f"all inputs must be on {device}, got a tensor on {t.device}")

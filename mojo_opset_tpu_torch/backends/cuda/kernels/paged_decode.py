@@ -1,0 +1,106 @@
+"""Kernel C: paged decode GQA (``csrc/paged_decode.cu``) and its plain
+PyTorch version.
+
+Replaces the JAX package's ``backends/pallas/kernels/paged_decode.py:260``
+(``paged_decode_gqa``). ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from mojo_opset_tpu_torch.backends.cuda import build
+from mojo_opset_tpu_torch.core.operators.attention import paged_cache_dims
+from mojo_opset_tpu_torch.core.operators.attention import paged_decode_reference as paged_decode_gqa_plain
+
+launches = 0
+
+HEAD_DIMS = (64, 128, 256)
+MAX_GROUP = 16
+
+
+def cache_strides(cache: torch.Tensor, kv_layout: str) -> tuple[int, int, int]:
+    """(page, token, head) element strides of a paged cache."""
+    if kv_layout == "HND":
+        return cache.stride(0), cache.stride(2), cache.stride(1)
+    return cache.stride(0), cache.stride(1), cache.stride(2)
+
+
+def check_paged_cache(query: torch.Tensor, key_cache: torch.Tensor, value_cache: torch.Tensor, kv_layout: str):
+    """Shared input contract of the two paged attention kernels."""
+    _, Hkv, bs, D = paged_cache_dims(key_cache, kv_layout)
+    Hq = query.shape[1]
+    build.require_device(query.device, key_cache, value_cache)
+    build.require(D in HEAD_DIMS, f"paged attention kernels take head_dim in {HEAD_DIMS}, got {D}")
+    build.require(query.shape[-1] == D, f"query head_dim {query.shape[-1]} != cache head_dim {D}")
+    build.require(Hq % Hkv == 0, f"query heads {Hq} must be a multiple of kv heads {Hkv}")
+    build.require(
+        key_cache.dtype == query.dtype and value_cache.dtype == query.dtype,
+        f"query and caches must share one dtype, got {query.dtype}, {key_cache.dtype}, {value_cache.dtype}",
+    )
+    build.require(
+        query.is_contiguous() and key_cache.is_contiguous() and value_cache.is_contiguous()
+        and key_cache.shape == value_cache.shape,
+        "query and caches must be contiguous, and the caches of one shape",
+    )
+    build.require(
+        key_cache.data_ptr() % 16 == 0 and value_cache.data_ptr() % 16 == 0,
+        "caches must be 16-byte aligned",
+    )
+    return Hq, Hkv, bs, D
+
+
+def _int32_table(t: torch.Tensor, name: str, shape) -> None:
+    build.require(
+        t.dtype == torch.int32 and t.is_contiguous() and tuple(t.shape) == tuple(shape),
+        f"{name} must be contiguous int32 {tuple(shape)}, got {t.dtype} {tuple(t.shape)}",
+    )
+
+
+def paged_decode_gqa(
+    query: torch.Tensor,
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    total_seq_lens: torch.Tensor,
+    block_tables: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    gqa_layout: str = "AABB",
+    kv_layout: str = "HND",
+) -> torch.Tensor:
+    """q (B, Hq, D) attends over its sequence's first ``total_seq_lens[b]``
+    cached tokens. A CPU tensor takes the plain version; a CUDA tensor the
+    kernel."""
+    if query.device.type == "cpu":
+        return paged_decode_gqa_plain(
+            query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout
+        )
+    return _decode_kernel(
+        query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout
+    )
+
+
+def _decode_kernel(query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout,
+                   kv_layout):
+    global launches
+    code = build.dtype_code(query)
+    build.require(query.ndim == 3, f"query must be (B, Hq, D), got {tuple(query.shape)}")
+    Hq, Hkv, bs, D = check_paged_cache(query, key_cache, value_cache, kv_layout)
+    build.require(Hq // Hkv <= MAX_GROUP, f"decode kernel serves up to {MAX_GROUP} query heads per kv head")
+    B = query.shape[0]
+    build.require_device(query.device, total_seq_lens, block_tables)
+    _int32_table(total_seq_lens, "total_seq_lens", (B,))
+    _int32_table(block_tables, "block_tables", (B, block_tables.shape[1]))
+    scale = 1.0 / math.sqrt(D) if softmax_scale is None else softmax_scale
+    out = torch.empty_like(query)
+    build.launch(
+        "mojo_paged_decode", query.device,
+        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(), total_seq_lens.data_ptr(),
+        block_tables.data_ptr(), out.data_ptr(),
+        B, Hq, Hkv, D, bs, block_tables.shape[1], *cache_strides(key_cache, kv_layout),
+        float(scale), int(gqa_layout == "ABAB"), code,
+    )
+    launches += 1
+    return out

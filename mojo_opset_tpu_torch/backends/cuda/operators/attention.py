@@ -1,0 +1,50 @@
+"""cuda-tier paged attention (kernels C and D, ``csrc/paged_decode.cu`` and
+``csrc/paged_prefill.cu``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import paged_decode_gqa
+from mojo_opset_tpu_torch.backends.cuda.kernels.paged_prefill import paged_prefill_gqa
+from mojo_opset_tpu_torch.core.operators.attention import MojoPagedDecodeGQA, MojoPagedPrefillGQA
+
+
+class CudaPagedDecodeGQA(MojoPagedDecodeGQA):
+    def forward(
+        self,
+        query: torch.Tensor,
+        key_cache: torch.Tensor,
+        value_cache: torch.Tensor,
+        total_seq_lens: torch.Tensor,
+        block_tables: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        *,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        return paged_decode_gqa(
+            query, key_cache, value_cache, total_seq_lens, block_tables,
+            softmax_scale, self.gqa_layout, self.kv_layout,
+        )
+
+
+class CudaPagedPrefillGQA(MojoPagedPrefillGQA):
+    def forward(
+        self,
+        query: torch.Tensor,
+        key_cache: torch.Tensor,
+        value_cache: torch.Tensor,
+        cu_q_lens: torch.Tensor,
+        block_tables: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        cu_total_seq_lens: Optional[torch.Tensor] = None,
+        *,
+        max_q_len: Optional[int] = None,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        return paged_prefill_gqa(
+            query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale, cu_total_seq_lens,
+            self.gqa_layout, self.kv_layout, is_causal=self.is_causal, max_q_len=max_q_len,
+        )

@@ -1,0 +1,4 @@
+from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.core.registry import BackendNotAvailable, MojoBackendRegistry
+
+__all__ = ["BackendNotAvailable", "MojoBackendRegistry", "MojoOperator"]

@@ -1,0 +1,33 @@
+from mojo_opset_tpu_torch.core.operators.activation import MojoSilu
+from mojo_opset_tpu_torch.core.operators.attention import (
+    MojoPagedDecodeGQA,
+    MojoPagedPrefillGQA,
+    expand_gqa,
+    seq_lens_from_cu,
+)
+from mojo_opset_tpu_torch.core.operators.embedding import MojoEmbedding
+from mojo_opset_tpu_torch.core.operators.gemm import MojoGemm
+from mojo_opset_tpu_torch.core.operators.kv_cache import (
+    MojoStorePagedKVCache,
+    build_paged_kv_token_indices,
+)
+from mojo_opset_tpu_torch.core.operators.normalization import MojoRMSNorm
+from mojo_opset_tpu_torch.core.operators.position_embedding import (
+    MojoApplyRoPE,
+    MojoRotaryEmbedding,
+)
+
+__all__ = [
+    "MojoApplyRoPE",
+    "MojoEmbedding",
+    "MojoGemm",
+    "MojoPagedDecodeGQA",
+    "MojoPagedPrefillGQA",
+    "MojoRMSNorm",
+    "MojoRotaryEmbedding",
+    "MojoSilu",
+    "MojoStorePagedKVCache",
+    "build_paged_kv_token_indices",
+    "expand_gqa",
+    "seq_lens_from_cu",
+]

@@ -1,0 +1,262 @@
+// Kernel C: one-token GQA decode over a paged KV cache.
+//
+// Replaces the JAX package's backends/pallas/kernels/paged_decode.py:260
+// (paged_decode_gqa, body _decode_kernel :30).
+//
+// Bound on the H100: the bytes of K and V. Every cached row is read once
+// per step and takes 4 * group FLOPs per element.
+// Design: one block per (kv head, batch row) serves all `group` query
+// heads of that kv head from each K/V row it loads (4 at Qwen3-4B), so
+// K/V cross device memory once per step. The block's 8 warps walk the
+// context independently, 8 keys at a time (warp w takes keys 64i + 8w ..
+// 64i + 8w + 7): lanes split head_dim, each lane issues its slice of the
+// 8 K rows and 8 V rows before it uses any, and the warp keeps its own
+// fp32 online softmax per head, as the TPU kernel does per block
+// (:212-240). No barrier stands inside the walk. The 8 partial scores of
+// one head go through one transposing butterfly (9 shuffles, not 8 x 5)
+// that leaves key (lane >> 2) & 7's score in each lane. At the end the
+// warps merge their (max, sum, acc) in a fixed order, so the result does
+// not depend on scheduling. Pages at or past seq_len and table entries < 0
+// are never read; a row with seq_len == 0 writes zeros. Page, token and
+// head strides come from the caller, so HND and NHD share the kernel; AABB
+// maps query head h to kv head h / group, ABAB to h % Hkv.
+// Known limit: B * Hkv blocks (64 at the main path's batch of 8) leave
+// most of the 132 SMs idle; a split-KV pass is the fix.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecKeys = 8;  // keys per warp step; the butterfly below assumes 8
+constexpr int kDecMaxGroup = 16;
+constexpr unsigned kFull = 0xffffffffu;
+
+// s[k] holds this lane's partial score of key k. Returns the full score
+// of key (lane >> 2) & 7: each of the first three steps sends half of
+// the remaining keys to the partner lane, the last two sum the slices.
+__device__ __forceinline__ float transpose_sum8(const float (&s)[kDecKeys], int lane) {
+  const bool up16 = lane & 16;
+  float a[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = up16 ? s[i] : s[i + 4];
+    a[i] = (up16 ? s[i + 4] : s[i]) + __shfl_xor_sync(kFull, send, 16);
+  }
+  const bool up8 = lane & 8;
+  float b[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = up8 ? a[i] : a[i + 2];
+    b[i] = (up8 ? a[i + 2] : a[i]) + __shfl_xor_sync(kFull, send, 8);
+  }
+  const bool up4 = lane & 4;
+  float c = (up4 ? b[1] : b[0]) + __shfl_xor_sync(kFull, up4 ? b[0] : b[1], 4);
+  c += __shfl_xor_sync(kFull, c, 2);
+  return c + __shfl_xor_sync(kFull, c, 1);
+}
+
+// max / sum over the 8 keys, each held by lanes that differ in bits 2-4
+__device__ __forceinline__ float keys_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 4));
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 8));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 16));
+}
+
+__device__ __forceinline__ float keys_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 4);
+  v += __shfl_xor_sync(kFull, v, 8);
+  return v + __shfl_xor_sync(kFull, v, 16);
+}
+
+// G: compile-time bound on the group (query heads per kv head)
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kDecThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                    const int* __restrict__ seq_lens, const int* __restrict__ block_tables,
+                    T* __restrict__ out, int hq, int hkv, int block_size, int max_blocks,
+                    int page_stride, int tok_stride, int head_stride, float scale, int abab) {
+  constexpr int E = D / 32;  // head_dim elements per lane
+
+  __shared__ float q_s[G][D];  // scaled queries; reused for the warps' merged output
+  __shared__ float m_w[kDecWarps][G], l_w[kDecWarps][G];
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int group = hq / hkv;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+
+  for (int i = tid; i < group * D; i += kDecThreads) {
+    const int g = i / D;
+    const int h = abab ? g * hkv + kvh : kvh * group + g;
+    q_s[g][i % D] = mojo_to_float(q[(static_cast<int64_t>(b) * hq + h) * D + i % D]) * scale;
+  }
+  __syncthreads();
+
+  float m[G], l[G], acc[G][E];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  const int seq_len = seq_lens[b];
+  const int* table = block_tables + static_cast<int64_t>(b) * max_blocks;
+  const int64_t lane_off = static_cast<int64_t>(kvh) * head_stride + lane * E;
+  const int key = (lane >> 2) & 7;  // the key whose full score this lane holds
+
+  for (int j0 = warp * kDecKeys; j0 < seq_len; j0 += kDecWarps * kDecKeys) {
+    float kf[kDecKeys][E], vf[kDecKeys][E];
+    bool valid[kDecKeys];
+#pragma unroll
+    for (int k = 0; k < kDecKeys; ++k) {
+      const int pos = j0 + k;
+      const int lb = pos / block_size;
+      const int page = pos < seq_len && lb < max_blocks ? table[lb] : -1;
+      valid[k] = page >= 0;  // warp-uniform
+      if (valid[k]) {
+        const int64_t at = static_cast<int64_t>(page) * page_stride +
+                           static_cast<int64_t>(pos % block_size) * tok_stride + lane_off;
+        mojo_load_row<T, E>(kc + at, kf[k]);
+        mojo_load_row<T, E>(vc + at, vf[k]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) kf[k][e] = vf[k][e] = 0.f;
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g >= group) break;
+      float qf[E], s[kDecKeys];
+#pragma unroll
+      for (int e = 0; e < E; ++e) qf[e] = q_s[g][lane * E + e];
+#pragma unroll
+      for (int k = 0; k < kDecKeys; ++k) {
+        s[k] = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) s[k] += qf[e] * kf[k][e];
+      }
+      float score = transpose_sum8(s, lane);
+#pragma unroll
+      for (int k = 0; k < kDecKeys; ++k) score = (k == key && !valid[k]) ? -INFINITY : score;
+
+      const float m_new = fmaxf(m[g], keys_max(score));
+      const float p = m_new == -INFINITY || score == -INFINITY ? 0.f : expf(score - m_new);
+      const float alpha = m_new == -INFINITY ? 1.f : expf(m[g] - m_new);
+      l[g] = l[g] * alpha + keys_sum(p);
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int k = 0; k < kDecKeys; ++k) {
+        const float pk = __shfl_sync(kFull, p, 4 * k);  // lane 4k holds key k
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] += pk * vf[k][e];
+      }
+    }
+  }
+
+  // merge the warps: global max per head, then each warp's share in turn
+  if (lane == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m_w[warp][g] = m[g];
+      l_w[warp][g] = l[g];
+    }
+  }
+  __syncthreads();  // also: every warp is done reading q_s
+  float own[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, m_w[w][g]);
+    own[g] = m[g] == -INFINITY ? 0.f : expf(m[g] - mx);
+  }
+  for (int w = 0; w < kDecWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g >= group) break;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float part = acc[g][e] * own[g];
+          q_s[g][lane * E + e] = w == 0 ? part : q_s[g][lane * E + e] + part;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < group * D; i += kDecThreads) {
+    const int g = i / D;
+    float mx = -INFINITY, sum = 0.f;
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, m_w[w][g]);
+    for (int w = 0; w < kDecWarps; ++w) sum += m_w[w][g] == -INFINITY ? 0.f : l_w[w][g] * expf(m_w[w][g] - mx);
+    const int h = abab ? g * hkv + kvh : kvh * group + g;
+    out[(static_cast<int64_t>(b) * hq + h) * D + i % D] = mojo_from_float<T>(sum > 0.f ? q_s[g][i % D] / sum : 0.f);
+  }
+}
+
+template <typename T, int D>
+void launch_decode(dim3 grid, cudaStream_t s, int group, const T* q, const T* kc, const T* vc, const int* sl,
+                   const int* bt, T* out, int hq, int hkv, int block_size, int max_blocks, int page_stride,
+                   int tok_stride, int head_stride, float scale, int abab) {
+  if (group <= 4) {
+    paged_decode_kernel<T, D, 4><<<grid, kDecThreads, 0, s>>>(q, kc, vc, sl, bt, out, hq, hkv, block_size,
+                                                               max_blocks, page_stride, tok_stride, head_stride,
+                                                               scale, abab);
+  } else {
+    paged_decode_kernel<T, D, kDecMaxGroup><<<grid, kDecThreads, 0, s>>>(
+        q, kc, vc, sl, bt, out, hq, hkv, block_size, max_blocks, page_stride, tok_stride, head_stride, scale,
+        abab);
+  }
+}
+
+}  // namespace
+
+// q/out (B, hq, D) contiguous; caches addressed as
+// page * page_stride + token * tok_stride + kv_head * head_stride + d;
+// seq_lens (B,) and block_tables (B, max_blocks) int32. D in {64, 128,
+// 256}; hq / hkv <= 16.
+extern "C" int mojo_paged_decode(const void* q, const void* k_cache, const void* v_cache,
+                                 const void* seq_lens, const void* block_tables, void* out, int B,
+                                 int hq, int hkv, int D, int block_size, int max_blocks, int page_stride,
+                                 int tok_stride, int head_stride, float scale, int abab, int dtype,
+                                 void* stream) {
+  if (B <= 0) return static_cast<int>(cudaSuccess);
+  if (hq % hkv != 0 || hq / hkv > kDecMaxGroup) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(hkv, B);
+  const int group = hq / hkv;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sl = static_cast<const int*>(seq_lens);
+  const int* bt = static_cast<const int*>(block_tables);
+  MOJO_DISPATCH_DTYPE(dtype, T, {
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k_cache);
+    const T* vt = static_cast<const T*>(v_cache);
+    T* ot = static_cast<T*>(out);
+    switch (D) {
+      case 64:
+        launch_decode<T, 64>(grid, s, group, qt, kt, vt, sl, bt, ot, hq, hkv, block_size, max_blocks,
+                             page_stride, tok_stride, head_stride, scale, abab);
+        break;
+      case 128:
+        launch_decode<T, 128>(grid, s, group, qt, kt, vt, sl, bt, ot, hq, hkv, block_size, max_blocks,
+                              page_stride, tok_stride, head_stride, scale, abab);
+        break;
+      case 256:
+        launch_decode<T, 256>(grid, s, group, qt, kt, vt, sl, bt, ot, hq, hkv, block_size, max_blocks,
+                              page_stride, tok_stride, head_stride, scale, abab);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  });
+  return static_cast<int>(cudaGetLastError());
+}

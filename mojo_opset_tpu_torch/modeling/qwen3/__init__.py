@@ -1,0 +1,17 @@
+from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3 import (
+    Qwen3Attention,
+    Qwen3Config,
+    Qwen3DecoderLayer,
+    Qwen3ForCausalLM,
+    Qwen3MLP,
+    Qwen3Model,
+)
+
+__all__ = [
+    "Qwen3Attention",
+    "Qwen3Config",
+    "Qwen3DecoderLayer",
+    "Qwen3ForCausalLM",
+    "Qwen3MLP",
+    "Qwen3Model",
+]

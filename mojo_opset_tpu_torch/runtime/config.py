@@ -1,0 +1,39 @@
+"""Runtime configuration (counterpart of the JAX package's ``runtime/config.py``).
+
+The fields the serving slice reads; dtypes are torch dtypes.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+
+@dataclass
+class MojoModelConfig:
+    hidden_size: int = 0
+    head_dim: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    num_layers: int = 0
+
+    vocab_size: int = 0
+    max_position_embeddings: int = 2048
+
+    model_name: str = ""
+    dtype: torch.dtype = torch.bfloat16
+
+    # paged-cache layout: "NHD" (N, bs, Hkv, D) or "HND" (N, Hkv, bs, D)
+    kv_layout: str = "NHD"
+
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-6
+    intermediate_size: int = 0
+    tie_word_embeddings: bool = False
+
+
+@dataclass
+class MojoConfig:
+    model_config: Optional[MojoModelConfig] = None

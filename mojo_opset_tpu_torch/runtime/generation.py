@@ -1,0 +1,201 @@
+"""Generation loop: prefill -> sample -> decode, with hooks.
+
+Counterpart of the JAX package's ``runtime/generation.py`` (``GreedySampler``
+:44, ``GeneratorHook`` :60, ``PerfHook`` :68, ``MojoGenerator`` :199). The
+sampler runs on the device; the stepwise loop reads each step's tokens
+back for EOS handling, the fused loop (``FusedDecode``) only at the end.
+"""
+
+from __future__ import annotations
+
+import time
+from abc import ABC, abstractmethod
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from mojo_opset_tpu_torch.runtime.session import FusedDecode
+from mojo_opset_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+
+class MojoSampler(ABC):
+    @abstractmethod
+    def __call__(self, logits: torch.Tensor, session=None) -> torch.Tensor: ...
+
+
+class GreedySampler(MojoSampler):
+    def __call__(self, logits: torch.Tensor, session=None) -> torch.Tensor:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+class GeneratorHook:
+    def before_prefill(self, *, input_ids, context_input_len): ...
+    def after_prefill(self, *, logits, session): ...
+    def before_decode(self): ...
+    def after_decode_step(self, *, step, logits, next_token_id): ...
+    def after_decode(self, *, decode_steps, generated_ids): ...
+
+
+class PerfHook(GeneratorHook):
+    """Wall-clock phase timer for the generate loop.
+
+    Each phase boundary stamps ``perf_counter``; a boundary that closes
+    device work first synchronizes the device of the newest tensor it has
+    seen (PyTorch returns before the device finishes). ``records`` holds
+    one dict per generate call: batch_size / in_tok / prefill_ms /
+    decode_steps / decode_total_ms / decode_avg_ms / throughput (tok/s
+    across the batch).
+    """
+
+    def __init__(self, silent: bool = False):
+        self.records: List[dict] = []
+        self._silent = silent
+        self._marks: dict = {}
+        self._batch = 0
+        self._in_tokens = 0
+        self._tail = None  # newest device tensor seen during decode
+
+    @staticmethod
+    def _fence(x) -> None:
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            torch.cuda.synchronize(x.device)
+
+    def _stamp(self, name: str) -> None:
+        self._marks[name] = time.perf_counter()
+
+    def before_prefill(self, *, input_ids, context_input_len):
+        lens = np.asarray(context_input_len)
+        self._batch = int(lens.shape[0])
+        self._in_tokens = int(lens.sum())
+        self._stamp("prefill")
+
+    def after_prefill(self, *, logits, session):
+        self._fence(logits)
+        self._stamp("prefill_done")
+
+    def before_decode(self):
+        self._stamp("decode")
+
+    def after_decode_step(self, *, step, logits, next_token_id):
+        self._tail = next_token_id
+
+    def after_decode(self, *, decode_steps, generated_ids):
+        self._fence(self._tail)
+        self._stamp("decode_done")
+        m = self._marks
+        total_ms = (m["decode_done"] - m["decode"]) * 1e3
+        per_step = total_ms / decode_steps if decode_steps else 0.0
+        rec = {
+            "batch_size": self._batch,
+            "in_tok": self._in_tokens,
+            "prefill_ms": (m["prefill_done"] - m["prefill"]) * 1e3,
+            "decode_steps": decode_steps,
+            "decode_total_ms": total_ms,
+            "decode_avg_ms": per_step,
+            "throughput": self._batch * 1e3 / per_step if per_step else 0.0,
+        }
+        self.records.append(rec)
+        if not self._silent:
+            logger.info(
+                "[Perf] bs=%(batch_size)d in_tok=%(in_tok)d | prefill=%(prefill_ms).1fms | "
+                "decode=%(decode_steps)dsteps %(decode_total_ms).1fms avg=%(decode_avg_ms).1fms/step "
+                "%(throughput).1ftok/s",
+                rec,
+            )
+
+
+class MojoGenerator:
+    """Prefill + sampler + decode loop with EOS masking and a hook bus."""
+
+    def __init__(
+        self,
+        model,
+        tokenizer,
+        sampler: MojoSampler,
+        max_new_tokens: int = 128,
+        hooks: Optional[List[GeneratorHook]] = None,
+    ):
+        self.model = model
+        self.tokenizer = tokenizer
+        self.max_new_tokens = max_new_tokens
+        self.sampler = sampler
+        self._hooks = hooks or []
+
+    def _run_hooks(self, method: str, **kwargs):
+        for hook in self._hooks:
+            getattr(hook, method)(**kwargs)
+
+    def _eos_id(self) -> int:
+        eos_id = getattr(self.tokenizer, "eos_token_id", -1)
+        return -1 if eos_id is None else eos_id
+
+    def generate_from_ids(
+        self,
+        input_ids,
+        context_input_len,
+        max_decode_steps: Optional[int] = None,
+        ignore_eos: bool = False,
+        fused_decode: bool = False,
+    ) -> np.ndarray:
+        """Returns the generated ids (B, steps) as numpy int32."""
+        if max_decode_steps is None:
+            max_decode_steps = self.max_new_tokens
+        if fused_decode:
+            return self._generate_fused(input_ids, context_input_len, max_decode_steps, ignore_eos)
+        return self._generate_stepwise(input_ids, context_input_len, max_decode_steps, ignore_eos)
+
+    def _generate_fused(self, input_ids, context_input_len, max_decode_steps, ignore_eos):
+        """Decode window through ``FusedDecode``; EOS masking on the host
+        afterwards."""
+        if not isinstance(self.sampler, GreedySampler):
+            raise NotImplementedError("fused decode samples greedily; top-k waits for the sampling ops")
+        eos_id = self._eos_id()
+        self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
+        logits, session = self.model(input_ids, context_input_len=context_input_len)
+        self._run_hooks("after_prefill", logits=logits, session=session)
+
+        first = self.sampler(logits, session)
+        self._run_hooks("before_decode")
+        toks = FusedDecode(self.model.model)(session, first, max_decode_steps - 1)
+        out = torch.cat([first[None], toks], dim=0).T.cpu().numpy()  # (B, steps); waits for the device
+        self._run_hooks("after_decode", decode_steps=max_decode_steps - 1, generated_ids=list(out.T))
+        if not ignore_eos and eos_id >= 0:
+            after = np.cumsum(out == eos_id, axis=1) > 0
+            out = np.where(after, eos_id, out)
+        return out
+
+    def _generate_stepwise(self, input_ids, context_input_len, max_decode_steps, ignore_eos):
+        eos_id = self._eos_id()
+        self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
+        logits, session = self.model(input_ids, context_input_len=context_input_len)
+        self._run_hooks("after_prefill", logits=logits, session=session)
+
+        next_token_id = self.sampler(logits, session)
+        next_np = next_token_id.cpu().numpy()
+        all_generated = [next_np]
+        should_end = next_np == eos_id
+        decode_steps = 0
+
+        self._run_hooks("before_decode")
+        for step in range(1, max_decode_steps):
+            logits, session = self.model(next_token_id, session=session)
+            next_token_id = self.sampler(logits, session)
+            decode_steps += 1
+            self._run_hooks("after_decode_step", step=step, logits=logits, next_token_id=next_token_id)
+            next_np = next_token_id.cpu().numpy()
+            prev_end = should_end
+            should_end = should_end | (next_np == eos_id)
+            if not ignore_eos:
+                # sequences that ended earlier stay clamped to EOS; the step
+                # that produces a sequence's first EOS is still emitted
+                next_np = np.where(prev_end, eos_id, next_np).astype(np.int32)
+                next_token_id = torch.as_tensor(next_np, device=next_token_id.device)
+            all_generated.append(next_np)
+            if not ignore_eos and bool(np.all(should_end)):
+                break
+
+        self._run_hooks("after_decode", decode_steps=decode_steps, generated_ids=all_generated)
+        return np.stack(all_generated, axis=-1)

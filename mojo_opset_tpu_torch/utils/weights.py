@@ -1,0 +1,55 @@
+"""Weights: numpy state carried across from the JAX package, and random
+full-width initialization on the device.
+
+The keys are those of the JAX package's ``utils.hf.state_dict_of`` (the HF
+layout: ``model.layers.N.self_attn.q_proj.weight`` ...); the port's
+modules are named so that ``state_dict()`` has the same keys.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+# buffers recomputed at construction, never loaded
+IGNORED_SUFFIXES = ("inv_freq",)
+
+
+@torch.no_grad()
+def load_numpy_state(model: nn.Module, arrays: Dict[str, np.ndarray], strict: bool = True) -> nn.Module:
+    """Copy numpy arrays into ``model``'s parameters (cast to each
+    parameter's dtype and device). With ``strict``, a missing or unknown
+    key, or a shape mismatch, raises ``KeyError``/``ValueError``."""
+    state = model.state_dict()
+    arrays = {k: v for k, v in arrays.items() if k.rsplit(".", 1)[-1] not in IGNORED_SUFFIXES}
+    if strict:
+        missing = sorted(set(state) - set(arrays))
+        unexpected = sorted(set(arrays) - set(state))
+        if missing or unexpected:
+            raise KeyError(f"state mismatch: missing {missing[:8]}, unexpected {unexpected[:8]}")
+    for name, array in arrays.items():
+        if name not in state:
+            continue
+        target = state[name]
+        if tuple(array.shape) != tuple(target.shape):
+            raise ValueError(f"{name}: shape {tuple(array.shape)} != {tuple(target.shape)}")
+        if array.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch.from_numpy path
+            array = array.astype(np.float32)
+        target.copy_(torch.tensor(np.asarray(array)))
+    return model
+
+
+@torch.no_grad()
+def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Redraw every op's weights from ``generator`` on the weights' device,
+    with the JAX package's distributions (its ``utils/init.py``):
+    U(-1/sqrt(in), 1/sqrt(in)) for GEMMs, N(0, 1) for embeddings; norm
+    weights stay ones. The bits differ from the JAX package's."""
+    for module in model.modules():
+        reset = getattr(module, "reset_parameters", None)
+        if reset is not None and module is not model:
+            reset(generator=generator)
+    return model

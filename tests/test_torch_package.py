@@ -1,0 +1,202 @@
+"""The port's package contract on a machine without a GPU or nvcc.
+
+  * ``import mojo_opset_tpu_torch`` loads neither jax nor mojo_opset_tpu;
+  * every kernel module imports without nvcc;
+  * a cuda-tier op on CPU tensors runs its kernel's plain version and
+    launches nothing;
+  * a kernel wrapper given a non-CPU tensor never falls back: it checks its
+    input and builds, and without nvcc the build raises;
+  * dispatch (MOJO_BACKEND), the allocator's errors and the not-yet-ported
+    quant modes.
+"""
+
+import importlib
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import mojo_opset_tpu_torch as tm
+from mojo_opset_tpu_torch.backends.cuda import build, kernels
+from mojo_opset_tpu_torch.backends.cuda.kernels import norms, paged_decode, paged_prefill, rope
+from mojo_opset_tpu_torch.core.registry import BackendNotAvailable
+from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, PagedAttentionRuntimeState
+from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+
+REPO = Path(__file__).resolve().parents[1]
+KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill"]
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, mojo_opset_tpu_torch, mojo_opset_tpu_torch.modeling.qwen3, mojo_opset_tpu_torch.runtime\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
+        " or m.startswith('mojo_opset_tpu.')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO, timeout=120)
+
+
+@pytest.mark.parametrize("name", KERNEL_MODULES)
+def test_kernel_modules_import_without_nvcc(name):
+    module = importlib.import_module(f"mojo_opset_tpu_torch.backends.cuda.kernels.{name}")
+    assert isinstance(module.launches, int)
+    assert (build.CSRC_DIR / "common.cuh").exists()
+    assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
+        "rmsnorm", "rope", "paged_decode", "paged_prefill"}
+
+
+def _cpu_calls():
+    rng = np.random.default_rng(0)
+    t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    table = torch.tensor([[2, 0, -1], [1, 3, 4]], dtype=torch.int32)
+    kc, vc = t(5, 4, 2, 64), t(5, 4, 2, 64)  # NHD, block size 4
+    yield "norms", lambda: tm.MojoRMSNorm.get_backend_impl("cuda")(64)(t(3, 64)), None
+    q, k, cos, sin = t(5, 4, 64), t(5, 2, 64), t(5, 64), t(5, 64)
+    yield ("rope", lambda: tm.MojoApplyRoPE.get_backend_impl("cuda")()(q, k, cos, sin, head_first=False),
+           lambda: rope.rope_token_first_plain(q, k, cos, sin))
+    qd, lens = t(2, 8, 64), torch.tensor([6, 9], dtype=torch.int32)
+    yield ("paged_decode",
+           lambda: tm.MojoPagedDecodeGQA.get_backend_impl("cuda")(kv_layout="NHD")(qd, kc, vc, lens, table),
+           lambda: tm.MojoPagedDecodeGQA.get_backend_impl("ref")(kv_layout="NHD")(qd, kc, vc, lens, table))
+    qp, cu = t(7, 8, 64), torch.tensor([0, 3, 7], dtype=torch.int32)
+    cu_kv = torch.tensor([0, 6, 15], dtype=torch.int32)
+    yield ("paged_prefill",
+           lambda: tm.MojoPagedPrefillGQA.get_backend_impl("cuda")(kv_layout="NHD")(
+               qp, kc, vc, cu, table, None, cu_kv, max_q_len=4),
+           lambda: tm.MojoPagedPrefillGQA.get_backend_impl("ref")(kv_layout="NHD")(qp, kc, vc, cu, table, None, cu_kv))
+
+
+@pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
+def test_cuda_tier_on_cpu_runs_plain_version(case):
+    name, run, plain = case
+    kernels.reset_launch_counts()
+    out = run()
+    if plain is not None:
+        check_tol_diff(out, plain(), atol=0.0, rtol=0.0)
+    assert kernels.launch_counts() == dict.fromkeys(KERNEL_MODULES, 0), name
+
+
+def test_find_nvcc_raises_without_toolkit(monkeypatch):
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(build.Path, "exists", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+def test_build_raises_without_nvcc_and_writes_nothing(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "find_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build()
+    assert not (tmp_path / "_build").exists()
+    assert build.library_path().name.startswith("libmojo_kernels-")
+
+
+def test_library_hash_follows_the_sources(monkeypatch, tmp_path):
+    before = build.library_path().name
+    (tmp_path / "extra.cu").write_text("// changed\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert build.library_path().name != before
+
+
+def test_kernel_path_never_falls_back(monkeypatch):
+    """A tensor off the CPU goes to the kernel: without a build it raises
+    instead of running the plain version."""
+    monkeypatch.setattr(build, "load_library", lambda: (_ for _ in ()).throw(RuntimeError("no kernels built")))
+    x = torch.empty(4, 64, device="meta")
+    with pytest.raises(RuntimeError, match="no kernels built"):
+        norms.rmsnorm(x, torch.empty(64, device="meta"), 1e-6)
+    assert norms.launches == 0
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    table, lens = meta(2, 3, dtype=torch.int32), meta(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_decode.paged_decode_gqa(meta(2, 8, 16), meta(5, 4, 2, 16), meta(5, 4, 2, 16), lens, table)
+    with pytest.raises(ValueError, match="up to 16"):
+        paged_decode.paged_decode_gqa(meta(2, 32, 64), meta(5, 1, 4, 64), meta(5, 1, 4, 64), lens, table)
+    with pytest.raises(ValueError, match="share one dtype"):
+        paged_decode.paged_decode_gqa(meta(2, 8, 64, dtype=torch.float32), meta(5, 2, 4, 64),
+                                      meta(5, 2, 4, 64), lens, table)
+    with pytest.raises(ValueError, match="max_q_len"):
+        paged_prefill.paged_prefill_gqa(meta(7, 8, 64), meta(5, 2, 4, 64), meta(5, 2, 4, 64),
+                                        meta(3, dtype=torch.int32), table)
+    with pytest.raises(ValueError, match="causal"):
+        paged_prefill.paged_prefill_gqa(meta(7, 8, 64), meta(5, 2, 4, 64), meta(5, 2, 4, 64),
+                                        meta(3, dtype=torch.int32), table, is_causal=False, max_q_len=4)
+    with pytest.raises(ValueError, match="float32"):
+        norms.rmsnorm(meta(3, 64), meta(64), 1e-6)
+    with pytest.raises(ValueError, match="full-rope"):
+        rope.rope_token_first(meta(5, 4, 64), meta(5, 2, 64), meta(5, 32), meta(5, 32))
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        norms.rmsnorm(meta(3, 64, dtype=torch.float64), meta(64, dtype=torch.float32), 1e-6)
+
+
+def test_dispatch_follows_mojo_backend(monkeypatch):
+    assert type(tm.MojoRMSNorm(8)).__name__ == "CudaRMSNorm"
+    assert type(tm.MojoGemm(4, 4)).__name__ == "RefGemm"
+    monkeypatch.setenv("MOJO_BACKEND", "ref")
+    assert type(tm.MojoRMSNorm(8)).__name__ == "RefRMSNorm"
+    monkeypatch.setenv("MOJO_BACKEND", "no_such_tier")
+    assert type(tm.MojoPagedDecodeGQA()).__name__ == "CudaPagedDecodeGQA"
+    with pytest.raises(BackendNotAvailable):
+        tm.MojoGemm.get_backend_impl("cuda", strict=True)
+
+
+def test_forward_diff_with_compares_tiers():
+    x = torch.randn(3, 16)
+    cuda_op = tm.MojoRMSNorm.get_backend_impl("cuda")(16)
+    ref_op = tm.MojoRMSNorm.get_backend_impl("ref")(16)
+    out = cuda_op.forward_diff_with(ref_op, x, atol=1e-6, rtol=1e-6)
+    assert out.shape == x.shape
+    with pytest.raises(NotImplementedError):
+        ref_op.forward_diff_with(tm.MojoRMSNorm.get_backend_impl("ref")(16), x)
+
+
+def _tiny(**kw):
+    return Qwen3Config(hidden_size=32, intermediate_size=64, num_attention_heads=4, num_key_value_heads=2,
+                       num_hidden_layers=1, head_dim=8, vocab_size=64, max_position_embeddings=32,
+                       dtype=torch.float32, **kw)
+
+
+def test_quant_modes_are_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        _tiny(quant="w8a8")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        _tiny(quant_kv=True)
+
+
+def test_session_errors_and_device_tokens():
+    model = Qwen3ForCausalLM(_tiny(), generator=torch.Generator().manual_seed(0))
+    gm = PagedAttentionGenerationModel(model, block_size=8)
+    logits, session = gm(np.arange(1, 6, dtype=np.int32), context_input_len=np.array([5], np.int32))
+    assert isinstance(session, PagedAttentionRuntimeState) and session.caches.key(0).shape == (4, 8, 2, 8)
+    with pytest.raises(ValueError, match="exactly one token"):
+        gm(torch.tensor([1, 2], dtype=torch.int32), session=session)
+    token = torch.argmax(logits, -1).to(torch.int32)  # stays a tensor: no host round trip
+    logits, session = gm(token, session=session)
+    assert session.total_seq_lens.tolist() == [6] and torch.isfinite(logits).all()
+    session.release_sequence(0)
+    assert session.free_block_count() == 4
+    session._allocate_blocks(3)
+    with pytest.raises(ValueError, match="Out of paged KV cache memory"):
+        gm(np.ones(9, np.int32), context_input_len=np.array([9], np.int32), session=session)
+
+
+def test_random_init_is_seeded_and_scaled():
+    a = Qwen3ForCausalLM(_tiny(), generator=torch.Generator().manual_seed(3))
+    b = Qwen3ForCausalLM(_tiny(), generator=torch.Generator().manual_seed(3))
+    for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(pa, pb), name
+    w = a.model.layers[0].mlp.down_proj.weight
+    assert w.abs().max() <= 1 / math.sqrt(64)
+    assert torch.equal(a.model.norm.weight, torch.ones(32))
