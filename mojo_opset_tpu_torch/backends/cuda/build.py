@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-All sources under ``mojo_opset_tpu_torch/csrc/`` compile with one ``nvcc``
-call into ``_build/libmojo_kernels-<hash>.so``, where the hash covers the
-sources and the flags, so an edited kernel rebuilds and an unchanged one
-loads from disk. Each entry point is ``extern "C"``: raw pointers, ints
+All sources under ``mojo_opset_tpu_torch/csrc/`` compile into
+``_build/libmojo_kernels-<hash>.so``: one ``nvcc -c`` per ``.cu`` file, all
+started together, then one link. The hash covers the sources and the
+flags, so an edited kernel rebuilds and an unchanged one loads from disk. Each entry point is ``extern "C"``: raw pointers, ints
 and floats, the CUDA stream last; it returns ``cudaGetLastError()``.
 
 Nothing here runs at import: the CPU tests import every module on a
@@ -29,7 +29,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -39,8 +39,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
     "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mojo_paged_decode": (_P,) * 6 + (_I,) * 9 + (_F, _I, _I, _P),
-    "mojo_paged_prefill": (_P,) * 7 + (_I,) * 10 + (_F, _I, _I, _P),
+    "mojo_paged_decode": (_P,) * 8 + (_I,) * 9 + (_F, _I, _I, _I, _P),
+    "mojo_paged_prefill": (_P,) * 9 + (_I,) * 10 + (_F, _I, _I, _I, _P),
+    "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _P),
+    "mojo_int8_matmul": (_P,) * 5 + (_I,) * 5 + (_P,),
 }
 
 _CUDA_ERRORS = {
@@ -86,17 +88,20 @@ def build() -> Path:
         return target
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cu_files = [str(p) for p in sources() if p.suffix == ".cu"]
-        subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu_files], check=True)
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    # compile into a private directory, then rename the library: concurrent
+    # builders never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objects.append(obj)
+            procs.append((src.name, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)])))
+        failed = [name for name, proc in procs if proc.wait() != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}")
+        lib = os.path.join(tmp, target.name)
+        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects], check=True)
+        os.replace(lib, target)
     return target
 
 

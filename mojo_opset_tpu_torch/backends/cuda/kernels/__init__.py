@@ -1,9 +1,16 @@
 """Kernel wrappers: each module holds one kernel's launcher, its plain
 PyTorch version and its ``launches`` counter."""
 
-from mojo_opset_tpu_torch.backends.cuda.kernels import norms, paged_decode, paged_prefill, rope
+from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    int8_matmul,
+    norms,
+    paged_decode,
+    paged_prefill,
+    rmsnorm_quant,
+    rope,
+)
 
-ALL = (norms, rope, paged_decode, paged_prefill)
+ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -1,8 +1,11 @@
 """Kernel C: paged decode GQA (``csrc/paged_decode.cu``) and its plain
-PyTorch version.
+PyTorch version; with ``key_scale``/``value_scale``, kernel C' over int8
+(C8) pages.
 
 Replaces the JAX package's ``backends/pallas/kernels/paged_decode.py:260``
-(``paged_decode_gqa``). ``launches`` counts kernel launches.
+(``paged_decode_gqa``) and, for int8 pages, the scale folding around it
+(``backends/pallas/operators/attention.py:225-268``). ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -13,8 +16,8 @@ from typing import Optional
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
-from mojo_opset_tpu_torch.core.operators.attention import paged_cache_dims
-from mojo_opset_tpu_torch.core.operators.attention import paged_decode_reference as paged_decode_gqa_plain
+from mojo_opset_tpu_torch.core.operators.attention import paged_cache_dims, paged_decode_reference
+from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import paged_decode_dequant_reference
 
 launches = 0
 
@@ -29,18 +32,31 @@ def cache_strides(cache: torch.Tensor, kv_layout: str) -> tuple[int, int, int]:
     return cache.stride(0), cache.stride(1), cache.stride(2)
 
 
-def check_paged_cache(query: torch.Tensor, key_cache: torch.Tensor, value_cache: torch.Tensor, kv_layout: str):
-    """Shared input contract of the two paged attention kernels."""
+def check_paged_cache(query: torch.Tensor, key_cache: torch.Tensor, value_cache: torch.Tensor, kv_layout: str,
+                      key_scale: Optional[torch.Tensor] = None, value_scale: Optional[torch.Tensor] = None):
+    """Shared input contract of the two paged attention kernels: caches in
+    the query's dtype, or int8 exactly when (Hkv, D) fp32 scales are given."""
     _, Hkv, bs, D = paged_cache_dims(key_cache, kv_layout)
     Hq = query.shape[1]
     build.require_device(query.device, key_cache, value_cache)
     build.require(D in HEAD_DIMS, f"paged attention kernels take head_dim in {HEAD_DIMS}, got {D}")
     build.require(query.shape[-1] == D, f"query head_dim {query.shape[-1]} != cache head_dim {D}")
     build.require(Hq % Hkv == 0, f"query heads {Hq} must be a multiple of kv heads {Hkv}")
+    int8 = key_scale is not None or value_scale is not None
+    cache_dtype = torch.int8 if int8 else query.dtype
     build.require(
-        key_cache.dtype == query.dtype and value_cache.dtype == query.dtype,
-        f"query and caches must share one dtype, got {query.dtype}, {key_cache.dtype}, {value_cache.dtype}",
+        key_cache.dtype == cache_dtype and value_cache.dtype == cache_dtype,
+        f"query and caches must share one dtype, or the caches be int8 exactly when key_scale and "
+        f"value_scale are given; got {query.dtype}, {key_cache.dtype}, {value_cache.dtype}, scales: {int8}",
     )
+    if int8:
+        build.require(key_scale is not None and value_scale is not None, "int8 caches need both scales")
+        build.require_device(query.device, key_scale, value_scale)
+        for scale in (key_scale, value_scale):
+            build.require(
+                scale.dtype == torch.float32 and tuple(scale.shape) == (Hkv, D) and scale.is_contiguous(),
+                f"KV scales must be contiguous float32 ({Hkv}, {D}), got {scale.dtype} {tuple(scale.shape)}",
+            )
     build.require(
         query.is_contiguous() and key_cache.is_contiguous() and value_cache.is_contiguous()
         and key_cache.shape == value_cache.shape,
@@ -53,10 +69,41 @@ def check_paged_cache(query: torch.Tensor, key_cache: torch.Tensor, value_cache:
     return Hq, Hkv, bs, D
 
 
+def scale_pointers(key_scale: Optional[torch.Tensor], value_scale: Optional[torch.Tensor]):
+    """(k_scale, v_scale, kv_int8) arguments of the C entry points."""
+    if key_scale is None:
+        return None, None, 0
+    return key_scale.data_ptr(), value_scale.data_ptr(), 1
+
+
 def _int32_table(t: torch.Tensor, name: str, shape) -> None:
     build.require(
         t.dtype == torch.int32 and t.is_contiguous() and tuple(t.shape) == tuple(shape),
         f"{name} must be contiguous int32 {tuple(shape)}, got {t.dtype} {tuple(t.shape)}",
+    )
+
+
+def paged_decode_gqa_plain(
+    query: torch.Tensor,
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    total_seq_lens: torch.Tensor,
+    block_tables: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    gqa_layout: str = "AABB",
+    kv_layout: str = "HND",
+    key_scale: Optional[torch.Tensor] = None,
+    value_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The golden of the same call: paged decode, or with scales the
+    KV-dequant decode over int8 HND pages."""
+    if key_scale is None:
+        return paged_decode_reference(
+            query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout
+        )
+    return paged_decode_dequant_reference(
+        query, key_cache, key_scale, value_cache, value_scale, total_seq_lens, block_tables, softmax_scale,
+        gqa_layout, query.dtype,
     )
 
 
@@ -69,38 +116,40 @@ def paged_decode_gqa(
     softmax_scale: Optional[float] = None,
     gqa_layout: str = "AABB",
     kv_layout: str = "HND",
+    key_scale: Optional[torch.Tensor] = None,
+    value_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """q (B, Hq, D) attends over its sequence's first ``total_seq_lens[b]``
-    cached tokens. A CPU tensor takes the plain version; a CUDA tensor the
-    kernel."""
+    cached tokens; int8 caches take their (Hkv, D) ``key_scale`` and
+    ``value_scale``. A CPU tensor takes the plain version; a CUDA tensor
+    the kernel."""
+    args = (query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout,
+            key_scale, value_scale)
     if query.device.type == "cpu":
-        return paged_decode_gqa_plain(
-            query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout
-        )
-    return _decode_kernel(
-        query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout
-    )
+        return paged_decode_gqa_plain(*args)
+    return _decode_kernel(*args)
 
 
 def _decode_kernel(query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout,
-                   kv_layout):
+                   kv_layout, key_scale, value_scale):
     global launches
     code = build.dtype_code(query)
     build.require(query.ndim == 3, f"query must be (B, Hq, D), got {tuple(query.shape)}")
-    Hq, Hkv, bs, D = check_paged_cache(query, key_cache, value_cache, kv_layout)
+    Hq, Hkv, bs, D = check_paged_cache(query, key_cache, value_cache, kv_layout, key_scale, value_scale)
     build.require(Hq // Hkv <= MAX_GROUP, f"decode kernel serves up to {MAX_GROUP} query heads per kv head")
     B = query.shape[0]
     build.require_device(query.device, total_seq_lens, block_tables)
     _int32_table(total_seq_lens, "total_seq_lens", (B,))
     _int32_table(block_tables, "block_tables", (B, block_tables.shape[1]))
     scale = 1.0 / math.sqrt(D) if softmax_scale is None else softmax_scale
+    k_scale, v_scale, kv_int8 = scale_pointers(key_scale, value_scale)
     out = torch.empty_like(query)
     build.launch(
         "mojo_paged_decode", query.device,
-        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(), total_seq_lens.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(),
+        query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(), k_scale, v_scale,
+        total_seq_lens.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, D, bs, block_tables.shape[1], *cache_strides(key_cache, kv_layout),
-        float(scale), int(gqa_layout == "ABAB"), code,
+        float(scale), int(gqa_layout == "ABAB"), kv_int8, code,
     )
     launches += 1
     return out

@@ -1,5 +1,20 @@
-from mojo_opset_tpu_torch.backends.cuda.operators.attention import CudaPagedDecodeGQA, CudaPagedPrefillGQA
-from mojo_opset_tpu_torch.backends.cuda.operators.normalization import CudaRMSNorm
+from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
+    CudaPagedDecodeGQA,
+    CudaPagedDecodeGQAWithKVDequant,
+    CudaPagedPrefillGQA,
+    CudaPagedPrefillGQAWithKVDequant,
+)
+from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaQuantGemm
+from mojo_opset_tpu_torch.backends.cuda.operators.normalization import CudaRMSNorm, CudaRMSNormQuant
 from mojo_opset_tpu_torch.backends.cuda.operators.position_embedding import CudaApplyRoPE
 
-__all__ = ["CudaApplyRoPE", "CudaPagedDecodeGQA", "CudaPagedPrefillGQA", "CudaRMSNorm"]
+__all__ = [
+    "CudaApplyRoPE",
+    "CudaPagedDecodeGQA",
+    "CudaPagedDecodeGQAWithKVDequant",
+    "CudaPagedPrefillGQA",
+    "CudaPagedPrefillGQAWithKVDequant",
+    "CudaQuantGemm",
+    "CudaRMSNorm",
+    "CudaRMSNormQuant",
+]

@@ -6,26 +6,32 @@ from mojo_opset_tpu_torch.core.operators.attention import (
     seq_lens_from_cu,
 )
 from mojo_opset_tpu_torch.core.operators.embedding import MojoEmbedding
-from mojo_opset_tpu_torch.core.operators.gemm import MojoGemm
+from mojo_opset_tpu_torch.core.operators.gemm import MojoGemm, MojoQuantGemm
 from mojo_opset_tpu_torch.core.operators.kv_cache import (
     MojoStorePagedKVCache,
     build_paged_kv_token_indices,
 )
-from mojo_opset_tpu_torch.core.operators.normalization import MojoRMSNorm
+from mojo_opset_tpu_torch.core.operators.normalization import MojoRMSNorm, MojoRMSNormQuant
 from mojo_opset_tpu_torch.core.operators.position_embedding import (
     MojoApplyRoPE,
     MojoRotaryEmbedding,
 )
+from mojo_opset_tpu_torch.core.operators.quantize import MojoDequant, MojoDynamicQuant, MojoStaticQuant
 
 __all__ = [
     "MojoApplyRoPE",
+    "MojoDequant",
+    "MojoDynamicQuant",
     "MojoEmbedding",
     "MojoGemm",
     "MojoPagedDecodeGQA",
     "MojoPagedPrefillGQA",
+    "MojoQuantGemm",
     "MojoRMSNorm",
+    "MojoRMSNormQuant",
     "MojoRotaryEmbedding",
     "MojoSilu",
+    "MojoStaticQuant",
     "MojoStorePagedKVCache",
     "build_paged_kv_token_indices",
     "expand_gqa",

@@ -6,7 +6,9 @@ Counterpart of the JAX package's ``core/operators/attention.py`` (helpers
 Shape contracts (identical to the JAX package):
   * paged caches: HND ``(n_blocks, n_kv_heads, block_size, head_dim)`` or
     NHD ``(n_blocks, block_size, n_kv_heads, head_dim)``
-  * ``cu_q_lens`` / ``total_seq_lens`` / ``block_tables``: int32
+  * ``cu_q_lens`` / ``total_seq_lens`` / ``block_tables``: int32, one
+    table row per sequence (``assert_paged_*_contract``, :33-48 there;
+    here they raise ``ValueError``)
   * GQA layouts: ``AABB`` (repeat_interleave) vs ``ABAB`` (tiled repeat)
   * softmax in fp32, probabilities cast back to the input dtype.
 
@@ -28,6 +30,44 @@ from mojo_opset_tpu_torch.core.operator import MojoOperator
 from mojo_opset_tpu_torch.core.operators.kv_cache import KV_LAYOUTS
 
 GQA_LAYOUTS = ("AABB", "ABAB")
+
+
+def _require_int32(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name} must be int32, got {t.dtype}")
+
+
+def assert_paged_prefill_contract(
+    cu_q_lens: torch.Tensor, block_tables: torch.Tensor, cu_total_seq_lens: Optional[torch.Tensor]
+) -> None:
+    """int32 ``cu_q_lens``/``block_tables``/``cu_total_seq_lens``, a 2-D
+    table with one row per sequence."""
+    _require_int32("cu_q_lens", cu_q_lens)
+    _require_int32("block_tables", block_tables)
+    if block_tables.ndim != 2 or block_tables.shape[0] != cu_q_lens.shape[0] - 1:
+        raise ValueError(
+            f"block_tables must be 2-D with one row per sequence ({cu_q_lens.shape[0] - 1}), "
+            f"got {tuple(block_tables.shape)}"
+        )
+    if cu_total_seq_lens is not None:
+        _require_int32("cu_total_seq_lens", cu_total_seq_lens)
+        if cu_total_seq_lens.shape != cu_q_lens.shape:
+            raise ValueError(
+                f"cu_total_seq_lens must match cu_q_lens {tuple(cu_q_lens.shape)}, "
+                f"got {tuple(cu_total_seq_lens.shape)}"
+            )
+
+
+def assert_paged_decode_contract(block_tables: torch.Tensor, total_seq_lens: torch.Tensor) -> None:
+    """int32 ``block_tables``/``total_seq_lens``, a 2-D table with one row
+    per sequence."""
+    _require_int32("block_tables", block_tables)
+    _require_int32("total_seq_lens", total_seq_lens)
+    if block_tables.ndim != 2 or block_tables.shape[0] != total_seq_lens.shape[0]:
+        raise ValueError(
+            f"block_tables must be 2-D with one row per sequence ({total_seq_lens.shape[0]}), "
+            f"got {tuple(block_tables.shape)}"
+        )
 
 
 def seq_lens_from_cu(cu_seqlens: torch.Tensor) -> torch.Tensor:
@@ -103,6 +143,7 @@ def paged_decode_reference(
     kv_layout: str,
 ) -> torch.Tensor:
     """Golden paged decode: gather the pages, expand GQA, fp32 softmax."""
+    assert_paged_decode_contract(block_tables, total_seq_lens)
     B, Hq, D = query.shape
     _, Hkv, _, _ = paged_cache_dims(key_cache, kv_layout)
     group = Hq // Hkv
@@ -121,6 +162,41 @@ def paged_decode_reference(
     return out.to(query.dtype)
 
 
+def prefill_sequences(
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    cu_q_lens: torch.Tensor,
+    block_tables: torch.Tensor,
+    cu_total_seq_lens: Optional[torch.Tensor],
+    kv_layout: str,
+    is_causal: bool = True,
+):
+    """The golden prefill's walk over sequences that have query and KV
+    tokens: yields ``(q0, q1, k, v, keep)`` with k/v ``(kv_len, Hkv, D)``
+    gathered from the pages and the keep-mask ``(q1 - q0, kv_len)``.
+
+    Query row i of sequence b sits at absolute position
+    ``kv_len[b] - q_len[b] + i`` and (causal) sees keys at positions <= it.
+    """
+    _, _, bs, _ = paged_cache_dims(key_cache, kv_layout)
+    cu = cu_q_lens.tolist()
+    kv_lens = seq_lens_from_cu(cu_q_lens if cu_total_seq_lens is None else cu_total_seq_lens).tolist()
+    for b, kv_len in enumerate(kv_lens):
+        q0, q1 = cu[b], cu[b + 1]
+        if q1 <= q0 or kv_len <= 0:
+            continue
+        table = block_tables[b : b + 1, : -(-kv_len // bs)]
+        k = gather_paged_kv(key_cache, table, kv_layout)[0, :kv_len]
+        v = gather_paged_kv(value_cache, table, kv_layout)[0, :kv_len]
+        kv_pos = torch.arange(kv_len, device=key_cache.device)
+        if is_causal:
+            q_abs = kv_len - (q1 - q0) + torch.arange(q1 - q0, device=key_cache.device)
+            keep = kv_pos[None, :] <= q_abs[:, None]
+        else:
+            keep = torch.ones((q1 - q0, kv_len), dtype=torch.bool, device=key_cache.device)
+        yield q0, q1, k, v, keep
+
+
 def paged_prefill_reference(
     query: torch.Tensor,
     key_cache: torch.Tensor,
@@ -133,36 +209,22 @@ def paged_prefill_reference(
     kv_layout: str,
     is_causal: bool = True,
 ) -> torch.Tensor:
-    """Golden varlen paged prefill, one sequence at a time.
-
-    Query row i of sequence b sits at absolute position
-    ``kv_len[b] - q_len[b] + i`` and (causal) sees keys at positions <= it.
-    """
+    """Golden varlen paged prefill, one sequence at a time
+    (``prefill_sequences``)."""
+    assert_paged_prefill_contract(cu_q_lens, block_tables, cu_total_seq_lens)
     T, Hq, D = query.shape
-    _, Hkv, bs, _ = paged_cache_dims(key_cache, kv_layout)
+    _, Hkv, _, _ = paged_cache_dims(key_cache, kv_layout)
     group = Hq // Hkv
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(D)
-    cu = cu_q_lens.tolist()
-    kv_lens = seq_lens_from_cu(cu_q_lens if cu_total_seq_lens is None else cu_total_seq_lens).tolist()
 
     out = torch.zeros_like(query)
-    for b, kv_len in enumerate(kv_lens):
-        q0, q1 = cu[b], cu[b + 1]
-        if q1 <= q0 or kv_len <= 0:
-            continue
-        table = block_tables[b : b + 1, : -(-kv_len // bs)]
-        k = gather_paged_kv(key_cache, table, kv_layout)[0, :kv_len]
-        v = gather_paged_kv(value_cache, table, kv_layout)[0, :kv_len]
+    for q0, q1, k, v, keep in prefill_sequences(
+        key_cache, value_cache, cu_q_lens, block_tables, cu_total_seq_lens, kv_layout, is_causal
+    ):
         k = expand_gqa(k, group, gqa_layout, 1)  # (K, Hq, D)
         v = expand_gqa(v, group, gqa_layout, 1)
         scores = torch.einsum("qhd,khd->hqk", query[q0:q1].float(), k.float()) * softmax_scale
-        kv_pos = torch.arange(k.shape[0], device=query.device)
-        if is_causal:
-            q_abs = kv_len - (q1 - q0) + torch.arange(q1 - q0, device=query.device)
-            keep = kv_pos[None, :] <= q_abs[:, None]
-        else:
-            keep = torch.ones((q1 - q0, k.shape[0]), dtype=torch.bool, device=query.device)
         probs = masked_softmax(scores, keep[None], query.dtype)
         out[q0:q1] = torch.einsum("hqk,khd->qhd", probs, v.to(query.dtype))
     return out

@@ -117,26 +117,45 @@ class MojoStorePagedKVCache(MojoOperator):
         *,
         token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if not (key_states.ndim == 3 and key_states.shape == value_states.shape):
-            raise ValueError("key/value states must be (token_num, kv_head_num, head_dim)")
-        if key_states.shape[0] == 0:
-            return key_cache, value_cache
-        if token_indices is not None:
-            if block_table is not None or cu_q_lens is not None or context_kv_lens is not None:
-                raise ValueError("token_indices is not mixed with block_table/cu_q_lens/context_kv_lens")
-            blk, off = token_indices
-            _write(key_cache, blk, off, key_states, self.kv_layout)
-            _write(value_cache, blk, off, value_states, self.kv_layout)
-            return key_cache, value_cache
-
-        if block_table is None or context_kv_lens is None:
-            raise ValueError("block_table and context_kv_lens are required without token_indices")
-        block_size = key_cache.shape[2] if self.kv_layout == "HND" else key_cache.shape[1]
-        dst_block, dst_offset = build_paged_kv_token_indices(
-            block_table, cu_q_lens, context_kv_lens, block_size, key_states.shape[0]
+        return store_paged_kv(
+            key_states, value_states, key_cache, value_cache, self.kv_layout,
+            block_table, cu_q_lens, context_kv_lens, token_indices,
         )
-        src, blk, off, any_valid = _dedupe_invalid(dst_block, dst_offset, key_cache.shape[0])
-        for states, cache in ((key_states, key_cache), (value_states, value_cache)):
-            rows = torch.where(any_valid, states[src].to(cache.dtype), _rows(cache, blk, off, self.kv_layout))
-            _write(cache, blk, off, rows, self.kv_layout)
+
+
+def store_paged_kv(
+    key_states: torch.Tensor,
+    value_states: torch.Tensor,
+    key_cache: torch.Tensor,
+    value_cache: torch.Tensor,
+    kv_layout: str,
+    block_table: Optional[torch.Tensor] = None,
+    cu_q_lens: Optional[torch.Tensor] = None,
+    context_kv_lens: Optional[torch.Tensor] = None,
+    token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write K/V rows ``(T, Hkv, D)`` into the caches in place (see
+    ``MojoStorePagedKVCache``); returns the caches."""
+    if not (key_states.ndim == 3 and key_states.shape == value_states.shape):
+        raise ValueError("key/value states must be (token_num, kv_head_num, head_dim)")
+    if key_states.shape[0] == 0:
         return key_cache, value_cache
+    if token_indices is not None:
+        if block_table is not None or cu_q_lens is not None or context_kv_lens is not None:
+            raise ValueError("token_indices is not mixed with block_table/cu_q_lens/context_kv_lens")
+        blk, off = token_indices
+        _write(key_cache, blk, off, key_states, kv_layout)
+        _write(value_cache, blk, off, value_states, kv_layout)
+        return key_cache, value_cache
+
+    if block_table is None or context_kv_lens is None:
+        raise ValueError("block_table and context_kv_lens are required without token_indices")
+    block_size = key_cache.shape[2] if kv_layout == "HND" else key_cache.shape[1]
+    dst_block, dst_offset = build_paged_kv_token_indices(
+        block_table, cu_q_lens, context_kv_lens, block_size, key_states.shape[0]
+    )
+    src, blk, off, any_valid = _dedupe_invalid(dst_block, dst_offset, key_cache.shape[0])
+    for states, cache in ((key_states, key_cache), (value_states, value_cache)):
+        rows = torch.where(any_valid, states[src].to(cache.dtype), _rows(cache, blk, off, kv_layout))
+        _write(cache, blk, off, rows, kv_layout)
+    return key_cache, value_cache

@@ -1,5 +1,6 @@
-// Shared helpers for the port's Hopper kernels: dtype conversion, warp
-// reductions, vector row loads and the dtype switch of the C entry points.
+// Shared helpers for the port's Hopper kernels: dtype conversion (int8
+// K/V pages included), warp reductions, vector row loads and the dtype
+// switch of the C entry points.
 //
 // Every entry point is `extern "C"`, takes raw device pointers and the
 // CUDA stream from the caller, launches, and returns cudaGetLastError()
@@ -19,6 +20,7 @@ enum MojoDType : int { kMojoF32 = 0, kMojoF16 = 1, kMojoBF16 = 2 };
 __device__ __forceinline__ float mojo_to_float(float x) { return x; }
 __device__ __forceinline__ float mojo_to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float mojo_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float mojo_to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T mojo_from_float(float x);

@@ -20,8 +20,20 @@
 // are never read; a row with seq_len == 0 writes zeros. Page, token and
 // head strides come from the caller, so HND and NHD share the kernel; AABB
 // maps query head h to kv head h / group, ABAB to h % Hkv.
+// int8 pages (kernel C', the C8 cache; replaces the scale folding of
+// backends/pallas/operators/attention.py:225-268): K/V elements are int8
+// and two (Hkv, D) fp32 scale rows come in. The key scale multiplies the
+// staged fp32 query, s = sum_d (q[d] * scale * ks[kvh, d]) * k[d], and the
+// value scale the normalized output, o[d] = vs[kvh, d] * sum_j p_j v_j[d]:
+// both are linear, so this equals dequantizing K and V, up to summation
+// order, with no bf16 rounding of a folded query and no extra launch. A
+// lane loads D / 32 int8 values of a row (4 bytes at D = 128), half the
+// bytes of bf16. The scale row is the kv head's own, so ABAB needs no
+// expanded copy.
 // Known limit: B * Hkv blocks (64 at the main path's batch of 8) leave
 // most of the 132 SMs idle; a split-KV pass is the fix.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -69,14 +81,17 @@ __device__ __forceinline__ float keys_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 16);
 }
 
+// T: query/output type; TC: cache element type (T, or int8_t with scales);
 // G: compile-time bound on the group (query heads per kv head)
-template <typename T, int D, int G>
+template <typename T, typename TC, int D, int G>
 __global__ void __launch_bounds__(kDecThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
+                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                     const int* __restrict__ seq_lens, const int* __restrict__ block_tables,
                     T* __restrict__ out, int hq, int hkv, int block_size, int max_blocks,
                     int page_stride, int tok_stride, int head_stride, float scale, int abab) {
   constexpr int E = D / 32;  // head_dim elements per lane
+  constexpr bool kInt8 = std::is_same_v<TC, int8_t>;
 
   __shared__ float q_s[G][D];  // scaled queries; reused for the warps' merged output
   __shared__ float m_w[kDecWarps][G], l_w[kDecWarps][G];
@@ -91,7 +106,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   for (int i = tid; i < group * D; i += kDecThreads) {
     const int g = i / D;
     const int h = abab ? g * hkv + kvh : kvh * group + g;
-    q_s[g][i % D] = mojo_to_float(q[(static_cast<int64_t>(b) * hq + h) * D + i % D]) * scale;
+    float qv = mojo_to_float(q[(static_cast<int64_t>(b) * hq + h) * D + i % D]) * scale;
+    if constexpr (kInt8) qv *= k_scale[kvh * D + i % D];
+    q_s[g][i % D] = qv;
   }
   __syncthreads();
 
@@ -121,8 +138,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       if (valid[k]) {
         const int64_t at = static_cast<int64_t>(page) * page_stride +
                            static_cast<int64_t>(pos % block_size) * tok_stride + lane_off;
-        mojo_load_row<T, E>(kc + at, kf[k]);
-        mojo_load_row<T, E>(vc + at, vf[k]);
+        mojo_load_row<TC, E>(kc + at, kf[k]);
+        mojo_load_row<TC, E>(vc + at, vf[k]);
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) kf[k][e] = vf[k][e] = 0.f;
@@ -199,64 +216,85 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, m_w[w][g]);
     for (int w = 0; w < kDecWarps; ++w) sum += m_w[w][g] == -INFINITY ? 0.f : l_w[w][g] * expf(m_w[w][g] - mx);
     const int h = abab ? g * hkv + kvh : kvh * group + g;
-    out[(static_cast<int64_t>(b) * hq + h) * D + i % D] = mojo_from_float<T>(sum > 0.f ? q_s[g][i % D] / sum : 0.f);
+    float o = sum > 0.f ? q_s[g][i % D] / sum : 0.f;
+    if constexpr (kInt8) o *= v_scale[kvh * D + i % D];
+    out[(static_cast<int64_t>(b) * hq + h) * D + i % D] = mojo_from_float<T>(o);
   }
 }
 
-template <typename T, int D>
-void launch_decode(dim3 grid, cudaStream_t s, int group, const T* q, const T* kc, const T* vc, const int* sl,
-                   const int* bt, T* out, int hq, int hkv, int block_size, int max_blocks, int page_stride,
-                   int tok_stride, int head_stride, float scale, int abab) {
+template <typename T, typename TC, int D>
+void launch_decode(dim3 grid, cudaStream_t s, int group, const T* q, const TC* kc, const TC* vc, const float* ks,
+                   const float* vs, const int* sl, const int* bt, T* out, int hq, int hkv, int block_size,
+                   int max_blocks, int page_stride, int tok_stride, int head_stride, float scale, int abab) {
   if (group <= 4) {
-    paged_decode_kernel<T, D, 4><<<grid, kDecThreads, 0, s>>>(q, kc, vc, sl, bt, out, hq, hkv, block_size,
-                                                               max_blocks, page_stride, tok_stride, head_stride,
-                                                               scale, abab);
+    paged_decode_kernel<T, TC, D, 4><<<grid, kDecThreads, 0, s>>>(q, kc, vc, ks, vs, sl, bt, out, hq, hkv,
+                                                                   block_size, max_blocks, page_stride,
+                                                                   tok_stride, head_stride, scale, abab);
   } else {
-    paged_decode_kernel<T, D, kDecMaxGroup><<<grid, kDecThreads, 0, s>>>(
-        q, kc, vc, sl, bt, out, hq, hkv, block_size, max_blocks, page_stride, tok_stride, head_stride, scale,
-        abab);
+    paged_decode_kernel<T, TC, D, kDecMaxGroup><<<grid, kDecThreads, 0, s>>>(
+        q, kc, vc, ks, vs, sl, bt, out, hq, hkv, block_size, max_blocks, page_stride, tok_stride, head_stride,
+        scale, abab);
   }
+}
+
+template <typename T, typename TC>
+int dispatch_head_dim(dim3 grid, cudaStream_t s, int group, const void* q, const void* kc, const void* vc,
+                      const float* ks, const float* vs, const int* sl, const int* bt, void* out, int hq, int hkv,
+                      int D, int block_size, int max_blocks, int page_stride, int tok_stride, int head_stride,
+                      float scale, int abab) {
+  const T* qt = static_cast<const T*>(q);
+  const TC* kt = static_cast<const TC*>(kc);
+  const TC* vt = static_cast<const TC*>(vc);
+  T* ot = static_cast<T*>(out);
+  switch (D) {
+    case 64:
+      launch_decode<T, TC, 64>(grid, s, group, qt, kt, vt, ks, vs, sl, bt, ot, hq, hkv, block_size, max_blocks,
+                               page_stride, tok_stride, head_stride, scale, abab);
+      break;
+    case 128:
+      launch_decode<T, TC, 128>(grid, s, group, qt, kt, vt, ks, vs, sl, bt, ot, hq, hkv, block_size, max_blocks,
+                                page_stride, tok_stride, head_stride, scale, abab);
+      break;
+    case 256:
+      launch_decode<T, TC, 256>(grid, s, group, qt, kt, vt, ks, vs, sl, bt, ot, hq, hkv, block_size, max_blocks,
+                                page_stride, tok_stride, head_stride, scale, abab);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q/out (B, hq, D) contiguous; caches addressed as
-// page * page_stride + token * tok_stride + kv_head * head_stride + d;
+// page * page_stride + token * tok_stride + kv_head * head_stride + d, in
+// q's dtype, or int8 when kv_int8 with k_scale/v_scale (hkv, D) fp32;
 // seq_lens (B,) and block_tables (B, max_blocks) int32. D in {64, 128,
 // 256}; hq / hkv <= 16.
-extern "C" int mojo_paged_decode(const void* q, const void* k_cache, const void* v_cache,
-                                 const void* seq_lens, const void* block_tables, void* out, int B,
-                                 int hq, int hkv, int D, int block_size, int max_blocks, int page_stride,
-                                 int tok_stride, int head_stride, float scale, int abab, int dtype,
+extern "C" int mojo_paged_decode(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+                                 const void* v_scale, const void* seq_lens, const void* block_tables, void* out,
+                                 int B, int hq, int hkv, int D, int block_size, int max_blocks, int page_stride,
+                                 int tok_stride, int head_stride, float scale, int abab, int kv_int8, int dtype,
                                  void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
   if (hq % hkv != 0 || hq / hkv > kDecMaxGroup) return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(hkv, B);
   const int group = hq / hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* sl = static_cast<const int*>(seq_lens);
   const int* bt = static_cast<const int*>(block_tables);
+  int rc = static_cast<int>(cudaErrorInvalidValue);
   MOJO_DISPATCH_DTYPE(dtype, T, {
-    const T* qt = static_cast<const T*>(q);
-    const T* kt = static_cast<const T*>(k_cache);
-    const T* vt = static_cast<const T*>(v_cache);
-    T* ot = static_cast<T*>(out);
-    switch (D) {
-      case 64:
-        launch_decode<T, 64>(grid, s, group, qt, kt, vt, sl, bt, ot, hq, hkv, block_size, max_blocks,
-                             page_stride, tok_stride, head_stride, scale, abab);
-        break;
-      case 128:
-        launch_decode<T, 128>(grid, s, group, qt, kt, vt, sl, bt, ot, hq, hkv, block_size, max_blocks,
-                              page_stride, tok_stride, head_stride, scale, abab);
-        break;
-      case 256:
-        launch_decode<T, 256>(grid, s, group, qt, kt, vt, sl, bt, ot, hq, hkv, block_size, max_blocks,
-                              page_stride, tok_stride, head_stride, scale, abab);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    rc = kv_int8 ? dispatch_head_dim<T, int8_t>(grid, s, group, q, k_cache, v_cache, ks, vs, sl, bt, out, hq, hkv,
+                                                 D, block_size, max_blocks, page_stride, tok_stride, head_stride,
+                                                 scale, abab)
+                 : dispatch_head_dim<T, T>(grid, s, group, q, k_cache, v_cache, ks, vs, sl, bt, out, hq, hkv, D,
+                                           block_size, max_blocks, page_stride, tok_stride, head_stride, scale,
+                                           abab);
   });
-  return static_cast<int>(cudaGetLastError());
+  return rc;
 }

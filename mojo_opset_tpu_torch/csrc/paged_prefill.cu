@@ -20,6 +20,16 @@
 // bound are masked: blocks run in no order, so unlike the TPU kernel's
 // clamped last tile (:80-83) no tile overlaps another. Table entries < 0
 // are never read.
+//
+// int8 pages (kernel D', the C8 cache; replaces the scale folding of
+// backends/pallas/operators/attention.py:271-318): K/V are int8 with two
+// (Hkv, D) fp32 scale rows. The key scale multiplies the staged fp32
+// query and the value scale the normalized output, both linear, so this
+// equals dequantizing K and V up to summation order. K/V tiles are staged
+// with 16-byte loads (16 int8 values, 8 bf16): lane j of a warp takes key
+// j of the tile, so the stores into the padded shared rows hit 32 banks.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -39,15 +49,20 @@ constexpr int prefill_smem_floats() {
   return kPreRows * (D + 1) + 2 * kPreBK * (D + 1) + kPreRows * kPreSS;
 }
 
-template <typename T, int D>
+// T: query/output type; TC: cache element type (T, or int8_t with scales)
+template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(kPreThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+paged_prefill_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
+                     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                      const int* __restrict__ cu_q, const int* __restrict__ cu_kv,
                      const int* __restrict__ block_tables, T* __restrict__ out, int hq, int hkv,
                      int block_size, int max_blocks, int page_stride, int tok_stride, int head_stride,
                      float scale, int abab) {
   constexpr int QS = D + 1;       // padded row stride of Q, K, V (bank spread)
   constexpr int DC = D / kPreCG;  // output columns per thread
+  constexpr bool kInt8 = std::is_same_v<TC, int8_t>;
+  constexpr int VE = 16 / static_cast<int>(sizeof(TC));  // cache elements per 16-byte load
+  static_assert(kPreBK == 32, "staging maps the tile's keys onto the 32 lanes");
 
   const int tile = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -82,6 +97,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T*
       const int g = r % group;
       const int h = abab ? g * hkv + kvh : kvh * group + g;
       val = mojo_to_float(q[(static_cast<int64_t>(q_start + tok0 + r / group) * hq + h) * D + d]) * scale;
+      if constexpr (kInt8) val *= k_scale[kvh * D + d];
     }
     q_s[r * QS + d] = val;
   }
@@ -111,12 +127,23 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T*
                                   static_cast<int64_t>(pos % block_size) * tok_stride + head_off;
     }
     __syncthreads();
-    for (int i = tid; i < kPreBK * D; i += kPreThreads) {
-      const int j = i / D;
-      const int d = i % D;
+    for (int i = tid; i < kPreBK * (D / VE); i += kPreThreads) {
+      const int j = i % kPreBK;  // key: lane j of each warp
+      const int d0 = (i / kPreBK) * VE;
       const int64_t off = off_s[j];
-      k_s[j * QS + d] = off >= 0 ? mojo_to_float(kc[off + d]) : 0.f;
-      v_s[j * QS + d] = off >= 0 ? mojo_to_float(vc[off + d]) : 0.f;
+      float kf[VE], vf[VE];
+      if (off >= 0) {
+        mojo_load_row<TC, VE>(kc + off + d0, kf);
+        mojo_load_row<TC, VE>(vc + off + d0, vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VE; ++e) kf[e] = vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VE; ++e) {
+        k_s[j * QS + d0 + e] = kf[e];
+        v_s[j * QS + d0 + e] = vf[e];
+      }
     }
     __syncthreads();
 
@@ -192,62 +219,86 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T*
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
       T* o = out + (static_cast<int64_t>(q_start + tok0 + r / group) * hq + h) * D;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) o[cg + kPreCG * c] = mojo_from_float<T>(acc[i][c] * inv);
+      for (int c = 0; c < DC; ++c) {
+        float val = acc[i][c] * inv;
+        if constexpr (kInt8) val *= v_scale[kvh * D + cg + kPreCG * c];
+        o[cg + kPreCG * c] = mojo_from_float<T>(val);
+      }
     }
   }
 }
 
-template <typename T, int D>
-int launch_prefill(const T* q, const T* kc, const T* vc, const int* cu_q, const int* cu_kv, const int* bt,
-                   T* out, int B, int max_q_len, int hq, int hkv, int block_size, int max_blocks,
-                   int page_stride, int tok_stride, int head_stride, float scale, int abab,
+template <typename T, typename TC, int D>
+int launch_prefill(const T* q, const TC* kc, const TC* vc, const float* ks, const float* vs, const int* cu_q,
+                   const int* cu_kv, const int* bt, T* out, int B, int max_q_len, int hq, int hkv, int block_size,
+                   int max_blocks, int page_stride, int tok_stride, int head_stride, float scale, int abab,
                    cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_floats<D>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(paged_prefill_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(paged_prefill_kernel<T, TC, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tokens_per_tile = kPreRows / (hq / hkv);
   const dim3 grid((max_q_len + tokens_per_tile - 1) / tokens_per_tile, hkv, B);
-  paged_prefill_kernel<T, D><<<grid, kPreThreads, smem, stream>>>(q, kc, vc, cu_q, cu_kv, bt, out, hq, hkv,
-                                                                   block_size, max_blocks, page_stride,
-                                                                   tok_stride, head_stride, scale, abab);
+  paged_prefill_kernel<T, TC, D><<<grid, kPreThreads, smem, stream>>>(q, kc, vc, ks, vs, cu_q, cu_kv, bt, out, hq,
+                                                                       hkv, block_size, max_blocks, page_stride,
+                                                                       tok_stride, head_stride, scale, abab);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename TC>
+int dispatch_head_dim(const void* q, const void* kc, const void* vc, const float* ks, const float* vs,
+                      const int* cu_q, const int* cu_kv, const int* bt, void* out, int B, int max_q_len, int hq,
+                      int hkv, int D, int block_size, int max_blocks, int page_stride, int tok_stride,
+                      int head_stride, float scale, int abab, cudaStream_t s) {
+  const T* qt = static_cast<const T*>(q);
+  const TC* kt = static_cast<const TC*>(kc);
+  const TC* vt = static_cast<const TC*>(vc);
+  T* ot = static_cast<T*>(out);
+  if (D == 64) {
+    return launch_prefill<T, TC, 64>(qt, kt, vt, ks, vs, cu_q, cu_kv, bt, ot, B, max_q_len, hq, hkv, block_size,
+                                     max_blocks, page_stride, tok_stride, head_stride, scale, abab, s);
+  }
+  if (D == 128) {
+    return launch_prefill<T, TC, 128>(qt, kt, vt, ks, vs, cu_q, cu_kv, bt, ot, B, max_q_len, hq, hkv, block_size,
+                                      max_blocks, page_stride, tok_stride, head_stride, scale, abab, s);
+  }
+  if (D == 256) {
+    return launch_prefill<T, TC, 256>(qt, kt, vt, ks, vs, cu_q, cu_kv, bt, ot, B, max_q_len, hq, hkv, block_size,
+                                      max_blocks, page_stride, tok_stride, head_stride, scale, abab, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q/out (T, hq, D) contiguous; cu_q (B+1,) int32; cu_kv (B+1,) int32 or
 // null (kv_len = q_len); caches addressed as
-// page * page_stride + token * tok_stride + kv_head * head_stride + d;
+// page * page_stride + token * tok_stride + kv_head * head_stride + d, in
+// q's dtype, or int8 when kv_int8 with k_scale/v_scale (hkv, D) fp32;
 // block_tables (B, max_blocks) int32. max_q_len bounds the grid. D in
 // {64, 128, 256}; hq / hkv <= 64.
-extern "C" int mojo_paged_prefill(const void* q, const void* k_cache, const void* v_cache, const void* cu_q,
-                                  const void* cu_kv, const void* block_tables, void* out, int B,
-                                  int max_q_len, int hq, int hkv, int D, int block_size, int max_blocks,
-                                  int page_stride, int tok_stride, int head_stride, float scale, int abab,
-                                  int dtype, void* stream) {
+extern "C" int mojo_paged_prefill(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+                                  const void* v_scale, const void* cu_q, const void* cu_kv,
+                                  const void* block_tables, void* out, int B, int max_q_len, int hq, int hkv, int D,
+                                  int block_size, int max_blocks, int page_stride, int tok_stride, int head_stride,
+                                  float scale, int abab, int kv_int8, int dtype, void* stream) {
   if (B <= 0 || max_q_len <= 0) return static_cast<int>(cudaSuccess);
   if (hq % hkv != 0 || hq / hkv > kPreRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* cq = static_cast<const int*>(cu_q);
   const int* ck = static_cast<const int*>(cu_kv);
   const int* bt = static_cast<const int*>(block_tables);
   int rc = static_cast<int>(cudaErrorInvalidValue);
   MOJO_DISPATCH_DTYPE(dtype, T, {
-    const T* qt = static_cast<const T*>(q);
-    const T* kt = static_cast<const T*>(k_cache);
-    const T* vt = static_cast<const T*>(v_cache);
-    T* ot = static_cast<T*>(out);
-    if (D == 64) {
-      rc = launch_prefill<T, 64>(qt, kt, vt, cq, ck, bt, ot, B, max_q_len, hq, hkv, block_size, max_blocks,
-                                 page_stride, tok_stride, head_stride, scale, abab, s);
-    } else if (D == 128) {
-      rc = launch_prefill<T, 128>(qt, kt, vt, cq, ck, bt, ot, B, max_q_len, hq, hkv, block_size, max_blocks,
-                                  page_stride, tok_stride, head_stride, scale, abab, s);
-    } else if (D == 256) {
-      rc = launch_prefill<T, 256>(qt, kt, vt, cq, ck, bt, ot, B, max_q_len, hq, hkv, block_size, max_blocks,
-                                  page_stride, tok_stride, head_stride, scale, abab, s);
-    }
+    rc = kv_int8 ? dispatch_head_dim<T, int8_t>(q, k_cache, v_cache, ks, vs, cq, ck, bt, out, B, max_q_len, hq, hkv,
+                                                 D, block_size, max_blocks, page_stride, tok_stride, head_stride,
+                                                 scale, abab, s)
+                 : dispatch_head_dim<T, T>(q, k_cache, v_cache, ks, vs, cq, ck, bt, out, B, max_q_len, hq, hkv, D,
+                                           block_size, max_blocks, page_stride, tok_stride, head_stride, scale, abab,
+                                           s);
   });
   return rc;
 }

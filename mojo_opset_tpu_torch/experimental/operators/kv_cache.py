@@ -1,0 +1,103 @@
+"""int8 (C8) paged KV cache: the store and the dequantizing read-back.
+
+Counterpart of the JAX package's ``experimental/operators/kv_cache.py``
+(``MojoStorePagedKVCacheC8`` :52, ``MojoDequantFromPagedKVCache`` :93).
+The caches are int8 HND ``(N, Hkv, block_size, D)`` with per-channel fp32
+scales ``(Hkv, D)``. The store writes in place, like the bf16 store, where
+the JAX store returns new arrays (an XLA scatter there too: no kernel).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.core.operators.kv_cache import store_paged_kv
+
+
+def quantize_kv(states: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``clamp(round(x / scale), -128, 127)`` as int8, per channel."""
+    return torch.round(states.float() / scale.float()).clamp(-128, 127).to(torch.int8)
+
+
+class MojoStorePagedKVCacheC8(MojoOperator):
+    """Quantize new K/V tokens ``(T, Hkv, D)`` to int8 with the per-channel
+    scales ``(Hkv, D)`` and write them into the int8 HND caches, in place.
+
+    Destinations as in ``MojoStorePagedKVCache``: ``(block_table,
+    cu_q_lens, context_kv_lens)`` computed on the device, or the session's
+    precomputed ``token_indices``.
+    """
+
+    def forward(
+        self,
+        key_states: torch.Tensor,
+        value_states: torch.Tensor,
+        key_cache: torch.Tensor,
+        value_cache: torch.Tensor,
+        key_scale: torch.Tensor,
+        value_scale: torch.Tensor,
+        block_table: Optional[torch.Tensor] = None,
+        cu_q_lens: Optional[torch.Tensor] = None,
+        context_kv_lens: Optional[torch.Tensor] = None,
+        *,
+        token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if key_cache.dtype != torch.int8 or value_cache.dtype != torch.int8:
+            raise ValueError(f"C8 caches must be int8, got {key_cache.dtype}, {value_cache.dtype}")
+        return store_paged_kv(
+            quantize_kv(key_states, key_scale), quantize_kv(value_states, value_scale),
+            key_cache, value_cache, "HND", block_table, cu_q_lens, context_kv_lens, token_indices,
+        )
+
+
+class MojoDequantFromPagedKVCache(MojoOperator):
+    """Gather and dequantize int8 paged K/V back into packed per-token K/V
+    ``(total_seq, H, D)``; returns ``(key, value)``.
+
+    ``key``/``value`` are templates: sequence i's ``context_lengths[i]``
+    tokens land at rows ``context_seq_offset[i]`` on (default: the
+    running sum of the lengths); other rows keep the template's values.
+    Reads the lengths back to the host, as the JAX golden does.
+    """
+
+    def forward(
+        self,
+        *,
+        key: torch.Tensor,
+        value: Optional[torch.Tensor] = None,
+        key_cache: torch.Tensor,
+        key_cache_scale: torch.Tensor,
+        value_cache: Optional[torch.Tensor] = None,
+        value_cache_scale: Optional[torch.Tensor] = None,
+        context_lengths: torch.Tensor = None,
+        max_context_len: int = 0,
+        context_seq_offset: Optional[torch.Tensor] = None,
+        block_tables: torch.Tensor = None,
+    ):
+        lens = [int(n) for n in torch.as_tensor(context_lengths).tolist()]
+        if context_seq_offset is None:
+            offsets = [sum(lens[:i]) for i in range(len(lens))]
+        else:
+            offsets = [int(o) for o in torch.as_tensor(context_seq_offset).tolist()]
+        bs = key_cache.shape[2]
+        table = torch.as_tensor(block_tables).tolist()
+
+        def fill(out, cache, scale):
+            out = out.clone()
+            for i, n in enumerate(lens):
+                if n <= 0:
+                    continue
+                blocks = table[i][: -(-n // bs)]
+                blocks = blocks[: next((j for j, b in enumerate(blocks) if b < 0), len(blocks))]
+                dense = torch.cat([cache[b] for b in blocks], dim=-2)[:, :n]  # (H, n, D)
+                deq = dense.float() * scale.float()[:, None, :]
+                out[offsets[i] : offsets[i] + dense.shape[1]] = deq.transpose(0, 1).to(out.dtype)
+            return out
+
+        key = fill(key, key_cache, key_cache_scale)
+        if value is not None and value_cache is not None and value_cache_scale is not None:
+            value = fill(value, value_cache, value_cache_scale)
+        return key, value

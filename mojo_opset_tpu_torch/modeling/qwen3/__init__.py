@@ -6,6 +6,7 @@ from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3 import (
     Qwen3MLP,
     Qwen3Model,
 )
+from mojo_opset_tpu_torch.modeling.qwen3.quantize import quantize_linear_weight, quantize_qwen3
 
 __all__ = [
     "Qwen3Attention",
@@ -14,4 +15,6 @@ __all__ = [
     "Qwen3ForCausalLM",
     "Qwen3MLP",
     "Qwen3Model",
+    "quantize_linear_weight",
+    "quantize_qwen3",
 ]

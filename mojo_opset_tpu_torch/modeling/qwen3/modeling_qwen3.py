@@ -1,12 +1,19 @@
 """Qwen3 dense model for paged serving.
 
-Counterpart of the JAX package's ``modeling/qwen3/modeling_qwen3.py`` (dense,
-``quant=None``, ``quant_kv=False``): packed varlen token layout (T, hidden)
-for prefill and (B, hidden) for decode; the model writes the session's KV
-caches in place and returns fp32 logits. It names only core ops, so the
-tier (``MOJO_BACKEND``) is invisible to it. Attribute names follow the
-JAX model, so ``state_dict()`` keys equal the JAX package's
-``utils.hf.state_dict_of`` keys.
+Counterpart of the JAX package's ``modeling/qwen3/modeling_qwen3.py``:
+packed varlen token layout (T, hidden) for prefill and (B, hidden) for
+decode; the model writes the session's KV caches in place and returns fp32
+logits. It names only core ops, so the tier (``MOJO_BACKEND``) is
+invisible to it. Attribute names follow the JAX model, so ``state_dict()``
+keys equal the JAX package's ``utils.hf.state_dict_of`` keys.
+
+Serving modes, as in the JAX model: ``quant="w8a8"`` gives int8 weights
+on every projection and the lm_head, fed per-token int8 activations by
+``MojoRMSNormQuant`` (the two layer norms) and ``MojoDynamicQuant`` (before
+o_proj, down_proj and the lm_head); ``quant_kv=True`` gives the int8 (C8)
+KV cache, HND, with per-layer channel scales calibrated at the first
+prefill. The int8 weights come from ``quantize_qwen3`` or
+``load_numpy_state``.
 """
 
 from __future__ import annotations
@@ -19,14 +26,22 @@ from torch import nn
 
 from mojo_opset_tpu_torch.core.operators import (
     MojoApplyRoPE,
+    MojoDynamicQuant,
     MojoEmbedding,
     MojoGemm,
     MojoPagedDecodeGQA,
     MojoPagedPrefillGQA,
+    MojoQuantGemm,
     MojoRMSNorm,
+    MojoRMSNormQuant,
     MojoRotaryEmbedding,
     MojoSilu,
     MojoStorePagedKVCache,
+)
+from mojo_opset_tpu_torch.experimental.operators import (
+    MojoPagedDecodeGQAWithKVDequant,
+    MojoPagedPrefillGQAWithKVDequant,
+    MojoStorePagedKVCacheC8,
 )
 from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches
@@ -48,18 +63,19 @@ class Qwen3Config:
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     kv_layout: str = "NHD"
-    # the int8 serving modes of the JAX model ("w8a8"/"w4a8" weights, C8
-    # KV cache) are not ported yet (ROADMAP.md queue 1 item 6)
+    # "w8a8": int8 weights and per-token int8 activations on every projection
     quant: Optional[str] = None
+    # int8 (C8) KV cache with channel scales self-calibrated at prefill; forces HND
     quant_kv: bool = False
 
     def __post_init__(self):
-        if self.quant is not None or self.quant_kv:
+        if self.quant == "w4a8":
             raise NotImplementedError(
-                "Qwen3 quant/quant_kv serving modes are not ported yet: they come with the int8 "
-                "serving slice (ROADMAP.md queue 1 item 6, kernels norms.py::rmsnorm_quant and "
-                "int8_matmul.py::int8_scaled_matmul)"
+                "Qwen3 w4a8 (int4 weights) comes with the speculative-decoding slice "
+                "(ROADMAP.md queue 1 item 7, kernel int4_matmul.py::int4_scaled_matmul)"
             )
+        if self.quant not in (None, "w8a8"):
+            raise ValueError(f"quant must be None or 'w8a8', got {self.quant!r}")
 
     def to_mojo(self) -> MojoConfig:
         return MojoConfig(
@@ -77,7 +93,8 @@ class Qwen3Config:
                 rms_norm_eps=self.rms_norm_eps,
                 intermediate_size=self.intermediate_size,
                 tie_word_embeddings=self.tie_word_embeddings,
-                kv_layout=self.kv_layout,
+                kv_layout="HND" if self.quant_kv else self.kv_layout,
+                kv_cache_quant=self.quant_kv,
             )
         )
 
@@ -89,70 +106,134 @@ class Qwen3Attention(nn.Module):
         self.num_heads = H
         self.num_kv_heads = Hkv
         self.head_dim = D
-        f = dict(device=device, dtype=c.dtype)
-        self.q_proj = MojoGemm(c.hidden_size, H * D, bias=c.attention_bias, **f)
-        self.k_proj = MojoGemm(c.hidden_size, Hkv * D, bias=c.attention_bias, **f)
-        self.v_proj = MojoGemm(c.hidden_size, Hkv * D, bias=c.attention_bias, **f)
-        self.o_proj = MojoGemm(H * D, c.hidden_size, bias=False, **f)
+        self.quant = c.quant == "w8a8"
+        if self.quant:
+            if c.attention_bias:
+                raise NotImplementedError("the w8a8 projections take no bias")
+            self.q_proj = _quant_gemm(c, c.hidden_size, H * D, device)
+            self.k_proj = _quant_gemm(c, c.hidden_size, Hkv * D, device)
+            self.v_proj = _quant_gemm(c, c.hidden_size, Hkv * D, device)
+            self.o_proj = _quant_gemm(c, H * D, c.hidden_size, device)
+            self.attn_quant = MojoDynamicQuant()
+        else:
+            f = dict(device=device, dtype=c.dtype)
+            self.q_proj = MojoGemm(c.hidden_size, H * D, bias=c.attention_bias, **f)
+            self.k_proj = MojoGemm(c.hidden_size, Hkv * D, bias=c.attention_bias, **f)
+            self.v_proj = MojoGemm(c.hidden_size, Hkv * D, bias=c.attention_bias, **f)
+            self.o_proj = MojoGemm(H * D, c.hidden_size, bias=False, **f)
         # Qwen3 per-head q/k RMSNorm over head_dim (fp32 weights, as in JAX)
         self.q_norm = MojoRMSNorm(D, eps=c.rms_norm_eps, device=device)
         self.k_norm = MojoRMSNorm(D, eps=c.rms_norm_eps, device=device)
         self.apply_rope = MojoApplyRoPE()
-        self.store_kv = MojoStorePagedKVCache(kv_layout=c.kv_layout)
-        self.attn_prefill = MojoPagedPrefillGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
-        self.attn_decode = MojoPagedDecodeGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
+        self.quant_kv = c.quant_kv
+        if self.quant_kv:
+            self.store_kv = MojoStorePagedKVCacheC8()
+            self.attn_prefill = MojoPagedPrefillGQAWithKVDequant(
+                gqa_layout="AABB", query_dtype=c.dtype, compute_dtype=c.dtype)
+            self.attn_decode = MojoPagedDecodeGQAWithKVDequant(
+                gqa_layout="AABB", query_dtype=c.dtype, compute_dtype=c.dtype)
+        else:
+            self.store_kv = MojoStorePagedKVCache(kv_layout=c.kv_layout)
+            self.attn_prefill = MojoPagedPrefillGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
+            self.attn_decode = MojoPagedDecodeGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
 
     def forward(
         self,
-        hidden: torch.Tensor,  # (T, hidden)
+        hidden,  # (T, hidden), or (int8 (T, hidden), scale (T, 1)) under w8a8
         cos: torch.Tensor,
         sin: torch.Tensor,
         meta: AttentionMetadata,
         caches: KVCaches,
         layer_idx: int,
     ) -> torch.Tensor:
-        T = hidden.shape[0]
-        q = self.q_proj(hidden).reshape(T, self.num_heads, self.head_dim)
-        k = self.k_proj(hidden).reshape(T, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(hidden).reshape(T, self.num_kv_heads, self.head_dim)
+        x = hidden if self.quant else (hidden,)  # the projections' arguments
+        T = x[0].shape[0]
+        q = self.q_proj(*x).reshape(T, self.num_heads, self.head_dim)
+        k = self.k_proj(*x).reshape(T, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(*x).reshape(T, self.num_kv_heads, self.head_dim)
         q = self.q_norm(q)
         k = self.k_norm(k)
         q, k = self.apply_rope(q, k, cos, sin, head_first=False)
 
         key_cache, value_cache = caches.key(layer_idx), caches.value(layer_idx)
-        self.store_kv(k, v, key_cache, value_cache, token_indices=meta.token_indices)
-        if meta.is_prefill:
-            attn = self.attn_prefill(
-                q, key_cache, value_cache, meta.cu_q_lens, meta.block_tables, None, meta.cu_total_seq_lens,
-                max_q_len=meta.max_q_len, max_total_seq_len=meta.max_total_seq_len,
-            )
+        if self.quant_kv:
+            attn = self._int8_kv_attention(q, k, v, meta, caches, layer_idx)
         else:
-            attn = self.attn_decode(
-                q, key_cache, value_cache, meta.total_seq_lens, meta.block_tables,
-                max_total_seq_len=meta.max_total_seq_len,
+            self.store_kv(k, v, key_cache, value_cache, token_indices=meta.token_indices)
+            if meta.is_prefill:
+                attn = self.attn_prefill(
+                    q, key_cache, value_cache, meta.cu_q_lens, meta.block_tables, None, meta.cu_total_seq_lens,
+                    max_q_len=meta.max_q_len, max_total_seq_len=meta.max_total_seq_len,
+                )
+            else:
+                attn = self.attn_decode(
+                    q, key_cache, value_cache, meta.total_seq_lens, meta.block_tables,
+                    max_total_seq_len=meta.max_total_seq_len,
+                )
+        attn = attn.reshape(T, self.num_heads * self.head_dim)
+        if self.quant:
+            return self.o_proj(*self.attn_quant(attn))
+        return self.o_proj(attn)
+
+    def _int8_kv_attention(self, q, k, v, meta: AttentionMetadata, caches: KVCaches, layer_idx: int):
+        key_cache, value_cache = caches.key(layer_idx), caches.value(layer_idx)
+        ks, vs = caches.key_scale(layer_idx), caches.value_scale(layer_idx)
+        if meta.is_prefill:
+            # the first prefill sets the channel scales (amax / 127, +25%
+            # headroom); later chunks leave them frozen, since the int8
+            # already cached was quantized under them (JAX model :171-201).
+            # Decided on the device: no host sync in a layer.
+            calibrated = ks.amax() > 0
+            ks.copy_(torch.where(calibrated, ks, (k.float().abs().amax(0) / 127.0 * 1.25).clamp(min=1e-6)))
+            vs.copy_(torch.where(calibrated, vs, (v.float().abs().amax(0) / 127.0 * 1.25).clamp(min=1e-6)))
+        self.store_kv(k, v, key_cache, value_cache, ks, vs, token_indices=meta.token_indices)
+        if meta.is_prefill:
+            return self.attn_prefill(
+                q, None, key_cache, ks, value_cache, vs, meta.cu_q_lens, meta.block_tables, None,
+                meta.cu_total_seq_lens, max_q_len=meta.max_q_len, max_total_seq_len=meta.max_total_seq_len,
             )
-        return self.o_proj(attn.reshape(T, self.num_heads * self.head_dim))
+        return self.attn_decode(
+            q, None, key_cache, ks, value_cache, vs, meta.total_seq_lens, meta.block_tables,
+            max_total_seq_len=meta.max_total_seq_len,
+        )
 
 
 class Qwen3MLP(nn.Module):
     def __init__(self, c: Qwen3Config, device=None):
         super().__init__()
-        f = dict(device=device, dtype=c.dtype)
-        self.gate_proj = MojoGemm(c.hidden_size, c.intermediate_size, bias=False, **f)
-        self.up_proj = MojoGemm(c.hidden_size, c.intermediate_size, bias=False, **f)
-        self.down_proj = MojoGemm(c.intermediate_size, c.hidden_size, bias=False, **f)
+        self.quant = c.quant == "w8a8"
+        if self.quant:
+            self.gate_proj = _quant_gemm(c, c.hidden_size, c.intermediate_size, device)
+            self.up_proj = _quant_gemm(c, c.hidden_size, c.intermediate_size, device)
+            self.down_proj = _quant_gemm(c, c.intermediate_size, c.hidden_size, device)
+            self.act_quant = MojoDynamicQuant()
+        else:
+            f = dict(device=device, dtype=c.dtype)
+            self.gate_proj = MojoGemm(c.hidden_size, c.intermediate_size, bias=False, **f)
+            self.up_proj = MojoGemm(c.hidden_size, c.intermediate_size, bias=False, **f)
+            self.down_proj = MojoGemm(c.intermediate_size, c.hidden_size, bias=False, **f)
         self.act = MojoSilu()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x) -> torch.Tensor:
+        """x: (T, hidden), or (int8 (T, hidden), scale (T, 1)) under w8a8."""
+        if self.quant:
+            h = self.act(self.gate_proj(*x)) * self.up_proj(*x)
+            return self.down_proj(*self.act_quant(h))
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
+
+
+def _quant_gemm(c: Qwen3Config, in_features: int, out_features: int, device) -> MojoQuantGemm:
+    return MojoQuantGemm(in_features, out_features, output_dtype=c.dtype, trans_weight=True, device=device)
 
 
 class Qwen3DecoderLayer(nn.Module):
     def __init__(self, c: Qwen3Config, device=None):
         super().__init__()
-        self.input_layernorm = MojoRMSNorm(c.hidden_size, eps=c.rms_norm_eps, device=device)
+        # under w8a8 the fused norm + quant feeds int8 straight into the projections
+        norm = MojoRMSNormQuant if c.quant == "w8a8" else MojoRMSNorm
+        self.input_layernorm = norm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.self_attn = Qwen3Attention(c, device)
-        self.post_attention_layernorm = MojoRMSNorm(c.hidden_size, eps=c.rms_norm_eps, device=device)
+        self.post_attention_layernorm = norm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.mlp = Qwen3MLP(c, device)
 
     def forward(self, hidden, cos, sin, meta, caches, layer_idx):
@@ -192,11 +273,15 @@ class Qwen3ForCausalLM(nn.Module):
         super().__init__()
         self._config = config
         self.model = Qwen3Model(config, device)
-        self.lm_head = (
-            None
-            if config.tie_word_embeddings
-            else MojoGemm(config.hidden_size, config.vocab_size, bias=False, device=device, dtype=config.dtype)
-        )
+        quant = config.quant == "w8a8" and not config.tie_word_embeddings
+        self.lm_head_quant = MojoDynamicQuant() if quant else None
+        if config.tie_word_embeddings:
+            self.lm_head = None
+        elif quant:
+            self.lm_head = _quant_gemm(config, config.hidden_size, config.vocab_size, device)
+        else:
+            self.lm_head = MojoGemm(config.hidden_size, config.vocab_size, bias=False, device=device,
+                                    dtype=config.dtype)
         if generator is not None:
             from mojo_opset_tpu_torch.utils.weights import init_random_
 
@@ -206,12 +291,18 @@ class Qwen3ForCausalLM(nn.Module):
     def config(self) -> MojoConfig:
         return self._config.to_mojo()
 
+    @property
+    def qwen3_config(self) -> Qwen3Config:
+        return self._config
+
     def forward(self, input_ids, positions, meta, caches, lm_head_indices=None) -> torch.Tensor:
         hidden = self.model(input_ids, positions, meta, caches)
         if lm_head_indices is not None:
             hidden = hidden[lm_head_indices]
         if self.lm_head is None:
             logits = torch.matmul(hidden, self.model.embed_tokens.weight.t())
+        elif self.lm_head_quant is not None:
+            logits = self.lm_head(*self.lm_head_quant(hidden))
         else:
             logits = self.lm_head(hidden)
         return logits.float()

@@ -27,6 +27,8 @@ class MojoModelConfig:
 
     # paged-cache layout: "NHD" (N, bs, Hkv, D) or "HND" (N, Hkv, bs, D)
     kv_layout: str = "NHD"
+    # int8 (C8) KV cache with per-layer (Hkv, D) fp32 channel scales; forces HND
+    kv_cache_quant: bool = False
 
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6

@@ -49,20 +49,33 @@ class KVCaches:
     ``caches.key(layer)`` / ``caches.value(layer)`` give one layer's
     tensors. The caches update in place: the store op writes into these
     tensors, where the JAX package returns new arrays.
+
+    An int8 (C8) cache also holds per-layer ``(Hkv, D)`` fp32 channel
+    scales, ``key_scale(layer)`` / ``value_scale(layer)``, zero until the
+    first prefill calibrates them. They too update in place (the model
+    ``copy_``s into them), so a decode window such as ``FusedDecode`` that
+    holds the session's tensors sees every update without a change.
     """
 
-    def __init__(self, keys: List[torch.Tensor], values: List[torch.Tensor]):
+    def __init__(self, keys: List[torch.Tensor], values: List[torch.Tensor],
+                 key_scales: List[torch.Tensor] = (), value_scales: List[torch.Tensor] = ()):
         self.keys = list(keys)
         self.values = list(values)
+        self.key_scales = list(key_scales)
+        self.value_scales = list(value_scales)
 
     @classmethod
     def create(
         cls, num_layers: int, cache_shape: Tuple[int, int, int, int], dtype: torch.dtype, device=None
     ) -> "KVCaches":
-        def zeros():
-            return [torch.zeros(cache_shape, dtype=dtype, device=device) for _ in range(num_layers)]
+        def zeros(shape, dt):
+            return [torch.zeros(shape, dtype=dt, device=device) for _ in range(num_layers)]
 
-        return cls(zeros(), zeros())
+        if dtype == torch.int8:  # HND (N, Hkv, bs, D) -> channel scales (Hkv, D)
+            scale_shape = (cache_shape[1], cache_shape[3])
+            return cls(zeros(cache_shape, dtype), zeros(cache_shape, dtype),
+                       zeros(scale_shape, torch.float32), zeros(scale_shape, torch.float32))
+        return cls(zeros(cache_shape, dtype), zeros(cache_shape, dtype))
 
     def key(self, layer_idx: int) -> torch.Tensor:
         return self.keys[layer_idx]
@@ -70,9 +83,16 @@ class KVCaches:
     def value(self, layer_idx: int) -> torch.Tensor:
         return self.values[layer_idx]
 
+    def key_scale(self, layer_idx: int) -> torch.Tensor:
+        return self.key_scales[layer_idx]
+
+    def value_scale(self, layer_idx: int) -> torch.Tensor:
+        return self.value_scales[layer_idx]
+
 
 class PagedAttentionRuntimeState:
-    """Session: host-side block allocator + device-side caches."""
+    """Session: host-side block allocator + device-side caches (int8 with
+    channel scales, in HND, when the config sets ``kv_cache_quant``)."""
 
     def __init__(
         self,
@@ -104,6 +124,10 @@ class PagedAttentionRuntimeState:
         self.num_free_blocks = total_blocks
 
         self.kv_layout = mc.kv_layout
+        if mc.kv_cache_quant:
+            self.dtype = torch.int8
+        if self.dtype == torch.int8:  # the C8 store and attention ops read HND
+            self.kv_layout = "HND"
         if self.kv_layout == "NHD":
             cache_shape = (total_blocks, block_size, self.num_kv_heads, self.head_dim)
         else:
@@ -247,7 +271,9 @@ class FusedDecode:
     prepared on the host up front and copied once; each step then feeds
     the device argmax straight into the next. EOS handling happens on the
     host afterwards. (The JAX package compiles the window into one
-    ``lax.scan``; CUDA graphs are the later step here.)
+    ``lax.scan``; CUDA graphs are the later step here.) An int8 (C8)
+    session needs nothing more: its channel scales, like its caches, are
+    tensors updated in place, and decode steps only read them.
     """
 
     def __init__(self, model, sample_method: str = "greedy"):

@@ -3,7 +3,9 @@ full-width initialization on the device.
 
 The keys are those of the JAX package's ``utils.hf.state_dict_of`` (the HF
 layout: ``model.layers.N.self_attn.q_proj.weight`` ...); the port's
-modules are named so that ``state_dict()`` has the same keys.
+modules are named so that ``state_dict()`` has the same keys. A w8a8
+model's projections carry int8 ``weight`` and fp32 ``weight_scale``
+arrays (``state_dict_of(quantize_qwen3(jax_model))``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ IGNORED_SUFFIXES = ("inv_freq",)
 def load_numpy_state(model: nn.Module, arrays: Dict[str, np.ndarray], strict: bool = True) -> nn.Module:
     """Copy numpy arrays into ``model``'s parameters (cast to each
     parameter's dtype and device). With ``strict``, a missing or unknown
-    key, or a shape mismatch, raises ``KeyError``/``ValueError``."""
+    key, or a shape mismatch, raises ``KeyError``/``ValueError``. An
+    integer parameter (the int8 weights) takes only an array of its own
+    dtype: a float array would be truncated."""
     state = model.state_dict()
     arrays = {k: v for k, v in arrays.items() if k.rsplit(".", 1)[-1] not in IGNORED_SUFFIXES}
     if strict:
@@ -38,7 +42,10 @@ def load_numpy_state(model: nn.Module, arrays: Dict[str, np.ndarray], strict: bo
             raise ValueError(f"{name}: shape {tuple(array.shape)} != {tuple(target.shape)}")
         if array.dtype.name == "bfloat16":  # ml_dtypes bf16 has no torch.from_numpy path
             array = array.astype(np.float32)
-        target.copy_(torch.tensor(np.asarray(array)))
+        source = torch.tensor(np.asarray(array))
+        if not target.dtype.is_floating_point and source.dtype != target.dtype:
+            raise ValueError(f"{name}: {source.dtype} array for a {target.dtype} parameter")
+        target.copy_(source)
     return model
 
 

@@ -298,3 +298,31 @@ def test_paged_attention_bf16_keeps_dtype():
         out = op(q_t, kc_t, vc_t, *to_torch(lens, table))
         assert out.dtype == torch.bfloat16
         close(out, np.asarray(want.astype(jnp.float32)), BF16)
+
+
+CONTRACT_FAULTS = {
+    "int64_lengths": lambda lens, table: (lens.long(), table),
+    "short_table": lambda lens, table: (lens, table[:-1]),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(CONTRACT_FAULTS))
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+def test_paged_attention_input_contract(mode, fault):
+    """The goldens hold the JAX contract (core/operators/attention.py:33-48
+    there): int32 lengths and tables, one table row per sequence."""
+    lens = np.array([6, 9], np.int32)
+    rng, kc, vc, table = _paged_case(16, lens, 2, 16, 4, "NHD")
+    kc_t, vc_t, table_t = to_torch(kc, vc, table)
+    if mode == "decode":
+        q = torch.from_numpy(rng.standard_normal((2, 8, 16)).astype(np.float32))
+        seq, tab = CONTRACT_FAULTS[fault](torch.from_numpy(lens), table_t)
+        op = tm.MojoPagedDecodeGQA.get_backend_impl("ref")(kv_layout="NHD")
+        with pytest.raises(ValueError, match="int32|one row per sequence"):
+            op(q, kc_t, vc_t, seq, tab)
+    else:
+        q = torch.from_numpy(rng.standard_normal((15, 8, 16)).astype(np.float32))
+        cu, tab = CONTRACT_FAULTS[fault](torch.tensor([0, 6, 15], dtype=torch.int32), table_t)
+        op = tm.MojoPagedPrefillGQA.get_backend_impl("ref")(kv_layout="NHD")
+        with pytest.raises(ValueError, match="int32|one row per sequence"):
+            op(q, kc_t, vc_t, cu, tab, None, cu)

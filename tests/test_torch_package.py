@@ -7,7 +7,7 @@
   * a kernel wrapper given a non-CPU tensor never falls back: it checks its
     input and builds, and without nvcc the build raises;
   * dispatch (MOJO_BACKEND), the allocator's errors and the not-yet-ported
-    quant modes.
+    w4a8 mode.
 """
 
 import importlib
@@ -23,14 +23,21 @@ import torch
 
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
-from mojo_opset_tpu_torch.backends.cuda.kernels import norms, paged_decode, paged_prefill, rope
+from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    int8_matmul,
+    norms,
+    paged_decode,
+    paged_prefill,
+    rmsnorm_quant,
+    rope,
+)
 from mojo_opset_tpu_torch.core.registry import BackendNotAvailable
 from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
 from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, PagedAttentionRuntimeState
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
 
 REPO = Path(__file__).resolve().parents[1]
-KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill"]
+KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul"]
 
 
 def test_import_loads_no_jax():
@@ -50,7 +57,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert isinstance(module.launches, int)
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
-        "rmsnorm", "rope", "paged_decode", "paged_prefill"}
+        "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul"}
 
 
 def _cpu_calls():
@@ -72,6 +79,13 @@ def _cpu_calls():
            lambda: tm.MojoPagedPrefillGQA.get_backend_impl("cuda")(kv_layout="NHD")(
                qp, kc, vc, cu, table, None, cu_kv, max_q_len=4),
            lambda: tm.MojoPagedPrefillGQA.get_backend_impl("ref")(kv_layout="NHD")(qp, kc, vc, cu, table, None, cu_kv))
+    x = t(3, 64)
+    yield ("rmsnorm_quant", lambda: tm.MojoRMSNormQuant.get_backend_impl("cuda")(64)(x),
+           lambda: tm.MojoRMSNormQuant.get_backend_impl("ref")(64)(x))
+    xq = torch.from_numpy(rng.integers(-128, 128, (3, 64)).astype(np.int8))
+    xs = torch.from_numpy(rng.random((3, 1)).astype(np.float32))
+    yield ("int8_matmul", lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 32, trans_weight=True)(xq, xs),
+           lambda: tm.MojoQuantGemm.get_backend_impl("ref")(64, 32, trans_weight=True)(xq, xs))
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -141,6 +155,29 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         norms.rmsnorm(meta(3, 64, dtype=torch.float64), meta(64, dtype=torch.float32), 1e-6)
 
 
+def test_int8_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    meta = lambda *shape, dtype=torch.int8: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    f32 = torch.float32
+    table, lens = meta(2, 3, dtype=torch.int32), meta(2, dtype=torch.int32)
+    q, cache = meta(2, 8, 64, dtype=torch.bfloat16), meta(5, 2, 4, 64)
+    with pytest.raises(ValueError, match="share one dtype"):  # int8 pages without scales
+        paged_decode.paged_decode_gqa(q, cache, cache, lens, table)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        paged_decode.paged_decode_gqa(q, cache, cache, lens, table, key_scale=meta(2, 64, dtype=torch.bfloat16),
+                                      value_scale=meta(2, 64, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="K % 16"):
+        int8_matmul.int8_scaled_matmul(meta(4, 40), meta(32, 40), meta(4, dtype=f32), meta(32, dtype=f32), True,
+                                       torch.bfloat16)
+    with pytest.raises(ValueError, match="N % 16"):
+        int8_matmul.int8_scaled_matmul(meta(4, 64), meta(64, 40), meta(4, dtype=f32), meta(40, dtype=f32), False,
+                                       torch.bfloat16)
+    with pytest.raises(ValueError, match="input_scale"):
+        int8_matmul.int8_scaled_matmul(meta(4, 64), meta(32, 64), meta(4, dtype=torch.bfloat16),
+                                       meta(32, dtype=f32), True, torch.bfloat16)
+    with pytest.raises(ValueError, match="D <= 8192"):
+        rmsnorm_quant.rmsnorm_quant(meta(2, 8200, dtype=f32), meta(8200, dtype=f32), 1e-6)
+
+
 def test_dispatch_follows_mojo_backend(monkeypatch):
     assert type(tm.MojoRMSNorm(8)).__name__ == "CudaRMSNorm"
     assert type(tm.MojoGemm(4, 4)).__name__ == "RefGemm"
@@ -169,10 +206,12 @@ def _tiny(**kw):
 
 
 def test_quant_modes_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _tiny(quant="w8a8")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        _tiny(quant_kv=True)
+    """w8a8 and the C8 cache are ported; w4a8 waits for its slice."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        _tiny(quant="w4a8")
+    with pytest.raises(ValueError, match="w8a8"):
+        _tiny(quant="fp8")
+    assert _tiny(quant="w8a8", quant_kv=True).to_mojo().model_config.kv_layout == "HND"
 
 
 def test_session_errors_and_device_tokens():
