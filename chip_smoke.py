@@ -7,20 +7,33 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the six kernels from ``mojo_opset_tpu_torch/csrc``
+  2. build: compiles the seven kernels from ``mojo_opset_tpu_torch/csrc``
      (one nvcc per source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
      Float outputs hold to the dtype's tolerance (utils/acc.py ladder);
      RMSNorm + quant (E) holds its scales to rtol 1e-6 and its int8 values
      to one step on at most 0.1% of them (a sum in another order can move
-     a tie); the int8 GEMM (F) equals its plain version exactly with unit
-     scales and fp32 output (the int32 sums). The decode and prefill
-     kernels run on bf16/fp32/fp16 pages and on int8 (C8) pages.
+     a tie); the int8 GEMM (F) and the packed-int4 GEMM (G) equal their
+     plain versions exactly with unit scales and fp32 output (the int32
+     sums). G runs at the w4a8 projection shapes with M = 1, 5 and 512, a
+     ragged M, and refuses N % 128 != 0; its main cases are also timed
+     replayed from a CUDA graph (device time, not the host's launch rate).
+     The decode and prefill kernels run on bf16/fp32/fp16 pages and on int8
+     (C8) pages.
   4. small fp32 Qwen3 (4 layers, hidden 512, 8/2 heads, head_dim 128,
-     vocab 4096), and its w8a8 and w8a8 + C8 twins: greedy tokens of the
-     kernel path equal the plain path's (MOJO_BACKEND=ref, same weights)
-     over 16 steps, and the FusedDecode window's.
+     vocab 4096), and its w8a8, w8a8 + C8 and w4a8 twins: greedy tokens of
+     the kernel path equal the plain path's (MOJO_BACKEND=ref, same
+     weights) over 16 steps, and the FusedDecode window's. The w4a8 twin's
+     paths may part once at a near-tie: there the two paths' logits differ
+     by <= 0.05 and the plain path's top-2 gap is below that difference (an
+     int8 activation crossed a rounding tie). Then, exactly:
+     SpeculativeDecoder (k = 4) ``generate`` and ``generate_fused`` with
+     the w4a8 draft and with a 1-layer truncated draft equal vanilla greedy
+     of the fp32 model; ContinuousBatchingGenerator (6 requests on 2 slots,
+     prefix cache on, 4 prompts behind one 128-token prefix) and
+     SpeculativeContinuousBatchingGenerator (w4a8 draft) give every request
+     its standalone greedy tokens.
   5. the bf16 slice at full width: Qwen3-4B geometry (bench.py:89-103) in
      bf16 with random weights, block size 64, NHD: paged prefill of 4
      requests (1000, 513, 130, 7 tokens), 32 greedy decode steps through
@@ -35,6 +48,17 @@ is non-zero:
      FusedDecode window, counters as in 5; all six kernels must launch.
      Last-token logits: finite, per-row cosine >= 0.999 against the plain
      path; the cosine against the bf16 model is printed, with no bound.
+  7. w4a8 speculative decoding at full width (bench.py:298-331): a bf16
+     Qwen3-4B target from seed 0, its w4a8 twin quantized on the card as
+     the draft, bs 1, a 512-token prompt, 64 new tokens, k = 4, block 64.
+     The draft's last-token logits hold per-row cosine >= 0.999 against its
+     plain path. Counters as in 5 over vanilla greedy (stepwise and
+     FusedDecode) and speculative ``generate_fused`` and ``generate``; all
+     seven kernels must launch. Each speculative stream equals vanilla
+     greedy, or first leaves it where the target's two best logits lie
+     within 0.05 (the verify runs kernel D, vanilla kernel C: bf16 rounds
+     differently). Prints vanilla and speculative ms/token, rounds, the
+     acceptance, the int4 weight bytes and peak memory.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -77,10 +101,23 @@ KERNEL_INFO = {
                       "mojo_opset_tpu/backends/pallas/kernels/norms.py:131"),
     "int8_matmul": ("int8_scaled_matmul", "mojo_opset_tpu_torch/csrc/int8_matmul.cu",
                     "mojo_opset_tpu/backends/pallas/kernels/int8_matmul.py:54"),
+    "int4_matmul": ("int4_scaled_matmul", "mojo_opset_tpu_torch/csrc/int4_matmul.cu",
+                    "mojo_opset_tpu/backends/pallas/kernels/int4_matmul.py:85"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
-# (K, N) of the w8a8 projections at Qwen3-4B: q, k/v, o, gate/up, down; the lm_head at M = 4
+INT8_PATH_KERNELS = BF16_PATH_KERNELS + ("rmsnorm_quant", "int8_matmul")
+# (K, N) of the w8a8 and w4a8 projections at Qwen3-4B: q, k/v, o, gate/up, down; the lm_head at M = 4
 GEMM_SHAPES = ((2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560))
+# the w4a8 draft's decode (M = 1), a verify-sized batch and its prompt's prefill (bench.py:307)
+INT4_MS = (1, 5, 512)
+INT4_MAIN_SHAPE = f"1x{GEMM_SHAPES[3][0]}x{GEMM_SHAPES[3][1]}"  # the draft's gate/up at decode
+# the bs-1 speculative run of bench.py:298-331: prompt, new tokens, drafts per round
+SPEC_PROMPT, SPEC_NEW, SPEC_K = 512, 64, 4
+SPEC_TIE_GAP = 0.05  # a stream may leave vanilla greedy only where the target's two best logits are this close
+# the small quantized twins' kernel and plain paths differ by 0.014-0.027 in logits of scale ~2 (an int8
+# activation moved across a rounding tie by a sum in another order); their tokens may part only at a
+# near-tie within this bound
+SMALL_TIE_BOUND = 0.05
 
 
 def log(phase: str, msg: str) -> None:
@@ -94,6 +131,27 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the host's launch rate does not pace the loop."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -154,7 +212,7 @@ def _cu(torch, lens):
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version; returns the main-path record."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import (
-        int8_matmul, norms, paged_decode, paged_prefill, rmsnorm_quant, rope,
+        int4_matmul, int8_matmul, norms, paged_decode, paged_prefill, rmsnorm_quant, rope,
     )
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
@@ -162,7 +220,7 @@ def phase_kernels(torch) -> dict:
     bf16 = torch.bfloat16
     record = {}
 
-    def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None):
+    def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None, device_time=False):
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if check is None:
@@ -176,11 +234,14 @@ def phase_kernels(torch) -> dict:
         if main:
             ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn, iters=5)
             entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if device_time:
+                entry["graph_ms"] = graph_ms(torch, kernel_fn)
+                line += f", kernel in a CUDA graph {entry['graph_ms']:.4f} ms"
             if key is None:
                 record[name] = entry
             else:
                 record.setdefault(name, {}).setdefault(key, entry)
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
         log(f"kernel {name}", line)
 
     T = sum(PROMPT_LENS)
@@ -298,7 +359,7 @@ def phase_kernels(torch) -> dict:
     # a (K, N) weight at ragged M, three output dtypes; unit scales + fp32 output must be exact
     def exact(got, want):
         if not torch.equal(got, want):
-            raise AssertionError(f"int8 GEMM int32 sums differ: max {(got - want).abs().max().item()}")
+            raise AssertionError(f"GEMM int32 sums differ: max {(got - want).abs().max().item()}")
         return "exact"
 
     def gemm_case(M, K, N, trans, dtype, unit, main, key=None):
@@ -320,6 +381,35 @@ def phase_kernels(torch) -> dict:
         for dtype in (bf16, torch.float16, torch.float32):
             gemm_case(M, 272, 400, False, dtype, False, False)
         gemm_case(M, 272, 400, False, torch.float32, True, False)
+
+    # G: packed-int4 GEMM at every w4a8 projection shape (the draft's decode M = 1, M = 5, its prefill
+    # M = 512), a ragged M in three output dtypes; unit scales + fp32 output must be exact; an N that
+    # is not a multiple of 128 must be refused
+    def int4_case(M, K, N, dtype, unit, main, key=None):
+        wp = torch.randint(-128, 128, (N // 2, K), device="cuda", generator=gen, dtype=torch.int8)
+        x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
+        xs = torch.ones(M, 1, device="cuda") if unit else torch.rand(M, 1, device="cuda", generator=gen) * 0.1
+        ws = torch.ones(N, device="cuda") if unit else torch.rand(N, device="cuda", generator=gen) * 1e-2
+        compare("int4_matmul", lambda: int4_matmul.int4_scaled_matmul(x, wp, xs, ws, dtype),
+                lambda: int4_matmul.int4_scaled_matmul_plain(x, wp, xs, ws, dtype), dtype,
+                f"int4 gemm M={M} K={K} N={N} unit_scales={unit}", main, key=key,
+                check=exact if unit else None, device_time=main)
+
+    for K, N in GEMM_SHAPES:
+        for M in INT4_MS:
+            int4_case(M, K, N, bf16, False, True, key=f"{M}x{K}x{N}")
+            int4_case(M, K, N, torch.float32, True, False)
+    for dtype in (bf16, torch.float16, torch.float32):
+        int4_case(130, 272, 384, dtype, False, False)
+    int4_case(17, 272, 384, torch.float32, True, False)
+    x = torch.zeros(4, 256, device="cuda", dtype=torch.int8)
+    try:
+        int4_matmul.int4_scaled_matmul(x, torch.zeros(96, 256, device="cuda", dtype=torch.int8),
+                                       torch.ones(4, device="cuda"), torch.ones(192, device="cuda"), bf16)
+    except ValueError as e:
+        log("kernel int4_matmul", f"N = 192 refused: {e}")
+    else:
+        raise AssertionError("the int4 GEMM took N = 192 (N % 128 != 0)")
     return record
 
 
@@ -348,17 +438,19 @@ def plain_tier():
         del os.environ["MOJO_BACKEND"]
 
 
-def _quantized_pair(torch, source, quant_kv: bool):
-    """w8a8 twins of ``source`` on the kernel path and on the plain path:
-    the same int8 weights, quantized on the card."""
+def _quantized_pair(torch, source, quant_kv: bool, weight_dtype: str = "int8"):
+    """w8a8 (or, with ``weight_dtype="int4"``, w4a8) twins of ``source`` on
+    the kernel path and on the plain path: the same weights, quantized on
+    the card."""
     from mojo_opset_tpu_torch.modeling.qwen3 import quantize_qwen3
 
-    model = quantize_qwen3(source, quant_kv=quant_kv)
+    model = quantize_qwen3(source, weight_dtype, quant_kv=quant_kv)
     with plain_tier():
-        plain = quantize_qwen3(source, quant_kv=quant_kv)
+        plain = quantize_qwen3(source, weight_dtype, quant_kv=quant_kv)
     layer = model.model.layers[0]
     assert type(layer.input_layernorm).__name__ == "CudaRMSNormQuant", type(layer.input_layernorm)
     assert type(layer.mlp.down_proj).__name__ == "CudaQuantGemm"
+    assert (layer.mlp.down_proj.weight_dtype == "int4") == (weight_dtype == "int4")
     assert type(plain.model.layers[0].mlp.down_proj).__name__ == "RefQuantGemm"
     for a, b in zip(model.state_dict().values(), plain.state_dict().values()):
         assert torch.equal(a, b)
@@ -370,21 +462,125 @@ def _prompts(vocab: int, lens) -> tuple[np.ndarray, np.ndarray]:
     return rng.integers(1, vocab, int(sum(lens))).astype(np.int32), np.asarray(lens, np.int32)
 
 
-def _greedy_match(torch, name, model, plain, ids, lens) -> None:
-    """16 greedy steps: kernel path == plain path == fused window."""
-    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel
+def _greedy_match(torch, name, model, plain, ids, lens, tie_bound=None) -> None:
+    """16 greedy steps: kernel path == plain path == fused window.
 
-    def generate(m, fused=False):
-        gen = MojoGenerator(PagedAttentionGenerationModel(m, block_size=16), None, GreedySampler(), max_new_tokens=16)
+    With ``tie_bound`` (the quantized twins whose activations are int8), the
+    kernel and plain paths may part at one step of one row, if there the
+    two paths' logits differ by at most ``tie_bound`` and the plain path's
+    two best logits lie closer than that difference: a sum in another order
+    moved an int8 activation across a rounding tie, and the argmax was a
+    near-tie. The fused window must equal the stepwise kernel path."""
+    from mojo_opset_tpu_torch.runtime import GeneratorHook, GreedySampler, MojoGenerator, PagedAttentionGenerationModel
+
+    class KeepLogits(GeneratorHook):
+        def __init__(self):
+            self.steps = []
+
+        def after_prefill(self, *, logits, session):
+            self.steps.append(logits)
+
+        def after_decode_step(self, *, step, logits, next_token_id):
+            self.steps.append(logits)
+
+    def generate(m, fused=False, hook=None):
+        gen = MojoGenerator(PagedAttentionGenerationModel(m, block_size=16), None, GreedySampler(), max_new_tokens=16,
+                            hooks=[hook] if hook else None)
         return gen.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=fused)
 
-    tokens, plain_tokens, fused = generate(model), generate(plain), generate(model, fused=True)
+    kept, plain_kept = KeepLogits(), KeepLogits()
+    tokens, plain_tokens = generate(model, hook=kept), generate(plain, hook=plain_kept)
+    fused = generate(model, fused=True)
     log(name, f"kernel tokens {tokens.tolist()}")
-    if not np.array_equal(tokens, plain_tokens):
-        raise AssertionError(f"{name}: greedy tokens differ: kernel {tokens.tolist()} plain {plain_tokens.tolist()}")
     if not np.array_equal(tokens, fused):
-        raise AssertionError(f"{name}: fused tokens differ from stepwise: {fused.tolist()}")
-    log(name, "16 greedy steps: kernel path == plain path == fused window")
+        raise AssertionError(f"{name}: fused tokens differ from stepwise: {fused.tolist()} vs {tokens.tolist()}")
+    if np.array_equal(tokens, plain_tokens):
+        log(name, "16 greedy steps: kernel path == plain path == fused window")
+        return
+    parted = np.argwhere(tokens != plain_tokens)  # (row, step) pairs
+    row, step = (int(i) for i in parted[np.argmin(parted[:, 1])])
+    k_row, p_row = kept.steps[step][row].float(), plain_kept.steps[step][row].float()
+    delta = (k_row - p_row).abs().max().item()
+    top2 = torch.topk(p_row, 2).values
+    gap = (top2[0] - top2[1]).item()
+    note = (f"kernel and plain paths part at step {step} of row {row}: logits differ by {delta:.4g} there, the "
+            f"plain path's top-2 gap is {gap:.4g}")
+    if tie_bound is None or delta > tie_bound or gap > delta:
+        raise AssertionError(f"{name}: greedy tokens differ: kernel {tokens.tolist()} plain {plain_tokens.tolist()}; "
+                             f"{note}")
+    log(name, f"16 greedy steps: kernel path == fused window; {note} (a near-tie, bound {tie_bound})")
+
+
+def _standalone_greedy(model, ids, lens, steps: int) -> np.ndarray:
+    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel
+
+    gen = MojoGenerator(PagedAttentionGenerationModel(model, block_size=16), None, GreedySampler(),
+                        max_new_tokens=steps)
+    return gen.generate_from_ids(ids, np.asarray(lens, np.int32), ignore_eos=True)
+
+
+def _truncated_draft(torch, target, layers: int):
+    """A draft of the target's first ``layers`` layers, sharing its
+    embedding, norm, rotary table and lm_head (no weights copied)."""
+    import dataclasses
+
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3ForCausalLM
+
+    draft = Qwen3ForCausalLM(dataclasses.replace(target.qwen3_config, num_hidden_layers=layers), device="meta")
+    draft.model.embed_tokens = target.model.embed_tokens
+    draft.model.layers = torch.nn.ModuleList(target.model.layers[:layers])
+    draft.model.norm = target.model.norm
+    draft.model.rotary_emb = target.model.rotary_emb
+    draft.lm_head = target.lm_head
+    return draft
+
+
+def _speculative_match(torch, target, drafts: dict, ids, lens, steps: int = 24) -> None:
+    """Greedy speculative decoding (k = 4), unfused and fused, emits exactly
+    the target's vanilla greedy tokens with each draft."""
+    from mojo_opset_tpu_torch.runtime import SpeculativeDecoder
+
+    want = _standalone_greedy(target, ids, lens, steps)
+    for name, draft in drafts.items():
+        spec = SpeculativeDecoder(target, draft, k=4, mode="greedy", block_size=16)
+        for run in (spec.generate, spec.generate_fused):
+            got = run(ids, lens, max_new_tokens=steps)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"speculative {run.__name__} with the {name} differs from vanilla greedy: "
+                                     f"{got.tolist()} vs {want.tolist()}")
+            log("small speculative", f"{name}, {run.__name__}: {steps} tokens x {len(lens)} == vanilla greedy "
+                                     f"in {spec.last_rounds} rounds")
+
+
+def _continuous_match(torch, model, draft) -> None:
+    """6 requests on 2 slots, 4 of them behind one shared 128-token prefix:
+    the batcher with its prefix cache, and the speculative batcher, give
+    each request its standalone greedy tokens."""
+    from mojo_opset_tpu_torch.runtime import ContinuousBatchingGenerator, SpeculativeContinuousBatchingGenerator
+
+    steps, vocab = 16, SMALL["vocab_size"]
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(1, vocab, 128).astype(np.int32)
+    tail = lambda n: rng.integers(1, vocab, n).astype(np.int32)  # noqa: E731
+    prompts = [np.concatenate([prefix, tail(5)]), tail(9), np.concatenate([prefix, tail(17)]),
+               np.concatenate([prefix, tail(1)]), tail(40), np.concatenate([prefix, tail(30)])]
+    want = [_standalone_greedy(model, p, [p.size], steps)[0] for p in prompts]
+    batchers = {
+        "continuous batcher, prefix cache": ContinuousBatchingGenerator(
+            model, batch_slots=2, block_size=16, max_new_tokens=steps, prefix_cache_blocks=16),
+        "speculative batcher, w4a8 draft": SpeculativeContinuousBatchingGenerator(
+            model, draft, speculative_k=4, batch_slots=2, block_size=16, max_new_tokens=steps),
+    }
+    for name, gen in batchers.items():
+        rids = [gen.submit(p) for p in prompts]
+        results = gen.run()
+        for rid, w in zip(rids, want):
+            if not np.array_equal(results[rid], w):
+                raise AssertionError(f"{name}: request {rid} gave {results[rid].tolist()}, standalone {w.tolist()}")
+        extra = f"; {gen._prefix_owned} blocks held by the prefix cache" if gen.prefix_cache_blocks else ""
+        log("small continuous", f"{name}: {len(prompts)} requests on 2 slots == standalone greedy{extra}")
+    if batchers["continuous batcher, prefix cache"]._prefix_owned < 128 // 16:
+        raise AssertionError("the shared 128-token prefix never entered the prefix cache")
 
 
 def phase_small_model(torch) -> None:
@@ -396,7 +592,12 @@ def phase_small_model(torch) -> None:
     for quant_kv, name in ((False, "small w8a8 model"), (True, "small w8a8 + C8 model")):
         q_model, q_plain = _quantized_pair(torch, model, quant_kv)
         _greedy_match(torch, name, q_model, q_plain, ids, lens)
-    del model, plain, q_model, q_plain
+    w4a8, w4a8_plain = _quantized_pair(torch, model, False, weight_dtype="int4")
+    _greedy_match(torch, "small w4a8 model", w4a8, w4a8_plain, ids, lens, tie_bound=SMALL_TIE_BOUND)
+    _speculative_match(torch, model, {"w4a8 draft": w4a8, "1-layer draft": _truncated_draft(torch, model, 1)},
+                       ids, lens)
+    _continuous_match(torch, model, w4a8)
+    del model, plain, q_model, q_plain, w4a8, w4a8_plain
     torch.cuda.empty_cache()
 
 
@@ -493,7 +694,7 @@ def phase_int8_full_width(torch, card: str) -> dict:
     window = FusedDecode(model)(session, first, FUSED_STEPS)
     torch.cuda.synchronize()
     fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
-    counts = kernels.launch_counts()
+    counts = {k: v for k, v in kernels.launch_counts().items() if k in INT8_PATH_KERNELS}
     log("int8 full width", f"launches on the main path: {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the int8 path never launched: {counts}")
@@ -527,24 +728,129 @@ def phase_int8_full_width(torch, card: str) -> dict:
     return counts
 
 
-def kernels_line(record: dict, counts: dict, bf16_counts: dict) -> list:
+def _first_divergence(torch, gm, ids, want, got) -> str:
+    """Where a speculative stream leaves vanilla greedy, the target's two
+    best logits at that position must lie within SPEC_TIE_GAP: the verify
+    runs the prefill kernel and vanilla the decode kernel, and bf16 rounds
+    differently in each. Returns a note for the log."""
+    if np.array_equal(got, want):
+        return "equal to vanilla greedy on every token"
+    p = int(np.nonzero(got != want)[0][0])
+    context = np.concatenate([ids, want[:p]]).astype(np.int32)
+    logits, _ = gm(context, context_input_len=np.array([context.size], np.int32))
+    top2 = torch.topk(logits[0], 2).values
+    gap = float(top2[0] - top2[1])
+    note = f"first differs at new token {p} ({want[p]} vs {got[p]}), target's top-2 logit gap there {gap:.4f}"
+    if gap > SPEC_TIE_GAP:
+        raise AssertionError(f"speculative stream leaves vanilla greedy where the target is not tied: {note}")
+    return note + f" (<= {SPEC_TIE_GAP}: a bf16 tie)"
+
+
+def phase_w4a8_speculative(torch, card: str) -> dict:
+    """bench.py:298-331 on the card: bs 1, a 512-token prompt, 64 new tokens,
+    a bf16 Qwen3-4B target and its w4a8 twin as the draft, k = 4."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+    from mojo_opset_tpu_torch.runtime import (
+        GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook, SpeculativeDecoder,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    target = Qwen3ForCausalLM(Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16), device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(0))
+    draft, plain_draft = _quantized_pair(torch, target, quant_kv=False, weight_dtype="int4")
+    int4_bytes = sum(m.weight.numel() for m in draft.modules() if getattr(m, "weight_dtype", None) == "int4")
+    int8_bytes = sum(m.weight.numel() for m in draft.modules() if getattr(m, "weight_dtype", None) == torch.int8)
+    log("w4a8 speculative", f"bf16 Qwen3-4B target and its w4a8 draft, quantized on the card in "
+                            f"{time.perf_counter() - t0:.1f} s: {int4_bytes / 1e9:.3f} GB packed int4 weights, "
+                            f"{int8_bytes / 1e9:.3f} GB int8 (the lm_head)")
+    ids = np.random.default_rng(0).integers(1, QWEN3_4B["vocab_size"], SPEC_PROMPT).astype(np.int32)
+    lens = np.array([SPEC_PROMPT], np.int32)
+
+    d_logits, _ = PagedAttentionGenerationModel(draft, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
+    p_logits, _ = PagedAttentionGenerationModel(plain_draft, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
+    cos = torch.nn.functional.cosine_similarity(d_logits, p_logits, dim=-1).min().item()
+    log("w4a8 speculative", f"draft last-token logits finite: {bool(torch.isfinite(d_logits).all())}; cosine vs "
+                            f"its plain path {cos:.6f} (bound 0.999)")
+    if cos < 0.999 or not torch.isfinite(d_logits).all():
+        raise AssertionError(f"the w4a8 draft's logits disagree with its plain path: cosine {cos}")
+    del plain_draft, p_logits
+    torch.cuda.empty_cache()
+
+    gm = PagedAttentionGenerationModel(target, block_size=BLOCK_SIZE)
+    hook = PerfHook(silent=True)
+    gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=SPEC_NEW, hooks=[hook])
+    spec = SpeculativeDecoder(target, draft, k=SPEC_K, mode="greedy", block_size=BLOCK_SIZE)
+    gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up
+    spec.generate_fused(ids, lens, max_new_tokens=SPEC_NEW)
+
+    kernels.reset_launch_counts()
+    vanilla = gen.generate_from_ids(ids, lens, ignore_eos=True)[0]
+    stepwise = hook.records[-1]
+    vanilla_fused = gen.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=True)[0]
+    fused = hook.records[-1]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    spec_fused = spec.generate_fused(ids, lens, max_new_tokens=SPEC_NEW)[0]
+    spec_fused_s, rounds_fused = time.perf_counter() - t, spec.last_rounds
+    t = time.perf_counter()
+    spec_out = spec.generate(ids, lens, max_new_tokens=SPEC_NEW)[0]
+    spec_s, rounds = time.perf_counter() - t, spec.last_rounds
+    counts = kernels.launch_counts()
+    log("w4a8 speculative", f"launches on the path: {counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the speculative path never launched: {counts}")
+
+    t = time.perf_counter()
+    spec.prefill(spec.new_sessions(1), ids, lens)  # both models' prompt, shared by every run above
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    spec_ms, spec_fused_ms = ((s - prefill_s) * 1e3 / SPEC_NEW for s in (spec_s, spec_fused_s))
+
+    if not np.array_equal(vanilla_fused, vanilla):
+        raise AssertionError(f"FusedDecode {vanilla_fused.tolist()} differs from stepwise {vanilla.tolist()}")
+    for name, got in (("generate_fused", spec_fused), ("generate", spec_out)):
+        log("w4a8 speculative", f"{name}: {_first_divergence(torch, gm, ids, vanilla, got)}")
+    # each round emits its accepted drafts and one token of the target; the last round may be cut
+    accept = (SPEC_NEW - 1 - rounds) / (rounds * SPEC_K)
+    log("w4a8 speculative",
+        f"{card}: bs 1, prompt {SPEC_PROMPT}, {SPEC_NEW} new tokens, k {SPEC_K}: vanilla "
+        f"{stepwise['decode_avg_ms']:.3f} ms/token stepwise, {fused['decode_avg_ms']:.3f} ms/token FusedDecode; "
+        f"speculative {spec_fused_ms:.3f} ms/token fused ({rounds_fused} rounds), {spec_ms:.3f} ms/token "
+        f"unfused ({rounds} rounds, {(SPEC_NEW - 1) / rounds:.2f} tokens per round, acceptance >= {accept:.3f}); "
+        f"speed-up over FusedDecode {fused['decode_avg_ms'] / spec_fused_ms:.2f}x; prefill of both models "
+        f"{prefill_s * 1e3:.2f} ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del target, draft, spec, gm, gen
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
-    all six), times of the main-path case; C and D add their int8-page
-    times, F its time at each shape."""
+    the first six) and, for G, from the w4a8 speculative run (it runs all
+    seven); times of the main-path case. C and D add their int8-page
+    times; F and G their times at each shape, G also its device time in a
+    CUDA graph and its largest error over those shapes."""
     line = []
-    gemm_main = f"{sum(PROMPT_LENS)}x2560x9728"
+    main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE}
     for module, (name, source, replaces) in KERNEL_INFO.items():
         rec = dict(record[module])
         extra = {}
-        if module == "int8_matmul":
+        if module in main_shapes:
             extra["by_shape"] = rec
-            rec = rec[gemm_main]
-            extra["main_shape"] = gemm_main
+            rec = dict(rec[main_shapes[module]])
+            extra["main_shape"] = main_shapes[module]
+            if module == "int4_matmul":
+                rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         elif "int8_pages" in rec:
             extra["int8_pages"] = rec.pop("int8_pages")
         if module in bf16_counts:
             extra["launches_bf16_path"] = bf16_counts[module]
-        line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=counts[module],
+        extra["launches_w4a8_speculative_path"] = spec_counts[module]
+        launches = spec_counts[module] if module == "int4_matmul" else counts[module]
+        line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"], **extra))
     return line
 
@@ -558,7 +864,8 @@ def main() -> int:
     phase_small_model(torch)
     bf16_counts = phase_full_width(torch, card)
     counts = phase_int8_full_width(torch, card)
-    print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts)}))
+    spec_counts = phase_w4a8_speculative(torch, card)
+    print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

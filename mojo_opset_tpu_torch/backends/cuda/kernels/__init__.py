@@ -2,6 +2,7 @@
 PyTorch version and its ``launches`` counter."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    int4_matmul,
     int8_matmul,
     norms,
     paged_decode,
@@ -10,7 +11,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     rope,
 )
 
-ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul)
+ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul)
 
 
 def reset_launch_counts() -> None:

@@ -17,22 +17,36 @@ from mojo_opset_tpu_torch.core.operators.position_embedding import (
     MojoRotaryEmbedding,
 )
 from mojo_opset_tpu_torch.core.operators.quantize import MojoDequant, MojoDynamicQuant, MojoStaticQuant
+from mojo_opset_tpu_torch.core.operators.sampling import (
+    MojoApplyPenaltiesTempurate,
+    MojoJoinProbRejectSampling,
+    MojoRejectSampling,
+    MojoTopKSampling,
+    MojoTopPFilter,
+    MojoTopPSampling,
+)
 
 __all__ = [
+    "MojoApplyPenaltiesTempurate",
     "MojoApplyRoPE",
     "MojoDequant",
     "MojoDynamicQuant",
     "MojoEmbedding",
     "MojoGemm",
+    "MojoJoinProbRejectSampling",
     "MojoPagedDecodeGQA",
     "MojoPagedPrefillGQA",
     "MojoQuantGemm",
+    "MojoRejectSampling",
     "MojoRMSNorm",
     "MojoRMSNormQuant",
     "MojoRotaryEmbedding",
     "MojoSilu",
     "MojoStaticQuant",
     "MojoStorePagedKVCache",
+    "MojoTopKSampling",
+    "MojoTopPFilter",
+    "MojoTopPSampling",
     "build_paged_kv_token_indices",
     "expand_gqa",
     "seq_lens_from_cu",

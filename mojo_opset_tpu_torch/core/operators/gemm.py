@@ -1,10 +1,11 @@
-"""Dense and int8 GEMMs (counterpart of the JAX package's
-``core/operators/gemm.py``: ``MojoGemm`` :23, ``MojoQuantGemm`` :144).
+"""Dense, int8 and packed-int4 GEMMs (counterpart of the JAX package's
+``core/operators/gemm.py``: ``MojoGemm`` :23, ``INT4_BLOCK`` and the int4
+packing :115-141, ``MojoQuantGemm`` :144).
 
 The JAX package leaves the dense projections to XLA dots, so the port
 leaves them to ``torch.matmul``: ``MojoGemm`` has no kernel tier. The int8
-GEMM had a Pallas kernel, so ``MojoQuantGemm`` has one in the cuda tier
-(``csrc/int8_matmul.cu``).
+and int4 GEMMs had Pallas kernels, so ``MojoQuantGemm`` has two in the cuda
+tier (``csrc/int8_matmul.cu``, ``csrc/int4_matmul.cu``).
 """
 
 from __future__ import annotations
@@ -65,6 +66,32 @@ class MojoGemm(MojoOperator):
         return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
 
 
+INT4_BLOCK = 128  # output channels of one packed-int4 group (see pack_int4_rows)
+
+
+def pack_int4_rows(w_q: torch.Tensor) -> torch.Tensor:
+    """Pack int4 values (int8 storage, range [-8, 7]) of an (N, K) weight two
+    per byte along the output-channel axis, in groups of 128 rows: packed
+    row ``j*64 + r`` holds channel ``j*128 + r`` in its low nibble and
+    channel ``j*128 + 64 + r`` in its high nibble. Returns (N // 2, K) int8.
+    The JAX package's layout, bit for bit."""
+    n, k = w_q.shape
+    if n % INT4_BLOCK:
+        raise ValueError(f"int4 packing needs N % {INT4_BLOCK} == 0, got {n}")
+    b = w_q.to(torch.int8).reshape(n // INT4_BLOCK, INT4_BLOCK, k)
+    lo, hi = b[:, : INT4_BLOCK // 2], b[:, INT4_BLOCK // 2:]
+    return ((hi << 4) | (lo & 15)).reshape(n // 2, k)
+
+
+def unpack_int4_rows(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_rows`: (N // 2, K) int8 -> (N, K) int8;
+    ``lo = ((p & 15) ^ 8) - 8``, ``hi = p >> 4`` (arithmetic)."""
+    n2, k = packed.shape
+    b = packed.reshape(n2 * 2 // INT4_BLOCK, INT4_BLOCK // 2, k)
+    lo = ((b & 15) ^ 8) - 8
+    return torch.cat([lo, b >> 4], dim=1).reshape(n2 * 2, k)
+
+
 def quant_matmul_reference(
     x: torch.Tensor,
     weight: torch.Tensor,
@@ -90,15 +117,18 @@ def quant_matmul_reference(
 
 
 class MojoQuantGemm(MojoOperator):
-    """int8 x int8 -> int32 GEMM dequantized by the per-token input scale
-    and the per-channel weight scale; output in ``output_dtype``.
+    """int8 (or packed-int4) x int8 -> int32 GEMM dequantized by the
+    per-token input scale and the per-channel weight scale; output in
+    ``output_dtype``.
 
     ``weight`` is int8 ``(K, N)``, or ``(N, K)`` with ``trans_weight`` (the
     model's layout); ``weight_scale`` is float32 ``(N,)``. The JAX op
     defaults its scale to bf16 but its converter writes fp32, and a bf16
     value widens to fp32 exactly, so the port keeps fp32. Both are filled
     by ``modeling.qwen3.quantize_qwen3`` or ``load_numpy_state``; a new op
-    holds zeros and ones.
+    holds zeros and ones. ``weight_dtype="int4"`` stores the weight packed
+    two channels per byte, int8 ``(N // 2, K)`` (:func:`pack_int4_rows`);
+    it needs ``trans_weight`` and ``N % 128 == 0``.
     """
 
     def __init__(
@@ -113,32 +143,37 @@ class MojoQuantGemm(MojoOperator):
         device=None,
     ):
         super().__init__()
-        if weight_dtype == "int4":
+        if quant_dtype != torch.int8 or weight_dtype not in (torch.int8, "int4"):
             raise NotImplementedError(
-                "int4 (w4a8) QuantGemm weights come with the speculative-decoding slice "
-                "(ROADMAP.md queue 1 item 7, kernel int4_matmul.py::int4_scaled_matmul)"
-            )
-        if quant_dtype != torch.int8 or weight_dtype != torch.int8:
-            raise NotImplementedError(
-                f"QuantGemm takes int8 activations and weights, got {quant_dtype}, {weight_dtype}")
+                f"QuantGemm takes int8 activations and int8 or int4 weights, got {quant_dtype}, {weight_dtype}")
         if output_dtype not in QUANT_OUTPUT_DTYPES:
             raise NotImplementedError(f"Unsupported output_dtype: {output_dtype}")
         self.in_features = in_features
         self.out_features = out_features
         self.output_dtype = output_dtype
         self.trans_weight = trans_weight
-        shape = (out_features, in_features) if trans_weight else (in_features, out_features)
+        self.weight_dtype = weight_dtype
+        if weight_dtype == "int4":
+            if not trans_weight or out_features % INT4_BLOCK:
+                raise ValueError(
+                    f"int4 weights need trans_weight=True and out_features % {INT4_BLOCK} == 0, "
+                    f"got trans_weight={trans_weight}, out_features={out_features}")
+            shape = (out_features // 2, in_features)
+        else:
+            shape = (out_features, in_features) if trans_weight else (in_features, out_features)
         self.weight = nn.Parameter(torch.zeros(shape, dtype=torch.int8, device=device), requires_grad=False)
         self.weight_scale = nn.Parameter(torch.ones((out_features,), device=device), requires_grad=False)
 
     def forward(self, input: torch.Tensor, input_scale: torch.Tensor) -> torch.Tensor:
         if input.ndim != 2:
             raise ValueError(f"input must be 2D, got shape {tuple(input.shape)}.")
+        weight = unpack_int4_rows(self.weight) if self.weight_dtype == "int4" else self.weight
         return quant_matmul_reference(
-            input, self.weight, input_scale, self.weight_scale, self.trans_weight, self.output_dtype)
+            input, weight, input_scale, self.weight_scale, self.trans_weight, self.output_dtype)
 
     def extra_repr(self) -> str:
         return (
             f"in_features={self.in_features}, out_features={self.out_features}, "
-            f"output_dtype={self.output_dtype}, trans_weight={self.trans_weight}"
+            f"output_dtype={self.output_dtype}, trans_weight={self.trans_weight}, "
+            f"weight_dtype={self.weight_dtype}"
         )

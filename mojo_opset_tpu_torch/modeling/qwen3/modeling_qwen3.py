@@ -10,10 +10,11 @@ keys equal the JAX package's ``utils.hf.state_dict_of`` keys.
 Serving modes, as in the JAX model: ``quant="w8a8"`` gives int8 weights
 on every projection and the lm_head, fed per-token int8 activations by
 ``MojoRMSNormQuant`` (the two layer norms) and ``MojoDynamicQuant`` (before
-o_proj, down_proj and the lm_head); ``quant_kv=True`` gives the int8 (C8)
-KV cache, HND, with per-layer channel scales calibrated at the first
-prefill. The int8 weights come from ``quantize_qwen3`` or
-``load_numpy_state``.
+o_proj, down_proj and the lm_head); ``quant="w4a8"`` packs int4 into every
+projection whose width is a multiple of 128 (the others stay int8) and
+keeps the lm_head int8; ``quant_kv=True`` gives the int8 (C8) KV cache,
+HND, with per-layer channel scales calibrated at the first prefill. The
+quantized weights come from ``quantize_qwen3`` or ``load_numpy_state``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from mojo_opset_tpu_torch.core.operators import (
     MojoSilu,
     MojoStorePagedKVCache,
 )
+from mojo_opset_tpu_torch.core.operators.gemm import INT4_BLOCK
 from mojo_opset_tpu_torch.experimental.operators import (
     MojoPagedDecodeGQAWithKVDequant,
     MojoPagedPrefillGQAWithKVDequant,
@@ -45,6 +47,9 @@ from mojo_opset_tpu_torch.experimental.operators import (
 )
 from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches
+
+
+QUANT_MODES = (None, "w8a8", "w4a8")
 
 
 @dataclass
@@ -63,19 +68,15 @@ class Qwen3Config:
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     kv_layout: str = "NHD"
-    # "w8a8": int8 weights and per-token int8 activations on every projection
+    # "w8a8": int8 weights and per-token int8 activations on every projection;
+    # "w4a8": the same with packed-int4 weights where the width allows
     quant: Optional[str] = None
     # int8 (C8) KV cache with channel scales self-calibrated at prefill; forces HND
     quant_kv: bool = False
 
     def __post_init__(self):
-        if self.quant == "w4a8":
-            raise NotImplementedError(
-                "Qwen3 w4a8 (int4 weights) comes with the speculative-decoding slice "
-                "(ROADMAP.md queue 1 item 7, kernel int4_matmul.py::int4_scaled_matmul)"
-            )
-        if self.quant not in (None, "w8a8"):
-            raise ValueError(f"quant must be None or 'w8a8', got {self.quant!r}")
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {self.quant!r}")
 
     def to_mojo(self) -> MojoConfig:
         return MojoConfig(
@@ -106,10 +107,10 @@ class Qwen3Attention(nn.Module):
         self.num_heads = H
         self.num_kv_heads = Hkv
         self.head_dim = D
-        self.quant = c.quant == "w8a8"
+        self.quant = c.quant is not None
         if self.quant:
             if c.attention_bias:
-                raise NotImplementedError("the w8a8 projections take no bias")
+                raise NotImplementedError("the quantized projections take no bias")
             self.q_proj = _quant_gemm(c, c.hidden_size, H * D, device)
             self.k_proj = _quant_gemm(c, c.hidden_size, Hkv * D, device)
             self.v_proj = _quant_gemm(c, c.hidden_size, Hkv * D, device)
@@ -139,7 +140,7 @@ class Qwen3Attention(nn.Module):
 
     def forward(
         self,
-        hidden,  # (T, hidden), or (int8 (T, hidden), scale (T, 1)) under w8a8
+        hidden,  # (T, hidden), or (int8 (T, hidden), scale (T, 1)) when quantized
         cos: torch.Tensor,
         sin: torch.Tensor,
         meta: AttentionMetadata,
@@ -201,7 +202,7 @@ class Qwen3Attention(nn.Module):
 class Qwen3MLP(nn.Module):
     def __init__(self, c: Qwen3Config, device=None):
         super().__init__()
-        self.quant = c.quant == "w8a8"
+        self.quant = c.quant is not None
         if self.quant:
             self.gate_proj = _quant_gemm(c, c.hidden_size, c.intermediate_size, device)
             self.up_proj = _quant_gemm(c, c.hidden_size, c.intermediate_size, device)
@@ -215,22 +216,27 @@ class Qwen3MLP(nn.Module):
         self.act = MojoSilu()
 
     def forward(self, x) -> torch.Tensor:
-        """x: (T, hidden), or (int8 (T, hidden), scale (T, 1)) under w8a8."""
+        """x: (T, hidden), or (int8 (T, hidden), scale (T, 1)) when quantized."""
         if self.quant:
             h = self.act(self.gate_proj(*x)) * self.up_proj(*x)
             return self.down_proj(*self.act_quant(h))
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
 
-def _quant_gemm(c: Qwen3Config, in_features: int, out_features: int, device) -> MojoQuantGemm:
-    return MojoQuantGemm(in_features, out_features, output_dtype=c.dtype, trans_weight=True, device=device)
+def _quant_gemm(c: Qwen3Config, in_features: int, out_features: int, device, int4: bool = True) -> MojoQuantGemm:
+    """A projection of the quantized modes: packed int4 under w4a8 where
+    ``out_features`` fills whole 128-channel groups (JAX model :110-113),
+    int8 otherwise."""
+    weight_dtype = "int4" if int4 and c.quant == "w4a8" and out_features % INT4_BLOCK == 0 else torch.int8
+    return MojoQuantGemm(in_features, out_features, output_dtype=c.dtype, trans_weight=True,
+                         weight_dtype=weight_dtype, device=device)
 
 
 class Qwen3DecoderLayer(nn.Module):
     def __init__(self, c: Qwen3Config, device=None):
         super().__init__()
-        # under w8a8 the fused norm + quant feeds int8 straight into the projections
-        norm = MojoRMSNormQuant if c.quant == "w8a8" else MojoRMSNorm
+        # under w8a8 and w4a8 the fused norm + quant feeds int8 straight into the projections
+        norm = MojoRMSNorm if c.quant is None else MojoRMSNormQuant
         self.input_layernorm = norm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.self_attn = Qwen3Attention(c, device)
         self.post_attention_layernorm = norm(c.hidden_size, eps=c.rms_norm_eps, device=device)
@@ -273,12 +279,13 @@ class Qwen3ForCausalLM(nn.Module):
         super().__init__()
         self._config = config
         self.model = Qwen3Model(config, device)
-        quant = config.quant == "w8a8" and not config.tie_word_embeddings
+        quant = config.quant is not None and not config.tie_word_embeddings
         self.lm_head_quant = MojoDynamicQuant() if quant else None
         if config.tie_word_embeddings:
             self.lm_head = None
         elif quant:
-            self.lm_head = _quant_gemm(config, config.hidden_size, config.vocab_size, device)
+            # int8 under w4a8 too: int4 over the vocabulary costs logit fidelity (JAX model :371-378)
+            self.lm_head = _quant_gemm(config, config.hidden_size, config.vocab_size, device, int4=False)
         else:
             self.lm_head = MojoGemm(config.hidden_size, config.vocab_size, bias=False, device=device,
                                     dtype=config.dtype)

@@ -1,5 +1,12 @@
 from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
-from mojo_opset_tpu_torch.runtime.generation import GeneratorHook, GreedySampler, MojoGenerator, PerfHook
+from mojo_opset_tpu_torch.runtime.generation import (
+    GeneratorHook,
+    GreedySampler,
+    MojoGenerator,
+    MojoSampler,
+    PerfHook,
+    TopKSampler,
+)
 from mojo_opset_tpu_torch.runtime.session import (
     AttentionMetadata,
     FusedDecode,
@@ -7,9 +14,15 @@ from mojo_opset_tpu_torch.runtime.session import (
     PagedAttentionGenerationModel,
     PagedAttentionRuntimeState,
 )
+from mojo_opset_tpu_torch.runtime.speculative import SpeculativeDecoder
+from mojo_opset_tpu_torch.runtime.continuous import (
+    ContinuousBatchingGenerator,
+    SpeculativeContinuousBatchingGenerator,
+)
 
 __all__ = [
     "AttentionMetadata",
+    "ContinuousBatchingGenerator",
     "FusedDecode",
     "GeneratorHook",
     "GreedySampler",
@@ -17,7 +30,11 @@ __all__ = [
     "MojoConfig",
     "MojoGenerator",
     "MojoModelConfig",
+    "MojoSampler",
     "PagedAttentionGenerationModel",
     "PagedAttentionRuntimeState",
     "PerfHook",
+    "SpeculativeContinuousBatchingGenerator",
+    "SpeculativeDecoder",
+    "TopKSampler",
 ]

@@ -1,9 +1,12 @@
 """Generation loop: prefill -> sample -> decode, with hooks.
 
-Counterpart of the JAX package's ``runtime/generation.py`` (``GreedySampler``
-:44, ``GeneratorHook`` :60, ``PerfHook`` :68, ``MojoGenerator`` :199). The
-sampler runs on the device; the stepwise loop reads each step's tokens
-back for EOS handling, the fused loop (``FusedDecode``) only at the end.
+Counterpart of the JAX package's ``runtime/generation.py`` (``MojoSampler``
+:39, ``GreedySampler`` :44, ``TopKSampler`` :49, ``GeneratorHook`` :60,
+``PerfHook`` :68, ``MojoGenerator`` :199). The sampler runs on the device;
+the stepwise loop reads each step's tokens back for EOS handling, the
+fused loop (``FusedDecode``) only at the end. Randomness comes from one
+``torch.Generator`` that the generator holds on the model's device, where
+the JAX package splits a key chain.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from mojo_opset_tpu_torch.core.operators.sampling import MojoTopKSampling
 from mojo_opset_tpu_torch.runtime.session import FusedDecode
 from mojo_opset_tpu_torch.utils.logging import get_logger
 
@@ -23,12 +27,24 @@ logger = get_logger(__name__)
 
 class MojoSampler(ABC):
     @abstractmethod
-    def __call__(self, logits: torch.Tensor, session=None) -> torch.Tensor: ...
+    def __call__(self, logits: torch.Tensor, session=None, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor: ...
 
 
 class GreedySampler(MojoSampler):
-    def __call__(self, logits: torch.Tensor, session=None) -> torch.Tensor:
+    def __call__(self, logits: torch.Tensor, session=None, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
         return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+class TopKSampler(MojoSampler):
+    def __init__(self, top_k: int = 50):
+        self.op = MojoTopKSampling(top_k=top_k)
+
+    def __call__(self, logits: torch.Tensor, session=None, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        _, tokens = self.op(logits, generator)
+        return tokens[..., 0].to(torch.int32)
 
 
 class GeneratorHook:
@@ -117,12 +133,15 @@ class MojoGenerator:
         sampler: MojoSampler,
         max_new_tokens: int = 128,
         hooks: Optional[List[GeneratorHook]] = None,
+        seed: int = 0,
     ):
         self.model = model
         self.tokenizer = tokenizer
         self.max_new_tokens = max_new_tokens
         self.sampler = sampler
         self._hooks = hooks or []
+        device = next(model.model.parameters()).device
+        self.generator = torch.Generator(device=device).manual_seed(seed)
 
     def _run_hooks(self, method: str, **kwargs):
         for hook in self._hooks:
@@ -148,18 +167,20 @@ class MojoGenerator:
         return self._generate_stepwise(input_ids, context_input_len, max_decode_steps, ignore_eos)
 
     def _generate_fused(self, input_ids, context_input_len, max_decode_steps, ignore_eos):
-        """Decode window through ``FusedDecode``; EOS masking on the host
+        """Decode window through ``FusedDecode`` (greedy, or top-k for any
+        other sampler, as the JAX package decides); EOS masking on the host
         afterwards."""
-        if not isinstance(self.sampler, GreedySampler):
-            raise NotImplementedError("fused decode samples greedily; top-k waits for the sampling ops")
         eos_id = self._eos_id()
         self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
         logits, session = self.model(input_ids, context_input_len=context_input_len)
         self._run_hooks("after_prefill", logits=logits, session=session)
 
-        first = self.sampler(logits, session)
+        first = self.sampler(logits, session, generator=self.generator)
         self._run_hooks("before_decode")
-        toks = FusedDecode(self.model.model)(session, first, max_decode_steps - 1)
+        method = "greedy" if isinstance(self.sampler, GreedySampler) else "topk"
+        fused = FusedDecode(self.model.model, sample_method=method,
+                            top_k=getattr(getattr(self.sampler, "op", None), "top_k", 50))
+        toks = fused(session, first, max_decode_steps - 1, generator=self.generator)
         out = torch.cat([first[None], toks], dim=0).T.cpu().numpy()  # (B, steps); waits for the device
         self._run_hooks("after_decode", decode_steps=max_decode_steps - 1, generated_ids=list(out.T))
         if not ignore_eos and eos_id >= 0:
@@ -173,7 +194,7 @@ class MojoGenerator:
         logits, session = self.model(input_ids, context_input_len=context_input_len)
         self._run_hooks("after_prefill", logits=logits, session=session)
 
-        next_token_id = self.sampler(logits, session)
+        next_token_id = self.sampler(logits, session, generator=self.generator)
         next_np = next_token_id.cpu().numpy()
         all_generated = [next_np]
         should_end = next_np == eos_id
@@ -182,7 +203,7 @@ class MojoGenerator:
         self._run_hooks("before_decode")
         for step in range(1, max_decode_steps):
             logits, session = self.model(next_token_id, session=session)
-            next_token_id = self.sampler(logits, session)
+            next_token_id = self.sampler(logits, session, generator=self.generator)
             decode_steps += 1
             self._run_hooks("after_decode_step", step=step, logits=logits, next_token_id=next_token_id)
             next_np = next_token_id.cpu().numpy()

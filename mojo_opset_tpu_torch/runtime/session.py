@@ -22,6 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from mojo_opset_tpu_torch.core.operators.sampling import MojoTopKSampling
 from mojo_opset_tpu_torch.runtime.config import MojoConfig
 
 
@@ -165,8 +166,17 @@ class PagedAttentionRuntimeState:
         self.total_seq_lens = previous + q_lens
         return previous
 
+    def reset(self) -> None:
+        """Release every sequence, keeping the cache tensors: a server
+        reuses one session's cache pool across requests."""
+        for batch_idx in range(self.batch_size):
+            if int(self.total_seq_lens[batch_idx]) > 0:
+                self.release_sequence(batch_idx)
+
     def release_sequence(self, batch_idx: int) -> None:
-        """Return a finished sequence's blocks (every valid row entry) to the pool."""
+        """Return a finished sequence's blocks to the pool: every valid row
+        entry, since a speculative rollback can leave reserved blocks past
+        the rewound length."""
         row = self.block_tables[batch_idx]
         valid = row[row >= 0]
         self.free_blocks[self.num_free_blocks : self.num_free_blocks + valid.size] = valid[::-1]
@@ -265,27 +275,40 @@ class PagedAttentionGenerationModel:
 
 
 class FusedDecode:
-    """A window of greedy decode steps with no host sync inside it.
+    """A window of decode steps with no host sync inside it.
 
     The KV blocks, positions and cache slots of all ``n_steps`` are
     prepared on the host up front and copied once; each step then feeds
-    the device argmax straight into the next. EOS handling happens on the
-    host afterwards. (The JAX package compiles the window into one
-    ``lax.scan``; CUDA graphs are the later step here.) An int8 (C8)
-    session needs nothing more: its channel scales, like its caches, are
-    tensors updated in place, and decode steps only read them.
+    the tokens it samples on the device straight into the next: the
+    argmax (``sample_method="greedy"``) or a top-k sample
+    (``sample_method="topk"``, ``top_k``) drawn from ``generator``. EOS
+    handling happens on the host afterwards. (The JAX package compiles the
+    window into one ``lax.scan``; CUDA graphs are the later step here.) An
+    int8 (C8) session needs nothing more: its channel scales, like its
+    caches, are tensors updated in place, and decode steps only read them.
     """
 
-    def __init__(self, model, sample_method: str = "greedy"):
-        if sample_method != "greedy":
-            raise NotImplementedError("FusedDecode samples greedily; top-k waits for the sampling ops")
+    def __init__(self, model, sample_method: str = "greedy", top_k: int = 50):
+        if sample_method not in ("greedy", "topk"):
+            raise ValueError(f"unknown sample method {sample_method!r}")
         self.model = model
         self.sample_method = sample_method
+        self.top_k = top_k
+        self._topk = MojoTopKSampling(top_k=top_k) if sample_method == "topk" else None
+
+    def sample(self, logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        if self._topk is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return self._topk(logits, generator)[1][:, 0].to(torch.int32)
 
     @torch.inference_mode()
-    def __call__(self, session: PagedAttentionRuntimeState, first_tokens, n_steps: int) -> torch.Tensor:
+    def __call__(self, session: PagedAttentionRuntimeState, first_tokens, n_steps: int,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Returns tokens (n_steps, B) int32 on the device; the session's
-        caches and lengths advance by ``n_steps``."""
+        caches and lengths advance by ``n_steps``. Top-k draws from
+        ``generator`` (default: one seeded 0 for the window)."""
+        if generator is None and self._topk is not None:
+            generator = torch.Generator(device=session.device).manual_seed(0)
         lens0 = session.total_seq_lens.copy()
         ones = np.ones(session.batch_size, np.int32)
         for _ in range(n_steps):
@@ -308,6 +331,6 @@ class FusedDecode:
                 max_total_seq_len=max_len0 + i + 1,
             )
             logits = self.model(tokens, positions_t[i], meta, session.caches, lm_head_indices=None)
-            tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+            tokens = self.sample(logits, generator)
             out.append(tokens)
         return torch.stack(out) if out else torch.empty((0, session.batch_size), dtype=torch.int32)

@@ -5,7 +5,12 @@ The keys are those of the JAX package's ``utils.hf.state_dict_of`` (the HF
 layout: ``model.layers.N.self_attn.q_proj.weight`` ...); the port's
 modules are named so that ``state_dict()`` has the same keys. A w8a8
 model's projections carry int8 ``weight`` and fp32 ``weight_scale``
-arrays (``state_dict_of(quantize_qwen3(jax_model))``).
+arrays (``state_dict_of(quantize_qwen3(jax_model))``). A w4a8 model's
+packed-int4 projections carry int8 ``(N // 2, K)`` arrays in the
+``pack_int4_rows`` layout with fp32 ``(N,)`` scales, and its other
+projections and the lm_head int8 ``(N, K)``
+(``state_dict_of(quantize_qwen3(jax_model, weight_dtype="int4"))`` into a
+model built with ``Qwen3Config(quant="w4a8")``).
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@
     launches nothing;
   * a kernel wrapper given a non-CPU tensor never falls back: it checks its
     input and builds, and without nvcc the build raises;
-  * dispatch (MOJO_BACKEND), the allocator's errors and the not-yet-ported
-    w4a8 mode.
+  * dispatch (MOJO_BACKEND), the allocator's errors and the refused quant
+    modes.
 """
 
 import importlib
@@ -24,6 +24,7 @@ import torch
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    int4_matmul,
     int8_matmul,
     norms,
     paged_decode,
@@ -37,7 +38,7 @@ from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, PagedAtt
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
 
 REPO = Path(__file__).resolve().parents[1]
-KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul"]
+KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul"]
 
 
 def test_import_loads_no_jax():
@@ -57,7 +58,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert isinstance(module.launches, int)
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
-        "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul"}
+        "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul"}
 
 
 def _cpu_calls():
@@ -86,6 +87,10 @@ def _cpu_calls():
     xs = torch.from_numpy(rng.random((3, 1)).astype(np.float32))
     yield ("int8_matmul", lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 32, trans_weight=True)(xq, xs),
            lambda: tm.MojoQuantGemm.get_backend_impl("ref")(64, 32, trans_weight=True)(xq, xs))
+    yield ("int4_matmul",
+           lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 128, trans_weight=True, weight_dtype="int4")(xq, xs),
+           lambda: int4_matmul.int4_scaled_matmul_plain(xq, torch.zeros(64, 64, dtype=torch.int8), xs,
+                                                        torch.ones(128), torch.bfloat16))
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -206,9 +211,10 @@ def _tiny(**kw):
 
 
 def test_quant_modes_are_not_ported_yet():
-    """w8a8 and the C8 cache are ported; w4a8 waits for its slice."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        _tiny(quant="w4a8")
+    """w8a8, w4a8 and the C8 cache are ported; other modes are refused."""
+    # no width of this model fills a 128-channel group, so its w4a8 projections all stay int8
+    attn = Qwen3ForCausalLM(_tiny(quant="w4a8")).model.layers[0].self_attn
+    assert attn.q_proj.weight_dtype == attn.o_proj.weight_dtype == torch.int8
     with pytest.raises(ValueError, match="w8a8"):
         _tiny(quant="fp8")
     assert _tiny(quant="w8a8", quant_kv=True).to_mojo().model_config.kv_layout == "HND"

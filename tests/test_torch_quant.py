@@ -181,8 +181,11 @@ def test_quant_gemm_output_dtype_and_unported_int4():
     for op in port_ops(tm.MojoQuantGemm, 64, 32, output_dtype=torch.bfloat16, trans_weight=True):
         op.weight.copy_(torch.from_numpy(w))
         assert op(torch.from_numpy(x), torch.from_numpy(xs)).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tm.MojoQuantGemm(64, 128, trans_weight=True, weight_dtype="int4")
+    # int4 is ported (tests/test_torch_w4a8.py): packed (N // 2, K) weights, the same output dtype
+    for op in port_ops(tm.MojoQuantGemm, 64, 128, output_dtype=torch.bfloat16, trans_weight=True,
+                       weight_dtype="int4"):
+        assert op.weight.shape == (64, 64) and op.weight.dtype == torch.int8
+        assert op(torch.from_numpy(x), torch.from_numpy(xs)).dtype == torch.bfloat16
 
 
 # ---------------------------------------------------------------- C8 KV cache

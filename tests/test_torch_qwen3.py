@@ -120,3 +120,32 @@ def test_eos_clamps_like_jax(pair):
     got = MojoGenerator(PagedAttentionGenerationModel(port, block_size=BLOCK), EosTok(), GreedySampler(),
                         max_new_tokens=STEPS).generate_from_ids(ids, LENS)
     np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("mode", ["fp32", "w8a8", "w8a8_c8"])
+def test_second_prefill_on_live_session_matches_jax(mode):
+    """Chunked prefill, the path of the speculative verify and of prefix-cache
+    and chunked admission: a second prefill on a session that holds context,
+    with logits at every position (no lm_head_indices)."""
+    from mojo_opset_tpu.modeling.qwen3 import quantize_qwen3 as jax_quantize_qwen3
+    from mojo_opset_tpu_torch.modeling.qwen3 import quantize_qwen3
+
+    quant_kv = mode == "w8a8_c8"
+    jax_model = JaxQwen3(JaxQwen3Config(**TINY, dtype=jnp.float32, quant_kv=quant_kv), key=jax.random.PRNGKey(7))
+    port = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant_kv=quant_kv))
+    load_numpy_state(port, state_dict_of(jax_model))
+    if mode != "fp32":
+        jax_model, port = jax_quantize_qwen3(jax_model), quantize_qwen3(port)
+    rng = np.random.default_rng(3)
+    first, lens1 = rng.integers(1, TINY["vocab_size"], 10).astype(np.int32), np.array([6, 4], np.int32)
+    more, lens2 = rng.integers(1, TINY["vocab_size"], 10).astype(np.int32), np.array([5, 5], np.int32)
+    _, session_j = JaxPaged(jax_model, block_size=BLOCK, jit=False)(first, context_input_len=lens1)
+    _, session_t = PagedAttentionGenerationModel(port, block_size=BLOCK)(first, context_input_len=lens1)
+    ids, pos, meta = session_j.prepare_prefill_inputs(more, lens2)
+    logits_j, _ = jax_model(ids, pos, meta, session_j.caches, lm_head_indices=None)
+    ids, pos, meta = session_t.prepare_prefill_inputs(more, lens2)
+    with torch.inference_mode():
+        logits_t = port(ids, pos, meta, session_t.caches, lm_head_indices=None)
+    assert logits_t.shape == (10, TINY["vocab_size"])
+    check_tol_diff(logits_t, np.asarray(logits_j), atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(logits_t.argmax(-1).numpy(), np.asarray(logits_j).argmax(-1))
