@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the seven kernels from ``mojo_opset_tpu_torch/csrc``
+  2. build: compiles the eight kernels from ``mojo_opset_tpu_torch/csrc``
      (one nvcc per source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
@@ -20,9 +20,18 @@ is non-zero:
      ragged M, and refuses N % 128 != 0; its main cases are also timed
      replayed from a CUDA graph (device time, not the host's launch rate).
      The decode and prefill kernels run on bf16/fp32/fp16 pages and on int8
-     (C8) pages.
+     (C8) pages. The grouped GEMM (H) runs at the MoE path's shapes (prefill
+     and decode at bs 4 and 1, fc1 and down, routed top-8 of 128) and on
+     empty and 1-row groups, ragged M, K and N, rows past the groups' end,
+     both weight layouts and three dtypes, and refuses K % 8 != 0 in bf16.
+     Every main case is timed replayed from a CUDA graph (``ms``: device
+     time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
+     3.35 TB/s or operations over the dtype's peak, the larger) and, where
+     one PyTorch call computes the same function, that call's time.
   4. small fp32 Qwen3 (4 layers, hidden 512, 8/2 heads, head_dim 128,
-     vocab 4096), and its w8a8, w8a8 + C8 and w4a8 twins: greedy tokens of
+     vocab 4096), a small fp32 Qwen3-MoE of the same widths (16 experts,
+     top-4, expert width 256), and the dense model's w8a8, w8a8 + C8 and
+     w4a8 twins: greedy tokens of
      the kernel path equal the plain path's (MOJO_BACKEND=ref, same
      weights) over 16 steps, and the FusedDecode window's. The w4a8 twin's
      paths may part once at a near-tie: there the two paths' logits differ
@@ -59,6 +68,21 @@ is non-zero:
      within 0.05 (the verify runs kernel D, vanilla kernel C: bf16 rounds
      differently). Prints vanilla and speculative ms/token, rounds, the
      acceptance, the int4 weight bytes and peak memory.
+  8. Qwen3-MoE at full width: Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B,
+     config.json: hidden 2048, 48 layers, 32/4 heads, head_dim 128, 128
+     experts, top-8, expert width 768, vocab 151936, rope_theta 1e6) in
+     bf16 with random weights from seed 0, NHD, block 64; the plain twin is
+     built on the meta device and bound to the kernel model's tensors. The
+     prompts, 32 greedy steps and FusedDecode window of phase 5; all five
+     path kernels must launch, group_gemm 96 times per decode step; the
+     FusedDecode window runs with host syncs turned into errors from the
+     model's first call on. On one layer, fed the prefill batch's hidden
+     states, the cuda experts equal the plain experts under the same routing
+     (bf16 ladder); end to end, the share of top-8 routes the two paths agree
+     on and the per-row cosine of the last-token logits (bound
+     MOE_COSINE_BOUND: routes flip at near-ties, see PERF.md). Prints the
+     readings, peak memory and one decode step's device time from
+     torch.profiler.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -66,6 +90,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -83,6 +108,18 @@ SMALL = dict(
     hidden_size=512, intermediate_size=1536, num_attention_heads=8, num_key_value_heads=2,
     num_hidden_layers=4, head_dim=128, vocab_size=4096, max_position_embeddings=256,
 )
+# Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B, config.json) at full width and depth; the positions
+# cover the longest prompt, its 32 decode steps and one more step
+QWEN3_30B_A3B = dict(
+    hidden_size=2048, intermediate_size=6144, num_attention_heads=32, num_key_value_heads=4,
+    num_hidden_layers=48, head_dim=128, vocab_size=151936, max_position_embeddings=1088, rope_theta=1e6,
+    num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
+)
+SMALL_MOE = dict(SMALL, num_experts=16, num_experts_per_tok=4, moe_intermediate_size=256)
+MOE_LAYER_CHECKED = 24  # the layer whose experts are held to the plain experts under the same routing
+# end-to-end prefill logits against the plain path: bf16 rounding flips ~1.7% of the top-8 routes at near-ties
+# over 48 layers; the run that set it saw cosines 0.99933-0.99968 (PERF.md, section 6)
+MOE_COSINE_BOUND = 0.998
 PROMPT_LENS = (1000, 513, 130, 7)
 DECODE_STEPS = 32
 FUSED_STEPS = 16
@@ -103,14 +140,26 @@ KERNEL_INFO = {
                     "mojo_opset_tpu/backends/pallas/kernels/int8_matmul.py:54"),
     "int4_matmul": ("int4_scaled_matmul", "mojo_opset_tpu_torch/csrc/int4_matmul.cu",
                     "mojo_opset_tpu/backends/pallas/kernels/int4_matmul.py:85"),
+    "group_gemm": ("grouped_matmul", "mojo_opset_tpu_torch/csrc/group_gemm.cu",
+                   "mojo_opset_tpu/backends/pallas/kernels/group_gemm.py:220"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
+MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
 INT8_PATH_KERNELS = BF16_PATH_KERNELS + ("rmsnorm_quant", "int8_matmul")
+SPEC_PATH_KERNELS = INT8_PATH_KERNELS + ("int4_matmul",)
 # (K, N) of the w8a8 and w4a8 projections at Qwen3-4B: q, k/v, o, gate/up, down; the lm_head at M = 4
 GEMM_SHAPES = ((2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560))
 # the w4a8 draft's decode (M = 1), a verify-sized batch and its prompt's prefill (bench.py:307)
 INT4_MS = (1, 5, 512)
 INT4_MAIN_SHAPE = f"1x{GEMM_SHAPES[3][0]}x{GEMM_SHAPES[3][1]}"  # the draft's gate/up at decode
+# (name, M, K, N) of the expert GEMMs at Qwen3-30B-A3B: the prefill batch routed top-8 of 128, decode at bs 4, 1
+GMM_SHAPES = (("prefill_fc1", sum(PROMPT_LENS) * 8, 2048, 1536), ("prefill_down", sum(PROMPT_LENS) * 8, 768, 2048),
+              ("decode_bs4_fc1", 32, 2048, 1536), ("decode_bs4_down", 32, 768, 2048),
+              ("decode_bs1_fc1", 8, 2048, 1536), ("decode_bs1_down", 8, 768, 2048))
+GMM_MAIN_SHAPE = "decode_bs4_fc1"
+# the H100 SXM's published rates: HBM bytes/s and dense peaks by operand type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "fp16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the bs-1 speculative run of bench.py:298-331: prompt, new tokens, drafts per round
 SPEC_PROMPT, SPEC_NEW, SPEC_K = 512, 64, 4
 SPEC_TIE_GAP = 0.05  # a stream may leave vanilla greedy only where the target's two best logits are this close
@@ -209,10 +258,21 @@ def _cu(torch, lens):
     return torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device="cuda")
 
 
+def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time the card could take: the bytes over HBM's rate or the
+    operations over the dtype's peak, whichever is larger (ms, which)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kind(torch, dtype) -> str:
+    return {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32", torch.int8: "int8"}[dtype]
+
+
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version; returns the main-path record."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import (
-        int4_matmul, int8_matmul, norms, paged_decode, paged_prefill, rmsnorm_quant, rope,
+        group_gemm, int4_matmul, int8_matmul, norms, paged_decode, paged_prefill, rmsnorm_quant, rope,
     )
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
@@ -220,7 +280,9 @@ def phase_kernels(torch) -> dict:
     bf16 = torch.bfloat16
     record = {}
 
-    def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None, device_time=False):
+    def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None, bound=None, library=None):
+        """``bound``: (bytes, operations, operand kind) of the main case;
+        ``library``: one PyTorch call computing the same function, or None."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if check is None:
@@ -232,12 +294,13 @@ def phase_kernels(torch) -> dict:
         err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
         line = f"{case} {str(dtype).split('.')[-1]}: max_abs_err {err:.3g} (tol {tol})"
         if main:
-            ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn, iters=5)
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            if device_time:
-                entry["graph_ms"] = graph_ms(torch, kernel_fn)
-                line += f", kernel in a CUDA graph {entry['graph_ms']:.4f} ms"
+            b_ms, b_by = bound_ms(*bound)
+            entry = dict(max_abs_err=err, ms=graph_ms(torch, kernel_fn), eager_ms=cuda_ms(torch, kernel_fn),
+                         plain_ms=cuda_ms(torch, plain_fn, iters=5), bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None if library is None else graph_ms(torch, library))
+            lib = "none" if library is None else f"{entry['library_ms']:.4f} ms"
+            line += (f"; kernel {entry['ms']:.4f} ms in a CUDA graph ({entry['eager_ms']:.4f} eager), plain "
+                     f"{entry['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {lib}")
             if key is None:
                 record[name] = entry
             else:
@@ -252,8 +315,11 @@ def phase_kernels(torch) -> dict:
                                ((3, 300), torch.float16, False)):
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         w = torch.rand(shape[-1], device="cuda", generator=gen) + 0.5
+        w_lib = w.to(dtype)
+        n = x.numel()
         compare("norms", lambda: norms.rmsnorm(x, w, 1e-6), lambda: norms.rmsnorm_plain(x, w, 1e-6),
-                dtype, f"rmsnorm {shape}", main)
+                dtype, f"rmsnorm {shape}", main, bound=(2 * n * x.element_size() + 4 * shape[-1], 4 * n, "fp32"),
+                library=lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, 1e-6))
     # B: RoPE token-first on the prefill batch's q and k (main), odd T
     for n, dtype, main in ((T, bf16, True), (7, torch.float32, False), (1, torch.float16, False)):
         q = torch.randn(n, H, D, device="cuda", generator=gen).to(dtype)
@@ -261,8 +327,16 @@ def phase_kernels(torch) -> dict:
         pos = torch.arange(n, device="cuda", dtype=torch.float32)[:, None]
         ang = pos * (1.0 / 10000 ** (torch.arange(0, D, 2, device="cuda") / D))
         cos, sin = torch.cat([ang, ang], -1).cos().to(dtype), torch.cat([ang, ang], -1).sin().to(dtype)
+        elems = n * (H + Hkv) * D
         compare("rope", lambda: rope.rope_token_first(q, k, cos, sin),
-                lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, f"rope T={n}", main)
+                lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, f"rope T={n}", main,
+                bound=((2 * elems + 2 * n * D) * q.element_size(), 3 * elems, "fp32"))
+
+    def attn_bound(dtype, hq, hkv, d, q_tokens, kv_lens, pairs, page_bytes):
+        """Bytes: q, the K/V rows these lengths read, out; operations: QK and PV over ``pairs``."""
+        isz = torch.finfo(dtype).bits // 8
+        return (2 * q_tokens * hq * d * isz + 2 * sum(kv_lens) * hkv * d * page_bytes, 4 * hq * d * pairs,
+                _kind(torch, dtype))
 
     # C / C': decode at the main path's lengths after prefill + decode (main), edge cases; int8 pages
     n_blocks = 4 * 69
@@ -280,7 +354,8 @@ def phase_kernels(torch) -> dict:
         compare("paged_decode",
                 lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, scale, gqa, layout),
                 lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, scale, gqa, layout),
-                dtype, f"decode {layout} {gqa} {hq}/{hkv}x{d} lens={lens} scale={scale}", main)
+                dtype, f"decode {layout} {gqa} {hq}/{hkv}x{d} lens={lens} scale={scale}", main,
+                bound=attn_bound(dtype, hq, hkv, d, len(lens), lens, sum(lens), kc.element_size()))
     del kc, vc
     int8_cases = [(bf16, "AABB", H, Hkv, D, dec_lens, True),
                   (bf16, "ABAB", H, Hkv, D, [0, 1, 64, 65], False),
@@ -294,7 +369,11 @@ def phase_kernels(torch) -> dict:
         compare("paged_decode",
                 lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, None, gqa, "HND", ks, vs),
                 lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, None, gqa, "HND", ks, vs),
-                dtype, f"decode int8 pages HND {gqa} {hq}/{hkv}x{d} lens={lens}", main, key="int8_pages")
+                dtype, f"decode int8 pages HND {gqa} {hq}/{hkv}x{d} lens={lens}", main, key="int8_pages",
+                bound=attn_bound(dtype, hq, hkv, d, len(lens), lens, sum(lens), 1))
+
+    def causal_pairs(q_lens, kv_lens):
+        return sum(q * (kv - q) + q * (q + 1) // 2 for q, kv in zip(q_lens, kv_lens))
 
     # D / D': prefill of the main path's batch (main); chunked, empty, short, ABAB, HND, D 64/256; int8 pages
     cases = [(bf16, "NHD", "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), None, True),
@@ -310,7 +389,9 @@ def phase_kernels(torch) -> dict:
                 lambda: paged_prefill.paged_prefill_gqa(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout,
                                                         max_q_len=max(q_lens)),
                 lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
-                dtype, f"prefill {layout} {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens} scale={scale}", main)
+                dtype, f"prefill {layout} {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens} scale={scale}", main,
+                bound=attn_bound(dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
+                                 kc.element_size()))
     del kc, vc
     int8_cases = [(bf16, "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), True),
                   (bf16, "ABAB", H, Hkv, D, [5, 0, 1, 40], [69, 0, 9, 40], False),
@@ -327,7 +408,8 @@ def phase_kernels(torch) -> dict:
                 lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, None, cu_kv, gqa, "HND",
                                                               key_scale=ks, value_scale=vs),
                 dtype, f"prefill int8 pages HND {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens}", main,
-                key="int8_pages")
+                key="int8_pages",
+                bound=attn_bound(dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens), 1))
     del kc, vc
 
     # E: RMSNorm + int8 quant — the layer norms at the prefill batch (main) and a decode batch, odd
@@ -351,9 +433,11 @@ def phase_kernels(torch) -> dict:
             x[1] = 0
         w = torch.rand(shape[-1], device="cuda", generator=gen) + 0.5
         sm = torch.rand(shape[-1], device="cuda", generator=gen) + 0.5 if smooth else None
+        rows = x.numel() // shape[-1]
         compare("rmsnorm_quant", lambda: rmsnorm_quant.rmsnorm_quant(x, w, 1e-6, sm),
                 lambda: rmsnorm_quant.rmsnorm_quant_plain(x, w, 1e-6, sm), dtype,
-                f"rmsnorm_quant {shape} zero_row={zero_row} smooth={smooth}", main, check=check_quant)
+                f"rmsnorm_quant {shape} zero_row={zero_row} smooth={smooth}", main, check=check_quant,
+                bound=(x.numel() * (x.element_size() + 1) + 4 * shape[-1] + 4 * rows, 6 * x.numel(), "fp32"))
 
     # F: int8 GEMM at every w8a8 projection shape (prefill M = T, decode M = 8), the lm_head at M = 4,
     # a (K, N) weight at ragged M, three output dtypes; unit scales + fp32 output must be exact
@@ -362,15 +446,21 @@ def phase_kernels(torch) -> dict:
             raise AssertionError(f"GEMM int32 sums differ: max {(got - want).abs().max().item()}")
         return "exact"
 
+    def int_gemm_bound(M, K, N, weight_bytes, out_dtype):
+        return (M * K + weight_bytes + 4 * (M + N) + M * N * (torch.finfo(out_dtype).bits // 8), 2 * M * N * K,
+                "int8")
+
     def gemm_case(M, K, N, trans, dtype, unit, main, key=None):
         w = torch.randint(-127, 128, (N, K) if trans else (K, N), device="cuda", generator=gen, dtype=torch.int8)
         x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
         xs = torch.ones(M, 1, device="cuda") if unit else torch.rand(M, 1, device="cuda", generator=gen) * 0.1
         ws = torch.ones(N, device="cuda") if unit else torch.rand(N, device="cuda", generator=gen) * 1e-3
+        # torch._int_mm: the int32 product without the dequant epilogue; it takes M > 16 only
+        lib = (lambda: torch._int_mm(x, w.t())) if trans and M > 16 else None
         compare("int8_matmul", lambda: int8_matmul.int8_scaled_matmul(x, w, xs, ws, trans, dtype),
                 lambda: int8_matmul.int8_scaled_matmul_plain(x, w, xs, ws, trans, dtype), dtype,
                 f"int8 gemm M={M} K={K} N={N} trans={trans} unit_scales={unit}", main, key=key,
-                check=exact if unit else None)
+                check=exact if unit else None, bound=int_gemm_bound(M, K, N, N * K, dtype), library=lib)
 
     for K, N in GEMM_SHAPES:
         for M in (T, 8):
@@ -393,7 +483,7 @@ def phase_kernels(torch) -> dict:
         compare("int4_matmul", lambda: int4_matmul.int4_scaled_matmul(x, wp, xs, ws, dtype),
                 lambda: int4_matmul.int4_scaled_matmul_plain(x, wp, xs, ws, dtype), dtype,
                 f"int4 gemm M={M} K={K} N={N} unit_scales={unit}", main, key=key,
-                check=exact if unit else None, device_time=main)
+                check=exact if unit else None, bound=int_gemm_bound(M, K, N, N * K // 2, dtype))
 
     for K, N in GEMM_SHAPES:
         for M in INT4_MS:
@@ -410,21 +500,84 @@ def phase_kernels(torch) -> dict:
         log("kernel int4_matmul", f"N = 192 refused: {e}")
     else:
         raise AssertionError("the int4 GEMM took N = 192 (N % 128 != 0)")
+
+    # H: grouped GEMM at the MoE path's shapes (the Qwen3-30B-A3B experts, (G, N, K) weights, counts of a
+    # random top-8 routing over 128 experts), then empty and 1-row groups, ragged M, K and N, rows past
+    # the groups' end, both layouts, three dtypes
+    route_rng = np.random.default_rng(2)
+
+    def routed_counts(rows, experts=128, top_k=8):
+        choice = np.argsort(route_rng.random((rows // top_k, experts)), axis=1)[:, :top_k]
+        return np.bincount(choice.reshape(-1), minlength=experts)
+
+    def gmm_case(counts, K, N, trans, dtype, main, key=None, M=None):
+        counts = torch.tensor(np.asarray(counts), dtype=torch.int32, device="cuda")
+        G, routed = counts.numel(), int(counts.sum())
+        M = routed if M is None else M
+        w = (torch.randn((G, N, K) if trans else (G, K, N), device="cuda", generator=gen) * 0.05).to(dtype)
+        x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+        isz, active = x.element_size(), int((counts > 0).sum())
+        bound = ((M * K + active * N * K + M * N) * isz + 4 * G, 2 * routed * K * N, _kind(torch, dtype))
+        lib = None
+        if main and hasattr(torch, "_grouped_mm"):
+            offs = torch.cumsum(counts, 0, dtype=torch.int32)
+            w_kn = w.transpose(-2, -1) if trans else w
+            lib = lambda: torch._grouped_mm(x, w_kn, offs=offs)  # noqa: E731
+        compare("group_gemm", lambda: group_gemm.grouped_matmul(x, w, counts, trans),
+                lambda: group_gemm.grouped_matmul_plain(x, w, counts, trans), dtype,
+                f"group gemm{' ' + key if key else ''} M={M} K={K} N={N} G={G} ({active} active) trans={trans}", main, key=key,
+                bound=bound, library=lib)
+
+    for name, M, K, N in GMM_SHAPES:
+        gmm_case(routed_counts(M), K, N, True, bf16, True, key=name)
+    for dtype in (bf16, torch.float16, torch.float32):
+        for trans in (True, False):
+            gmm_case([0, 5, 1, 0, 17, 3], 72, 40, trans, dtype, False)                 # M 26, ragged K and N
+            gmm_case([300, 0, 1, 37], 136, 264, trans, dtype, False)                    # the 128-row tile
+            gmm_case([1] * 9 + [0] * 7, 2048, 96, trans, dtype, False)                  # 1-row groups (decode)
+            gmm_case([3, 0, 9], 64, 48, trans, dtype, False, M=21)                      # rows past the groups
+    gmm_case([7, 0, 2], 33, 17, True, torch.float32, False)                             # fp32 takes any K, N
+    try:
+        group_gemm.grouped_matmul(torch.zeros(4, 60, device="cuda", dtype=bf16),
+                                  torch.zeros(2, 16, 60, device="cuda", dtype=bf16),
+                                  torch.tensor([2, 2], dtype=torch.int32, device="cuda"), True)
+    except ValueError as e:
+        log("kernel group_gemm", f"K = 60 in bf16 refused: {e}")
+    else:
+        raise AssertionError("the grouped GEMM took K = 60 in bf16 (K % 8 != 0)")
+    if record["group_gemm"]["decode_bs1_fc1"]["library_ms"] is None:
+        log("kernel group_gemm", f"torch {torch.__version__} has no torch._grouped_mm: library_ms none")
     return record
 
 
-def _build_pair(torch, config):
+def _layers(model):
+    return model.model.layers if hasattr(model, "model") else model.layers
+
+
+def _build_pair(torch, config, model_cls=None):
     """The kernel-path model (default tier) and a plain-path twin
-    (MOJO_BACKEND=ref) with the same weights."""
+    (MOJO_BACKEND=ref) bound to the same weight tensors: the twin is built
+    on the meta device and takes the model's tensors (a full-width MoE
+    model fits the card once, not twice)."""
     from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3ForCausalLM
 
-    model = Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model_cls = model_cls or Qwen3ForCausalLM
+    model = model_cls(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     with plain_tier():
-        plain = Qwen3ForCausalLM(config, device="cuda")
-    plain.load_state_dict(model.state_dict())
-    attn = model.model.layers[0].self_attn
+        plain = model_cls(config, device="meta")
+    plain.load_state_dict(model.state_dict(), assign=True)
+    for name, buf in model.named_buffers():  # buffers outside the state dict: the rotary table
+        module_name, _, attr = name.rpartition(".")
+        setattr(plain.get_submodule(module_name), attr, buf)
+    assert all(p.device.type == "cuda" for p in plain.parameters()) and all(
+        b.device.type == "cuda" for b in plain.buffers())
+    attn = _layers(model)[0].self_attn
     assert type(attn.attn_decode).__name__.startswith("Cuda"), type(attn.attn_decode)
-    assert type(plain.model.layers[0].self_attn.attn_decode).__name__.startswith("Ref")
+    assert type(_layers(plain)[0].self_attn.attn_decode).__name__.startswith("Ref")
+    mlp = _layers(model)[0].mlp
+    if hasattr(mlp, "experts"):
+        assert type(mlp.experts).__name__ == "CudaExperts", type(mlp.experts)
+        assert type(_layers(plain)[0].mlp.experts).__name__ == "RefExperts"
     return model, plain
 
 
@@ -584,9 +737,12 @@ def _continuous_match(torch, model, draft) -> None:
 
 
 def phase_small_model(torch) -> None:
-    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3MoeConfig, Qwen3MoeForCausalLM
 
     ids, lens = _prompts(SMALL["vocab_size"], (37, 20, 5, 64))
+    moe, moe_plain = _build_pair(torch, Qwen3MoeConfig(**SMALL_MOE, dtype=torch.float32), Qwen3MoeForCausalLM)
+    _greedy_match(torch, "small fp32 MoE model", moe, moe_plain, ids, lens)
+    del moe, moe_plain
     model, plain = _build_pair(torch, Qwen3Config(**SMALL, dtype=torch.float32))
     _greedy_match(torch, "small fp32 model", model, plain, ids, lens)
     for quant_kv, name in ((False, "small w8a8 model"), (True, "small w8a8 + C8 model")):
@@ -798,7 +954,7 @@ def phase_w4a8_speculative(torch, card: str) -> dict:
     t = time.perf_counter()
     spec_out = spec.generate(ids, lens, max_new_tokens=SPEC_NEW)[0]
     spec_s, rounds = time.perf_counter() - t, spec.last_rounds
-    counts = kernels.launch_counts()
+    counts = {k: v for k, v in kernels.launch_counts().items() if k in SPEC_PATH_KERNELS}
     log("w4a8 speculative", f"launches on the path: {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the speculative path never launched: {counts}")
@@ -827,14 +983,162 @@ def phase_w4a8_speculative(torch, card: str) -> dict:
     return counts
 
 
-def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict) -> list:
+@contextlib.contextmanager
+def no_host_sync(torch, model):
+    """From ``model``'s first call inside the block on, a host sync (``.item()``,
+    ``.tolist()``, a copy to the host) raises: the window's own setup copies
+    run before that call, its read-back after the block."""
+    handle = model.register_forward_pre_hook(lambda *_: torch.cuda.set_sync_debug_mode("error"))
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        handle.remove()
+
+
+def _routes(model) -> tuple[list, list]:
+    """Record every MoE layer's top-k expert indices on each call."""
+    routes = []
+    hooks = [layer.mlp.gating.register_forward_hook(lambda mod, inp, out: routes.append(out[0]))
+             for layer in model.layers]
+    return routes, hooks
+
+
+def phase_moe_full_width(torch, card: str) -> dict:
+    """Qwen3-30B-A3B at full width and depth, bf16, random weights: the MoE
+    path end to end, its experts held to the plain experts, and one decode
+    step's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3MoeConfig, Qwen3MoeForCausalLM
+    from mojo_opset_tpu_torch.runtime import (
+        FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
+    )
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config = Qwen3MoeConfig(**QWEN3_30B_A3B, dtype=torch.bfloat16, kv_layout="NHD")
+    t0 = time.perf_counter()
+    model, plain = _build_pair(torch, config, Qwen3MoeForCausalLM)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("moe full width", f"Qwen3-30B-A3B geometry, {n_params / 1e9:.2f} B params bf16 ({n_params * 2 / 2**30:.1f} "
+                          f"GiB), built in {time.perf_counter() - t0:.1f} s; the plain twin shares its tensors")
+    ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
+    gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE)
+    hook = PerfHook(silent=True)
+    gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=DECODE_STEPS + 1, hooks=[hook])
+
+    gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up
+    kernels.reset_launch_counts()
+    out = gen.generate_from_ids(ids, lens, ignore_eos=True)
+    routes, route_hooks = _routes(model)
+    mlp_in = []
+    in_hook = model.layers[MOE_LAYER_CHECKED].mlp.register_forward_pre_hook(lambda mod, args: mlp_in.append(args[0]))
+    logits, session = gm(ids, context_input_len=lens)
+    in_hook.remove()
+    for h in route_hooks:
+        h.remove()
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter()
+    with no_host_sync(torch, model):
+        window = FusedDecode(model)(session, first, FUSED_STEPS)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
+    counts = {k: v for k, v in kernels.launch_counts().items() if k in MOE_PATH_KERNELS}
+    log("moe full width", f"launches on the main path: {counts}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"a kernel of the MoE path never launched: {counts}")
+    if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
+        raise AssertionError(f"generated ids shape {out.shape}")
+    window = window.T.cpu().numpy()
+    if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
+        raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
+    log("moe full width", f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+
+    # one more decode step: grouped GEMM launches per step, then its time unprofiled and profiled
+    token = torch.as_tensor(window[:, -1], device="cuda")
+    kernels.reset_launch_counts()
+    gm(token, session=session)
+    per_step = kernels.launch_counts()["group_gemm"]
+    if per_step != 2 * config.num_hidden_layers:
+        raise AssertionError(f"group_gemm launched {per_step} times in a decode step, not "
+                             f"{2 * config.num_hidden_layers}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gm(token, session=session)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gm(token, session=session)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
+    n_kernels = sum(e.count for e in device)
+    gmm = sum(e.self_device_time_total for e in device if "gmm_" in e.key) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
+    log("moe full width", f"{card}: one decode step (bs 4, context ~1050): wall {step_ms:.2f} ms unprofiled; "
+                          f"device busy {busy:.3f} ms (idle {100 * (1 - busy / step_ms):.1f}%), {n_kernels} "
+                          f"kernels; group_gemm {gmm:.3f} ms ({100 * gmm / busy:.1f}% of busy, "
+                          f"{per_step} launches)")
+    log("moe full width", "device time by kernel: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+
+    # the experts of one layer, fed the prefill batch's hidden states, under one routing: all 1650 tokens,
+    # and the last token of each request (a decode step's 32 rows)
+    layer, plain_layer = model.layers[MOE_LAYER_CHECKED].mlp, plain.layers[MOE_LAYER_CHECKED].mlp
+    last = torch.as_tensor(np.cumsum(lens) - 1, device="cuda")
+    for name, x in (("prefill batch", mlp_in[0]), ("last tokens", mlp_in[0][last])):
+        idx, gates = layer.gating(x)
+        sorted_h, per_expert, _, _ = layer.dispatch(x, gates, idx)
+        got, want = layer.experts(sorted_h, per_expert), plain_layer.experts(sorted_h, per_expert)
+        check_tol_diff(got, want, **tols_for(torch.bfloat16))
+        err = (got.float() - want.float()).abs().max().item()
+        log("moe full width", f"layer {MOE_LAYER_CHECKED} experts, {name} ({sorted_h.shape[0]} rows over "
+                              f"{int((per_expert > 0).sum())} experts), same routing: max_abs_err {err:.4g} vs "
+                              f"plain (bf16 ladder {tols_for(torch.bfloat16)})")
+
+    plain_routes, route_hooks = _routes(plain)
+    plain_logits, _ = PagedAttentionGenerationModel(plain, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
+    for h in route_hooks:
+        h.remove()
+    agree = [(a[:, :, None] == b[:, None, :]).any(-1).float().mean().item() for a, b in zip(routes, plain_routes)]
+    cos = torch.nn.functional.cosine_similarity(logits, plain_logits, dim=-1)
+    log("moe full width", f"top-8 routes the kernel and plain paths agree on: {100 * np.mean(agree):.2f}% over "
+                          f"{len(agree)} layers (layer 0 {100 * agree[0]:.2f}%, last {100 * agree[-1]:.2f}%)")
+    log("moe full width", f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
+                          f"{[round(c, 6) for c in cos.tolist()]} (bound {MOE_COSINE_BOUND})")
+    if cos.min().item() < MOE_COSINE_BOUND:
+        raise AssertionError(f"MoE prefill logits disagree with the plain path: cosine {cos.tolist()}")
+
+    rec = hook.records[-1]
+    log("moe full width", f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); "
+                          f"decode {rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, "
+                          f"{rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step, "
+                          f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
+                          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log("moe full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    del model, plain, gm, gen, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
-    the first six) and, for G, from the w4a8 speculative run (it runs all
-    seven); times of the main-path case. C and D add their int8-page
-    times; F and G their times at each shape, G also its device time in a
-    CUDA graph and its largest error over those shapes."""
+    the first six), for G from the w4a8 speculative run and for H from the
+    MoE run; numbers of the main-path case (``ms`` replayed from a CUDA
+    graph). C and D add their int8-page numbers; F, G and H their numbers
+    at each shape, G and H their largest error over those shapes."""
     line = []
-    main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE}
+    main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
+                   "group_gemm": GMM_MAIN_SHAPE}
     for module, (name, source, replaces) in KERNEL_INFO.items():
         rec = dict(record[module])
         extra = {}
@@ -842,30 +1146,39 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             extra["by_shape"] = rec
             rec = dict(rec[main_shapes[module]])
             extra["main_shape"] = main_shapes[module]
-            if module == "int4_matmul":
+            if module in ("int4_matmul", "group_gemm"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         elif "int8_pages" in rec:
             extra["int8_pages"] = rec.pop("int8_pages")
-        if module in bf16_counts:
-            extra["launches_bf16_path"] = bf16_counts[module]
-        extra["launches_w4a8_speculative_path"] = spec_counts[module]
-        launches = spec_counts[module] if module == "int4_matmul" else counts[module]
+        for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts)):
+            if module in path_counts:
+                extra[f"launches_{path}_path"] = path_counts[module]
+        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts}.get(module, counts)[module]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
-                         max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"], **extra))
+                         max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+                         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+                         eager_ms=rec["eager_ms"], **extra))
     return line
 
 
 def main() -> int:
     import torch
 
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        result = phase(*args)
+        log(name, f"phase took {time.perf_counter() - t0:.1f} s")
+        return result
+
     card = phase_device(torch)
-    phase_build()
-    record = phase_kernels(torch)
-    phase_small_model(torch)
-    bf16_counts = phase_full_width(torch, card)
-    counts = phase_int8_full_width(torch, card)
-    spec_counts = phase_w4a8_speculative(torch, card)
-    print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts)}))
+    timed("build", phase_build)
+    record = timed("kernels", phase_kernels, torch)
+    timed("small models", phase_small_model, torch)
+    bf16_counts = timed("full width", phase_full_width, torch, card)
+    counts = timed("int8 full width", phase_int8_full_width, torch, card)
+    spec_counts = timed("w4a8 speculative", phase_w4a8_speculative, torch, card)
+    moe_counts = timed("moe full width", phase_moe_full_width, torch, card)
+    print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -44,6 +44,7 @@ SIGNATURES = {
     "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _P),
     "mojo_int8_matmul": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mojo_int4_matmul": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "mojo_group_gemm": (_P,) * 4 + (_I,) * 6 + (_P,),
 }
 
 _CUDA_ERRORS = {

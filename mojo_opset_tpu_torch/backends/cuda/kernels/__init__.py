@@ -2,6 +2,7 @@
 PyTorch version and its ``launches`` counter."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    group_gemm,
     int4_matmul,
     int8_matmul,
     norms,
@@ -11,7 +12,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     rope,
 )
 
-ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul)
+ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul, group_gemm)
 
 
 def reset_launch_counts() -> None:

@@ -4,12 +4,16 @@ from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
     CudaPagedPrefillGQA,
     CudaPagedPrefillGQAWithKVDequant,
 )
-from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaQuantGemm
+from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaGroupGemm, CudaQuantGemm
+from mojo_opset_tpu_torch.backends.cuda.operators.moe import CudaExperts, CudaMoE
 from mojo_opset_tpu_torch.backends.cuda.operators.normalization import CudaRMSNorm, CudaRMSNormQuant
 from mojo_opset_tpu_torch.backends.cuda.operators.position_embedding import CudaApplyRoPE
 
 __all__ = [
     "CudaApplyRoPE",
+    "CudaExperts",
+    "CudaGroupGemm",
+    "CudaMoE",
     "CudaPagedDecodeGQA",
     "CudaPagedDecodeGQAWithKVDequant",
     "CudaPagedPrefillGQA",

@@ -6,10 +6,18 @@ from mojo_opset_tpu_torch.core.operators.attention import (
     seq_lens_from_cu,
 )
 from mojo_opset_tpu_torch.core.operators.embedding import MojoEmbedding
-from mojo_opset_tpu_torch.core.operators.gemm import MojoGemm, MojoQuantGemm
+from mojo_opset_tpu_torch.core.operators.gemm import MojoGemm, MojoGroupGemm, MojoQuantGemm
 from mojo_opset_tpu_torch.core.operators.kv_cache import (
     MojoStorePagedKVCache,
     build_paged_kv_token_indices,
+)
+from mojo_opset_tpu_torch.core.operators.moe import (
+    MojoExperts,
+    MojoMoE,
+    MojoMoECombine,
+    MojoMoEDispatch,
+    MojoMoEGating,
+    count_expert_tokens,
 )
 from mojo_opset_tpu_torch.core.operators.normalization import MojoRMSNorm, MojoRMSNormQuant
 from mojo_opset_tpu_torch.core.operators.position_embedding import (
@@ -32,8 +40,14 @@ __all__ = [
     "MojoDequant",
     "MojoDynamicQuant",
     "MojoEmbedding",
+    "MojoExperts",
     "MojoGemm",
+    "MojoGroupGemm",
     "MojoJoinProbRejectSampling",
+    "MojoMoE",
+    "MojoMoECombine",
+    "MojoMoEDispatch",
+    "MojoMoEGating",
     "MojoPagedDecodeGQA",
     "MojoPagedPrefillGQA",
     "MojoQuantGemm",
@@ -48,6 +62,7 @@ __all__ = [
     "MojoTopPFilter",
     "MojoTopPSampling",
     "build_paged_kv_token_indices",
+    "count_expert_tokens",
     "expand_gqa",
     "seq_lens_from_cu",
 ]

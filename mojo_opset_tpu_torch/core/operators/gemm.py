@@ -1,11 +1,12 @@
-"""Dense, int8 and packed-int4 GEMMs (counterpart of the JAX package's
-``core/operators/gemm.py``: ``MojoGemm`` :23, ``INT4_BLOCK`` and the int4
-packing :115-141, ``MojoQuantGemm`` :144).
+"""Dense, grouped, int8 and packed-int4 GEMMs (counterpart of the JAX
+package's ``core/operators/gemm.py``: ``MojoGemm`` :23, ``MojoGroupGemm``
+:76, ``INT4_BLOCK`` and the int4 packing :115-141, ``MojoQuantGemm`` :144).
 
 The JAX package leaves the dense projections to XLA dots, so the port
-leaves them to ``torch.matmul``: ``MojoGemm`` has no kernel tier. The int8
-and int4 GEMMs had Pallas kernels, so ``MojoQuantGemm`` has two in the cuda
-tier (``csrc/int8_matmul.cu``, ``csrc/int4_matmul.cu``).
+leaves them to ``torch.matmul``: ``MojoGemm`` has no kernel tier. The
+grouped, int8 and int4 GEMMs had Pallas kernels, so the cuda tier has
+three (``csrc/group_gemm.cu``, ``csrc/int8_matmul.cu``,
+``csrc/int4_matmul.cu``).
 """
 
 from __future__ import annotations
@@ -64,6 +65,56 @@ class MojoGemm(MojoOperator):
 
     def extra_repr(self) -> str:
         return f"in_features={self.in_features}, out_features={self.out_features}, bias={self.bias is not None}"
+
+
+def grouped_matmul_reference(
+    x: torch.Tensor, weight: torch.Tensor, group_sizes: torch.Tensor, trans_weight: bool = False
+) -> torch.Tensor:
+    """``out[r] = x[r] @ W[group_of(r)]`` for ``x`` (M, K) with rows sorted
+    by group and ``weight`` (G, K, N), or (G, N, K) with ``trans_weight``.
+
+    A per-group loop over the counts read to the host (a sync per call on
+    a card). fp32 sums, one rounding to ``x.dtype``. Rows past the groups'
+    end are zero; a group that runs past row M is cut there.
+    """
+    w = weight.transpose(1, 2) if trans_weight else weight  # (G, K, N)
+    out = torch.zeros((x.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
+    start = 0
+    for g, n in enumerate(group_sizes.tolist()):
+        stop = min(start + max(n, 0), x.shape[0])
+        if stop > start:
+            out[start:stop] = torch.matmul(x[start:stop].float(), w[g].float()).to(x.dtype)
+        start = stop
+    return out
+
+
+class MojoGroupGemm(MojoOperator):
+    """Ragged grouped GEMM: 2-D input split row-wise by ``group_list``
+    counts, per-group weight ``(G, Din, Dout)``, or ``(G, Dout, Din)`` with
+    ``trans_weight`` (the experts' layout). Output in the input dtype, fp32
+    sums. The golden is a per-group loop (JAX ``core/operators/gemm.py:76``)."""
+
+    def __init__(self, weight: torch.Tensor, trans_weight: bool = False):
+        super().__init__()
+        if weight.ndim != 3:
+            raise ValueError(f"weight must be 3-D (G, Din, Dout), got shape {tuple(weight.shape)}")
+        self.weight = nn.Parameter(weight, requires_grad=False)
+        self.trans_weight = trans_weight
+
+    def _check(self, input: torch.Tensor, group_list: torch.Tensor) -> None:
+        if input.ndim != 2:
+            raise ValueError(f"input must be 2-D, got shape {tuple(input.shape)}")
+        if group_list.shape != (self.weight.shape[0],):
+            raise ValueError(f"group_list must hold one count per group ({self.weight.shape[0]}), "
+                             f"got shape {tuple(group_list.shape)}")
+
+    def forward(self, input: torch.Tensor, group_list: torch.Tensor) -> torch.Tensor:
+        self._check(input, group_list)
+        return grouped_matmul_reference(input, self.weight, group_list, self.trans_weight)
+
+    def extra_repr(self) -> str:
+        return (f"weight_shape={tuple(self.weight.shape)}, weight_dtype={self.weight.dtype}, "
+                f"trans_weight={self.trans_weight}")
 
 
 INT4_BLOCK = 128  # output channels of one packed-int4 group (see pack_int4_rows)

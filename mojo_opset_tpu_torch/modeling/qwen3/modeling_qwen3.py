@@ -47,6 +47,7 @@ from mojo_opset_tpu_torch.experimental.operators import (
 )
 from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
 QUANT_MODES = (None, "w8a8", "w4a8")
@@ -273,10 +274,13 @@ class Qwen3ForCausalLM(nn.Module):
     ``lm_head_indices`` only those rows (the last token of each prefill
     sequence) hit the LM head. ``generator`` draws the weights
     (``utils.weights.init_random_``); otherwise torch's default RNG does.
+    The model is built on the card unless ``device`` names another
+    (``utils.platform.resolve_device``).
     """
 
     def __init__(self, config: Qwen3Config, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = resolve_device(device)
         self._config = config
         self.model = Qwen3Model(config, device)
         quant = config.quant is not None and not config.tie_word_embeddings

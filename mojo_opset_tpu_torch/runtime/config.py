@@ -33,6 +33,12 @@ class MojoModelConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-6
     intermediate_size: int = 0
+
+    # mixture of experts: experts, experts per token, width of one expert's FFN
+    moe_expert_num: int = 0
+    moe_topk: int = 0
+    moe_ffn_internal_dim: int = 0
+
     tie_word_embeddings: bool = False
 
 

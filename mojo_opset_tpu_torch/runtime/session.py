@@ -24,6 +24,7 @@ import torch
 
 from mojo_opset_tpu_torch.core.operators.sampling import MojoTopKSampling
 from mojo_opset_tpu_torch.runtime.config import MojoConfig
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
 @dataclass
@@ -93,7 +94,9 @@ class KVCaches:
 
 class PagedAttentionRuntimeState:
     """Session: host-side block allocator + device-side caches (int8 with
-    channel scales, in HND, when the config sets ``kv_cache_quant``)."""
+    channel scales, in HND, when the config sets ``kv_cache_quant``). The
+    caches live on ``device``, the card unless the caller names another
+    (``utils.platform.resolve_device``); ``from_model`` takes the model's."""
 
     def __init__(
         self,
@@ -112,7 +115,7 @@ class PagedAttentionRuntimeState:
         self.block_size = block_size
         self.num_kv_heads = mc.num_kv_heads
         self.head_dim = mc.head_dim
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
 
         self.max_blocks_per_seq = max_blocks_per_seq or (
             (mc.max_position_embeddings + block_size - 1) // block_size

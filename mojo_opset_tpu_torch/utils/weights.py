@@ -10,7 +10,9 @@ packed-int4 projections carry int8 ``(N // 2, K)`` arrays in the
 ``pack_int4_rows`` layout with fp32 ``(N,)`` scales, and its other
 projections and the lm_head int8 ``(N, K)``
 (``state_dict_of(quantize_qwen3(jax_model, weight_dtype="int4"))`` into a
-model built with ``Qwen3Config(quant="w4a8")``).
+model built with ``Qwen3Config(quant="w4a8")``). A Qwen3-MoE model has no
+``model.`` level, as in the JAX package: ``layers.N.mlp.gating.gate_weight``
+(fp32 (H, E)) and ``layers.N.mlp.experts.{up,down}_proj_weight``.
 """
 
 from __future__ import annotations
@@ -58,8 +60,10 @@ def load_numpy_state(model: nn.Module, arrays: Dict[str, np.ndarray], strict: bo
 def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every op's weights from ``generator`` on the weights' device,
     with the JAX package's distributions (its ``utils/init.py``):
-    U(-1/sqrt(in), 1/sqrt(in)) for GEMMs, N(0, 1) for embeddings; norm
-    weights stay ones. The bits differ from the JAX package's."""
+    U(-1/sqrt(in), 1/sqrt(in)) for GEMMs and the expert stacks (up
+    U(+-1/sqrt(H)), down U(+-1/sqrt(I))), N(0, 1) for embeddings, N(0, 0.02)
+    for the MoE gate; norm weights stay ones. The bits differ from the JAX
+    package's."""
     for module in model.modules():
         reset = getattr(module, "reset_parameters", None)
         if reset is not None and module is not model:

@@ -7,7 +7,10 @@
   * a kernel wrapper given a non-CPU tensor never falls back: it checks its
     input and builds, and without nvcc the build raises;
   * dispatch (MOJO_BACKEND), the allocator's errors and the refused quant
-    modes.
+    modes;
+  * the entry points (models, session) run on the card unless the caller
+    names a device: here, with no GPU, they raise instead of landing on
+    the CPU.
 """
 
 import importlib
@@ -24,6 +27,7 @@ import torch
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    group_gemm,
     int4_matmul,
     int8_matmul,
     norms,
@@ -33,17 +37,21 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     rope,
 )
 from mojo_opset_tpu_torch.core.registry import BackendNotAvailable
-from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM, Qwen3MoeConfig, Qwen3MoeForCausalLM
 from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, PagedAttentionRuntimeState
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
-KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul"]
+KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
+                  "group_gemm"]
 
 
 def test_import_loads_no_jax():
     code = (
         "import sys, mojo_opset_tpu_torch, mojo_opset_tpu_torch.modeling.qwen3, mojo_opset_tpu_torch.runtime\n"
+        "import mojo_opset_tpu_torch.core.operators.moe, mojo_opset_tpu_torch.backends.cuda.operators.moe\n"
+        "import mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3_moe, mojo_opset_tpu_torch.backends.cuda.kernels\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
         " or m.startswith('mojo_opset_tpu.')]\n"
         "assert not bad, bad\n"
@@ -58,7 +66,8 @@ def test_kernel_modules_import_without_nvcc(name):
     assert isinstance(module.launches, int)
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
-        "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul"}
+        "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
+        "group_gemm"}
 
 
 def _cpu_calls():
@@ -91,6 +100,9 @@ def _cpu_calls():
            lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 128, trans_weight=True, weight_dtype="int4")(xq, xs),
            lambda: int4_matmul.int4_scaled_matmul_plain(xq, torch.zeros(64, 64, dtype=torch.int8), xs,
                                                         torch.ones(128), torch.bfloat16))
+    w, xg, counts = t(3, 16, 64), t(7, 64), torch.tensor([2, 0, 5], dtype=torch.int32)
+    yield ("group_gemm", lambda: tm.MojoGroupGemm.get_backend_impl("cuda")(w, trans_weight=True)(xg, counts),
+           lambda: tm.MojoGroupGemm.get_backend_impl("ref")(w, trans_weight=True)(xg, counts))
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -183,6 +195,58 @@ def test_int8_kernel_wrappers_reject_what_the_kernels_do_not_take():
         rmsnorm_quant.rmsnorm_quant(meta(2, 8200, dtype=f32), meta(8200, dtype=f32), 1e-6)
 
 
+def test_group_gemm_wrapper_rejects_what_the_kernel_does_not_take():
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    counts = meta(4, dtype=torch.int32)
+    gmm = group_gemm.grouped_matmul
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        gmm(meta(8, 64, dtype=torch.float64), meta(4, 32, 64, dtype=torch.float64), counts, True)
+    with pytest.raises(ValueError, match="share one dtype"):
+        gmm(meta(8, 64), meta(4, 32, 64, dtype=torch.float16), counts, True)
+    with pytest.raises(ValueError, match="do not match"):
+        gmm(meta(8, 64), meta(4, 64, 32), counts, True)  # a (G, K, N) weight given as (G, N, K)
+    with pytest.raises(ValueError, match="2-D"):
+        gmm(meta(2, 8, 64), meta(4, 32, 64), counts, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(meta(64, 8).t(), meta(4, 32, 64), counts, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(meta(8, 64), meta(4, 64, 32).transpose(1, 2), counts, True)
+    with pytest.raises(ValueError, match="int32"):
+        gmm(meta(8, 64), meta(4, 32, 64), meta(4, dtype=torch.int64), True)
+    with pytest.raises(ValueError, match="int32"):
+        gmm(meta(8, 64), meta(4, 32, 64), meta(3, dtype=torch.int32), True)
+    with pytest.raises(ValueError, match="K % 8"):
+        gmm(meta(8, 60), meta(4, 32, 60), counts, True)
+    with pytest.raises(ValueError, match="N % 8"):
+        gmm(meta(8, 64), meta(4, 64, 36), counts, False)
+    assert group_gemm.launches == 0
+
+
+def test_resolve_device_defaults_to_the_card(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("meta")) == torch.device("meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+
+
+def test_entry_points_without_a_device_never_land_on_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Qwen3ForCausalLM(_tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Qwen3MoeForCausalLM(Qwen3MoeConfig(**_TINY, num_experts=4, num_experts_per_tok=2, moe_intermediate_size=16,
+                                           dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedAttentionRuntimeState(_tiny().to_mojo(), batch_size=1)
+    session = PagedAttentionRuntimeState(_tiny().to_mojo(), batch_size=1, device="cpu")
+    assert session.caches.key(0).device.type == "cpu"
+    model = Qwen3ForCausalLM(_tiny(), device="cpu")
+    assert PagedAttentionRuntimeState.from_model(model, 1).device.type == "cpu"
+
+
 def test_dispatch_follows_mojo_backend(monkeypatch):
     assert type(tm.MojoRMSNorm(8)).__name__ == "CudaRMSNorm"
     assert type(tm.MojoGemm(4, 4)).__name__ == "RefGemm"
@@ -204,16 +268,18 @@ def test_forward_diff_with_compares_tiers():
         ref_op.forward_diff_with(tm.MojoRMSNorm.get_backend_impl("ref")(16), x)
 
 
+_TINY = dict(hidden_size=32, intermediate_size=64, num_attention_heads=4, num_key_value_heads=2,
+             num_hidden_layers=1, head_dim=8, vocab_size=64, max_position_embeddings=32)
+
+
 def _tiny(**kw):
-    return Qwen3Config(hidden_size=32, intermediate_size=64, num_attention_heads=4, num_key_value_heads=2,
-                       num_hidden_layers=1, head_dim=8, vocab_size=64, max_position_embeddings=32,
-                       dtype=torch.float32, **kw)
+    return Qwen3Config(**_TINY, dtype=torch.float32, **kw)
 
 
 def test_quant_modes_are_not_ported_yet():
     """w8a8, w4a8 and the C8 cache are ported; other modes are refused."""
     # no width of this model fills a 128-channel group, so its w4a8 projections all stay int8
-    attn = Qwen3ForCausalLM(_tiny(quant="w4a8")).model.layers[0].self_attn
+    attn = Qwen3ForCausalLM(_tiny(quant="w4a8"), device="cpu").model.layers[0].self_attn
     assert attn.q_proj.weight_dtype == attn.o_proj.weight_dtype == torch.int8
     with pytest.raises(ValueError, match="w8a8"):
         _tiny(quant="fp8")
@@ -221,7 +287,7 @@ def test_quant_modes_are_not_ported_yet():
 
 
 def test_session_errors_and_device_tokens():
-    model = Qwen3ForCausalLM(_tiny(), generator=torch.Generator().manual_seed(0))
+    model = Qwen3ForCausalLM(_tiny(), device="cpu", generator=torch.Generator().manual_seed(0))
     gm = PagedAttentionGenerationModel(model, block_size=8)
     logits, session = gm(np.arange(1, 6, dtype=np.int32), context_input_len=np.array([5], np.int32))
     assert isinstance(session, PagedAttentionRuntimeState) and session.caches.key(0).shape == (4, 8, 2, 8)
@@ -238,8 +304,8 @@ def test_session_errors_and_device_tokens():
 
 
 def test_random_init_is_seeded_and_scaled():
-    a = Qwen3ForCausalLM(_tiny(), generator=torch.Generator().manual_seed(3))
-    b = Qwen3ForCausalLM(_tiny(), generator=torch.Generator().manual_seed(3))
+    a = Qwen3ForCausalLM(_tiny(), device="cpu", generator=torch.Generator().manual_seed(3))
+    b = Qwen3ForCausalLM(_tiny(), device="cpu", generator=torch.Generator().manual_seed(3))
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     w = a.model.layers[0].mlp.down_proj.weight

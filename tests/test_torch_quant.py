@@ -347,9 +347,9 @@ def quant_pair(request):
     quant_kv = request.param
     base_j = JaxQwen3(JaxQwen3Config(**TINY, dtype=jnp.float32, quant_kv=quant_kv), key=jax.random.PRNGKey(7))
     qm_j = jax_quantize_qwen3(base_j)
-    base_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant_kv=quant_kv))
+    base_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant_kv=quant_kv), device="cpu")
     load_numpy_state(base_t, state_dict_of(base_j))
-    qm_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant="w8a8", quant_kv=quant_kv))
+    qm_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant="w8a8", quant_kv=quant_kv), device="cpu")
     load_numpy_state(qm_t, state_dict_of(qm_j))
     return base_j, qm_j, base_t, qm_t, quant_kv
 

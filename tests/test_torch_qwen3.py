@@ -43,7 +43,7 @@ def pair(request):
     """(JAX model, port model with the JAX weights, layout)."""
     layout = request.param
     jax_model = JaxQwen3(JaxQwen3Config(**TINY, dtype=jnp.float32, kv_layout=layout), key=jax.random.PRNGKey(7))
-    port = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, kv_layout=layout))
+    port = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, kv_layout=layout), device="cpu")
     load_numpy_state(port, state_dict_of(jax_model))
     return jax_model, port, layout
 
@@ -74,7 +74,7 @@ def test_prefill_logits_and_caches(pair, tier, monkeypatch):
     jax_model, port, layout = pair
     if tier == "ref":  # the same weights in a model built on the golden tier
         monkeypatch.setenv("MOJO_BACKEND", "ref")
-        ref_port = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, kv_layout=layout))
+        ref_port = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, kv_layout=layout), device="cpu")
         ref_port.load_state_dict(port.state_dict())
         assert type(ref_port.model.layers[0].self_attn.attn_prefill).__name__ == "RefPagedPrefillGQA"
         port = ref_port
@@ -132,7 +132,7 @@ def test_second_prefill_on_live_session_matches_jax(mode):
 
     quant_kv = mode == "w8a8_c8"
     jax_model = JaxQwen3(JaxQwen3Config(**TINY, dtype=jnp.float32, quant_kv=quant_kv), key=jax.random.PRNGKey(7))
-    port = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant_kv=quant_kv))
+    port = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant_kv=quant_kv), device="cpu")
     load_numpy_state(port, state_dict_of(jax_model))
     if mode != "fp32":
         jax_model, port = jax_quantize_qwen3(jax_model), quantize_qwen3(port)

@@ -179,7 +179,7 @@ def tiny_model():
     cfg = Qwen3Config(hidden_size=64, intermediate_size=128, num_attention_heads=4, num_key_value_heads=2,
                       num_hidden_layers=2, head_dim=16, vocab_size=128, max_position_embeddings=128,
                       dtype=torch.float32)
-    return Qwen3ForCausalLM(cfg, generator=torch.Generator().manual_seed(4))
+    return Qwen3ForCausalLM(cfg, device="cpu", generator=torch.Generator().manual_seed(4))
 
 
 def _sampled(model, fused, seed, sampler):

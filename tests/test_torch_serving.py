@@ -44,7 +44,7 @@ def _config(layers, hidden=64, vocab=256, max_pos=512):
 
 
 def _port_of(jax_model, config):
-    port = Qwen3ForCausalLM(Qwen3Config(**config, dtype=torch.float32))
+    port = Qwen3ForCausalLM(Qwen3Config(**config, dtype=torch.float32), device="cpu")
     return load_numpy_state(port, state_dict_of(jax_model))
 
 

@@ -181,9 +181,9 @@ def w4a8_pair():
     model with the JAX packed weights)."""
     base_j = JaxQwen3(JaxQwen3Config(**TINY, dtype=jnp.float32), key=jax.random.PRNGKey(9))
     qm_j = jax_quantize_qwen3(base_j, weight_dtype="int4")
-    base_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32))
+    base_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32), device="cpu")
     load_numpy_state(base_t, state_dict_of(base_j))
-    qm_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant="w4a8"))
+    qm_t = Qwen3ForCausalLM(Qwen3Config(**TINY, dtype=torch.float32, quant="w4a8"), device="cpu")
     load_numpy_state(qm_t, state_dict_of(qm_j))
     return qm_j, base_t, qm_t
 
