@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the eight kernels from ``mojo_opset_tpu_torch/csrc``
+  2. build: compiles the nine kernels from ``mojo_opset_tpu_torch/csrc``
      (one nvcc per source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
@@ -23,8 +23,13 @@ is non-zero:
      (C8) pages. The grouped GEMM (H) runs at the MoE path's shapes (prefill
      and decode at bs 4 and 1, fc1 and down, routed top-8 of 128) and on
      empty and 1-row groups, ragged M, K and N, rows past the groups' end,
-     both weight layouts and three dtypes, and refuses K % 8 != 0 in bf16.
-     Every main case is timed replayed from a CUDA graph (``ms``: device
+     both weight layouts and three dtypes, and refuses K % 8 != 0 in bf16;
+     and at G = 256 at DeepSeek-V3's expert shapes. The absorbed MLA kernel
+     (I) runs at DeepSeek-V3's widths: decode at bs 4 and 1, prefill's row
+     mode over the prompt batch, and edge cases (a zero-length sequence, -1
+     table padding, contexts off the block size, one page, H 4 and 16, a
+     sink, fp16, fp32), its fp32 output to the fp32 ladder; A and B also
+     run at DeepSeek's widths. Every main case is timed replayed from a CUDA graph (``ms``: device
      time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
      3.35 TB/s or operations over the dtype's peak, the larger) and, where
      one PyTorch call computes the same function, that call's time.
@@ -83,6 +88,20 @@ is non-zero:
      MOE_COSINE_BOUND: routes flip at near-ties, see PERF.md). Prints the
      readings, peak memory and one decode step's device time from
      torch.profiler.
+  9. DeepSeek-V3 at full width (DEEPSEEK_V3: hidden 7168, 128 heads, q LoRA
+     1536, kv LoRA 512, rope 64, 256 experts top-8 of width 2048, a shared
+     expert, vocab 129280), depth cut 61 -> 5 (its 3 dense layers and 2 MoE
+     layers) and positions to 1088, bf16, random weights from seed 0,
+     block 64; the plain twin (meta device, bound to the same tensors) runs
+     the golden ops except the two paged MLA ops, which run kernel I's plain
+     version. The prompts, steps and FusedDecode window of phase 5 (the
+     window with host syncs as errors); norms, rope, mla_decode and
+     group_gemm must launch, mla_decode 5 and group_gemm 4 times a decode
+     step, the GQA attention kernels never. One layer's MLA decode equals
+     the golden decompressing op on its cache (DEEPSEEK_LAYER_TOL); end to end,
+     the top-8 route agreement and the per-row logit cosine (bound
+     DEEPSEEK_COSINE_BOUND). Prints the readings, peak memory and one
+     decode step's device time from torch.profiler.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -116,6 +135,26 @@ QWEN3_30B_A3B = dict(
     num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
 )
 SMALL_MOE = dict(SMALL, num_experts=16, num_experts_per_tok=4, moe_intermediate_size=256)
+# DeepSeek-V3 (huggingface.co/deepseek-ai/DeepSeek-V3, config.json) at full width; the depth is cut 61 -> 5 (its 3
+# dense layers and 2 MoE layers: 50 GiB of bf16 weights, a third MoE layer would not leave room on one card) and the
+# positions to 1088 (the longest prompt, its decode steps and one more)
+DEEPSEEK_V3 = dict(
+    hidden_size=7168, intermediate_size=18432, moe_intermediate_size=2048, num_attention_heads=128,
+    num_hidden_layers=5, vocab_size=129280, max_position_embeddings=1088, q_lora_rank=1536, kv_lora_rank=512,
+    qk_rope_head_dim=64, qk_nope_head_dim=128, v_head_dim=128, n_routed_experts=256, n_shared_experts=1,
+    num_experts_per_tok=8, first_k_dense_replace=3,
+)
+DEEPSEEK_FULL = dict(num_hidden_layers=61, max_position_embeddings=4096)  # what the cuts above cut from
+DEEPSEEK_LAYER_CHECKED = 4  # the layer whose MLA decode is held to the golden op on its cache
+# that layer's check: the bf16 output (largest value ~0.69) parts from the golden's by the rounding of q_lat and of
+# the absorbed products; the run that set it saw a max_abs_err of 0.0039, so 0.02 leaves 5x room, while a wrong
+# absorption or causal limit moves values by the output's own scale (PERF.md, section 6)
+DEEPSEEK_LAYER_TOL = dict(atol=0.02, rtol=0.0)
+# end-to-end prefill logits against the plain twin: bf16 rounds at other places in the latent-space softmax, and
+# 0.3-0.5% of the top-8 routes of the 2 MoE layers flip at near-ties (the same ones each run: weights and inputs
+# come from fixed seeds); the run that set it saw 1 - cosine of 0.7e-5 to 1.4e-5 (PERF.md, section 6), so 1e-4
+# leaves 7x room
+DEEPSEEK_COSINE_BOUND = 0.9999
 MOE_LAYER_CHECKED = 24  # the layer whose experts are held to the plain experts under the same routing
 # end-to-end prefill logits against the plain path: bf16 rounding flips ~1.7% of the top-8 routes at near-ties
 # over 48 layers; the run that set it saw cosines 0.99933-0.99968 (PERF.md, section 6)
@@ -142,11 +181,14 @@ KERNEL_INFO = {
                     "mojo_opset_tpu/backends/pallas/kernels/int4_matmul.py:85"),
     "group_gemm": ("grouped_matmul", "mojo_opset_tpu_torch/csrc/group_gemm.cu",
                    "mojo_opset_tpu/backends/pallas/kernels/group_gemm.py:220"),
+    "mla_decode": ("mla_decode_absorbed", "mojo_opset_tpu_torch/csrc/mla_decode.cu",
+                   "mojo_opset_tpu/backends/pallas/kernels/mla_decode.py:151"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
 MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
 INT8_PATH_KERNELS = BF16_PATH_KERNELS + ("rmsnorm_quant", "int8_matmul")
 SPEC_PATH_KERNELS = INT8_PATH_KERNELS + ("int4_matmul",)
+DEEPSEEK_PATH_KERNELS = ("norms", "rope", "mla_decode", "group_gemm")
 # (K, N) of the w8a8 and w4a8 projections at Qwen3-4B: q, k/v, o, gate/up, down; the lm_head at M = 4
 GEMM_SHAPES = ((2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560))
 # the w4a8 draft's decode (M = 1), a verify-sized batch and its prompt's prefill (bench.py:307)
@@ -312,7 +354,10 @@ def phase_kernels(torch) -> dict:
     # A: RMSNorm — layer norm at the prefill batch (main), q/k head norms, odd widths
     for shape, dtype, main in (((T, hidden), bf16, True), ((T, H, D), bf16, False), ((T, Hkv, D), bf16, False),
                                ((4, hidden), bf16, False), ((5, 33), torch.float32, False),
-                               ((3, 300), torch.float16, False)):
+                               ((3, 300), torch.float16, False),
+                               # DeepSeek-V3's norms: kv_a (512), q_a (1536) and the layer norms (7168)
+                               ((T, 512), bf16, False), ((T, 1536), bf16, False), ((T, 7168), bf16, False),
+                               ((4, 7168), bf16, False)):
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         w = torch.rand(shape[-1], device="cuda", generator=gen) + 0.5
         w_lib = w.to(dtype)
@@ -320,17 +365,20 @@ def phase_kernels(torch) -> dict:
         compare("norms", lambda: norms.rmsnorm(x, w, 1e-6), lambda: norms.rmsnorm_plain(x, w, 1e-6),
                 dtype, f"rmsnorm {shape}", main, bound=(2 * n * x.element_size() + 4 * shape[-1], 4 * n, "fp32"),
                 library=lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, 1e-6))
-    # B: RoPE token-first on the prefill batch's q and k (main), odd T
-    for n, dtype, main in ((T, bf16, True), (7, torch.float32, False), (1, torch.float16, False)):
-        q = torch.randn(n, H, D, device="cuda", generator=gen).to(dtype)
-        k = torch.randn(n, Hkv, D, device="cuda", generator=gen).to(dtype)
+    # B: RoPE token-first on the prefill batch's q and k (main), odd T; DeepSeek-V3's rope lanes: q (T, 128, 64)
+    # with one shared k head
+    for n, hq, hk, d, dtype, main in ((T, H, Hkv, D, bf16, True), (7, H, Hkv, D, torch.float32, False),
+                                      (1, H, Hkv, D, torch.float16, False), (T, 128, 1, 64, bf16, False),
+                                      (4, 128, 1, 64, bf16, False)):
+        q = torch.randn(n, hq, d, device="cuda", generator=gen).to(dtype)
+        k = torch.randn(n, hk, d, device="cuda", generator=gen).to(dtype)
         pos = torch.arange(n, device="cuda", dtype=torch.float32)[:, None]
-        ang = pos * (1.0 / 10000 ** (torch.arange(0, D, 2, device="cuda") / D))
+        ang = pos * (1.0 / 10000 ** (torch.arange(0, d, 2, device="cuda") / d))
         cos, sin = torch.cat([ang, ang], -1).cos().to(dtype), torch.cat([ang, ang], -1).sin().to(dtype)
-        elems = n * (H + Hkv) * D
+        elems = n * (hq + hk) * d
         compare("rope", lambda: rope.rope_token_first(q, k, cos, sin),
-                lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, f"rope T={n}", main,
-                bound=((2 * elems + 2 * n * D) * q.element_size(), 3 * elems, "fp32"))
+                lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, f"rope T={n} q {hq}x{d} k {hk}x{d}", main,
+                bound=((2 * elems + 2 * n * d) * q.element_size(), 3 * elems, "fp32"))
 
     def attn_bound(dtype, hq, hkv, d, q_tokens, kv_lens, pairs, page_bytes):
         """Bytes: q, the K/V rows these lengths read, out; operations: QK and PV over ``pairs``."""
@@ -510,11 +558,12 @@ def phase_kernels(torch) -> dict:
         choice = np.argsort(route_rng.random((rows // top_k, experts)), axis=1)[:, :top_k]
         return np.bincount(choice.reshape(-1), minlength=experts)
 
-    def gmm_case(counts, K, N, trans, dtype, main, key=None, M=None):
+    def gmm_case(counts, K, N, trans, dtype, main, key=None, M=None, w=None):
         counts = torch.tensor(np.asarray(counts), dtype=torch.int32, device="cuda")
         G, routed = counts.numel(), int(counts.sum())
         M = routed if M is None else M
-        w = (torch.randn((G, N, K) if trans else (G, K, N), device="cuda", generator=gen) * 0.05).to(dtype)
+        if w is None:
+            w = (torch.randn((G, N, K) if trans else (G, K, N), device="cuda", generator=gen) * 0.05).to(dtype)
         x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
         isz, active = x.element_size(), int((counts > 0).sum())
         bound = ((M * K + active * N * K + M * N) * isz + 4 * G, 2 * routed * K * N, _kind(torch, dtype))
@@ -547,7 +596,95 @@ def phase_kernels(torch) -> dict:
         raise AssertionError("the grouped GEMM took K = 60 in bf16 (K % 8 != 0)")
     if record["group_gemm"]["decode_bs1_fc1"]["library_ms"] is None:
         log("kernel group_gemm", f"torch {torch.__version__} has no torch._grouped_mm: library_ms none")
+    # H at G = 256: DeepSeek-V3's routed experts (top-8 of 256) at decode (bs 4) and over the prefill batch; the
+    # weights are drawn in bf16 (fc1 alone is 15 GB)
+    for name, K, N in (("fc1", 7168, 2 * 2048), ("down", 2048, 7168)):
+        w = torch.randn((256, N, K), device="cuda", generator=gen, dtype=bf16).mul_(0.05)
+        for rows, phase in ((4 * 8, "decode_bs4"), (sum(PROMPT_LENS) * 8, "prefill")):
+            gmm_case(routed_counts(rows, experts=256), K, N, True, bf16, True, key=f"deepseek_{phase}_{name}", w=w)
+        del w
+    torch.cuda.empty_cache()
+    _mla_cases(torch, compare, gen)
     return record
+
+
+def _mla_cases(torch, compare, gen) -> None:
+    """I: absorbed MLA attention at DeepSeek-V3's widths (H 128, r 512, dr 64, block 64, bf16): decode at bs 4
+    over the main path's first-step contexts (main) and at bs 1, prefill's row mode over the prompt batch, then a
+    zero-length sequence, -1 table padding, contexts off the block size, one page, H = 4 and 16, a sink, fp16
+    and fp32. The output is fp32 in every case, computed in fp32 by both versions: the fp32 ladder."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import mla_decode
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16, r, dr, bs, n_blocks = torch.bfloat16, 512, 64, BLOCK_SIZE, 4 * 17 + 4
+    first_step = [n + 1 for n in PROMPT_LENS]  # the contexts of the first decode step: 1001, 514, 131, 8
+
+    def mla_case(case, lens, dtype=bf16, H=128, rows=None, sink=False, cols=17, main=False, key=None,
+                 library=False):
+        c = torch.randn(n_blocks, 1, bs, r, device="cuda", generator=gen).to(dtype)
+        pe = torch.randn(n_blocks, 1, bs, dr, device="cuda", generator=gen).to(dtype)
+        table = _tables(torch, lens, bs, cols, n_blocks, gen)
+        if rows is None:  # decode: one row per sequence
+            seqs, limits = None, torch.tensor(lens, dtype=torch.int32, device="cuda")
+        else:
+            seqs = torch.tensor([s for s, _ in rows], dtype=torch.int32, device="cuda")
+            limits = torch.tensor([n for _, n in rows], dtype=torch.int32, device="cuda")
+        R = limits.numel()
+        # absorbed queries of a DeepSeek scale (|q_lat . c| of a few units)
+        q_lat = (torch.randn(R, H, r, device="cuda", generator=gen) * 0.05).to(dtype)
+        q_pe = (torch.randn(R, H, dr, device="cuda", generator=gen) * 0.05).to(dtype)
+        sk = torch.randn(H, device="cuda", generator=gen) if sink else None
+        args = (q_lat, q_pe, c, pe, limits, table, seqs, sk)
+        pairs = sum(n for _, n in rows) if rows is not None else sum(lens)
+        isz = c.element_size()
+        bound = (sum(lens) * (r + dr) * isz + R * H * (r + dr) * isz + R * H * r * 4,
+                 2 * H * pairs * (2 * r + dr), _kind(torch, dtype))
+        lib = None
+        if library:  # SDPA as MQA over the latent gathered beforehand (the page gather and query padding left out)
+            B, S = len(lens), max(lens)
+            dense = torch.cat([c, pe], -1)[table.clamp(min=0).long()][:, :, 0].reshape(B, -1, r + dr)
+            k = dense[:, None, :S].contiguous()
+            v = dense[:, None, :S, :r].contiguous()
+            # each sequence's query rows in order, padded to the most rows; a padding row sees one position
+            row_seqs = list(range(B)) if rows is None else [s for s, _ in rows]
+            slots, taken = [], {}
+            for s in row_seqs:
+                slots.append(taken.get(s, 0))
+                taken[s] = slots[-1] + 1
+            at = (torch.tensor(row_seqs, device="cuda"), torch.tensor(slots, device="cuda"))
+            q = q_lat.new_zeros(B, max(slots) + 1, H, r + dr)
+            q[at] = torch.cat([q_lat, q_pe], -1)
+            q = q.transpose(1, 2).contiguous()
+            row_limits = torch.ones(B, max(slots) + 1, dtype=torch.int32, device="cuda")
+            row_limits[at] = limits
+            # (B, 1, rows, S): a position is seen below its row's causal-and-length limit
+            mask = (torch.arange(S, device="cuda") < row_limits[..., None])[:, None]
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
+            # the library call computes the same function: its rows against the plain version (output in dtype)
+            check_tol_diff(lib().transpose(1, 2)[at], mla_decode.mla_decode_absorbed_plain(*args), **tols_for(dtype))
+        compare("mla_decode", lambda: mla_decode.mla_decode_absorbed(*args),
+                lambda: mla_decode.mla_decode_absorbed_plain(*args), dtype, case, main, key=key,
+                check=lambda got, want: check_fp32(got, want), bound=bound, library=lib)
+
+    def check_fp32(got, want):
+        check_tol_diff(got, want, **tols_for(torch.float32))
+        return f"fp32 output: {tols_for(torch.float32)}"
+
+    mla_case(f"mla decode bs 4 H 128 lens={first_step}", first_step, main=True, key="decode_bs4", library=True)
+    mla_case(f"mla decode bs 1 H 128 lens={first_step[:1]}", first_step[:1], main=True, key="decode_bs1",
+             library=True)
+    prompt_rows = [(b, p + 1) for b, n in enumerate(PROMPT_LENS) for p in range(n)]  # causal limit of each row
+    mla_case(f"mla prefill rows over {list(PROMPT_LENS)} ({len(prompt_rows)} rows)", list(PROMPT_LENS),
+             rows=prompt_rows, main=True, key="prefill_rows", library=True)
+    mla_case("mla decode zero-length, one page, off the block size", [0, 1, 64, 65])
+    mla_case("mla decode -1 table padding", [3, 130], cols=6)
+    mla_case("mla decode H 4", [100, 7], H=4)
+    mla_case("mla decode H 16", [200, 64], H=16)
+    mla_case("mla decode sink", [0, 77, 1001], sink=True)
+    mla_case("mla prefill rows chunked, sink", [40, 300], rows=[(1, 300), (1, 299), (0, 21), (0, 0)], sink=True)
+    mla_case("mla decode fp16", [300, 5], dtype=torch.float16, H=32)
+    mla_case("mla decode fp32", [300, 5], dtype=torch.float32, H=32)
 
 
 def _layers(model):
@@ -996,11 +1133,10 @@ def no_host_sync(torch, model):
         handle.remove()
 
 
-def _routes(model) -> tuple[list, list]:
-    """Record every MoE layer's top-k expert indices on each call."""
+def _routes(moe_blocks) -> tuple[list, list]:
+    """Record the top-k expert indices of every ``MojoMoE`` in ``moe_blocks`` on each call."""
     routes = []
-    hooks = [layer.mlp.gating.register_forward_hook(lambda mod, inp, out: routes.append(out[0]))
-             for layer in model.layers]
+    hooks = [moe.gating.register_forward_hook(lambda mod, inp, out: routes.append(out[0])) for moe in moe_blocks]
     return routes, hooks
 
 
@@ -1035,7 +1171,7 @@ def phase_moe_full_width(torch, card: str) -> dict:
     gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up
     kernels.reset_launch_counts()
     out = gen.generate_from_ids(ids, lens, ignore_eos=True)
-    routes, route_hooks = _routes(model)
+    routes, route_hooks = _routes([layer.mlp for layer in model.layers])
     mlp_in = []
     in_hook = model.layers[MOE_LAYER_CHECKED].mlp.register_forward_pre_hook(lambda mod, args: mlp_in.append(args[0]))
     logits, session = gm(ids, context_input_len=lens)
@@ -1104,7 +1240,7 @@ def phase_moe_full_width(torch, card: str) -> dict:
                               f"{int((per_expert > 0).sum())} experts), same routing: max_abs_err {err:.4g} vs "
                               f"plain (bf16 ladder {tols_for(torch.bfloat16)})")
 
-    plain_routes, route_hooks = _routes(plain)
+    plain_routes, route_hooks = _routes([layer.mlp for layer in plain.layers])
     plain_logits, _ = PagedAttentionGenerationModel(plain, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
     for h in route_hooks:
         h.remove()
@@ -1130,15 +1266,193 @@ def phase_moe_full_width(torch, card: str) -> dict:
     return counts
 
 
-def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict) -> list:
+def _deepseek_pair(torch, config):
+    """The kernel-path DeepSeek-V3 (random weights from seed 0) and its plain
+    twin on the same tensors: built on the meta device in the golden tier,
+    except its two paged MLA ops, which run kernel I's plain (absorbed)
+    version (the golden paged prefill gathers T * K * H * 192 elements, 88 GB
+    here)."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import mla_decode
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaPagedDecodeMLA, CudaPagedPrefillMLA
+    from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3ForCausalLM
+
+    model = DeepseekV3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    with plain_tier():
+        plain = DeepseekV3ForCausalLM(config, device="meta")
+    for layer in plain.model.layers:
+        attn = layer.self_attn
+        for name, cls in (("attn_decode", CudaPagedDecodeMLA), ("attn_prefill", CudaPagedPrefillMLA)):
+            golden = getattr(attn, name)
+            op = cls(golden.num_heads, golden.qk_nope_head_dim, golden.qk_rope_head_dim, golden.v_head_dim,
+                     golden.kv_lora_rank, device="meta")
+            op.attend = mla_decode.mla_decode_absorbed_plain
+            setattr(attn, name, op)
+    plain.load_state_dict(model.state_dict(), assign=True)
+    for name, buf in model.named_buffers():  # the rotary table
+        module_name, _, attr = name.rpartition(".")
+        setattr(plain.get_submodule(module_name), attr, buf)
+    assert all(p.device.type == "cuda" for p in plain.parameters())
+    attn, plain_attn = model.model.layers[0].self_attn, plain.model.layers[0].self_attn
+    assert type(attn.attn_decode).__name__ == "CudaPagedDecodeMLA"
+    assert attn.attn_decode.attend is mla_decode.mla_decode_absorbed
+    assert plain_attn.attn_decode.attend is mla_decode.mla_decode_absorbed_plain
+    assert plain_attn.attn_prefill.kv_b_proj.data_ptr() == attn.attn_decode.kv_b_proj.data_ptr()
+    assert type(plain_attn.kv_a_layernorm).__name__ == "RefRMSNorm" and type(plain_attn.rope).__name__ == "RefApplyRoPE"
+    moe, plain_moe = model.model.layers[-1].mlp.routed_experts, plain.model.layers[-1].mlp.routed_experts
+    assert type(moe.experts).__name__ == "CudaExperts" and type(plain_moe.experts).__name__ == "RefExperts"
+    return model, plain
+
+
+def phase_deepseek_full_width(torch, card: str) -> dict:
+    """DeepSeek-V3 at full width, depth cut to its 3 dense and 2 MoE layers,
+    bf16, random weights: the MLA path end to end, one layer's MLA decode
+    held to the golden op, the logits to the plain twin, one decode step's
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.experimental.operators import MojoPagedDecodeMLA
+    from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3Config, MLARuntimeState
+    from mojo_opset_tpu_torch.runtime import (
+        FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
+    )
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config = DeepseekV3Config(**DEEPSEEK_V3, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model, plain = _deepseek_pair(torch, config)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = config.num_hidden_layers - config.first_k_dense_replace
+    log("deepseek full width", f"DeepSeek-V3 widths, depth cut {DEEPSEEK_FULL['num_hidden_layers']} -> "
+                               f"{config.num_hidden_layers} ({config.first_k_dense_replace} dense + {n_moe} MoE "
+                               f"layers), max_position_embeddings {DEEPSEEK_FULL['max_position_embeddings']} -> "
+                               f"{config.max_position_embeddings}: {n_params / 1e9:.2f} B params bf16 "
+                               f"({n_params * 2 / 2**30:.1f} GiB), built in {time.perf_counter() - t0:.1f} s; the "
+                               f"plain twin shares its tensors")
+    ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
+    gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE, session_cls=MLARuntimeState)
+    hook = PerfHook(silent=True)
+    gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=DECODE_STEPS + 1, hooks=[hook])
+
+    gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up
+    kernels.reset_launch_counts()
+    out = gen.generate_from_ids(ids, lens, ignore_eos=True)
+    moe_layers = [layer.mlp.routed_experts for layer in model.model.layers[config.first_k_dense_replace:]]
+    routes, route_hooks = _routes(moe_layers)
+    logits, session = gm(ids, context_input_len=lens)
+    for h in route_hooks:
+        h.remove()
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter()
+    with no_host_sync(torch, model):
+        window = FusedDecode(model)(session, first, FUSED_STEPS)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
+    counts = kernels.launch_counts()
+    log("deepseek full width", f"launches on the main path: {counts}")
+    if min(counts[k] for k in DEEPSEEK_PATH_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the DeepSeek path never launched: {counts}")
+    if counts["paged_decode"] or counts["paged_prefill"]:
+        raise AssertionError(f"the GQA attention kernels launched on the MLA path: {counts}")
+    if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
+        raise AssertionError(f"generated ids shape {out.shape}")
+    window = window.T.cpu().numpy()
+    if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
+        raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
+    log("deepseek full width", f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite prefill logits")
+
+    # one more decode step: launches per step, and one layer's MLA decode held to the golden op on its cache
+    token = torch.as_tensor(window[:, -1], device="cuda")
+    op = model.model.layers[DEEPSEEK_LAYER_CHECKED].self_attn.attn_decode
+    seen = []
+    seen_hook = op.register_forward_pre_hook(lambda mod, args: seen.append(args))
+    kernels.reset_launch_counts()
+    gm(token, session=session)
+    per_step = kernels.launch_counts()
+    seen_hook.remove()
+    if per_step["mla_decode"] != config.num_hidden_layers or per_step["group_gemm"] != 2 * n_moe:
+        raise AssertionError(f"a decode step launched {per_step}: mla_decode must launch "
+                             f"{config.num_hidden_layers} times, group_gemm {2 * n_moe}")
+    golden = MojoPagedDecodeMLA.get_backend_impl("ref")(op.num_heads, op.qk_nope_head_dim, op.qk_rope_head_dim,
+                                                         op.v_head_dim, op.kv_lora_rank, device="meta")
+    golden.kv_b_proj = op.kv_b_proj
+    with torch.inference_mode():
+        got, want = op(*seen[0]), golden(*seen[0])
+    check_tol_diff(got, want, **DEEPSEEK_LAYER_TOL)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    log("deepseek full width", f"layer {DEEPSEEK_LAYER_CHECKED} MLA decode (bs 4, contexts "
+                               f"{seen[0][3].tolist()}): kernel I path vs the golden decompressing op on the same "
+                               f"cache: max_abs_err {err:.4g} (tol {DEEPSEEK_LAYER_TOL}), relative norm error "
+                               f"{rel:.3g}; output scale {want.float().abs().max().item():.3g}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gm(token, session=session)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gm(token, session=session)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
+    n_kernels = sum(e.count for e in device)
+    mla = sum(e.self_device_time_total for e in device if "mla_decode" in e.key) / 1e3
+    gmm = sum(e.self_device_time_total for e in device if "gmm_" in e.key) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    log("deepseek full width", f"{card}: one decode step (bs 4, context ~1050): wall {step_ms:.2f} ms unprofiled; "
+                               f"device busy {busy:.3f} ms (idle {100 * (1 - busy / step_ms):.1f}%), {n_kernels} "
+                               f"kernels; mla_decode {mla:.3f} ms ({100 * mla / busy:.1f}% of busy, "
+                               f"{per_step['mla_decode']} launches); group_gemm {gmm:.3f} ms ({100 * gmm / busy:.1f}%, "
+                               f"{per_step['group_gemm']} launches)")
+    log("deepseek full width", "device time by kernel: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+
+    plain_moe = [layer.mlp.routed_experts for layer in plain.model.layers[config.first_k_dense_replace:]]
+    plain_routes, route_hooks = _routes(plain_moe)
+    plain_logits, _ = PagedAttentionGenerationModel(plain, block_size=BLOCK_SIZE, session_cls=MLARuntimeState)(
+        ids, context_input_len=lens)
+    for h in route_hooks:
+        h.remove()
+    agree = [(a[:, :, None] == b[:, None, :]).any(-1).float().mean().item() for a, b in zip(routes, plain_routes)]
+    cos = torch.nn.functional.cosine_similarity(logits, plain_logits, dim=-1)
+    log("deepseek full width", f"top-8 routes the kernel and plain paths agree on: "
+                               f"{[round(100 * a, 3) for a in agree]}% (the {n_moe} MoE layers)")
+    log("deepseek full width", f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
+                               f"{[round(c, 6) for c in cos.tolist()]} (bound {DEEPSEEK_COSINE_BOUND})")
+    if cos.min().item() < DEEPSEEK_COSINE_BOUND:
+        raise AssertionError(f"DeepSeek prefill logits disagree with the plain path: cosine {cos.tolist()}")
+
+    rec = hook.records[-1]
+    log("deepseek full width", f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); "
+                               f"decode {rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, "
+                               f"{rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step, "
+                               f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
+                               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log("deepseek full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    del model, plain, gm, gen, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in DEEPSEEK_PATH_KERNELS}
+
+
+def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
+                 deepseek_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
-    the first six), for G from the w4a8 speculative run and for H from the
-    MoE run; numbers of the main-path case (``ms`` replayed from a CUDA
-    graph). C and D add their int8-page numbers; F, G and H their numbers
-    at each shape, G and H their largest error over those shapes."""
+    the first six), for G from the w4a8 speculative run, for H from the
+    MoE run and for I from the DeepSeek run; numbers of the main-path case
+    (``ms`` replayed from a CUDA graph). C and D add their int8-page
+    numbers; F, G, H and I their numbers at each shape, G, H and I their
+    largest error over those shapes."""
     line = []
     main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
-                   "group_gemm": GMM_MAIN_SHAPE}
+                   "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4"}
     for module, (name, source, replaces) in KERNEL_INFO.items():
         rec = dict(record[module])
         extra = {}
@@ -1146,14 +1460,16 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             extra["by_shape"] = rec
             rec = dict(rec[main_shapes[module]])
             extra["main_shape"] = main_shapes[module]
-            if module in ("int4_matmul", "group_gemm"):
+            if module in ("int4_matmul", "group_gemm", "mla_decode"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         elif "int8_pages" in rec:
             extra["int8_pages"] = rec.pop("int8_pages")
-        for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts)):
+        for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),
+                                  ("deepseek", deepseek_counts)):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
-        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts}.get(module, counts)[module]
+        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts,
+                    "mla_decode": deepseek_counts}.get(module, counts)[module]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                          bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
@@ -1178,7 +1494,9 @@ def main() -> int:
     counts = timed("int8 full width", phase_int8_full_width, torch, card)
     spec_counts = timed("w4a8 speculative", phase_w4a8_speculative, torch, card)
     moe_counts = timed("moe full width", phase_moe_full_width, torch, card)
-    print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts)}))
+    deepseek_counts = timed("deepseek full width", phase_deepseek_full_width, torch, card)
+    print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts,
+                                              deepseek_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

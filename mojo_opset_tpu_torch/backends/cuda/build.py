@@ -45,6 +45,7 @@ SIGNATURES = {
     "mojo_int8_matmul": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mojo_int4_matmul": (_P,) * 5 + (_I,) * 4 + (_P,),
     "mojo_group_gemm": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "mojo_mla_decode": (_P,) * 9 + (_I,) * 7 + (_P,),
 }
 
 _CUDA_ERRORS = {

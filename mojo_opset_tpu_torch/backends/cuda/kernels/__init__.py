@@ -5,6 +5,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     group_gemm,
     int4_matmul,
     int8_matmul,
+    mla_decode,
     norms,
     paged_decode,
     paged_prefill,
@@ -12,7 +13,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     rope,
 )
 
-ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul, group_gemm)
+ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul, group_gemm, mla_decode)
 
 
 def reset_launch_counts() -> None:

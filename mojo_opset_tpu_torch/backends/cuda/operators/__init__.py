@@ -5,6 +5,7 @@ from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
     CudaPagedPrefillGQAWithKVDequant,
 )
 from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaGroupGemm, CudaQuantGemm
+from mojo_opset_tpu_torch.backends.cuda.operators.mla import CudaPagedDecodeMLA, CudaPagedPrefillMLA
 from mojo_opset_tpu_torch.backends.cuda.operators.moe import CudaExperts, CudaMoE
 from mojo_opset_tpu_torch.backends.cuda.operators.normalization import CudaRMSNorm, CudaRMSNormQuant
 from mojo_opset_tpu_torch.backends.cuda.operators.position_embedding import CudaApplyRoPE
@@ -16,8 +17,10 @@ __all__ = [
     "CudaMoE",
     "CudaPagedDecodeGQA",
     "CudaPagedDecodeGQAWithKVDequant",
+    "CudaPagedDecodeMLA",
     "CudaPagedPrefillGQA",
     "CudaPagedPrefillGQAWithKVDequant",
+    "CudaPagedPrefillMLA",
     "CudaQuantGemm",
     "CudaRMSNorm",
     "CudaRMSNormQuant",

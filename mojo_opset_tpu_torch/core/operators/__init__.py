@@ -2,6 +2,8 @@ from mojo_opset_tpu_torch.core.operators.activation import MojoSilu
 from mojo_opset_tpu_torch.core.operators.attention import (
     MojoPagedDecodeGQA,
     MojoPagedPrefillGQA,
+    assert_paged_decode_contract,
+    assert_paged_prefill_contract,
     expand_gqa,
     seq_lens_from_cu,
 )
@@ -10,6 +12,7 @@ from mojo_opset_tpu_torch.core.operators.gemm import MojoGemm, MojoGroupGemm, Mo
 from mojo_opset_tpu_torch.core.operators.kv_cache import (
     MojoStorePagedKVCache,
     build_paged_kv_token_indices,
+    store_paged_rows,
 )
 from mojo_opset_tpu_torch.core.operators.moe import (
     MojoExperts,
@@ -61,8 +64,11 @@ __all__ = [
     "MojoTopKSampling",
     "MojoTopPFilter",
     "MojoTopPSampling",
+    "assert_paged_decode_contract",
+    "assert_paged_prefill_contract",
     "build_paged_kv_token_indices",
     "count_expert_tokens",
     "expand_gqa",
     "seq_lens_from_cu",
+    "store_paged_rows",
 ]

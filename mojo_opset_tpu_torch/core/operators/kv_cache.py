@@ -138,24 +138,39 @@ def store_paged_kv(
     ``MojoStorePagedKVCache``); returns the caches."""
     if not (key_states.ndim == 3 and key_states.shape == value_states.shape):
         raise ValueError("key/value states must be (token_num, kv_head_num, head_dim)")
-    if key_states.shape[0] == 0:
-        return key_cache, value_cache
+    store_paged_rows(((key_states, key_cache), (value_states, value_cache)), kv_layout,
+                     block_table, cu_q_lens, context_kv_lens, token_indices)
+    return key_cache, value_cache
+
+
+def store_paged_rows(
+    pairs,
+    kv_layout: str,
+    block_table: Optional[torch.Tensor] = None,
+    cu_q_lens: Optional[torch.Tensor] = None,
+    context_kv_lens: Optional[torch.Tensor] = None,
+    token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> None:
+    """Write each ``(states (T, Hkv, D), cache)`` pair's rows into its paged
+    cache in place, all at the same token slots; the caches may differ in
+    ``D`` (MLA's latent and rope caches)."""
+    T = pairs[0][0].shape[0]
+    if T == 0:
+        return
     if token_indices is not None:
         if block_table is not None or cu_q_lens is not None or context_kv_lens is not None:
             raise ValueError("token_indices is not mixed with block_table/cu_q_lens/context_kv_lens")
         blk, off = token_indices
-        _write(key_cache, blk, off, key_states, kv_layout)
-        _write(value_cache, blk, off, value_states, kv_layout)
-        return key_cache, value_cache
+        for states, cache in pairs:
+            _write(cache, blk, off, states, kv_layout)
+        return
 
     if block_table is None or context_kv_lens is None:
         raise ValueError("block_table and context_kv_lens are required without token_indices")
-    block_size = key_cache.shape[2] if kv_layout == "HND" else key_cache.shape[1]
-    dst_block, dst_offset = build_paged_kv_token_indices(
-        block_table, cu_q_lens, context_kv_lens, block_size, key_states.shape[0]
-    )
-    src, blk, off, any_valid = _dedupe_invalid(dst_block, dst_offset, key_cache.shape[0])
-    for states, cache in ((key_states, key_cache), (value_states, value_cache)):
+    cache0 = pairs[0][1]
+    block_size = cache0.shape[2] if kv_layout == "HND" else cache0.shape[1]
+    dst_block, dst_offset = build_paged_kv_token_indices(block_table, cu_q_lens, context_kv_lens, block_size, T)
+    src, blk, off, any_valid = _dedupe_invalid(dst_block, dst_offset, cache0.shape[0])
+    for states, cache in pairs:
         rows = torch.where(any_valid, states[src].to(cache.dtype), _rows(cache, blk, off, kv_layout))
         _write(cache, blk, off, rows, kv_layout)
-    return key_cache, value_cache

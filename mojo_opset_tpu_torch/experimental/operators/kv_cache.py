@@ -1,10 +1,13 @@
-"""int8 (C8) paged KV cache: the store and the dequantizing read-back.
+"""Experimental paged KV caches: the MLA latent store, and the int8 (C8)
+store with its dequantizing read-back.
 
 Counterpart of the JAX package's ``experimental/operators/kv_cache.py``
-(``MojoStorePagedKVCacheC8`` :52, ``MojoDequantFromPagedKVCache`` :93).
-The caches are int8 HND ``(N, Hkv, block_size, D)`` with per-channel fp32
-scales ``(Hkv, D)``. The store writes in place, like the bf16 store, where
-the JAX store returns new arrays (an XLA scatter there too: no kernel).
+(``MojoStorePagedMLAKVCache`` :24, ``MojoStorePagedKVCacheC8`` :52,
+``MojoDequantFromPagedKVCache`` :93). The C8 caches are int8 HND
+``(N, Hkv, block_size, D)`` with per-channel fp32 scales ``(Hkv, D)``; the
+MLA caches are ``(N, 1, block_size, r)`` latents and ``(N, 1, block_size,
+dr)`` rope keys. The stores write in place, like the bf16 store, where the
+JAX stores return new arrays (an XLA scatter there too: no kernel).
 """
 
 from __future__ import annotations
@@ -14,7 +17,42 @@ from typing import Optional, Tuple
 import torch
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
-from mojo_opset_tpu_torch.core.operators.kv_cache import store_paged_kv
+from mojo_opset_tpu_torch.core.operators.kv_cache import store_paged_kv, store_paged_rows
+
+
+class MojoStorePagedMLAKVCache(MojoOperator):
+    """Append compressed-KV latents ``(T, r)`` and rope keys ``(T, dr)`` to
+    the paged caches ``(N, 1, block_size, r)`` and ``(N, 1, block_size,
+    dr)``, in place; returns the caches.
+
+    Destinations as in ``MojoStorePagedKVCache``: ``(block_table,
+    cu_q_lens, context_kv_lens)`` computed on the device (tokens without a
+    block are dropped, as the JAX op's ``mode="drop"`` does), or the
+    session's precomputed ``token_indices``. The rope cache is exactly
+    ``dr`` wide: the JAX session's padding of it to 128 lanes is a TPU
+    matter.
+    """
+
+    def forward(
+        self,
+        compressed_kv_states: torch.Tensor,
+        k_pe_states: torch.Tensor,
+        compressed_kv_cache: torch.Tensor,
+        k_pe_cache: torch.Tensor,
+        block_table: Optional[torch.Tensor] = None,
+        cu_q_lens: Optional[torch.Tensor] = None,
+        context_kv_lens: Optional[torch.Tensor] = None,
+        *,
+        token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        for states, cache, name in ((compressed_kv_states, compressed_kv_cache, "compressed_kv"),
+                                    (k_pe_states, k_pe_cache, "k_pe")):
+            if states.ndim != 2 or cache.ndim != 4 or cache.shape[1] != 1 or cache.shape[3] != states.shape[1]:
+                raise ValueError(f"{name}: states (T, D) into a cache (N, 1, block_size, D), got "
+                                 f"{tuple(states.shape)} and {tuple(cache.shape)}")
+        store_paged_rows(((compressed_kv_states[:, None], compressed_kv_cache), (k_pe_states[:, None], k_pe_cache)),
+                         "HND", block_table, cu_q_lens, context_kv_lens, token_indices)
+        return compressed_kv_cache, k_pe_cache
 
 
 def quantize_kv(states: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

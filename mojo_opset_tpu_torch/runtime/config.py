@@ -5,7 +5,7 @@ The fields the serving slice reads; dtypes are torch dtypes.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
@@ -40,6 +40,9 @@ class MojoModelConfig:
     moe_ffn_internal_dim: int = 0
 
     tie_word_embeddings: bool = False
+
+    # model-specific fields (DeepSeek's MLA: kv_lora_rank, qk_rope_head_dim)
+    extra: dict = field(default_factory=dict)
 
 
 @dataclass

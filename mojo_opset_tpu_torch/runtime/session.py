@@ -128,15 +128,20 @@ class PagedAttentionRuntimeState:
         self.num_free_blocks = total_blocks
 
         self.kv_layout = mc.kv_layout
-        if mc.kv_cache_quant:
+        self.caches = self._create_caches(total_blocks)
+
+    def _create_caches(self, total_blocks: int) -> KVCaches:
+        """The per-layer K/V pages: a subclass with other caches (MLA's
+        latents) overrides this, so nothing is allocated twice."""
+        if self.config.model_config.kv_cache_quant:
             self.dtype = torch.int8
         if self.dtype == torch.int8:  # the C8 store and attention ops read HND
             self.kv_layout = "HND"
         if self.kv_layout == "NHD":
-            cache_shape = (total_blocks, block_size, self.num_kv_heads, self.head_dim)
+            cache_shape = (total_blocks, self.block_size, self.num_kv_heads, self.head_dim)
         else:
-            cache_shape = (total_blocks, self.num_kv_heads, block_size, self.head_dim)
-        self.caches = KVCaches.create(self.num_layers, cache_shape, self.dtype, self.device)
+            cache_shape = (total_blocks, self.num_kv_heads, self.block_size, self.head_dim)
+        return KVCaches.create(self.num_layers, cache_shape, self.dtype, self.device)
 
     @classmethod
     def from_model(cls, model, batch_size: int, *, block_size: int = 128, dtype=None, **kw):
@@ -251,17 +256,21 @@ class PagedAttentionGenerationModel:
     last token of each sequence hits the LM head. The model call is
     ``model(input_ids, positions, metadata, caches, lm_head_indices)``;
     it writes the session's caches in place and returns logits.
+    ``session_cls`` builds each new session (``MLARuntimeState`` for
+    DeepSeek's latent caches), as in the JAX package; the generators and
+    ``FusedDecode`` take their sessions from here.
     """
 
-    def __init__(self, model, *, block_size: int = 128):
+    def __init__(self, model, *, block_size: int = 128, session_cls=PagedAttentionRuntimeState):
         self.model = model
         self.block_size = block_size
+        self.session_cls = session_cls
 
     def _new_session(self, input_ids, context_input_len):
         batch_size = (
             int(np.asarray(context_input_len).size) if context_input_len is not None else int(len(input_ids))
         )
-        return PagedAttentionRuntimeState.from_model(self.model, batch_size, block_size=self.block_size)
+        return self.session_cls.from_model(self.model, batch_size, block_size=self.block_size)
 
     @torch.inference_mode()
     def __call__(self, input_ids, context_input_len=None, session=None):

@@ -12,7 +12,15 @@ projections and the lm_head int8 ``(N, K)``
 (``state_dict_of(quantize_qwen3(jax_model, weight_dtype="int4"))`` into a
 model built with ``Qwen3Config(quant="w4a8")``). A Qwen3-MoE model has no
 ``model.`` level, as in the JAX package: ``layers.N.mlp.gating.gate_weight``
-(fp32 (H, E)) and ``layers.N.mlp.experts.{up,down}_proj_weight``.
+(fp32 (H, E)) and ``layers.N.mlp.experts.{up,down}_proj_weight``. A
+DeepSeek-V3 model has it: ``model.layers.N.self_attn.{q_a_proj,q_b_proj,
+kv_a_proj_with_mqa,o_proj}.weight`` (``q_proj`` without q LoRA),
+``{q_a,kv_a}_layernorm.weight``, the fp32 decompression weight under both
+``attn_prefill.kv_b_proj`` and ``attn_decode.kv_b_proj`` (one tensor in the
+port: the two arrays must be equal), ``mlp.{gate,up,down}_proj.weight`` in
+the dense layers and ``mlp.routed_experts.{gating.gate_weight,
+experts.up_proj_weight,experts.down_proj_weight}`` with
+``mlp.shared_experts.*`` in the MoE layers.
 """
 
 from __future__ import annotations
@@ -33,9 +41,15 @@ def load_numpy_state(model: nn.Module, arrays: Dict[str, np.ndarray], strict: bo
     parameter's dtype and device). With ``strict``, a missing or unknown
     key, or a shape mismatch, raises ``KeyError``/``ValueError``. An
     integer parameter (the int8 weights) takes only an array of its own
-    dtype: a float array would be truncated."""
+    dtype: a float array would be truncated. Keys that name one shared
+    tensor must carry equal arrays."""
     state = model.state_dict()
     arrays = {k: v for k, v in arrays.items() if k.rsplit(".", 1)[-1] not in IGNORED_SUFFIXES}
+    first_name = {}
+    for name, tensor in state.items():
+        other = first_name.setdefault((tensor.data_ptr(), tensor.shape, tensor.dtype), name)
+        if other != name and other in arrays and name in arrays and not np.array_equal(arrays[other], arrays[name]):
+            raise ValueError(f"{name} and {other} name one shared tensor, but their arrays differ")
     if strict:
         missing = sorted(set(state) - set(arrays))
         unexpected = sorted(set(arrays) - set(state))

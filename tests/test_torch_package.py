@@ -30,6 +30,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     group_gemm,
     int4_matmul,
     int8_matmul,
+    mla_decode,
     norms,
     paged_decode,
     paged_prefill,
@@ -37,6 +38,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     rope,
 )
 from mojo_opset_tpu_torch.core.registry import BackendNotAvailable
+from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3Config, DeepseekV3ForCausalLM, MLARuntimeState
 from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM, Qwen3MoeConfig, Qwen3MoeForCausalLM
 from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, PagedAttentionRuntimeState
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
@@ -44,7 +46,7 @@ from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-                  "group_gemm"]
+                  "group_gemm", "mla_decode"]
 
 
 def test_import_loads_no_jax():
@@ -52,6 +54,7 @@ def test_import_loads_no_jax():
         "import sys, mojo_opset_tpu_torch, mojo_opset_tpu_torch.modeling.qwen3, mojo_opset_tpu_torch.runtime\n"
         "import mojo_opset_tpu_torch.core.operators.moe, mojo_opset_tpu_torch.backends.cuda.operators.moe\n"
         "import mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3_moe, mojo_opset_tpu_torch.backends.cuda.kernels\n"
+        "import mojo_opset_tpu_torch.modeling.deepseekv3, mojo_opset_tpu_torch.backends.cuda.operators.mla\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
         " or m.startswith('mojo_opset_tpu.')]\n"
         "assert not bad, bad\n"
@@ -67,7 +70,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
         "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-        "group_gemm"}
+        "group_gemm", "mla_decode"}
 
 
 def _cpu_calls():
@@ -103,6 +106,12 @@ def _cpu_calls():
     w, xg, counts = t(3, 16, 64), t(7, 64), torch.tensor([2, 0, 5], dtype=torch.int32)
     yield ("group_gemm", lambda: tm.MojoGroupGemm.get_backend_impl("cuda")(w, trans_weight=True)(xg, counts),
            lambda: tm.MojoGroupGemm.get_backend_impl("ref")(w, trans_weight=True)(xg, counts))
+    c, pe, qm = t(5, 1, 4, 32), t(5, 1, 4, 16), t(2, 4, 48)  # latent 32, rope 16, 4 heads, nope 32
+    mla_op = tm.MojoPagedDecodeMLA.get_backend_impl("cuda")(4, 32, 16, 32, 32, device="cpu")
+    mla_plain = tm.MojoPagedDecodeMLA.get_backend_impl("cuda")(4, 32, 16, 32, 32, device="cpu")
+    mla_plain.kv_b_proj.data.copy_(mla_op.kv_b_proj)
+    mla_plain.attend = mla_decode.mla_decode_absorbed_plain
+    yield "mla_decode", lambda: mla_op(qm, c, pe, lens, table), lambda: mla_plain(qm, c, pe, lens, table)
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -222,6 +231,49 @@ def test_group_gemm_wrapper_rejects_what_the_kernel_does_not_take():
     assert group_gemm.launches == 0
 
 
+def test_mla_wrapper_rejects_what_the_kernel_does_not_take():
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    lens, table = meta(2, dtype=torch.int32), meta(2, 3, dtype=torch.int32)
+    c, pe = meta(5, 1, 64, 512), meta(5, 1, 64, 64)
+    mla = mla_decode.mla_decode_absorbed
+    with pytest.raises(ValueError, match="r <= 512"):
+        mla(meta(2, 16, 640), meta(2, 16, 64), meta(5, 1, 64, 640), pe, lens, table)
+    with pytest.raises(ValueError, match="r <= 512"):  # r + dr > 576
+        mla(meta(2, 16, 512), meta(2, 16, 128), c, meta(5, 1, 64, 128), lens, table)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        mla(meta(2, 16, 500), meta(2, 16, 64), meta(5, 1, 64, 500), pe, lens, table)
+    with pytest.raises(ValueError, match="share one dtype"):
+        mla(meta(2, 16, 512, dtype=torch.float32), meta(2, 16, 64, dtype=torch.float32), c, pe, lens, table)
+    with pytest.raises(ValueError, match="do not match"):
+        mla(meta(2, 16, 512), meta(2, 8, 64), c, pe, lens, table)
+    with pytest.raises(ValueError, match="row_lens"):
+        mla(meta(2, 16, 512), meta(2, 16, 64), c, pe, meta(2, dtype=torch.int64), table)
+    with pytest.raises(ValueError, match="one table row per query row"):
+        mla(meta(3, 16, 512), meta(3, 16, 64), c, pe, meta(3, dtype=torch.int32), table)
+    with pytest.raises(ValueError, match="sink"):
+        mla(meta(2, 16, 512), meta(2, 16, 64), c, pe, lens, table, sink=meta(16))
+    with pytest.raises(ValueError, match="contiguous"):
+        mla(meta(16, 2, 512).transpose(0, 1), meta(2, 16, 64), c, pe, lens, table)
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        mla(meta(2, 16, 512, dtype=torch.float64), meta(2, 16, 64), c, pe, lens, table)
+    assert mla_decode.launches == 0
+
+
+def test_mla_ops_never_fall_back(monkeypatch):
+    """The cuda-tier MLA ops send every non-CPU tensor to kernel I, the sink
+    and the prefill row mode included: without a build they raise."""
+    monkeypatch.setattr(build, "load_library", lambda: (_ for _ in ()).throw(RuntimeError("no kernels built")))
+    meta = lambda *shape, dtype=torch.float32: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    c, pe, table = meta(5, 1, 16, 32), meta(5, 1, 16, 16), meta(2, 3, dtype=torch.int32)
+    decode = tm.MojoPagedDecodeMLA.get_backend_impl("cuda")(4, 32, 16, 32, 32, use_attn_sink=True, device="meta")
+    with pytest.raises(RuntimeError, match="no kernels built"):
+        decode(meta(2, 4, 48), c, pe, meta(2, dtype=torch.int32), table)
+    prefill = tm.MojoPagedPrefillMLA.get_backend_impl("cuda")(4, 32, 16, 32, 32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernels built"):
+        prefill(meta(7, 4, 48), c, pe, meta(3, dtype=torch.int32), table)
+    assert mla_decode.launches == 0
+
+
 def test_resolve_device_defaults_to_the_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert resolve_device(torch.device("meta")) == torch.device("meta")
@@ -241,6 +293,16 @@ def test_entry_points_without_a_device_never_land_on_the_cpu(monkeypatch):
                                            dtype=torch.float32))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PagedAttentionRuntimeState(_tiny().to_mojo(), batch_size=1)
+    deepseek = DeepseekV3Config(hidden_size=32, intermediate_size=64, moe_intermediate_size=16, num_attention_heads=2,
+                                num_hidden_layers=2, vocab_size=64, max_position_embeddings=32, q_lora_rank=16,
+                                kv_lora_rank=16, qk_rope_head_dim=8, qk_nope_head_dim=8, v_head_dim=8,
+                                n_routed_experts=4, num_experts_per_tok=2, first_k_dense_replace=1,
+                                dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeepseekV3ForCausalLM(deepseek)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MLARuntimeState(deepseek.to_mojo(), batch_size=1)
+    assert MLARuntimeState.from_model(DeepseekV3ForCausalLM(deepseek, device="cpu"), 1).device.type == "cpu"
     session = PagedAttentionRuntimeState(_tiny().to_mojo(), batch_size=1, device="cpu")
     assert session.caches.key(0).device.type == "cpu"
     model = Qwen3ForCausalLM(_tiny(), device="cpu")

@@ -400,12 +400,22 @@ def test_quant_prefill_logits_and_scales(quant_pair):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["stepwise", "fused"])
 def test_quant_greedy_tokens_match(quant_pair, fused):
+    """Both of the port's streams are held to JAX's stepwise stream (JAX's
+    jitted FusedDecode window is not a stable reference under several
+    workers: ROADMAP.md, queue 3); the fused case also holds the port's
+    window to the port's stepwise loop."""
     _, qm_j, _, qm_t, _ = quant_pair
     ids = _prompt()
     want = JaxGenerator(JaxPaged(qm_j, block_size=BLOCK, jit=True), Tok(), JaxGreedy(),
-                        max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True, silent=True,
-                                                                fused_decode=fused)
-    got = MojoGenerator(PagedAttentionGenerationModel(qm_t, block_size=BLOCK), Tok(), GreedySampler(),
-                        max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True, fused_decode=fused)
+                        max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True, silent=True)
+
+    def port_stream(fused_decode):
+        return MojoGenerator(PagedAttentionGenerationModel(qm_t, block_size=BLOCK), Tok(), GreedySampler(),
+                             max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True,
+                                                                     fused_decode=fused_decode)
+
+    got = port_stream(fused)
     assert got.shape == (len(LENS), STEPS)
     np.testing.assert_array_equal(got, np.asarray(want))
+    if fused:
+        np.testing.assert_array_equal(got, port_stream(False))
