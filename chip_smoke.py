@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the nine kernels from ``mojo_opset_tpu_torch/csrc``
+  2. build: compiles the ten kernel sources from ``mojo_opset_tpu_torch/csrc``
      (one nvcc per source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
@@ -29,7 +29,15 @@ is non-zero:
      mode over the prompt batch, and edge cases (a zero-length sequence, -1
      table padding, contexts off the block size, one page, H 4 and 16, a
      sink, fp16, fp32), its fp32 output to the fp32 ladder; A and B also
-     run at DeepSeek's widths. Every main case is timed replayed from a CUDA graph (``ms``: device
+     run at DeepSeek's widths. Kernel J's three entry points (forward, dq,
+     dk/dv) run at the training shape (B 2 x S 2048, 32/8 heads, D 128,
+     causal), varlen with both windows and a local one, suffix-q, a
+     zero-length sequence and fully masked rows (their o, dq, dk, dv exactly
+     0), MHA, group 4 under ABAB, D 64 and 256, fp16 and fp32, with lse and
+     delta to the fp32 ladder; and the Wan DiT's maskless L = 1560 SDPA
+     through CudaSdpa. Each of J's outputs is also held, relative to its
+     own size, to FLASH_SWA_REL_LIMITS (the whole tensor and its worst row).
+     Every main case is timed replayed from a CUDA graph (``ms``: device
      time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
      3.35 TB/s or operations over the dtype's peak, the larger) and, where
      one PyTorch call computes the same function, that call's time.
@@ -102,6 +110,17 @@ is non-zero:
      the top-8 route agreement and the per-row logit cosine (bound
      DEEPSEEK_COSINE_BOUND). Prints the readings, peak memory and one
      decode step's device time from torch.profiler.
+ 10. Qwen3 training at Qwen3-4B geometry in bf16 (random weights from seed
+     0, one repeated batch of B 2 x S 2048 random ids): a twin check at
+     depth 2, one step on kernel J and one with J's plain forward and
+     backward in its place (the same model), the loss to TRAIN_LOSS_REL_BOUND and
+     every parameter's gradient to TRAIN_GRAD_COSINE_BOUND; then at depth
+     36, train_forward + the chunked golden loss + backward + fused AdamW:
+     a warm-up step and TRAIN_STEPS counted steps (J launches once forward
+     and twice backward a layer a step; the masked-Sdpa golden route is
+     never taken; the loss is finite and falls), then one profiled step.
+     Prints step, forward and backward ms, tokens/s, mfu, peak memory, the
+     device idle share and J's share of busy time.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -183,6 +202,13 @@ KERNEL_INFO = {
                    "mojo_opset_tpu/backends/pallas/kernels/group_gemm.py:220"),
     "mla_decode": ("mla_decode_absorbed", "mojo_opset_tpu_torch/csrc/mla_decode.cu",
                    "mojo_opset_tpu/backends/pallas/kernels/mla_decode.py:151"),
+    # kernel J's three entry points replace flash_swa's three pallas_calls
+    "flash_swa_fwd": ("flash_swa_fwd", "mojo_opset_tpu_torch/csrc/flash_swa.cu",
+                      "mojo_opset_tpu/backends/pallas/kernels/flash_vjp.py:337"),
+    "flash_swa_dq": ("flash_swa_dq", "mojo_opset_tpu_torch/csrc/flash_swa.cu",
+                     "mojo_opset_tpu/backends/pallas/kernels/flash_vjp.py:402"),
+    "flash_swa_dkv": ("flash_swa_dkv", "mojo_opset_tpu_torch/csrc/flash_swa.cu",
+                      "mojo_opset_tpu/backends/pallas/kernels/flash_vjp.py:436"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
 MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
@@ -205,10 +231,36 @@ PEAK_OPS = {"bf16": 989e12, "fp16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the bs-1 speculative run of bench.py:298-331: prompt, new tokens, drafts per round
 SPEC_PROMPT, SPEC_NEW, SPEC_K = 512, 64, 4
 SPEC_TIE_GAP = 0.05  # a stream may leave vanilla greedy only where the target's two best logits are this close
+# phase 10: AdamW steps of Qwen3 at Qwen3-4B geometry on one repeated batch of B x S tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
+TRAIN_LAYERS = 36  # the depth of the timed steps
+TRAIN_TWIN_LAYERS = 2  # the depth cut of the twin check against J's plain forward and backward
+TRAIN_LR = 3e-4  # 1e-3 overshot: the loss went 12.1, 6.3, 11.3, 8.5 over the first steps
+TRAIN_LOSS_CHUNK = 1024  # rows of each chunk of the golden loss: (1024, 151936) fp32 logits at a time
+# the twin check's per-parameter gradient cosine (kernel J vs its plain version, the rest shared): bf16 rounds o,
+# dq, dk and dv at other places; the run that set it saw 1 - cosine <= 1.6e-5 over the 25 parameters (PERF.md,
+# section 6), so 1e-4 leaves 6x room, while a wrong mask or GQA reduction moves a layer's gradients wholesale
+TRAIN_GRAD_COSINE_BOUND = 0.9999
+# the twin check's loss, as |loss - plain loss| / plain loss: the run that set it read 12.093158 against 12.093153
+# (a gap of at most 8e-7 at the printed digits), so 1e-5 leaves >= 12x room
+TRAIN_LOSS_REL_BOUND = 1e-5
 # the small quantized twins' kernel and plain paths differ by 0.014-0.027 in logits of scale ~2 (an int8
 # activation moved across a rounding tie by a sum in another order); their tokens may part only at a
 # near-tie within this bound
 SMALL_TIE_BOUND = 0.05
+# kernel J against its plain version, each output relative to its own size: (whole tensor, worst row) limits on
+# ||got - want|| / ||want||, a row being one (token, head) or (key, kv head) row of D. Both versions sum in fp32 and
+# round once to the output type, so they part by one ulp at a few elements. The run that set them read at most
+# 2.0e-4 / 2.0e-3 in bf16, 1.4e-5 / 3.3e-4 in fp16 and 3.0e-7 / 3.8e-4 in fp32 (PERF.md, section 6): each limit
+# leaves 5-7x. A 16-key tile's PV product dropped for the last 148 rows of a sequence of 2048 reads 6.5e-3 / 0.43
+# in o (the bf16 ladder passes it). ||want|| has a floor of FLASH_SWA_REL_FLOOR an element (the inputs are unit
+# normal): a row that sees one key has o = v and ds = dp - delta = 0 up to fp32 rounding, and such noise is held
+# absolutely
+FLASH_SWA_REL_LIMITS = {"bf16": (1e-3, 1e-2), "fp16": (1e-4, 2e-3), "fp32": (2e-6, 2e-3)}
+FLASH_SWA_REL_FLOOR = 1e-3
+# CudaSdpa (J's forward) against the golden SDPA, (whole, worst row) as above: the golden rounds its probabilities to
+# bf16 before the PV product; the run that set it read 2.55e-3 / 4.38e-3 at the Wan DiT's shape, so these leave 5x
+SDPA_GOLDEN_REL_LIMITS = (1.25e-2, 2.2e-2)
 
 
 def log(phase: str, msg: str) -> None:
@@ -322,9 +374,13 @@ def phase_kernels(torch) -> dict:
     bf16 = torch.bfloat16
     record = {}
 
-    def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None, bound=None, library=None):
+    def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None, bound=None, library=None,
+                library_graph=True):
         """``bound``: (bytes, operations, operand kind) of the main case;
-        ``library``: one PyTorch call computing the same function, or None."""
+        ``library``: one PyTorch call computing the same function, or None,
+        replayed from a CUDA graph, or with ``library_graph=False`` timed in
+        an eager loop (an autograd backward)."""
+        t0 = time.perf_counter()
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         if check is None:
@@ -336,13 +392,16 @@ def phase_kernels(torch) -> dict:
         err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
         line = f"{case} {str(dtype).split('.')[-1]}: max_abs_err {err:.3g} (tol {tol})"
         if main:
+            t1 = time.perf_counter()
             b_ms, b_by = bound_ms(*bound)
             entry = dict(max_abs_err=err, ms=graph_ms(torch, kernel_fn), eager_ms=cuda_ms(torch, kernel_fn),
                          plain_ms=cuda_ms(torch, plain_fn, iters=5), bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None if library is None else graph_ms(torch, library))
+                         library_ms=None if library is None else (graph_ms if library_graph else cuda_ms)(
+                             torch, library))
             lib = "none" if library is None else f"{entry['library_ms']:.4f} ms"
             line += (f"; kernel {entry['ms']:.4f} ms in a CUDA graph ({entry['eager_ms']:.4f} eager), plain "
-                     f"{entry['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {lib}")
+                     f"{entry['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {lib}; checked in "
+                     f"{t1 - t0:.1f} s, timed in {time.perf_counter() - t1:.1f} s")
             if key is None:
                 record[name] = entry
             else:
@@ -605,6 +664,7 @@ def phase_kernels(torch) -> dict:
         del w
     torch.cuda.empty_cache()
     _mla_cases(torch, compare, gen)
+    _flash_swa_cases(torch, compare, gen)
     return record
 
 
@@ -685,6 +745,137 @@ def _mla_cases(torch, compare, gen) -> None:
     mla_case("mla prefill rows chunked, sink", [40, 300], rows=[(1, 300), (1, 299), (0, 21), (0, 0)], sink=True)
     mla_case("mla decode fp16", [300, 5], dtype=torch.float16, H=32)
     mla_case("mla decode fp32", [300, 5], dtype=torch.float32, H=32)
+
+
+def _flash_swa_cases(torch, compare, gen) -> None:
+    """J: trainable varlen GQA/SWA flash attention, its three entry points each against its plain version on the
+    same inputs (the backward ones fed the plain forward's o and lse, and dk/dv the plain dq's delta), at the
+    training shape (main: B 2 x S 2048, 32/8 heads, D 128, causal, one cu vector), then varlen with both windows
+    and with a local one, suffix-q (cu_q != cu_k), a zero-length sequence and fully masked rows (their o and dq,
+    and the dk and dv of keys no row sees, exactly 0), MHA, group 4 under ABAB, D 64 and 256, fp16 and fp32;
+    and the Wan DiT's maskless L = 1560 through CudaSdpa against the golden SDPA. bf16/fp16/fp32 outputs to
+    their ladder, lse and delta to the fp32 ladder."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
+    from mojo_opset_tpu_torch.core.operators import MojoSdpa
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    t_all = time.perf_counter()
+
+    def rel_errors(got, want):
+        """||got - want|| / ||want|| over the whole tensor and at its worst row of the last dim, ||want|| taken
+        no smaller than FLASH_SWA_REL_FLOOR an element; and want's RMS."""
+        g, w = got.double().reshape(-1, got.shape[-1]), want.double().reshape(-1, want.shape[-1])
+        diff, norm = (g - w).norm(dim=1), w.norm(dim=1)
+        floor = FLASH_SWA_REL_FLOOR * w.shape[1] ** 0.5
+        whole = (diff.norm() / w.norm().clamp_min(floor * max(w.shape[0], 1) ** 0.5)).item()
+        rows = diff / norm.clamp_min(floor)
+        rms = w.square().mean().sqrt().item() if w.numel() else 0.0
+        return whole, rows.max().item() if rows.numel() else 0.0, rms
+
+    def checker(*dtypes, limits=None):
+        """The dtype ladder, then J's relative limits (``limits`` in their place for every output)."""
+        def check(got, want):
+            got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+            notes = []
+            for g, w, dt in zip(got, want, dtypes):
+                check_tol_diff(g, w, **tols_for(dt))
+                whole, row, rms = rel_errors(g, w)
+                limit = limits or FLASH_SWA_REL_LIMITS[_kind(torch, dt)]
+                if not (whole <= limit[0] and row <= limit[1]):
+                    raise AssertionError(f"flash_swa: relative error {whole:.3g} (worst row {row:.3g}) over "
+                                         f"limit {limit} for an output of RMS {rms:.3g}")
+                notes.append(f"{tols_for(dt)}, relative {whole:.3g}, worst row {row:.3g} (limit {limit}), "
+                             f"rms {rms:.3g}")
+            return " / ".join(notes)
+        return check
+
+    def case(label, q_lens, kv_lens, hq, hkv, d, dtype, causal=True, lws=None, gws=None, layout="AABB",
+             main=False):
+        t0 = time.perf_counter()
+        cu_q = _cu(torch, q_lens)
+        cu_k = cu_q if kv_lens is None else _cu(torch, kv_lens)
+        Tq, Tk = sum(q_lens), sum(q_lens if kv_lens is None else kv_lens)
+        q, do = (torch.randn(Tq, hq, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        k, v = (torch.randn(Tk, hkv, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        cfg = dict(causal=causal, local_window=lws, global_window=gws, gqa_layout=layout)
+        o, lse = fs.flash_swa_fwd_plain(q, k, v, cu_q, cu_k, **cfg)
+        _, delta = fs.flash_swa_dq_plain(q, k, v, o, do, lse, cu_q, cu_k, **cfg)
+        rows_seen = torch.zeros(Tq, dtype=torch.bool, device="cuda")
+        keys_seen = torch.zeros(Tk, dtype=torch.bool, device="cuda")
+        pairs = 0
+        for q0, q1, k0, k1, keep in fs.sequence_masks(q, k, cu_q, cu_k, causal, lws, gws):
+            pairs += int(keep.sum()) * hq
+            rows_seen[q0:q1] |= keep.any(1)
+            keys_seen[k0:k1] |= keep.any(0)
+        isz = q.element_size()
+        rows, kv_rows, stats = Tq * hq * d * isz, Tk * hkv * d * isz, Tq * hq * 4
+        kind = _kind(torch, dtype)
+        lib_fwd = lib_bwd = None
+        if main:  # SDPA on the padded (B, H, S, D) batch: one length, so no padding here
+            B, S = len(q_lens), q_lens[0]
+            qp, kp, vp, dop = (x.view(B, S, -1, d).transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v, do))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_fwd = lambda: sdpa(qp, kp, vp, is_causal=True, enable_gqa=True)  # noqa: E731
+            out = lib_fwd()
+            lib_bwd = lambda: torch.autograd.grad(out, (qp, kp, vp), dop, retain_graph=True)  # noqa: E731
+            check_tol_diff(out.transpose(1, 2).reshape(o.shape), o, **tols_for(dtype))  # the same function
+        t_setup = time.perf_counter() - t0
+        name = f"{label} q={q_lens} kv={kv_lens or 'same'} {hq}/{hkv}x{d} {layout} causal={causal} lws={lws} gws={gws}"
+        compare("flash_swa_fwd", lambda: fs.flash_swa_fwd(q, k, v, cu_q, cu_k, **cfg),
+                lambda: fs.flash_swa_fwd_plain(q, k, v, cu_q, cu_k, **cfg), dtype, "fwd " + name, main,
+                check=checker(dtype, f32), bound=(2 * rows + 2 * kv_rows + stats, 4 * d * pairs, kind),
+                library=lib_fwd)
+        compare("flash_swa_dq", lambda: fs.flash_swa_dq(q, k, v, o, do, lse, cu_q, cu_k, **cfg),
+                lambda: fs.flash_swa_dq_plain(q, k, v, o, do, lse, cu_q, cu_k, **cfg), dtype, "dq " + name, main,
+                check=checker(dtype, f32), bound=(4 * rows + 2 * kv_rows + 2 * stats, 6 * d * pairs, kind),
+                library=lib_bwd, library_graph=False)
+        compare("flash_swa_dkv", lambda: fs.flash_swa_dkv(q, k, v, do, lse, delta, cu_q, cu_k, **cfg),
+                lambda: fs.flash_swa_dkv_plain(q, k, v, do, lse, delta, cu_q, cu_k, **cfg), dtype, "dkv " + name, main,
+                check=checker(dtype, dtype), bound=(2 * rows + 4 * kv_rows + 2 * stats, 8 * d * pairs, kind),
+                library=lib_bwd, library_graph=False)
+        if not (rows_seen.all() and keys_seen.all()):
+            (o_k, _), (dq_k, _) = fs.flash_swa_fwd(q, k, v, cu_q, cu_k, **cfg), fs.flash_swa_dq(
+                q, k, v, o, do, lse, cu_q, cu_k, **cfg)
+            dk_k, dv_k = fs.flash_swa_dkv(q, k, v, do, lse, delta, cu_q, cu_k, **cfg)
+            blind = [t[~seen].abs().max().item() if (~seen).any() else 0.0
+                     for t, seen in ((o_k, rows_seen), (dq_k, rows_seen), (dk_k, keys_seen), (dv_k, keys_seen))]
+            if max(blind) != 0.0:
+                raise AssertionError(f"flash_swa: rows or keys that see nothing got non-zero o/dq/dk/dv {blind}")
+            log("kernel flash_swa", f"{name}: {int((~rows_seen).sum())} rows and {int((~keys_seen).sum())} keys "
+                                    f"see nothing; their o, dq, dk, dv are exactly 0")
+        log("kernel flash_swa", f"{label}: {time.perf_counter() - t0:.1f} s ({t_setup:.1f} s of inputs, plain "
+                                f"references and the library's first call)")
+
+    case("training shape", [2048, 2048], None, 32, 8, 128, bf16, main=True)
+    case("varlen, both windows", [300, 1, 700, 45], None, 32, 8, 128, bf16, lws=96, gws=32)
+    case("varlen, local window", [513, 130], None, 32, 8, 128, f16, lws=128)
+    case("suffix-q", [64, 32, 100], [192, 256, 100], 32, 8, 128, bf16)
+    case("zero-length, masked rows", [5, 3, 0, 4], [2, 0, 6, 4], 8, 2, 128, f32)
+    case("zero-length, window 0", [5, 3, 0, 4], [2, 0, 6, 4], 8, 2, 128, bf16, lws=0)
+    case("MHA", [200, 77], None, 8, 8, 128, f32)
+    case("group 4 ABAB", [150, 250], None, 16, 4, 128, bf16, layout="ABAB")
+    case("D 64", [333, 100], None, 8, 2, 64, f16, lws=50)
+    case("D 256", [130, 60], None, 4, 2, 256, bf16, causal=False)
+    empty = torch.empty(0, 8, 128, device="cuda", dtype=bf16)
+    kv = torch.randn(10, 2, 128, device="cuda", generator=gen).to(bf16)
+    before = fs.launches
+    o, lse = fs.flash_swa_fwd(empty, kv, kv, _cu(torch, [0]), _cu(torch, [10]))
+    if o.shape != empty.shape or fs.launches != before:
+        raise AssertionError("flash_swa launched on Tq = 0")
+    log("kernel flash_swa", "Tq = 0: no launch, empty output")
+
+    # the Wan DiT's maskless attention (L = 1560 at the (1, 60, 104) latent, 12 heads of 128): CudaSdpa packs it as
+    # B equal-length non-causal sequences on J
+    dit = [torch.randn(1, 12, 1560, 128, device="cuda", generator=gen).to(bf16) for _ in range(3)]
+    cuda_sdpa, golden_sdpa = MojoSdpa.get_backend_impl("cuda")(), MojoSdpa.get_backend_impl("ref")()
+    pairs = 12 * 1560 * 1560
+    compare("flash_swa_fwd", lambda: cuda_sdpa(*dit), lambda: golden_sdpa(*dit), bf16,
+            "Wan DiT SDPA (1, 12, 1560, 128) through CudaSdpa vs the golden", True, key="wan_dit_sdpa",
+            check=checker(bf16, limits=SDPA_GOLDEN_REL_LIMITS),
+            bound=(4 * dit[0].numel() * 2, 4 * 128 * pairs, "bf16"),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(*dit))
+    log("kernel flash_swa", f"J's cases took {time.perf_counter() - t_all:.1f} s")
 
 
 def _layers(model):
@@ -1442,14 +1633,173 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     return {k: counts[k] for k in DEEPSEEK_PATH_KERNELS}
 
 
+def _train_step(torch, model, ids, opt=None) -> tuple:
+    """One training step on ``ids`` (B, S + 1): ``train_forward`` of the
+    first S, the chunked golden loss against the last S, backward and, with
+    ``opt``, its update. Returns (loss, forward ms, backward ms, update ms),
+    each part ended by a synchronize."""
+    from mojo_opset_tpu_torch.core.functions import fused_linear_cross_entropy
+
+    inputs, targets = ids[:, :-1], ids[:, 1:].reshape(-1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hidden = model.train_forward(inputs)
+    loss = fused_linear_cross_entropy(hidden.reshape(-1, hidden.shape[-1]), model.lm_head_weight, targets,
+                                      chunk_size=TRAIN_LOSS_CHUNK)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if opt is not None:
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return loss.detach().float(), (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+
+def _train_model(torch, layers: int):
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+
+    config = Qwen3Config(**dict(QWEN3_4B, num_hidden_layers=layers), dtype=torch.bfloat16)
+    model = Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model.requires_grad_(True)
+    attn = model.model.layers[0].self_attn.attn_train
+    assert type(attn).__name__ == "CudaSWAFunction", type(attn)
+    ids = torch.randint(1, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    return model, ids
+
+
+def _train_twin_check(torch) -> None:
+    """One step at full width, depth cut to TRAIN_TWIN_LAYERS, on kernel J and
+    again with J's plain forward and backward in its place (the same model,
+    so every other tensor and op is shared): the loss to
+    TRAIN_LOSS_REL_BOUND, each parameter's gradient to
+    TRAIN_GRAD_COSINE_BOUND."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
+
+    model, ids = _train_model(torch, TRAIN_TWIN_LAYERS)
+    kernels.reset_launch_counts()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, fwd_ms, bwd_ms, _ = _train_step(torch, model, ids)
+    act_gib = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    counts = kernels.launch_counts()
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    if [counts[k] for k in ("flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv")] != [TRAIN_TWIN_LAYERS] * 3:
+        raise AssertionError(f"the twin check's kernel step launched {counts}")
+    for layer in model.model.layers:
+        layer.self_attn.attn_train.swa.fwd = fs.flash_swa_fwd_plain
+        layer.self_attn.attn_train.swa.bwd = fs.flash_swa_bwd_plain
+    plain_loss, *_ = _train_step(torch, model, ids)
+    if kernels.launch_counts() != counts:
+        raise AssertionError("the plain twin launched a kernel")
+    loss_gap = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    cos = {name: torch.nn.functional.cosine_similarity(grads[name].float().flatten(), p.grad.float().flatten(),
+                                                       dim=0).item()
+           for name, p in model.named_parameters()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    log("train full width", f"twin check ({TRAIN_TWIN_LAYERS} layers at Qwen3-4B width, B {TRAIN_BATCH} x S "
+                            f"{TRAIN_SEQ}): loss {loss.item():.9g} on J, {plain_loss.item():.9g} on J's plain "
+                            f"version (relative gap {loss_gap:.3g}, bound {TRAIN_LOSS_REL_BOUND}); gradient cosine "
+                            f"over {len(cos)} parameters: "
+                            f"lowest {[(n, round(c, 6)) for n, c in worst]} (bound {TRAIN_GRAD_COSINE_BOUND}); "
+                            f"kernel step forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms; step memory above "
+                            f"the weights {act_gib:.2f} GiB")
+    if not loss_gap <= TRAIN_LOSS_REL_BOUND:
+        raise AssertionError(f"the loss disagrees with the plain twin: relative gap {loss_gap}")
+    if worst[0][1] < TRAIN_GRAD_COSINE_BOUND:
+        raise AssertionError(f"gradients disagree with the plain twin: {worst}")
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_full_width(torch, card: str) -> dict:
+    """Qwen3 training at Qwen3-4B geometry: the twin check, then AdamW steps
+    at depth TRAIN_LAYERS on one repeated batch, counted and profiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaSdpa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _train_twin_check(torch)
+    t0 = time.perf_counter()
+    model, ids = _train_model(torch, TRAIN_LAYERS)
+    config = model.qwen3_config
+    n_params = sum(p.numel() for p in model.parameters())
+    n_dense = n_params - model.model.embed_tokens.weight.numel()  # the lookup does no product
+    opt = torch.optim.AdamW(model.parameters(), lr=TRAIN_LR, fused=True)
+    log("train full width", f"Qwen3-4B geometry, depth {TRAIN_LAYERS} of {QWEN3_4B['num_hidden_layers']}, "
+                            f"{n_params / 1e9:.3f} B params bf16, AdamW (fused, lr {TRAIN_LR}), built in "
+                            f"{time.perf_counter() - t0:.1f} s")
+    sdpa_golden = CudaSdpa.golden_calls
+    torch.cuda.reset_peak_memory_stats()
+    losses = [_train_step(torch, model, ids, opt)[0].item()]  # warm-up: AdamW states, allocator
+    kernels.reset_launch_counts()
+    steps = [_train_step(torch, model, ids, opt) for _ in range(TRAIN_STEPS)]
+    counts = kernels.launch_counts()
+    losses += [s[0].item() for s in steps]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_swa_fwd": TRAIN_STEPS * TRAIN_LAYERS, "flash_swa_dq": TRAIN_STEPS * TRAIN_LAYERS,
+            "flash_swa_dkv": TRAIN_STEPS * TRAIN_LAYERS}
+    log("train full width", f"launches over {TRAIN_STEPS} steps: {counts}")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"J must launch once forward and twice backward a layer a step: {counts}, want {want}")
+    if CudaSdpa.golden_calls != sdpa_golden:
+        raise AssertionError("the training path took the masked-Sdpa golden route")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss must be finite and fall: {losses}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _train_step(torch, model, ids, opt)
+        prof_ms = (time.perf_counter() - t) * 1e3
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
+    j_ms = sum(e.self_device_time_total for e in device if "flash_swa" in e.key) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+
+    fwd, bwd, upd = (float(np.mean([s[i] for s in steps])) for i in (1, 2, 3))
+    step_ms = fwd + bwd + upd
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2  # causal (query, key) pairs a head
+    attn_flops = 3 * 4 * config.head_dim * config.num_attention_heads * pairs * TRAIN_LAYERS  # forward + 2x backward
+    flops = 6 * n_dense * tokens + attn_flops
+    log("train full width", f"losses {[round(x, 4) for x in losses]} (warm-up step first)")
+    log("train full width", f"{card}: step {step_ms:.1f} ms (forward + loss {fwd:.1f}, backward {bwd:.1f}, "
+                            f"AdamW {upd:.1f}; mean of {TRAIN_STEPS}), {tokens * 1e3 / step_ms:.0f} tokens/s, "
+                            f"mfu {100 * flops / (step_ms * 1e-3) / PEAK_OPS['bf16']:.2f}% ((6 x {n_dense / 1e9:.3f} "
+                            f"B params x {tokens} tokens + {attn_flops / 1e12:.2f} T attention) / step / 989 "
+                            f"TFLOP/s); peak memory {peak_gib:.1f} GiB")
+    log("train full width", f"profiled step: wall {prof_ms:.1f} ms, device busy {busy:.1f} ms (idle "
+                            f"{100 * (1 - busy / prof_ms):.1f}%); kernel J {j_ms:.1f} ms ({100 * j_ms / busy:.1f}% "
+                            f"of busy)")
+    log("train full width", "device time by kernel: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+    del model, opt, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
-                 deepseek_counts: dict) -> list:
+                 deepseek_counts: dict, train_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
-    MoE run and for I from the DeepSeek run; numbers of the main-path case
-    (``ms`` replayed from a CUDA graph). C and D add their int8-page
-    numbers; F, G, H and I their numbers at each shape, G, H and I their
-    largest error over those shapes."""
+    MoE run, for I from the DeepSeek run and for J's three entry points from
+    the training run; numbers of the main-path case (``ms`` replayed from a
+    CUDA graph). C and D add their int8-page numbers; F, G, H and I their
+    numbers at each shape, G, H and I their largest error over those
+    shapes; J's forward its numbers through CudaSdpa at the Wan DiT's
+    shape."""
     line = []
     main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
                    "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4"}
@@ -1464,12 +1814,14 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         elif "int8_pages" in rec:
             extra["int8_pages"] = rec.pop("int8_pages")
+        elif "wan_dit_sdpa" in rec:
+            extra["wan_dit_sdpa"] = rec.pop("wan_dit_sdpa")
         for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),
-                                  ("deepseek", deepseek_counts)):
+                                  ("deepseek", deepseek_counts), ("train", train_counts)):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
-        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts,
-                    "mla_decode": deepseek_counts}.get(module, counts)[module]
+        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts,
+                    **dict.fromkeys(train_counts, train_counts)}.get(module, counts)[module]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                          bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
@@ -1495,8 +1847,9 @@ def main() -> int:
     spec_counts = timed("w4a8 speculative", phase_w4a8_speculative, torch, card)
     moe_counts = timed("moe full width", phase_moe_full_width, torch, card)
     deepseek_counts = timed("deepseek full width", phase_deepseek_full_width, torch, card)
+    train_counts = timed("train full width", phase_train_full_width, torch, card)
     print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts,
-                                              deepseek_counts)}))
+                                              deepseek_counts, train_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -2,9 +2,10 @@
 package beside it.
 
 The ``Mojo*`` op contracts with a plain PyTorch golden tier (``ref``) and
-hand-written Hopper kernels (``cuda``), the paged-KV serving runtime, and
-the Qwen3 dense model with its int8 serving modes (w8a8 weights, C8 KV
-cache). ``MOJO_BACKEND`` in {ref, cuda} picks a tier when an
+hand-written Hopper kernels (``cuda``), the ``Mojo*Function`` training ops
+(attention with a kernel backward, the fused linear + CE loss), the
+paged-KV serving runtime, and the models (Qwen3 dense with its int8
+serving modes and its training forward, Qwen3-MoE, DeepSeek-V3). ``MOJO_BACKEND`` in {ref, cuda} picks a tier when an
 op is constructed; the default is ``cuda``, whose kernel wrappers run
 their plain versions on CPU tensors.
 
@@ -16,8 +17,9 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from mojo_opset_tpu_torch.core import BackendNotAvailable, MojoBackendRegistry, MojoOperator  # noqa: F401
+from mojo_opset_tpu_torch.core import BackendNotAvailable, MojoBackendRegistry, MojoFunction, MojoOperator  # noqa: F401
 from mojo_opset_tpu_torch.core.operators import *  # noqa: F401,F403
+from mojo_opset_tpu_torch.core.functions import *  # noqa: F401,F403
 from mojo_opset_tpu_torch.experimental.operators import *  # noqa: F401,F403,E402
 
 import mojo_opset_tpu_torch.backends.cuda  # noqa: F401,E402

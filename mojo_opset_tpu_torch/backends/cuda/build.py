@@ -35,8 +35,13 @@ NVCC_FLAGS = (
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel J's scalar tail: B, Tq, Tk, hq, hkv, D, scale, causal, lws, gws, abab, dtype, stream
+_SWA_TAIL = (_I,) * 6 + (_F,) + (_I,) * 5 + (_P,)
 # argument types of every entry point, the trailing stream included
 SIGNATURES = {
+    "mojo_flash_swa_fwd": (_P,) * 7 + _SWA_TAIL,
+    "mojo_flash_swa_dq": (_P,) * 10 + _SWA_TAIL,
+    "mojo_flash_swa_dkv": (_P,) * 10 + _SWA_TAIL,
     "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
     "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mojo_paged_decode": (_P,) * 8 + (_I,) * 9 + (_F, _I, _I, _I, _P),
@@ -138,6 +143,18 @@ def require(cond: bool, msg: str) -> None:
     """Input check of a kernel wrapper: a ValueError the caller can act on."""
     if not cond:
         raise ValueError(msg)
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Check of a forward-only kernel's wrapper: a ctypes launch records no
+    autograd graph, so an input that needs a gradient would lose it
+    silently. Raises when grad mode is on and one does."""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is a forward-only kernel and an input requires grad: its output would carry no gradient. "
+            f"Run it under torch.no_grad() or torch.inference_mode(), or train through the golden ops "
+            f"(MOJO_BACKEND=ref) or a Mojo*Function."
+        )
 
 
 def require_device(device: torch.device, *tensors: torch.Tensor) -> None:

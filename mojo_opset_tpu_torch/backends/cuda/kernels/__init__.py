@@ -1,7 +1,9 @@
 """Kernel wrappers: each module holds one kernel's launcher, its plain
-PyTorch version and its ``launches`` counter."""
+PyTorch version and its ``launches`` counter; kernel J (``flash_swa``) has
+three entry points, each with its own counter."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    flash_swa,
     group_gemm,
     int4_matmul,
     int8_matmul,
@@ -15,11 +17,16 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
 
 ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul, group_gemm, mla_decode)
 
+# (name, module, counter attribute) of every entry point
+COUNTERS = [(module.__name__.rsplit(".", 1)[-1], module, "launches") for module in ALL] + [
+    ("flash_swa_fwd", flash_swa, "launches"), ("flash_swa_dq", flash_swa, "launches_dq"),
+    ("flash_swa_dkv", flash_swa, "launches_dkv")]
+
 
 def reset_launch_counts() -> None:
-    for module in ALL:
-        module.launches = 0
+    for _, module, attr in COUNTERS:
+        setattr(module, attr, 0)
 
 
 def launch_counts() -> dict[str, int]:
-    return {module.__name__.rsplit(".", 1)[-1]: module.launches for module in ALL}
+    return {name: getattr(module, attr) for name, module, attr in COUNTERS}

@@ -26,6 +26,7 @@ def grouped_matmul(
     ``x.dtype``; rows past the groups' end are zero.
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    build.require_no_grad("grouped_matmul", x, weights)
     if x.device.type == "cpu":
         return grouped_matmul_plain(x, weights, group_sizes, trans_weight)
     return _group_gemm_kernel(x, weights, group_sizes, trans_weight)

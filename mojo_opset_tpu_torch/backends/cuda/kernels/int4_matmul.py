@@ -38,6 +38,7 @@ def int4_scaled_matmul(
     (M, 1) and (N,).
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    build.require_no_grad("int4_scaled_matmul", x, w_packed, input_scale, weight_scale)
     if x.device.type == "cpu":
         return int4_scaled_matmul_plain(x, w_packed, input_scale, weight_scale, output_dtype)
     return _int4_matmul_kernel(x, w_packed, input_scale, weight_scale, output_dtype)

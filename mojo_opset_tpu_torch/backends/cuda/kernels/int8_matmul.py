@@ -29,6 +29,7 @@ def int8_scaled_matmul(
     ``trans_weight``; fp32 scales (M,) or (M, 1) and (N,).
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    build.require_no_grad("int8_scaled_matmul", x, weight, input_scale, weight_scale)
     if x.device.type == "cpu":
         return int8_scaled_matmul_plain(x, weight, input_scale, weight_scale, trans_weight, output_dtype)
     return _int8_matmul_kernel(x, weight, input_scale, weight_scale, trans_weight, output_dtype)

@@ -84,6 +84,7 @@ def mla_decode_absorbed(
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
     args = (q_lat, q_pe, c_cache, pe_cache, row_lens, block_tables, row_seqs, sink)
+    build.require_no_grad("mla_decode_absorbed", *args)
     if q_lat.device.type == "cpu":
         return mla_decode_absorbed_plain(*args)
     return _mla_kernel(*args)

@@ -18,6 +18,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm over the last dim of ``x``; fp32 ``weight`` (D,).
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    build.require_no_grad("rmsnorm", x, weight)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, weight, eps)
     return _rmsnorm_kernel(x, weight, eps)

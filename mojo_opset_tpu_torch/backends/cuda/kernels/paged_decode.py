@@ -125,6 +125,7 @@ def paged_decode_gqa(
     the kernel."""
     args = (query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout,
             key_scale, value_scale)
+    build.require_no_grad("paged_decode_gqa", *args)
     if query.device.type == "cpu":
         return paged_decode_gqa_plain(*args)
     return _decode_kernel(*args)

@@ -79,6 +79,7 @@ def paged_prefill_gqa(
     ``value_scale``. ``max_q_len`` (a host int) bounds the kernel's grid.
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    build.require_no_grad("paged_prefill_gqa", query, key_cache, value_cache, key_scale, value_scale)
     if query.device.type == "cpu":
         return paged_prefill_gqa_plain(
             query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale, cu_total_seq_lens,

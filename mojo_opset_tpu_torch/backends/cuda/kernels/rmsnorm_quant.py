@@ -32,6 +32,7 @@ def rmsnorm_quant(
     of x's shape, fp32 scale (..., 1))``.
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    build.require_no_grad("rmsnorm_quant", x, weight, smooth_scale)
     if x.device.type == "cpu":
         return rmsnorm_quant_plain(x, weight, eps, smooth_scale, q_min, q_max)
     return _rmsnorm_quant_kernel(x, weight, eps, smooth_scale, q_min, q_max)

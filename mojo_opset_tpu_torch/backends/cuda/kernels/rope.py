@@ -49,6 +49,7 @@ def rope_token_first(
     """q (T, Hq, D), k (T, Hk, D), cos/sin (T, D) -> rotated (q, k).
 
     A CPU tensor takes the plain version; a CUDA tensor the kernel."""
+    build.require_no_grad("rope_token_first", q, k, cos, sin)
     _check(q, k, cos, sin)
     if q.device.type == "cpu":
         return rope_token_first_plain(q, k, cos, sin)

@@ -3,6 +3,9 @@ from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
     CudaPagedDecodeGQAWithKVDequant,
     CudaPagedPrefillGQA,
     CudaPagedPrefillGQAWithKVDequant,
+    CudaPrefillGQA,
+    CudaSdpa,
+    CudaSWA,
 )
 from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaGroupGemm, CudaQuantGemm
 from mojo_opset_tpu_torch.backends.cuda.operators.mla import CudaPagedDecodeMLA, CudaPagedPrefillMLA
@@ -21,7 +24,10 @@ __all__ = [
     "CudaPagedPrefillGQA",
     "CudaPagedPrefillGQAWithKVDequant",
     "CudaPagedPrefillMLA",
+    "CudaPrefillGQA",
     "CudaQuantGemm",
     "CudaRMSNorm",
     "CudaRMSNormQuant",
+    "CudaSdpa",
+    "CudaSWA",
 ]

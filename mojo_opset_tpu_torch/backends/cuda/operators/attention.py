@@ -1,18 +1,33 @@
-"""cuda-tier paged attention (kernels C and D, ``csrc/paged_decode.cu`` and
-``csrc/paged_prefill.cu``), and the same kernels over int8 (C8) pages
-(C' and D'). The KV-dequant ops take no ``compute_dtype=torch.int8``, no
-``query_scale`` and no ``mask`` here: those raise, they do not fall back
-to the golden."""
+"""cuda-tier attention: paged decode and prefill (kernels C and D,
+``csrc/paged_decode.cu`` and ``csrc/paged_prefill.cu``), the same kernels
+over int8 (C8) pages (C' and D'), and the dense ops of the training path on
+kernel J (``csrc/flash_swa.cu``): ``CudaSWA``, ``CudaSdpa`` and
+``CudaPrefillGQA`` run J's forward under its autograd Function, so they
+carry gradients. The KV-dequant ops take no ``compute_dtype=torch.int8``,
+no ``query_scale`` and no ``mask`` here: those raise, they do not fall back
+to the golden. The one golden route of this module is ``CudaSdpa``'s
+masked call (see its docstring), a port gap until the diffusion kernel
+lands."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from mojo_opset_tpu_torch.backends.cuda.functions.attention import flash_attention
+from mojo_opset_tpu_torch.backends.cuda.kernels.flash_swa import flash_swa_bwd, flash_swa_fwd
 from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import paged_decode_gqa
 from mojo_opset_tpu_torch.backends.cuda.kernels.paged_prefill import paged_prefill_gqa
-from mojo_opset_tpu_torch.core.operators.attention import MojoPagedDecodeGQA, MojoPagedPrefillGQA
+from mojo_opset_tpu_torch.core.operators.attention import (
+    MojoPagedDecodeGQA,
+    MojoPagedPrefillGQA,
+    MojoPrefillGQA,
+    MojoSdpa,
+    MojoSWA,
+    _require_int32,
+)
 from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import (
     MojoPagedDecodeGQAWithKVDequant,
     MojoPagedPrefillGQAWithKVDequant,
@@ -109,3 +124,75 @@ class CudaPagedPrefillGQAWithKVDequant(MojoPagedPrefillGQAWithKVDequant):
             self.gqa_layout, "HND", is_causal=self.is_causal, max_q_len=max_q_len,
             key_scale=key_scale, value_scale=value_scale,
         )
+
+
+def _cu_uniform(batch: int, length: int, device) -> torch.Tensor:
+    """cu vector of ``batch`` sequences of ``length`` rows each."""
+    return torch.arange(batch + 1, dtype=torch.int32, device=device) * length
+
+
+class CudaSWA(MojoSWA):
+    """``fwd`` and ``bwd`` are J's wrappers; a plain twin on the card sets
+    them to ``flash_swa_fwd_plain`` and ``flash_swa_bwd_plain``."""
+
+    fwd = staticmethod(flash_swa_fwd)
+    bwd = staticmethod(flash_swa_bwd)
+
+    def forward(self, query, key, value, cu_q_lens, cu_total_seq_lens, softmax_scale=None):
+        return flash_attention(query, key, value, cu_q_lens, cu_total_seq_lens, self.is_causal,
+                               self.local_window_size, self.global_window_size, softmax_scale, self.gqa_layout,
+                               self.fwd, self.bwd)
+
+
+class CudaSdpa(MojoSdpa):
+    """A maskless call runs on J as B equal-length non-causal sequences, the
+    leading dims flattened into B (the JAX tier's varlen route,
+    ``backends/pallas/operators/attention.py:169-187``). A masked call takes
+    the golden, as the JAX tier's does (:134-149): J takes no arbitrary mask,
+    which is the diffusion kernel's job (``flash_diffusion``, not ported
+    yet). This route runs golden math on card tensors, so it is a port gap,
+    not a tier choice: it goes, with ``golden_calls``, when that kernel is
+    ported. ``golden_calls`` counts those calls, so a run can show its path
+    never took them."""
+
+    golden_calls = 0
+
+    def forward(self, query, key, value, attn_mask=None):
+        if attn_mask is not None:
+            CudaSdpa.golden_calls += 1
+            return super().forward(query, key, value, attn_mask)
+        *lead, Hq, Lq, D = query.shape
+        Hkv, Lk = key.shape[-3], key.shape[-2]
+        if Hq != Hkv and not self.enable_gqa:
+            raise ValueError(f"{Hq} query heads over {Hkv} kv heads need enable_gqa=True")
+        if value.shape != key.shape or key.shape[:-3] != query.shape[:-3]:
+            raise ValueError(f"k and v must share one shape with q's leading dims, got {tuple(key.shape)}, "
+                             f"{tuple(value.shape)} for q {tuple(query.shape)}")
+
+        def pack(x):  # (..., H, L, D) -> (B * L, H, D)
+            return x.reshape(-1, *x.shape[-3:]).transpose(1, 2).reshape(-1, x.shape[-3], x.shape[-1])
+
+        B = math.prod(lead)
+        out = flash_attention(pack(query), pack(key), pack(value), _cu_uniform(B, Lq, query.device),
+                              _cu_uniform(B, Lk, query.device), False, None, None, self.scale, "AABB")
+        return out.reshape(B, Lq, Hq, D).transpose(1, 2).reshape(query.shape)
+
+
+class CudaPrefillGQA(MojoPrefillGQA):
+    """Causal attention over B sequences of S on J, in either GQA layout.
+    Causality alone keeps a valid row off the pad keys after it, so this is
+    the golden's function, which reads ``cu_q_lens`` no further either."""
+
+    def forward(self, query, k_cache, v_cache, cu_q_lens, softmax_scale=None):
+        _require_int32("cu_q_lens", cu_q_lens)
+        if not self.is_causal:
+            raise NotImplementedError("MojoPrefillGQA is causal only")
+        B, Hq, S, D = query.shape
+
+        def pack(x):  # (B, H, S, D) -> (B * S, H, D)
+            return x.transpose(1, 2).reshape(B * S, x.shape[1], D)
+
+        cu = _cu_uniform(B, S, query.device)
+        out = flash_attention(pack(query), pack(k_cache), pack(v_cache), cu, cu, True, None, None, softmax_scale,
+                              self.gqa_layout)
+        return out.reshape(B, S, Hq, D)

@@ -9,8 +9,12 @@ Counterpart of the JAX package's ``core/operator.py``:
   * ``forward_diff_with`` runs two tiers on the same inputs and compares.
 
 The JAX package's pytree ``Module`` becomes ``torch.nn.Module``: weights
-are ``nn.Parameter``s (no grad; the slice serves) and ops that JAX
-returns functionally (the KV store) update their inputs in place.
+are ``nn.Parameter``s, built with ``requires_grad=False`` (serving is the
+default; a trainer turns gradients on with ``requires_grad_(True)`` and
+trains through the golden ops and the ``MojoFunction`` tiers: the
+forward-only kernel wrappers of the ``cuda`` tier raise on an input that
+needs a gradient in grad mode), and ops that JAX returns functionally
+(the KV store) update their inputs in place.
 
 ``dispatch_root=True`` marks an abstract root (``MojoOperator`` itself):
 direct subclasses of a root are *core ops* that get a registry; deeper

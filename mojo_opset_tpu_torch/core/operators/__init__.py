@@ -1,11 +1,16 @@
 from mojo_opset_tpu_torch.core.operators.activation import MojoSilu
 from mojo_opset_tpu_torch.core.operators.attention import (
+    MojoDecodeGQA,
     MojoPagedDecodeGQA,
     MojoPagedPrefillGQA,
+    MojoPrefillGQA,
+    MojoSdpa,
+    MojoSWA,
     assert_paged_decode_contract,
     assert_paged_prefill_contract,
     expand_gqa,
     seq_lens_from_cu,
+    window_mask_rows,
 )
 from mojo_opset_tpu_torch.core.operators.embedding import MojoEmbedding
 from mojo_opset_tpu_torch.core.operators.gemm import MojoGemm, MojoGroupGemm, MojoQuantGemm
@@ -40,6 +45,7 @@ from mojo_opset_tpu_torch.core.operators.sampling import (
 __all__ = [
     "MojoApplyPenaltiesTempurate",
     "MojoApplyRoPE",
+    "MojoDecodeGQA",
     "MojoDequant",
     "MojoDynamicQuant",
     "MojoEmbedding",
@@ -53,14 +59,17 @@ __all__ = [
     "MojoMoEGating",
     "MojoPagedDecodeGQA",
     "MojoPagedPrefillGQA",
+    "MojoPrefillGQA",
     "MojoQuantGemm",
     "MojoRejectSampling",
     "MojoRMSNorm",
     "MojoRMSNormQuant",
     "MojoRotaryEmbedding",
+    "MojoSdpa",
     "MojoSilu",
     "MojoStaticQuant",
     "MojoStorePagedKVCache",
+    "MojoSWA",
     "MojoTopKSampling",
     "MojoTopPFilter",
     "MojoTopPSampling",
@@ -71,4 +80,5 @@ __all__ = [
     "expand_gqa",
     "seq_lens_from_cu",
     "store_paged_rows",
+    "window_mask_rows",
 ]

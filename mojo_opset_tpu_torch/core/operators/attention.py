@@ -1,7 +1,11 @@
-"""Paged GQA attention: varlen prefill and one-token decode.
+"""GQA attention: paged varlen prefill and one-token decode, and the dense
+ops of the training path (decode, padded prefill, SDPA, packed varlen SWA).
 
 Counterpart of the JAX package's ``core/operators/attention.py`` (helpers
-:51-151, ``MojoPagedDecodeGQA`` :198, ``MojoPagedPrefillGQA`` :308).
+:51-151, ``window_mask_rows`` :113, ``MojoDecodeGQA`` :154,
+``MojoPagedDecodeGQA`` :198, ``MojoPrefillGQA`` :272,
+``MojoPagedPrefillGQA`` :308, ``MojoSdpa`` :401, ``_SWAConfigMixin``
+:440, ``MojoSWA`` :575).
 
 Shape contracts (identical to the JAX package):
   * paged caches: HND ``(n_blocks, n_kv_heads, block_size, head_dim)`` or
@@ -16,7 +20,8 @@ The decode golden is the JAX one, vectorized over the batch. The prefill
 golden loops over sequences on the host (it reads ``cu_q_lens`` back):
 the JAX golden's per-token gather of every sequence's keys is
 ``T * K * Hq * D`` elements, 14 GB per layer at a 1650-token batch of
-Qwen3-4B. Custom masks and the SWA windows are not ported yet.
+Qwen3-4B. The dense goldens are the JAX ones, vectorized with masks. The
+paged ops' custom masks and the paged SWA ops are not ported yet.
 """
 
 from __future__ import annotations
@@ -292,3 +297,208 @@ class MojoPagedPrefillGQA(MojoOperator):
 
     def extra_repr(self) -> str:
         return f"is_causal={self.is_causal}, gqa_layout={self.gqa_layout}, kv_layout={self.kv_layout}"
+
+
+def segment_of(cu_seqlens: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The sequence of each packed row: the last ``b`` with
+    ``cu_seqlens[b] <= row``, clamped to ``[0, B - 1]`` (JAX :601-604)."""
+    return (torch.searchsorted(cu_seqlens, rows.to(cu_seqlens.dtype), right=True) - 1).clamp(0, cu_seqlens.shape[0] - 2)
+
+
+def window_mask_rows(
+    q_abs: torch.Tensor,
+    kv_positions: torch.Tensor,
+    local_window_size: Optional[int],
+    global_window_size: Optional[int],
+) -> torch.Tensor:
+    """Keep-mask ``(..., rows, keys)``: causal, and with either window set,
+    causal AND (local window OR global window). ``q_abs`` is each query
+    row's absolute kv position."""
+    causal = q_abs[..., :, None] >= kv_positions[..., None, :]
+    if local_window_size is None and global_window_size is None:
+        return causal
+    win = torch.zeros_like(causal)
+    if local_window_size is not None:
+        win = win | (q_abs[..., :, None] <= kv_positions[..., None, :] + local_window_size)
+    if global_window_size is not None:
+        win = win | (kv_positions < global_window_size)[..., None, :]
+    return causal & win
+
+
+class MojoDecodeGQA(MojoOperator):
+    """Non-paged GQA decode: q (B, Hq, D), one token per sequence, over
+    dense k/v (B, Hkv, S, D); ``total_seq_lens`` masks each row's keys."""
+
+    def __init__(self, is_causal: bool = True, gqa_layout: str = "AABB"):
+        super().__init__()
+        _check_layouts(gqa_layout, "HND")
+        self.is_causal = is_causal
+        self.gqa_layout = gqa_layout
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key: torch.Tensor,
+        value: torch.Tensor,
+        total_seq_lens: Optional[torch.Tensor] = None,
+        softmax_scale: Optional[float] = None,
+    ) -> torch.Tensor:
+        B, Hq, D = query.shape
+        _, Hkv, S, _ = key.shape
+        if softmax_scale is None:
+            softmax_scale = 1.0 / math.sqrt(D)
+        k = expand_gqa(key, Hq // Hkv, self.gqa_layout, head_axis=1)
+        v = expand_gqa(value, Hq // Hkv, self.gqa_layout, head_axis=1)
+        scores = torch.einsum("bhd,bhsd->bhs", query.float(), k.float()) * softmax_scale
+        if total_seq_lens is not None:
+            valid = torch.arange(S, device=query.device)[None, None, :] < total_seq_lens[:, None, None]
+        else:
+            valid = torch.ones_like(scores, dtype=torch.bool)
+        out = torch.einsum("bhs,bhsd->bhd", masked_softmax(scores, valid, query.dtype), v)
+        if total_seq_lens is not None:
+            out = torch.where((total_seq_lens > 0)[:, None, None], out, 0)
+        return out.to(query.dtype)
+
+    def extra_repr(self) -> str:
+        return f"is_causal={self.is_causal}, gqa_layout={self.gqa_layout}"
+
+
+class MojoPrefillGQA(MojoOperator):
+    """Padded dense causal GQA prefill: q (B, Hq, S, D), k/v (B, Hkv, S, D)
+    -> out (B, S, Hq, D). ``cu_q_lens`` is checked to be int32 and not read
+    further: causality alone keeps a valid row off the pad keys after it."""
+
+    def __init__(self, is_causal: bool = True, gqa_layout: str = "ABAB"):
+        super().__init__()
+        _check_layouts(gqa_layout, "HND")
+        self.is_causal = is_causal
+        self.gqa_layout = gqa_layout
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        k_cache: torch.Tensor,
+        v_cache: torch.Tensor,
+        cu_q_lens: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+    ) -> torch.Tensor:
+        _require_int32("cu_q_lens", cu_q_lens)
+        if not self.is_causal:
+            raise NotImplementedError("MojoPrefillGQA is causal only")
+        B, Hq, S, D = query.shape
+        group = Hq // k_cache.shape[1]
+        k = expand_gqa(k_cache, group, self.gqa_layout, head_axis=1)
+        v = expand_gqa(v_cache, group, self.gqa_layout, head_axis=1)
+        scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+        scores = torch.einsum("bhqd,bhkd->bhqk", query.float(), k.float()) * scale
+        causal = torch.ones((S, S), dtype=torch.bool, device=query.device).tril()
+        out = torch.einsum("bhqk,bhkd->bhqd", masked_softmax(scores, causal[None, None], query.dtype), v)
+        return out.transpose(1, 2).to(query.dtype)  # (B, S, Hq, D)
+
+    def extra_repr(self) -> str:
+        return f"is_causal={self.is_causal}, gqa_layout={self.gqa_layout}"
+
+
+class MojoSdpa(MojoOperator):
+    """Scaled dot-product attention over ``(..., H, L, D)``: ``scale``
+    (default 1/sqrt(D)), ``enable_gqa`` (kv heads repeated, AABB) and a
+    boolean (True = attend) or additive mask. A row whose mask hides every
+    key gives NaN, as the JAX golden's softmax does."""
+
+    def __init__(self, scale: Optional[float] = None, enable_gqa: bool = False):
+        super().__init__()
+        self.scale = scale
+        self.enable_gqa = enable_gqa
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key: torch.Tensor,
+        value: torch.Tensor,
+        attn_mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        scale = self.scale if self.scale is not None else 1.0 / math.sqrt(query.shape[-1])
+        k, v = key, value
+        if self.enable_gqa and query.shape[-3] != key.shape[-3]:
+            group = query.shape[-3] // key.shape[-3]
+            k = k.repeat_interleave(group, dim=-3)
+            v = v.repeat_interleave(group, dim=-3)
+        scores = torch.einsum("...qd,...kd->...qk", query.float(), k.float()) * scale
+        if attn_mask is not None:
+            if attn_mask.dtype == torch.bool:
+                scores = torch.where(attn_mask, scores, float("-inf"))
+            else:
+                scores = scores + attn_mask.float()
+        probs = torch.softmax(scores, dim=-1).to(query.dtype)
+        return torch.einsum("...qk,...kd->...qd", probs, v).to(query.dtype)
+
+    def extra_repr(self) -> str:
+        return f"scale={self.scale}, enable_gqa={self.enable_gqa}"
+
+
+class _SWAConfigMixin:
+    """Constructor and config of the sliding-window family (a plain mixin:
+    only the classes that list it beside ``MojoOperator`` are core ops)."""
+
+    def __init__(
+        self,
+        is_causal: bool = True,
+        gqa_layout: str = "AABB",
+        global_window_size: Optional[int] = None,
+        local_window_size: Optional[int] = None,
+        kv_layout: str = "HND",
+    ):
+        super().__init__()
+        _check_layouts(gqa_layout, kv_layout)
+        self.is_causal = is_causal
+        self.gqa_layout = gqa_layout
+        self.global_window_size = global_window_size
+        self.local_window_size = local_window_size
+        self.kv_layout = kv_layout
+
+    def extra_repr(self) -> str:
+        return (
+            f"is_causal={self.is_causal}, gqa_layout={self.gqa_layout}, "
+            f"global_window_size={self.global_window_size}, local_window_size={self.local_window_size}"
+        )
+
+
+class MojoSWA(_SWAConfigMixin, MojoOperator):
+    """Dense varlen sliding-window attention: packed q (T, Hq, D) and k/v
+    (Tk, Hkv, D), sequences given by ``cu_q_lens`` and
+    ``cu_total_seq_lens``. Query row i of sequence b sits at
+    ``kv_len[b] - q_len[b] + i``; it sees keys of its own sequence, and
+    (causal) ``window_mask_rows`` of them. The golden materializes the
+    (T, Hq, Tk) scores."""
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key: torch.Tensor,
+        value: torch.Tensor,
+        cu_q_lens: torch.Tensor,
+        cu_total_seq_lens: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+    ) -> torch.Tensor:
+        _require_int32("cu_q_lens", cu_q_lens)
+        _require_int32("cu_total_seq_lens", cu_total_seq_lens)
+        T, Hq, D = query.shape
+        Tk, Hkv, _ = key.shape
+        if softmax_scale is None:
+            softmax_scale = 1.0 / math.sqrt(D)
+        q_lens, kv_lens = seq_lens_from_cu(cu_q_lens), seq_lens_from_cu(cu_total_seq_lens)
+        rows = torch.arange(T, dtype=torch.int32, device=query.device)
+        q_batch = segment_of(cu_q_lens, rows)
+        q_abs = kv_lens[q_batch] - q_lens[q_batch] + rows - cu_q_lens[q_batch]
+        keys = torch.arange(Tk, dtype=torch.int32, device=query.device)
+        k_batch = segment_of(cu_total_seq_lens, keys)
+        k_pos = keys - cu_total_seq_lens[k_batch]
+
+        kx = expand_gqa(key, Hq // Hkv, self.gqa_layout, head_axis=1)
+        vx = expand_gqa(value, Hq // Hkv, self.gqa_layout, head_axis=1)
+        scores = torch.einsum("thd,khd->thk", query.float(), kx.float()) * softmax_scale
+        keep = q_batch[:, None] == k_batch[None, :]
+        if self.is_causal:
+            keep = keep & window_mask_rows(q_abs, k_pos, self.local_window_size, self.global_window_size)
+        probs = masked_softmax(scores, keep[:, None, :], query.dtype)
+        return torch.einsum("thk,khd->thd", probs, vx).to(query.dtype)

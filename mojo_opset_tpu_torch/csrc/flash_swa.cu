@@ -1,0 +1,738 @@
+// Kernel J: trainable varlen GQA/SWA flash attention, forward, dq and dk/dv.
+//
+// Replaces the JAX package's backends/pallas/kernels/flash_vjp.py:462
+// (flash_swa: _fwd_kernel :124, _dq_kernel :184, _dkv_kernel :231).
+//
+// Contract (flash_vjp.py:50-101): packed q (Tq, hq, D), k/v (Tk, hkv, D),
+// int32 cu_q/cu_k of B + 1. Row t belongs to the last sequence b with
+// cu[b] <= t (clamped to [0, B-1], found by binary search: no batch limit);
+// q_abs = kv_len[b] - q_len[b] + (t - cu_q[b]), k_pos = j - cu_k[b]. A row
+// sees the keys of its sequence and, when causal, k_pos <= q_abs and (with
+// a window) q_abs <= k_pos + lws or k_pos < gws (-1: no window). Query head
+// h reads kv head h / group (AABB) or h % hkv (ABAB). lse is fp32
+// (Tq, hq); a row that sees no key gets o = 0 and lse = 1e30.
+//
+// Bound on the H100: operations (QK and PV in the forward, 4 * D per
+// visible pair and head; 6 * D in dq, 8 * D in dk/dv). This first version
+// does them as fp32 scalar FMAs (tensor-core tiles are later work), so it
+// runs at the FMA pipes' rate, not the tensor cores'.
+//
+// Design. The packed (T, H, D) rows are indexed in place (no head-major
+// copies). Each block derives its key (or query) range from its own rows'
+// sequences and positions: the union of what they can see. So a tile never
+// walks keys of other sequences, or keys above the causal diagonal or below
+// a local window, whether cu_q and cu_k are one vector or not; the exact
+// mask is still applied to every pair inside the range.
+//   forward / dq: one block per (tile of 64 rows, kv head). A row is a
+//     (token, query head of the kv head's group) pair, 64 / group tokens a
+//     tile, so each staged K/V tile serves the whole group. K and V are
+//     staged 32 keys at a time in shared memory as fp32. Each thread owns
+//     4 rows x 4 score columns and 4 rows x D/8 output columns in
+//     registers. The forward keeps an fp32 online softmax. dq recomputes
+//     p = exp(s - lse), computes delta = rowsum(do * o) for its rows (and
+//     writes it for dk/dv), ds = p * (dp - delta), dq = scale * ds K.
+//   dk/dv: one block per (tile of KR keys, kv head); it loops over the
+//     query tokens that can see its keys, 32 at a time, and over the
+//     group's query heads, accumulating dk and dv in registers: they are
+//     written once, in the input type, with no atomics and no per-q-head
+//     partial buffer (the TPU kernel's (hq, Tk, D) fp32 partials, summed
+//     outside, :440-452). KR is 64 keys for D <= 128 and 32 for D = 256,
+//     which keeps two (rows x D/8) accumulators in registers.
+#include <climits>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kRows = 64;   // rows of a forward / dq block
+constexpr int kTR = 4;      // rows per thread there
+constexpr int kCG = 8;      // threads sharing a row group (adjacent lanes)
+constexpr int kBK = 32;     // keys per staged tile (forward / dq); query tokens per tile (dk/dv)
+constexpr int kTC = kBK / kCG;  // score columns per thread
+constexpr int kSS = kBK + 1;    // padded row stride of P / dS
+constexpr float kEmptyLse = 1e30f;
+
+static_assert(kRows == kTR * kThreads / kCG, "thread tiling must cover the rows");
+
+struct SwaArgs {
+  const int* cu_q;
+  const int* cu_k;
+  int B, Tq, Tk, hq, hkv;
+  float scale;
+  int causal, lws, gws, abab;
+};
+
+// the last b in [0, B-1] with cu[b] <= t (0 when t < cu[1])
+__device__ __forceinline__ int swa_seg(const int* __restrict__ cu, int B, int t) {
+  int lo = 0, hi = B - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (cu[mid] <= t) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// padding rows carry seg -2 and padding keys seg -1, so they never match
+__device__ __forceinline__ bool swa_keep(int qseg, int qabs, int kseg, int kpos, const SwaArgs& a) {
+  if (qseg != kseg) return false;
+  if (!a.causal) return true;
+  if (qabs < kpos) return false;
+  if (a.lws < 0 && a.gws < 0) return true;
+  return (a.lws >= 0 && qabs <= kpos + a.lws) || (a.gws >= 0 && kpos < a.gws);
+}
+
+__device__ __forceinline__ int swa_head(int g, int kvh, int group, const SwaArgs& a) {
+  return a.abab ? g * a.hkv + kvh : kvh * group + g;
+}
+
+// Sequence and absolute position of query token t, and the keys
+// [lo, hi) it can see (lo >= hi: none).
+__device__ __forceinline__ void swa_row_meta(int t, const SwaArgs& a, int& seg, int& qabs, int& lo, int& hi) {
+  const int b = swa_seg(a.cu_q, a.B, t);
+  const int qs = a.cu_q[b], ks = a.cu_k[b];
+  seg = b;
+  qabs = (a.cu_k[b + 1] - ks) - (a.cu_q[b + 1] - qs) + (t - qs);
+  lo = b == 0 ? 0 : ks;
+  hi = b == a.B - 1 ? a.Tk : a.cu_k[b + 1];
+  if (a.causal) {
+    hi = min(hi, ks + qabs + 1);
+    if (a.lws >= 0 && a.gws < 0) lo = max(lo, ks + qabs - a.lws);
+  }
+}
+
+// Sequence and position of key j, and the query tokens [lo, hi) that can see it.
+__device__ __forceinline__ void swa_key_meta(int j, const SwaArgs& a, int& seg, int& kpos, int& lo, int& hi) {
+  const int b = swa_seg(a.cu_k, a.B, j);
+  const int qs = a.cu_q[b];
+  seg = b;
+  kpos = j - a.cu_k[b];
+  lo = b == 0 ? 0 : qs;
+  hi = b == a.B - 1 ? a.Tq : a.cu_q[b + 1];
+  if (a.causal) {
+    // q_abs(t) = t + off; visible when q_abs >= kpos (and, local only, q_abs <= kpos + lws)
+    const int off = (a.cu_k[b + 1] - a.cu_k[b]) - (a.cu_q[b + 1] - qs) - qs;
+    lo = max(lo, kpos - off);
+    if (a.lws >= 0 && a.gws < 0) hi = min(hi, kpos + a.lws - off + 1);
+  }
+}
+
+// Stage rows [r0, r0 + n) of head `head` of x (T, H, D) into s (rows x QS
+// floats, times mul), zero past n or past `limit` rows in total.
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(float* s, const T* __restrict__ x, int r0, int n, int limit, int H,
+                                           int head, float mul) {
+  constexpr int QS = D + 1;
+  constexpr int VE = 16 / static_cast<int>(sizeof(T));
+  for (int i = threadIdx.x; i < n * (D / VE); i += kThreads) {
+    const int r = i % n;
+    const int d0 = (i / n) * VE;
+    float f[VE];
+    if (r0 + r < limit) {
+      mojo_load_row<T, VE>(x + (static_cast<int64_t>(r0 + r) * H + head) * D + d0, f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VE; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VE; ++e) s[r * QS + d0 + e] = f[e] * mul;
+  }
+}
+
+template <int D>
+constexpr int rows_smem_floats(int big_rows, int big_tiles, int small_rows, int small_tiles) {
+  return big_tiles * big_rows * (D + 1) + small_tiles * small_rows * (D + 1) + kRows * kSS;
+}
+
+// -- forward --------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, SwaArgs a) {
+  constexpr int QS = D + 1;
+  constexpr int DC = D / kCG;
+  const int kvh = blockIdx.y;
+  const int group = a.hq / a.hkv;
+  const int tpt = kRows / group;  // tokens per tile
+  const int tok0 = blockIdx.x * tpt;
+  const int n_tok = min(tpt, a.Tq - tok0);
+  const int n_rows = n_tok * group;
+
+  extern __shared__ float mojo_smem[];
+  float* q_s = mojo_smem;
+  float* k_s = q_s + kRows * QS;
+  float* v_s = k_s + kBK * QS;
+  float* p_s = v_s + kBK * QS;
+  __shared__ int tok_seg[kRows], tok_abs[kRows], key_seg[kBK], key_pos[kBK], range_s[2];
+
+  const int tid = threadIdx.x;
+  const int rg = tid / kCG;
+  const int cg = tid % kCG;
+  if (tid == 0) {
+    range_s[0] = INT_MAX;
+    range_s[1] = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < n_tok) {
+    int seg, qabs, lo, hi;
+    swa_row_meta(tok0 + tid, a, seg, qabs, lo, hi);
+    tok_seg[tid] = seg;
+    tok_abs[tid] = qabs;
+    if (lo < hi) {
+      atomicMin(&range_s[0], lo);
+      atomicMax(&range_s[1], hi);
+    }
+  }
+  for (int i = tid; i < kRows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float val = 0.f;
+    if (r < n_rows) {
+      const int h = swa_head(r % group, kvh, group, a);
+      val = mojo_to_float(q[(static_cast<int64_t>(tok0 + r / group) * a.hq + h) * D + d]) * a.scale;
+    }
+    q_s[r * QS + d] = val;
+  }
+  __syncthreads();
+
+  float m[kTR], l[kTR], acc[kTR][DC];
+  int row_seg[kTR], row_abs[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int r = rg * kTR + i;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    row_seg[i] = r < n_rows ? tok_seg[r / group] : -2;
+    row_abs[i] = r < n_rows ? tok_abs[r / group] : 0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+  const int k_lo = range_s[0], k_hi = range_s[1];
+
+  for (int j0 = k_lo; j0 < k_hi; j0 += kBK) {
+    __syncthreads();  // the previous tile is consumed
+    if (tid < kBK) {
+      const int j = j0 + tid;
+      int seg = -1, kpos = 0, lo, hi;
+      if (j < k_hi) swa_key_meta(j, a, seg, kpos, lo, hi);
+      key_seg[tid] = seg;
+      key_pos[tid] = kpos;
+    }
+    stage_rows<T, D>(k_s, k, j0, kBK, k_hi, a.hkv, kvh, 1.f);
+    stage_rows<T, D>(v_s, v, j0, kBK, k_hi, a.hkv, kvh, 1.f);
+    __syncthreads();
+
+    float s[kTR][kTC];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) s[i][c] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[kTR], kv[kTC];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) qv[i] = q_s[(rg * kTR + i) * QS + d];
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) kv[c] = k_s[(cg + kCG * c) * QS + d];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) s[i][c] += qv[i] * kv[c];
+    }
+
+#pragma unroll
+    for (int i = 0; i < kTR; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        const int jj = cg + kCG * c;
+        s[i][c] = swa_keep(row_seg[i], row_abs[i], key_seg[jj], key_pos[jj], a) ? s[i][c] : -INFINITY;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int off = 1; off < kCG; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        const float p = m_new == -INFINITY ? 0.f : expf(s[i][c] - m_new);
+        p_s[(rg * kTR + i) * kSS + cg + kCG * c] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < kCG; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+    for (int j = 0; j < kBK; ++j) {
+      float pv[kTR];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) pv[i] = p_s[(rg * kTR + i) * kSS + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float vv = v_s[j * QS + cg + kCG * c];
+#pragma unroll
+        for (int i = 0; i < kTR; ++i) acc[i][c] += pv[i] * vv;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int r = rg * kTR + i;
+    if (r < n_rows) {
+      const int64_t row = static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a);
+      const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) o[row * D + cg + kCG * c] = mojo_from_float<T>(acc[i][c] * inv);
+      if (cg == 0) lse[row] = l[i] > 0.f ? m[i] + logf(l[i]) : kEmptyLse;
+    }
+  }
+}
+
+// -- dq ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+                    T* __restrict__ dq, float* __restrict__ delta_out, SwaArgs a) {
+  constexpr int QS = D + 1;
+  constexpr int DC = D / kCG;
+  const int kvh = blockIdx.y;
+  const int group = a.hq / a.hkv;
+  const int tpt = kRows / group;
+  const int tok0 = blockIdx.x * tpt;
+  const int n_tok = min(tpt, a.Tq - tok0);
+  const int n_rows = n_tok * group;
+
+  extern __shared__ float mojo_smem[];
+  float* q_s = mojo_smem;
+  float* do_s = q_s + kRows * QS;
+  float* k_s = do_s + kRows * QS;
+  float* v_s = k_s + kBK * QS;
+  float* ds_s = v_s + kBK * QS;
+  __shared__ int tok_seg[kRows], tok_abs[kRows], key_seg[kBK], key_pos[kBK], range_s[2];
+
+  const int tid = threadIdx.x;
+  const int rg = tid / kCG;
+  const int cg = tid % kCG;
+  if (tid == 0) {
+    range_s[0] = INT_MAX;
+    range_s[1] = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < n_tok) {
+    int seg, qabs, lo, hi;
+    swa_row_meta(tok0 + tid, a, seg, qabs, lo, hi);
+    tok_seg[tid] = seg;
+    tok_abs[tid] = qabs;
+    if (lo < hi) {
+      atomicMin(&range_s[0], lo);
+      atomicMax(&range_s[1], hi);
+    }
+  }
+  for (int i = tid; i < kRows * D; i += kThreads) {
+    const int r = i / D, d = i % D;
+    float qv = 0.f, dv = 0.f;
+    if (r < n_rows) {
+      const int64_t off = (static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a)) * D + d;
+      qv = mojo_to_float(q[off]) * a.scale;
+      dv = mojo_to_float(dout[off]);
+    }
+    q_s[r * QS + d] = qv;
+    do_s[r * QS + d] = dv;
+  }
+  __syncthreads();
+
+  // delta = rowsum(do * o) over this thread's D/8 columns, then its row group
+  float row_lse[kTR], row_delta[kTR], acc[kTR][DC];
+  int row_seg[kTR], row_abs[kTR];
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int r = rg * kTR + i;
+    const bool valid = r < n_rows;
+    const int64_t row = valid ? static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a) : 0;
+    float part = 0.f;
+    if (valid) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) part += do_s[r * QS + cg + kCG * c] * mojo_to_float(o[row * D + cg + kCG * c]);
+    }
+#pragma unroll
+    for (int off = 1; off < kCG; off <<= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+    row_delta[i] = part;
+    row_lse[i] = valid ? lse[row] : kEmptyLse;
+    if (valid && cg == 0) delta_out[row] = part;
+    row_seg[i] = valid ? tok_seg[r / group] : -2;
+    row_abs[i] = valid ? tok_abs[r / group] : 0;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+  const int k_lo = range_s[0], k_hi = range_s[1];
+
+  for (int j0 = k_lo; j0 < k_hi; j0 += kBK) {
+    __syncthreads();
+    if (tid < kBK) {
+      const int j = j0 + tid;
+      int seg = -1, kpos = 0, lo, hi;
+      if (j < k_hi) swa_key_meta(j, a, seg, kpos, lo, hi);
+      key_seg[tid] = seg;
+      key_pos[tid] = kpos;
+    }
+    stage_rows<T, D>(k_s, k, j0, kBK, k_hi, a.hkv, kvh, 1.f);
+    stage_rows<T, D>(v_s, v, j0, kBK, k_hi, a.hkv, kvh, 1.f);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T on this thread's 4 x 4 cells
+    float s[kTR][kTC], dp[kTR][kTC];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) s[i][c] = dp[i][c] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[kTR], dov[kTR], kv[kTC], vv[kTC];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        qv[i] = q_s[(rg * kTR + i) * QS + d];
+        dov[i] = do_s[(rg * kTR + i) * QS + d];
+      }
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        kv[c] = k_s[(cg + kCG * c) * QS + d];
+        vv[c] = v_s[(cg + kCG * c) * QS + d];
+      }
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) {
+          s[i][c] += qv[i] * kv[c];
+          dp[i][c] += dov[i] * vv[c];
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        const int jj = cg + kCG * c;
+        const bool keep = swa_keep(row_seg[i], row_abs[i], key_seg[jj], key_pos[jj], a);
+        const float p = keep ? expf(s[i][c] - row_lse[i]) : 0.f;
+        ds_s[(rg * kTR + i) * kSS + jj] = p * (dp[i][c] - row_delta[i]);
+      }
+    __syncthreads();
+
+    // dQ += dS K
+    for (int j = 0; j < kBK; ++j) {
+      float dsv[kTR];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) dsv[i] = ds_s[(rg * kTR + i) * kSS + j];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float kv = k_s[j * QS + cg + kCG * c];
+#pragma unroll
+        for (int i = 0; i < kTR; ++i) acc[i][c] += dsv[i] * kv;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int r = rg * kTR + i;
+    if (r < n_rows) {
+      const int64_t row = static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) dq[row * D + cg + kCG * c] = mojo_from_float<T>(acc[i][c] * a.scale);
+    }
+  }
+}
+
+// -- dk / dv ----------------------------------------------------------------------
+
+template <int D>
+__host__ __device__ constexpr int dkv_rows() { return D >= 256 ? 32 : 64; }
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_swa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dk, T* __restrict__ dv, SwaArgs a) {
+  constexpr int QS = D + 1;
+  constexpr int DC = D / kCG;
+  constexpr int KR = dkv_rows<D>();         // keys of a block
+  constexpr int TR = KR * kCG / kThreads;   // keys per thread
+  const int kvh = blockIdx.y;
+  const int group = a.hq / a.hkv;
+  const int key0 = blockIdx.x * KR;
+  const int n_keys = min(KR, a.Tk - key0);
+
+  extern __shared__ float mojo_smem[];
+  float* k_s = mojo_smem;
+  float* v_s = k_s + KR * QS;
+  float* q_s = v_s + KR * QS;
+  float* do_s = q_s + kBK * QS;
+  float* p_s = do_s + kBK * QS;  // P^T, then dS^T: (KR, kBK)
+  __shared__ int key_seg[kRows], key_pos[kRows], tok_seg[kBK], tok_abs[kBK], range_s[2];
+  __shared__ float lse_s[kBK], delta_s[kBK];
+
+  const int tid = threadIdx.x;
+  const int rg = tid / kCG;
+  const int cg = tid % kCG;
+  if (tid == 0) {
+    range_s[0] = INT_MAX;
+    range_s[1] = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < KR) {
+    int seg = -1, kpos = 0, lo, hi;
+    if (tid < n_keys) {
+      swa_key_meta(key0 + tid, a, seg, kpos, lo, hi);
+      if (lo < hi) {
+        atomicMin(&range_s[0], lo);
+        atomicMax(&range_s[1], hi);
+      }
+    }
+    key_seg[tid] = seg;
+    key_pos[tid] = kpos;
+  }
+  stage_rows<T, D>(k_s, k, key0, KR, a.Tk, a.hkv, kvh, 1.f);
+  stage_rows<T, D>(v_s, v, key0, KR, a.Tk, a.hkv, kvh, 1.f);
+  __syncthreads();
+
+  float dk_acc[TR][DC], dv_acc[TR][DC];
+  int my_seg[TR], my_pos[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    my_seg[i] = key_seg[rg * TR + i];
+    my_pos[i] = key_pos[rg * TR + i];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  }
+  const int q_lo = range_s[0], q_hi = range_s[1];
+
+  for (int t0 = q_lo; t0 < q_hi; t0 += kBK) {
+    __syncthreads();  // the previous query tile's metadata is consumed
+    if (tid < kBK) {
+      const int t = t0 + tid;
+      int seg = -2, qabs = 0, lo, hi;
+      if (t < q_hi) swa_row_meta(t, a, seg, qabs, lo, hi);
+      tok_seg[tid] = seg;
+      tok_abs[tid] = qabs;
+    }
+    for (int g = 0; g < group; ++g) {
+      const int h = swa_head(g, kvh, group, a);
+      __syncthreads();  // q_s, do_s, p_s of the previous head are consumed
+      stage_rows<T, D>(q_s, q, t0, kBK, q_hi, a.hq, h, a.scale);
+      stage_rows<T, D>(do_s, dout, t0, kBK, q_hi, a.hq, h, 1.f);
+      if (tid < kBK) {
+        const int t = t0 + tid;
+        lse_s[tid] = t < q_hi ? lse[static_cast<int64_t>(t) * a.hq + h] : kEmptyLse;
+        delta_s[tid] = t < q_hi ? delta[static_cast<int64_t>(t) * a.hq + h] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T on this thread's TR keys x 4 query columns
+      float s[TR][kTC], dp[TR][kTC];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) s[i][c] = dp[i][c] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        float kv[TR], vv[TR], qv[kTC], dov[kTC];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+          kv[i] = k_s[(rg * TR + i) * QS + d];
+          vv[i] = v_s[(rg * TR + i) * QS + d];
+        }
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) {
+          qv[c] = q_s[(cg + kCG * c) * QS + d];
+          dov[c] = do_s[(cg + kCG * c) * QS + d];
+        }
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int c = 0; c < kTC; ++c) {
+            s[i][c] += kv[i] * qv[c];
+            dp[i][c] += vv[i] * dov[c];
+          }
+      }
+      // P^T, and dS^T kept in s for after the dV product
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) {
+          const int tt = cg + kCG * c;
+          const bool keep = swa_keep(tok_seg[tt], tok_abs[tt], my_seg[i], my_pos[i], a);
+          const float p = keep ? expf(s[i][c] - lse_s[tt]) : 0.f;
+          p_s[(rg * TR + i) * kSS + tt] = p;
+          s[i][c] = p * (dp[i][c] - delta_s[tt]);
+        }
+      __syncthreads();
+      // dV += P^T dO
+      for (int tt = 0; tt < kBK; ++tt) {
+        float pv[TR];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) pv[i] = p_s[(rg * TR + i) * kSS + tt];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const float dov = do_s[tt * QS + cg + kCG * c];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) dv_acc[i][c] += pv[i] * dov;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) p_s[(rg * TR + i) * kSS + cg + kCG * c] = s[i][c];
+      __syncthreads();
+      // dK += dS^T Q (q_s carries the softmax scale)
+      for (int tt = 0; tt < kBK; ++tt) {
+        float dsv[TR];
+#pragma unroll
+        for (int i = 0; i < TR; ++i) dsv[i] = p_s[(rg * TR + i) * kSS + tt];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const float qv = q_s[tt * QS + cg + kCG * c];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) dk_acc[i][c] += dsv[i] * qv;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int r = rg * TR + i;
+    if (r < n_keys) {
+      const int64_t row = (static_cast<int64_t>(key0 + r) * a.hkv + kvh) * D;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        dk[row + cg + kCG * c] = mojo_from_float<T>(dk_acc[i][c]);
+        dv[row + cg + kCG * c] = mojo_from_float<T>(dv_acc[i][c]);
+      }
+    }
+  }
+}
+
+// -- launchers --------------------------------------------------------------------
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const SwaArgs& a,
+               cudaStream_t s) {
+  constexpr size_t smem = rows_smem_floats<D>(kRows, 1, kBK, 2) * sizeof(float);
+  if (int rc = set_smem(flash_swa_fwd_kernel<T, D>, smem)) return rc;
+  const int tpt = kRows / (a.hq / a.hkv);
+  const dim3 grid((a.Tq + tpt - 1) / tpt, a.hkv);
+  flash_swa_fwd_kernel<T, D><<<grid, kThreads, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                                         static_cast<const T*>(v), static_cast<T*>(o), lse, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+              void* dq, float* delta, const SwaArgs& a, cudaStream_t s) {
+  constexpr size_t smem = rows_smem_floats<D>(kRows, 2, kBK, 2) * sizeof(float);
+  if (int rc = set_smem(flash_swa_dq_kernel<T, D>, smem)) return rc;
+  const int tpt = kRows / (a.hq / a.hkv);
+  const dim3 grid((a.Tq + tpt - 1) / tpt, a.hkv);
+  flash_swa_dq_kernel<T, D><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), lse, static_cast<T*>(dq), delta, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+               void* dk, void* dv, const SwaArgs& a, cudaStream_t s) {
+  constexpr int KR = dkv_rows<D>();
+  constexpr size_t smem = rows_smem_floats<D>(KR, 2, kBK, 2) * sizeof(float);
+  if (int rc = set_smem(flash_swa_dkv_kernel<T, D>, smem)) return rc;
+  const dim3 grid((a.Tk + KR - 1) / KR, a.hkv);
+  flash_swa_dkv_kernel<T, D><<<grid, kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout),
+      lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Run BODY with T bound to the dtype and D to the head dim; others fail.
+#define SWA_DISPATCH(dtype, hd, ...)                                   \
+  MOJO_DISPATCH_DTYPE(dtype, T, {                                      \
+    if (hd == 64) {                                                    \
+      constexpr int D = 64;                                            \
+      __VA_ARGS__;                                                     \
+    } else if (hd == 128) {                                            \
+      constexpr int D = 128;                                           \
+      __VA_ARGS__;                                                     \
+    } else if (hd == 256) {                                            \
+      constexpr int D = 256;                                           \
+      __VA_ARGS__;                                                     \
+    } else {                                                           \
+      return static_cast<int>(cudaErrorInvalidValue);                  \
+    }                                                                  \
+  })
+
+bool bad_args(int B, int hq, int hkv) {
+  return B < 1 || hkv < 1 || hq % hkv != 0 || hq / hkv > kRows;
+}
+
+SwaArgs make_args(const void* cu_q, const void* cu_k, int B, int Tq, int Tk, int hq, int hkv, float scale, int causal,
+                  int lws, int gws, int abab) {
+  return SwaArgs{static_cast<const int*>(cu_q), static_cast<const int*>(cu_k), B, Tq, Tk, hq, hkv, scale, causal,
+                 lws, gws, abab};
+}
+
+}  // namespace
+
+// q/o/do/dq (Tq, hq, D), k/v/dk/dv (Tk, hkv, D) contiguous in one dtype;
+// cu_q/cu_k (B+1,) int32; lse/delta (Tq, hq) fp32. D in {64, 128, 256};
+// hq / hkv <= 64; lws, gws >= 0 or -1 (none). The trailing int list of all
+// three: B, Tq, Tk, hq, hkv, D, scale, causal, lws, gws, abab, dtype.
+extern "C" int mojo_flash_swa_fwd(const void* q, const void* k, const void* v, const void* cu_q, const void* cu_k,
+                                  void* o, void* lse, int B, int Tq, int Tk, int hq, int hkv, int hd, float scale,
+                                  int causal, int lws, int gws, int abab, int dtype, void* stream) {
+  if (Tq <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_args(B, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const SwaArgs a = make_args(cu_q, cu_k, B, Tq, Tk, hq, hkv, scale, causal, lws, gws, abab);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  SWA_DISPATCH(dtype, hd, rc = (launch_fwd<T, D>(q, k, v, o, static_cast<float*>(lse), a, s)));
+  return rc;
+}
+
+extern "C" int mojo_flash_swa_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                 const void* lse, const void* cu_q, const void* cu_k, void* dq, void* delta, int B,
+                                 int Tq, int Tk, int hq, int hkv, int hd, float scale, int causal, int lws, int gws,
+                                 int abab, int dtype, void* stream) {
+  if (Tq <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_args(B, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const SwaArgs a = make_args(cu_q, cu_k, B, Tq, Tk, hq, hkv, scale, causal, lws, gws, abab);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  SWA_DISPATCH(dtype, hd, rc = (launch_dq<T, D>(q, k, v, o, dout, static_cast<const float*>(lse), dq,
+                                                static_cast<float*>(delta), a, s)));
+  return rc;
+}
+
+extern "C" int mojo_flash_swa_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                                  const void* delta, const void* cu_q, const void* cu_k, void* dk, void* dv, int B,
+                                  int Tq, int Tk, int hq, int hkv, int hd, float scale, int causal, int lws, int gws,
+                                  int abab, int dtype, void* stream) {
+  if (Tk <= 0) return static_cast<int>(cudaSuccess);
+  if (bad_args(B, hq, hkv)) return static_cast<int>(cudaErrorInvalidValue);
+  const SwaArgs a = make_args(cu_q, cu_k, B, Tq, Tk, hq, hkv, scale, causal, lws, gws, abab);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  SWA_DISPATCH(dtype, hd, rc = (launch_dkv<T, D>(q, k, v, dout, static_cast<const float*>(lse),
+                                                 static_cast<const float*>(delta), dk, dv, a, s)));
+  return rc;
+}

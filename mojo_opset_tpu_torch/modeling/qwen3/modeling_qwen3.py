@@ -15,6 +15,13 @@ projection whose width is a multiple of 128 (the others stay int8) and
 keeps the lm_head int8; ``quant_kv=True`` gives the int8 (C8) KV cache,
 HND, with per-layer channel scales calibrated at the first prefill. The
 quantized weights come from ``quantize_qwen3`` or ``load_numpy_state``.
+
+Training (JAX model :235-249, :304-310, :332-347, :405-418):
+``train_forward(ids)`` runs the padded (B, S) batch through the layers'
+``dense_forward`` and returns the final hidden states, to pair with
+``fused_linear_cross_entropy(hidden, lm_head_weight, targets)``. Gradients
+are off by default (the parameters serve); a trainer turns them on with
+``model.requires_grad_(True)``. Quantized models do not train.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mojo_opset_tpu_torch.core.functions import MojoSWAFunction
 from mojo_opset_tpu_torch.core.operators import (
     MojoApplyRoPE,
     MojoDynamicQuant,
@@ -40,6 +48,7 @@ from mojo_opset_tpu_torch.core.operators import (
     MojoStorePagedKVCache,
 )
 from mojo_opset_tpu_torch.core.operators.gemm import INT4_BLOCK
+from mojo_opset_tpu_torch.core.operators.normalization import rms_norm
 from mojo_opset_tpu_torch.experimental.operators import (
     MojoPagedDecodeGQAWithKVDequant,
     MojoPagedPrefillGQAWithKVDequant,
@@ -138,6 +147,7 @@ class Qwen3Attention(nn.Module):
             self.store_kv = MojoStorePagedKVCache(kv_layout=c.kv_layout)
             self.attn_prefill = MojoPagedPrefillGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
             self.attn_decode = MojoPagedDecodeGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
+        self.attn_train = MojoSWAFunction(is_causal=True, gqa_layout="AABB")
 
     def forward(
         self,
@@ -176,6 +186,28 @@ class Qwen3Attention(nn.Module):
         if self.quant:
             return self.o_proj(*self.attn_quant(attn))
         return self.o_proj(attn)
+
+    def dense_forward(self, hidden: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+        """Causal self-attention for training over a padded batch, (B, S, hidden) in and out."""
+        B, S, _ = hidden.shape
+        q = self.q_proj(hidden).reshape(B, S, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden).reshape(B, S, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden).reshape(B, S, self.num_kv_heads, self.head_dim)
+        # the q/k norms and RoPE run their golden math under autograd, as the JAX package's default dispatch
+        # does (its RMSNormFunction and SiluFunction kernels have dispatch_default = False): kernels A and B
+        # are forward-only, and B takes (T, H, D), not (B, S, H, D)
+        q = _golden_norm(self.q_norm, q)
+        k = _golden_norm(self.k_norm, k)
+        q, k = MojoApplyRoPE._apply_rope(q, k, cos.unsqueeze(-2), sin.unsqueeze(-2))
+        # JAX (:244-248) runs MojoSdpa(enable_gqa=True) under a (S, S) tril mask on (B, H, S, D). The same
+        # function is causal attention within each of B sequences of S tokens: the rows packed (B * S, H, D)
+        # with cu = [0, S, 2S, ...] as both cu vectors, on kernel J's forward and backward. Detecting a causal
+        # mask from its values would cost a host sync.
+        cu = torch.arange(B + 1, dtype=torch.int32, device=hidden.device) * S
+        o = self.attn_train(q.reshape(B * S, self.num_heads, self.head_dim),
+                            k.reshape(B * S, self.num_kv_heads, self.head_dim),
+                            v.reshape(B * S, self.num_kv_heads, self.head_dim), cu, cu)
+        return self.o_proj(o.reshape(B, S, self.num_heads * self.head_dim))
 
     def _int8_kv_attention(self, q, k, v, meta: AttentionMetadata, caches: KVCaches, layer_idx: int):
         key_cache, value_cache = caches.key(layer_idx), caches.value(layer_idx)
@@ -224,6 +256,12 @@ class Qwen3MLP(nn.Module):
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
 
+def _golden_norm(norm, x: torch.Tensor) -> torch.Tensor:
+    """``norm``'s RMSNorm in its golden math (fp32 statistics, autograd
+    through it), whatever its tier."""
+    return rms_norm(x, norm.weight, norm.variance_epsilon)
+
+
 def _quant_gemm(c: Qwen3Config, in_features: int, out_features: int, device, int4: bool = True) -> MojoQuantGemm:
     """A projection of the quantized modes: packed int4 under w4a8 where
     ``out_features`` fills whole 128-channel groups (JAX model :110-113),
@@ -247,6 +285,10 @@ class Qwen3DecoderLayer(nn.Module):
         hidden = hidden + self.self_attn(self.input_layernorm(hidden), cos, sin, meta, caches, layer_idx)
         return hidden + self.mlp(self.post_attention_layernorm(hidden))
 
+    def dense_forward(self, hidden, cos, sin):
+        hidden = hidden + self.self_attn.dense_forward(_golden_norm(self.input_layernorm, hidden), cos, sin)
+        return hidden + self.mlp(_golden_norm(self.post_attention_layernorm, hidden))
+
 
 class Qwen3Model(nn.Module):
     def __init__(self, c: Qwen3Config, device=None):
@@ -264,6 +306,21 @@ class Qwen3Model(nn.Module):
         for layer_idx, layer in enumerate(self.layers):
             hidden = layer(hidden, cos, sin, meta, caches, layer_idx)
         return self.norm(hidden)
+
+    def dense_forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Training forward: causal attention over padded (B, S) ids."""
+        if any(layer.self_attn.quant for layer in self.layers):
+            raise NotImplementedError(
+                "serving-mode (quant) models are inference-only; train the fp model and quantize post-training"
+            )
+        B, S = input_ids.shape
+        hidden = self.embed_tokens(input_ids)
+        positions = torch.arange(S, dtype=torch.int32, device=input_ids.device).expand(B, S)
+        cos, sin = self.rotary_emb(hidden, position_ids=positions)
+        cos, sin = cos.to(hidden.dtype), sin.to(hidden.dtype)
+        for layer in self.layers:
+            hidden = layer.dense_forward(hidden, cos, sin)
+        return _golden_norm(self.norm, hidden)
 
 
 class Qwen3ForCausalLM(nn.Module):
@@ -317,3 +374,14 @@ class Qwen3ForCausalLM(nn.Module):
         else:
             logits = self.lm_head(hidden)
         return logits.float()
+
+    @property
+    def lm_head_weight(self) -> torch.Tensor:
+        """The LM head's (vocab, hidden) weight, tied or owned."""
+        return self.model.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
+
+    def train_forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Dense (non-paged) training forward over padded (B, S) ids: the
+        final hidden states (B, S, hidden), for
+        ``fused_linear_cross_entropy(hidden, lm_head_weight, targets)``."""
+        return self.model.dense_forward(input_ids)

@@ -27,6 +27,7 @@ import torch
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    flash_swa,
     group_gemm,
     int4_matmul,
     int8_matmul,
@@ -46,7 +47,7 @@ from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-                  "group_gemm", "mla_decode"]
+                  "group_gemm", "mla_decode", "flash_swa"]
 
 
 def test_import_loads_no_jax():
@@ -70,7 +71,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
         "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-        "group_gemm", "mla_decode"}
+        "group_gemm", "mla_decode", "flash_swa"}
 
 
 def _cpu_calls():
@@ -112,6 +113,9 @@ def _cpu_calls():
     mla_plain.kv_b_proj.data.copy_(mla_op.kv_b_proj)
     mla_plain.attend = mla_decode.mla_decode_absorbed_plain
     yield "mla_decode", lambda: mla_op(qm, c, pe, lens, table), lambda: mla_plain(qm, c, pe, lens, table)
+    qs, ks, cu_s = t(9, 4, 64), t(9, 2, 64), torch.tensor([0, 4, 9], dtype=torch.int32)
+    yield ("flash_swa", lambda: tm.MojoSWAFunction.get_backend_impl("cuda")(local_window_size=2)(qs, ks, ks, cu_s, cu_s),
+           lambda: flash_swa.flash_swa_fwd_plain(qs, ks, ks, cu_s, cu_s, local_window=2)[0])
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -121,7 +125,9 @@ def test_cuda_tier_on_cpu_runs_plain_version(case):
     out = run()
     if plain is not None:
         check_tol_diff(out, plain(), atol=0.0, rtol=0.0)
-    assert kernels.launch_counts() == dict.fromkeys(KERNEL_MODULES, 0), name
+    counts = kernels.launch_counts()
+    assert set(counts) == set(KERNEL_MODULES[:-1]) | {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv"}
+    assert set(counts.values()) == {0}, name
 
 
 def test_find_nvcc_raises_without_toolkit(monkeypatch):
