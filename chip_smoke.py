@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the ten kernel sources from ``mojo_opset_tpu_torch/csrc``
+  2. build: compiles the thirteen kernel sources from ``mojo_opset_tpu_torch/csrc``
      (one nvcc per source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
@@ -37,12 +37,21 @@ is non-zero:
      delta to the fp32 ladder; and the Wan DiT's maskless L = 1560 SDPA
      through CudaSdpa. Each of J's outputs is also held, relative to its
      own size, to FLASH_SWA_REL_LIMITS (the whole tensor and its worst row).
+     The training kernels at the step's shapes in bf16, fp16 and fp32 at
+     one shape, and edge cases: K (RMSNorm backward) at (4096, 2560),
+     (131072, 128) and (32768, 128), its dx and dw also bit for bit over two
+     runs; L (SiLU forward and backward) at (4096, 9728); M (RoPE over a
+     strided head-first view, forward and backward) on q (2, 32, 2048, 128)
+     and k (2, 8, 2048, 128) head-first, token-first as a transposed view
+     and as (T, H, D) rows; each output to its ladder and, relative to its
+     size, to TRAIN_KERNEL_REL_LIMITS.
      Every main case is timed replayed from a CUDA graph (``ms``: device
      time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
      3.35 TB/s or operations over the dtype's peak, the larger) and, where
      one PyTorch call computes the same function, that call's time.
   4. small fp32 Qwen3 (4 layers, hidden 512, 8/2 heads, head_dim 128,
-     vocab 4096), a small fp32 Qwen3-MoE of the same widths (16 experts,
+     vocab 4096), a small fp32 Seed-OSS of the same widths (q/k/v biases),
+     a small fp32 Qwen3-MoE of the same widths (16 experts,
      top-4, expert width 256), and the dense model's w8a8, w8a8 + C8 and
      w4a8 twins: greedy tokens of
      the kernel path equal the plain path's (MOJO_BACKEND=ref, same
@@ -112,15 +121,27 @@ is non-zero:
      decode step's device time from torch.profiler.
  10. Qwen3 training at Qwen3-4B geometry in bf16 (random weights from seed
      0, one repeated batch of B 2 x S 2048 random ids): a twin check at
-     depth 2, one step on kernel J and one with J's plain forward and
-     backward in its place (the same model), the loss to TRAIN_LOSS_REL_BOUND and
-     every parameter's gradient to TRAIN_GRAD_COSINE_BOUND; then at depth
-     36, train_forward + the chunked golden loss + backward + fused AdamW:
-     a warm-up step and TRAIN_STEPS counted steps (J launches once forward
-     and twice backward a layer a step; the masked-Sdpa golden route is
-     never taken; the loss is finite and falls), then one profiled step.
-     Prints step, forward and backward ms, tokens/s, mfu, peak memory, the
-     device idle share and J's share of busy time.
+     depth 2, one step on the training path's kernels (A and K under the
+     norms, L under the SiLU, M under RoPE, J under attention) and one with
+     each kernel's plain version in its place (the same model), the loss to
+     TRAIN_LOSS_REL_BOUND and every parameter's gradient to
+     TRAIN_GRAD_COSINE_BOUND; then at depth 36, train_forward + the chunked
+     golden loss + backward + fused AdamW: a warm-up step and TRAIN_STEPS
+     counted steps (per step A and K 145 launches, L 36 forward and 36
+     backward, M 72, J once forward and twice backward a layer; the
+     masked-Sdpa golden route is never taken; the loss is finite and
+     falls), then one profiled step, and the same steps with golden norms,
+     RoPE and SiLU for comparison. Prints step, forward and backward ms,
+     tokens/s, mfu, peak memory, the device idle share and the device time
+     of J, A, K, L and M.
+ 11. Seed-OSS at Seed-OSS-36B widths (SEED_OSS_36B: hidden 5120, 80/8
+     heads, q/k/v biases, vocab 155136), depth cut 64 -> 32, bf16, random
+     weights from seed 0, block 64, a plain twin on the same tensors; phase
+     5's prompts, steps and FusedDecode window on A-D (logit cosine >= 0.999
+     against the plain path), then its w8a8 twin from quantize_seed_oss
+     (biases in bf16 beside the int8 GEMMs) on A-F under phase 6's gates.
+     Prints prefill ms, decode ms/step, one decode step's launches and
+     device time, and peak memory.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -209,6 +230,15 @@ KERNEL_INFO = {
                      "mojo_opset_tpu/backends/pallas/kernels/flash_vjp.py:402"),
     "flash_swa_dkv": ("flash_swa_dkv", "mojo_opset_tpu_torch/csrc/flash_swa.cu",
                       "mojo_opset_tpu/backends/pallas/kernels/flash_vjp.py:436"),
+    "rmsnorm_vjp": ("rmsnorm_vjp", "mojo_opset_tpu_torch/csrc/rmsnorm_vjp.cu",
+                    "mojo_opset_tpu/backends/pallas/kernels/rmsnorm_vjp.py:56"),
+    # kernel L's two entry points replace silu_vjp's two pallas_calls
+    "silu_fwd": ("silu_vjp_fwd", "mojo_opset_tpu_torch/csrc/silu.cu",
+                 "mojo_opset_tpu/backends/pallas/kernels/silu_vjp.py:52"),
+    "silu_bwd": ("silu_vjp_bwd", "mojo_opset_tpu_torch/csrc/silu.cu",
+                 "mojo_opset_tpu/backends/pallas/kernels/silu_vjp.py:71"),
+    "rope_head_first": ("rope_head_first", "mojo_opset_tpu_torch/csrc/rope_head_first.cu",
+                        "mojo_opset_tpu/backends/pallas/kernels/rope.py:97"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
 MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
@@ -261,6 +291,23 @@ FLASH_SWA_REL_FLOOR = 1e-3
 # CudaSdpa (J's forward) against the golden SDPA, (whole, worst row) as above: the golden rounds its probabilities to
 # bf16 before the PV product; the run that set it read 2.55e-3 / 4.38e-3 at the Wan DiT's shape, so these leave 5x
 SDPA_GOLDEN_REL_LIMITS = (1.25e-2, 2.2e-2)
+# kernels K, L and M against their plain versions, each output relative to its own size as J's are (whole tensor,
+# worst row of the last dim; floor FLASH_SWA_REL_FLOOR): both versions compute in fp32 and round once, so they part
+# by an ulp at a few elements, and K's fp32 dw by its sums' order. The run that set them read at most 1.67e-5 /
+# 1.41e-3 in bf16 (K's dx), 6.0e-6 / 7.6e-5 in fp16 and 4.1e-7 / 4.1e-7 in fp32 (K's dw) (PERF.md, section 6): each
+# limit leaves 6-8x
+TRAIN_KERNEL_REL_LIMITS = {"bf16": (1e-4, 1e-2), "fp16": (5e-5, 5e-4), "fp32": (3e-6, 3e-6)}
+# the training step's shapes: B x S tokens, Qwen3-4B's hidden and MLP widths, 32/8 heads of 128
+TRAIN_TOKENS = 2 * 2048
+# Seed-OSS-36B (huggingface.co/ByteDance-Seed/Seed-OSS-36B-Instruct, config.json) at full width: q/k/v biases, no
+# o or MLP bias, an untied lm_head. The depth is cut 64 -> 32 (18.9 B params, 35 GiB in bf16; ~52 GiB with the w8a8
+# twin beside it) and the positions 524288 -> 1088 (the KV pool: the longest prompt, its decode steps and one more)
+SEED_OSS_36B = dict(
+    hidden_size=5120, intermediate_size=27648, num_attention_heads=80, num_key_value_heads=8, num_hidden_layers=32,
+    head_dim=128, vocab_size=155136, max_position_embeddings=1088, rope_theta=1e7, attention_bias=True,
+    attention_out_bias=False, mlp_bias=False, tie_word_embeddings=False,
+)
+SEED_OSS_FULL = dict(num_hidden_layers=64, max_position_embeddings=524288)  # what the cuts above cut from
 
 
 def log(phase: str, msg: str) -> None:
@@ -665,6 +712,7 @@ def phase_kernels(torch) -> dict:
     torch.cuda.empty_cache()
     _mla_cases(torch, compare, gen)
     _flash_swa_cases(torch, compare, gen)
+    _train_kernel_cases(torch, compare, gen)
     return record
 
 
@@ -747,6 +795,18 @@ def _mla_cases(torch, compare, gen) -> None:
     mla_case("mla decode fp32", [300, 5], dtype=torch.float32, H=32)
 
 
+def rel_errors(got, want):
+    """||got - want|| / ||want|| over the whole tensor and at its worst row of the last dim, ||want|| taken no
+    smaller than FLASH_SWA_REL_FLOOR an element; and want's RMS."""
+    g, w = got.double().reshape(-1, got.shape[-1]), want.double().reshape(-1, want.shape[-1])
+    diff, norm = (g - w).norm(dim=1), w.norm(dim=1)
+    floor = FLASH_SWA_REL_FLOOR * w.shape[1] ** 0.5
+    whole = (diff.norm() / w.norm().clamp_min(floor * max(w.shape[0], 1) ** 0.5)).item()
+    rows = diff / norm.clamp_min(floor)
+    rms = w.square().mean().sqrt().item() if w.numel() else 0.0
+    return whole, rows.max().item() if rows.numel() else 0.0, rms
+
+
 def _flash_swa_cases(torch, compare, gen) -> None:
     """J: trainable varlen GQA/SWA flash attention, its three entry points each against its plain version on the
     same inputs (the backward ones fed the plain forward's o and lse, and dk/dv the plain dq's delta), at the
@@ -761,17 +821,6 @@ def _flash_swa_cases(torch, compare, gen) -> None:
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     t_all = time.perf_counter()
-
-    def rel_errors(got, want):
-        """||got - want|| / ||want|| over the whole tensor and at its worst row of the last dim, ||want|| taken
-        no smaller than FLASH_SWA_REL_FLOOR an element; and want's RMS."""
-        g, w = got.double().reshape(-1, got.shape[-1]), want.double().reshape(-1, want.shape[-1])
-        diff, norm = (g - w).norm(dim=1), w.norm(dim=1)
-        floor = FLASH_SWA_REL_FLOOR * w.shape[1] ** 0.5
-        whole = (diff.norm() / w.norm().clamp_min(floor * max(w.shape[0], 1) ** 0.5)).item()
-        rows = diff / norm.clamp_min(floor)
-        rms = w.square().mean().sqrt().item() if w.numel() else 0.0
-        return whole, rows.max().item() if rows.numel() else 0.0, rms
 
     def checker(*dtypes, limits=None):
         """The dtype ladder, then J's relative limits (``limits`` in their place for every output)."""
@@ -878,6 +927,142 @@ def _flash_swa_cases(torch, compare, gen) -> None:
     log("kernel flash_swa", f"J's cases took {time.perf_counter() - t_all:.1f} s")
 
 
+def _train_kernel_cases(torch, compare, gen) -> None:
+    """K, L and M, each against its plain version on the same inputs: at the training step's shapes in bf16 (main:
+    timed from a CUDA graph beside the bound, the plain version and, for K and L, a library call), in fp16 and fp32
+    at one shape, and on edge cases (widths and pointers that take no vector loads, short and long rows, a width
+    whose dw sums need more than 48 KB of shared memory, no rows). Every output to the dtype ladder and to
+    TRAIN_KERNEL_REL_LIMITS; K's dx and dw run twice and compared bit for bit. M runs forward and backward (sin
+    negated) on the head-first contract, the training forward's token-first (B, S, H, D) tensors as a transposed
+    view (its output must come back token-first) and (T, H, D) rows."""
+    from mojo_opset_tpu_torch.backends.cuda.functions.position_embedding import rotate_layout
+    from mojo_opset_tpu_torch.backends.cuda.kernels import rmsnorm_vjp as kv
+    from mojo_opset_tpu_torch.backends.cuda.kernels import rope_head_first as rh
+    from mojo_opset_tpu_torch.backends.cuda.kernels import silu_vjp as sv
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    eps, hidden, inter, H, Hkv, D = 1e-6, 2560, 9728, 32, 8, 128
+    t_all = time.perf_counter()
+
+    def checker(*dtypes):
+        """The dtype ladder, then the relative limits, output by output."""
+        def check(got, want):
+            got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+            notes = []
+            for g, w, dt in zip(got, want, dtypes):
+                check_tol_diff(g, w, **tols_for(dt))
+                whole, row, rms = rel_errors(g, w)
+                limit = TRAIN_KERNEL_REL_LIMITS[_kind(torch, dt)]
+                if not (whole <= limit[0] and row <= limit[1]):
+                    raise AssertionError(f"relative error {whole:.3g} (worst row {row:.3g}) over limit {limit} for "
+                                         f"an output of RMS {rms:.3g}")
+                notes.append(f"{tols_for(dt)}, relative {whole:.3g}, worst row {row:.3g} (limit {limit}), "
+                             f"rms {rms:.3g}")
+            return " / ".join(notes)
+        return check
+
+    def rand(*shape, dtype, offset=0):
+        """Unit-normal values of ``dtype``; ``offset`` elements into a flat buffer, so the data is not 16-byte
+        aligned."""
+        n = int(np.prod(shape))
+        return torch.randn(n + offset, device="cuda", generator=gen).to(dtype)[offset:].view(shape)
+
+    # K: the step's norms (the two layer norms and the final norm at (4096, 2560), the q norm at (131072, 128), the
+    # k norm at (32768, 128)), then fp16/fp32 and edge cases
+    t0 = time.perf_counter()
+    k_cases = [((TRAIN_TOKENS, hidden), bf16, True, 0), ((TRAIN_TOKENS * H, D), bf16, True, 0),
+               ((TRAIN_TOKENS * Hkv, D), bf16, True, 0), ((TRAIN_TOKENS, hidden), f16, False, 0),
+               ((TRAIN_TOKENS, hidden), f32, False, 0), ((37, 128), bf16, False, 1), ((5, 33), f32, False, 0),
+               ((9, 256), bf16, False, 0), ((2, 257), bf16, False, 0), ((3, 300), f16, False, 0),
+               ((7, 7168), bf16, False, 0), ((3, 16384), f32, False, 0), ((6, 5120), bf16, False, 1)]
+    for (rows, d), dtype, main, offset in k_cases:
+        x, dy = rand(rows, d, dtype=dtype, offset=offset), rand(rows, d, dtype=dtype)
+        w = torch.rand(d, device="cuda", generator=gen) + 0.5
+        lib = None
+        if main:  # the backward of F.rms_norm, its forward outside the timed window
+            xg, wg = x.detach().requires_grad_(True), w.to(dtype).requires_grad_(True)
+            y = torch.nn.functional.rms_norm(xg, (d,), wg, eps)
+            lib = lambda y=y, xg=xg, wg=wg, dy=dy: torch.autograd.grad(y, (xg, wg), dy, retain_graph=True)  # noqa: E731
+        n = rows * d
+        compare("rmsnorm_vjp", lambda: kv.rmsnorm_bwd(x, w, dy, eps), lambda: kv.rmsnorm_bwd_plain(x, w, dy, eps),
+                dtype, f"rmsnorm_bwd ({rows}, {d}){' unaligned' if offset else ''}", main, key=f"{rows}x{d}",
+                check=checker(dtype, f32), bound=(3 * n * x.element_size() + 8 * d, 11 * n, "fp32"), library=lib,
+                library_graph=False)
+        runs = [kv.rmsnorm_bwd(x, w, dy, eps) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"rmsnorm_bwd ({rows}, {d}): two runs on the same inputs differ")
+    log("kernel rmsnorm_vjp", "every case's dx and dw equal bit for bit over two runs")
+    x = torch.empty(0, D, device="cuda", dtype=bf16)
+    before = kv.launches
+    dx, dw = kv.rmsnorm_bwd(x, torch.ones(D, device="cuda"), x, eps)
+    if dx.shape != x.shape or bool(dw.any()) or kv.launches != before:
+        raise AssertionError("rmsnorm_bwd launched on no rows, or its dw is not 0")
+    log("kernel rmsnorm_vjp", f"no rows: no launch, dw = 0; K's cases took {time.perf_counter() - t0:.1f} s")
+
+    # L: the step's MLP activation (4096, 9728), forward and backward, then fp16/fp32 and unaligned runs
+    t0 = time.perf_counter()
+    for shape, dtype, main, offset in (((TRAIN_TOKENS, inter), bf16, True, 0), ((TRAIN_TOKENS, inter), f16, False, 0),
+                                       ((TRAIN_TOKENS, inter), f32, False, 0), ((1001,), bf16, False, 1),
+                                       ((3, 5), f32, False, 0), ((77, 129), f16, False, 3)):
+        x, dy = rand(*shape, dtype=dtype, offset=offset), rand(*shape, dtype=dtype)
+        n, isz = x.numel(), x.element_size()
+        case = f"{tuple(shape)}{' unaligned' if offset else ''}"
+        compare("silu_fwd", lambda: sv.silu_fwd(x), lambda: sv.silu_fwd_plain(x), dtype, f"silu forward {case}",
+                main, check=checker(dtype), bound=(2 * n * isz, 4 * n, "fp32"),
+                library=lambda: torch.nn.functional.silu(x))
+        compare("silu_bwd", lambda: sv.silu_bwd(x, dy), lambda: sv.silu_bwd_plain(x, dy), dtype,
+                f"silu backward {case}", main, check=checker(dtype), bound=(3 * n * isz, 8 * n, "fp32"),
+                library=lambda: torch.ops.aten.silu_backward(dy, x))
+    log("kernel silu", f"L's cases took {time.perf_counter() - t0:.1f} s")
+
+    # M: q (2, 32, 2048, 128) and k (2, 8, 2048, 128) in the three layouts, forward and backward
+    t0 = time.perf_counter()
+    B, S = 2, TRAIN_TOKENS // 2
+
+    def tables(s, d, dtype, batch=None):
+        ang = torch.arange(s, device="cuda", dtype=f32)[:, None] * (
+            1.0 / 1e6 ** (torch.arange(0, d, 2, device="cuda") / d))
+        emb = torch.cat([ang, ang], -1)
+        cos, sin = emb.cos(), emb.sin()
+        if batch is not None:
+            cos, sin = cos.expand(batch, s, d).contiguous(), sin.expand(batch, s, d).contiguous()
+        return cos.to(dtype), sin.to(dtype)
+
+    def m_case(label, q, k, cos, sin, head_first, dtype, main=False, key=None, dense=True):
+        elems = q.numel() + k.numel()
+        bound = (2 * elems * q.element_size() + 2 * cos.numel() * cos.element_size(), 3 * elems, "fp32")
+        for direction, negate in (("forward", False), ("backward", True)):
+            compare("rope_head_first",
+                    lambda negate=negate: rotate_layout(rh.rope_head_first, q, k, cos, sin, head_first, negate),
+                    lambda negate=negate: rotate_layout(rh.rope_head_first_plain, q, k, cos, sin, head_first, negate),
+                    dtype, f"rope {label} {direction}", main, key=key and f"{key}_{direction}",
+                    check=checker(dtype, dtype), bound=bound)
+        q_out, _ = rotate_layout(rh.rope_head_first, q, k, cos, sin, head_first)
+        if dense and q_out.stride() != q.stride():  # a dense view's output is laid out like it
+            raise AssertionError(f"rope {label}: output strides {q_out.stride()} are not the input's {q.stride()}")
+
+    for dtype, main in ((bf16, True), (f16, False), (f32, False)):
+        q, k = rand(B, S, H, D, dtype=dtype), rand(B, S, Hkv, D, dtype=dtype)
+        m_case("token-first (B, S, H, D) as a transposed view, (B, S, D) tables", q, k, *tables(S, D, dtype, B), False,
+               dtype, main, "token_first_view")
+    q, k = rand(B, H, S, D, dtype=bf16), rand(B, Hkv, S, D, dtype=bf16)
+    m_case("head-first (B, H, S, D), (S, D) fp32 tables", q, k, *tables(S, D, f32), True, bf16, True, "head_first")
+    q, k = rand(B * S, H, D, dtype=bf16), rand(B * S, Hkv, D, dtype=bf16)
+    m_case("(T, H, D) rows, (T, D) tables", q, k, *tables(B * S, D, bf16), False, bf16, True, "t_rows")
+    # edge cases: unaligned data (no vector loads), D 64 and 6, fp32 tables with fp16 rows, a view strided on S
+    q, k = rand(2, 3, 5, D, dtype=bf16, offset=1), rand(2, 1, 5, D, dtype=bf16)
+    m_case("head-first unaligned", q, k, *tables(5, D, bf16), True, bf16)
+    q, k = rand(3, 17, 4, 64, dtype=f16), rand(3, 17, 2, 64, dtype=f16)
+    m_case("token-first D 64, fp32 tables", q, k, *tables(17, 64, f32, 3), False, f16)
+    q, k = rand(1, 2, 9, 6, dtype=f32), rand(1, 1, 9, 6, dtype=f32)
+    m_case("head-first D 6", q, k, *tables(9, 6, f32), True, f32)
+    q, k = rand(2, 4, 40, D, dtype=bf16)[:, :, ::2], rand(2, 2, 20, D, dtype=bf16)
+    m_case("head-first, a view strided on S", q, k, *tables(20, D, bf16), True, bf16, dense=False)
+    log("kernel rope_head_first", f"M's cases took {time.perf_counter() - t0:.1f} s; K, L and M "
+                                  f"{time.perf_counter() - t_all:.1f} s")
+
+
 def _layers(model):
     return model.model.layers if hasattr(model, "model") else model.layers
 
@@ -893,12 +1078,7 @@ def _build_pair(torch, config, model_cls=None):
     model = model_cls(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     with plain_tier():
         plain = model_cls(config, device="meta")
-    plain.load_state_dict(model.state_dict(), assign=True)
-    for name, buf in model.named_buffers():  # buffers outside the state dict: the rotary table
-        module_name, _, attr = name.rpartition(".")
-        setattr(plain.get_submodule(module_name), attr, buf)
-    assert all(p.device.type == "cuda" for p in plain.parameters()) and all(
-        b.device.type == "cuda" for b in plain.buffers())
+    _bind(plain, model)
     attn = _layers(model)[0].self_attn
     assert type(attn.attn_decode).__name__.startswith("Cuda"), type(attn.attn_decode)
     assert type(_layers(plain)[0].self_attn.attn_decode).__name__.startswith("Ref")
@@ -907,6 +1087,17 @@ def _build_pair(torch, config, model_cls=None):
         assert type(mlp.experts).__name__ == "CudaExperts", type(mlp.experts)
         assert type(_layers(plain)[0].mlp.experts).__name__ == "RefExperts"
     return model, plain
+
+
+def _bind(plain, model) -> None:
+    """Give ``plain`` (built on the meta device) ``model``'s tensors: its state
+    and the buffers outside the state dict (the rotary table)."""
+    plain.load_state_dict(model.state_dict(), assign=True)
+    for name, buf in model.named_buffers():
+        module_name, _, attr = name.rpartition(".")
+        setattr(plain.get_submodule(module_name), attr, buf)
+    assert all(p.device.type == "cuda" for p in plain.parameters()) and all(
+        b.device.type == "cuda" for b in plain.buffers())
 
 
 @contextlib.contextmanager
@@ -1066,8 +1257,12 @@ def _continuous_match(torch, model, draft) -> None:
 
 def phase_small_model(torch) -> None:
     from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3MoeConfig, Qwen3MoeForCausalLM
+    from mojo_opset_tpu_torch.modeling.seed_oss import SeedOssConfig, SeedOssForCausalLM
 
     ids, lens = _prompts(SMALL["vocab_size"], (37, 20, 5, 64))
+    seed, seed_plain = _build_pair(torch, SeedOssConfig(**SMALL, dtype=torch.float32), SeedOssForCausalLM)
+    _greedy_match(torch, "small fp32 Seed-OSS model", seed, seed_plain, ids, lens)
+    del seed, seed_plain
     moe, moe_plain = _build_pair(torch, Qwen3MoeConfig(**SMALL_MOE, dtype=torch.float32), Qwen3MoeForCausalLM)
     _greedy_match(torch, "small fp32 MoE model", moe, moe_plain, ids, lens)
     del moe, moe_plain
@@ -1085,25 +1280,25 @@ def phase_small_model(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_full_width(torch, card: str) -> dict:
+def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, card: str, reference=None):
+    """Phase 5's run for one model and its plain twin: prefill, DECODE_STEPS
+    greedy steps and a FusedDecode window with the counters zeroed just
+    before and read just after (every kernel of ``path_kernels`` must
+    launch), one more decode step counted and profiled, and the last-token
+    prefill logits against the plain path (per-row cosine >= 0.999; against
+    ``reference`` printed with no bound). Peak memory counts from the
+    caller's last reset. Returns (counts, logits, session)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from mojo_opset_tpu_torch.backends.cuda import kernels
-    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config
     from mojo_opset_tpu_torch.runtime import (
         FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
     )
 
-    config = Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16, kv_layout="NHD")
-    t0 = time.perf_counter()
-    model, plain = _build_pair(torch, config)
-    torch.cuda.reset_peak_memory_stats()
-    n_params = sum(p.numel() for p in model.parameters())
-    log("full width", f"Qwen3-4B geometry, {n_params / 1e9:.2f} B params bf16, built in "
-                      f"{time.perf_counter() - t0:.1f} s")
-    ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
     gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE)
     hook = PerfHook(silent=True)
     gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=DECODE_STEPS + 1, hooks=[hook])
-
     gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up: allocator, cuBLAS handles
     kernels.reset_launch_counts()
     out = gen.generate_from_ids(ids, lens, ignore_eos=True)
@@ -1114,11 +1309,10 @@ def phase_full_width(torch, card: str) -> dict:
     window = FusedDecode(model)(session, first, FUSED_STEPS)
     torch.cuda.synchronize()
     fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
-    counts = {k: v for k, v in kernels.launch_counts().items() if k in BF16_PATH_KERNELS}
-    log("full width", f"launches on the main path: {counts}")
+    counts = {k: v for k, v in kernels.launch_counts().items() if k in path_kernels}
+    log(tag, f"launches on the main path: {counts}")
     if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {counts}")
-
+        raise AssertionError(f"a kernel of the {tag} path never launched: {counts}")
     if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
         raise AssertionError(f"generated ids shape {out.shape}")
     window = window.T.cpu().numpy()
@@ -1126,29 +1320,62 @@ def phase_full_width(torch, card: str) -> dict:
         raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
+
+    token = torch.as_tensor(window[:, -1], device="cuda")
+    kernels.reset_launch_counts()
+    gm(token, session=session)
+    per_step = {k: v for k, v in kernels.launch_counts().items() if v}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gm(token, session=session)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gm(token, session=session)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    log(tag, f"{card}: one decode step (bs 4, context ~1050): {sum(e.count for e in device)} device kernels, the "
+             f"port's kernels {per_step}; wall {step_ms:.2f} ms unprofiled, device busy {busy:.3f} ms (idle "
+             f"{100 * (1 - busy / step_ms):.1f}%)")
+
     plain_logits, _ = PagedAttentionGenerationModel(plain, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
     cos = torch.nn.functional.cosine_similarity(logits, plain_logits, dim=-1)
-    log("full width", f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
-                      f"{[round(c, 6) for c in cos.tolist()]} (bound 0.999)")
+    note = ""
+    if reference is not None:
+        ref_cos = torch.nn.functional.cosine_similarity(logits, reference, dim=-1)
+        note = f"; vs the bf16 model {[round(c, 4) for c in ref_cos.tolist()]} (no bound: random weights)"
+    log(tag, f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
+             f"{[round(c, 6) for c in cos.tolist()]} (bound 0.999){note}")
     if cos.min().item() < 0.999:
-        raise AssertionError(f"prefill logits disagree with the plain path: cosine {cos.tolist()}")
-
+        raise AssertionError(f"{tag} prefill logits disagree with the plain path: cosine {cos.tolist()}")
     rec = hook.records[-1]
-    log("full width", f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); "
-                      f"decode {rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, "
-                      f"{rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step, "
-                      f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
-                      f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log("full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    log(tag, f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); decode "
+             f"{rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, {rec['decode_steps']} "
+             f"steps); FusedDecode {fused_ms:.3f} ms/step, {len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak "
+             f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(tag, f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    return counts, logits, session
+
+
+def phase_full_width(torch, card: str) -> dict:
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config
+
+    config = Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16, kv_layout="NHD")
+    t0 = time.perf_counter()
+    model, plain = _build_pair(torch, config)
+    torch.cuda.reset_peak_memory_stats()
+    n_params = sum(p.numel() for p in model.parameters())
+    log("full width", f"Qwen3-4B geometry, {n_params / 1e9:.2f} B params bf16, built in "
+                      f"{time.perf_counter() - t0:.1f} s")
+    ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
+    counts, _, _ = _serve_and_check(torch, "full width", model, plain, ids, lens, BF16_PATH_KERNELS, card)
     return counts
 
 
 def phase_int8_full_width(torch, card: str) -> dict:
-    from mojo_opset_tpu_torch.backends.cuda import kernels
     from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
-    from mojo_opset_tpu_torch.runtime import (
-        FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
-    )
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1164,51 +1391,11 @@ def phase_int8_full_width(torch, card: str) -> dict:
     log("int8 full width", f"Qwen3-4B geometry w8a8 + C8: {n_int8 / 1e9:.3f} B int8 weights, quantized on the "
                            f"card in {time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} "
                            f"GiB held by the kernel-path and plain-path twins")
-    gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE)
-    hook = PerfHook(silent=True)
-    gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=DECODE_STEPS + 1, hooks=[hook])
-
-    gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up
-    kernels.reset_launch_counts()
-    out = gen.generate_from_ids(ids, lens, ignore_eos=True)
-    logits, session = gm(ids, context_input_len=lens)
-    first = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    t_fused = time.perf_counter()
-    window = FusedDecode(model)(session, first, FUSED_STEPS)
-    torch.cuda.synchronize()
-    fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
-    counts = {k: v for k, v in kernels.launch_counts().items() if k in INT8_PATH_KERNELS}
-    log("int8 full width", f"launches on the main path: {counts}")
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the int8 path never launched: {counts}")
+    counts, _, session = _serve_and_check(torch, "int8 full width", model, plain, ids, lens, INT8_PATH_KERNELS, card,
+                                          reference=bf16_logits)
     key0 = session.caches.key(0)
     if key0.dtype != torch.int8 or session.kv_layout != "HND" or not bool((session.caches.key_scale(0) > 0).all()):
         raise AssertionError(f"the session's cache is not calibrated int8 HND: {key0.dtype} {session.kv_layout}")
-
-    if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
-        raise AssertionError(f"generated ids shape {out.shape}")
-    window = window.T.cpu().numpy()
-    if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
-        raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
-    if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite prefill logits")
-    plain_logits, _ = PagedAttentionGenerationModel(plain, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
-    cos = torch.nn.functional.cosine_similarity(logits, plain_logits, dim=-1)
-    cos_bf16 = torch.nn.functional.cosine_similarity(logits, bf16_logits, dim=-1)
-    log("int8 full width", f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
-                           f"{[round(c, 6) for c in cos.tolist()]} (bound 0.999); vs the bf16 model "
-                           f"{[round(c, 4) for c in cos_bf16.tolist()]} (no bound: random weights)")
-    if cos.min().item() < 0.999:
-        raise AssertionError(f"int8 prefill logits disagree with the plain path: cosine {cos.tolist()}")
-
-    rec = hook.records[-1]
-    log("int8 full width", f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); "
-                           f"decode {rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, "
-                           f"{rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step, "
-                           f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
-                           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log("int8 full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
     return counts
 
 
@@ -1633,6 +1820,54 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     return {k: counts[k] for k in DEEPSEEK_PATH_KERNELS}
 
 
+def phase_seed_oss_full_width(torch, card: str) -> tuple:
+    """Seed-OSS at Seed-OSS-36B widths, depth cut to 32: the bf16 model on A-D
+    and its w8a8 twin, quantized on the card, on A-F, each through phase 5's
+    batch against a plain twin on the same tensors."""
+    from mojo_opset_tpu_torch.modeling.seed_oss import SeedOssConfig, SeedOssForCausalLM, quantize_seed_oss
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    config = SeedOssConfig(**SEED_OSS_36B, dtype=torch.bfloat16, kv_layout="NHD")
+    t0 = time.perf_counter()
+    model, plain = _build_pair(torch, config, SeedOssForCausalLM)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("seed-oss", f"Seed-OSS-36B widths, depth cut {SEED_OSS_FULL['num_hidden_layers']} -> "
+                    f"{config.num_hidden_layers}, max_position_embeddings {SEED_OSS_FULL['max_position_embeddings']} "
+                    f"-> {config.max_position_embeddings}: {n_params / 1e9:.2f} B params bf16 "
+                    f"({n_params * 2 / 2**30:.1f} GiB), built in {time.perf_counter() - t0:.1f} s; the plain twin "
+                    f"shares its tensors")
+    ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
+    bf16_counts, bf16_logits, _ = _serve_and_check(torch, "seed-oss bf16", model, plain, ids, lens,
+                                                   BF16_PATH_KERNELS, card)
+    del plain
+    t0 = time.perf_counter()
+    qmodel = quantize_seed_oss(model)
+    with plain_tier():
+        qplain = SeedOssForCausalLM(qmodel.seed_oss_config, device="meta")
+    _bind(qplain, qmodel)
+    attn, plain_attn = qmodel.layers[0].self_attn, qplain.layers[0].self_attn
+    assert type(qmodel.layers[0].input_layernorm).__name__ == "CudaRMSNormQuant"
+    assert type(attn.q_proj).__name__ == "CudaQuantGemm" and type(plain_attn.q_proj).__name__ == "RefQuantGemm"
+    assert attn.q_bias is not None and attn.o_bias is None and attn.q_bias.data_ptr() == plain_attn.q_bias.data_ptr()
+    both_gib = torch.cuda.max_memory_allocated() / 2**30
+    del model  # its projections go; the embedding, norms and biases stay, shared with the twins
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_int8 = sum(p.numel() for p in qmodel.parameters() if p.dtype == torch.int8)
+    log("seed-oss w8a8", f"quantized on the card in {time.perf_counter() - t0:.1f} s: {n_int8 / 1e9:.3f} B int8 "
+                         f"weights, the q/k/v biases in bf16 beside them; peak with the bf16 model beside it "
+                         f"{both_gib:.1f} GiB; {torch.cuda.memory_allocated() / 2**30:.2f} GiB held after it goes")
+    torch.cuda.reset_peak_memory_stats()
+    int8_counts, _, _ = _serve_and_check(torch, "seed-oss w8a8", qmodel, qplain, ids, lens, INT8_PATH_KERNELS, card,
+                                         reference=bf16_logits)
+    del qmodel, qplain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16_counts, int8_counts
+
+
 def _train_step(torch, model, ids, opt=None) -> tuple:
     """One training step on ``ids`` (B, S + 1): ``train_forward`` of the
     first S, the chunked golden loss against the last S, backward and, with
@@ -1665,21 +1900,71 @@ def _train_model(torch, layers: int):
     config = Qwen3Config(**dict(QWEN3_4B, num_hidden_layers=layers), dtype=torch.bfloat16)
     model = Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     model.requires_grad_(True)
-    attn = model.model.layers[0].self_attn.attn_train
-    assert type(attn).__name__ == "CudaSWAFunction", type(attn)
+    layer = model.model.layers[0]
+    attn = layer.self_attn
+    for fn, name in ((attn.attn_train, "CudaSWAFunction"), (attn.norm_train, "CudaRMSNormFunction"),
+                     (layer.norm_train, "CudaRMSNormFunction"), (model.model.norm_train, "CudaRMSNormFunction"),
+                     (attn.rope_train, "CudaApplyRoPEFunction"), (layer.mlp.act_train, "CudaSiluFunction")):
+        assert type(fn).__name__ == name, type(fn)
     ids = torch.randint(1, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(1))
     return model, ids
 
 
-def _train_twin_check(torch) -> None:
-    """One step at full width, depth cut to TRAIN_TWIN_LAYERS, on kernel J and
-    again with J's plain forward and backward in its place (the same model,
-    so every other tensor and op is shared): the loss to
-    TRAIN_LOSS_REL_BOUND, each parameter's gradient to
-    TRAIN_GRAD_COSINE_BOUND."""
-    from mojo_opset_tpu_torch.backends.cuda import kernels
+def _train_launches(layers: int) -> dict:
+    """Launches of one training step at ``layers``: A forward and K backward at
+    each of a layer's four norms and the final norm, L forward and backward at
+    each MLP, M forward and backward (q and k in one launch) and J's three
+    entry points at each attention."""
+    return {"norms": 4 * layers + 1, "rmsnorm_vjp": 4 * layers + 1, "silu_fwd": layers, "silu_bwd": layers,
+            "rope_head_first": 2 * layers, "flash_swa_fwd": layers, "flash_swa_dq": layers, "flash_swa_dkv": layers}
+
+
+def _plain_training_kernels(model) -> None:
+    """Set every kernel of ``model``'s training path (A, J, K, L and M) to its
+    plain version, through the Functions' and J's op's seams."""
+    from mojo_opset_tpu_torch.backends.cuda.functions import (
+        CudaApplyRoPEFunction, CudaRMSNormFunction, CudaSiluFunction,
+    )
     from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
+    from mojo_opset_tpu_torch.backends.cuda.kernels import norms, rmsnorm_vjp, rope_head_first, silu_vjp
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaSWA
+
+    for m in model.modules():
+        if isinstance(m, CudaRMSNormFunction):
+            m.fwd, m.bwd = norms.rmsnorm_plain, rmsnorm_vjp.rmsnorm_bwd_plain
+        elif isinstance(m, CudaSiluFunction):
+            m.fwd, m.bwd = silu_vjp.silu_fwd_plain, silu_vjp.silu_bwd_plain
+        elif isinstance(m, CudaApplyRoPEFunction):
+            m.rotate = rope_head_first.rope_head_first_plain
+        elif isinstance(m, CudaSWA):
+            m.fwd, m.bwd = fs.flash_swa_fwd_plain, fs.flash_swa_bwd_plain
+
+
+def _golden_training_functions(model) -> None:
+    """Give every module of ``model`` golden-tier training Functions in place of
+    the norm, RoPE and SiLU ones (J's stays): the training path without
+    kernels A, K, L and M, for comparison within one run."""
+    from mojo_opset_tpu_torch.core.functions import MojoApplyRoPEFunction, MojoRMSNormFunction, MojoSiluFunction
+
+    for m in list(model.modules()):
+        if hasattr(m, "norm_train"):
+            m.norm_train = MojoRMSNormFunction.get_backend_impl("ref")(eps=m.norm_train.eps)
+        if hasattr(m, "rope_train"):
+            m.rope_train = MojoApplyRoPEFunction.get_backend_impl("ref")()
+        if hasattr(m, "act_train"):
+            m.act_train = MojoSiluFunction.get_backend_impl("ref")()
+
+
+def _train_twin_check(torch) -> None:
+    """One step at full width, depth cut to TRAIN_TWIN_LAYERS, on the training
+    path's kernels (A, J, K, L and M) and again with each one's plain version
+    in its place (the same model, so every other tensor and op is shared):
+    the loss to TRAIN_LOSS_REL_BOUND, each parameter's gradient, the norm
+    weights' included, to TRAIN_GRAD_COSINE_BOUND."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.functions import CudaRMSNormFunction
+    from mojo_opset_tpu_torch.backends.cuda.kernels import norms
 
     model, ids = _train_model(torch, TRAIN_TWIN_LAYERS)
     kernels.reset_launch_counts()
@@ -1690,23 +1975,30 @@ def _train_twin_check(torch) -> None:
     counts = kernels.launch_counts()
     grads = {name: p.grad for name, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    if [counts[k] for k in ("flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv")] != [TRAIN_TWIN_LAYERS] * 3:
-        raise AssertionError(f"the twin check's kernel step launched {counts}")
-    for layer in model.model.layers:
-        layer.self_attn.attn_train.swa.fwd = fs.flash_swa_fwd_plain
-        layer.self_attn.attn_train.swa.bwd = fs.flash_swa_bwd_plain
+    want = _train_launches(TRAIN_TWIN_LAYERS)
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"the twin check's kernel step launched {counts}, want {want}")
+    _plain_training_kernels(model)
     plain_loss, *_ = _train_step(torch, model, ids)
     if kernels.launch_counts() != counts:
-        raise AssertionError("the plain twin launched a kernel")
+        raise AssertionError(f"the plain twin launched a kernel: {kernels.launch_counts()} after {counts}")
     loss_gap = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
     cos = {name: torch.nn.functional.cosine_similarity(grads[name].float().flatten(), p.grad.float().flatten(),
                                                        dim=0).item()
            for name, p in model.named_parameters()}
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    # the loss reads the forward kernels only (A, J, L, M; L and M match their plain versions bit for bit in phase
+    # 3): a step whose one kernel is A's forward shows A's share of the gap
+    model.zero_grad(set_to_none=True)
+    for m in model.modules():
+        if isinstance(m, CudaRMSNormFunction):
+            m.fwd = norms.rmsnorm
+    a_loss, *_ = _train_step(torch, model, ids)
+    a_gap = abs(a_loss.item() - plain_loss.item()) / abs(plain_loss.item())
     log("train full width", f"twin check ({TRAIN_TWIN_LAYERS} layers at Qwen3-4B width, B {TRAIN_BATCH} x S "
-                            f"{TRAIN_SEQ}): loss {loss.item():.9g} on J, {plain_loss.item():.9g} on J's plain "
-                            f"version (relative gap {loss_gap:.3g}, bound {TRAIN_LOSS_REL_BOUND}); gradient cosine "
-                            f"over {len(cos)} parameters: "
+                            f"{TRAIN_SEQ}): loss {loss.item():.9g} on A, J, K, L and M, {plain_loss.item():.9g} on "
+                            f"their plain versions (relative gap {loss_gap:.3g}, bound {TRAIN_LOSS_REL_BOUND}; "
+                            f"{a_gap:.3g} with A alone on its kernel); gradient cosine over {len(cos)} parameters: "
                             f"lowest {[(n, round(c, 6)) for n, c in worst]} (bound {TRAIN_GRAD_COSINE_BOUND}); "
                             f"kernel step forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms; step memory above "
                             f"the weights {act_gib:.2f} GiB")
@@ -1721,8 +2013,8 @@ def _train_twin_check(torch) -> None:
 
 def phase_train_full_width(torch, card: str) -> dict:
     """Qwen3 training at Qwen3-4B geometry: the twin check, then AdamW steps
-    at depth TRAIN_LAYERS on one repeated batch, counted and profiled."""
-    from torch.autograd import DeviceType
+    at depth TRAIN_LAYERS on one repeated batch, counted and profiled, and
+    the same steps with the golden norms, RoPE and SiLU for comparison."""
     from torch.profiler import ProfilerActivity, profile
 
     from mojo_opset_tpu_torch.backends.cuda import kernels
@@ -1748,11 +2040,10 @@ def phase_train_full_width(torch, card: str) -> dict:
     counts = kernels.launch_counts()
     losses += [s[0].item() for s in steps]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    want = {"flash_swa_fwd": TRAIN_STEPS * TRAIN_LAYERS, "flash_swa_dq": TRAIN_STEPS * TRAIN_LAYERS,
-            "flash_swa_dkv": TRAIN_STEPS * TRAIN_LAYERS}
+    want = {k: TRAIN_STEPS * v for k, v in _train_launches(TRAIN_LAYERS).items()}
     log("train full width", f"launches over {TRAIN_STEPS} steps: {counts}")
     if {k: counts[k] for k in want} != want:
-        raise AssertionError(f"J must launch once forward and twice backward a layer a step: {counts}, want {want}")
+        raise AssertionError(f"the training path's kernels launched {counts}, want {want}")
     if CudaSdpa.golden_calls != sdpa_golden:
         raise AssertionError("the training path took the masked-Sdpa golden route")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1762,10 +2053,7 @@ def phase_train_full_width(torch, card: str) -> dict:
         t = time.perf_counter()
         _train_step(torch, model, ids, opt)
         prof_ms = (time.perf_counter() - t) * 1e3
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
-    j_ms = sum(e.self_device_time_total for e in device if "flash_swa" in e.key) / 1e3
-    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    busy, fam_ms, top = _step_profile(torch, prof)
 
     fwd, bwd, upd = (float(np.mean([s[i] for s in steps])) for i in (1, 2, 3))
     step_ms = fwd + bwd + upd
@@ -1780,29 +2068,66 @@ def phase_train_full_width(torch, card: str) -> dict:
                             f"B params x {tokens} tokens + {attn_flops / 1e12:.2f} T attention) / step / 989 "
                             f"TFLOP/s); peak memory {peak_gib:.1f} GiB")
     log("train full width", f"profiled step: wall {prof_ms:.1f} ms, device busy {busy:.1f} ms (idle "
-                            f"{100 * (1 - busy / prof_ms):.1f}%); kernel J {j_ms:.1f} ms ({100 * j_ms / busy:.1f}% "
-                            f"of busy)")
+                            f"{100 * (1 - busy / prof_ms):.1f}%); " + ", ".join(
+                                f"kernel {f} {ms:.2f} ms ({100 * ms / busy:.1f}% of busy)" for f, ms in fam_ms.items()))
     log("train full width", "device time by kernel: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
+
+    # the same model with golden norms, RoPE and SiLU (J stays): what K, L and M replaced, in this run
+    _golden_training_functions(model)
+    torch.cuda.reset_peak_memory_stats()
+    _train_step(torch, model, ids, opt)
+    kernels.reset_launch_counts()
+    golden = [_train_step(torch, model, ids, opt) for _ in range(2)]
+    golden_counts = kernels.launch_counts()
+    if any(golden_counts[k] for k in ("norms", "rmsnorm_vjp", "silu_fwd", "silu_bwd", "rope_head_first")):
+        raise AssertionError(f"the golden Functions launched a kernel: {golden_counts}")
+    golden_peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _train_step(torch, model, ids, opt)
+    golden_busy, golden_fam, _ = _step_profile(torch, prof)
+    g_fwd, g_bwd, g_upd = (float(np.mean([s[i] for s in golden])) for i in (1, 2, 3))
+    replaced = golden_busy - busy + sum(fam_ms[f] for f in "AKLM")
+    log("train full width", f"{card}: the same step with golden norms, RoPE and SiLU under autograd (J kept): "
+                            f"{g_fwd + g_bwd + g_upd:.1f} ms (forward + loss {g_fwd:.1f}, backward {g_bwd:.1f}, AdamW "
+                            f"{g_upd:.1f}; mean of 2), device busy {golden_busy:.1f} ms, J {golden_fam['J']:.2f} ms, "
+                            f"peak memory {golden_peak:.1f} GiB; the golden norm, RoPE and SiLU work took "
+                            f"~{replaced:.1f} ms of device time ({100 * replaced / golden_busy:.1f}% of its busy "
+                            f"time), A, K, L and M take {sum(fam_ms[f] for f in 'AKLM'):.2f} ms")
     del model, opt, prof
     gc.collect()
     torch.cuda.empty_cache()
     return {k: counts[k] for k in want}
 
 
+def _step_profile(torch, prof) -> tuple:
+    """Device busy ms of a profiled step, the device ms of kernels J, A, K, L
+    and M, and the eight largest entries."""
+    from torch.autograd import DeviceType
+
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
+    families = {"J": ("flash_swa",), "A": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel"), "K": ("rmsnorm_bwd_",),
+                "L": ("silu_fwd_kernel", "silu_bwd_kernel"), "M": ("rope_strided_kernel",)}
+    fam_ms = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
+              for f, pats in families.items()}
+    return busy, fam_ms, sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
-                 deepseek_counts: dict, train_counts: dict) -> list:
+                 deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
-    MoE run, for I from the DeepSeek run and for J's three entry points from
-    the training run; numbers of the main-path case (``ms`` replayed from a
-    CUDA graph). C and D add their int8-page numbers; F, G, H and I their
-    numbers at each shape, G, H and I their largest error over those
-    shapes; J's forward its numbers through CudaSdpa at the Wan DiT's
-    shape."""
+    MoE run, for I from the DeepSeek run and for J, K, L and M from the
+    training run; numbers of the main-path case (``ms`` replayed from a
+    CUDA graph). C and D add their int8-page numbers; F, G, H, I, K and M
+    their numbers at each shape (M: each layout and direction), G, H, I, K
+    and M their largest error over those shapes; J's forward its numbers
+    through CudaSdpa at the Wan DiT's shape."""
     line = []
     main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
-                   "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4"}
+                   "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4", "rmsnorm_vjp": f"{TRAIN_TOKENS}x2560",
+                   "rope_head_first": "token_first_view_forward"}
     for module, (name, source, replaces) in KERNEL_INFO.items():
         rec = dict(record[module])
         extra = {}
@@ -1810,18 +2135,19 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             extra["by_shape"] = rec
             rec = dict(rec[main_shapes[module]])
             extra["main_shape"] = main_shapes[module]
-            if module in ("int4_matmul", "group_gemm", "mla_decode"):
+            if module in ("int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         elif "int8_pages" in rec:
             extra["int8_pages"] = rec.pop("int8_pages")
         elif "wan_dit_sdpa" in rec:
             extra["wan_dit_sdpa"] = rec.pop("wan_dit_sdpa")
         for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),
-                                  ("deepseek", deepseek_counts), ("train", train_counts)):
+                                  ("deepseek", deepseek_counts), ("train", train_counts), ("seed_oss", seed_counts),
+                                  ("seed_oss_int8", seed_int8_counts)):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
-        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts,
-                    **dict.fromkeys(train_counts, train_counts)}.get(module, counts)[module]
+        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts}.get(
+            module, counts if module in counts else train_counts)[module]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                          bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
@@ -1848,8 +2174,9 @@ def main() -> int:
     moe_counts = timed("moe full width", phase_moe_full_width, torch, card)
     deepseek_counts = timed("deepseek full width", phase_deepseek_full_width, torch, card)
     train_counts = timed("train full width", phase_train_full_width, torch, card)
+    seed_counts, seed_int8_counts = timed("seed-oss full width", phase_seed_oss_full_width, torch, card)
     print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts,
-                                              deepseek_counts, train_counts)}))
+                                              deepseek_counts, train_counts, seed_counts, seed_int8_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # kernel J's scalar tail: B, Tq, Tk, hq, hkv, D, scale, causal, lws, gws, abab, dtype, stream
 _SWA_TAIL = (_I,) * 6 + (_F,) + (_I,) * 5 + (_P,)
 # argument types of every entry point, the trailing stream included
@@ -51,6 +51,10 @@ SIGNATURES = {
     "mojo_int4_matmul": (_P,) * 5 + (_I,) * 4 + (_P,),
     "mojo_group_gemm": (_P,) * 4 + (_I,) * 6 + (_P,),
     "mojo_mla_decode": (_P,) * 9 + (_I,) * 7 + (_P,),
+    "mojo_rmsnorm_bwd": (_P,) * 6 + (_I, _I, _F, _I, _I, _I, _P),
+    "mojo_silu_fwd": (_P, _P, _L, _I, _I, _P),
+    "mojo_silu_bwd": (_P, _P, _P, _L, _I, _I, _P),
+    "mojo_rope_head_first": (_P,) * 7 + (_I,) * 9 + (_P,),
 }
 
 _CUDA_ERRORS = {

@@ -1,6 +1,7 @@
 """Kernel wrappers: each module holds one kernel's launcher, its plain
 PyTorch version and its ``launches`` counter; kernel J (``flash_swa``) has
-three entry points, each with its own counter."""
+three entry points and kernel L (``silu_vjp``) two, each with its own
+counter."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
     flash_swa,
@@ -12,15 +13,20 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     paged_decode,
     paged_prefill,
     rmsnorm_quant,
+    rmsnorm_vjp,
     rope,
+    rope_head_first,
+    silu_vjp,
 )
 
-ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul, group_gemm, mla_decode)
+ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul, group_gemm, mla_decode,
+       rmsnorm_vjp, rope_head_first)
 
 # (name, module, counter attribute) of every entry point
 COUNTERS = [(module.__name__.rsplit(".", 1)[-1], module, "launches") for module in ALL] + [
     ("flash_swa_fwd", flash_swa, "launches"), ("flash_swa_dq", flash_swa, "launches_dq"),
-    ("flash_swa_dkv", flash_swa, "launches_dkv")]
+    ("flash_swa_dkv", flash_swa, "launches_dkv"), ("silu_fwd", silu_vjp, "launches"),
+    ("silu_bwd", silu_vjp, "launches_bwd")]
 
 
 def reset_launch_counts() -> None:

@@ -75,6 +75,39 @@ __device__ __forceinline__ void mojo_load_row(const T* __restrict__ p, float (&f
   }
 }
 
+// Store N floats as N consecutive elements of T, rounded once; the same
+// alignment rule as mojo_load_row.
+template <typename T, int N>
+__device__ __forceinline__ void mojo_store_row(T* __restrict__ p, const float (&f)[N]) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  if constexpr (BYTES % 16 == 0) {
+    constexpr int PER = 16 / static_cast<int>(sizeof(T));
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      uint4 u;
+      T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) t[k] = mojo_from_float<T>(f[i * PER + k]);
+      reinterpret_cast<uint4*>(p)[i] = u;
+    }
+  } else if constexpr (BYTES == 8) {
+    uint2 u;
+    T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int k = 0; k < N; ++k) t[k] = mojo_from_float<T>(f[k]);
+    *reinterpret_cast<uint2*>(p) = u;
+  } else if constexpr (BYTES == 4) {
+    unsigned int u;
+    T* t = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int k = 0; k < N; ++k) t[k] = mojo_from_float<T>(f[k]);
+    *reinterpret_cast<unsigned int*>(p) = u;
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; ++k) p[k] = mojo_from_float<T>(f[k]);
+  }
+}
+
 // Run BODY with T bound to the element type of `code`; unknown codes
 // return cudaErrorInvalidValue from the enclosing entry point.
 #define MOJO_DISPATCH_DTYPE(code, T, ...)              \

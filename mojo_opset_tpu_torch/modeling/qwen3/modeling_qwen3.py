@@ -19,7 +19,10 @@ quantized weights come from ``quantize_qwen3`` or ``load_numpy_state``.
 Training (JAX model :235-249, :304-310, :332-347, :405-418):
 ``train_forward(ids)`` runs the padded (B, S) batch through the layers'
 ``dense_forward`` and returns the final hidden states, to pair with
-``fused_linear_cross_entropy(hidden, lm_head_weight, targets)``. Gradients
+``fused_linear_cross_entropy(hidden, lm_head_weight, targets)``. It runs
+the training Functions: ``MojoRMSNormFunction`` with each norm's own
+weight, ``MojoApplyRoPEFunction``, ``MojoSWAFunction`` and the MLP's
+``MojoSiluFunction`` (kernels A/K, M, J and L on the cuda tier). Gradients
 are off by default (the parameters serve); a trainer turns them on with
 ``model.requires_grad_(True)``. Quantized models do not train.
 """
@@ -32,7 +35,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mojo_opset_tpu_torch.core.functions import MojoSWAFunction
+from mojo_opset_tpu_torch.core.functions import (
+    MojoApplyRoPEFunction,
+    MojoRMSNormFunction,
+    MojoSiluFunction,
+    MojoSWAFunction,
+)
 from mojo_opset_tpu_torch.core.operators import (
     MojoApplyRoPE,
     MojoDynamicQuant,
@@ -48,7 +56,6 @@ from mojo_opset_tpu_torch.core.operators import (
     MojoStorePagedKVCache,
 )
 from mojo_opset_tpu_torch.core.operators.gemm import INT4_BLOCK
-from mojo_opset_tpu_torch.core.operators.normalization import rms_norm
 from mojo_opset_tpu_torch.experimental.operators import (
     MojoPagedDecodeGQAWithKVDequant,
     MojoPagedPrefillGQAWithKVDequant,
@@ -147,6 +154,9 @@ class Qwen3Attention(nn.Module):
             self.store_kv = MojoStorePagedKVCache(kv_layout=c.kv_layout)
             self.attn_prefill = MojoPagedPrefillGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
             self.attn_decode = MojoPagedDecodeGQA(gqa_layout="AABB", kv_layout=c.kv_layout)
+        # the training path's Functions (dense_forward)
+        self.norm_train = MojoRMSNormFunction(eps=c.rms_norm_eps)
+        self.rope_train = MojoApplyRoPEFunction()
         self.attn_train = MojoSWAFunction(is_causal=True, gqa_layout="AABB")
 
     def forward(
@@ -193,12 +203,11 @@ class Qwen3Attention(nn.Module):
         q = self.q_proj(hidden).reshape(B, S, self.num_heads, self.head_dim)
         k = self.k_proj(hidden).reshape(B, S, self.num_kv_heads, self.head_dim)
         v = self.v_proj(hidden).reshape(B, S, self.num_kv_heads, self.head_dim)
-        # the q/k norms and RoPE run their golden math under autograd, as the JAX package's default dispatch
-        # does (its RMSNormFunction and SiluFunction kernels have dispatch_default = False): kernels A and B
-        # are forward-only, and B takes (T, H, D), not (B, S, H, D)
-        q = _golden_norm(self.q_norm, q)
-        k = _golden_norm(self.k_norm, k)
-        q, k = MojoApplyRoPE._apply_rope(q, k, cos.unsqueeze(-2), sin.unsqueeze(-2))
+        q = self.norm_train(q, self.q_norm.weight)
+        k = self.norm_train(k, self.k_norm.weight)
+        # token-first, as JAX :243; kernel M takes the (B, S, H, D) tensors as a transposed (B, H, S, D) view and
+        # returns them token-first, so the reshapes below to J's packed rows copy nothing
+        q, k = self.rope_train(q, k, cos, sin, head_first=False)
         # JAX (:244-248) runs MojoSdpa(enable_gqa=True) under a (S, S) tril mask on (B, H, S, D). The same
         # function is causal attention within each of B sequences of S tokens: the rows packed (B * S, H, D)
         # with cu = [0, S, 2S, ...] as both cu vectors, on kernel J's forward and backward. Detecting a causal
@@ -247,6 +256,7 @@ class Qwen3MLP(nn.Module):
             self.up_proj = MojoGemm(c.hidden_size, c.intermediate_size, bias=False, **f)
             self.down_proj = MojoGemm(c.intermediate_size, c.hidden_size, bias=False, **f)
         self.act = MojoSilu()
+        self.act_train = MojoSiluFunction()
 
     def forward(self, x) -> torch.Tensor:
         """x: (T, hidden), or (int8 (T, hidden), scale (T, 1)) when quantized."""
@@ -255,11 +265,9 @@ class Qwen3MLP(nn.Module):
             return self.down_proj(*self.act_quant(h))
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
-
-def _golden_norm(norm, x: torch.Tensor) -> torch.Tensor:
-    """``norm``'s RMSNorm in its golden math (fp32 statistics, autograd
-    through it), whatever its tier."""
-    return rms_norm(x, norm.weight, norm.variance_epsilon)
+    def dense_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward: the SiLU under its Function."""
+        return self.down_proj(self.act_train(self.gate_proj(x)) * self.up_proj(x))
 
 
 def _quant_gemm(c: Qwen3Config, in_features: int, out_features: int, device, int4: bool = True) -> MojoQuantGemm:
@@ -280,14 +288,15 @@ class Qwen3DecoderLayer(nn.Module):
         self.self_attn = Qwen3Attention(c, device)
         self.post_attention_layernorm = norm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.mlp = Qwen3MLP(c, device)
+        self.norm_train = MojoRMSNormFunction(eps=c.rms_norm_eps)
 
     def forward(self, hidden, cos, sin, meta, caches, layer_idx):
         hidden = hidden + self.self_attn(self.input_layernorm(hidden), cos, sin, meta, caches, layer_idx)
         return hidden + self.mlp(self.post_attention_layernorm(hidden))
 
     def dense_forward(self, hidden, cos, sin):
-        hidden = hidden + self.self_attn.dense_forward(_golden_norm(self.input_layernorm, hidden), cos, sin)
-        return hidden + self.mlp(_golden_norm(self.post_attention_layernorm, hidden))
+        hidden = hidden + self.self_attn.dense_forward(self.norm_train(hidden, self.input_layernorm.weight), cos, sin)
+        return hidden + self.mlp.dense_forward(self.norm_train(hidden, self.post_attention_layernorm.weight))
 
 
 class Qwen3Model(nn.Module):
@@ -297,6 +306,7 @@ class Qwen3Model(nn.Module):
         self.layers = nn.ModuleList(Qwen3DecoderLayer(c, device) for _ in range(c.num_hidden_layers))
         self.norm = MojoRMSNorm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.rotary_emb = MojoRotaryEmbedding(c.rope_theta, c.head_dim, device=device)
+        self.norm_train = MojoRMSNormFunction(eps=c.rms_norm_eps)
 
     def forward(self, input_ids, positions, meta, caches):
         hidden = self.embed_tokens(input_ids)
@@ -320,7 +330,7 @@ class Qwen3Model(nn.Module):
         cos, sin = cos.to(hidden.dtype), sin.to(hidden.dtype)
         for layer in self.layers:
             hidden = layer.dense_forward(hidden, cos, sin)
-        return _golden_norm(self.norm, hidden)
+        return self.norm_train(hidden, self.norm.weight)
 
 
 class Qwen3ForCausalLM(nn.Module):

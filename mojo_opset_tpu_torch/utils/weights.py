@@ -20,7 +20,12 @@ kv_a_proj_with_mqa,o_proj}.weight`` (``q_proj`` without q LoRA),
 port: the two arrays must be equal), ``mlp.{gate,up,down}_proj.weight`` in
 the dense layers and ``mlp.routed_experts.{gating.gate_weight,
 experts.up_proj_weight,experts.down_proj_weight}`` with
-``mlp.shared_experts.*`` in the MoE layers.
+``mlp.shared_experts.*`` in the MoE layers. A Seed-OSS model has no
+``model.`` level either: ``layers.N.self_attn.{q,k,v}_proj.bias`` beside
+the weights; its w8a8 twin (``state_dict_of(quantize_seed_oss(jax_model))``
+into ``SeedOssConfig(quant="w8a8")``) carries int8 projections and the
+floating-point ``layers.N.self_attn.{q,k,v,o}_bias`` leaves (``o_bias``
+only with ``attention_out_bias``).
 """
 
 from __future__ import annotations

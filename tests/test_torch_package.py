@@ -36,7 +36,10 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     paged_decode,
     paged_prefill,
     rmsnorm_quant,
+    rmsnorm_vjp,
     rope,
+    rope_head_first,
+    silu_vjp,
 )
 from mojo_opset_tpu_torch.core.registry import BackendNotAvailable
 from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3Config, DeepseekV3ForCausalLM, MLARuntimeState
@@ -47,7 +50,9 @@ from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-                  "group_gemm", "mla_decode", "flash_swa"]
+                  "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first", "flash_swa", "silu_vjp"]
+# the counters of the entry points beside the single-entry modules' own
+MULTI_ENTRY = {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv", "silu_fwd", "silu_bwd"}
 
 
 def test_import_loads_no_jax():
@@ -56,6 +61,7 @@ def test_import_loads_no_jax():
         "import mojo_opset_tpu_torch.core.operators.moe, mojo_opset_tpu_torch.backends.cuda.operators.moe\n"
         "import mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3_moe, mojo_opset_tpu_torch.backends.cuda.kernels\n"
         "import mojo_opset_tpu_torch.modeling.deepseekv3, mojo_opset_tpu_torch.backends.cuda.operators.mla\n"
+        "import mojo_opset_tpu_torch.modeling.seed_oss, mojo_opset_tpu_torch.backends.cuda.functions\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
         " or m.startswith('mojo_opset_tpu.')]\n"
         "assert not bad, bad\n"
@@ -71,7 +77,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
         "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-        "group_gemm", "mla_decode", "flash_swa"}
+        "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first"}
 
 
 def _cpu_calls():
@@ -114,8 +120,17 @@ def _cpu_calls():
     mla_plain.attend = mla_decode.mla_decode_absorbed_plain
     yield "mla_decode", lambda: mla_op(qm, c, pe, lens, table), lambda: mla_plain(qm, c, pe, lens, table)
     qs, ks, cu_s = t(9, 4, 64), t(9, 2, 64), torch.tensor([0, 4, 9], dtype=torch.int32)
+    xn, wn, dyn = t(5, 64), t(64), t(5, 64)
+    yield ("rmsnorm_vjp", lambda: rmsnorm_vjp.rmsnorm_bwd(xn, wn, dyn, 1e-6),
+           lambda: rmsnorm_vjp.rmsnorm_bwd_plain(xn, wn, dyn, 1e-6))
+    qh, kh, ch, sh = t(2, 4, 5, 64), t(2, 2, 5, 64), t(5, 64), t(5, 64)
+    yield ("rope_head_first", lambda: tm.MojoApplyRoPE.get_backend_impl("cuda")()(qh, kh, ch, sh, head_first=True),
+           lambda: rope_head_first.rope_head_first_plain(qh, kh, ch, sh))
     yield ("flash_swa", lambda: tm.MojoSWAFunction.get_backend_impl("cuda")(local_window_size=2)(qs, ks, ks, cu_s, cu_s),
            lambda: flash_swa.flash_swa_fwd_plain(qs, ks, ks, cu_s, cu_s, local_window=2)[0])
+    xs_ = t(3, 100)
+    yield ("silu_vjp", lambda: (silu_vjp.silu_fwd(xs_), silu_vjp.silu_bwd(xs_, xs_)),
+           lambda: (silu_vjp.silu_fwd_plain(xs_), silu_vjp.silu_bwd_plain(xs_, xs_)))
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -126,7 +141,7 @@ def test_cuda_tier_on_cpu_runs_plain_version(case):
     if plain is not None:
         check_tol_diff(out, plain(), atol=0.0, rtol=0.0)
     counts = kernels.launch_counts()
-    assert set(counts) == set(KERNEL_MODULES[:-1]) | {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv"}
+    assert set(counts) == (set(KERNEL_MODULES) - {"flash_swa", "silu_vjp"}) | MULTI_ENTRY
     assert set(counts.values()) == {0}, name
 
 
@@ -185,6 +200,51 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         rope.rope_token_first(meta(5, 4, 64), meta(5, 2, 64), meta(5, 32), meta(5, 32))
     with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
         norms.rmsnorm(meta(3, 64, dtype=torch.float64), meta(64, dtype=torch.float32), 1e-6)
+
+
+def test_training_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    with pytest.raises(ValueError, match="float32"):
+        rmsnorm_vjp.rmsnorm_bwd(meta(3, 64), meta(64), meta(3, 64), 1e-6)
+    with pytest.raises(ValueError, match="dy must match x"):
+        rmsnorm_vjp.rmsnorm_bwd(meta(3, 64), meta(64, dtype=torch.float32), meta(3, 64, dtype=torch.float16), 1e-6)
+    with pytest.raises(ValueError, match="D <="):
+        rmsnorm_vjp.rmsnorm_bwd(meta(3, 50000), meta(50000, dtype=torch.float32), meta(3, 50000), 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm_vjp.rmsnorm_bwd(meta(64, 3).t(), meta(64, dtype=torch.float32), meta(64, 3).t(), 1e-6)
+    with pytest.raises(ValueError, match="dy must match x"):
+        silu_vjp.silu_bwd(meta(3, 64), meta(3, 32))
+    with pytest.raises(ValueError, match="contiguous"):
+        silu_vjp.silu_fwd(meta(64, 3).t())
+    with pytest.raises(ValueError, match="share one dtype"):
+        rope_head_first.rope_head_first(meta(1, 4, 3, 64), meta(1, 2, 3, 64, dtype=torch.float16), meta(3, 64),
+                                        meta(3, 64))
+    with pytest.raises(ValueError, match="full-rope"):
+        rope_head_first.rope_head_first(meta(1, 4, 3, 64), meta(1, 2, 3, 64), meta(3, 32), meta(3, 32))
+    with pytest.raises(ValueError, match="q's dtype or float32"):
+        rope_head_first.rope_head_first(meta(1, 4, 3, 64), meta(1, 2, 3, 64), meta(3, 64, dtype=torch.float16),
+                                        meta(3, 64, dtype=torch.float16))
+    with pytest.raises(ValueError, match="unit stride on D"):
+        rope_head_first.rope_head_first(meta(1, 4, 64, 3).transpose(-1, -2), meta(1, 2, 3, 64), meta(3, 64),
+                                        meta(3, 64))
+    assert rmsnorm_vjp.launches == silu_vjp.launches == silu_vjp.launches_bwd == rope_head_first.launches == 0
+
+
+def test_training_kernels_never_fall_back(monkeypatch):
+    """The training Functions send a tensor off the CPU to kernels A, K, L
+    and M: without a build they raise instead of running the plain version."""
+    monkeypatch.setattr(build, "load_library", lambda: (_ for _ in ()).throw(RuntimeError("no kernels built")))
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    calls = [lambda: tm.MojoRMSNormFunction.get_backend_impl("cuda")()(meta(3, 64), meta(64)),
+             lambda: tm.MojoSiluFunction.get_backend_impl("cuda")()(meta(3, 64)),
+             lambda: tm.MojoApplyRoPEFunction.get_backend_impl("cuda")()(meta(1, 3, 4, 64), meta(1, 3, 2, 64),
+                                                                           meta(3, 64), meta(3, 64), head_first=False),
+             lambda: rmsnorm_vjp.rmsnorm_bwd(meta(3, 64), meta(64), meta(3, 64), 1e-6),
+             lambda: silu_vjp.silu_bwd(meta(3, 64), meta(3, 64))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no kernels built"):
+            call()
+    assert set(kernels.launch_counts().values()) == {0}
 
 
 def test_int8_kernel_wrappers_reject_what_the_kernels_do_not_take():

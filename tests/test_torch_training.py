@@ -38,7 +38,10 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     paged_decode,
     paged_prefill,
     rmsnorm_quant,
+    rmsnorm_vjp,
     rope,
+    rope_head_first,
+    silu_vjp,
 )
 from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM, quantize_qwen3
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
@@ -211,7 +214,9 @@ def test_quantized_models_do_not_train():
 
 
 def _kernel_calls(x):
-    """One call of each forward-only kernel wrapper (A-I) with ``x`` among its inputs."""
+    """One call of each kernel wrapper but J's (A-I and the training kernels
+    K, L and M, which their autograd Functions call) with ``x`` among its
+    inputs."""
     t = lambda *shape: torch.zeros(shape)  # noqa: E731
     i8 = lambda *shape: torch.zeros(shape, dtype=torch.int8)  # noqa: E731
     lens, table = torch.tensor([3], dtype=torch.int32), torch.tensor([[0]], dtype=torch.int32)
@@ -231,12 +236,17 @@ def _kernel_calls(x):
         [1, 3], dtype=torch.int32), True)
     yield "mla_decode_absorbed", lambda: mla_decode.mla_decode_absorbed(x(1, 4, 32), t(1, 4, 16), t(1, 1, 4, 32),
                                                                         t(1, 1, 4, 16), lens, table)
+    yield "rmsnorm_bwd", lambda: rmsnorm_vjp.rmsnorm_bwd(x(3, 64), t(64), t(3, 64), 1e-6)
+    yield "silu_fwd", lambda: silu_vjp.silu_fwd(x(3, 64))
+    yield "silu_bwd", lambda: silu_vjp.silu_bwd(x(3, 64), t(3, 64))
+    yield "rope_head_first", lambda: rope_head_first.rope_head_first(x(1, 4, 3, 64), t(1, 2, 3, 64), t(3, 64),
+                                                                     t(3, 64))
 
 
 @pytest.mark.parametrize("case", list(_kernel_calls(lambda *shape: torch.zeros(shape))),
                          ids=lambda case: case[0] if isinstance(case, tuple) else str(case))
 def test_forward_only_kernels_refuse_inputs_that_need_grad(case):
-    """Kernels A-I launch through ctypes and record no autograd graph: with
+    """Kernels A-I, K, L and M launch through ctypes and record no autograd graph: with
     grad mode on, an input that requires grad raises, on the CPU as on the
     card (the check comes before the device branch). Without grad mode, or
     without such an input, the call runs."""
