@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the thirteen kernel sources from ``mojo_opset_tpu_torch/csrc``
+  2. build: compiles the fourteen kernel sources from ``mojo_opset_tpu_torch/csrc``
      (one nvcc per source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
@@ -37,6 +37,12 @@ is non-zero:
      delta to the fp32 ladder; and the Wan DiT's maskless L = 1560 SDPA
      through CudaSdpa. Each of J's outputs is also held, relative to its
      own size, to FLASH_SWA_REL_LIMITS (the whole tensor and its worst row).
+     Kernel C with the TPU kernel's windows: ctx 32768 at B 4 with local
+     1024 and global 64, bf16 and int8 pages, timed beside the same cases
+     without windows (the windowed case must take under half the time:
+     pages outside the window are skipped, not masked), and local only,
+     global only, a window longer than the context, seq_len 0, both layouts
+     and GQA orders, fp16 and fp32.
      The training kernels at the step's shapes in bf16, fp16 and fp32 at
      one shape, and edge cases: K (RMSNorm backward) at (4096, 2560),
      (131072, 128) and (32768, 128), its dx and dw also bit for bit over two
@@ -44,7 +50,13 @@ is non-zero:
      strided head-first view, forward and backward) on q (2, 32, 2048, 128)
      and k (2, 8, 2048, 128) head-first, token-first as a transposed view
      and as (T, H, D) rows; each output to its ladder and, relative to its
-     size, to TRAIN_KERNEL_REL_LIMITS.
+     size, to TRAIN_KERNEL_REL_LIMITS. Kernel N (fused linear + CE: stats, dz,
+     dx, dw) at the train step's lm_head (N 4096, H 2560, V 151936, bf16),
+     then fp16, fp32, every option of JAX's test matrix, ragged N and V,
+     every row ignored, one row and the chunked-dz backward (4 runs); each
+     output to its ladder and, relative to its size, to FLCE_REL_LIMITS;
+     dz, dx, dw bit for bit over two runs; the main cases beside the cuBLAS
+     time of the same product.
      Every main case is timed replayed from a CUDA graph (``ms``: device
      time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
      3.35 TB/s or operations over the dtype's peak, the larger) and, where
@@ -122,18 +134,23 @@ is non-zero:
  10. Qwen3 training at Qwen3-4B geometry in bf16 (random weights from seed
      0, one repeated batch of B 2 x S 2048 random ids): a twin check at
      depth 2, one step on the training path's kernels (A and K under the
-     norms, L under the SiLU, M under RoPE, J under attention) and one with
+     norms, L under the SiLU, M under RoPE, J under attention, N under the
+     loss) and one with
      each kernel's plain version in its place (the same model), the loss to
      TRAIN_LOSS_REL_BOUND and every parameter's gradient to
-     TRAIN_GRAD_COSINE_BOUND; then at depth 36, train_forward + the chunked
-     golden loss + backward + fused AdamW: a warm-up step and TRAIN_STEPS
-     counted steps (per step A and K 145 launches, L 36 forward and 36
-     backward, M 72, J once forward and twice backward a layer; the
-     masked-Sdpa golden route is never taken; the loss is finite and
-     falls), then one profiled step, and the same steps with golden norms,
-     RoPE and SiLU for comparison. Prints step, forward and backward ms,
-     tokens/s, mfu, peak memory, the device idle share and the device time
-     of J, A, K, L and M.
+     TRAIN_GRAD_COSINE_BOUND (the loss's kernel N is swapped too); then at
+     depth 36, train_forward + the loss through the dispatched
+     MojoFusedLinearCrossEntropyFunction (kernel N) + backward + fused
+     AdamW: a warm-up step and TRAIN_STEPS counted steps (per step A and K
+     145 launches, L 36 forward and 36 backward, M 72, J once forward and
+     twice backward a layer, N's four entry points once; the masked-Sdpa
+     and loss golden routes are never taken; the loss is finite and
+     falls), then one profiled step; the same steps with the chunked golden
+     loss (its peak memory must not be below kernel N's), and with golden
+     norms, RoPE and SiLU, for comparison. Prints step, forward and
+     backward ms, tokens/s, mfu, peak memory, the device idle share, the
+     device time of J, A, K, L, M and N, and each loss tier's step ms, loss
+     ms and peak memory.
  11. Seed-OSS at Seed-OSS-36B widths (SEED_OSS_36B: hidden 5120, 80/8
      heads, q/k/v biases, vocab 155136), depth cut 64 -> 32, bf16, random
      weights from seed 0, block 64, a plain twin on the same tensors; phase
@@ -239,6 +256,13 @@ KERNEL_INFO = {
                  "mojo_opset_tpu/backends/pallas/kernels/silu_vjp.py:71"),
     "rope_head_first": ("rope_head_first", "mojo_opset_tpu_torch/csrc/rope_head_first.cu",
                         "mojo_opset_tpu/backends/pallas/kernels/rope.py:97"),
+    # kernel N's four entry points replace flce's three pallas_calls: the statistics (:120), and the dx (:241) and
+    # dw (:266) kernels, each of which recomputes dz, which N computes once for both
+    "flce_stats": ("flce_stats", "mojo_opset_tpu_torch/csrc/flce.cu",
+                   "mojo_opset_tpu/backends/pallas/kernels/flce.py:120"),
+    "flce_dz": ("flce_dz", "mojo_opset_tpu_torch/csrc/flce.cu", "mojo_opset_tpu/backends/pallas/kernels/flce.py:241"),
+    "flce_dx": ("flce_dx", "mojo_opset_tpu_torch/csrc/flce.cu", "mojo_opset_tpu/backends/pallas/kernels/flce.py:241"),
+    "flce_dw": ("flce_dw", "mojo_opset_tpu_torch/csrc/flce.cu", "mojo_opset_tpu/backends/pallas/kernels/flce.py:266"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
 MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
@@ -297,6 +321,15 @@ SDPA_GOLDEN_REL_LIMITS = (1.25e-2, 2.2e-2)
 # 1.41e-3 in bf16 (K's dx), 6.0e-6 / 7.6e-5 in fp16 and 4.1e-7 / 4.1e-7 in fp32 (K's dw) (PERF.md, section 6): each
 # limit leaves 6-8x
 TRAIN_KERNEL_REL_LIMITS = {"bf16": (1e-4, 1e-2), "fp16": (5e-5, 5e-4), "fp32": (3e-6, 3e-6)}
+# kernel N against its plain version, each output relative to its own size (whole tensor, worst row of the last dim;
+# rows that are 0 in the plain version, the ignored rows of dz, held to exactly 0): both versions sum in fp32 (the
+# products' order differs) and round once. The run that set them read at most 9.4e-4 / 1.7e-3 in bf16 (dx at the
+# step's shape; the chunked backward's dw), 2.8e-5 / 1.1e-4 in fp16 and 1.1e-5 / 1.1e-5 in fp32 (the one-row
+# case's target logit; the statistics of every case are fp32) (PERF.md, section 6): each limit leaves 5-7x
+FLCE_REL_LIMITS = {"bf16": (5e-3, 1e-2), "fp16": (2e-4, 8e-4), "fp32": (6e-5, 6e-5)}
+# JAX's option matrix for its flce test (tests/accuracy/functions/test_flce_pallas.py:37-44)
+FLCE_CONFIGS = (dict(reduction="sum"), dict(label_smoothing=0.1), dict(lse_square_scale=1e-3), dict(softcap=5.0),
+                dict(label_smoothing=0.05, lse_square_scale=1e-3, softcap=8.0, reduction="sum"))
 # the training step's shapes: B x S tokens, Qwen3-4B's hidden and MLP widths, 32/8 heads of 128
 TRAIN_TOKENS = 2 * 2048
 # Seed-OSS-36B (huggingface.co/ByteDance-Seed/Seed-OSS-36B-Instruct, config.json) at full width: q/k/v biases, no
@@ -526,6 +559,8 @@ def phase_kernels(torch) -> dict:
                 dtype, f"decode int8 pages HND {gqa} {hq}/{hkv}x{d} lens={lens}", main, key="int8_pages",
                 bound=attn_bound(dtype, hq, hkv, d, len(lens), lens, sum(lens), 1))
 
+    _decode_window_cases(torch, compare, gen, record)
+
     def causal_pairs(q_lens, kv_lens):
         return sum(q * (kv - q) + q * (q + 1) // 2 for q, kv in zip(q_lens, kv_lens))
 
@@ -713,7 +748,62 @@ def phase_kernels(torch) -> dict:
     _mla_cases(torch, compare, gen)
     _flash_swa_cases(torch, compare, gen)
     _train_kernel_cases(torch, compare, gen)
+    _flce_cases(torch, compare, gen)
     return record
+
+
+def _decode_window_cases(torch, compare, gen, record) -> None:
+    """C / C' with the TPU kernel's windows: a long context (ctx 32768, B 4, local 1024 and global 64) timed beside
+    the same case without windows (the kernel skips the pages outside the window: under half the time), then local
+    only, global only, a window at least as long as the context, seq_len 0, both layouts and GQA orders, int8
+    pages, fp16 and fp32."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import paged_decode
+
+    H, Hkv, D, bf16 = 32, 8, 128, torch.bfloat16
+    ctx_lens, n_long = [32768] * 4, 4 * 32768 // BLOCK_SIZE
+    window_ms = {}
+    for dtype, layout, gqa, hq, hkv, d, lens, lws, gws, int8, key in (
+            (bf16, "NHD", "AABB", H, Hkv, D, ctx_lens, 1024, 64, False, "window_ctx32k"),
+            (bf16, "NHD", "AABB", H, Hkv, D, ctx_lens, None, None, False, "no_window_ctx32k"),
+            (bf16, "HND", "AABB", H, Hkv, D, ctx_lens, 1024, 64, True, "window_ctx32k_int8"),
+            (bf16, "HND", "AABB", H, Hkv, D, ctx_lens, None, None, True, "no_window_ctx32k_int8"),
+            (bf16, "NHD", "ABAB", H, Hkv, D, [700, 0, 65, 1], 64, None, False, None),
+            (bf16, "HND", "AABB", H, Hkv, D, [700, 0, 65, 1], None, 100, False, None),
+            (torch.float32, "NHD", "AABB", 8, 8, 64, [300, 17, 0], 40, 3, False, None),
+            (torch.float16, "HND", "ABAB", 16, 2, 256, [200, 3], 5000, None, False, None),
+            (bf16, "HND", "ABAB", H, Hkv, D, [700, 0, 65, 1], 64, 16, True, None),
+            (torch.float32, "HND", "AABB", 8, 8, 64, [300, 17, 0], None, 0, True, None)):
+        blocks = n_long if lens is ctx_lens else 4 * 69
+        cols = -(-max(lens) // BLOCK_SIZE)
+        if int8:
+            (kc, vc), (ks, vs) = _int8_cache(torch, blocks, hkv, BLOCK_SIZE, d, gen)
+        else:
+            (kc, vc), (ks, vs) = _cache(torch, blocks, hkv, BLOCK_SIZE, d, layout, dtype, gen), (None, None)
+        bt = _tables(torch, lens, BLOCK_SIZE, cols, blocks, gen)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(dtype)
+        isz = q.element_size()
+        kept = [n if lws is None and gws is None else
+                len(set(range(max(n - 1 - lws, 0), n) if lws is not None else ()) | set(range(min(gws or 0, n))))
+                for n in lens]
+        compare("paged_decode",
+                lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, None, gqa, layout, ks, vs, lws, gws),
+                lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, None, gqa, layout, ks, vs, lws, gws),
+                dtype, f"decode {'int8 pages ' if int8 else ''}{layout} {gqa} {hq}/{hkv}x{d} lens={lens[:4]} "
+                       f"local={lws} global={gws} ({sum(kept)} keys kept)", key is not None, key=key,
+                bound=(2 * len(lens) * hq * d * isz + 2 * sum(kept) * hkv * d * kc.element_size(),
+                       4 * hq * d * sum(kept), _kind(torch, dtype)))
+        if key is not None:
+            window_ms[key] = record["paged_decode"][key]["ms"]
+        del kc, vc
+    torch.cuda.empty_cache()
+    for suffix in ("", "_int8"):
+        ratio = window_ms[f"window_ctx32k{suffix}"] / window_ms[f"no_window_ctx32k{suffix}"]
+        log("kernel paged_decode", f"ctx 32768, local 1024 + global 64{suffix.replace('_', ' ')}: "
+                                   f"{ratio:.3f} of the time without windows")
+        if not ratio < 0.5:
+            raise AssertionError(f"the windowed decode takes {ratio:.3f} of the unwindowed time: pages outside "
+                                 f"the window are read")
 
 
 def _mla_cases(torch, compare, gen) -> None:
@@ -1061,6 +1151,123 @@ def _train_kernel_cases(torch, compare, gen) -> None:
     m_case("head-first, a view strided on S", q, k, *tables(20, D, bf16), True, bf16, dense=False)
     log("kernel rope_head_first", f"M's cases took {time.perf_counter() - t0:.1f} s; K, L and M "
                                   f"{time.perf_counter() - t_all:.1f} s")
+
+
+def flce_rel_errors(got, want):
+    """||got - want|| / ||want|| over the whole tensor and at its worst row of the last dim, rows where want is 0
+    held to exactly 0 (kernel N's outputs span many magnitudes, so no absolute floor); and want's RMS."""
+    g, w = got.double().reshape(-1, got.shape[-1]), want.double().reshape(-1, want.shape[-1])
+    diff, norm = (g - w).norm(dim=1), w.norm(dim=1)
+    zero = norm == 0
+    if bool((diff[zero] != 0).any()):
+        raise AssertionError(f"{int((diff[zero] != 0).sum())} rows that are 0 in the plain version are not 0")
+    whole = (diff.norm() / w.norm()).item() if bool((~zero).any()) else 0.0
+    row = (diff[~zero] / norm[~zero]).max().item() if bool((~zero).any()) else 0.0
+    return whole, row, w.square().mean().sqrt().item() if w.numel() else 0.0
+
+
+def _flce_cases(torch, compare, gen) -> None:
+    """N: fused linear + cross-entropy, each entry point against its plain version: at the train step's lm_head
+    (main: N 4096 x H 2560 x V 151936 bf16, targets drawn over V with a quarter ignored, a and c of the mean
+    reduction; timed from a CUDA graph beside the bound and the cuBLAS time of the same product), then fp16 and
+    fp32, every option of JAX's test matrix (softcap, label smoothing, z-loss, sum), ragged N and V (V not a
+    multiple of 8: dz's row pitch is padded), every row ignored, one row, and flce_backward's chunked-dz route
+    forced by a small budget (dw added over 4 runs in fp32) against the plain backward. Every output to its dtype
+    ladder and, relative to its size (whole tensor, worst row), to FLCE_REL_LIMITS; dz, dx and dw run twice and
+    compare bit for bit."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import flce
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    t_all = time.perf_counter()
+
+    def checker(*dtypes):
+        def check(got, want):
+            got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+            notes = []
+            for g, w, dt in zip(got, want, dtypes):
+                check_tol_diff(g, w, **tols_for(dt))
+                whole, row, rms = flce_rel_errors(g, w)
+                limit = FLCE_REL_LIMITS[_kind(torch, dt)]
+                if not (whole <= limit[0] and row <= limit[1]):
+                    raise AssertionError(f"flce: relative error {whole:.3g} (worst row {row:.3g}) over limit {limit} "
+                                         f"for an output of RMS {rms:.3g}")
+                notes.append(f"relative {whole:.3g}, worst row {row:.3g} (limit {limit}), rms {rms:.3g}")
+            return " / ".join(notes)
+        return check
+
+    def inputs(n, h, v, dtype, ignore_frac=0.25, cfg=None):
+        cfg = dict(cfg or {})
+        x = torch.randn(n, h, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(v, h, device="cuda", generator=gen) * 0.02).to(dtype)
+        t = torch.randint(0, v, (n,), device="cuda", generator=gen, dtype=torch.int32)
+        t[torch.rand(n, device="cuda", generator=gen) < ignore_frac] = -100
+        lse, _, _ = flce.flce_stats_plain(x, w, t, cfg.get("softcap"))
+        a, c = flce.backward_coefficients(torch.ones((), device="cuda"), torch.zeros((), device="cuda"), lse, t,
+                                          -100, cfg.get("lse_square_scale", 0.0), cfg.get("reduction", "mean"))
+        return x, w, t, lse, a, c
+
+    def case(label, n, h, v, dtype, cfg=None, ignore_frac=0.25, main=False, budget=None):
+        cfg = dict(cfg or {})
+        cap, ls = cfg.get("softcap"), cfg.get("label_smoothing", 0.0)
+        x, w, t, lse, a, c = inputs(n, h, v, dtype, ignore_frac, cfg)
+        isz, kind, ops = x.element_size(), _kind(torch, dtype), 2 * n * h * v
+        in_bytes = (n * h + v * h) * isz
+        name = f"{label} N={n} H={h} V={v} {cfg or ''}"
+        dz_buf = flce._dz_buffer(n, v, x)
+        dw_out = torch.empty_like(w)
+        lib = (lambda: x @ w.t()) if main else None  # noqa: E731
+        compare("flce_stats", lambda: flce.flce_stats(x, w, t, cap), lambda: flce.flce_stats_plain(x, w, t, cap),
+                dtype, "stats " + name, main, check=checker(f32, f32, f32),
+                bound=(in_bytes + 4 * n + 12 * n, ops, kind), library=lib, library_graph=False)
+        compare("flce_dz", lambda: flce._dz_kernel(x, w, t, lse, a, c, cap or 0.0, ls, 0, n, dz_buf),
+                lambda: flce.flce_dz_plain(x, w, t, lse, a, c, cap, ls), dtype, "dz " + name, main,
+                check=checker(dtype), bound=(in_bytes + 16 * n + n * v * isz, ops, kind), library=lib,
+                library_graph=False)
+        dz = flce.flce_dz(x, w, t, lse, a, c, cap, ls)
+        compare("flce_dx", lambda: flce.flce_dx(dz, w), lambda: flce.flce_dx_plain(dz, w), dtype, "dx " + name, main,
+                check=checker(dtype), bound=(n * v * isz + v * h * isz + n * h * isz, ops, kind),
+                library=(lambda: dz @ w) if main else None, library_graph=False)
+        compare("flce_dw", lambda: flce._dw_kernel(dz, x, dw_out, None, 0) or dw_out,
+                lambda: flce.flce_dw_plain(dz, x), dtype, "dw " + name, main, check=checker(dtype),
+                bound=(n * v * isz + n * h * isz + v * h * isz, ops, kind),
+                library=(lambda: dz.t() @ x) if main else None, library_graph=False)
+        runs = [(flce.flce_dz(x, w, t, lse, a, c, cap, ls), flce.flce_dx(dz, w), flce.flce_dw(dz, x)) for _ in range(2)]
+        if not all(torch.equal(p, q) for p, q in zip(*runs)):
+            raise AssertionError(f"flce {name}: two runs of dz, dx, dw on the same inputs differ")
+        if budget is not None:
+            rows = flce.run_rows(n, v, isz, budget)
+            compare("flce_dw", lambda: flce.flce_backward(x, w, t, lse, a, c, cap, ls, dz_budget=budget),
+                    lambda: flce.flce_backward_plain(x, w, t, lse, a, c, cap, ls), dtype,
+                    f"backward in {-(-n // rows)} dz runs of {rows} rows " + name, False, check=checker(dtype, dtype))
+            again = [flce.flce_backward(x, w, t, lse, a, c, cap, ls, dz_budget=budget) for _ in range(2)]
+            if not all(torch.equal(p, q) for p, q in zip(*again)):
+                raise AssertionError(f"flce {name}: two chunked backward runs differ")
+
+    t0 = time.perf_counter()
+    case("train step lm_head", TRAIN_TOKENS, 2560, 151936, bf16, main=True)
+    log("kernel flce", f"main cases took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    case("fp16", 300, 256, 1000, f16)
+    case("fp32", 300, 256, 1000, f32)
+    for cfg in FLCE_CONFIGS:
+        case("option", 300, 256, 1003, bf16, cfg)
+    case("ragged N and V", 333, 136, 5003, bf16, dict(label_smoothing=0.1))
+    case("every row ignored", 200, 256, 1000, bf16, ignore_frac=1.1)
+    case("one row", 1, 64, 130, f32, ignore_frac=0.0)
+    case("chunked dz", 1000, 512, 6000, bf16, dict(softcap=30.0, label_smoothing=0.05, lse_square_scale=1e-4),
+         budget=260 * 6000 * 2)
+    case("chunked dz fp32", 700, 128, 3000, f32, budget=200 * 3000 * 4)
+    x = torch.zeros(4, 60, device="cuda", dtype=bf16)
+    try:
+        flce.flce_stats(x, torch.zeros(10, 60, device="cuda", dtype=bf16),
+                        torch.zeros(4, device="cuda", dtype=torch.int32))
+    except ValueError as e:
+        log("kernel flce", f"H = 60 in bf16 refused: {e}")
+    else:
+        raise AssertionError("flce took H = 60 in bf16 (rows not 16-byte aligned)")
+    log("kernel flce", f"every case's dz, dx, dw and chunked backward equal bit for bit over two runs; N's cases "
+                       f"took {time.perf_counter() - t_all:.1f} s")
 
 
 def _layers(model):
@@ -1868,19 +2075,16 @@ def phase_seed_oss_full_width(torch, card: str) -> tuple:
     return bf16_counts, int8_counts
 
 
-def _train_step(torch, model, ids, opt=None) -> tuple:
+def _train_step(torch, model, ids, loss_fn, opt=None) -> tuple:
     """One training step on ``ids`` (B, S + 1): ``train_forward`` of the
-    first S, the chunked golden loss against the last S, backward and, with
-    ``opt``, its update. Returns (loss, forward ms, backward ms, update ms),
-    each part ended by a synchronize."""
-    from mojo_opset_tpu_torch.core.functions import fused_linear_cross_entropy
-
+    first S, ``loss_fn`` (a fused linear + CE op) against the last S,
+    backward and, with ``opt``, its update. Returns (loss, forward ms,
+    backward ms, update ms), each part ended by a synchronize."""
     inputs, targets = ids[:, :-1], ids[:, 1:].reshape(-1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hidden = model.train_forward(inputs)
-    loss = fused_linear_cross_entropy(hidden.reshape(-1, hidden.shape[-1]), model.lm_head_weight, targets,
-                                      chunk_size=TRAIN_LOSS_CHUNK)
+    loss = loss_fn(hidden.reshape(-1, hidden.shape[-1]), model.lm_head_weight, targets)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     loss.backward()
@@ -1892,6 +2096,41 @@ def _train_step(torch, model, ids, opt=None) -> tuple:
         torch.cuda.synchronize()
     t3 = time.perf_counter()
     return loss.detach().float(), (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+
+def _loss_ops():
+    """The dispatched loss op (kernel N on the card) and the chunked golden."""
+    from mojo_opset_tpu_torch.backends.cuda.functions import CudaFusedLinearCrossEntropyFunction
+    from mojo_opset_tpu_torch.core.functions import MojoFusedLinearCrossEntropyFunction
+
+    loss_fn = MojoFusedLinearCrossEntropyFunction()
+    assert isinstance(loss_fn, CudaFusedLinearCrossEntropyFunction), type(loss_fn)
+    return loss_fn, MojoFusedLinearCrossEntropyFunction.get_backend_impl("ref")(chunk_size=TRAIN_LOSS_CHUNK)
+
+
+def _loss_alone(torch, model, ids, loss_fn) -> tuple:
+    """The loss's forward and backward alone on the step's hidden states
+    (computed once without autograd): device ms from CUDA events (mean of 3)
+    and the memory it takes above what was allocated before it (GiB)."""
+    inputs, targets = ids[:, :-1], ids[:, 1:].reshape(-1)
+    with torch.no_grad():
+        hidden = model.train_forward(inputs).reshape(-1, model.qwen3_config.hidden_size)
+    hidden.requires_grad_(True)
+
+    def run():
+        loss_fn(hidden, model.lm_head_weight, targets).backward()
+        hidden.grad = None
+
+    run()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    ms = cuda_ms(torch, run, iters=3, warmup=1)
+    model.zero_grad(set_to_none=True)
+    return ms, peak
 
 
 def _train_model(torch, layers: int):
@@ -1915,21 +2154,25 @@ def _train_launches(layers: int) -> dict:
     """Launches of one training step at ``layers``: A forward and K backward at
     each of a layer's four norms and the final norm, L forward and backward at
     each MLP, M forward and backward (q and k in one launch) and J's three
-    entry points at each attention."""
+    entry points at each attention; N's four entry points once at the loss
+    (its dz fits DZ_BUDGET_BYTES: one run)."""
     return {"norms": 4 * layers + 1, "rmsnorm_vjp": 4 * layers + 1, "silu_fwd": layers, "silu_bwd": layers,
-            "rope_head_first": 2 * layers, "flash_swa_fwd": layers, "flash_swa_dq": layers, "flash_swa_dkv": layers}
+            "rope_head_first": 2 * layers, "flash_swa_fwd": layers, "flash_swa_dq": layers, "flash_swa_dkv": layers,
+            "flce_stats": 1, "flce_dz": 1, "flce_dx": 1, "flce_dw": 1}
 
 
-def _plain_training_kernels(model) -> None:
-    """Set every kernel of ``model``'s training path (A, J, K, L and M) to its
-    plain version, through the Functions' and J's op's seams."""
+def _plain_training_kernels(model, loss_fn) -> None:
+    """Set every kernel of ``model``'s training path (A, J, K, L and M) and
+    of ``loss_fn`` (N) to its plain version, through the Functions' and J's
+    op's seams."""
     from mojo_opset_tpu_torch.backends.cuda.functions import (
         CudaApplyRoPEFunction, CudaRMSNormFunction, CudaSiluFunction,
     )
     from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
-    from mojo_opset_tpu_torch.backends.cuda.kernels import norms, rmsnorm_vjp, rope_head_first, silu_vjp
+    from mojo_opset_tpu_torch.backends.cuda.kernels import flce, norms, rmsnorm_vjp, rope_head_first, silu_vjp
     from mojo_opset_tpu_torch.backends.cuda.operators import CudaSWA
 
+    loss_fn.fwd, loss_fn.bwd = flce.flce_stats_plain, flce.flce_backward_plain
     for m in model.modules():
         if isinstance(m, CudaRMSNormFunction):
             m.fwd, m.bwd = norms.rmsnorm_plain, rmsnorm_vjp.rmsnorm_bwd_plain
@@ -1958,8 +2201,9 @@ def _golden_training_functions(model) -> None:
 
 def _train_twin_check(torch) -> None:
     """One step at full width, depth cut to TRAIN_TWIN_LAYERS, on the training
-    path's kernels (A, J, K, L and M) and again with each one's plain version
-    in its place (the same model, so every other tensor and op is shared):
+    path's kernels (A, J, K, L, M and the loss's N) and again with each one's
+    plain version in its place (the same model, so every other tensor and op
+    is shared):
     the loss to TRAIN_LOSS_REL_BOUND, each parameter's gradient, the norm
     weights' included, to TRAIN_GRAD_COSINE_BOUND."""
     from mojo_opset_tpu_torch.backends.cuda import kernels
@@ -1967,10 +2211,11 @@ def _train_twin_check(torch) -> None:
     from mojo_opset_tpu_torch.backends.cuda.kernels import norms
 
     model, ids = _train_model(torch, TRAIN_TWIN_LAYERS)
+    loss_fn, _ = _loss_ops()
     kernels.reset_launch_counts()
     mem0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    loss, fwd_ms, bwd_ms, _ = _train_step(torch, model, ids)
+    loss, fwd_ms, bwd_ms, _ = _train_step(torch, model, ids, loss_fn)
     act_gib = (torch.cuda.max_memory_allocated() - mem0) / 2**30
     counts = kernels.launch_counts()
     grads = {name: p.grad for name, p in model.named_parameters()}
@@ -1978,8 +2223,8 @@ def _train_twin_check(torch) -> None:
     want = _train_launches(TRAIN_TWIN_LAYERS)
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"the twin check's kernel step launched {counts}, want {want}")
-    _plain_training_kernels(model)
-    plain_loss, *_ = _train_step(torch, model, ids)
+    _plain_training_kernels(model, loss_fn)
+    plain_loss, *_ = _train_step(torch, model, ids, loss_fn)
     if kernels.launch_counts() != counts:
         raise AssertionError(f"the plain twin launched a kernel: {kernels.launch_counts()} after {counts}")
     loss_gap = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
@@ -1987,16 +2232,16 @@ def _train_twin_check(torch) -> None:
                                                        dim=0).item()
            for name, p in model.named_parameters()}
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
-    # the loss reads the forward kernels only (A, J, L, M; L and M match their plain versions bit for bit in phase
-    # 3): a step whose one kernel is A's forward shows A's share of the gap
+    # the loss reads the forward kernels only (A, J, L, M and N's statistics; L and M match their plain versions bit
+    # for bit in phase 3): a step whose one kernel is A's forward shows A's share of the gap
     model.zero_grad(set_to_none=True)
     for m in model.modules():
         if isinstance(m, CudaRMSNormFunction):
             m.fwd = norms.rmsnorm
-    a_loss, *_ = _train_step(torch, model, ids)
+    a_loss, *_ = _train_step(torch, model, ids, loss_fn)
     a_gap = abs(a_loss.item() - plain_loss.item()) / abs(plain_loss.item())
     log("train full width", f"twin check ({TRAIN_TWIN_LAYERS} layers at Qwen3-4B width, B {TRAIN_BATCH} x S "
-                            f"{TRAIN_SEQ}): loss {loss.item():.9g} on A, J, K, L and M, {plain_loss.item():.9g} on "
+                            f"{TRAIN_SEQ}): loss {loss.item():.9g} on A, J, K, L, M and N, {plain_loss.item():.9g} on "
                             f"their plain versions (relative gap {loss_gap:.3g}, bound {TRAIN_LOSS_REL_BOUND}; "
                             f"{a_gap:.3g} with A alone on its kernel); gradient cosine over {len(cos)} parameters: "
                             f"lowest {[(n, round(c, 6)) for n, c in worst]} (bound {TRAIN_GRAD_COSINE_BOUND}); "
@@ -2013,11 +2258,13 @@ def _train_twin_check(torch) -> None:
 
 def phase_train_full_width(torch, card: str) -> dict:
     """Qwen3 training at Qwen3-4B geometry: the twin check, then AdamW steps
-    at depth TRAIN_LAYERS on one repeated batch, counted and profiled, and
-    the same steps with the golden norms, RoPE and SiLU for comparison."""
+    at depth TRAIN_LAYERS on one repeated batch, counted and profiled, the
+    same steps with the chunked golden loss in place of kernel N, then with
+    the golden norms, RoPE and SiLU, for comparison."""
     from torch.profiler import ProfilerActivity, profile
 
     from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.functions import CudaFusedLinearCrossEntropyFunction
     from mojo_opset_tpu_torch.backends.cuda.operators import CudaSdpa
 
     gc.collect()
@@ -2032,11 +2279,12 @@ def phase_train_full_width(torch, card: str) -> dict:
     log("train full width", f"Qwen3-4B geometry, depth {TRAIN_LAYERS} of {QWEN3_4B['num_hidden_layers']}, "
                             f"{n_params / 1e9:.3f} B params bf16, AdamW (fused, lr {TRAIN_LR}), built in "
                             f"{time.perf_counter() - t0:.1f} s")
-    sdpa_golden = CudaSdpa.golden_calls
+    loss_fn, golden_loss = _loss_ops()
+    sdpa_golden, loss_golden = CudaSdpa.golden_calls, CudaFusedLinearCrossEntropyFunction.golden_calls
     torch.cuda.reset_peak_memory_stats()
-    losses = [_train_step(torch, model, ids, opt)[0].item()]  # warm-up: AdamW states, allocator
+    losses = [_train_step(torch, model, ids, loss_fn, opt)[0].item()]  # warm-up: AdamW states, allocator
     kernels.reset_launch_counts()
-    steps = [_train_step(torch, model, ids, opt) for _ in range(TRAIN_STEPS)]
+    steps = [_train_step(torch, model, ids, loss_fn, opt) for _ in range(TRAIN_STEPS)]
     counts = kernels.launch_counts()
     losses += [s[0].item() for s in steps]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -2046,14 +2294,17 @@ def phase_train_full_width(torch, card: str) -> dict:
         raise AssertionError(f"the training path's kernels launched {counts}, want {want}")
     if CudaSdpa.golden_calls != sdpa_golden:
         raise AssertionError("the training path took the masked-Sdpa golden route")
+    if CudaFusedLinearCrossEntropyFunction.golden_calls != loss_golden:
+        raise AssertionError("the training path's loss took the golden route")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"the loss must be finite and fall: {losses}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        _train_step(torch, model, ids, opt)
+        _train_step(torch, model, ids, loss_fn, opt)
         prof_ms = (time.perf_counter() - t) * 1e3
     busy, fam_ms, top = _step_profile(torch, prof)
+    loss_ms, loss_gib = _loss_alone(torch, model, ids, loss_fn)
 
     fwd, bwd, upd = (float(np.mean([s[i] for s in steps])) for i in (1, 2, 3))
     step_ms = fwd + bwd + upd
@@ -2073,18 +2324,42 @@ def phase_train_full_width(torch, card: str) -> dict:
     log("train full width", "device time by kernel: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}" for e in top))
 
+    # the same model and steps with the chunked golden loss (A, J, K, L and M kept): what kernel N replaced
+    torch.cuda.reset_peak_memory_stats()
+    _train_step(torch, model, ids, golden_loss, opt)
+    kernels.reset_launch_counts()
+    g_steps = [_train_step(torch, model, ids, golden_loss, opt) for _ in range(2)]
+    if any(kernels.launch_counts()[k] for k in ("flce_stats", "flce_dz", "flce_dx", "flce_dw")):
+        raise AssertionError(f"the golden loss launched kernel N: {kernels.launch_counts()}")
+    g_peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _train_step(torch, model, ids, golden_loss, opt)
+    g_busy, _, _ = _step_profile(torch, prof)
+    g_loss_ms, g_loss_gib = _loss_alone(torch, model, ids, golden_loss)
+    g_ms = [float(np.mean([s[i] for s in g_steps])) for i in (1, 2, 3)]
+    log("train full width", f"{card}: loss tiers in one run. Kernel N: step {step_ms:.1f} ms, device busy "
+                            f"{busy:.1f} ms, N {fam_ms['N']:.2f} ms of it, the loss alone (forward + backward, CUDA "
+                            f"events) {loss_ms:.2f} ms and {loss_gib:.2f} GiB above the step's hidden states, step "
+                            f"peak {peak_gib:.2f} GiB. Chunked golden loss ({TRAIN_LOSS_CHUNK} rows a chunk): step "
+                            f"{sum(g_ms):.1f} ms (forward + loss {g_ms[0]:.1f}, backward {g_ms[1]:.1f}, AdamW "
+                            f"{g_ms[2]:.1f}; mean of 2), device busy {g_busy:.1f} ms, the loss alone {g_loss_ms:.2f} "
+                            f"ms and {g_loss_gib:.2f} GiB, step peak {g_peak:.2f} GiB")
+    if peak_gib > g_peak:
+        raise AssertionError(f"the step's peak memory with kernel N ({peak_gib:.2f} GiB) is above the golden "
+                             f"loss's ({g_peak:.2f} GiB)")
+
     # the same model with golden norms, RoPE and SiLU (J stays): what K, L and M replaced, in this run
     _golden_training_functions(model)
     torch.cuda.reset_peak_memory_stats()
-    _train_step(torch, model, ids, opt)
+    _train_step(torch, model, ids, loss_fn, opt)
     kernels.reset_launch_counts()
-    golden = [_train_step(torch, model, ids, opt) for _ in range(2)]
+    golden = [_train_step(torch, model, ids, loss_fn, opt) for _ in range(2)]
     golden_counts = kernels.launch_counts()
     if any(golden_counts[k] for k in ("norms", "rmsnorm_vjp", "silu_fwd", "silu_bwd", "rope_head_first")):
         raise AssertionError(f"the golden Functions launched a kernel: {golden_counts}")
     golden_peak = torch.cuda.max_memory_allocated() / 2**30
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _train_step(torch, model, ids, opt)
+        _train_step(torch, model, ids, loss_fn, opt)
     golden_busy, golden_fam, _ = _step_profile(torch, prof)
     g_fwd, g_bwd, g_upd = (float(np.mean([s[i] for s in golden])) for i in (1, 2, 3))
     replaced = golden_busy - busy + sum(fam_ms[f] for f in "AKLM")
@@ -2101,14 +2376,14 @@ def phase_train_full_width(torch, card: str) -> dict:
 
 
 def _step_profile(torch, prof) -> tuple:
-    """Device busy ms of a profiled step, the device ms of kernels J, A, K, L
-    and M, and the eight largest entries."""
+    """Device busy ms of a profiled step, the device ms of kernels J, A, K, L,
+    M and N, and the eight largest entries."""
     from torch.autograd import DeviceType
 
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
     families = {"J": ("flash_swa",), "A": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel"), "K": ("rmsnorm_bwd_",),
-                "L": ("silu_fwd_kernel", "silu_bwd_kernel"), "M": ("rope_strided_kernel",)}
+                "L": ("silu_fwd_kernel", "silu_bwd_kernel"), "M": ("rope_strided_kernel",), "N": ("flce_",)}
     fam_ms = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
               for f, pats in families.items()}
     return busy, fam_ms, sorted(device, key=lambda e: -e.self_device_time_total)[:8]
@@ -2118,9 +2393,10 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
-    MoE run, for I from the DeepSeek run and for J, K, L and M from the
+    MoE run, for I from the DeepSeek run and for J, K, L, M and N from the
     training run; numbers of the main-path case (``ms`` replayed from a
-    CUDA graph). C and D add their int8-page numbers; F, G, H, I, K and M
+    CUDA graph). C and D add their int8-page numbers, C its windowed cases
+    at ctx 32768 beside the same cases without windows; F, G, H, I, K and M
     their numbers at each shape (M: each layout and direction), G, H, I, K
     and M their largest error over those shapes; J's forward its numbers
     through CudaSdpa at the Wan DiT's shape."""
@@ -2137,10 +2413,10 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             extra["main_shape"] = main_shapes[module]
             if module in ("int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
-        elif "int8_pages" in rec:
-            extra["int8_pages"] = rec.pop("int8_pages")
-        elif "wan_dit_sdpa" in rec:
-            extra["wan_dit_sdpa"] = rec.pop("wan_dit_sdpa")
+        for key in ("int8_pages", "wan_dit_sdpa", "window_ctx32k", "no_window_ctx32k", "window_ctx32k_int8",
+                    "no_window_ctx32k_int8"):
+            if key in rec:
+                extra[key] = rec.pop(key)
         for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),
                                   ("deepseek", deepseek_counts), ("train", train_counts), ("seed_oss", seed_counts),
                                   ("seed_oss_int8", seed_int8_counts)):

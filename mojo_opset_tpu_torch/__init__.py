@@ -3,8 +3,8 @@ package beside it.
 
 The ``Mojo*`` op contracts with a plain PyTorch golden tier (``ref``) and
 hand-written Hopper kernels (``cuda``), the ``Mojo*Function`` training ops
-(attention, RMSNorm, SiLU and RoPE with kernel backwards, the fused linear
-+ CE loss), the paged-KV serving runtime, and the models (Qwen3 dense with
+(attention, RMSNorm, SiLU, RoPE and the fused linear + CE loss, each with
+kernel backwards), the paged-KV serving runtime, and the models (Qwen3 dense with
 its int8 serving modes and its training forward, Qwen3-MoE, DeepSeek-V3,
 Seed-OSS in bf16 and w8a8). ``MOJO_BACKEND`` in {ref, cuda} picks a tier when an
 op is constructed; the default is ``cuda``, whose kernel wrappers run

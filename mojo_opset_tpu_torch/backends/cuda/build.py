@@ -44,7 +44,7 @@ SIGNATURES = {
     "mojo_flash_swa_dkv": (_P,) * 10 + _SWA_TAIL,
     "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
     "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mojo_paged_decode": (_P,) * 8 + (_I,) * 9 + (_F, _I, _I, _I, _P),
+    "mojo_paged_decode": (_P,) * 8 + (_I,) * 9 + (_F,) + (_I,) * 5 + (_P,),
     "mojo_paged_prefill": (_P,) * 9 + (_I,) * 10 + (_F, _I, _I, _I, _P),
     "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _P),
     "mojo_int8_matmul": (_P,) * 5 + (_I,) * 5 + (_P,),
@@ -55,6 +55,10 @@ SIGNATURES = {
     "mojo_silu_fwd": (_P, _P, _L, _I, _I, _P),
     "mojo_silu_bwd": (_P, _P, _P, _L, _I, _I, _P),
     "mojo_rope_head_first": (_P,) * 7 + (_I,) * 9 + (_P,),
+    "mojo_flce_stats": (_P,) * 7 + (_I,) * 4 + (_F, _I, _P),
+    "mojo_flce_dz": (_P,) * 7 + (_I,) * 5 + (_F, _F, _I, _P),
+    "mojo_flce_dx": (_P,) * 3 + (_I,) * 5 + (_P,),
+    "mojo_flce_dw": (_P,) * 4 + (_I,) * 6 + (_P,),
 }
 
 _CUDA_ERRORS = {

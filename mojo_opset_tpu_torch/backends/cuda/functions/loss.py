@@ -1,0 +1,95 @@
+"""cuda-tier fused linear + cross-entropy: kernel N (``csrc/flce.cu``)
+forward statistics and backward under one ``torch.autograd.Function``.
+
+Counterpart of the JAX package's ``backends/pallas/functions/loss.py:26-79``
+(``PallasFusedLinearCrossEntropyFunction`` and ``...Loss`` over ``flce``'s
+``jax.custom_vjp``). The forward saves x, w, target and lse, never the
+logits (JAX ``kernels/flce.py:350-355``); the backward recomputes them
+tile by tile. ``return_z_loss``, ``ignore_index``, ``label_smoothing``,
+``lse_square_scale``, ``softcap`` and ``mean``/``sum`` reduction run on the
+kernel; ``chunk_size`` is the golden's option and the kernel has no use for
+it. ``bias``, ``ce_weight`` and ``reduction='none'``, which the TPU kernel
+does not take either, run the golden: explicitly, counted in
+``golden_calls`` (JAX :26-35). JAX's ``N % 8``, ``H % 128`` and
+``H <= 8192`` gates are TPU limits and are not carried over; kernel N
+raises where its own limits are not met. It is the default tier (JAX's
+``dispatch_default = False`` was set from a TPU measurement).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mojo_opset_tpu_torch.backends.cuda.kernels.flce import (
+    backward_coefficients,
+    flce_backward,
+    flce_stats,
+    loss_from_stats,
+)
+from mojo_opset_tpu_torch.core.functions.loss import (
+    MojoFusedLinearCrossEntropyFunction,
+    MojoFusedLinearCrossEntropyLoss,
+)
+
+
+class FlceVJP(torch.autograd.Function):
+    """``apply(x, w, target, options, fwd, bwd) -> (loss, z_loss)``:
+    ``options`` is ``(ignore_index, lse_square_scale, label_smoothing,
+    reduction, softcap)``; ``fwd``/``bwd`` are kernel N's ``flce_stats`` and
+    ``flce_backward`` (a plain twin passes their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, x, w, target, options, fwd, bwd):
+        ignore_index, lse_square_scale, label_smoothing, reduction, softcap = options
+        x = x.contiguous()
+        target = target.to(torch.int32).contiguous()
+        lse, tl, zs = fwd(x, w, target, softcap)
+        loss, z_loss = loss_from_stats(lse, tl, zs, target, w.shape[0], ignore_index, lse_square_scale,
+                                       label_smoothing, reduction)
+        ctx.save_for_backward(x, w, target, lse)
+        ctx.options, ctx.bwd = options, bwd
+        return loss, z_loss
+
+    @staticmethod
+    def backward(ctx, g_loss, g_z):
+        x, w, target, lse = ctx.saved_tensors
+        ignore_index, lse_square_scale, label_smoothing, reduction, softcap = ctx.options
+        a, c = backward_coefficients(g_loss, g_z, lse, target, ignore_index, lse_square_scale, reduction)
+        dx, dw = ctx.bwd(x, w, target, lse, a, c, softcap, label_smoothing, need_dx=ctx.needs_input_grad[0],
+                         need_dw=ctx.needs_input_grad[1])
+        return dx, dw, None, None, None, None
+
+
+class _KernelTier:
+    """What the two forms share: ``fwd`` and ``bwd`` are kernel N's wrappers
+    (a plain twin on the card sets them to ``flce_stats_plain`` and
+    ``flce_backward_plain``); ``golden_calls`` counts, per class, the calls
+    that took the golden."""
+
+    golden_calls = 0
+    fwd = staticmethod(flce_stats)
+    bwd = staticmethod(flce_backward)
+
+    def _run(self, x, w, target, bias, ce_weight, golden):
+        if bias is not None or ce_weight is not None or self.reduction not in ("mean", "sum"):
+            type(self).golden_calls += 1
+            return golden()
+        options = (self.ignore_index, self.lse_square_scale, self.label_smoothing, self.reduction, self.softcap)
+        loss, z_loss = FlceVJP.apply(x, w, target, options, self.fwd, self.bwd)
+        return (loss, z_loss) if self.return_z_loss else loss
+
+
+class CudaFusedLinearCrossEntropyFunction(_KernelTier, MojoFusedLinearCrossEntropyFunction):
+    def forward(self, input_tensor, weight, target, bias=None, ce_weight=None):
+        return self._run(input_tensor, weight, target, bias, ce_weight,
+                         lambda: MojoFusedLinearCrossEntropyFunction.forward(self, input_tensor, weight, target, bias,
+                                                                             ce_weight))
+
+
+class CudaFusedLinearCrossEntropyLoss(_KernelTier, MojoFusedLinearCrossEntropyLoss):
+    """The module form, the weight first."""
+
+    def forward(self, lin_weight, input_tensor, target, bias=None, ce_weight=None):
+        return self._run(input_tensor, lin_weight, target, bias, ce_weight,
+                         lambda: MojoFusedLinearCrossEntropyLoss.forward(self, lin_weight, input_tensor, target, bias,
+                                                                         ce_weight))

@@ -1,10 +1,11 @@
 """Kernel wrappers: each module holds one kernel's launcher, its plain
 PyTorch version and its ``launches`` counter; kernel J (``flash_swa``) has
-three entry points and kernel L (``silu_vjp``) two, each with its own
-counter."""
+three entry points, kernel N (``flce``) four and kernel L (``silu_vjp``)
+two, each with its own counter."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
     flash_swa,
+    flce,
     group_gemm,
     int4_matmul,
     int8_matmul,
@@ -26,7 +27,8 @@ ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int
 COUNTERS = [(module.__name__.rsplit(".", 1)[-1], module, "launches") for module in ALL] + [
     ("flash_swa_fwd", flash_swa, "launches"), ("flash_swa_dq", flash_swa, "launches_dq"),
     ("flash_swa_dkv", flash_swa, "launches_dkv"), ("silu_fwd", silu_vjp, "launches"),
-    ("silu_bwd", silu_vjp, "launches_bwd")]
+    ("silu_bwd", silu_vjp, "launches_bwd"), ("flce_stats", flce, "launches"), ("flce_dz", flce, "launches_dz"),
+    ("flce_dx", flce, "launches_dx"), ("flce_dw", flce, "launches_dw")]
 
 
 def reset_launch_counts() -> None:

@@ -3,9 +3,11 @@ PyTorch version; with ``key_scale``/``value_scale``, kernel C' over int8
 (C8) pages.
 
 Replaces the JAX package's ``backends/pallas/kernels/paged_decode.py:260``
-(``paged_decode_gqa``) and, for int8 pages, the scale folding around it
-(``backends/pallas/operators/attention.py:225-268``). ``launches`` counts
-kernel launches.
+(``paged_decode_gqa``, with its ``local_window``/``global_window``) and, for
+int8 pages, the scale folding around it
+(``backends/pallas/operators/attention.py:225-268``). A window makes the
+kernel skip the pages and keys outside it, not mask them after reading.
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -94,16 +96,19 @@ def paged_decode_gqa_plain(
     kv_layout: str = "HND",
     key_scale: Optional[torch.Tensor] = None,
     value_scale: Optional[torch.Tensor] = None,
+    local_window: Optional[int] = None,
+    global_window: Optional[int] = None,
 ) -> torch.Tensor:
     """The golden of the same call: paged decode, or with scales the
-    KV-dequant decode over int8 HND pages."""
+    KV-dequant decode over int8 HND pages, with the same windows."""
     if key_scale is None:
         return paged_decode_reference(
-            query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout
+            query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout,
+            local_window, global_window,
         )
     return paged_decode_dequant_reference(
         query, key_cache, key_scale, value_cache, value_scale, total_seq_lens, block_tables, softmax_scale,
-        gqa_layout, query.dtype,
+        gqa_layout, query.dtype, local_window, global_window,
     )
 
 
@@ -118,13 +123,20 @@ def paged_decode_gqa(
     kv_layout: str = "HND",
     key_scale: Optional[torch.Tensor] = None,
     value_scale: Optional[torch.Tensor] = None,
+    local_window: Optional[int] = None,
+    global_window: Optional[int] = None,
 ) -> torch.Tensor:
     """q (B, Hq, D) attends over its sequence's first ``total_seq_lens[b]``
     cached tokens; int8 caches take their (Hkv, D) ``key_scale`` and
-    ``value_scale``. A CPU tensor takes the plain version; a CUDA tensor
-    the kernel."""
+    ``value_scale``. With ``local_window`` the row keeps the positions
+    ``[max(sl - 1 - local, 0), sl)``, plus ``[0, global_window)`` when that
+    is set; with ``global_window`` alone, ``[0, min(global, sl))``. A CPU
+    tensor takes the plain version; a CUDA tensor the kernel."""
+    for name, win in (("local_window", local_window), ("global_window", global_window)):
+        build.require(win is None or 0 <= win < 2**31, f"paged_decode_gqa: {name} must be None or in [0, 2**31), "
+                                                      f"got {win}")
     args = (query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout, kv_layout,
-            key_scale, value_scale)
+            key_scale, value_scale, local_window, global_window)
     build.require_no_grad("paged_decode_gqa", *args)
     if query.device.type == "cpu":
         return paged_decode_gqa_plain(*args)
@@ -132,7 +144,7 @@ def paged_decode_gqa(
 
 
 def _decode_kernel(query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, gqa_layout,
-                   kv_layout, key_scale, value_scale):
+                   kv_layout, key_scale, value_scale, local_window, global_window):
     global launches
     code = build.dtype_code(query)
     build.require(query.ndim == 3, f"query must be (B, Hq, D), got {tuple(query.shape)}")
@@ -150,7 +162,8 @@ def _decode_kernel(query, key_cache, value_cache, total_seq_lens, block_tables, 
         query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(), k_scale, v_scale,
         total_seq_lens.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
         B, Hq, Hkv, D, bs, block_tables.shape[1], *cache_strides(key_cache, kv_layout),
-        float(scale), int(gqa_layout == "ABAB"), kv_int8, code,
+        float(scale), int(gqa_layout == "ABAB"), -1 if local_window is None else local_window,
+        -1 if global_window is None else global_window, kv_int8, code,
     )
     launches += 1
     return out

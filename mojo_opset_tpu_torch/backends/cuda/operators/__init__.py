@@ -1,6 +1,8 @@
 from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
     CudaPagedDecodeGQA,
     CudaPagedDecodeGQAWithKVDequant,
+    CudaPagedDecodeSWA,
+    CudaPagedDecodeSWAWithKVDequant,
     CudaPagedPrefillGQA,
     CudaPagedPrefillGQAWithKVDequant,
     CudaPrefillGQA,
@@ -21,6 +23,8 @@ __all__ = [
     "CudaPagedDecodeGQA",
     "CudaPagedDecodeGQAWithKVDequant",
     "CudaPagedDecodeMLA",
+    "CudaPagedDecodeSWA",
+    "CudaPagedDecodeSWAWithKVDequant",
     "CudaPagedPrefillGQA",
     "CudaPagedPrefillGQAWithKVDequant",
     "CudaPagedPrefillMLA",

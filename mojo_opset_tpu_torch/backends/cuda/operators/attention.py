@@ -1,13 +1,17 @@
 """cuda-tier attention: paged decode and prefill (kernels C and D,
 ``csrc/paged_decode.cu`` and ``csrc/paged_prefill.cu``), the same kernels
-over int8 (C8) pages (C' and D'), and the dense ops of the training path on
-kernel J (``csrc/flash_swa.cu``): ``CudaSWA``, ``CudaSdpa`` and
-``CudaPrefillGQA`` run J's forward under its autograd Function, so they
-carry gradients. The KV-dequant ops take no ``compute_dtype=torch.int8``,
-no ``query_scale`` and no ``mask`` here: those raise, they do not fall back
-to the golden. The one golden route of this module is ``CudaSdpa``'s
-masked call (see its docstring), a port gap until the diffusion kernel
-lands."""
+over int8 (C8) pages (C' and D'), the windowed paged decode on C and C'
+(``CudaPagedDecodeSWA``, ``CudaPagedDecodeSWAWithKVDequant``: the kernel
+skips the pages outside the window, as the JAX tier's does,
+``backends/pallas/operators/attention.py:321-386``), and the dense ops of
+the training path on kernel J (``csrc/flash_swa.cu``): ``CudaSWA``,
+``CudaSdpa`` and ``CudaPrefillGQA`` run J's forward under its autograd
+Function, so they carry gradients. The KV-dequant ops take no
+``compute_dtype=torch.int8``, no ``query_scale`` and no ``mask`` here:
+those raise, they do not fall back to the golden. Two routes take the
+golden, each counted in its class's ``golden_calls``: a non-causal
+windowed decode, as in JAX (:339-343), and ``CudaSdpa``'s masked call (see
+its docstring), a port gap until the diffusion kernel lands."""
 
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import paged_decode
 from mojo_opset_tpu_torch.backends.cuda.kernels.paged_prefill import paged_prefill_gqa
 from mojo_opset_tpu_torch.core.operators.attention import (
     MojoPagedDecodeGQA,
+    MojoPagedDecodeSWA,
     MojoPagedPrefillGQA,
     MojoPrefillGQA,
     MojoSdpa,
@@ -30,6 +35,7 @@ from mojo_opset_tpu_torch.core.operators.attention import (
 )
 from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import (
     MojoPagedDecodeGQAWithKVDequant,
+    MojoPagedDecodeSWAWithKVDequant,
     MojoPagedPrefillGQAWithKVDequant,
 )
 
@@ -98,6 +104,64 @@ class CudaPagedDecodeGQAWithKVDequant(MojoPagedDecodeGQAWithKVDequant):
         return paged_decode_gqa(
             query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, self.gqa_layout, "HND",
             key_scale, value_scale,
+        )
+
+
+class CudaPagedDecodeSWA(MojoPagedDecodeSWA):
+    """Kernel C with the op's windows. A non-causal call sees every key; it
+    takes the golden, as the JAX tier does (:339-343), and ``golden_calls``
+    counts it."""
+
+    golden_calls = 0
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key_cache: torch.Tensor,
+        value_cache: torch.Tensor,
+        total_seq_lens: torch.Tensor,
+        block_table: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        *,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        if not self.is_causal:
+            CudaPagedDecodeSWA.golden_calls += 1
+            return super().forward(query, key_cache, value_cache, total_seq_lens, block_table, softmax_scale)
+        return paged_decode_gqa(
+            query, key_cache, value_cache, total_seq_lens, block_table, softmax_scale, self.gqa_layout,
+            self.kv_layout, local_window=self.local_window_size, global_window=self.global_window_size,
+        )
+
+
+class CudaPagedDecodeSWAWithKVDequant(MojoPagedDecodeSWAWithKVDequant):
+    """Kernel C' with the op's windows; a non-causal call takes the golden,
+    counted in ``golden_calls``, as ``CudaPagedDecodeSWA``'s."""
+
+    golden_calls = 0
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        query_scale: Optional[torch.Tensor],
+        key_cache: torch.Tensor,
+        key_scale: torch.Tensor,
+        value_cache: torch.Tensor,
+        value_scale: torch.Tensor,
+        total_seq_lens: torch.Tensor,
+        block_table: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        *,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        _check_kernel_options(self, query_scale, None)
+        if not self.is_causal:
+            CudaPagedDecodeSWAWithKVDequant.golden_calls += 1
+            return super().forward(query, query_scale, key_cache, key_scale, value_cache, value_scale,
+                                   total_seq_lens, block_table, softmax_scale)
+        return paged_decode_gqa(
+            query, key_cache, value_cache, total_seq_lens, block_table, softmax_scale, self.gqa_layout, "HND",
+            key_scale, value_scale, self.local_window_size, self.global_window_size,
         )
 
 

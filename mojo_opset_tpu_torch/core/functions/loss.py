@@ -9,8 +9,8 @@ label smoothing, z-loss (``lse_square_scale``) and softcap, ``mean`` or
 this math. With ``chunk_size`` the token rows run in blocks, so no
 (N, V) product is computed at once; autograd still keeps each block's fp32
 logits for the backward, as JAX's ``lax.map`` under ``jax.grad`` keeps its
-residuals. The JAX package's ``flce`` kernel, which keeps no logits, is not
-ported yet; its JAX tier is not dispatched by default either.
+residuals. The ``cuda`` tier (``backends/cuda/functions/loss.py``) runs
+kernel N, which keeps no logits.
 """
 
 from __future__ import annotations

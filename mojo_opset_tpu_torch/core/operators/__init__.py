@@ -2,6 +2,7 @@ from mojo_opset_tpu_torch.core.operators.activation import MojoSilu
 from mojo_opset_tpu_torch.core.operators.attention import (
     MojoDecodeGQA,
     MojoPagedDecodeGQA,
+    MojoPagedDecodeSWA,
     MojoPagedPrefillGQA,
     MojoPrefillGQA,
     MojoSdpa,
@@ -58,6 +59,7 @@ __all__ = [
     "MojoMoEDispatch",
     "MojoMoEGating",
     "MojoPagedDecodeGQA",
+    "MojoPagedDecodeSWA",
     "MojoPagedPrefillGQA",
     "MojoPrefillGQA",
     "MojoQuantGemm",

@@ -5,7 +5,7 @@ Counterpart of the JAX package's ``core/operators/attention.py`` (helpers
 :51-151, ``window_mask_rows`` :113, ``MojoDecodeGQA`` :154,
 ``MojoPagedDecodeGQA`` :198, ``MojoPrefillGQA`` :272,
 ``MojoPagedPrefillGQA`` :308, ``MojoSdpa`` :401, ``_SWAConfigMixin``
-:440, ``MojoSWA`` :575).
+:440, ``MojoPagedDecodeSWA`` :532, ``MojoSWA`` :575).
 
 Shape contracts (identical to the JAX package):
   * paged caches: HND ``(n_blocks, n_kv_heads, block_size, head_dim)`` or
@@ -21,7 +21,7 @@ golden loops over sequences on the host (it reads ``cu_q_lens`` back):
 the JAX golden's per-token gather of every sequence's keys is
 ``T * K * Hq * D`` elements, 14 GB per layer at a 1650-token batch of
 Qwen3-4B. The dense goldens are the JAX ones, vectorized with masks. The
-paged ops' custom masks and the paged SWA ops are not ported yet.
+paged ops' custom masks and ``MojoPagedPrefillSWA`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -137,6 +137,19 @@ def _check_layouts(gqa_layout: str, kv_layout: str) -> None:
         raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout}")
 
 
+def decode_keep_mask(total_seq_lens: torch.Tensor, K: int, local_window_size: Optional[int],
+                     global_window_size: Optional[int]) -> torch.Tensor:
+    """(B, K) keys a decode row sees: its first ``total_seq_lens`` keys and,
+    with a window, ``window_mask_rows`` of them for the row at
+    ``total_seq_lens - 1``."""
+    kv_pos = torch.arange(K, dtype=torch.int32, device=total_seq_lens.device)
+    keep = kv_pos[None, :] < total_seq_lens[:, None]
+    if local_window_size is not None or global_window_size is not None:
+        keep = keep & window_mask_rows((total_seq_lens - 1)[:, None], kv_pos[None, :], local_window_size,
+                                       global_window_size)[:, 0, :]
+    return keep
+
+
 def paged_decode_reference(
     query: torch.Tensor,
     key_cache: torch.Tensor,
@@ -146,8 +159,12 @@ def paged_decode_reference(
     softmax_scale: Optional[float],
     gqa_layout: str,
     kv_layout: str,
+    local_window_size: Optional[int] = None,
+    global_window_size: Optional[int] = None,
 ) -> torch.Tensor:
-    """Golden paged decode: gather the pages, expand GQA, fp32 softmax."""
+    """Golden paged decode: gather the pages, expand GQA, fp32 softmax.
+    With a window, the query row at ``total_seq_lens - 1`` keeps
+    ``window_mask_rows`` of its keys (JAX ``MojoPagedDecodeSWA`` :532)."""
     assert_paged_decode_contract(block_tables, total_seq_lens)
     B, Hq, D = query.shape
     _, Hkv, _, _ = paged_cache_dims(key_cache, kv_layout)
@@ -160,7 +177,7 @@ def paged_decode_reference(
     K = k.shape[1]
 
     scores = torch.einsum("bhd,bkhd->bhk", query.float(), k.float()) * softmax_scale
-    valid = torch.arange(K, device=query.device)[None, None, :] < total_seq_lens[:, None, None]
+    valid = decode_keep_mask(total_seq_lens, K, local_window_size, global_window_size)[:, None, :]
     probs = masked_softmax(scores, valid, query.dtype)
     out = torch.einsum("bhk,bkhd->bhd", probs, v.to(query.dtype))
     out = torch.where((total_seq_lens > 0)[:, None, None], out, 0)
@@ -460,6 +477,30 @@ class _SWAConfigMixin:
         return (
             f"is_causal={self.is_causal}, gqa_layout={self.gqa_layout}, "
             f"global_window_size={self.global_window_size}, local_window_size={self.local_window_size}"
+        )
+
+
+class MojoPagedDecodeSWA(_SWAConfigMixin, MojoOperator):
+    """Paged decode with the sliding/global window: ``MojoPagedDecodeGQA``
+    whose one query row, at ``total_seq_lens - 1``, sees (causal)
+    ``window_mask_rows`` of its keys; non-causal, all of them. A row with
+    ``total_seq_lens == 0`` gives 0."""
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key_cache: torch.Tensor,
+        value_cache: torch.Tensor,
+        total_seq_lens: torch.Tensor,
+        block_table: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        *,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        windows = (self.local_window_size, self.global_window_size) if self.is_causal else (None, None)
+        return paged_decode_reference(
+            query, key_cache, value_cache, total_seq_lens, block_table, softmax_scale, self.gqa_layout,
+            self.kv_layout, *windows,
         )
 
 

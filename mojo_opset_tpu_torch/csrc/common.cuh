@@ -1,6 +1,7 @@
 // Shared helpers for the port's Hopper kernels: dtype conversion (int8
-// K/V pages included), warp reductions, vector row loads and the dtype
-// switch of the C entry points.
+// K/V pages included), warp reductions, vector row loads, the cp.async and
+// bf16/fp16 mma.sync.m16n8k16 fragments of the GEMM kernels (H, N), and the
+// dtype switch of the C entry points.
 //
 // Every entry point is `extern "C"`, takes raw device pointers and the
 // CUDA stream from the caller, launches, and returns cudaGetLastError()
@@ -13,6 +14,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 // dtype codes shared with backends/cuda/build.py
 enum MojoDType : int { kMojoF32 = 0, kMojoF16 = 1, kMojoBF16 = 2 };
@@ -106,6 +108,53 @@ __device__ __forceinline__ void mojo_store_row(T* __restrict__ p, const float (&
 #pragma unroll
     for (int k = 0; k < N; ++k) p[k] = mojo_from_float<T>(f[k]);
   }
+}
+
+// 16-byte asynchronous copy global -> shared; with pred false nothing is
+// read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int bytes = pred ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+// The first `bytes` (0-16) of a 16-byte chunk; the rest of the 16 shared
+// bytes are zero-filled. `gmem` must be 16-byte aligned even when fewer
+// bytes are read.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+        "{%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+        "{%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+__device__ __forceinline__ unsigned lds32(const uint16_t* p) { return *reinterpret_cast<const unsigned*>(p); }
+
+// two 16-bit values of one column at rows k and k + 1 of a (K, N) tile, k low
+__device__ __forceinline__ unsigned pack2(const uint16_t* p, int ld) {
+  return static_cast<unsigned>(p[0]) | (static_cast<unsigned>(p[ld]) << 16);
 }
 
 // Run BODY with T bound to the element type of `code`; unknown codes

@@ -33,8 +33,6 @@
 // reads its slab once per n tile, and 128 x 128 (8 warps of 32 x 64)
 // otherwise (prefill). fp32 inputs (small test models) take a shared-memory
 // FMA kernel in the same source. No split-K, TMA or wgmma yet.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -138,43 +136,6 @@ struct GmmTile {
 
 using DecodeTile = GmmTile<16, 64, 64, 1, 4, 4>;
 using PrefillTile = GmmTile<128, 128, 32, 4, 2, 3>;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int bytes = pred ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T>
-__device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-        "{%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-        "{%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-}
-
-__device__ __forceinline__ unsigned lds32(const uint16_t* p) { return *reinterpret_cast<const unsigned*>(p); }
-
-// two 16-bit values of one column at rows k and k + 1 of a (K, N) tile, k low
-__device__ __forceinline__ unsigned pack2(const uint16_t* p, int ld) {
-  return static_cast<unsigned>(p[0]) | (static_cast<unsigned>(p[ld]) << 16);
-}
 
 template <typename T, typename C, bool TRANS>
 __global__ void __launch_bounds__(C::THREADS)

@@ -30,6 +30,12 @@
 // lane loads D / 32 int8 values of a row (4 bytes at D = 128), half the
 // bytes of bf16. The scale row is the kv head's own, so ABAB needs no
 // expanded copy.
+// Windows (the TPU kernel's local_window/global_window, :54-90): with a
+// local window the row keeps key positions [max(sl - 1 - local, 0), sl),
+// plus [0, global) when a global window is set; with only a global window,
+// [0, min(global, sl)). The warps walk a virtual index over the kept keys,
+// [0, g_hi) then [b_lo, sl), so pages outside the window are never read:
+// cost follows the window, not the context. -1 means no window.
 // Known limit: B * Hkv blocks (64 at the main path's batch of 8) leave
 // most of the 132 SMs idle; a split-KV pass is the fix.
 #include <type_traits>
@@ -89,7 +95,8 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
                     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                     const int* __restrict__ seq_lens, const int* __restrict__ block_tables,
                     T* __restrict__ out, int hq, int hkv, int block_size, int max_blocks,
-                    int page_stride, int tok_stride, int head_stride, float scale, int abab) {
+                    int page_stride, int tok_stride, int head_stride, float scale, int abab,
+                    int local_window, int global_window) {
   constexpr int E = D / 32;  // head_dim elements per lane
   constexpr bool kInt8 = std::is_same_v<TC, int8_t>;
 
@@ -122,18 +129,27 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
   }
 
   const int seq_len = seq_lens[b];
+  // kept keys: positions [0, g_hi), then [b_lo, seq_len)
+  int g_hi = 0, b_lo = 0;
+  if (local_window >= 0 || global_window >= 0) {
+    g_hi = global_window >= 0 ? min(global_window, seq_len) : 0;
+    const int lo = local_window >= 0 ? max(seq_len - 1 - local_window, 0) : seq_len;
+    b_lo = max(lo, g_hi);
+  }
+  const int n_keys = g_hi + max(seq_len - b_lo, 0);
   const int* table = block_tables + static_cast<int64_t>(b) * max_blocks;
   const int64_t lane_off = static_cast<int64_t>(kvh) * head_stride + lane * E;
   const int key = (lane >> 2) & 7;  // the key whose full score this lane holds
 
-  for (int j0 = warp * kDecKeys; j0 < seq_len; j0 += kDecWarps * kDecKeys) {
+  for (int j0 = warp * kDecKeys; j0 < n_keys; j0 += kDecWarps * kDecKeys) {
     float kf[kDecKeys][E], vf[kDecKeys][E];
     bool valid[kDecKeys];
 #pragma unroll
     for (int k = 0; k < kDecKeys; ++k) {
-      const int pos = j0 + k;
+      const int j = j0 + k;
+      const int pos = j < g_hi ? j : j - g_hi + b_lo;
       const int lb = pos / block_size;
-      const int page = pos < seq_len && lb < max_blocks ? table[lb] : -1;
+      const int page = j < n_keys && lb < max_blocks ? table[lb] : -1;
       valid[k] = page >= 0;  // warp-uniform
       if (valid[k]) {
         const int64_t at = static_cast<int64_t>(page) * page_stride +
@@ -225,15 +241,17 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
 template <typename T, typename TC, int D>
 void launch_decode(dim3 grid, cudaStream_t s, int group, const T* q, const TC* kc, const TC* vc, const float* ks,
                    const float* vs, const int* sl, const int* bt, T* out, int hq, int hkv, int block_size,
-                   int max_blocks, int page_stride, int tok_stride, int head_stride, float scale, int abab) {
+                   int max_blocks, int page_stride, int tok_stride, int head_stride, float scale, int abab,
+                   int local_window, int global_window) {
   if (group <= 4) {
     paged_decode_kernel<T, TC, D, 4><<<grid, kDecThreads, 0, s>>>(q, kc, vc, ks, vs, sl, bt, out, hq, hkv,
                                                                    block_size, max_blocks, page_stride,
-                                                                   tok_stride, head_stride, scale, abab);
+                                                                   tok_stride, head_stride, scale, abab,
+                                                                   local_window, global_window);
   } else {
     paged_decode_kernel<T, TC, D, kDecMaxGroup><<<grid, kDecThreads, 0, s>>>(
         q, kc, vc, ks, vs, sl, bt, out, hq, hkv, block_size, max_blocks, page_stride, tok_stride, head_stride,
-        scale, abab);
+        scale, abab, local_window, global_window);
   }
 }
 
@@ -241,7 +259,7 @@ template <typename T, typename TC>
 int dispatch_head_dim(dim3 grid, cudaStream_t s, int group, const void* q, const void* kc, const void* vc,
                       const float* ks, const float* vs, const int* sl, const int* bt, void* out, int hq, int hkv,
                       int D, int block_size, int max_blocks, int page_stride, int tok_stride, int head_stride,
-                      float scale, int abab) {
+                      float scale, int abab, int local_window, int global_window) {
   const T* qt = static_cast<const T*>(q);
   const TC* kt = static_cast<const TC*>(kc);
   const TC* vt = static_cast<const TC*>(vc);
@@ -249,15 +267,15 @@ int dispatch_head_dim(dim3 grid, cudaStream_t s, int group, const void* q, const
   switch (D) {
     case 64:
       launch_decode<T, TC, 64>(grid, s, group, qt, kt, vt, ks, vs, sl, bt, ot, hq, hkv, block_size, max_blocks,
-                               page_stride, tok_stride, head_stride, scale, abab);
+                               page_stride, tok_stride, head_stride, scale, abab, local_window, global_window);
       break;
     case 128:
       launch_decode<T, TC, 128>(grid, s, group, qt, kt, vt, ks, vs, sl, bt, ot, hq, hkv, block_size, max_blocks,
-                                page_stride, tok_stride, head_stride, scale, abab);
+                                page_stride, tok_stride, head_stride, scale, abab, local_window, global_window);
       break;
     case 256:
       launch_decode<T, TC, 256>(grid, s, group, qt, kt, vt, ks, vs, sl, bt, ot, hq, hkv, block_size, max_blocks,
-                                page_stride, tok_stride, head_stride, scale, abab);
+                                page_stride, tok_stride, head_stride, scale, abab, local_window, global_window);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -271,12 +289,13 @@ int dispatch_head_dim(dim3 grid, cudaStream_t s, int group, const void* q, const
 // page * page_stride + token * tok_stride + kv_head * head_stride + d, in
 // q's dtype, or int8 when kv_int8 with k_scale/v_scale (hkv, D) fp32;
 // seq_lens (B,) and block_tables (B, max_blocks) int32. D in {64, 128,
-// 256}; hq / hkv <= 16.
+// 256}; hq / hkv <= 16; local_window / global_window >= 0 set a window, -1
+// none (module note).
 extern "C" int mojo_paged_decode(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
                                  const void* v_scale, const void* seq_lens, const void* block_tables, void* out,
                                  int B, int hq, int hkv, int D, int block_size, int max_blocks, int page_stride,
-                                 int tok_stride, int head_stride, float scale, int abab, int kv_int8, int dtype,
-                                 void* stream) {
+                                 int tok_stride, int head_stride, float scale, int abab, int local_window,
+                                 int global_window, int kv_int8, int dtype, void* stream) {
   if (B <= 0) return static_cast<int>(cudaSuccess);
   if (hq % hkv != 0 || hq / hkv > kDecMaxGroup) return static_cast<int>(cudaErrorInvalidValue);
   if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
@@ -291,10 +310,10 @@ extern "C" int mojo_paged_decode(const void* q, const void* k_cache, const void*
   MOJO_DISPATCH_DTYPE(dtype, T, {
     rc = kv_int8 ? dispatch_head_dim<T, int8_t>(grid, s, group, q, k_cache, v_cache, ks, vs, sl, bt, out, hq, hkv,
                                                  D, block_size, max_blocks, page_stride, tok_stride, head_stride,
-                                                 scale, abab)
+                                                 scale, abab, local_window, global_window)
                  : dispatch_head_dim<T, T>(grid, s, group, q, k_cache, v_cache, ks, vs, sl, bt, out, hq, hkv, D,
                                            block_size, max_blocks, page_stride, tok_stride, head_stride, scale,
-                                           abab);
+                                           abab, local_window, global_window);
   });
   return rc;
 }

@@ -5,6 +5,7 @@ from mojo_opset_tpu_torch.experimental.operators.kv_cache import (
 )
 from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import (
     MojoPagedDecodeGQAWithKVDequant,
+    MojoPagedDecodeSWAWithKVDequant,
     MojoPagedPrefillGQAWithKVDequant,
     dynamic_quantize,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "MojoDequantFromPagedKVCache",
     "MojoPagedDecodeGQAWithKVDequant",
     "MojoPagedDecodeMLA",
+    "MojoPagedDecodeSWAWithKVDequant",
     "MojoPagedPrefillGQAWithKVDequant",
     "MojoPagedPrefillMLA",
     "MojoPrefillMLA",

@@ -3,11 +3,13 @@
 Counterpart of the JAX package's
 ``experimental/operators/kv_quant_attention.py`` (``dynamic_quantize``
 :36, ``_KVDequantConfig`` :45, ``MojoPagedDecodeGQAWithKVDequant`` :109,
-``MojoPagedPrefillGQAWithKVDequant`` :169). The caches are int8 HND with
+``MojoPagedPrefillGQAWithKVDequant`` :169, ``_SWADequantMixin`` :231,
+``MojoPagedDecodeSWAWithKVDequant`` :243). The caches are int8 HND with
 per-channel fp32 scales ``(Hkv, D)``; the golden dequantizes K and V in
 fp32. ``compute_dtype=torch.int8`` re-quantizes the key-scaled query and
 the probabilities per row, so both products run on int8 values (golden
-tier only). Custom masks and the SWA variants are not ported yet.
+tier only). Custom masks, the SWA prefill and the n-step SWA decode are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from mojo_opset_tpu_torch.core.operators.attention import (
     GQA_LAYOUTS,
     assert_paged_decode_contract,
     assert_paged_prefill_contract,
+    decode_keep_mask,
     expand_gqa,
     gather_paged_kv,
     masked_softmax,
@@ -71,9 +74,12 @@ def paged_decode_dequant_reference(
     softmax_scale: Optional[float] = None,
     gqa_layout: str = "AABB",
     compute_dtype: Optional[torch.dtype] = None,
+    local_window_size: Optional[int] = None,
+    global_window_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Golden decode over int8 HND pages: q (B, Hq, D) against the first
-    ``total_seq_lens[b]`` tokens, K and V dequantized by their scales."""
+    ``total_seq_lens[b]`` tokens, K and V dequantized by their scales; with
+    a window, the keys ``decode_keep_mask`` keeps."""
     assert_paged_decode_contract(block_tables, total_seq_lens)
     B, Hq, D = query.shape
     Hkv = key_cache.shape[1]
@@ -85,7 +91,7 @@ def paged_decode_dequant_reference(
     k = expand_gqa(gather_paged_kv(key_cache, block_tables), group, gqa_layout, 2)  # (B, K, Hq, D)
     v = expand_gqa(gather_paged_kv(value_cache, block_tables), group, gqa_layout, 2)
     scores = _scores("bhd,bkhd->bhk", query, k, ks, softmax_scale, int8_compute)
-    valid = torch.arange(k.shape[1], device=query.device)[None, None, :] < total_seq_lens[:, None, None]
+    valid = decode_keep_mask(total_seq_lens, k.shape[1], local_window_size, global_window_size)[:, None, :]
     probs = masked_softmax(scores, valid, query.dtype)
     out = _pv("bhk,bkhd->bhd", probs, v, vs, int8_compute)
     out = torch.where((total_seq_lens > 0)[:, None, None], out, 0)
@@ -181,6 +187,51 @@ class MojoPagedDecodeGQAWithKVDequant(_KVDequantConfig, MojoOperator):
         return paged_decode_dequant_reference(
             query, key_cache, key_scale, value_cache, value_scale, total_seq_lens, block_tables,
             softmax_scale, self.gqa_layout, self.compute_dtype,
+        )
+
+
+class _SWADequantMixin(_KVDequantConfig):
+    def _init_swa(self, global_window_size, local_window_size):
+        self.global_window_size = global_window_size
+        self.local_window_size = local_window_size
+
+    def extra_repr(self) -> str:
+        return (
+            super().extra_repr()
+            + f", global_window_size={self.global_window_size}, local_window_size={self.local_window_size}"
+        )
+
+
+class MojoPagedDecodeSWAWithKVDequant(_SWADequantMixin, MojoOperator):
+    """``MojoPagedDecodeGQAWithKVDequant`` with the sliding/global window of
+    ``MojoPagedDecodeSWA`` (causal only; non-causal sees every key)."""
+
+    def __init__(self, is_causal: bool = True, gqa_layout: str = "AABB",
+                 global_window_size: Optional[int] = None, local_window_size: Optional[int] = None,
+                 query_dtype=torch.bfloat16, context_dtype=torch.int8, compute_dtype=torch.bfloat16):
+        super().__init__()
+        self._init_dequant(is_causal, gqa_layout, query_dtype, context_dtype, compute_dtype)
+        self._init_swa(global_window_size, local_window_size)
+
+    def forward(
+        self,
+        query: torch.Tensor,  # (B, Hq, D)
+        query_scale: Optional[torch.Tensor],
+        key_cache: torch.Tensor,  # (N, Hkv, bs, D) int8
+        key_scale: torch.Tensor,  # (Hkv, D)
+        value_cache: torch.Tensor,
+        value_scale: torch.Tensor,
+        total_seq_lens: torch.Tensor,
+        block_table: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        *,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        self._check_unported(query_scale, None)
+        windows = (self.local_window_size, self.global_window_size) if self.is_causal else (None, None)
+        return paged_decode_dequant_reference(
+            query, key_cache, key_scale, value_cache, value_scale, total_seq_lens, block_table,
+            softmax_scale, self.gqa_layout, self.compute_dtype, *windows,
         )
 
 

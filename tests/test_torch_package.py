@@ -26,8 +26,10 @@ import torch
 
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
+from mojo_opset_tpu_torch.backends.cuda.functions import FlceVJP
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
     flash_swa,
+    flce,
     group_gemm,
     int4_matmul,
     int8_matmul,
@@ -50,9 +52,10 @@ from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-                  "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first", "flash_swa", "silu_vjp"]
+                  "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first", "flash_swa", "silu_vjp", "flce"]
 # the counters of the entry points beside the single-entry modules' own
-MULTI_ENTRY = {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv", "silu_fwd", "silu_bwd"}
+MULTI_ENTRY = {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv", "silu_fwd", "silu_bwd", "flce_stats", "flce_dz",
+               "flce_dx", "flce_dw"}
 
 
 def test_import_loads_no_jax():
@@ -77,7 +80,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
         "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-        "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first"}
+        "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first", "flce"}
 
 
 def _cpu_calls():
@@ -131,6 +134,10 @@ def _cpu_calls():
     xs_ = t(3, 100)
     yield ("silu_vjp", lambda: (silu_vjp.silu_fwd(xs_), silu_vjp.silu_bwd(xs_, xs_)),
            lambda: (silu_vjp.silu_fwd_plain(xs_), silu_vjp.silu_bwd_plain(xs_, xs_)))
+    xl, wl, tl = t(6, 64), t(40, 64), torch.tensor([3, -100, 39, 0, 7, 7])
+    options = (-100, 0.0, 0.0, "mean", None)
+    yield ("flce", lambda: tm.MojoFusedLinearCrossEntropyFunction.get_backend_impl("cuda")()(xl, wl, tl),
+           lambda: FlceVJP.apply(xl, wl, tl, options, flce.flce_stats_plain, flce.flce_backward_plain)[0])
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -141,7 +148,7 @@ def test_cuda_tier_on_cpu_runs_plain_version(case):
     if plain is not None:
         check_tol_diff(out, plain(), atol=0.0, rtol=0.0)
     counts = kernels.launch_counts()
-    assert set(counts) == (set(KERNEL_MODULES) - {"flash_swa", "silu_vjp"}) | MULTI_ENTRY
+    assert set(counts) == (set(KERNEL_MODULES) - {"flash_swa", "silu_vjp", "flce"}) | MULTI_ENTRY
     assert set(counts.values()) == {0}, name
 
 
@@ -200,6 +207,9 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         rope.rope_token_first(meta(5, 4, 64), meta(5, 2, 64), meta(5, 32), meta(5, 32))
     with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
         norms.rmsnorm(meta(3, 64, dtype=torch.float64), meta(64, dtype=torch.float32), 1e-6)
+    with pytest.raises(ValueError, match="local_window"):
+        paged_decode.paged_decode_gqa(meta(2, 8, 64), meta(5, 4, 2, 64), meta(5, 4, 2, 64), lens, table,
+                                      local_window=-2)
 
 
 def test_training_kernel_wrappers_reject_what_the_kernels_do_not_take():
@@ -227,12 +237,23 @@ def test_training_kernel_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="unit stride on D"):
         rope_head_first.rope_head_first(meta(1, 4, 64, 3).transpose(-1, -2), meta(1, 2, 3, 64), meta(3, 64),
                                         meta(3, 64))
+    t32 = meta(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="H must be a multiple of 8"):
+        flce.flce_stats(meta(3, 60), meta(10, 60), t32)
+    with pytest.raises(ValueError, match="share one dtype"):
+        flce.flce_stats(meta(3, 64), meta(10, 64, dtype=torch.float16), t32)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        flce.flce_stats(meta(3, 64), meta(10, 64), meta(3, dtype=torch.int64))
+    with pytest.raises(ValueError, match="row pitch"):
+        flce.flce_dx(meta(3, 13), meta(13, 64))
     assert rmsnorm_vjp.launches == silu_vjp.launches == silu_vjp.launches_bwd == rope_head_first.launches == 0
+    assert flce.launches == flce.launches_dx == 0
 
 
 def test_training_kernels_never_fall_back(monkeypatch):
-    """The training Functions send a tensor off the CPU to kernels A, K, L
-    and M: without a build they raise instead of running the plain version."""
+    """The training Functions send a tensor off the CPU to kernels A, K, L,
+    M and N: without a build they raise instead of running the plain
+    version."""
     monkeypatch.setattr(build, "load_library", lambda: (_ for _ in ()).throw(RuntimeError("no kernels built")))
     meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
     calls = [lambda: tm.MojoRMSNormFunction.get_backend_impl("cuda")()(meta(3, 64), meta(64)),
@@ -240,7 +261,9 @@ def test_training_kernels_never_fall_back(monkeypatch):
              lambda: tm.MojoApplyRoPEFunction.get_backend_impl("cuda")()(meta(1, 3, 4, 64), meta(1, 3, 2, 64),
                                                                            meta(3, 64), meta(3, 64), head_first=False),
              lambda: rmsnorm_vjp.rmsnorm_bwd(meta(3, 64), meta(64), meta(3, 64), 1e-6),
-             lambda: silu_vjp.silu_bwd(meta(3, 64), meta(3, 64))]
+             lambda: silu_vjp.silu_bwd(meta(3, 64), meta(3, 64)),
+             lambda: tm.MojoFusedLinearCrossEntropyFunction.get_backend_impl("cuda")()(
+                 meta(3, 64), meta(10, 64), torch.empty(3, device="meta", dtype=torch.int64))]
     for call in calls:
         with pytest.raises(RuntimeError, match="no kernels built"):
             call()
