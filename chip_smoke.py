@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the fourteen kernel sources from ``mojo_opset_tpu_torch/csrc``
+  2. build: compiles the fifteen kernel sources from ``mojo_opset_tpu_torch/csrc``
      (one nvcc per source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
@@ -56,7 +56,17 @@ is non-zero:
      every row ignored, one row and the chunked-dz backward (4 runs); each
      output to its ladder and, relative to its size, to FLCE_REL_LIMITS;
      dz, dx, dw bit for bit over two runs; the main cases beside the cuBLAS
-     time of the same product.
+     time of the same product. Kernel O (masked attention: forward, dq,
+     dk/dv) at the diffusion Function's shape (B 2 x 16 heads x S 4096, D
+     128, block-diffusion mask of 64) in bf16, fp16 and fp32 (S 2048),
+     SDAR-30B-A3B's GQA (32/4 heads, S 2048), a random mask with empty rows,
+     a full (B, H, Sq, Sk) mask with Sq != Sk whose empty rows give NaN
+     (CudaSdpa's semantics), odd S 1000 at D 64 and 256, and the Wan DiT's
+     key-padding mask (B 2, 24 heads, S 4400, lens 4400 and 880); each
+     output to its ladder and, relative to its size, to
+     FLASH_DIFFUSION_REL_LIMITS; empty rows' o exactly 0 (or NaN) and dq 0,
+     unkept keys' dk and dv 0; dq, dk, dv bit for bit over two runs; the
+     main cases beside SDPA with the bool mask and its eager backward.
      Every main case is timed replayed from a CUDA graph (``ms``: device
      time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
      3.35 TB/s or operations over the dtype's peak, the larger) and, where
@@ -143,8 +153,8 @@ is non-zero:
      MojoFusedLinearCrossEntropyFunction (kernel N) + backward + fused
      AdamW: a warm-up step and TRAIN_STEPS counted steps (per step A and K
      145 launches, L 36 forward and 36 backward, M 72, J once forward and
-     twice backward a layer, N's four entry points once; the masked-Sdpa
-     and loss golden routes are never taken; the loss is finite and
+     twice backward a layer, N's four entry points once; CudaSdpa's and
+     the loss's golden routes are never taken; the loss is finite and
      falls), then one profiled step; the same steps with the chunked golden
      loss (its peak memory must not be below kernel N's), and with golden
      norms, RoPE and SiLU, for comparison. Prints step, forward and
@@ -159,6 +169,26 @@ is non-zero:
      (biases in bf16 beside the int8 GEMMs) on A-F under phase 6's gates.
      Prints prefill ms, decode ms/step, one decode step's launches and
      device time, and peak memory.
+ 12. the Wan2.2-TI2V-5B DiT (WAN_TI2V_5B: dim 3072, ffn 14336, 24 heads of
+     128, 30 layers, in/out 48, patch (1, 2, 2), text 512 x 4096) at full
+     width and depth in bf16, random weights from seed 0, a plain twin
+     (golden SDPA and RMSNorm) on the same tensors; first a small fp32 DiT
+     (WAN_SMALL) against its twin within the fp32 ladder. Latents of a
+     17-frame 704 x 1280 clip (48, 5, 44, 80) = 4400 tokens (frames cut 121
+     -> 17), 64 random text rows a request: (a) 4 Euler steps of the clip
+     alone (self- and cross-attention on J, q/k norms on A), (b) 2 steps of
+     the clip beside a one-frame image (48, 1, 44, 80) padded to 4400 tokens
+     (self-attention on O under the key-padding mask, 30 launches a step).
+     Velocity cosine >= WAN_COSINE_BOUND against the twin at the first step
+     and on the final latents, (b)'s clip against (a)'s; launches exact;
+     CudaSdpa never takes the golden. Prints ms/step, TFLOP/s and mfu
+     (dit_step_flops at 512 context keys), the device idle share and J's,
+     O's and A's device time from one profiled step, and peak memory.
+ 13. MojoDiffusionAttentionFunction forward + backward at the Function's
+     shape and at SDAR's GQA, bf16: the cuda tier (O's three entry points
+     once a call) against the ref tier's autograd of the golden, o, dq, dk,
+     dv relative to their size (DIFFUSION_GOLDEN_REL_LIMITS); fwd + bwd ms
+     and peak memory of each tier.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -168,6 +198,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -263,6 +294,13 @@ KERNEL_INFO = {
     "flce_dz": ("flce_dz", "mojo_opset_tpu_torch/csrc/flce.cu", "mojo_opset_tpu/backends/pallas/kernels/flce.py:241"),
     "flce_dx": ("flce_dx", "mojo_opset_tpu_torch/csrc/flce.cu", "mojo_opset_tpu/backends/pallas/kernels/flce.py:241"),
     "flce_dw": ("flce_dw", "mojo_opset_tpu_torch/csrc/flce.cu", "mojo_opset_tpu/backends/pallas/kernels/flce.py:266"),
+    # kernel O's three entry points replace flash_diffusion's three pallas_calls
+    "flash_diffusion_fwd": ("flash_diffusion_fwd", "mojo_opset_tpu_torch/csrc/flash_diffusion.cu",
+                            "mojo_opset_tpu/backends/pallas/kernels/diffusion_vjp.py:179"),
+    "flash_diffusion_dq": ("flash_diffusion_dq", "mojo_opset_tpu_torch/csrc/flash_diffusion.cu",
+                           "mojo_opset_tpu/backends/pallas/kernels/diffusion_vjp.py:227"),
+    "flash_diffusion_dkv": ("flash_diffusion_dkv", "mojo_opset_tpu_torch/csrc/flash_diffusion.cu",
+                            "mojo_opset_tpu/backends/pallas/kernels/diffusion_vjp.py:252"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
 MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
@@ -341,6 +379,35 @@ SEED_OSS_36B = dict(
     attention_out_bias=False, mlp_bias=False, tie_word_embeddings=False,
 )
 SEED_OSS_FULL = dict(num_hidden_layers=64, max_position_embeddings=524288)  # what the cuts above cut from
+# kernel O: the diffusion Function's benchmark shape in the JAX package (tools/bench_training_functions.py:198-203:
+# B 2, 16 heads, S 4096, D 128 under block_diffusion_mask(4096, 64)), and SDAR-30B-A3B's attention geometry
+# (huggingface.co/JetLM/SDAR-30B-A3B-Chat, config.json: 32 query heads over 4 kv heads of 128; a block-diffusion LM)
+DIFFUSION_B, DIFFUSION_H, DIFFUSION_S, DIFFUSION_D, DIFFUSION_BLOCK = 2, 16, 4096, 128, 64
+SDAR_HQ, SDAR_HKV, SDAR_S = 32, 4, 2048
+# kernel O against its plain version, each output relative to its own size as J's are (whole tensor, worst row;
+# floor FLASH_SWA_REL_FLOOR): both versions sum in fp32 and round once. The run that set them read at most 1.22e-4 /
+# 2.23e-3 in bf16 (SDAR's dk/dv; the Function shape's o), 2.78e-5 / 3.09e-4 in fp16 and 6.3e-7 / 1.84e-6 in fp32
+# (PERF.md, section 6): each limit leaves 6-8x
+FLASH_DIFFUSION_REL_LIMITS = {"bf16": (8e-4, 1.5e-2), "fp16": (2e-4, 2e-3), "fp32": (4e-6, 1.2e-5)}
+# phase 13: the cuda tier of MojoDiffusionAttentionFunction against the ref tier's autograd of the golden (which
+# rounds its probabilities to bf16 before the PV product, and its backward goes through them), (whole, worst row):
+# the run that set it read at most 3.19e-3 / 4.6e-3 (SDAR's dk and dv; PERF.md, section 6), so these leave 6-7x
+DIFFUSION_GOLDEN_REL_LIMITS = (2e-2, 3e-2)
+# phase 12: Wan2.2-TI2V-5B (huggingface.co/Wan-AI/Wan2.2-TI2V-5B, config.json; the Wan2.2 repo's
+# wan/configs/wan_ti2v_5B.py) at full width and depth, bf16 parameters as the JAX package's run_dit_perf casts them
+WAN_TI2V_5B = dict(model_type="ti2v", patch_size=(1, 2, 2), text_len=512, in_dim=48, dim=3072, ffn_dim=14336,
+                   freq_dim=256, text_dim=4096, out_dim=48, num_heads=24, num_layers=30, qk_norm=True,
+                   cross_attn_norm=True, eps=1e-6)
+# latents of a 704 x 1280 clip after Wan2.2's VAE (4x in time, 16x in space, 48 channels): 17 frames -> 5, a
+# one-frame image -> 1; (1, 2, 2) patches give 4400 and 880 tokens. The frames are cut 121 -> 17 (27280 -> 4400
+# tokens): the full clip's self-attention alone would take ~13 s a step on J's and O's scalar FMAs
+WAN_CLIP, WAN_IMAGE, WAN_FULL_FRAMES = (48, 5, 44, 80), (48, 1, 44, 80), 121
+WAN_TEXT_ROWS = 64  # random text-embedding rows of each request; the model pads them to text_len
+WAN_UNIFORM_STEPS, WAN_RAGGED_STEPS = 4, 2
+WAN_COSINE_BOUND = 0.999
+# the small fp32 twin check of phase 12: 2 layers, 2 heads of 128
+WAN_SMALL = dict(model_type="ti2v", patch_size=(1, 2, 2), text_len=32, in_dim=16, dim=256, ffn_dim=512, freq_dim=64,
+                 text_dim=128, out_dim=16, num_heads=2, num_layers=2)
 
 
 def log(phase: str, msg: str) -> None:
@@ -749,6 +816,7 @@ def phase_kernels(torch) -> dict:
     _flash_swa_cases(torch, compare, gen)
     _train_kernel_cases(torch, compare, gen)
     _flce_cases(torch, compare, gen)
+    _flash_diffusion_cases(torch, compare, gen)
     return record
 
 
@@ -1015,6 +1083,134 @@ def _flash_swa_cases(torch, compare, gen) -> None:
             bound=(4 * dit[0].numel() * 2, 4 * 128 * pairs, "bf16"),
             library=lambda: torch.nn.functional.scaled_dot_product_attention(*dit))
     log("kernel flash_swa", f"J's cases took {time.perf_counter() - t_all:.1f} s")
+
+
+def _finite_rows(got, want):
+    """got and want as rows of the last dim without the rows that are NaN in want, after checking that got is NaN
+    on exactly those rows."""
+    nan_rows = want.isnan().any(-1)
+    if not bool((got.isnan().any(-1) == nan_rows).all()):
+        raise AssertionError(f"NaN rows differ: {int(got.isnan().any(-1).sum())} in the kernel's output, "
+                             f"{int(nan_rows.sum())} in the plain version's")
+    return got[~nan_rows], want[~nan_rows]
+
+
+def _flash_diffusion_cases(torch, compare, gen) -> None:
+    """O: dense attention under a bool keep-mask, its three entry points each against its plain version on the same
+    inputs (the backward ones fed the plain forward's o and lse, and dk/dv the plain dq's delta): at the diffusion
+    Function's shape (main: B 2 x 16 heads x S 4096, D 128, block_diffusion_mask(4096, 64)) in bf16, fp16 and fp32
+    (S 2048), SDAR-30B-A3B's GQA (32/4 heads, S 2048), a random mask with empty rows, a full (B, H, Sq, Sk) mask
+    with Sq != Sk and empty rows NaN (CudaSdpa's semantics), odd S 1000 at D 64 and 256, and the Wan DiT's
+    key-padding mask (B 2, 24 heads, S 4400, lens 4400 and 880). Each output to its ladder and, relative to its
+    size, to FLASH_DIFFUSION_REL_LIMITS; an empty row's o is exactly 0 (or NaN) and its dq 0, a key no row keeps
+    gets dk = dv = 0, and dq, dk, dv repeat bit for bit."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import flash_diffusion as fd
+    from mojo_opset_tpu_torch.experimental.functions import block_diffusion_mask
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    t_all = time.perf_counter()
+
+    def checker(*dtypes):
+        def check(got, want):
+            notes = []
+            for g, w, dt in zip(got, want, dtypes):
+                check_tol_diff(g, w, **tols_for(dt))
+                sentinel = w == fd.EMPTY_LSE  # lse of the rows the mask empties: equal, then out of the norms
+                if not torch.equal(g == fd.EMPTY_LSE, sentinel):
+                    raise AssertionError("flash_diffusion: the empty rows' lse sentinel differs")
+                whole, row, rms = rel_errors(*_finite_rows(g.masked_fill(sentinel, 0), w.masked_fill(sentinel, 0)))
+                limit = FLASH_DIFFUSION_REL_LIMITS[_kind(torch, dt)]
+                if not (whole <= limit[0] and row <= limit[1]):
+                    raise AssertionError(f"flash_diffusion: relative error {whole:.3g} (worst row {row:.3g}) over "
+                                         f"limit {limit} for an output of RMS {rms:.3g}")
+                notes.append(f"relative {whole:.3g}, worst row {row:.3g} (limit {limit}), rms {rms:.3g}")
+            return " / ".join(notes)
+        return check
+
+    def case(label, B, hq, hkv, Sq, Sk, d, dtype, mask, empty=0.0, main=False, key=None):
+        t0 = time.perf_counter()
+        q, do = (torch.randn(B, hq, Sq, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, hkv, Sk, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        o, lse = fd.flash_diffusion_fwd_plain(q, k, v, mask, None, empty)
+        _, delta = fd.flash_diffusion_dq_plain(q, k, v, o, do, lse, mask)
+        keep = fd.keep_mask(mask, q, k)
+        pairs = int(keep.sum())  # kept (row, key) pairs over every query head
+        rows_seen = keep.any(-1)
+        keys_seen = keep.any(2).reshape(B, hkv, hq // hkv, Sk).any(2)
+        isz = q.element_size()
+        qb, kvb, stats = q.numel() * isz, k.numel() * isz, q.numel() // d * 4
+        kind = _kind(torch, dtype)
+        lib_fwd = lib_bwd = None
+        if main:
+            qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_fwd = lambda: sdpa(qp, kp, vp, attn_mask=mask, enable_gqa=hq != hkv)  # noqa: E731
+            out = lib_fwd()
+            lib_bwd = lambda: torch.autograd.grad(out, (qp, kp, vp), do, retain_graph=True)  # noqa: E731
+            check_tol_diff(out, o, **tols_for(dtype))  # the same function
+        t_setup = time.perf_counter() - t0
+        name = f"{label} B {B} {hq}/{hkv} heads Sq {Sq} Sk {Sk} D {d} mask {tuple(mask.shape)} empty={empty}"
+        mask_bytes = mask.numel()
+        compare("flash_diffusion_fwd", lambda: fd.flash_diffusion_fwd(q, k, v, mask, None, empty),
+                lambda: fd.flash_diffusion_fwd_plain(q, k, v, mask, None, empty), dtype, "fwd " + name, main, key=key,
+                check=checker(dtype, f32), bound=(2 * qb + 2 * kvb + stats + mask_bytes, 4 * d * pairs, kind),
+                library=lib_fwd)
+        compare("flash_diffusion_dq", lambda: fd.flash_diffusion_dq(q, k, v, o, do, lse, mask),
+                lambda: fd.flash_diffusion_dq_plain(q, k, v, o, do, lse, mask), dtype, "dq " + name, main, key=key,
+                check=checker(dtype, f32), bound=(4 * qb + 2 * kvb + 2 * stats + mask_bytes, 6 * d * pairs, kind),
+                library=lib_bwd, library_graph=False)
+        compare("flash_diffusion_dkv", lambda: fd.flash_diffusion_dkv(q, k, v, do, lse, delta, mask),
+                lambda: fd.flash_diffusion_dkv_plain(q, k, v, do, lse, delta, mask), dtype, "dkv " + name, main,
+                key=key, check=checker(dtype, dtype),
+                bound=(2 * qb + 4 * kvb + 2 * stats + mask_bytes, 8 * d * pairs, kind), library=lib_bwd,
+                library_graph=False)
+        (o_k, _), (dq_k, _) = fd.flash_diffusion_fwd(q, k, v, mask, None, empty), fd.flash_diffusion_dq(
+            q, k, v, o, do, lse, mask)
+        dk_k, dv_k = fd.flash_diffusion_dkv(q, k, v, do, lse, delta, mask)
+        (dq_2, _), (dk_2, dv_2) = fd.flash_diffusion_dq(q, k, v, o, do, lse, mask), fd.flash_diffusion_dkv(
+            q, k, v, do, lse, delta, mask)
+        if not (torch.equal(dq_k, dq_2) and torch.equal(dk_k, dk_2) and torch.equal(dv_k, dv_2)):
+            raise AssertionError(f"flash_diffusion: dq, dk or dv differ between two runs ({label})")
+        if not (rows_seen.all() and keys_seen.all()):
+            o_empty = o_k[~rows_seen]
+            o_ok = bool(o_empty.isnan().all()) if empty != empty else bool((o_empty == empty).all())
+            blind = [dq_k[~rows_seen].abs().max().item() if (~rows_seen).any() else 0.0,
+                     dk_k[~keys_seen].abs().max().item() if (~keys_seen).any() else 0.0,
+                     dv_k[~keys_seen].abs().max().item() if (~keys_seen).any() else 0.0]
+            if not o_ok or max(blind) != 0.0:
+                raise AssertionError(f"flash_diffusion: empty rows' o is not {empty} or dq/dk/dv of rows and keys "
+                                     f"the mask empties are not 0: {blind}")
+            log("kernel flash_diffusion", f"{name}: {int((~rows_seen).sum())} rows and {int((~keys_seen).sum())} "
+                                          f"keys kept nothing; their o is {empty}, their dq, dk, dv exactly 0")
+        log("kernel flash_diffusion", f"{label}: dq, dk, dv bit for bit over two runs; {pairs} kept pairs; "
+                                      f"{time.perf_counter() - t0:.1f} s ({t_setup:.1f} s of inputs, plain "
+                                      f"references and the library's first call)")
+
+    S, blk = DIFFUSION_S, DIFFUSION_BLOCK
+    block = block_diffusion_mask(S, blk, device="cuda")
+    case("Function shape", DIFFUSION_B, DIFFUSION_H, DIFFUSION_H, S, S, DIFFUSION_D, bf16, block, main=True)
+    case("Function shape fp16", DIFFUSION_B, DIFFUSION_H, DIFFUSION_H, S, S, DIFFUSION_D, f16, block)
+    case("Function shape fp32, S 2048", DIFFUSION_B, DIFFUSION_H, DIFFUSION_H, S // 2, S // 2, DIFFUSION_D, f32,
+         block_diffusion_mask(S // 2, blk, device="cuda"))
+    case("SDAR-30B-A3B GQA", DIFFUSION_B, SDAR_HQ, SDAR_HKV, SDAR_S, SDAR_S, 128, bf16,
+         block_diffusion_mask(SDAR_S, blk, device="cuda"), main=True, key="sdar_gqa")
+    rand = (torch.rand(1000, 1000, device="cuda", generator=gen) < 0.3) | torch.eye(1000, dtype=torch.bool,
+                                                                                     device="cuda")
+    rand[300:340] = False
+    case("random mask, 40 empty rows", 1, 8, 2, 1000, 1000, 128, bf16, rand)
+    full = torch.rand(2, 4, 333, 517, device="cuda", generator=gen) < 0.2
+    full[1, 2, 7:19] = False
+    full[0, :, :, 500:] = False
+    case("full mask, Sq != Sk, empty rows NaN", 2, 4, 2, 333, 517, 128, f32, full, empty=float("nan"))
+    odd = block_diffusion_mask(1000, 37, device="cuda")
+    case("odd S, D 64", 2, 4, 2, 1000, 1000, 64, f16, odd)
+    case("odd S, D 256", 1, 4, 4, 1000, 1000, 256, bf16, odd)
+    lens = torch.tensor([4400, 880], device="cuda")
+    pad = (torch.arange(4400, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    case("Wan DiT key padding", 2, 24, 24, 4400, 4400, 128, bf16, pad, empty=float("nan"), main=True,
+         key="wan_dit_key_padding")
+    log("kernel flash_diffusion", f"O's cases took {time.perf_counter() - t_all:.1f} s")
 
 
 def _train_kernel_cases(torch, compare, gen) -> None:
@@ -2293,7 +2489,7 @@ def phase_train_full_width(torch, card: str) -> dict:
     if {k: counts[k] for k in want} != want:
         raise AssertionError(f"the training path's kernels launched {counts}, want {want}")
     if CudaSdpa.golden_calls != sdpa_golden:
-        raise AssertionError("the training path took the masked-Sdpa golden route")
+        raise AssertionError("the training path took CudaSdpa's golden route")
     if CudaFusedLinearCrossEntropyFunction.golden_calls != loss_golden:
         raise AssertionError("the training path's loss took the golden route")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -2375,6 +2571,214 @@ def phase_train_full_width(torch, card: str) -> dict:
     return {k: counts[k] for k in want}
 
 
+def _cosine(torch, a, b) -> float:
+    return torch.nn.functional.cosine_similarity(a.double().flatten(), b.double().flatten(), dim=0).item()
+
+
+def _wan_pair(torch, cfg):
+    """The kernel-path WanModel (random weights from seed 0) and a plain-path twin (MOJO_BACKEND=ref: the golden
+    SDPA and RMSNorm) bound to the same tensors and RoPE table."""
+    from mojo_opset_tpu_torch.modeling.wan2_2 import WanModel
+
+    model = WanModel(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    with plain_tier():
+        plain = WanModel(cfg, device="meta")
+    _bind(plain, model)
+    plain.freqs = model.freqs
+    attn, plain_attn = model.blocks[0].self_attn, plain.blocks[0].self_attn
+    assert type(attn.sdpa).__name__ == "CudaSdpa" and type(attn.norm_q).__name__ == "CudaRMSNorm"
+    assert type(plain_attn.sdpa).__name__ == "RefSdpa" and type(plain_attn.norm_q).__name__ == "RefRMSNorm"
+    return model, plain
+
+
+def _wan_inputs(torch, cfg, latents, text_rows, seed):
+    """Random latents of the given shapes and ``text_rows`` random text-embedding rows for each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn(shape, device="cuda", generator=gen) for shape in latents]
+    ctx = [torch.randn(text_rows, cfg.text_dim, device="cuda", generator=gen) for _ in latents]
+    return xs, ctx
+
+
+def _dit_profile(torch, fn) -> tuple:
+    """Device busy ms of ``fn`` under torch.profiler and the device ms of kernels J, O and A."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    families = {"J": ("flash_swa",), "O": ("flash_diffusion",), "A": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel")}
+    fam_ms = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
+              for f, pats in families.items()}
+    return busy, fam_ms
+
+
+def _wan_small_check(torch) -> None:
+    """A small fp32 DiT (WAN_SMALL) against its plain twin, a clip alone and a ragged clip + image batch, within the
+    fp32 rung of utils/acc.py; J, A and (ragged) O must launch."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.modeling.wan2_2 import WanConfig
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    cfg = WanConfig(**WAN_SMALL)
+    model, plain = _wan_pair(torch, cfg)
+    xs, ctx = _wan_inputs(torch, cfg, [(16, 2, 8, 12), (16, 1, 8, 12)], 20, seed=3)
+    t = torch.tensor([700.0, 300.0], device="cuda")
+    for label, n in (("clip", 1), ("ragged clip + image", 2)):
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            got = model(xs[:n], t[:n], ctx[:n], seq_len=48)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            want = plain(xs[:n], t[:n], ctx[:n], seq_len=48)
+        for g, w in zip(got, want):
+            check_tol_diff(g, w, **tols_for(torch.float32))
+        expect = {"norms": 8, "flash_swa_fwd": 4 if n == 1 else 2, **({"flash_diffusion_fwd": 2} if n == 2 else {})}
+        if counts != expect:
+            raise AssertionError(f"the small DiT ({label}) launched {counts}, want {expect}")
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        log("wan dit", f"small fp32 DiT ({WAN_SMALL['num_layers']} layers, dim {WAN_SMALL['dim']}), {label}: "
+                       f"max_abs_err {err:.3g} against the plain twin (tol {tols_for(torch.float32)}); launches "
+                       f"{counts}")
+    del model, plain
+
+
+def phase_wan_dit(torch, card: str) -> dict:
+    """Phase 12: the Wan2.2-TI2V-5B DiT at full width and depth in bf16: (a) WAN_UNIFORM_STEPS Euler steps of one
+    17-frame clip (self- and cross-attention on J), (b) WAN_RAGGED_STEPS steps of the clip beside a one-frame image
+    padded to its 4400 tokens (self-attention on O under the key-padding mask, cross-attention on J); velocities
+    and final latents against the plain twin, (b)'s clip against (a)'s. Returns (b)'s launches."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaSdpa
+    from mojo_opset_tpu_torch.benchmark.dit_protocol import PerfDiTRunner, dit_step_flops
+    from mojo_opset_tpu_torch.modeling.wan2_2 import WanConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _wan_small_check(torch)
+    t0 = time.perf_counter()
+    cfg = WanConfig(**WAN_TI2V_5B, dtype=torch.bfloat16)
+    model, plain = _wan_pair(torch, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    seq_len = WAN_CLIP[1] * (WAN_CLIP[2] // 2) * (WAN_CLIP[3] // 2)
+    full_len = (WAN_FULL_FRAMES - 1) // 4 + 1
+    log("wan dit", f"Wan2.2-TI2V-5B: {n_params / 1e9:.3f} B params bf16 ({torch.cuda.memory_allocated() / 2**30:.1f} "
+                   f"GiB), built in {time.perf_counter() - t0:.1f} s; clip latent {WAN_CLIP} = {seq_len} tokens (frames "
+                   f"cut {WAN_FULL_FRAMES} -> 17: {full_len * (WAN_CLIP[2] // 2) * (WAN_CLIP[3] // 2)} -> {seq_len} "
+                   f"tokens), context {WAN_TEXT_ROWS} rows padded to {cfg.text_len}")
+    (clip, image), ctx = _wan_inputs(torch, cfg, [WAN_CLIP, WAN_IMAGE], WAN_TEXT_ROWS, seed=1)
+    golden0 = CudaSdpa.golden_calls
+    L = cfg.num_layers
+    runs = {}
+    for tag, xs, steps, want in (
+            ("(a) uniform clip", [clip], WAN_UNIFORM_STEPS, {"norms": 4 * L, "flash_swa_fwd": 2 * L}),
+            ("(b) ragged clip + image", [clip, image], WAN_RAGGED_STEPS,
+             {"norms": 4 * L, "flash_swa_fwd": L, "flash_diffusion_fwd": L})):
+        c = ctx[:len(xs)]
+        t = torch.full((len(xs),), 999.0, device="cuda")
+        with torch.inference_mode():
+            model(xs, t, c, seq_len=seq_len)  # warm-up: cuBLAS handles, allocator
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            first, final, ms = PerfDiTRunner(model).denoise(xs, c, seq_len, steps)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            busy, fam = _dit_profile(torch, lambda: model(xs, t, c, seq_len=seq_len))
+            plain_first, plain_final, plain_ms = PerfDiTRunner(plain).denoise(xs, c, seq_len, steps)
+        expect = {k: v * steps for k, v in want.items()}
+        if counts != expect:
+            raise AssertionError(f"wan dit {tag}: launches {counts}, want {expect}")
+        cos_v = [_cosine(torch, a, b) for a, b in zip(first, plain_first)]
+        cos_x = [_cosine(torch, a, b) for a, b in zip(final, plain_final)]
+        if not all(torch.isfinite(v).all() for v in (*first, *final)):
+            raise AssertionError(f"wan dit {tag}: non-finite velocities or latents")
+        # useful work counts each request's own tokens; the padded figure counts every row the batch computes
+        tokens = [math.prod(n // p for n, p in zip(x.shape[1:], cfg.patch_size)) for x in xs]
+        tflops = sum(dit_step_flops(cfg, n, cfg.text_len) for n in tokens) / (ms * 1e-3) / 1e12
+        tflops_padded = dit_step_flops(cfg, seq_len, cfg.text_len) * len(xs) / (ms * 1e-3) / 1e12
+        log("wan dit", f"{card}: {tag}, {steps} steps: {ms:.2f} ms/step (CUDA events; plain twin {plain_ms:.2f}), "
+                       f"{tflops:.2f} TFLOP/s, mfu {100 * tflops / 989:.2f}% (dit_step_flops of each request's own "
+                       f"tokens {tokens} at {cfg.text_len} context keys; counting the {len(xs)} x {seq_len} padded rows: "
+                       f"{tflops_padded:.2f} TFLOP/s, mfu {100 * tflops_padded / 989:.2f}%); one profiled step: device "
+                       f"busy {busy:.2f} ms (idle "
+                       f"{100 * (1 - busy / ms):.1f}% of the unprofiled step), J {fam['J']:.2f} ms, O {fam['O']:.2f} "
+                       f"ms, A {fam['A']:.2f} ms; peak memory {peak:.2f} GiB; launches {counts}")
+        log("wan dit", f"{tag}: velocity cosine vs the plain twin at the first step {[round(c, 6) for c in cos_v]}, "
+                       f"final latents {[round(c, 6) for c in cos_x]} (bound {WAN_COSINE_BOUND})")
+        if min(cos_v + cos_x) < WAN_COSINE_BOUND:
+            raise AssertionError(f"wan dit {tag} disagrees with the plain twin: {cos_v}, {cos_x}")
+        runs[tag] = (first, counts)
+    cos_ab = _cosine(torch, runs["(b) ragged clip + image"][0][0], runs["(a) uniform clip"][0][0])
+    log("wan dit", f"(b)'s clip velocity against (a)'s at the first step: cosine {cos_ab:.6f} (bound "
+                   f"{WAN_COSINE_BOUND}); CudaSdpa golden calls {CudaSdpa.golden_calls - golden0}")
+    if cos_ab < WAN_COSINE_BOUND:
+        raise AssertionError(f"the ragged batch's clip parts from the uniform run: cosine {cos_ab}")
+    if CudaSdpa.golden_calls != golden0:
+        raise AssertionError("a CudaSdpa call took the golden on the DiT's path")
+    del model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs["(b) ragged clip + image"][1]
+
+
+def phase_diffusion_function(torch, card: str) -> dict:
+    """Phase 13: MojoDiffusionAttentionFunction forward and backward, the cuda tier (kernel O) against the ref tier's
+    autograd of the golden, at the Function's shape and at SDAR-30B-A3B's GQA; o, dq, dk, dv relative to their size
+    (DIFFUSION_GOLDEN_REL_LIMITS); fwd + bwd ms and peak memory of each tier. Returns the cuda tier's launches of one
+    timed fwd + bwd."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.experimental.functions import MojoDiffusionAttentionFunction, block_diffusion_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    counts = None
+    for label, hq, hkv, S in (("Function shape", DIFFUSION_H, DIFFUSION_H, DIFFUSION_S),
+                              ("SDAR-30B-A3B GQA", SDAR_HQ, SDAR_HKV, SDAR_S)):
+        B, D = DIFFUSION_B, DIFFUSION_D
+        q, do = ((torch.randn(B, hq, S, D, device="cuda", generator=gen) * 0.2).to(torch.bfloat16) for _ in range(2))
+        k, v = ((torch.randn(B, hkv, S, D, device="cuda", generator=gen) * 0.2).to(torch.bfloat16) for _ in range(2))
+        mask = block_diffusion_mask(S, DIFFUSION_BLOCK, device="cuda")
+        out, ms, peak = {}, {}, {}
+        for tier in ("cuda", "ref"):
+            fn = MojoDiffusionAttentionFunction.get_backend_impl(tier)()
+            assert type(fn).__name__ == {"cuda": "CudaDiffusionAttentionFunction",
+                                         "ref": "RefDiffusionAttentionFunction"}[tier]
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+            def step():
+                y = fn(*leaves, mask, 1.0 / D**0.5, hq != hkv)
+                return (y.detach(), *torch.autograd.grad(y, leaves, do))
+
+            out[tier] = step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            ms[tier] = cuda_ms(torch, step, iters=5, warmup=1)
+            if tier == "cuda":
+                counts = {k: v for k, v in kernels.launch_counts().items() if v}
+                if counts != {"flash_diffusion_fwd": 6, "flash_diffusion_dq": 6, "flash_diffusion_dkv": 6}:
+                    raise AssertionError(f"the cuda tier's fwd + bwd launched {counts}, want O's three entry points "
+                                         f"once a call")
+            peak[tier] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        notes = []
+        for name, got, want in zip(("o", "dq", "dk", "dv"), out["cuda"], out["ref"]):
+            whole, row, rms = rel_errors(got, want)
+            notes.append(f"{name} {whole:.3g} / {row:.3g} (rms {rms:.3g})")
+            if not (whole <= DIFFUSION_GOLDEN_REL_LIMITS[0] and row <= DIFFUSION_GOLDEN_REL_LIMITS[1]):
+                raise AssertionError(f"diffusion function {label}: {name} relative error {whole:.3g} (worst row "
+                                     f"{row:.3g}) over {DIFFUSION_GOLDEN_REL_LIMITS}")
+        log("diffusion function", f"{card}: {label} (B {B}, {hq}/{hkv} heads, S {S}, D {D}, block {DIFFUSION_BLOCK}, "
+                                  f"bf16): cuda tier vs ref autograd, relative whole / worst row: {'; '.join(notes)} "
+                                  f"(limits {DIFFUSION_GOLDEN_REL_LIMITS}); fwd + bwd {ms['cuda']:.2f} ms on O, "
+                                  f"{ms['ref']:.2f} ms on the golden; peak above the inputs {peak['cuda']:.2f} GiB, "
+                                  f"{peak['ref']:.2f} GiB")
+        del out, q, k, v, do
+        torch.cuda.empty_cache()
+    return counts
+
+
 def _step_profile(torch, prof) -> tuple:
     """Device busy ms of a profiled step, the device ms of kernels J, A, K, L,
     M and N, and the eight largest entries."""
@@ -2390,16 +2794,19 @@ def _step_profile(torch, prof) -> tuple:
 
 
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
-                 deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict) -> list:
+                 deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
+                 dit_counts: dict, fn_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
-    MoE run, for I from the DeepSeek run and for J, K, L, M and N from the
-    training run; numbers of the main-path case (``ms`` replayed from a
-    CUDA graph). C and D add their int8-page numbers, C its windowed cases
+    MoE run, for I from the DeepSeek run, for J, K, L, M and N from the
+    training run, for O's forward from the Wan DiT's ragged run and for its
+    dq and dk/dv from the diffusion Function's; numbers of the main-path
+    case (``ms`` replayed from a CUDA graph). C and D add their int8-page numbers, C its windowed cases
     at ctx 32768 beside the same cases without windows; F, G, H, I, K and M
     their numbers at each shape (M: each layout and direction), G, H, I, K
     and M their largest error over those shapes; J's forward its numbers
-    through CudaSdpa at the Wan DiT's shape."""
+    through CudaSdpa at the Wan DiT's shape; O its numbers at SDAR's GQA and
+    under the Wan DiT's key-padding mask."""
     line = []
     main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
                    "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4", "rmsnorm_vjp": f"{TRAIN_TOKENS}x2560",
@@ -2414,16 +2821,18 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             if module in ("int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         for key in ("int8_pages", "wan_dit_sdpa", "window_ctx32k", "no_window_ctx32k", "window_ctx32k_int8",
-                    "no_window_ctx32k_int8"):
+                    "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding"):
             if key in rec:
                 extra[key] = rec.pop(key)
         for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),
                                   ("deepseek", deepseek_counts), ("train", train_counts), ("seed_oss", seed_counts),
-                                  ("seed_oss_int8", seed_int8_counts)):
+                                  ("seed_oss_int8", seed_int8_counts), ("wan_dit", dit_counts),
+                                  ("diffusion_function", fn_counts)):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
-        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts}.get(
-            module, counts if module in counts else train_counts)[module]
+        launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts,
+                    "flash_diffusion_fwd": dit_counts, "flash_diffusion_dq": fn_counts,
+                    "flash_diffusion_dkv": fn_counts}.get(module, counts if module in counts else train_counts)[module]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                          bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
@@ -2451,8 +2860,11 @@ def main() -> int:
     deepseek_counts = timed("deepseek full width", phase_deepseek_full_width, torch, card)
     train_counts = timed("train full width", phase_train_full_width, torch, card)
     seed_counts, seed_int8_counts = timed("seed-oss full width", phase_seed_oss_full_width, torch, card)
+    dit_counts = timed("wan dit", phase_wan_dit, torch, card)
+    fn_counts = timed("diffusion function", phase_diffusion_function, torch, card)
     print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts,
-                                              deepseek_counts, train_counts, seed_counts, seed_int8_counts)}))
+                                              deepseek_counts, train_counts, seed_counts, seed_int8_counts,
+                                              dit_counts, fn_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

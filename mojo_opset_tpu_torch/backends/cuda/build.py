@@ -37,11 +37,16 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # kernel J's scalar tail: B, Tq, Tk, hq, hkv, D, scale, causal, lws, gws, abab, dtype, stream
 _SWA_TAIL = (_I,) * 6 + (_F,) + (_I,) * 5 + (_P,)
+# kernel O's: B, hq, hkv, Sq, Sk, D, the mask's four strides, scale
+_DIFF_TAIL = (_I,) * 6 + (_L,) * 4 + (_F,)
 # argument types of every entry point, the trailing stream included
 SIGNATURES = {
     "mojo_flash_swa_fwd": (_P,) * 7 + _SWA_TAIL,
     "mojo_flash_swa_dq": (_P,) * 10 + _SWA_TAIL,
     "mojo_flash_swa_dkv": (_P,) * 10 + _SWA_TAIL,
+    "mojo_flash_diffusion_fwd": (_P,) * 6 + _DIFF_TAIL + (_F, _I, _P),
+    "mojo_flash_diffusion_dq": (_P,) * 9 + _DIFF_TAIL + (_I, _P),
+    "mojo_flash_diffusion_dkv": (_P,) * 9 + _DIFF_TAIL + (_I, _P),
     "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
     "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mojo_paged_decode": (_P,) * 8 + (_I,) * 9 + (_F,) + (_I,) * 5 + (_P,),

@@ -1,9 +1,10 @@
 """Kernel wrappers: each module holds one kernel's launcher, its plain
-PyTorch version and its ``launches`` counter; kernel J (``flash_swa``) has
-three entry points, kernel N (``flce``) four and kernel L (``silu_vjp``)
-two, each with its own counter."""
+PyTorch version and its ``launches`` counter; kernels J (``flash_swa``) and
+O (``flash_diffusion``) have three entry points, kernel N (``flce``) four
+and kernel L (``silu_vjp``) two, each with its own counter."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    flash_diffusion,
     flash_swa,
     flce,
     group_gemm,
@@ -28,7 +29,9 @@ COUNTERS = [(module.__name__.rsplit(".", 1)[-1], module, "launches") for module 
     ("flash_swa_fwd", flash_swa, "launches"), ("flash_swa_dq", flash_swa, "launches_dq"),
     ("flash_swa_dkv", flash_swa, "launches_dkv"), ("silu_fwd", silu_vjp, "launches"),
     ("silu_bwd", silu_vjp, "launches_bwd"), ("flce_stats", flce, "launches"), ("flce_dz", flce, "launches_dz"),
-    ("flce_dx", flce, "launches_dx"), ("flce_dw", flce, "launches_dw")]
+    ("flce_dx", flce, "launches_dx"), ("flce_dw", flce, "launches_dw"),
+    ("flash_diffusion_fwd", flash_diffusion, "launches"), ("flash_diffusion_dq", flash_diffusion, "launches_dq"),
+    ("flash_diffusion_dkv", flash_diffusion, "launches_dkv")]
 
 
 def reset_launch_counts() -> None:

@@ -6,12 +6,13 @@ skips the pages outside the window, as the JAX tier's does,
 ``backends/pallas/operators/attention.py:321-386``), and the dense ops of
 the training path on kernel J (``csrc/flash_swa.cu``): ``CudaSWA``,
 ``CudaSdpa`` and ``CudaPrefillGQA`` run J's forward under its autograd
-Function, so they carry gradients. The KV-dequant ops take no
-``compute_dtype=torch.int8``, no ``query_scale`` and no ``mask`` here:
-those raise, they do not fall back to the golden. Two routes take the
-golden, each counted in its class's ``golden_calls``: a non-causal
-windowed decode, as in JAX (:339-343), and ``CudaSdpa``'s masked call (see
-its docstring), a port gap until the diffusion kernel lands."""
+Function, so they carry gradients; ``CudaSdpa`` with a bool mask runs
+kernel O (``csrc/flash_diffusion.cu``) under its own. The KV-dequant ops
+take no ``compute_dtype=torch.int8``, no ``query_scale`` and no ``mask``
+here: those raise, they do not fall back to the golden. Two routes take
+the golden, as in JAX, each counted in its class's ``golden_calls``: a
+non-causal windowed decode (:339-343) and ``CudaSdpa``'s additive float
+mask (:134-149)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Optional
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda.functions.attention import flash_attention
+from mojo_opset_tpu_torch.backends.cuda.functions.diffusion_attention import diffusion_attention
 from mojo_opset_tpu_torch.backends.cuda.kernels.flash_swa import flash_swa_bwd, flash_swa_fwd
 from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import paged_decode_gqa
 from mojo_opset_tpu_torch.backends.cuda.kernels.paged_prefill import paged_prefill_gqa
@@ -211,18 +213,17 @@ class CudaSWA(MojoSWA):
 class CudaSdpa(MojoSdpa):
     """A maskless call runs on J as B equal-length non-causal sequences, the
     leading dims flattened into B (the JAX tier's varlen route,
-    ``backends/pallas/operators/attention.py:169-187``). A masked call takes
-    the golden, as the JAX tier's does (:134-149): J takes no arbitrary mask,
-    which is the diffusion kernel's job (``flash_diffusion``, not ported
-    yet). This route runs golden math on card tensors, so it is a port gap,
-    not a tier choice: it goes, with ``golden_calls``, when that kernel is
-    ported. ``golden_calls`` counts those calls, so a run can show its path
-    never took them."""
+    ``backends/pallas/operators/attention.py:169-187``). A bool mask that
+    broadcasts to (..., Hq, Lq, Lk) runs on kernel O, the leading dims
+    flattened into B and the mask passed as a broadcast view (never
+    materialized); a row whose mask keeps no key gives NaN, as the golden's
+    softmax does. An additive float mask takes the golden, as the JAX tier's
+    does (:134-149), counted in ``golden_calls``."""
 
     golden_calls = 0
 
     def forward(self, query, key, value, attn_mask=None):
-        if attn_mask is not None:
+        if attn_mask is not None and attn_mask.dtype != torch.bool:
             CudaSdpa.golden_calls += 1
             return super().forward(query, key, value, attn_mask)
         *lead, Hq, Lq, D = query.shape
@@ -232,11 +233,16 @@ class CudaSdpa(MojoSdpa):
         if value.shape != key.shape or key.shape[:-3] != query.shape[:-3]:
             raise ValueError(f"k and v must share one shape with q's leading dims, got {tuple(key.shape)}, "
                              f"{tuple(value.shape)} for q {tuple(query.shape)}")
+        B = math.prod(lead)
+        if attn_mask is not None:
+            mask = attn_mask.expand(*lead, Hq, Lq, Lk).reshape(B, Hq, Lq, Lk)
+            out = diffusion_attention(query.reshape(B, Hq, Lq, D), key.reshape(B, Hkv, Lk, D),
+                                      value.reshape(B, Hkv, Lk, D), mask, self.scale, float("nan"), True)
+            return out.reshape(query.shape)
 
         def pack(x):  # (..., H, L, D) -> (B * L, H, D)
             return x.reshape(-1, *x.shape[-3:]).transpose(1, 2).reshape(-1, x.shape[-3], x.shape[-1])
 
-        B = math.prod(lead)
         out = flash_attention(pack(query), pack(key), pack(value), _cu_uniform(B, Lq, query.device),
                               _cu_uniform(B, Lk, query.device), False, None, None, self.scale, "AABB")
         return out.reshape(B, Lq, Hq, D).transpose(1, 2).reshape(query.shape)

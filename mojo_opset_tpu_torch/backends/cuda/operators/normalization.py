@@ -13,8 +13,11 @@ from mojo_opset_tpu_torch.core.operators.normalization import MojoRMSNorm, MojoR
 
 
 class CudaRMSNorm(MojoRMSNorm):
+    """A weight in another dtype (the Wan DiT's bf16 cast) reaches A in fp32,
+    as the golden reads it."""
+
     def forward(self, hidden_state: torch.Tensor) -> torch.Tensor:
-        return rmsnorm(hidden_state, self.weight, self.variance_epsilon)
+        return rmsnorm(hidden_state, self.weight.float(), self.variance_epsilon)
 
 
 class CudaRMSNormQuant(MojoRMSNormQuant):

@@ -1,4 +1,4 @@
-from mojo_opset_tpu_torch.core.operators.activation import MojoSilu
+from mojo_opset_tpu_torch.core.operators.activation import MojoGelu, MojoSilu
 from mojo_opset_tpu_torch.core.operators.attention import (
     MojoDecodeGQA,
     MojoPagedDecodeGQA,
@@ -28,7 +28,7 @@ from mojo_opset_tpu_torch.core.operators.moe import (
     MojoMoEGating,
     count_expert_tokens,
 )
-from mojo_opset_tpu_torch.core.operators.normalization import MojoRMSNorm, MojoRMSNormQuant
+from mojo_opset_tpu_torch.core.operators.normalization import MojoLayerNorm, MojoRMSNorm, MojoRMSNormQuant
 from mojo_opset_tpu_torch.core.operators.position_embedding import (
     MojoApplyRoPE,
     MojoRotaryEmbedding,
@@ -51,9 +51,11 @@ __all__ = [
     "MojoDynamicQuant",
     "MojoEmbedding",
     "MojoExperts",
+    "MojoGelu",
     "MojoGemm",
     "MojoGroupGemm",
     "MojoJoinProbRejectSampling",
+    "MojoLayerNorm",
     "MojoMoE",
     "MojoMoECombine",
     "MojoMoEDispatch",

@@ -1,10 +1,11 @@
-"""RMSNorm and RMSNorm + per-token quant (counterpart of the JAX package's
-``core/operators/normalization.py``: ``MojoRMSNorm`` :90,
+"""LayerNorm, RMSNorm and RMSNorm + per-token quant (counterpart of the JAX
+package's ``core/operators/normalization.py``: ``_layer_norm`` :47,
+``MojoLayerNorm`` :70, ``MojoRMSNorm`` :90,
 ``MojoRMSNormQuant`` :130, helpers ``_quant_range`` :27 and
 ``_dynamic_quant`` :61).
 
-Statistics in fp32, result cast back to the input dtype. The weight is
-fp32, as the JAX op creates it.
+Statistics in fp32, result cast back to the input dtype. The weights are
+fp32 unless ``dtype`` says otherwise, as the JAX ops create them.
 """
 
 from __future__ import annotations
@@ -26,6 +27,21 @@ def _rms_norm_f32(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Te
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """``(x * rsqrt(mean(x^2) + eps)) * w`` in fp32, cast to x's dtype."""
     return _rms_norm_f32(x, weight, eps).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               eps: float) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps)`` (biased variance) in fp32, times
+    ``weight`` and plus ``bias`` where given, cast to x's dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        normed = normed * weight.float()
+    if bias is not None:
+        normed = normed + bias.float()
+    return normed.to(x.dtype)
 
 
 def quant_range(quant_dtype: torch.dtype, symmetric: bool = True) -> tuple[float, float]:
@@ -53,6 +69,29 @@ def rms_norm_quant(
     scale = normed.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) / q_max
     q = torch.round(normed / scale).clamp(q_min, q_max).to(torch.int8)
     return q, scale
+
+
+class MojoLayerNorm(MojoOperator):
+    def __init__(self, norm_size: int, eps: float = 1e-5, elementwise_affine: bool = True, *, device=None,
+                 dtype=None):
+        super().__init__()
+        self.norm_size = norm_size
+        self.elementwise_affine = elementwise_affine
+        self.variance_epsilon = eps
+        dtype = dtype or torch.float32
+        if elementwise_affine:
+            self.weight = nn.Parameter(torch.ones((norm_size,), device=device, dtype=dtype), requires_grad=False)
+            self.bias = nn.Parameter(torch.zeros((norm_size,), device=device, dtype=dtype), requires_grad=False)
+        else:
+            self.weight = self.bias = None
+
+    def forward(self, hidden_state: torch.Tensor) -> torch.Tensor:
+        """LayerNorm over the last dim; same shape/dtype as input."""
+        return layer_norm(hidden_state, self.weight, self.bias, self.variance_epsilon)
+
+    def extra_repr(self) -> str:
+        return (f"norm_size={self.norm_size}, variance_epsilon={self.variance_epsilon}, "
+                f"elementwise_affine={self.elementwise_affine}")
 
 
 class MojoRMSNorm(MojoOperator):

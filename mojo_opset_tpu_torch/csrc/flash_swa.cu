@@ -38,22 +38,15 @@
 //     partial buffer (the TPU kernel's (hq, Tk, D) fp32 partials, summed
 //     outside, :440-452). KR is 64 keys for D <= 128 and 32 for D = 256,
 //     which keeps two (rows x D/8) accumulators in registers.
+// The tiling, staging and products are csrc/flash_tiles.cuh's, shared with
+// kernel O; this file keeps the sequence and window arithmetic.
 #include <climits>
 
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRows = 64;   // rows of a forward / dq block
-constexpr int kTR = 4;      // rows per thread there
-constexpr int kCG = 8;      // threads sharing a row group (adjacent lanes)
-constexpr int kBK = 32;     // keys per staged tile (forward / dq); query tokens per tile (dk/dv)
-constexpr int kTC = kBK / kCG;  // score columns per thread
-constexpr int kSS = kBK + 1;    // padded row stride of P / dS
-constexpr float kEmptyLse = 1e30f;
-
-static_assert(kRows == kTR * kThreads / kCG, "thread tiling must cover the rows");
+using namespace mojo_flash;
 
 struct SwaArgs {
   const int* cu_q;
@@ -115,33 +108,6 @@ __device__ __forceinline__ void swa_key_meta(int j, const SwaArgs& a, int& seg, 
     lo = max(lo, kpos - off);
     if (a.lws >= 0 && a.gws < 0) hi = min(hi, kpos + a.lws - off + 1);
   }
-}
-
-// Stage rows [r0, r0 + n) of head `head` of x (T, H, D) into s (rows x QS
-// floats, times mul), zero past n or past `limit` rows in total.
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(float* s, const T* __restrict__ x, int r0, int n, int limit, int H,
-                                           int head, float mul) {
-  constexpr int QS = D + 1;
-  constexpr int VE = 16 / static_cast<int>(sizeof(T));
-  for (int i = threadIdx.x; i < n * (D / VE); i += kThreads) {
-    const int r = i % n;
-    const int d0 = (i / n) * VE;
-    float f[VE];
-    if (r0 + r < limit) {
-      mojo_load_row<T, VE>(x + (static_cast<int64_t>(r0 + r) * H + head) * D + d0, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VE; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VE; ++e) s[r * QS + d0 + e] = f[e] * mul;
-  }
-}
-
-template <int D>
-constexpr int rows_smem_floats(int big_rows, int big_tiles, int small_rows, int small_tiles) {
-  return big_tiles * big_rows * (D + 1) + small_tiles * small_rows * (D + 1) + kRows * kSS;
 }
 
 // -- forward --------------------------------------------------------------------
@@ -218,67 +184,22 @@ flash_swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       key_seg[tid] = seg;
       key_pos[tid] = kpos;
     }
-    stage_rows<T, D>(k_s, k, j0, kBK, k_hi, a.hkv, kvh, 1.f);
-    stage_rows<T, D>(v_s, v, j0, kBK, k_hi, a.hkv, kvh, 1.f);
+    stage_rows<T, D>(k_s, k + kvh * D, j0, kBK, k_hi, static_cast<int64_t>(a.hkv) * D, 1.f);
+    stage_rows<T, D>(v_s, v + kvh * D, j0, kBK, k_hi, static_cast<int64_t>(a.hkv) * D, 1.f);
     __syncthreads();
 
-    float s[kTR][kTC];
+    float s[kTR][kTC] = {};
+    tile_scores<D, kTR>(s, q_s, k_s, rg, cg);
 #pragma unroll
     for (int i = 0; i < kTR; ++i)
 #pragma unroll
-      for (int c = 0; c < kTC; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kTR], kv[kTC];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) qv[i] = q_s[(rg * kTR + i) * QS + d];
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) kv[c] = k_s[(cg + kCG * c) * QS + d];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i)
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) s[i][c] += qv[i] * kv[c];
-    }
-
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
       for (int c = 0; c < kTC; ++c) {
         const int jj = cg + kCG * c;
-        s[i][c] = swa_keep(row_seg[i], row_abs[i], key_seg[jj], key_pos[jj], a) ? s[i][c] : -INFINITY;
-        mx = fmaxf(mx, s[i][c]);
+        if (!swa_keep(row_seg[i], row_abs[i], key_seg[jj], key_pos[jj], a)) s[i][c] = -INFINITY;
       }
-#pragma unroll
-      for (int off = 1; off < kCG; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) {
-        const float p = m_new == -INFINITY ? 0.f : expf(s[i][c] - m_new);
-        p_s[(rg * kTR + i) * kSS + cg + kCG * c] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 1; off < kCG; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
+    online_softmax<D>(s, m, l, acc, p_s, rg, cg);
     __syncthreads();
-
-    for (int j = 0; j < kBK; ++j) {
-      float pv[kTR];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) pv[i] = p_s[(rg * kTR + i) * kSS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float vv = v_s[j * QS + cg + kCG * c];
-#pragma unroll
-        for (int i = 0; i < kTR; ++i) acc[i][c] += pv[i] * vv;
-      }
-    }
+    tile_accumulate<D, kTR>(acc, p_s, v_s, rg, cg);
   }
 
 #pragma unroll
@@ -383,36 +304,13 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       key_seg[tid] = seg;
       key_pos[tid] = kpos;
     }
-    stage_rows<T, D>(k_s, k, j0, kBK, k_hi, a.hkv, kvh, 1.f);
-    stage_rows<T, D>(v_s, v, j0, kBK, k_hi, a.hkv, kvh, 1.f);
+    stage_rows<T, D>(k_s, k + kvh * D, j0, kBK, k_hi, static_cast<int64_t>(a.hkv) * D, 1.f);
+    stage_rows<T, D>(v_s, v + kvh * D, j0, kBK, k_hi, static_cast<int64_t>(a.hkv) * D, 1.f);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T on this thread's 4 x 4 cells
-    float s[kTR][kTC], dp[kTR][kTC];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i)
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) s[i][c] = dp[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kTR], dov[kTR], kv[kTC], vv[kTC];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) {
-        qv[i] = q_s[(rg * kTR + i) * QS + d];
-        dov[i] = do_s[(rg * kTR + i) * QS + d];
-      }
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) {
-        kv[c] = k_s[(cg + kCG * c) * QS + d];
-        vv[c] = v_s[(cg + kCG * c) * QS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < kTR; ++i)
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) {
-          s[i][c] += qv[i] * kv[c];
-          dp[i][c] += dov[i] * vv[c];
-        }
-    }
+    // S = Q K^T and dP = dO V^T on this thread's 4 x 4 cells, then dS
+    float s[kTR][kTC] = {}, dp[kTR][kTC] = {};
+    tile_scores2<D, kTR>(s, dp, q_s, k_s, do_s, v_s, rg, cg);
 #pragma unroll
     for (int i = 0; i < kTR; ++i)
 #pragma unroll
@@ -420,22 +318,11 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int jj = cg + kCG * c;
         const bool keep = swa_keep(row_seg[i], row_abs[i], key_seg[jj], key_pos[jj], a);
         const float p = keep ? expf(s[i][c] - row_lse[i]) : 0.f;
-        ds_s[(rg * kTR + i) * kSS + jj] = p * (dp[i][c] - row_delta[i]);
+        s[i][c] = p * (dp[i][c] - row_delta[i]);
       }
+    store_cells<kTR>(ds_s, s, rg, cg);
     __syncthreads();
-
-    // dQ += dS K
-    for (int j = 0; j < kBK; ++j) {
-      float dsv[kTR];
-#pragma unroll
-      for (int i = 0; i < kTR; ++i) dsv[i] = ds_s[(rg * kTR + i) * kSS + j];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float kv = k_s[j * QS + cg + kCG * c];
-#pragma unroll
-        for (int i = 0; i < kTR; ++i) acc[i][c] += dsv[i] * kv;
-      }
-    }
+    tile_accumulate<D, kTR>(acc, ds_s, k_s, rg, cg);  // dQ += dS K
   }
 
 #pragma unroll
@@ -450,9 +337,6 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 }
 
 // -- dk / dv ----------------------------------------------------------------------
-
-template <int D>
-__host__ __device__ constexpr int dkv_rows() { return D >= 256 ? 32 : 64; }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -497,8 +381,8 @@ flash_swa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     key_seg[tid] = seg;
     key_pos[tid] = kpos;
   }
-  stage_rows<T, D>(k_s, k, key0, KR, a.Tk, a.hkv, kvh, 1.f);
-  stage_rows<T, D>(v_s, v, key0, KR, a.Tk, a.hkv, kvh, 1.f);
+  stage_rows<T, D>(k_s, k + kvh * D, key0, KR, a.Tk, static_cast<int64_t>(a.hkv) * D, 1.f);
+  stage_rows<T, D>(v_s, v + kvh * D, key0, KR, a.Tk, static_cast<int64_t>(a.hkv) * D, 1.f);
   __syncthreads();
 
   float dk_acc[TR][DC], dv_acc[TR][DC];
@@ -524,8 +408,8 @@ flash_swa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int g = 0; g < group; ++g) {
       const int h = swa_head(g, kvh, group, a);
       __syncthreads();  // q_s, do_s, p_s of the previous head are consumed
-      stage_rows<T, D>(q_s, q, t0, kBK, q_hi, a.hq, h, a.scale);
-      stage_rows<T, D>(do_s, dout, t0, kBK, q_hi, a.hq, h, 1.f);
+      stage_rows<T, D>(q_s, q + h * D, t0, kBK, q_hi, static_cast<int64_t>(a.hq) * D, a.scale);
+      stage_rows<T, D>(do_s, dout + h * D, t0, kBK, q_hi, static_cast<int64_t>(a.hq) * D, 1.f);
       if (tid < kBK) {
         const int t = t0 + tid;
         lse_s[tid] = t < q_hi ? lse[static_cast<int64_t>(t) * a.hq + h] : kEmptyLse;
@@ -534,32 +418,9 @@ flash_swa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       __syncthreads();
 
       // S^T = K Q^T and dP^T = V dO^T on this thread's TR keys x 4 query columns
-      float s[TR][kTC], dp[TR][kTC];
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) s[i][c] = dp[i][c] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float kv[TR], vv[TR], qv[kTC], dov[kTC];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) {
-          kv[i] = k_s[(rg * TR + i) * QS + d];
-          vv[i] = v_s[(rg * TR + i) * QS + d];
-        }
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) {
-          qv[c] = q_s[(cg + kCG * c) * QS + d];
-          dov[c] = do_s[(cg + kCG * c) * QS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < TR; ++i)
-#pragma unroll
-          for (int c = 0; c < kTC; ++c) {
-            s[i][c] += kv[i] * qv[c];
-            dp[i][c] += vv[i] * dov[c];
-          }
-      }
-      // P^T, and dS^T kept in s for after the dV product
+      float s[TR][kTC] = {}, dp[TR][kTC] = {};
+      tile_scores2<D, TR>(s, dp, k_s, q_s, v_s, do_s, rg, cg);
+      // P^T into p_s, and dS^T kept in s for after the dV product
 #pragma unroll
       for (int i = 0; i < TR; ++i)
 #pragma unroll
@@ -571,36 +432,11 @@ flash_swa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
           s[i][c] = p * (dp[i][c] - delta_s[tt]);
         }
       __syncthreads();
-      // dV += P^T dO
-      for (int tt = 0; tt < kBK; ++tt) {
-        float pv[TR];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) pv[i] = p_s[(rg * TR + i) * kSS + tt];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float dov = do_s[tt * QS + cg + kCG * c];
-#pragma unroll
-          for (int i = 0; i < TR; ++i) dv_acc[i][c] += pv[i] * dov;
-        }
-      }
+      tile_accumulate<D, TR>(dv_acc, p_s, do_s, rg, cg);  // dV += P^T dO
       __syncthreads();
-#pragma unroll
-      for (int i = 0; i < TR; ++i)
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) p_s[(rg * TR + i) * kSS + cg + kCG * c] = s[i][c];
+      store_cells<TR>(p_s, s, rg, cg);
       __syncthreads();
-      // dK += dS^T Q (q_s carries the softmax scale)
-      for (int tt = 0; tt < kBK; ++tt) {
-        float dsv[TR];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) dsv[i] = p_s[(rg * TR + i) * kSS + tt];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float qv = q_s[tt * QS + cg + kCG * c];
-#pragma unroll
-          for (int i = 0; i < TR; ++i) dk_acc[i][c] += dsv[i] * qv;
-        }
-      }
+      tile_accumulate<D, TR>(dk_acc, p_s, q_s, rg, cg);  // dK += dS^T Q (q_s carries the softmax scale)
     }
   }
 
@@ -619,12 +455,6 @@ flash_swa_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // -- launchers --------------------------------------------------------------------
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-}
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const SwaArgs& a,
@@ -664,23 +494,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// Run BODY with T bound to the dtype and D to the head dim; others fail.
-#define SWA_DISPATCH(dtype, hd, ...)                                   \
-  MOJO_DISPATCH_DTYPE(dtype, T, {                                      \
-    if (hd == 64) {                                                    \
-      constexpr int D = 64;                                            \
-      __VA_ARGS__;                                                     \
-    } else if (hd == 128) {                                            \
-      constexpr int D = 128;                                           \
-      __VA_ARGS__;                                                     \
-    } else if (hd == 256) {                                            \
-      constexpr int D = 256;                                           \
-      __VA_ARGS__;                                                     \
-    } else {                                                           \
-      return static_cast<int>(cudaErrorInvalidValue);                  \
-    }                                                                  \
-  })
-
 bool bad_args(int B, int hq, int hkv) {
   return B < 1 || hkv < 1 || hq % hkv != 0 || hq / hkv > kRows;
 }
@@ -705,7 +518,7 @@ extern "C" int mojo_flash_swa_fwd(const void* q, const void* k, const void* v, c
   const SwaArgs a = make_args(cu_q, cu_k, B, Tq, Tk, hq, hkv, scale, causal, lws, gws, abab);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  SWA_DISPATCH(dtype, hd, rc = (launch_fwd<T, D>(q, k, v, o, static_cast<float*>(lse), a, s)));
+  MOJO_FLASH_DISPATCH(dtype, hd, rc = (launch_fwd<T, D>(q, k, v, o, static_cast<float*>(lse), a, s)));
   return rc;
 }
 
@@ -718,7 +531,7 @@ extern "C" int mojo_flash_swa_dq(const void* q, const void* k, const void* v, co
   const SwaArgs a = make_args(cu_q, cu_k, B, Tq, Tk, hq, hkv, scale, causal, lws, gws, abab);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  SWA_DISPATCH(dtype, hd, rc = (launch_dq<T, D>(q, k, v, o, dout, static_cast<const float*>(lse), dq,
+  MOJO_FLASH_DISPATCH(dtype, hd, rc = (launch_dq<T, D>(q, k, v, o, dout, static_cast<const float*>(lse), dq,
                                                 static_cast<float*>(delta), a, s)));
   return rc;
 }
@@ -732,7 +545,7 @@ extern "C" int mojo_flash_swa_dkv(const void* q, const void* k, const void* v, c
   const SwaArgs a = make_args(cu_q, cu_k, B, Tq, Tk, hq, hkv, scale, causal, lws, gws, abab);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  SWA_DISPATCH(dtype, hd, rc = (launch_dkv<T, D>(q, k, v, dout, static_cast<const float*>(lse),
+  MOJO_FLASH_DISPATCH(dtype, hd, rc = (launch_dkv<T, D>(q, k, v, dout, static_cast<const float*>(lse),
                                                  static_cast<const float*>(delta), dk, dv, a, s)));
   return rc;
 }

@@ -15,10 +15,12 @@ from mojo_opset_tpu_torch.experimental.operators.mla import (
     MojoPagedPrefillMLA,
     MojoPrefillMLA,
 )
+from mojo_opset_tpu_torch.experimental.operators.position_embedding import MojoGridRoPE
 
 __all__ = [
     "MojoDecodeMLA",
     "MojoDequantFromPagedKVCache",
+    "MojoGridRoPE",
     "MojoPagedDecodeGQAWithKVDequant",
     "MojoPagedDecodeMLA",
     "MojoPagedDecodeSWAWithKVDequant",

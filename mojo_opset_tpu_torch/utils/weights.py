@@ -25,7 +25,14 @@ experts.up_proj_weight,experts.down_proj_weight}`` with
 the weights; its w8a8 twin (``state_dict_of(quantize_seed_oss(jax_model))``
 into ``SeedOssConfig(quant="w8a8")``) carries int8 projections and the
 floating-point ``layers.N.self_attn.{q,k,v,o}_bias`` leaves (``o_bias``
-only with ``attention_out_bias``).
+only with ``attention_out_bias``). A Wan DiT (``WanModel``) has the JAX
+package's module names: ``patch_weight``, ``patch_bias``,
+``{text,time}_{in,out}.{weight,bias}``, ``time_proj.*``,
+``blocks.N.{self_attn,cross_attn}.{q,k,v,o}.{weight,bias}``,
+``blocks.N.{self_attn,cross_attn}.norm_{q,k}.weight``,
+``blocks.N.norm3.{weight,bias}``, ``blocks.N.ffn_{in,out}.*``,
+``blocks.N.modulation``, ``head.head.*`` and ``head.modulation``; its complex
+RoPE table ``freqs`` is recomputed, not loaded.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch
 from torch import nn
 
 # buffers recomputed at construction, never loaded
-IGNORED_SUFFIXES = ("inv_freq",)
+IGNORED_SUFFIXES = ("inv_freq", "freqs")
 
 
 @torch.no_grad()

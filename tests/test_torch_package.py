@@ -28,6 +28,7 @@ import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
 from mojo_opset_tpu_torch.backends.cuda.functions import FlceVJP
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    flash_diffusion,
     flash_swa,
     flce,
     group_gemm,
@@ -46,16 +47,18 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
 from mojo_opset_tpu_torch.core.registry import BackendNotAvailable
 from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3Config, DeepseekV3ForCausalLM, MLARuntimeState
 from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM, Qwen3MoeConfig, Qwen3MoeForCausalLM
+from mojo_opset_tpu_torch.modeling.wan2_2 import WanConfig, WanModel
 from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, PagedAttentionRuntimeState
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-                  "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first", "flash_swa", "silu_vjp", "flce"]
+                  "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first", "flash_swa", "silu_vjp", "flce",
+                  "flash_diffusion"]
 # the counters of the entry points beside the single-entry modules' own
 MULTI_ENTRY = {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv", "silu_fwd", "silu_bwd", "flce_stats", "flce_dz",
-               "flce_dx", "flce_dw"}
+               "flce_dx", "flce_dw", "flash_diffusion_fwd", "flash_diffusion_dq", "flash_diffusion_dkv"}
 
 
 def test_import_loads_no_jax():
@@ -65,6 +68,8 @@ def test_import_loads_no_jax():
         "import mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3_moe, mojo_opset_tpu_torch.backends.cuda.kernels\n"
         "import mojo_opset_tpu_torch.modeling.deepseekv3, mojo_opset_tpu_torch.backends.cuda.operators.mla\n"
         "import mojo_opset_tpu_torch.modeling.seed_oss, mojo_opset_tpu_torch.backends.cuda.functions\n"
+        "import mojo_opset_tpu_torch.modeling.wan2_2, mojo_opset_tpu_torch.benchmark.dit_protocol\n"
+        "import mojo_opset_tpu_torch.experimental.functions\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
         " or m.startswith('mojo_opset_tpu.')]\n"
         "assert not bad, bad\n"
@@ -80,7 +85,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
         "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-        "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first", "flce"}
+        "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first", "flce", "flash_diffusion"}
 
 
 def _cpu_calls():
@@ -138,6 +143,10 @@ def _cpu_calls():
     options = (-100, 0.0, 0.0, "mean", None)
     yield ("flce", lambda: tm.MojoFusedLinearCrossEntropyFunction.get_backend_impl("cuda")()(xl, wl, tl),
            lambda: FlceVJP.apply(xl, wl, tl, options, flce.flce_stats_plain, flce.flce_backward_plain)[0])
+    qo, ko, mo = t(1, 4, 9, 64), t(1, 2, 9, 64), torch.from_numpy(rng.random((9, 9)) < 0.5)
+    yield ("flash_diffusion",
+           lambda: tm.MojoDiffusionAttentionFunction.get_backend_impl("cuda")()(qo, ko, ko, mo, 0.2, True),
+           lambda: flash_diffusion.flash_diffusion_fwd_plain(qo, ko, ko, mo, 0.2)[0])
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -148,7 +157,7 @@ def test_cuda_tier_on_cpu_runs_plain_version(case):
     if plain is not None:
         check_tol_diff(out, plain(), atol=0.0, rtol=0.0)
     counts = kernels.launch_counts()
-    assert set(counts) == (set(KERNEL_MODULES) - {"flash_swa", "silu_vjp", "flce"}) | MULTI_ENTRY
+    assert set(counts) == (set(KERNEL_MODULES) - {"flash_swa", "silu_vjp", "flce", "flash_diffusion"}) | MULTI_ENTRY
     assert set(counts.values()) == {0}, name
 
 
@@ -396,6 +405,10 @@ def test_entry_points_without_a_device_never_land_on_the_cpu(monkeypatch):
     assert session.caches.key(0).device.type == "cpu"
     model = Qwen3ForCausalLM(_tiny(), device="cpu")
     assert PagedAttentionRuntimeState.from_model(model, 1).device.type == "cpu"
+    wan = dict(dim=32, ffn_dim=64, num_heads=2, num_layers=1, text_dim=16, freq_dim=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WanModel(WanConfig(**wan))
+    assert WanModel(WanConfig(**wan), device="cpu").patch_weight.device.type == "cpu"
 
 
 def test_dispatch_follows_mojo_backend(monkeypatch):
@@ -462,3 +475,35 @@ def test_random_init_is_seeded_and_scaled():
     w = a.model.layers[0].mlp.down_proj.weight
     assert w.abs().max() <= 1 / math.sqrt(64)
     assert torch.equal(a.model.norm.weight, torch.ones(32))
+
+
+def test_flash_diffusion_never_falls_back_and_rejects_what_it_does_not_take(monkeypatch):
+    """Kernel O's wrappers send a tensor off the CPU to the kernel (without a
+    build they raise, the masked CudaSdpa and the Function too) and refuse
+    what it does not take before building."""
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    mask = torch.empty(9, 9, device="meta", dtype=torch.bool)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_diffusion.flash_diffusion_fwd(meta(1, 4, 9, 32), meta(1, 2, 9, 32), meta(1, 2, 9, 32), mask)
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_diffusion.flash_diffusion_fwd(meta(1, 3, 9, 64), meta(1, 2, 9, 64), meta(1, 2, 9, 64), mask)
+    with pytest.raises(ValueError, match="share one dtype"):
+        flash_diffusion.flash_diffusion_fwd(meta(1, 4, 9, 64), meta(1, 2, 9, 64, dtype=torch.float16),
+                                            meta(1, 2, 9, 64, dtype=torch.float16), mask)
+    with pytest.raises(ValueError, match="bool keep-mask"):
+        flash_diffusion.flash_diffusion_fwd(meta(1, 4, 9, 64), meta(1, 2, 9, 64), meta(1, 2, 9, 64),
+                                            meta(9, 9, dtype=torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_diffusion.flash_diffusion_fwd(meta(1, 9, 4, 64).transpose(1, 2), meta(1, 2, 9, 64),
+                                            meta(1, 2, 9, 64), mask)
+    with pytest.raises(ValueError, match="lse and delta"):
+        flash_diffusion.flash_diffusion_dq(meta(1, 4, 9, 64), meta(1, 2, 9, 64), meta(1, 2, 9, 64),
+                                           meta(1, 4, 9, 64), meta(1, 4, 9, 64), meta(1, 4, 9), mask)
+    monkeypatch.setattr(build, "load_library", lambda: (_ for _ in ()).throw(RuntimeError("no kernels built")))
+    q, kv = meta(1, 4, 9, 64), meta(1, 2, 9, 64)
+    for call in (lambda: flash_diffusion.flash_diffusion_fwd(q, kv, kv, mask),
+                 lambda: tm.MojoSdpa.get_backend_impl("cuda")(enable_gqa=True)(q, kv, kv, mask),
+                 lambda: tm.MojoDiffusionAttentionFunction.get_backend_impl("cuda")()(q, kv, kv, mask, 0.1, True)):
+        with pytest.raises(RuntimeError, match="no kernels built"):
+            call()
+    assert flash_diffusion.launches == flash_diffusion.launches_dq == flash_diffusion.launches_dkv == 0
