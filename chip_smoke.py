@@ -7,8 +7,9 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the fifteen kernel sources from ``mojo_opset_tpu_torch/csrc``
-     (one nvcc per source, all at once, then one link).
+  2. build: compiles the seventeen kernels' sources (sixteen files: A and P
+     share ``rmsnorm.cu``) from ``mojo_opset_tpu_torch/csrc`` (one nvcc per
+     source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
      Float outputs hold to the dtype's tolerance (utils/acc.py ladder);
@@ -67,10 +68,23 @@ is non-zero:
      FLASH_DIFFUSION_REL_LIMITS; empty rows' o exactly 0 (or NaN) and dq 0,
      unkept keys' dk and dv 0; dq, dk, dv bit for bit over two runs; the
      main cases beside SDPA with the bool mask and its eager backward.
+     Kernel P (residual add + RMSNorm, pre and post) at Qwen3-4B's prefill
+     rows and the JAX perf shapes 4096 x 4096 and 8192 x 8192 in bf16, then
+     fp16, fp32, an fp32 residual beside bf16 rows, odd T and D, T = 1 and a
+     misaligned view; kernel Q (causal conv1d forward and backward) at the
+     conv Function's benchmark shape (B 8, T 8192, D 2048, W 4, SiLU, bf16,
+     fp32 weight and bias) and T 2048, JAX's test matrix (W 1, 3, 4, 8, a
+     chunk shorter than the window, odd T, no bias, a state), fp16, D not a
+     multiple of 128, W 16 and a misaligned view, refusing W 17; each output
+     to its ladder and, relative to its size, to SLICE_E_REL_LIMITS; Q's dx,
+     dw, db bit for bit over two runs.
      Every main case is timed replayed from a CUDA graph (``ms``: device
      time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
      3.35 TB/s or operations over the dtype's peak, the larger) and, where
-     one PyTorch call computes the same function, that call's time.
+     one PyTorch call computes the same function, that call's time (C: SDPA
+     over the pages gathered beforehand; D: SDPA over the padded prompt rows
+     with a causal + padding mask; P: the add and F.rms_norm, two calls; Q:
+     depthwise F.conv1d with bias, no SiLU, and its autograd backward).
   4. small fp32 Qwen3 (4 layers, hidden 512, 8/2 heads, head_dim 128,
      vocab 4096), a small fp32 Seed-OSS of the same widths (q/k/v biases),
      a small fp32 Qwen3-MoE of the same widths (16 experts,
@@ -189,6 +203,20 @@ is non-zero:
      once a call) against the ref tier's autograd of the golden, o, dq, dk,
      dv relative to their size (DIFFUSION_GOLDEN_REL_LIMITS); fwd + bwd ms
      and peak memory of each tier.
+ 14. MojoResidualAddRMSNorm built through dispatch (CudaResidualAddRMSNorm,
+     kernel P) against the ref tier on the same tensors at (1650, 2560),
+     4096 x 4096 and 8192 x 8192 in bf16, pre and post: P launches once a
+     call and nothing else; both outputs to the bf16 ladder and relative to
+     their size (RESIDUAL_ADD_GOLDEN_REL_LIMITS), cosine printed; ms per call on P
+     and on the golden.
+ 15. MojoCausalConv1dFunction forward + backward at the conv Function's
+     benchmark shape, the cuda tier (kernel Q) against the ref tier's
+     autograd of the golden, with an initial state and output_final_state,
+     and with a residual: out, the final state, dx, dw, db, dstate and
+     dresidual relative to their size (CONV_GOLDEN_REL_LIMITS); Q's
+     forward and backward once a call; fwd + bwd ms and peak memory of each
+     tier; one cu_seqlens call takes the golden, the only one counted in
+     golden_calls.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -301,6 +329,13 @@ KERNEL_INFO = {
                            "mojo_opset_tpu/backends/pallas/kernels/diffusion_vjp.py:227"),
     "flash_diffusion_dkv": ("flash_diffusion_dkv", "mojo_opset_tpu_torch/csrc/flash_diffusion.cu",
                             "mojo_opset_tpu/backends/pallas/kernels/diffusion_vjp.py:252"),
+    "residual_add_rmsnorm": ("residual_add_rmsnorm", "mojo_opset_tpu_torch/csrc/rmsnorm.cu",
+                             "mojo_opset_tpu/backends/pallas/kernels/norms.py:82"),
+    # kernel Q's two entry points replace conv1d_train's two pallas_calls
+    "conv1d_fwd": ("conv1d_train_fwd", "mojo_opset_tpu_torch/csrc/conv1d.cu",
+                   "mojo_opset_tpu/backends/pallas/kernels/conv1d_vjp.py:149"),
+    "conv1d_bwd": ("conv1d_train_bwd", "mojo_opset_tpu_torch/csrc/conv1d.cu",
+                   "mojo_opset_tpu/backends/pallas/kernels/conv1d_vjp.py:188"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
 MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
@@ -408,6 +443,28 @@ WAN_COSINE_BOUND = 0.999
 # the small fp32 twin check of phase 12: 2 layers, 2 heads of 128
 WAN_SMALL = dict(model_type="ti2v", patch_size=(1, 2, 2), text_len=32, in_dim=16, dim=256, ffn_dim=512, freq_dim=64,
                  text_dim=128, out_dim=16, num_heads=2, num_layers=2)
+# kernel P: the JAX package's perf shapes for the residual-add norm (tests/perf_new/operators/normalization.py:8-14,
+# :45-57: T x D of 4096 x 4096 and 8192 x 8192 in bf16) and Qwen3-4B's prefill rows, beside kernel A's
+RESIDUAL_ADD_SHAPES = ((sum(PROMPT_LENS), 2560), (4096, 4096), (8192, 8192))
+# kernel Q: the conv Function's benchmark shape (tools/bench_training_functions.py:146-150: B 8, T 8192, D 2048,
+# W 4, SiLU, bf16 rows with an fp32 weight and bias) and the perf descriptor's (tests/perf_new/functions/
+# convolution.py:13: T 2048)
+CONV_B, CONV_T, CONV_D, CONV_W = 8, 8192, 2048, 4
+CONV_PERF_T = 2048
+# kernels P and Q against their plain versions, each output relative to its own size as K's, L's and M's are (whole
+# tensor, worst row of the last dim; floor FLASH_SWA_REL_FLOOR): both versions compute in fp32 and round once, so
+# they part by an ulp at a few elements, and Q's fp32 dw and db by their sums' order. The run that set them read at
+# most 2.23e-5 / 1.03e-3 in bf16 (Q's forward at W 16; its forward at the benchmark shape), 6.9e-6 / 7.3e-5 in fp16
+# (Q's forward) and 3.6e-7 / 3.6e-7 in fp32 (Q's dw and db) (PERF.md, section 6): each limit leaves 5.6-7x
+SLICE_E_REL_LIMITS = {"bf16": (1.5e-4, 6e-3), "fp16": (4e-5, 5e-4), "fp32": (2e-6, 2.5e-6)}
+# phase 14: CudaResidualAddRMSNorm (P) against the golden on the same tensors, each output relative to its own size
+# (whole, worst row): the golden rounds the sum to bf16 before the norm, P keeps it in fp32. The run that set them
+# read 2.8e-3 / 3.15e-3 at every shape, so these leave 6x
+RESIDUAL_ADD_GOLDEN_REL_LIMITS = (1.7e-2, 2e-2)
+# phase 15: the cuda tier of MojoCausalConv1dFunction (Q) against the ref tier's autograd of the golden (F.conv1d in
+# fp32, no TF32), as above: both compute in fp32 and round once to bf16 where the output is bf16. The run that set
+# them read at most 1.5e-5 / 5.6e-4 (out), so these leave 6-7x
+CONV_GOLDEN_REL_LIMITS = (1e-4, 3.5e-3)
 
 
 def log(phase: str, msg: str) -> None:
@@ -497,6 +554,17 @@ def _tables(torch, lens, bs, n_cols, n_blocks, gen):
 
 def _cu(torch, lens):
     return torch.tensor(np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32, device="cuda")
+
+
+def _dense_pages(torch, cache, table, lens, layout):
+    """The pages of each sequence gathered into (B, Hkv, max(lens), D), zero-padded past its length's page."""
+    S = max(lens)
+    cols = -(-S // BLOCK_SIZE)
+    pages = cache[table[:, :cols].clamp(min=0).long()]  # (B, cols, bs, Hkv, D) NHD, (B, cols, Hkv, bs, D) HND
+    if layout == "HND":
+        pages = pages.transpose(2, 3)
+    B, _, bs, hkv, d = pages.shape
+    return pages.reshape(B, cols * bs, hkv, d)[:, :S].transpose(1, 2).contiguous()
 
 
 def bound_ms(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -605,11 +673,19 @@ def phase_kernels(torch) -> dict:
         bt = _tables(torch, lens, BLOCK_SIZE, 69, n_blocks, gen)
         sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(dtype)
+        lib = None
+        if main:  # SDPA over the K/V pages gathered beforehand (the gather left out), a length mask on the keys
+            k_dense, v_dense = (_dense_pages(torch, cache, bt, lens, layout) for cache in (kc, vc))
+            mask = (torch.arange(max(lens), device="cuda") < sl[:, None])[:, None, None]
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q[:, :, None], k_dense, v_dense, attn_mask=mask, enable_gqa=True)
+            check_tol_diff(lib()[:, :, 0], paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, scale, gqa, layout),
+                           **tols_for(dtype))  # the library call computes the same function
         compare("paged_decode",
                 lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, scale, gqa, layout),
                 lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, scale, gqa, layout),
                 dtype, f"decode {layout} {gqa} {hq}/{hkv}x{d} lens={lens} scale={scale}", main,
-                bound=attn_bound(dtype, hq, hkv, d, len(lens), lens, sum(lens), kc.element_size()))
+                bound=attn_bound(dtype, hq, hkv, d, len(lens), lens, sum(lens), kc.element_size()), library=lib)
     del kc, vc
     int8_cases = [(bf16, "AABB", H, Hkv, D, dec_lens, True),
                   (bf16, "ABAB", H, Hkv, D, [0, 1, 64, 65], False),
@@ -641,13 +717,31 @@ def phase_kernels(torch) -> dict:
         bt = _tables(torch, kv_lens, BLOCK_SIZE, 69, n_blocks, gen)
         cu_q, cu_kv = _cu(torch, q_lens), _cu(torch, kv_lens)
         q = torch.randn(sum(q_lens), hq, d, device="cuda", generator=gen).to(dtype)
+        lib = None
+        if main:  # SDPA over the padded prompt rows (q = kv here) and the pages gathered beforehand, causal + padding
+            S = max(kv_lens)
+            k_dense, v_dense = (_dense_pages(torch, cache, bt, kv_lens, layout) for cache in (kc, vc))
+            lens_t = torch.tensor(q_lens, device="cuda")
+            at = (torch.repeat_interleave(torch.arange(len(q_lens), device="cuda"), lens_t),
+                  torch.cat([torch.arange(n, device="cuda") for n in q_lens]))
+            q_pad = q.new_zeros(len(q_lens), S, hq, d)
+            q_pad[at] = q
+            q_pad = q_pad.transpose(1, 2).contiguous()
+            pos = torch.arange(S, device="cuda")
+            # (B, 1, S, S): a key is seen at or below the row and inside its sequence
+            mask = ((pos[None, :] <= pos[:, None])[None] & (pos < lens_t[:, None])[:, None])[:, None]
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q_pad, k_dense, v_dense, attn_mask=mask, enable_gqa=True)
+            check_tol_diff(lib().transpose(1, 2)[at],
+                           paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
+                           **tols_for(dtype))  # the library call computes the same function
         compare("paged_prefill",
                 lambda: paged_prefill.paged_prefill_gqa(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout,
                                                         max_q_len=max(q_lens)),
                 lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
                 dtype, f"prefill {layout} {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens} scale={scale}", main,
                 bound=attn_bound(dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
-                                 kc.element_size()))
+                                 kc.element_size()), library=lib)
     del kc, vc
     int8_cases = [(bf16, "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), True),
                   (bf16, "ABAB", H, Hkv, D, [5, 0, 1, 40], [69, 0, 9, 40], False),
@@ -817,6 +911,8 @@ def phase_kernels(torch) -> dict:
     _train_kernel_cases(torch, compare, gen)
     _flce_cases(torch, compare, gen)
     _flash_diffusion_cases(torch, compare, gen)
+    _residual_add_cases(torch, compare, gen)
+    _conv1d_cases(torch, compare, gen)
     return record
 
 
@@ -1225,28 +1321,13 @@ def _train_kernel_cases(torch, compare, gen) -> None:
     from mojo_opset_tpu_torch.backends.cuda.kernels import rmsnorm_vjp as kv
     from mojo_opset_tpu_torch.backends.cuda.kernels import rope_head_first as rh
     from mojo_opset_tpu_torch.backends.cuda.kernels import silu_vjp as sv
-    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     eps, hidden, inter, H, Hkv, D = 1e-6, 2560, 9728, 32, 8, 128
     t_all = time.perf_counter()
 
     def checker(*dtypes):
-        """The dtype ladder, then the relative limits, output by output."""
-        def check(got, want):
-            got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
-            notes = []
-            for g, w, dt in zip(got, want, dtypes):
-                check_tol_diff(g, w, **tols_for(dt))
-                whole, row, rms = rel_errors(g, w)
-                limit = TRAIN_KERNEL_REL_LIMITS[_kind(torch, dt)]
-                if not (whole <= limit[0] and row <= limit[1]):
-                    raise AssertionError(f"relative error {whole:.3g} (worst row {row:.3g}) over limit {limit} for "
-                                         f"an output of RMS {rms:.3g}")
-                notes.append(f"{tols_for(dt)}, relative {whole:.3g}, worst row {row:.3g} (limit {limit}), "
-                             f"rms {rms:.3g}")
-            return " / ".join(notes)
-        return check
+        return _rel_checker(torch, TRAIN_KERNEL_REL_LIMITS, *dtypes)
 
     def rand(*shape, dtype, offset=0):
         """Unit-normal values of ``dtype``; ``offset`` elements into a flat buffer, so the data is not 16-byte
@@ -2779,6 +2860,268 @@ def phase_diffusion_function(torch, card: str) -> dict:
     return counts
 
 
+def _rel_checker(torch, limits: dict, *dtypes):
+    """A ``compare`` check: each output of the dtype's type and shape, to its dtype's ladder, then relative to its
+    size to ``limits`` (by operand kind: whole tensor, worst row)."""
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    def check(got, want):
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        notes = []
+        for g, w, dt in zip(got, want, dtypes):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"output {g.dtype} {tuple(g.shape)} against {w.dtype} {tuple(w.shape)}")
+            check_tol_diff(g, w, **tols_for(dt))
+            whole, row, rms = rel_errors(g, w)
+            limit = limits[_kind(torch, dt)]
+            if not (whole <= limit[0] and row <= limit[1]):
+                raise AssertionError(f"relative error {whole:.3g} (worst row {row:.3g}) over limit {limit} for an "
+                                     f"output of RMS {rms:.3g}")
+            notes.append(f"{tols_for(dt)}, relative {whole:.3g}, worst row {row:.3g} (limit {limit}), rms {rms:.3g}")
+        return " / ".join(notes)
+    return check
+
+
+def _residual_add_cases(torch, compare, gen) -> None:
+    """P: residual add + RMSNorm, pre and post, against its plain version on the same inputs: at Qwen3-4B's prefill
+    rows and the JAX perf shapes in bf16 (main: timed from a CUDA graph beside its bound and F.rms_norm after the
+    add, two calls), then fp16 and fp32, an fp32 residual beside bf16 rows, odd T and D, T = 1 and a misaligned
+    view. Outputs to the dtype ladder and to SLICE_E_REL_LIMITS, their dtypes to the golden's."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import norms
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    t0 = time.perf_counter()
+    cases = [(shape, bf16, bf16, pos, True, 0) for shape in RESIDUAL_ADD_SHAPES for pos in ("pre", "post")]
+    cases += [((4096, 4096), f16, f16, "pre", False, 0), ((4096, 4096), f32, f32, "post", False, 0),
+              ((4096, 4096), bf16, f32, "pre", False, 0), ((4096, 4096), bf16, f32, "post", False, 0),
+              ((1000, 1000), bf16, bf16, "pre", False, 0), ((1000, 1000), f16, f32, "post", False, 0),
+              ((1, 2560), bf16, bf16, "post", False, 0), ((1, 100), f32, f32, "pre", False, 0),
+              ((37, 512), bf16, bf16, "pre", False, 1), ((64, 128), bf16, f32, "post", False, 3),
+              ((300, 7168), bf16, bf16, "post", False, 0), ((5, 33), f16, f16, "pre", False, 0)]
+    for (T, D), dtype, rdtype, pos, main, offset in cases:
+        h = torch.randn(T * D + offset, device="cuda", generator=gen).to(dtype)[offset:].view(T, D)
+        r = torch.randn(T, D, device="cuda", generator=gen).to(rdtype)
+        w = torch.rand(D, device="cuda", generator=gen) + 0.5
+        w_lib = w.to(dtype)
+        res_dtype = torch.result_type(h, r) if pos == "pre" else dtype
+        n, isz = T * D, h.element_size()
+        bound = (n * (2 * isz + r.element_size() + torch.finfo(res_dtype).bits // 8) + 4 * D, 6 * n, "fp32")
+        compare("residual_add_rmsnorm", lambda: norms.residual_add_rmsnorm(h, r, w, 1e-6, pos),
+                lambda: norms.residual_add_rmsnorm_plain(h, r, w, 1e-6, pos), dtype,
+                f"residual_add_rmsnorm ({T}, {D}) {pos} residual {str(rdtype).split('.')[-1]}"
+                f"{' misaligned' if offset else ''}", main, key=f"{T}x{D}_{pos}",
+                check=_rel_checker(torch, SLICE_E_REL_LIMITS, dtype, res_dtype), bound=bound,
+                library=lambda: torch.nn.functional.rms_norm(h + r, (D,), w_lib, 1e-6))
+    log("kernel residual_add_rmsnorm", f"P's cases took {time.perf_counter() - t0:.1f} s; library_ms is two calls: "
+                                       f"the add, then F.rms_norm")
+
+
+def _conv1d_cases(torch, compare, gen) -> None:
+    """Q: the causal conv1d forward and backward, each against its plain version on the same inputs: at the conv
+    Function's benchmark shape (B 8, T 8192, D 2048, W 4, SiLU, bf16 rows, fp32 weight and bias) and the perf
+    descriptor's (T 2048) (main: timed from a CUDA graph beside the bound and depthwise F.conv1d with bias, which
+    leaves out the SiLU, and its autograd backward), JAX's test matrix, fp16, D not a multiple of 128, W 16 and a
+    misaligned view. Outputs to the dtype ladder and to SLICE_E_REL_LIMITS; dx, dw and db bit for bit over two
+    runs."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import conv1d_vjp as cv
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    t0 = time.perf_counter()
+    # (B, T, D, W, bias, state, act, dtype, main, offset): the two benchmark shapes, JAX's matrix
+    # (tests/accuracy/functions/test_conv_silu_vjp_pallas.py:32-48; its residual is added outside the kernel), then
+    # the rest
+    cases = [(CONV_B, CONV_T, CONV_D, CONV_W, True, True, True, bf16, True, 0),
+             (CONV_B, CONV_PERF_T, CONV_D, CONV_W, True, False, True, bf16, True, 0),
+             (2, 64, 128, 4, True, False, True, f32, False, 0), (1, 200, 256, 4, True, False, False, f32, False, 0),
+             (2, 48, 128, 3, False, True, True, f32, False, 0), (2, 64, 128, 4, True, True, True, bf16, False, 0),
+             (1, 5, 128, 4, True, True, False, f32, False, 0), (2, 96, 128, 8, True, True, True, f32, False, 0),
+             (2, 64, 128, 1, True, False, True, f32, False, 0),
+             (2, 300, 2048, 4, True, True, True, f16, False, 0), (3, 130, 100, 4, True, True, True, bf16, False, 0),
+             (2, 777, 72, 16, True, True, True, bf16, False, 0), (2, 1, 2048, 4, True, True, True, bf16, False, 0),
+             (2, 129, 256, 2, False, True, False, bf16, False, 1)]
+    for B, T, D, W, bias, state, act, dtype, main, offset in cases:
+        n = B * T * D
+        x = torch.randn(n + offset, device="cuda", generator=gen).to(dtype)[offset:].view(B, T, D)
+        g = torch.randn(B, T, D, device="cuda", generator=gen).to(dtype)
+        w = torch.randn(D, W, device="cuda", generator=gen) * 0.3
+        b = torch.randn(D, device="cuda", generator=gen) * 0.1 if bias else None
+        st = (torch.randn(B, W - 1, D, device="cuda", generator=gen) if state else
+              torch.zeros(B, W - 1, D, device="cuda")).to(dtype)
+        isz = x.element_size()
+        lib_fwd = lib_bwd = None
+        if main:  # depthwise F.conv1d over the (B, D, W-1+T) stream laid out beforehand, bias, no SiLU
+            stream = torch.cat([st, x], 1).transpose(1, 2).contiguous().requires_grad_(True)
+            w_lib = w.to(dtype)[:, None, :].requires_grad_(True)
+            b_lib = (b if b is not None else torch.zeros(D, device="cuda")).to(dtype).requires_grad_(True)
+            lib_fwd = lambda: torch.nn.functional.conv1d(stream, w_lib, b_lib, groups=D)  # noqa: E731
+            out = lib_fwd()
+            g_lib = g.transpose(1, 2).contiguous()
+            lib_bwd = lambda: torch.autograd.grad(out, (stream, w_lib, b_lib), g_lib, retain_graph=True)  # noqa: E731
+        name = (f"B {B} T {T} D {D} W {W} bias={bias} state={state} act={act}{' misaligned' if offset else ''}")
+        key = f"b{B}_t{T}" if main else None
+        compare("conv1d_fwd", lambda: cv.conv1d_fwd(x, w, b, st, act), lambda: cv.conv1d_fwd_plain(x, w, b, st, act),
+                dtype, f"conv1d forward {name}", main, key=key, check=_rel_checker(torch, SLICE_E_REL_LIMITS, dtype),
+                bound=(2 * n * isz + st.numel() * isz + 4 * D * (W + 1), (2 * W + (4 if act else 0)) * n, "fp32"),
+                library=lib_fwd)
+        compare("conv1d_bwd", lambda: cv.conv1d_bwd(x, w, b, st, g, act),
+                lambda: cv.conv1d_bwd_plain(x, w, b, st, g, act), dtype, f"conv1d backward {name}", main, key=key,
+                check=_rel_checker(torch, SLICE_E_REL_LIMITS, dtype, f32, f32),
+                bound=(3 * n * isz + st.numel() * isz + 4 * D * (2 * W + 2), (6 * W + 7) * n, "fp32"),
+                library=lib_bwd, library_graph=False)
+        runs = [cv.conv1d_bwd(x, w, b, st, g, act) for _ in range(2)]
+        if not all(torch.equal(p, q) for p, q in zip(*runs)):
+            raise AssertionError(f"conv1d_bwd {name}: two runs on the same inputs differ")
+        del x, g, st
+    log("kernel conv1d", f"every case's dx, dw and db equal bit for bit over two runs; Q's cases took "
+                         f"{time.perf_counter() - t0:.1f} s; library_ms is depthwise F.conv1d with bias, no SiLU")
+    try:
+        cv.conv1d_fwd(torch.zeros(1, 4, 8, device="cuda"), torch.zeros(8, 17, device="cuda"), None,
+                      torch.zeros(1, 16, 8, device="cuda"), True)
+    except ValueError as e:
+        log("kernel conv1d", f"W = 17 refused: {e}")
+    else:
+        raise AssertionError("conv1d_fwd took W = 17")
+
+
+def phase_residual_add_norm(torch, card: str) -> dict:
+    """Phase 14: MojoResidualAddRMSNorm built through dispatch (CudaResidualAddRMSNorm, kernel P) against the ref
+    tier on the same tensors, at RESIDUAL_ADD_SHAPES in bf16, pre and post: P launches once a call and nothing else
+    does; both outputs to the bf16 ladder, their cosine and relative error to RESIDUAL_ADD_GOLDEN_REL_LIMITS; ms per
+    call on P and on the golden. Returns the counts of the timed calls."""
+    from mojo_opset_tpu_torch import MojoResidualAddRMSNorm
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    total = {}
+    for T, D in RESIDUAL_ADD_SHAPES:
+        h = torch.randn(T, D, device="cuda", generator=gen).to(torch.bfloat16)
+        r = torch.randn(T, D, device="cuda", generator=gen).to(torch.bfloat16)
+        w = torch.rand(D, device="cuda", generator=gen) + 0.5
+        for pos in ("pre", "post"):
+            op = MojoResidualAddRMSNorm(D, 1e-6, pos, device="cuda")
+            golden = MojoResidualAddRMSNorm.get_backend_impl("ref")(D, 1e-6, pos, device="cuda")
+            if type(op).__name__ != "CudaResidualAddRMSNorm":
+                raise AssertionError(f"dispatch gave {type(op).__name__}")
+            op.weight.copy_(w)
+            golden.weight.copy_(w)
+            kernels.reset_launch_counts()
+            got = op(h, r)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            if counts != {"residual_add_rmsnorm": 1}:
+                raise AssertionError(f"one call launched {counts}, want P once")
+            want = golden(h, r)
+            notes = []
+            for label, gt, wt in zip(("out", "residual"), got, want):
+                check_tol_diff(gt, wt, **tols_for(torch.bfloat16))
+                whole, row, _ = rel_errors(gt, wt)
+                cosine = _cosine(torch, gt, wt)
+                if not (whole <= RESIDUAL_ADD_GOLDEN_REL_LIMITS[0] and row <= RESIDUAL_ADD_GOLDEN_REL_LIMITS[1]):
+                    raise AssertionError(f"residual-add norm ({T}, {D}) {pos} {label}: relative {whole:.3g} (worst "
+                                         f"row {row:.3g}) over {RESIDUAL_ADD_GOLDEN_REL_LIMITS}")
+                notes.append(f"{label} max_abs {(gt.float() - wt.float()).abs().max().item():.3g}, cosine "
+                             f"{cosine:.7f}, relative {whole:.3g} / {row:.3g}")
+            kernels.reset_launch_counts()
+            p_ms = cuda_ms(torch, lambda: op(h, r), iters=20)
+            for k, v in kernels.launch_counts().items():
+                if v:
+                    total[k] = total.get(k, 0) + v
+            g_ms = cuda_ms(torch, lambda: golden(h, r), iters=20)
+            log("residual add norm", f"{card}: ({T}, {D}) bf16 {pos}: {'; '.join(notes)} (limits "
+                                     f"{RESIDUAL_ADD_GOLDEN_REL_LIMITS}); {p_ms:.4f} ms a call on P, {g_ms:.4f} ms on "
+                                     f"the golden")
+    if set(total) != {"residual_add_rmsnorm"}:
+        raise AssertionError(f"the timed calls launched {total}")
+    return total
+
+
+def phase_conv_function(torch, card: str) -> dict:
+    """Phase 15: MojoCausalConv1dFunction forward + backward, the cuda tier (kernel Q) against the ref tier's
+    autograd of the golden, at the conv Function's benchmark shape, in two forms: an initial state with
+    output_final_state, and a residual. out, the final state and every gradient (dx, dw, db, dstate, dresidual)
+    relative to their size (CONV_GOLDEN_REL_LIMITS); Q's forward and backward once a call; fwd + bwd ms and
+    peak memory of each tier; one varlen call takes the golden and only it counts in golden_calls. Returns the
+    cuda tier's launches of the timed calls."""
+    from mojo_opset_tpu_torch import MojoCausalConv1dFunction
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.functions import CudaCausalConv1dFunction
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    B, T, D, W = CONV_B, CONV_T, CONV_D, CONV_W
+    x = torch.randn(B, T, D, device="cuda", generator=gen).to(torch.bfloat16)
+    do = torch.randn(B, T, D, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(D, W, device="cuda", generator=gen) * 0.3
+    b = torch.randn(D, device="cuda", generator=gen) * 0.1
+    s0 = torch.randn(B, D, W - 1, device="cuda", generator=gen).to(torch.bfloat16)
+    res = torch.randn(B, T, D, device="cuda", generator=gen).to(torch.bfloat16)
+    golden_before = CudaCausalConv1dFunction.golden_calls
+    total = {}
+    for label, with_state, with_residual in (("state + final state", True, False), ("residual", False, True)):
+        out, ms, peak = {}, {}, {}
+        for tier in ("cuda", "ref"):
+            fn = MojoCausalConv1dFunction.get_backend_impl(tier)()
+            if type(fn).__name__ != {"cuda": "CudaCausalConv1dFunction", "ref": "RefCausalConv1dFunction"}[tier]:
+                raise AssertionError(f"{tier} tier resolved to {type(fn).__name__}")
+            leaves = {"x": x, "w": w, "b": b}
+            if with_state:
+                leaves["state"] = s0
+            if with_residual:
+                leaves["residual"] = res
+            leaves = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+
+            def step():
+                y, fin = fn(leaves["x"], leaves["w"], leaves["b"], leaves.get("residual"), leaves.get("state"),
+                            with_state, "silu")
+                grads = torch.autograd.grad(y, list(leaves.values()), do)
+                return (y.detach(), *([fin.detach()] if with_state else []), *grads)
+
+            out[tier] = step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            ms[tier] = cuda_ms(torch, step, iters=5, warmup=1)
+            if tier == "cuda":
+                counts = {k: v for k, v in kernels.launch_counts().items() if v}
+                if counts != {"conv1d_fwd": 6, "conv1d_bwd": 6}:
+                    raise AssertionError(f"the cuda tier's fwd + bwd launched {counts}, want Q's two entry points "
+                                         f"once a call")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+            peak[tier] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        names = ["out"] + (["final state"] if with_state else []) + ["d" + k for k in leaves]
+        notes = []
+        for name, got, want in zip(names, out["cuda"], out["ref"]):
+            if got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"conv function {label}: {name} {got.dtype} {tuple(got.shape)} against "
+                                     f"{want.dtype} {tuple(want.shape)}")
+            whole, row, rms = rel_errors(got, want)
+            notes.append(f"{name} {whole:.3g} / {row:.3g} (rms {rms:.3g})")
+            if not (whole <= CONV_GOLDEN_REL_LIMITS[0] and row <= CONV_GOLDEN_REL_LIMITS[1]):
+                raise AssertionError(f"conv function {label}: {name} relative error {whole:.3g} (worst row "
+                                     f"{row:.3g}) over {CONV_GOLDEN_REL_LIMITS}")
+        log("conv function", f"{card}: {label} (B {B}, T {T}, D {D}, W {W}, SiLU, bf16, fp32 weight and bias): cuda "
+                             f"tier vs ref autograd, relative whole / worst row: {'; '.join(notes)} (limits "
+                             f"{CONV_GOLDEN_REL_LIMITS}); fwd + bwd {ms['cuda']:.3f} ms on Q, {ms['ref']:.3f} ms "
+                             f"on the golden; peak above the inputs {peak['cuda']:.2f} GiB, {peak['ref']:.2f} GiB")
+        del out
+        torch.cuda.empty_cache()
+    if CudaCausalConv1dFunction.golden_calls != golden_before:
+        raise AssertionError("the cuda tier took the golden route without cu_seqlens")
+    cu = torch.tensor([0, 3000, T], dtype=torch.int32, device="cuda")
+    fn = MojoCausalConv1dFunction()
+    kernels.reset_launch_counts()
+    y, _ = fn(x[:1], w, b, None, None, False, "silu", cu)
+    torch.cuda.synchronize()
+    if CudaCausalConv1dFunction.golden_calls != golden_before + 1 or any(kernels.launch_counts().values()):
+        raise AssertionError("the varlen call did not take the golden route alone")
+    whole, _ = MojoCausalConv1dFunction.get_backend_impl("ref")()(x[:1, 3000:], w, b, None, None, False, "silu")
+    if not torch.equal(y[:, 3000:], whole):
+        raise AssertionError("the varlen call's second sequence differs from the sequence alone")
+    log("conv function", "a cu_seqlens call took the golden route (golden_calls + 1, no launch); only it did")
+    return total
+
+
 def _step_profile(torch, prof) -> tuple:
     """Device busy ms of a profiled step, the device ms of kernels J, A, K, L,
     M and N, and the eight largest entries."""
@@ -2795,22 +3138,26 @@ def _step_profile(torch, prof) -> tuple:
 
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
-                 dit_counts: dict, fn_counts: dict) -> list:
+                 dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
     MoE run, for I from the DeepSeek run, for J, K, L, M and N from the
     training run, for O's forward from the Wan DiT's ragged run and for its
-    dq and dk/dv from the diffusion Function's; numbers of the main-path
+    dq and dk/dv from the diffusion Function's, for P from the residual-add
+    norm's run and for Q from the conv Function's; numbers of the main-path
     case (``ms`` replayed from a CUDA graph). C and D add their int8-page numbers, C its windowed cases
-    at ctx 32768 beside the same cases without windows; F, G, H, I, K and M
-    their numbers at each shape (M: each layout and direction), G, H, I, K
-    and M their largest error over those shapes; J's forward its numbers
-    through CudaSdpa at the Wan DiT's shape; O its numbers at SDAR's GQA and
-    under the Wan DiT's key-padding mask."""
+    at ctx 32768 beside the same cases without windows; F, G, H, I, K, M, P
+    and Q their numbers at each shape (M: each layout and direction; P: pre
+    and post), G, H, I, K, M, P and Q their largest error over those shapes;
+    J's forward its numbers through CudaSdpa at the Wan DiT's shape; O its
+    numbers at SDAR's GQA and under the Wan DiT's key-padding mask."""
     line = []
+    conv_main = f"b{CONV_B}_t{CONV_T}"
     main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
                    "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4", "rmsnorm_vjp": f"{TRAIN_TOKENS}x2560",
-                   "rope_head_first": "token_first_view_forward"}
+                   "rope_head_first": "token_first_view_forward",
+                   "residual_add_rmsnorm": "x".join(map(str, RESIDUAL_ADD_SHAPES[0])) + "_pre",
+                   "conv1d_fwd": conv_main, "conv1d_bwd": conv_main}
     for module, (name, source, replaces) in KERNEL_INFO.items():
         rec = dict(record[module])
         extra = {}
@@ -2818,7 +3165,8 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             extra["by_shape"] = rec
             rec = dict(rec[main_shapes[module]])
             extra["main_shape"] = main_shapes[module]
-            if module in ("int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first"):
+            if module in ("int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first",
+                          "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         for key in ("int8_pages", "wan_dit_sdpa", "window_ctx32k", "no_window_ctx32k", "window_ctx32k_int8",
                     "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding"):
@@ -2827,12 +3175,14 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
         for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),
                                   ("deepseek", deepseek_counts), ("train", train_counts), ("seed_oss", seed_counts),
                                   ("seed_oss_int8", seed_int8_counts), ("wan_dit", dit_counts),
-                                  ("diffusion_function", fn_counts)):
+                                  ("diffusion_function", fn_counts), ("residual_add_norm", res_counts),
+                                  ("conv_function", conv_counts)):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
         launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts,
                     "flash_diffusion_fwd": dit_counts, "flash_diffusion_dq": fn_counts,
-                    "flash_diffusion_dkv": fn_counts}.get(module, counts if module in counts else train_counts)[module]
+                    "flash_diffusion_dkv": fn_counts, "residual_add_rmsnorm": res_counts, "conv1d_fwd": conv_counts,
+                    "conv1d_bwd": conv_counts}.get(module, counts if module in counts else train_counts)[module]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
                          bound_ms=rec["bound_ms"], bound_by=rec["bound_by"], library_ms=rec["library_ms"],
@@ -2862,9 +3212,11 @@ def main() -> int:
     seed_counts, seed_int8_counts = timed("seed-oss full width", phase_seed_oss_full_width, torch, card)
     dit_counts = timed("wan dit", phase_wan_dit, torch, card)
     fn_counts = timed("diffusion function", phase_diffusion_function, torch, card)
+    res_counts = timed("residual add norm", phase_residual_add_norm, torch, card)
+    conv_counts = timed("conv function", phase_conv_function, torch, card)
     print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts,
                                               deepseek_counts, train_counts, seed_counts, seed_int8_counts,
-                                              dit_counts, fn_counts)}))
+                                              dit_counts, fn_counts, res_counts, conv_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

@@ -3,9 +3,9 @@ package beside it.
 
 The ``Mojo*`` op contracts with a plain PyTorch golden tier (``ref``) and
 hand-written Hopper kernels (``cuda``), the ``Mojo*Function`` training ops
-(attention, masked diffusion attention, RMSNorm, SiLU, RoPE and the fused
-linear + CE loss, each with kernel backwards), the paged-KV serving runtime,
-and the models (Qwen3 dense with its int8 serving modes and its training
+(attention, masked diffusion attention, RMSNorm, SiLU, RoPE, the causal
+conv1d and the fused linear + CE loss, each with kernel backwards), the
+paged-KV serving runtime, and the models (Qwen3 dense with its int8 serving modes and its training
 forward, Qwen3-MoE, DeepSeek-V3, Seed-OSS in bf16 and w8a8, the Wan2.2 DiT).
 ``MOJO_BACKEND`` in {ref, cuda} picks a tier when an op is constructed; the
 default is ``cuda``, whose kernel wrappers run their plain versions on CPU

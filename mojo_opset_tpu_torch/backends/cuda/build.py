@@ -48,6 +48,7 @@ SIGNATURES = {
     "mojo_flash_diffusion_dq": (_P,) * 9 + _DIFF_TAIL + (_I, _P),
     "mojo_flash_diffusion_dkv": (_P,) * 9 + _DIFF_TAIL + (_I, _P),
     "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "mojo_residual_add_rmsnorm": (_P,) * 5 + (_I, _I, _F) + (_I,) * 4 + (_P,),
     "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "mojo_paged_decode": (_P,) * 8 + (_I,) * 9 + (_F,) + (_I,) * 5 + (_P,),
     "mojo_paged_prefill": (_P,) * 9 + (_I,) * 10 + (_F, _I, _I, _I, _P),
@@ -64,6 +65,8 @@ SIGNATURES = {
     "mojo_flce_dz": (_P,) * 7 + (_I,) * 5 + (_F, _F, _I, _P),
     "mojo_flce_dx": (_P,) * 3 + (_I,) * 5 + (_P,),
     "mojo_flce_dw": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "mojo_conv1d_fwd": (_P,) * 5 + (_I,) * 7 + (_P,),
+    "mojo_conv1d_bwd": (_P,) * 8 + (_I,) * 8 + (_P,),
 }
 
 _CUDA_ERRORS = {

@@ -1,5 +1,6 @@
 from mojo_opset_tpu_torch.backends.cuda.functions.activation import CudaSiluFunction, SiluVJP
 from mojo_opset_tpu_torch.backends.cuda.functions.attention import CudaSWAFunction, FlashSWA, flash_attention
+from mojo_opset_tpu_torch.backends.cuda.functions.convolution import Conv1dVJP, CudaCausalConv1dFunction
 from mojo_opset_tpu_torch.backends.cuda.functions.diffusion_attention import (
     CudaDiffusionAttentionFunction,
     FlashDiffusion,
@@ -14,7 +15,9 @@ from mojo_opset_tpu_torch.backends.cuda.functions.normalization import CudaRMSNo
 from mojo_opset_tpu_torch.backends.cuda.functions.position_embedding import CudaApplyRoPEFunction, RoPEVJP
 
 __all__ = [
+    "Conv1dVJP",
     "CudaApplyRoPEFunction",
+    "CudaCausalConv1dFunction",
     "CudaDiffusionAttentionFunction",
     "CudaFusedLinearCrossEntropyFunction",
     "CudaFusedLinearCrossEntropyLoss",

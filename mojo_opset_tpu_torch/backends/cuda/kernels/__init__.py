@@ -1,9 +1,11 @@
 """Kernel wrappers: each module holds one kernel's launcher, its plain
 PyTorch version and its ``launches`` counter; kernels J (``flash_swa``) and
-O (``flash_diffusion``) have three entry points, kernel N (``flce``) four
-and kernel L (``silu_vjp``) two, each with its own counter."""
+O (``flash_diffusion``) have three entry points, kernel N (``flce``) four,
+kernels L (``silu_vjp``) and Q (``conv1d_vjp``) two, each with its own
+counter, and ``norms`` holds kernels A and P, each with its own."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    conv1d_vjp,
     flash_diffusion,
     flash_swa,
     flce,
@@ -31,7 +33,8 @@ COUNTERS = [(module.__name__.rsplit(".", 1)[-1], module, "launches") for module 
     ("silu_bwd", silu_vjp, "launches_bwd"), ("flce_stats", flce, "launches"), ("flce_dz", flce, "launches_dz"),
     ("flce_dx", flce, "launches_dx"), ("flce_dw", flce, "launches_dw"),
     ("flash_diffusion_fwd", flash_diffusion, "launches"), ("flash_diffusion_dq", flash_diffusion, "launches_dq"),
-    ("flash_diffusion_dkv", flash_diffusion, "launches_dkv")]
+    ("flash_diffusion_dkv", flash_diffusion, "launches_dkv"), ("residual_add_rmsnorm", norms, "launches_residual_add"),
+    ("conv1d_fwd", conv1d_vjp, "launches"), ("conv1d_bwd", conv1d_vjp, "launches_bwd")]
 
 
 def reset_launch_counts() -> None:

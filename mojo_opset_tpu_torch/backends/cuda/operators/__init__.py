@@ -12,7 +12,11 @@ from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
 from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaGroupGemm, CudaQuantGemm
 from mojo_opset_tpu_torch.backends.cuda.operators.mla import CudaPagedDecodeMLA, CudaPagedPrefillMLA
 from mojo_opset_tpu_torch.backends.cuda.operators.moe import CudaExperts, CudaMoE
-from mojo_opset_tpu_torch.backends.cuda.operators.normalization import CudaRMSNorm, CudaRMSNormQuant
+from mojo_opset_tpu_torch.backends.cuda.operators.normalization import (
+    CudaResidualAddRMSNorm,
+    CudaRMSNorm,
+    CudaRMSNormQuant,
+)
 from mojo_opset_tpu_torch.backends.cuda.operators.position_embedding import CudaApplyRoPE
 
 __all__ = [
@@ -30,6 +34,7 @@ __all__ = [
     "CudaPagedPrefillMLA",
     "CudaPrefillGQA",
     "CudaQuantGemm",
+    "CudaResidualAddRMSNorm",
     "CudaRMSNorm",
     "CudaRMSNormQuant",
     "CudaSdpa",

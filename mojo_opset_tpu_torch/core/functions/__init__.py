@@ -1,5 +1,6 @@
 from mojo_opset_tpu_torch.core.functions.activation import MojoSiluFunction
 from mojo_opset_tpu_torch.core.functions.attention import MojoSWAFunction
+from mojo_opset_tpu_torch.core.functions.convolution import MojoCausalConv1dFunction
 from mojo_opset_tpu_torch.core.functions.loss import (
     MojoFusedLinearCrossEntropyFunction,
     MojoFusedLinearCrossEntropyLoss,
@@ -10,6 +11,7 @@ from mojo_opset_tpu_torch.core.functions.position_embedding import MojoApplyRoPE
 
 __all__ = [
     "MojoApplyRoPEFunction",
+    "MojoCausalConv1dFunction",
     "MojoFusedLinearCrossEntropyFunction",
     "MojoFusedLinearCrossEntropyLoss",
     "MojoRMSNormFunction",

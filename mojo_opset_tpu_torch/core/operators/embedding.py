@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
 class MojoEmbedding(MojoOperator):
@@ -28,7 +29,8 @@ class MojoEmbedding(MojoOperator):
         self.embedding_dim = embedding_dim
         self.padding_idx = padding_idx
         self.weight = nn.Parameter(
-            torch.empty((num_embeddings, embedding_dim), device=device, dtype=dtype or torch.float32),
+            torch.empty((num_embeddings, embedding_dim), device=resolve_device(device),
+                        dtype=dtype or torch.float32),
             requires_grad=False,
         )
         self.reset_parameters()

@@ -19,6 +19,7 @@ from torch import nn
 QUANT_OUTPUT_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
 class MojoGemm(MojoOperator):
@@ -38,6 +39,7 @@ class MojoGemm(MojoOperator):
         self.in_features = in_features
         self.out_features = out_features
         dtype = dtype or torch.float32
+        device = resolve_device(device)
         self.weight = nn.Parameter(
             torch.empty((out_features, in_features), device=device, dtype=dtype), requires_grad=False
         )
@@ -212,6 +214,7 @@ class MojoQuantGemm(MojoOperator):
             shape = (out_features // 2, in_features)
         else:
             shape = (out_features, in_features) if trans_weight else (in_features, out_features)
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.zeros(shape, dtype=torch.int8, device=device), requires_grad=False)
         self.weight_scale = nn.Parameter(torch.ones((out_features,), device=device), requires_grad=False)
 

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
 class MojoMoEGating(MojoOperator):
@@ -35,7 +36,8 @@ class MojoMoEGating(MojoOperator):
 
     def __init__(self, hidden_size: int, num_experts: int, top_k: int, *, device=None):
         super().__init__()
-        self.gate_weight = nn.Parameter(torch.empty((hidden_size, num_experts), device=device), requires_grad=False)
+        self.gate_weight = nn.Parameter(torch.empty((hidden_size, num_experts), device=resolve_device(device)),
+                                        requires_grad=False)
         self.top_k = top_k
         self.reset_parameters()
 
@@ -105,6 +107,7 @@ class MojoExperts(MojoOperator):
             raise NotImplementedError(f"MojoExperts: Activation {activation} is not supported.")
         self.activation = activation
         dtype = dtype or torch.float32
+        device = resolve_device(device)
         self.up_proj_weight = nn.Parameter(
             torch.empty((num_experts, 2 * intermediate_size, hidden_size), device=device, dtype=dtype),
             requires_grad=False)

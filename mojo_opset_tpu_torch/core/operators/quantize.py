@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 INT8_RANGE = (-128.0, 127.0)
 DEQUANT_DTYPES = (torch.float16, torch.bfloat16, torch.float32)
@@ -43,7 +44,7 @@ class MojoStaticQuant(MojoOperator):
         super().__init__()
         _require_int8(quant_dtype)
         self.input_size = (input_size,) if isinstance(input_size, int) else tuple(input_size)
-        self.scale = nn.Parameter(torch.ones(self.input_size, device=device), requires_grad=False)
+        self.scale = nn.Parameter(torch.ones(self.input_size, device=resolve_device(device)), requires_grad=False)
         self.quant_dtype = quant_dtype
         self.q_min, self.q_max = INT8_RANGE
 
@@ -83,7 +84,7 @@ class MojoDynamicQuant(MojoOperator):
         self.inv_smooth_scale = (
             None
             if input_size is None
-            else nn.Parameter(torch.ones((input_size,), device=device), requires_grad=False)
+            else nn.Parameter(torch.ones((input_size,), device=resolve_device(device)), requires_grad=False)
         )
         self.quant_dtype = quant_dtype
         self.q_min, self.q_max = INT8_RANGE

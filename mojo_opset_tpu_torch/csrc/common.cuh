@@ -1,7 +1,8 @@
 // Shared helpers for the port's Hopper kernels: dtype conversion (int8
-// K/V pages included), warp reductions, vector row loads, the cp.async and
-// bf16/fp16 mma.sync.m16n8k16 fragments of the GEMM kernels (H, N), and the
-// dtype switch of the C entry points.
+// K/V pages included), warp reductions, vector row loads, the fixed-order
+// column sum of per-block partial rows (K, Q), the cp.async and bf16/fp16
+// mma.sync.m16n8k16 fragments of the GEMM kernels (H, N), and the dtype
+// switch of the C entry points.
 //
 // Every entry point is `extern "C"`, takes raw device pointers and the
 // CUDA stream from the caller, launches, and returns cudaGetLastError()
@@ -109,6 +110,39 @@ __device__ __forceinline__ void mojo_store_row(T* __restrict__ p, const float (&
     for (int k = 0; k < N; ++k) p[k] = mojo_from_float<T>(f[k]);
   }
 }
+
+// in an unnamed namespace: each source that launches it keeps its own copy
+namespace {
+
+constexpr int kMojoSumCols = 32;
+constexpr int kMojoSumSlices = 32;
+
+// out[c] = sum over r of part[r, c] for (rows, cols) fp32 partial rows, r in
+// order: a (32 columns x 32 slices) block; slice s adds the rows r = s,
+// s + 32, ..., then slice 0 adds the 32 slice sums in slice order. No
+// atomics: the same rows give the same bits. Launch with a grid of
+// ceil(cols / kMojoSumCols) blocks of kMojoSumCols * kMojoSumSlices threads.
+template <int kCols = kMojoSumCols, int kSlices = kMojoSumSlices>
+__global__ void __launch_bounds__(kCols * kSlices)
+mojo_column_sum_kernel(const float* __restrict__ part, float* __restrict__ out, int rows, int cols) {
+  __shared__ float slice_sum[kSlices][kCols + 1];
+  const int col = threadIdx.x % kCols, slice = threadIdx.x / kCols;
+  const int c = blockIdx.x * kCols + col;
+  float s = 0.f;
+  if (c < cols) {
+    for (int r = slice; r < rows; r += kSlices) s += part[static_cast<int64_t>(r) * cols + c];
+  }
+  slice_sum[slice][col] = s;
+  __syncthreads();
+  if (slice == 0 && c < cols) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < kSlices; ++i) total += slice_sum[i][col];
+    out[c] = total;
+  }
+}
+
+}  // namespace
 
 // 16-byte asynchronous copy global -> shared; with pred false nothing is
 // read and the 16 bytes are zero-filled.

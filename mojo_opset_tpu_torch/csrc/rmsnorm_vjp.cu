@@ -12,7 +12,8 @@
 // element). The TPU kernel carries dw across a sequential grid; here blocks
 // run in no order, so each block walks its rows (grid-stride), keeps its
 // own fp32 dw sums, and writes them as one row of a (blocks, D) partial
-// buffer; a second small kernel adds those rows in block order. No
+// buffer; a second small kernel (common.cuh's column sum) adds those rows in
+// block order. No
 // atomics: the same inputs and grid give the same bits.
 //
 // Short rows (D <= 256: the per-head q/k norms at D = 128 over 131072 and
@@ -32,8 +33,6 @@ constexpr int kShortWarps = kShortThreads / 32;
 constexpr int kShortMaxD = 256;
 constexpr int kLongThreads = 512;
 constexpr int kLongWarps = kLongThreads / 32;
-constexpr int kReduceCols = 32;
-constexpr int kReduceSlices = 32;
 
 template <typename T, int G>
 __global__ void __launch_bounds__(kShortThreads)
@@ -162,28 +161,6 @@ rmsnorm_bwd_long_kernel(const T* __restrict__ x, const float* __restrict__ w, co
   }
 }
 
-// dw[c] = sum over b of part[b, c], b in order: a (32 columns x 32 slices)
-// block; slice s adds the rows b = s, s + 32, ..., then slice 0 adds the 32
-// slice sums in slice order.
-__global__ void __launch_bounds__(kReduceCols * kReduceSlices)
-rmsnorm_bwd_dw_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw, int blocks, int D) {
-  __shared__ float slice_sum[kReduceSlices][kReduceCols + 1];
-  const int col = threadIdx.x % kReduceCols, slice = threadIdx.x / kReduceCols;
-  const int c = blockIdx.x * kReduceCols + col;
-  float s = 0.f;
-  if (c < D) {
-    for (int b = slice; b < blocks; b += kReduceSlices) s += part[static_cast<int64_t>(b) * D + c];
-  }
-  slice_sum[slice][col] = s;
-  __syncthreads();
-  if (slice == 0 && c < D) {
-    float total = 0.f;
-#pragma unroll
-    for (int i = 0; i < kReduceSlices; ++i) total += slice_sum[i][col];
-    dw[c] = total;
-  }
-}
-
 template <typename T, int G>
 cudaError_t launch_rmsnorm_bwd(const T* x, const float* w, const T* dy, T* dx, float* part, float* dw, int rows,
                                int D, float eps, int blocks, cudaStream_t stream) {
@@ -201,7 +178,7 @@ cudaError_t launch_rmsnorm_bwd(const T* x, const float* w, const T* dy, T* dx, f
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  rmsnorm_bwd_dw_reduce_kernel<<<(D + kReduceCols - 1) / kReduceCols, kReduceCols * kReduceSlices, 0, stream>>>(
+  mojo_column_sum_kernel<><<<(D + kMojoSumCols - 1) / kMojoSumCols, kMojoSumCols * kMojoSumSlices, 0, stream>>>(
       part, dw, blocks, D);
   return cudaGetLastError();
 }

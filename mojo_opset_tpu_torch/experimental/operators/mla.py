@@ -30,6 +30,7 @@ from mojo_opset_tpu_torch.core.operators.attention import (
     assert_paged_prefill_contract,
     seq_lens_from_cu,
 )
+from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 NEG_INF = float("-inf")
 
@@ -59,6 +60,7 @@ class _MLAConfigMixin:
         self.kv_lora_rank = kv_lora_rank
         self.qk_head_dim = qk_nope_head_dim + qk_rope_head_dim
         self.use_attn_sink = use_attn_sink
+        device = resolve_device(device)
         self.kv_b_proj = nn.Parameter(
             torch.empty((num_heads * (qk_nope_head_dim + v_head_dim), kv_lora_rank), device=device),
             requires_grad=False)

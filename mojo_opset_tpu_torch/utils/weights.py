@@ -32,7 +32,9 @@ package's module names: ``patch_weight``, ``patch_bias``,
 ``blocks.N.{self_attn,cross_attn}.norm_{q,k}.weight``,
 ``blocks.N.norm3.{weight,bias}``, ``blocks.N.ffn_{in,out}.*``,
 ``blocks.N.modulation``, ``head.head.*`` and ``head.modulation``; its complex
-RoPE table ``freqs`` is recomputed, not loaded.
+RoPE table ``freqs`` is recomputed, not loaded. A single op loads the same
+way under the JAX op's names: a norm op's ``weight`` and ``bias``,
+``MojoSwiGLUMLP``'s ``fc1.weight`` and ``fc2.weight``.
 """
 
 from __future__ import annotations

@@ -226,7 +226,7 @@ def test_layer_norm_matches_jax(affine):
     rng = np.random.default_rng(6)
     x = (rng.standard_normal((3, 5, 48)) * 2 + 0.5).astype(np.float32)
     jop = jo.MojoLayerNorm.get_backend_impl("ref")(48, 1e-6, elementwise_affine=affine)
-    op = tm.MojoLayerNorm(48, 1e-6, elementwise_affine=affine)
+    op = tm.MojoLayerNorm(48, 1e-6, elementwise_affine=affine, device="cpu")
     if affine:
         w, b = rng.standard_normal(48).astype(np.float32), rng.standard_normal(48).astype(np.float32)
         jop.weight, jop.bias = jnp.asarray(w), jnp.asarray(b)

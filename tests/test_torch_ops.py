@@ -54,7 +54,7 @@ def test_embedding():
     ids = rng.integers(0, 50, (3, 7)).astype(np.int32)
     op_j = jax_op(jm.MojoEmbedding, "ref", 50, 24).replace(weight=jnp.asarray(w))
     want = op_j(jnp.asarray(ids))
-    for op in port_ops(tm.MojoEmbedding, 50, 24):
+    for op in port_ops(tm.MojoEmbedding, 50, 24, device="cpu"):
         op.weight.copy_(torch.from_numpy(w))
         close(op(torch.from_numpy(ids)), want)
 
@@ -69,7 +69,7 @@ def test_gemm(bias):
     if bias:
         op_j = op_j.replace(bias=jnp.asarray(b))
     want = op_j(jnp.asarray(x))
-    for op in port_ops(tm.MojoGemm, 32, 48, bias=bias):
+    for op in port_ops(tm.MojoGemm, 32, 48, bias=bias, device="cpu"):
         op.weight.copy_(torch.from_numpy(w))
         if bias:
             op.bias.copy_(torch.from_numpy(b))
@@ -91,7 +91,7 @@ def test_rmsnorm(jax_tier, shape):
     x = rng.standard_normal(shape).astype(np.float32)
     w = (rng.random(shape[-1]) + 0.5).astype(np.float32)
     want = jax_op(jm.MojoRMSNorm, jax_tier, shape[-1], eps=1e-6).replace(weight=jnp.asarray(w))(jnp.asarray(x))
-    for op in port_ops(tm.MojoRMSNorm, shape[-1], eps=1e-6):
+    for op in port_ops(tm.MojoRMSNorm, shape[-1], eps=1e-6, device="cpu"):
         op.weight.copy_(torch.from_numpy(w))
         close(op(torch.from_numpy(x)), want)
 
@@ -102,7 +102,7 @@ def test_rmsnorm_bf16_keeps_dtype():
     w = (rng.random(128) + 0.5).astype(np.float32)
     want = jax_op(jm.MojoRMSNorm, "ref", 128, eps=1e-6).replace(weight=jnp.asarray(w))(
         jnp.asarray(x, jnp.bfloat16))
-    for op in port_ops(tm.MojoRMSNorm, 128, eps=1e-6):
+    for op in port_ops(tm.MojoRMSNorm, 128, eps=1e-6, device="cpu"):
         op.weight.copy_(torch.from_numpy(w))
         out = op(torch.from_numpy(x).to(torch.bfloat16))
         assert out.dtype == torch.bfloat16
@@ -115,7 +115,7 @@ def test_rotary_embedding_modes():
     cu = np.array([0, 3, 3, 8], np.int32)
     total = np.array([5, 2, 9], np.int32)
     op_j = jax_op(jm.MojoRotaryEmbedding, "ref", 1e6, 64)
-    ops = port_ops(tm.MojoRotaryEmbedding, 1e6, 64)
+    ops = port_ops(tm.MojoRotaryEmbedding, 1e6, 64, device="cpu")
     x = np.zeros((8, 16), np.float32)
     for op in ops:
         close(op(torch.zeros(2, 5, 16), position_ids=torch.from_numpy(pos)),

@@ -8,9 +8,9 @@
     input and builds, and without nvcc the build raises;
   * dispatch (MOJO_BACKEND), the allocator's errors and the refused quant
     modes;
-  * the entry points (models, session) run on the card unless the caller
-    names a device: here, with no GPU, they raise instead of landing on
-    the CPU.
+  * the entry points (models, session) and the ops that hold parameters
+    or tables run on the card unless the caller names a device: here, with
+    no GPU, they raise instead of landing on the CPU.
 """
 
 import importlib
@@ -28,6 +28,7 @@ import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
 from mojo_opset_tpu_torch.backends.cuda.functions import FlceVJP
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    conv1d_vjp,
     flash_diffusion,
     flash_swa,
     flce,
@@ -55,10 +56,11 @@ from mojo_opset_tpu_torch.utils.platform import resolve_device
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
                   "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first", "flash_swa", "silu_vjp", "flce",
-                  "flash_diffusion"]
-# the counters of the entry points beside the single-entry modules' own
+                  "flash_diffusion", "conv1d_vjp"]
+# the counters of the entry points beside the single-entry modules' own (norms holds A's and P's)
 MULTI_ENTRY = {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv", "silu_fwd", "silu_bwd", "flce_stats", "flce_dz",
-               "flce_dx", "flce_dw", "flash_diffusion_fwd", "flash_diffusion_dq", "flash_diffusion_dkv"}
+               "flce_dx", "flce_dw", "flash_diffusion_fwd", "flash_diffusion_dq", "flash_diffusion_dkv",
+               "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"}
 
 
 def test_import_loads_no_jax():
@@ -69,7 +71,8 @@ def test_import_loads_no_jax():
         "import mojo_opset_tpu_torch.modeling.deepseekv3, mojo_opset_tpu_torch.backends.cuda.operators.mla\n"
         "import mojo_opset_tpu_torch.modeling.seed_oss, mojo_opset_tpu_torch.backends.cuda.functions\n"
         "import mojo_opset_tpu_torch.modeling.wan2_2, mojo_opset_tpu_torch.benchmark.dit_protocol\n"
-        "import mojo_opset_tpu_torch.experimental.functions\n"
+        "import mojo_opset_tpu_torch.experimental.functions, mojo_opset_tpu_torch.core.operators.convolution\n"
+        "import mojo_opset_tpu_torch.core.operators.mlp, mojo_opset_tpu_torch.backends.cuda.functions.convolution\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
         " or m.startswith('mojo_opset_tpu.')]\n"
         "assert not bad, bad\n"
@@ -85,7 +88,8 @@ def test_kernel_modules_import_without_nvcc(name):
     assert (build.CSRC_DIR / "common.cuh").exists()
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
         "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
-        "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first", "flce", "flash_diffusion"}
+        "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first", "flce", "flash_diffusion",
+        "conv1d"}
 
 
 def _cpu_calls():
@@ -93,7 +97,10 @@ def _cpu_calls():
     t = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
     table = torch.tensor([[2, 0, -1], [1, 3, 4]], dtype=torch.int32)
     kc, vc = t(5, 4, 2, 64), t(5, 4, 2, 64)  # NHD, block size 4
-    yield "norms", lambda: tm.MojoRMSNorm.get_backend_impl("cuda")(64)(t(3, 64)), None
+    hn, rn = t(3, 64), t(3, 64)
+    yield ("norms", lambda: (tm.MojoRMSNorm.get_backend_impl("cuda")(64, device="cpu")(t(3, 64)),
+                             *tm.MojoResidualAddRMSNorm.get_backend_impl("cuda")(64, norm_pos="post", device="cpu")(
+                                 hn, rn)), None)
     q, k, cos, sin = t(5, 4, 64), t(5, 2, 64), t(5, 64), t(5, 64)
     yield ("rope", lambda: tm.MojoApplyRoPE.get_backend_impl("cuda")()(q, k, cos, sin, head_first=False),
            lambda: rope.rope_token_first_plain(q, k, cos, sin))
@@ -108,14 +115,16 @@ def _cpu_calls():
                qp, kc, vc, cu, table, None, cu_kv, max_q_len=4),
            lambda: tm.MojoPagedPrefillGQA.get_backend_impl("ref")(kv_layout="NHD")(qp, kc, vc, cu, table, None, cu_kv))
     x = t(3, 64)
-    yield ("rmsnorm_quant", lambda: tm.MojoRMSNormQuant.get_backend_impl("cuda")(64)(x),
-           lambda: tm.MojoRMSNormQuant.get_backend_impl("ref")(64)(x))
+    yield ("rmsnorm_quant", lambda: tm.MojoRMSNormQuant.get_backend_impl("cuda")(64, device="cpu")(x),
+           lambda: tm.MojoRMSNormQuant.get_backend_impl("ref")(64, device="cpu")(x))
     xq = torch.from_numpy(rng.integers(-128, 128, (3, 64)).astype(np.int8))
     xs = torch.from_numpy(rng.random((3, 1)).astype(np.float32))
-    yield ("int8_matmul", lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 32, trans_weight=True)(xq, xs),
-           lambda: tm.MojoQuantGemm.get_backend_impl("ref")(64, 32, trans_weight=True)(xq, xs))
+    yield ("int8_matmul",
+           lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 32, trans_weight=True, device="cpu")(xq, xs),
+           lambda: tm.MojoQuantGemm.get_backend_impl("ref")(64, 32, trans_weight=True, device="cpu")(xq, xs))
     yield ("int4_matmul",
-           lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 128, trans_weight=True, weight_dtype="int4")(xq, xs),
+           lambda: tm.MojoQuantGemm.get_backend_impl("cuda")(64, 128, trans_weight=True, weight_dtype="int4",
+                                                              device="cpu")(xq, xs),
            lambda: int4_matmul.int4_scaled_matmul_plain(xq, torch.zeros(64, 64, dtype=torch.int8), xs,
                                                         torch.ones(128), torch.bfloat16))
     w, xg, counts = t(3, 16, 64), t(7, 64), torch.tensor([2, 0, 5], dtype=torch.int32)
@@ -147,6 +156,11 @@ def _cpu_calls():
     yield ("flash_diffusion",
            lambda: tm.MojoDiffusionAttentionFunction.get_backend_impl("cuda")()(qo, ko, ko, mo, 0.2, True),
            lambda: flash_diffusion.flash_diffusion_fwd_plain(qo, ko, ko, mo, 0.2)[0])
+    xc, wc, sc = t(2, 9, 16), t(16, 4), t(2, 16, 3)
+    yield ("conv1d_vjp",
+           lambda: tm.MojoCausalConv1dFunction.get_backend_impl("cuda")()(xc, wc, None, None, sc, True, "silu"),
+           lambda: (conv1d_vjp.conv1d_fwd_plain(xc, wc, None, sc.transpose(1, 2), True),
+                    torch.cat([sc, xc.transpose(1, 2)], -1)[..., -3:]))
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -157,7 +171,8 @@ def test_cuda_tier_on_cpu_runs_plain_version(case):
     if plain is not None:
         check_tol_diff(out, plain(), atol=0.0, rtol=0.0)
     counts = kernels.launch_counts()
-    assert set(counts) == (set(KERNEL_MODULES) - {"flash_swa", "silu_vjp", "flce", "flash_diffusion"}) | MULTI_ENTRY
+    assert set(counts) == (set(KERNEL_MODULES) - {"flash_swa", "silu_vjp", "flce", "flash_diffusion", "conv1d_vjp"}
+                           ) | MULTI_ENTRY
     assert set(counts.values()) == {0}, name
 
 
@@ -409,13 +424,26 @@ def test_entry_points_without_a_device_never_land_on_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         WanModel(WanConfig(**wan))
     assert WanModel(WanConfig(**wan), device="cpu").patch_weight.device.type == "cpu"
+    # the ops that hold parameters or tables, built on their own
+    ops = ((tm.MojoResidualAddRMSNorm, 8), (tm.MojoResidualAddLayerNorm, 8), (tm.MojoResidualAddRMSNormQuant, 8),
+           (tm.MojoResidualAddLayerNormQuant, 8), (tm.MojoGroupRMSNorm, 2, 8, 1e-6), (tm.MojoLayerNormQuant, 8),
+           (tm.MojoRMSNorm, 8), (tm.MojoLayerNorm, 8), (tm.MojoRMSNormQuant, 8), (tm.MojoRotaryEmbedding, 1e4, 8),
+           (tm.MojoVisionRotaryEmbedding2D,), (tm.MojoSwiGLUMLP, 8, 8, 16), (tm.MojoGemm, 8, 8),
+           (tm.MojoQuantGemm, 8, 8), (tm.MojoStaticQuant, 8), (tm.MojoDynamicQuant, 8), (tm.MojoEmbedding, 8, 8),
+           (tm.MojoMoEGating, 8, 4, 2), (tm.MojoExperts, 4, 8, 16), (tm.MojoPagedDecodeMLA, 2, 8, 8, 8, 16))
+    for op, *args in ops:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            op(*args)
+        held = [*op(*args, device="cpu").parameters(), *op(*args, device="cpu").buffers()]
+        assert held and all(t.device.type == "cpu" for t in held), op
+    assert tm.MojoRotaryEmbedding(1e4, 8, init_max_length=16, device="cpu").cos.device.type == "cpu"
 
 
 def test_dispatch_follows_mojo_backend(monkeypatch):
-    assert type(tm.MojoRMSNorm(8)).__name__ == "CudaRMSNorm"
-    assert type(tm.MojoGemm(4, 4)).__name__ == "RefGemm"
+    assert type(tm.MojoRMSNorm(8, device="cpu")).__name__ == "CudaRMSNorm"
+    assert type(tm.MojoGemm(4, 4, device="cpu")).__name__ == "RefGemm"
     monkeypatch.setenv("MOJO_BACKEND", "ref")
-    assert type(tm.MojoRMSNorm(8)).__name__ == "RefRMSNorm"
+    assert type(tm.MojoRMSNorm(8, device="cpu")).__name__ == "RefRMSNorm"
     monkeypatch.setenv("MOJO_BACKEND", "no_such_tier")
     assert type(tm.MojoPagedDecodeGQA()).__name__ == "CudaPagedDecodeGQA"
     with pytest.raises(BackendNotAvailable):
@@ -424,12 +452,12 @@ def test_dispatch_follows_mojo_backend(monkeypatch):
 
 def test_forward_diff_with_compares_tiers():
     x = torch.randn(3, 16)
-    cuda_op = tm.MojoRMSNorm.get_backend_impl("cuda")(16)
-    ref_op = tm.MojoRMSNorm.get_backend_impl("ref")(16)
+    cuda_op = tm.MojoRMSNorm.get_backend_impl("cuda")(16, device="cpu")
+    ref_op = tm.MojoRMSNorm.get_backend_impl("ref")(16, device="cpu")
     out = cuda_op.forward_diff_with(ref_op, x, atol=1e-6, rtol=1e-6)
     assert out.shape == x.shape
     with pytest.raises(NotImplementedError):
-        ref_op.forward_diff_with(tm.MojoRMSNorm.get_backend_impl("ref")(16), x)
+        ref_op.forward_diff_with(tm.MojoRMSNorm.get_backend_impl("ref")(16, device="cpu"), x)
 
 
 _TINY = dict(hidden_size=32, intermediate_size=64, num_attention_heads=4, num_key_value_heads=2,
@@ -507,3 +535,50 @@ def test_flash_diffusion_never_falls_back_and_rejects_what_it_does_not_take(monk
         with pytest.raises(RuntimeError, match="no kernels built"):
             call()
     assert flash_diffusion.launches == flash_diffusion.launches_dq == flash_diffusion.launches_dkv == 0
+
+
+def test_residual_add_and_conv_kernels_never_fall_back(monkeypatch):
+    """Kernels P and Q: a tensor off the CPU goes to the kernel through the
+    op, the Function and the wrappers; without a build they raise instead
+    of running the plain version."""
+    monkeypatch.setattr(build, "load_library", lambda: (_ for _ in ()).throw(RuntimeError("no kernels built")))
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    f32 = torch.float32
+    norm = tm.MojoResidualAddRMSNorm.get_backend_impl("cuda")(64, device="meta")
+    conv = tm.MojoCausalConv1dFunction.get_backend_impl("cuda")()
+    calls = [lambda: norm(meta(3, 64), meta(3, 64)),
+             lambda: norms.residual_add_rmsnorm(meta(3, 64), meta(3, 64, dtype=f32), meta(64, dtype=f32), 1e-6),
+             lambda: conv(meta(2, 9, 64), meta(64, 4, dtype=f32), None, None, meta(2, 64, 3), True, "silu"),
+             lambda: conv1d_vjp.conv1d_fwd(meta(2, 9, 64), meta(64, 4, dtype=f32), None, meta(2, 3, 64), True),
+             lambda: conv1d_vjp.conv1d_bwd(meta(2, 9, 64), meta(64, 4, dtype=f32), meta(64, dtype=f32),
+                                           meta(2, 3, 64), meta(2, 9, 64), False)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no kernels built"):
+            call()
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_residual_add_and_conv_wrappers_reject_what_the_kernels_do_not_take():
+    meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
+    f32 = torch.float32
+    w = meta(64, dtype=f32)
+    with pytest.raises(ValueError, match="hidden's dtype or float32"):  # a mixed pair other than an fp32 residual
+        norms.residual_add_rmsnorm(meta(3, 64), meta(3, 64, dtype=torch.float16), w, 1e-6)
+    with pytest.raises(ValueError, match="hidden's dtype or float32"):
+        norms.residual_add_rmsnorm(meta(3, 64, dtype=f32), meta(3, 64), w, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        norms.residual_add_rmsnorm(meta(64, 3).t(), meta(3, 64), w, 1e-6)
+    with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
+        norms.residual_add_rmsnorm(meta(3, 64, dtype=torch.float64), meta(3, 64, dtype=f32), w, 1e-6)
+    x = meta(2, 9, 64)
+    with pytest.raises(ValueError, match="W <= 16"):  # an over-large window
+        conv1d_vjp.conv1d_fwd(x, meta(64, 17, dtype=f32), None, meta(2, 16, 64), True)
+    with pytest.raises(ValueError, match="W <= 16"):
+        conv1d_vjp.conv1d_bwd(x, meta(64, 17, dtype=f32), None, meta(2, 16, 64), x, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1d_vjp.conv1d_fwd(meta(2, 64, 9).transpose(1, 2), meta(64, 4, dtype=f32), None, meta(2, 3, 64), True)
+    with pytest.raises(ValueError, match="bias must be float32"):
+        conv1d_vjp.conv1d_fwd(x, meta(64, 4, dtype=f32), meta(64), meta(2, 3, 64), True)
+    with pytest.raises(ValueError, match="W <= 16"):  # through the Function too
+        tm.MojoCausalConv1dFunction.get_backend_impl("cuda")()(x, meta(64, 20, dtype=f32))
+    assert norms.launches_residual_add == conv1d_vjp.launches == conv1d_vjp.launches_bwd == 0

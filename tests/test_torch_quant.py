@@ -89,7 +89,7 @@ def test_rmsnorm_quant(jax_tier, case):
     x_t = torch.from_numpy(x).to(torch.bfloat16) if bf16 else torch.from_numpy(x)
     op_j = jax_op(jm.MojoRMSNormQuant, jax_tier, shape[-1], eps=1e-6).replace(weight=jnp.asarray(w))
     q_j, s_j = op_j(x_j, None if s is None else jnp.asarray(s))
-    for op in port_ops(tm.MojoRMSNormQuant, shape[-1], eps=1e-6):
+    for op in port_ops(tm.MojoRMSNormQuant, shape[-1], eps=1e-6, device="cpu"):
         op.weight.copy_(torch.from_numpy(w))
         q_t, s_t = op(x_t, None if s is None else torch.from_numpy(s))
         assert q_t.dtype == torch.int8 and q_t.shape == shape and s_t.shape == shape[:-1] + (1,)
@@ -98,7 +98,7 @@ def test_rmsnorm_quant(jax_tier, case):
 
 
 def test_rmsnorm_quant_zero_row_has_floor_scale():
-    op = tm.MojoRMSNormQuant(16, eps=1e-6)
+    op = tm.MojoRMSNormQuant(16, eps=1e-6, device="cpu")
     q, s = op(torch.zeros(2, 16))
     assert torch.equal(q, torch.zeros(2, 16, dtype=torch.int8))
     assert torch.allclose(s, torch.full((2, 1), 1e-12 / 127.0))
@@ -114,7 +114,7 @@ def test_dynamic_static_quant_and_dequant():
         if input_size:
             op_j = op_j.replace(inv_smooth_scale=jnp.asarray(inv))
         q_j, s_j = op_j(jnp.asarray(x))
-        for op in port_ops(tm.MojoDynamicQuant, input_size):
+        for op in port_ops(tm.MojoDynamicQuant, input_size, device="cpu"):
             if input_size:
                 op.inv_smooth_scale.copy_(torch.from_numpy(inv))
             q_t, s_t = op(torch.from_numpy(x))
@@ -124,7 +124,7 @@ def test_dynamic_static_quant_and_dequant():
 
     scale = (rng.random(48) * 0.05 + 0.01).astype(np.float32)
     q_j, _ = jax_op(jm.MojoStaticQuant, "ref", 48).replace(scale=jnp.asarray(scale))(jnp.asarray(x))
-    for op in port_ops(tm.MojoStaticQuant, 48):
+    for op in port_ops(tm.MojoStaticQuant, 48, device="cpu"):
         op.scale.copy_(torch.from_numpy(scale))
         q_t, s_t = op(torch.from_numpy(x))
         np.testing.assert_array_equal(q_t.numpy(), np.asarray(q_j))
@@ -154,7 +154,7 @@ def _check_quant_gemm(jax_tier, M, K, N, trans_weight):
     w, ws, x, xs = _quant_gemm_case(22, M, K, N, trans_weight)
     op_j = jax_op(jm.MojoQuantGemm, jax_tier, K, N, output_dtype=jnp.float32, trans_weight=trans_weight)
     want = op_j.replace(weight=jnp.asarray(w), weight_scale=jnp.asarray(ws))(jnp.asarray(x), jnp.asarray(xs))
-    for op in port_ops(tm.MojoQuantGemm, K, N, output_dtype=torch.float32, trans_weight=trans_weight):
+    for op in port_ops(tm.MojoQuantGemm, K, N, output_dtype=torch.float32, trans_weight=trans_weight, device="cpu"):
         assert op.weight.dtype == torch.int8 and op.weight_scale.dtype == torch.float32
         op.weight.copy_(torch.from_numpy(w))
         op.weight_scale.copy_(torch.from_numpy(ws.astype(np.float32)))
@@ -178,12 +178,12 @@ def test_quant_gemm_against_pallas_kernel(MKN, trans_weight):
 
 def test_quant_gemm_output_dtype_and_unported_int4():
     w, ws, x, xs = _quant_gemm_case(23, 3, 64, 32, True)
-    for op in port_ops(tm.MojoQuantGemm, 64, 32, output_dtype=torch.bfloat16, trans_weight=True):
+    for op in port_ops(tm.MojoQuantGemm, 64, 32, output_dtype=torch.bfloat16, trans_weight=True, device="cpu"):
         op.weight.copy_(torch.from_numpy(w))
         assert op(torch.from_numpy(x), torch.from_numpy(xs)).dtype == torch.bfloat16
     # int4 is ported (tests/test_torch_w4a8.py): packed (N // 2, K) weights, the same output dtype
     for op in port_ops(tm.MojoQuantGemm, 64, 128, output_dtype=torch.bfloat16, trans_weight=True,
-                       weight_dtype="int4"):
+                       weight_dtype="int4", device="cpu"):
         assert op.weight.shape == (64, 64) and op.weight.dtype == torch.int8
         assert op(torch.from_numpy(x), torch.from_numpy(xs)).dtype == torch.bfloat16
 

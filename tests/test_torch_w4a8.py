@@ -102,7 +102,8 @@ def _check_int4_gemm(jax_tier, M, K, N, unit):
     op_j = jm.MojoQuantGemm.get_backend_impl(jax_tier, strict=True)(
         K, N, output_dtype=jnp.float32, trans_weight=True, weight_dtype="int4")
     want = op_j.replace(weight=jnp.asarray(packed), weight_scale=jnp.asarray(ws))(jnp.asarray(x), jnp.asarray(xs))
-    ops = port_ops(tm.MojoQuantGemm, K, N, output_dtype=torch.float32, trans_weight=True, weight_dtype="int4")
+    ops = port_ops(tm.MojoQuantGemm, K, N, output_dtype=torch.float32, trans_weight=True, weight_dtype="int4",
+                   device="cpu")
     assert [type(op).__name__ for op in ops] == ["CudaQuantGemm", "RefQuantGemm"]
     kernels.reset_launch_counts()
     for op in ops:
@@ -135,7 +136,7 @@ def test_int4_plain_version_is_unpack_then_int8_golden():
     packed, ws, x, xs = _int4_case(43, 7, 64, 128, False)
     args = [torch.from_numpy(a) for a in (x, packed, xs, ws)]
     got = int4_matmul.int4_scaled_matmul(*args, torch.bfloat16)
-    want = tm.MojoQuantGemm.get_backend_impl("ref")(64, 128, trans_weight=True)
+    want = tm.MojoQuantGemm.get_backend_impl("ref")(64, 128, trans_weight=True, device="cpu")
     want.weight.copy_(unpack_int4_rows(args[1]))
     want.weight_scale.copy_(args[3])
     assert got.dtype == torch.bfloat16
