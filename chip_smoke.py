@@ -34,10 +34,13 @@ is non-zero:
      dk/dv) run at the training shape (B 2 x S 2048, 32/8 heads, D 128,
      causal), varlen with both windows and a local one, suffix-q, a
      zero-length sequence and fully masked rows (their o, dq, dk, dv exactly
-     0), MHA, group 4 under ABAB, D 64 and 256, fp16 and fp32, with lse and
-     delta to the fp32 ladder; and the Wan DiT's maskless L = 1560 SDPA
-     through CudaSdpa. Each of J's outputs is also held, relative to its
-     own size, to FLASH_SWA_REL_LIMITS (the whole tensor and its worst row).
+     0), MHA, group 4 under ABAB, groups 8 and 7 (ABAB, a ragged 63-row
+     tile), D 64 and 256, fp16 and fp32, with lse and delta to the fp32
+     ladder, dq, dk and dv bit for bit over two runs; and the Wan DiT's
+     maskless L = 1560 SDPA and its clip's L = 4400 (24 heads, timed beside
+     SDPA) through CudaSdpa. Each of J's outputs is also held, relative to
+     its own size, to FLASH_SWA_REL_LIMITS (the whole tensor and its worst
+     row).
      Kernel C with the TPU kernel's windows: ctx 32768 at B 4 with local
      1024 and global 64, bf16 and int8 pages, timed beside the same cases
      without windows (the windowed case must take under half the time:
@@ -1066,8 +1069,9 @@ def _flash_swa_cases(torch, compare, gen) -> None:
     same inputs (the backward ones fed the plain forward's o and lse, and dk/dv the plain dq's delta), at the
     training shape (main: B 2 x S 2048, 32/8 heads, D 128, causal, one cu vector), then varlen with both windows
     and with a local one, suffix-q (cu_q != cu_k), a zero-length sequence and fully masked rows (their o and dq,
-    and the dk and dv of keys no row sees, exactly 0), MHA, group 4 under ABAB, D 64 and 256, fp16 and fp32;
-    and the Wan DiT's maskless L = 1560 through CudaSdpa against the golden SDPA. bf16/fp16/fp32 outputs to
+    and the dk and dv of keys no row sees, exactly 0), MHA, group 4 under ABAB, groups 8 and 7 (a ragged 63-row
+    tile), D 64 and 256, fp16 and fp32, dq, dk and dv bit for bit over two runs; and the Wan DiT's maskless
+    L = 1560 and its clip's L = 4400 through CudaSdpa against the golden SDPA. bf16/fp16/fp32 outputs to
     their ladder, lse and delta to the fp32 ladder."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
     from mojo_opset_tpu_torch.core.operators import MojoSdpa
@@ -1137,18 +1141,22 @@ def _flash_swa_cases(torch, compare, gen) -> None:
                 lambda: fs.flash_swa_dkv_plain(q, k, v, do, lse, delta, cu_q, cu_k, **cfg), dtype, "dkv " + name, main,
                 check=checker(dtype, dtype), bound=(2 * rows + 4 * kv_rows + 2 * stats, 8 * d * pairs, kind),
                 library=lib_bwd, library_graph=False)
+        (o_k, _), (dq_k, _) = fs.flash_swa_fwd(q, k, v, cu_q, cu_k, **cfg), fs.flash_swa_dq(
+            q, k, v, o, do, lse, cu_q, cu_k, **cfg)
+        dk_k, dv_k = fs.flash_swa_dkv(q, k, v, do, lse, delta, cu_q, cu_k, **cfg)
+        (dq_2, _), (dk_2, dv_2) = fs.flash_swa_dq(q, k, v, o, do, lse, cu_q, cu_k, **cfg), fs.flash_swa_dkv(
+            q, k, v, do, lse, delta, cu_q, cu_k, **cfg)
+        if not (torch.equal(dq_k, dq_2) and torch.equal(dk_k, dk_2) and torch.equal(dv_k, dv_2)):
+            raise AssertionError(f"flash_swa: dq, dk or dv differ between two runs ({label})")
         if not (rows_seen.all() and keys_seen.all()):
-            (o_k, _), (dq_k, _) = fs.flash_swa_fwd(q, k, v, cu_q, cu_k, **cfg), fs.flash_swa_dq(
-                q, k, v, o, do, lse, cu_q, cu_k, **cfg)
-            dk_k, dv_k = fs.flash_swa_dkv(q, k, v, do, lse, delta, cu_q, cu_k, **cfg)
             blind = [t[~seen].abs().max().item() if (~seen).any() else 0.0
                      for t, seen in ((o_k, rows_seen), (dq_k, rows_seen), (dk_k, keys_seen), (dv_k, keys_seen))]
             if max(blind) != 0.0:
                 raise AssertionError(f"flash_swa: rows or keys that see nothing got non-zero o/dq/dk/dv {blind}")
             log("kernel flash_swa", f"{name}: {int((~rows_seen).sum())} rows and {int((~keys_seen).sum())} keys "
                                     f"see nothing; their o, dq, dk, dv are exactly 0")
-        log("kernel flash_swa", f"{label}: {time.perf_counter() - t0:.1f} s ({t_setup:.1f} s of inputs, plain "
-                                f"references and the library's first call)")
+        log("kernel flash_swa", f"{label}: dq, dk, dv bit for bit over two runs; {time.perf_counter() - t0:.1f} s "
+                                f"({t_setup:.1f} s of inputs, plain references and the library's first call)")
 
     case("training shape", [2048, 2048], None, 32, 8, 128, bf16, main=True)
     case("varlen, both windows", [300, 1, 700, 45], None, 32, 8, 128, bf16, lws=96, gws=32)
@@ -1158,6 +1166,10 @@ def _flash_swa_cases(torch, compare, gen) -> None:
     case("zero-length, window 0", [5, 3, 0, 4], [2, 0, 6, 4], 8, 2, 128, bf16, lws=0)
     case("MHA", [200, 77], None, 8, 8, 128, f32)
     case("group 4 ABAB", [150, 250], None, 16, 4, 128, bf16, layout="ABAB")
+    # the group sizes JAX's suite pins (tests/accuracy/operators/test_attention_edges.py:136): 8, and 7, whose 9
+    # tokens a block leave a ragged 63-row tile
+    case("group 8", [300, 77], None, 16, 2, 128, bf16)
+    case("group 7 ABAB", [250, 130], None, 14, 2, 128, f16, lws=64, layout="ABAB")
     case("D 64", [333, 100], None, 8, 2, 64, f16, lws=50)
     case("D 256", [130, 60], None, 4, 2, 256, bf16, causal=False)
     empty = torch.empty(0, 8, 128, device="cuda", dtype=bf16)
@@ -1178,6 +1190,15 @@ def _flash_swa_cases(torch, compare, gen) -> None:
             check=checker(bf16, limits=SDPA_GOLDEN_REL_LIMITS),
             bound=(4 * dit[0].numel() * 2, 4 * 128 * pairs, "bf16"),
             library=lambda: torch.nn.functional.scaled_dot_product_attention(*dit))
+    # the DiT clip's own self-attention (phase 12a: 4400 tokens, 24 heads of 128), the shape that takes most of its step
+    clip = [torch.randn(1, 24, 4400, 128, device="cuda", generator=gen).to(bf16) for _ in range(3)]
+    pairs = 24 * 4400 * 4400
+    compare("flash_swa_fwd", lambda: cuda_sdpa(*clip), lambda: golden_sdpa(*clip), bf16,
+            "Wan DiT clip SDPA (1, 24, 4400, 128) through CudaSdpa vs the golden", True, key="wan_dit_clip_sdpa",
+            check=checker(bf16, limits=SDPA_GOLDEN_REL_LIMITS),
+            bound=(4 * clip[0].numel() * 2, 4 * 128 * pairs, "bf16"),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(*clip))
+    del clip
     log("kernel flash_swa", f"J's cases took {time.perf_counter() - t_all:.1f} s")
 
 
@@ -3149,8 +3170,9 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
     at ctx 32768 beside the same cases without windows; F, G, H, I, K, M, P
     and Q their numbers at each shape (M: each layout and direction; P: pre
     and post), G, H, I, K, M, P and Q their largest error over those shapes;
-    J's forward its numbers through CudaSdpa at the Wan DiT's shape; O its
-    numbers at SDAR's GQA and under the Wan DiT's key-padding mask."""
+    J's forward its numbers through CudaSdpa at the Wan DiT's shape and its
+    clip's; O its numbers at SDAR's GQA and under the Wan DiT's key-padding
+    mask."""
     line = []
     conv_main = f"b{CONV_B}_t{CONV_T}"
     main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
@@ -3168,8 +3190,8 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             if module in ("int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first",
                           "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
-        for key in ("int8_pages", "wan_dit_sdpa", "window_ctx32k", "no_window_ctx32k", "window_ctx32k_int8",
-                    "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding"):
+        for key in ("int8_pages", "wan_dit_sdpa", "wan_dit_clip_sdpa", "window_ctx32k", "no_window_ctx32k",
+                    "window_ctx32k_int8", "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding"):
             if key in rec:
                 extra[key] = rec.pop(key)
         for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),

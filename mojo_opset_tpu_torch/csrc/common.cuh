@@ -1,8 +1,8 @@
 // Shared helpers for the port's Hopper kernels: dtype conversion (int8
 // K/V pages included), warp reductions, vector row loads, the fixed-order
-// column sum of per-block partial rows (K, Q), the cp.async and bf16/fp16
-// mma.sync.m16n8k16 fragments of the GEMM kernels (H, N), and the dtype
-// switch of the C entry points.
+// column sum of per-block partial rows (K, Q), the cp.async, ldmatrix and
+// bf16/fp16 mma.sync.m16n8k16 fragments of the tensor-core kernels (H, N,
+// J, O), and the dtype switch of the C entry points.
 //
 // Every entry point is `extern "C"`, takes raw device pointers and the
 // CUDA stream from the caller, launches, and returns cudaGetLastError()
@@ -182,6 +182,25 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const unsigned (&a)[4],
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory: lanes 8i..8i+7
+// give the row addresses of matrix i (16-byte aligned), and r[i] gets this
+// lane's pair of it: row lane / 4, columns 2 (lane % 4) and + 1.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// The same, each matrix transposed: r[i] gets rows 2 (lane % 4) and + 1 of
+// column lane / 4.
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
 __device__ __forceinline__ unsigned lds32(const uint16_t* p) { return *reinterpret_cast<const unsigned*>(p); }

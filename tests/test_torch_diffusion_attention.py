@@ -14,6 +14,11 @@ tensors run O's plain versions) to the Pallas tier.
 Tolerances, and why: the JAX test's own (:72-74), 2e-5 in fp32 (one
 algorithm, sums in another order) and 3e-2 in bf16 (rounding of o and of
 the bf16 inputs' products at other places); 1e-5 for the small ops.
+
+The model of the tensor-core kernels' bf16 / fp16 arithmetic
+(tests/test_torch_swa.py: P and dS split into hi + lo) is held to O's
+plain versions under chip_smoke.py's FLASH_DIFFUSION_REL_LIMITS at the
+block-diffusion mask, and shown to miss them with P and dS rounded once.
 """
 
 import functools
@@ -32,12 +37,14 @@ from mojo_opset_tpu.experimental.functions.diffusion_attention import (
 from mojo_opset_tpu.experimental.functions.diffusion_attention import block_diffusion_mask as jax_block_mask
 from mojo_opset_tpu.experimental.operators.position_embedding import MojoGridRoPE as JaxGridRoPE
 from mojo_opset_tpu.modeling.wan2_2.modeling_wan import rope_params as jax_rope_params
+import chip_smoke
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda.functions import CudaDiffusionAttentionFunction
 from mojo_opset_tpu_torch.backends.cuda.kernels import flash_diffusion as fd
 from mojo_opset_tpu_torch.backends.cuda.operators import CudaSdpa
 from mojo_opset_tpu_torch.modeling.wan2_2 import WanModel, WanConfig
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+from tests.test_torch_swa import randn, tensor_core_model
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 
@@ -262,3 +269,35 @@ def test_grid_rope_matches_jax():
     got = tm.MojoGridRoPE()(torch.from_numpy(x), grids, freqs)
     check_tol_diff(got, np.asarray(want), **F32)
     assert torch.equal(got[1, 10:], torch.from_numpy(x)[1, 10:])
+
+
+# -- the tensor-core kernels' arithmetic (bf16 / fp16), modelled on the CPU -------------------------------------
+# (tests/test_torch_swa.py says why.) Shape: B 1, 4 heads of 128, S 1024 under block_diffusion_mask(1024, 64),
+# unit normal inputs from a fixed seed: a single rounding of P and dS misses every whole-tensor limit by 1.5-3.2x
+# (bf16 2.4-2.6e-3 against 8e-4, fp16 2.9-3.3e-4 against 2e-4), the split stays 4.7-5.1x inside it (bf16
+# 1.3-1.6e-4, fp16 1.8-4.2e-5).
+
+
+def _diffusion_model_errors(dtype, split):
+    S, h, d = 1024, 4, 128
+    q, k, v, do = (torch.from_numpy(randn(80 + i, (1, h, S, d))).to(dtype) for i in range(4))
+    mask = tm.block_diffusion_mask(S, 64)
+    o, lse = fd.flash_diffusion_fwd_plain(q, k, v, mask)
+    dq, delta = fd.flash_diffusion_dq_plain(q, k, v, o, do, lse, mask)
+    dk, dv = fd.flash_diffusion_dkv_plain(q, k, v, do, lse, delta, mask)
+    got = tensor_core_model(q[0], k[0], v[0], do[0], o[0], mask, d ** -0.5, split)
+    return [chip_smoke.rel_errors(g.to(dtype), w[0])[:2] for g, w in zip(got, (o, dq, dk, dv))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_split_p_and_ds_keep_flash_diffusion_within_its_limits(dtype):
+    whole, row = chip_smoke.FLASH_DIFFUSION_REL_LIMITS[{torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]]
+    for name, (w, r) in zip(("o", "dq", "dk", "dv"), _diffusion_model_errors(dtype, split=True)):
+        assert w <= whole and r <= row, f"{name}: {w:.3g} / {r:.3g} over {(whole, row)}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_p_and_ds_rounded_once_miss_flash_diffusion_limits(dtype):
+    whole = chip_smoke.FLASH_DIFFUSION_REL_LIMITS[{torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]][0]
+    errors = _diffusion_model_errors(dtype, split=False)
+    assert all(w > whole for w, _ in errors), f"single rounding read {errors}, within {whole}"

@@ -15,6 +15,11 @@ tiny case (its lse too).
 Tolerances, and why: fp32 everywhere; atol = rtol = 1e-5 on values and
 2e-5 on gradients (one fp32 algorithm, sums in another order; the
 backward recomputes p from lse instead of differentiating the softmax).
+
+A model of the tensor-core kernels' bf16 / fp16 arithmetic (P and dS split
+into hi + lo) is held to J's plain versions under chip_smoke.py's relative
+limits, and the same model with P and dS rounded once is shown to miss
+them (the section at the end says why).
 """
 
 import jax
@@ -26,6 +31,7 @@ import torch
 import mojo_opset_tpu.core.operators as jo
 from mojo_opset_tpu.backends.pallas.kernels import flash_vjp as jax_flash
 from mojo_opset_tpu.core.functions.attention import MojoSWAFunction as JaxSWAFunction
+import chip_smoke
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
 from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
@@ -287,3 +293,101 @@ def test_flash_swa_never_falls_back(monkeypatch):
         tm.MojoSdpa(enable_gqa=True)(meta(1, 8, 10, 128), meta(1, 2, 10, 128), meta(1, 2, 10, 128))
     with pytest.raises(RuntimeError, match="no kernels built"):
         tm.MojoPrefillGQA()(meta(1, 8, 10, 128), meta(1, 2, 10, 128), meta(1, 2, 10, 128), meta(2, dtype=torch.int32))
+
+
+# -- the tensor-core kernels' arithmetic (bf16 / fp16), modelled on the CPU ------------------------------------
+#
+# Kernels J and O take their bf16 / fp16 products on the tensor cores: operands in the working type, exact
+# products, fp32 sums. S = Q K^T and dP = dO V^T take inputs as they are, but P and dS are fp32, so the kernels
+# round each to the 2p significant bits that hi + lo of a p-bit type carry (16 for bf16, 22 for fp16) and send
+# hi = T(x) and lo = T(x - hi) through two MMAs into one accumulator (csrc/flash_tiles.cuh). The model below repeats
+# that arithmetic on dense heads, fed the plain versions' inputs, and is held to the plain versions under
+# chip_smoke.py's relative limits (each output, whole tensor and worst row, against its fp32-sum reference): the
+# split must keep them, and rounding P and dS once must not, so dropping the split shows here.
+# Shape, and why: one causal sequence of 1024 tokens, 4 query heads over 2 kv heads of 128, unit normal inputs
+# from a fixed seed, where a single rounding misses every whole-tensor limit by 2.1-3.3x (bf16 2.1-2.6e-3 against
+# 1e-3, fp16 2.6-3.3e-4 against 1e-4) and the split stays 2.9-6.8x inside it (bf16 1.2-1.5e-4, fp16 1.5-3.4e-5).
+
+
+def on_split_grid(x, dtype):
+    """fp32 x rounded, half away from zero, to the 2p significant bits hi + lo of dtype carry."""
+    drop = 8 if dtype == torch.bfloat16 else 2  # 23 fraction bits less 2p - 1
+    u = x.contiguous().view(torch.int32)
+    return ((u + (1 << (drop - 1))) & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def product_in(x, y, dtype, split):
+    """x @ y with fp32 x entering as the kernels' A operand: hi + lo of dtype (split) or rounded once."""
+    if not split:
+        return x.to(dtype).float() @ y
+    x = on_split_grid(x, dtype)
+    hi = x.to(dtype).float()
+    return hi @ y + (x - hi).to(dtype).float() @ y
+
+
+def tensor_core_model(q, k, v, do, o, keep, scale, split):
+    """The kernels' arithmetic on dense heads: q, do, o (H, Sq, D) and k, v (H, Sk, D), one row per query head, in
+    the working type; keep (Sq, Sk), every row keeping a key. The forward's P is exp(s - max); the backward reads
+    the reference's o, as chip_smoke.py feeds it. Returns fp32 o, dq and per-query-head dk, dv."""
+    dtype = q.dtype
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = (qf @ kf.transpose(-1, -2) * scale).masked_fill(~keep, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p_tilde = torch.exp(s - m)
+    l = p_tilde.sum(-1, keepdim=True)
+    p = torch.exp(s - (m + l.log()))
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * o.float()).sum(-1, keepdim=True))
+    return (product_in(p_tilde, vf, dtype, split) / l, scale * product_in(ds, kf, dtype, split),
+            scale * product_in(ds.transpose(-1, -2), qf, dtype, split),
+            product_in(p.transpose(-1, -2), dof, dtype, split))
+
+
+def _swa_model_errors(dtype, split):
+    """(whole, worst row) relative errors of the modelled o, dq, dk, dv against J's plain versions."""
+    S, hq, hkv, d = 1024, 4, 2, 128
+    q, k, v, do = (torch.from_numpy(randn(90 + i, (S, h, d))).to(dtype) for i, h in enumerate((hq, hkv, hkv, hq)))
+    cu = torch.tensor([0, S], dtype=torch.int32)
+    o, lse = fs.flash_swa_fwd_plain(q, k, v, cu, cu)
+    dq, delta = fs.flash_swa_dq_plain(q, k, v, o, do, lse, cu, cu)
+    dk, dv = fs.flash_swa_dkv_plain(q, k, v, do, lse, delta, cu, cu)
+    heads = lambda x: x.transpose(0, 1)  # noqa: E731  (T, H, D) <-> (H, T, D)
+    om, dqm, dkm, dvm = tensor_core_model(heads(q), heads(fs._heads(k, hq // hkv, "AABB")),
+                                          heads(fs._heads(v, hq // hkv, "AABB")), heads(do), heads(o),
+                                          torch.ones(S, S, dtype=torch.bool).tril(), d ** -0.5, split)
+    dkm, dvm = (fs._group_sum(heads(x), hkv, "AABB") for x in (dkm, dvm))
+    got = (heads(om), heads(dqm), dkm, dvm)
+    return [chip_smoke.rel_errors(g.to(dtype), w)[:2] for g, w in zip(got, (o, dq, dk, dv))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_split_p_and_ds_keep_flash_swa_within_its_limits(dtype):
+    whole, row = chip_smoke.FLASH_SWA_REL_LIMITS[{torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]]
+    for name, (w, r) in zip(("o", "dq", "dk", "dv"), _swa_model_errors(dtype, split=True)):
+        assert w <= whole and r <= row, f"{name}: {w:.3g} / {r:.3g} over {(whole, row)}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+def test_p_and_ds_rounded_once_miss_flash_swa_limits(dtype):
+    whole = chip_smoke.FLASH_SWA_REL_LIMITS[{torch.bfloat16: "bf16", torch.float16: "fp16"}[dtype]][0]
+    errors = _swa_model_errors(dtype, split=False)
+    assert all(w > whole for w, _ in errors), f"single rounding read {errors}, within {whole}"
+
+
+def test_split_grid_makes_a_probability_next_to_one_exactly_one():
+    """A row that keeps one key has p = exp(s - lse) = 1 up to fp32 rounding; on the split grid it is exactly 1
+    (then a sum of such rows' bf16 products hits the reference's rounding ties exactly), while values the grid
+    holds come back unchanged."""
+    fp32_next_to_one = torch.tensor([1 - 2 ** -24, 1 + 2 ** -23], dtype=torch.float32)
+    assert torch.equal(on_split_grid(fp32_next_to_one, torch.float16), torch.ones(2))
+    within_bf16_grid = torch.tensor([1 - 2 ** -24, 1 + 2 ** -23, 1 - 2 ** -18, 1 + 2 ** -17], dtype=torch.float32)
+    assert torch.equal(on_split_grid(within_bf16_grid, torch.bfloat16), torch.ones(4))
+    x = torch.from_numpy(randn(7, (1000,)))
+    for dtype in (torch.bfloat16, torch.float16):
+        g = on_split_grid(x, dtype)
+        hi = g.to(dtype).float()
+        # hi + lo carries the grid value exactly; in fp16 while lo stays normal (|x| >= 2^-3), below that lo's
+        # subnormals hold it to 2^-24 absolute
+        exact = (hi + (g - hi).to(dtype).float() == g) | ((dtype == torch.float16) & (g.abs() < 2 ** -3))
+        assert exact.all()
+        assert torch.equal(on_split_grid(g, dtype), g)
+        assert ((g - x).abs() <= x.abs() * 2.0 ** -(16 if dtype == torch.bfloat16 else 22)).all()
