@@ -21,7 +21,11 @@ is non-zero:
      ragged M, and refuses N % 128 != 0; its main cases are also timed
      replayed from a CUDA graph (device time, not the host's launch rate).
      The decode and prefill kernels run on bf16/fp32/fp16 pages and on int8
-     (C8) pages. The grouped GEMM (H) runs at the MoE path's shapes (prefill
+     (C8) pages; decode (C, C') also at groups 20 (40/2, a partial 16-head
+     chunk) and 32 (32/1), and at Qwen3-4B's geometry at bs 1, 8 and 24 at
+     ctx 4000 (the first benchmark's decode grid) beside SDPA over the
+     gathered pages; every C and C' case repeats bit for bit over two runs
+     (its split-KV merge runs in a fixed order). The grouped GEMM (H) runs at the MoE path's shapes (prefill
      and decode at bs 4 and 1, fc1 and down, routed top-8 of 128) and on
      empty and 1-row groups, ragged M, K and N, rows past the groups' end,
      both weight layouts and three dtypes, and refuses K % 8 != 0 in bf16;
@@ -60,7 +64,7 @@ is non-zero:
      every row ignored, one row and the chunked-dz backward (4 runs); each
      output to its ladder and, relative to its size, to FLCE_REL_LIMITS;
      dz, dx, dw bit for bit over two runs; the main cases beside the cuBLAS
-     time of the same product. Kernel O (masked attention: forward, dq,
+     time of the same product, with each product's TFLOP/s printed. Kernel O (masked attention: forward, dq,
      dk/dv) at the diffusion Function's shape (B 2 x 16 heads x S 4096, D
      128, block-diffusion mask of 64) in bf16, fp16 and fp32 (S 2048),
      SDAR-30B-A3B's GQA (32/4 heads, S 2048), a random mask with empty rows,
@@ -280,6 +284,7 @@ MOE_LAYER_CHECKED = 24  # the layer whose experts are held to the plain experts 
 MOE_COSINE_BOUND = 0.998
 PROMPT_LENS = (1000, 513, 130, 7)
 DECODE_STEPS = 32
+DECODE_GRID_BS = (1, 8, 24)  # kernel C at Qwen3-4B's geometry and ctx 4000: the first benchmark's decode batches
 FUSED_STEPS = 16
 BLOCK_SIZE = 64
 
@@ -581,16 +586,10 @@ def _kind(torch, dtype) -> str:
     return {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "fp32", torch.int8: "int8"}[dtype]
 
 
-def phase_kernels(torch) -> dict:
-    """Each kernel against its plain version; returns the main-path record."""
-    from mojo_opset_tpu_torch.backends.cuda.kernels import (
-        group_gemm, int4_matmul, int8_matmul, norms, paged_decode, paged_prefill, rmsnorm_quant, rope,
-    )
+def make_compare(torch, record: dict):
+    """``compare(name, kernel_fn, plain_fn, dtype, case, ...)``: one kernel case against its plain version; a main
+    case is also timed and lands in ``record[name]`` (or ``record[name][key]``)."""
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    bf16 = torch.bfloat16
-    record = {}
 
     def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None, bound=None, library=None,
                 library_graph=True):
@@ -626,6 +625,21 @@ def phase_kernels(torch) -> dict:
                 record.setdefault(name, {}).setdefault(key, entry)
         log(f"kernel {name}", line)
 
+    return compare
+
+
+def phase_kernels(torch) -> dict:
+    """Each kernel against its plain version; returns the main-path record."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import (
+        group_gemm, int4_matmul, int8_matmul, norms, paged_decode, paged_prefill, rmsnorm_quant, rope,
+    )
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16 = torch.bfloat16
+    record = {}
+    compare = make_compare(torch, record)
+
     T = sum(PROMPT_LENS)
     H, Hkv, D, hidden = 32, 8, 128, 2560
     # A: RMSNorm — layer norm at the prefill batch (main), q/k head norms, odd widths
@@ -657,54 +671,8 @@ def phase_kernels(torch) -> dict:
                 lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, f"rope T={n} q {hq}x{d} k {hk}x{d}", main,
                 bound=((2 * elems + 2 * n * d) * q.element_size(), 3 * elems, "fp32"))
 
-    def attn_bound(dtype, hq, hkv, d, q_tokens, kv_lens, pairs, page_bytes):
-        """Bytes: q, the K/V rows these lengths read, out; operations: QK and PV over ``pairs``."""
-        isz = torch.finfo(dtype).bits // 8
-        return (2 * q_tokens * hq * d * isz + 2 * sum(kv_lens) * hkv * d * page_bytes, 4 * hq * d * pairs,
-                _kind(torch, dtype))
-
-    # C / C': decode at the main path's lengths after prefill + decode (main), edge cases; int8 pages
     n_blocks = 4 * 69
-    dec_lens = [n + DECODE_STEPS for n in PROMPT_LENS]
-    cases = [(bf16, "NHD", "AABB", H, Hkv, D, dec_lens, None, True),
-             (bf16, "HND", "ABAB", H, Hkv, D, [0, 1, 64, 65], None, False),
-             (torch.float32, "NHD", "AABB", 8, 8, 64, [17, 0, 130], 0.3, False),
-             (bf16, "NHD", "ABAB", 12, 2, 128, [700, 9, 64], None, False),
-             (torch.float16, "HND", "AABB", 16, 1, 256, [200, 3], None, False)]
-    for dtype, layout, gqa, hq, hkv, d, lens, scale, main in cases:
-        kc, vc = _cache(torch, n_blocks, hkv, BLOCK_SIZE, d, layout, dtype, gen)
-        bt = _tables(torch, lens, BLOCK_SIZE, 69, n_blocks, gen)
-        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(dtype)
-        lib = None
-        if main:  # SDPA over the K/V pages gathered beforehand (the gather left out), a length mask on the keys
-            k_dense, v_dense = (_dense_pages(torch, cache, bt, lens, layout) for cache in (kc, vc))
-            mask = (torch.arange(max(lens), device="cuda") < sl[:, None])[:, None, None]
-            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q[:, :, None], k_dense, v_dense, attn_mask=mask, enable_gqa=True)
-            check_tol_diff(lib()[:, :, 0], paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, scale, gqa, layout),
-                           **tols_for(dtype))  # the library call computes the same function
-        compare("paged_decode",
-                lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, scale, gqa, layout),
-                lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, scale, gqa, layout),
-                dtype, f"decode {layout} {gqa} {hq}/{hkv}x{d} lens={lens} scale={scale}", main,
-                bound=attn_bound(dtype, hq, hkv, d, len(lens), lens, sum(lens), kc.element_size()), library=lib)
-    del kc, vc
-    int8_cases = [(bf16, "AABB", H, Hkv, D, dec_lens, True),
-                  (bf16, "ABAB", H, Hkv, D, [0, 1, 64, 65], False),
-                  (torch.float32, "AABB", 8, 8, 64, [17, 0, 130], False),
-                  (torch.float16, "ABAB", 16, 2, 256, [200, 3], False)]
-    for dtype, gqa, hq, hkv, d, lens, main in int8_cases:
-        (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, BLOCK_SIZE, d, gen)
-        bt = _tables(torch, lens, BLOCK_SIZE, 69, n_blocks, gen)
-        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(dtype)
-        compare("paged_decode",
-                lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, None, gqa, "HND", ks, vs),
-                lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, None, gqa, "HND", ks, vs),
-                dtype, f"decode int8 pages HND {gqa} {hq}/{hkv}x{d} lens={lens}", main, key="int8_pages",
-                bound=attn_bound(dtype, hq, hkv, d, len(lens), lens, sum(lens), 1))
-
+    _decode_cases(torch, compare, gen, record)
     _decode_window_cases(torch, compare, gen, record)
 
     def causal_pairs(q_lens, kv_lens):
@@ -743,7 +711,7 @@ def phase_kernels(torch) -> dict:
                                                         max_q_len=max(q_lens)),
                 lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
                 dtype, f"prefill {layout} {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens} scale={scale}", main,
-                bound=attn_bound(dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
+                bound=attention_bound(torch, dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
                                  kc.element_size()), library=lib)
     del kc, vc
     int8_cases = [(bf16, "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), True),
@@ -762,7 +730,8 @@ def phase_kernels(torch) -> dict:
                                                               key_scale=ks, value_scale=vs),
                 dtype, f"prefill int8 pages HND {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens}", main,
                 key="int8_pages",
-                bound=attn_bound(dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens), 1))
+                bound=attention_bound(torch, dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
+                                      1))
     del kc, vc
 
     # E: RMSNorm + int8 quant — the layer norms at the prefill batch (main) and a decode batch, odd
@@ -912,11 +881,97 @@ def phase_kernels(torch) -> dict:
     _mla_cases(torch, compare, gen)
     _flash_swa_cases(torch, compare, gen)
     _train_kernel_cases(torch, compare, gen)
-    _flce_cases(torch, compare, gen)
+    _flce_cases(torch, compare, gen, record)
     _flash_diffusion_cases(torch, compare, gen)
     _residual_add_cases(torch, compare, gen)
     _conv1d_cases(torch, compare, gen)
     return record
+
+
+def attention_bound(torch, dtype, hq, hkv, d, q_tokens, kv_lens, pairs, page_bytes):
+    """Bytes: q, the K/V rows these lengths read, out; operations: QK and PV over ``pairs``."""
+    isz = torch.finfo(dtype).bits // 8
+    return (2 * q_tokens * hq * d * isz + 2 * sum(kv_lens) * hkv * d * page_bytes, 4 * hq * d * pairs,
+            _kind(torch, dtype))
+
+
+def _repeats(torch, name, fn) -> None:
+    """Two runs of a kernel on the same inputs give the same bits."""
+    if not torch.equal(fn(), fn()):
+        raise AssertionError(f"{name}: two runs on the same inputs differ")
+
+
+def _decode_cases(torch, compare, gen, record) -> None:
+    """C / C': decode at the main path's lengths after prefill + decode (main, beside SDPA over the gathered pages),
+    edge cases, groups 20 (40/2: a partial 16-head chunk) and 32 (32/1), int8 pages; Qwen3-4B's geometry at bs 1, 8
+    and 24 at ctx 4000 beside SDPA; C and C' repeat bit for bit over two runs (the split merge runs in a fixed
+    order)."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import paged_decode
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16 = torch.bfloat16
+    H, Hkv, D = 32, 8, 128
+    n_blocks = 4 * 69
+    dec_lens = [n + DECODE_STEPS for n in PROMPT_LENS]
+
+    def sdpa_over_pages(q, kc, vc, sl, bt, lens, layout, gqa, scale):
+        """SDPA over the K/V pages gathered beforehand (the gather left out), a length mask on the keys; checked to
+        compute the same function as the plain version."""
+        k_dense, v_dense = (_dense_pages(torch, cache, bt, lens, layout) for cache in (kc, vc))
+        mask = (torch.arange(max(lens), device="cuda") < sl[:, None])[:, None, None]
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], k_dense, v_dense, attn_mask=mask, enable_gqa=True)
+        check_tol_diff(lib()[:, :, 0], paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, scale, gqa, layout),
+                       **tols_for(q.dtype))
+        return lib
+
+    cases = [(bf16, "NHD", "AABB", H, Hkv, D, dec_lens, None, True, None),
+             (bf16, "HND", "ABAB", H, Hkv, D, [0, 1, 64, 65], None, False, None),
+             (torch.float32, "NHD", "AABB", 8, 8, 64, [17, 0, 130], 0.3, False, None),
+             (bf16, "NHD", "ABAB", 12, 2, 128, [700, 9, 64], None, False, None),
+             (torch.float16, "HND", "AABB", 16, 1, 256, [200, 3], None, False, None),
+             (bf16, "NHD", "AABB", 40, 2, D, [1032, 0, 545, 39], None, False, None),
+             (bf16, "HND", "ABAB", 40, 2, D, [700, 9, 64], None, False, None),
+             (bf16, "NHD", "AABB", 32, 1, D, dec_lens, None, False, None)]
+    # Qwen3-4B's geometry at the first benchmark's decode grid: bs 1, 8 and 24 at ctx 4000
+    cases += [(bf16, "NHD", "AABB", H, Hkv, D, [4000] * bs, None, True, f"bs{bs}_ctx4000") for bs in DECODE_GRID_BS]
+    for dtype, layout, gqa, hq, hkv, d, lens, scale, main, key in cases:
+        blocks = max(n_blocks, sum(-(-n // BLOCK_SIZE) for n in lens))
+        cols = max(69, -(-max(lens) // BLOCK_SIZE))
+        kc, vc = _cache(torch, blocks, hkv, BLOCK_SIZE, d, layout, dtype, gen)
+        bt = _tables(torch, lens, BLOCK_SIZE, cols, blocks, gen)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(dtype)
+        lib = sdpa_over_pages(q, kc, vc, sl, bt, lens, layout, gqa, scale) if main else None
+        run = lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, scale, gqa, layout)  # noqa: E731
+        compare("paged_decode", run,
+                lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, scale, gqa, layout),
+                dtype, f"decode {layout} {gqa} {hq}/{hkv}x{d} lens={lens[:4]}{'...' if len(lens) > 4 else ''} "
+                       f"scale={scale}", main, key=key,
+                bound=attention_bound(torch, dtype, hq, hkv, d, len(lens), lens, sum(lens), kc.element_size()),
+                library=lib)
+        _repeats(torch, f"decode {hq}/{hkv} lens={lens[:4]}", run)
+        del kc, vc
+    int8_cases = [(bf16, "AABB", H, Hkv, D, dec_lens, True),
+                  (bf16, "ABAB", H, Hkv, D, [0, 1, 64, 65], False),
+                  (torch.float32, "AABB", 8, 8, 64, [17, 0, 130], False),
+                  (torch.float16, "ABAB", 16, 2, 256, [200, 3], False),
+                  (bf16, "AABB", 40, 2, D, [1032, 0, 545, 39], False),
+                  (bf16, "ABAB", 32, 1, D, dec_lens, False)]
+    for dtype, gqa, hq, hkv, d, lens, main in int8_cases:
+        (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, BLOCK_SIZE, d, gen)
+        bt = _tables(torch, lens, BLOCK_SIZE, 69, n_blocks, gen)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(dtype)
+        run = lambda: paged_decode.paged_decode_gqa(q, kc, vc, sl, bt, None, gqa, "HND", ks, vs)  # noqa: E731
+        compare("paged_decode", run,
+                lambda: paged_decode.paged_decode_gqa_plain(q, kc, vc, sl, bt, None, gqa, "HND", ks, vs),
+                dtype, f"decode int8 pages HND {gqa} {hq}/{hkv}x{d} lens={lens}", main, key="int8_pages",
+                bound=attention_bound(torch, dtype, hq, hkv, d, len(lens), lens, sum(lens), 1))
+        _repeats(torch, f"decode int8 pages {hq}/{hkv} lens={lens}", run)
+        del kc, vc
+    torch.cuda.empty_cache()
+    log("kernel paged_decode", "every C and C' case repeats bit for bit over two runs")
 
 
 def _decode_window_cases(torch, compare, gen, record) -> None:
@@ -1464,7 +1519,7 @@ def flce_rel_errors(got, want):
     return whole, row, w.square().mean().sqrt().item() if w.numel() else 0.0
 
 
-def _flce_cases(torch, compare, gen) -> None:
+def _flce_cases(torch, compare, gen, record) -> None:
     """N: fused linear + cross-entropy, each entry point against its plain version: at the train step's lm_head
     (main: N 4096 x H 2560 x V 151936 bf16, targets drawn over V with a quarter ignored, a and c of the mean
     reduction; timed from a CUDA graph beside the bound and the cuBLAS time of the same product), then fp16 and
@@ -1544,7 +1599,11 @@ def _flce_cases(torch, compare, gen) -> None:
 
     t0 = time.perf_counter()
     case("train step lm_head", TRAIN_TOKENS, 2560, 151936, bf16, main=True)
-    log("kernel flce", f"main cases took {time.perf_counter() - t0:.1f} s")
+    ops = 2 * TRAIN_TOKENS * 2560 * 151936
+    rates = ", ".join(f"{name[5:]} {ops / record[name]['ms'] / 1e9:.1f}; {ops / record[name]['library_ms'] / 1e9:.1f}"
+                      for name in ("flce_stats", "flce_dz", "flce_dx", "flce_dw"))
+    log("kernel flce", f"at the step's lm_head, TFLOP/s of each product (kernel; one cuBLAS matmul): {rates}; main "
+                       f"cases took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     case("fp16", 300, 256, 1000, f16)
     case("fp32", 300, 256, 1000, f32)
@@ -3191,7 +3250,8 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
                           "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         for key in ("int8_pages", "wan_dit_sdpa", "wan_dit_clip_sdpa", "window_ctx32k", "no_window_ctx32k",
-                    "window_ctx32k_int8", "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding"):
+                    "window_ctx32k_int8", "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding",
+                    *(f"bs{bs}_ctx4000" for bs in DECODE_GRID_BS)):
             if key in rec:
                 extra[key] = rec.pop(key)
         for path, path_counts in (("bf16", bf16_counts), ("w4a8_speculative", spec_counts), ("moe", moe_counts),

@@ -50,7 +50,7 @@ SIGNATURES = {
     "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _P),
     "mojo_residual_add_rmsnorm": (_P,) * 5 + (_I, _I, _F) + (_I,) * 4 + (_P,),
     "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "mojo_paged_decode": (_P,) * 8 + (_I,) * 9 + (_F,) + (_I,) * 5 + (_P,),
+    "mojo_paged_decode": (_P,) * 9 + (_I,) * 10 + (_F,) + (_I,) * 5 + (_P,),
     "mojo_paged_prefill": (_P,) * 9 + (_I,) * 10 + (_F, _I, _I, _I, _P),
     "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _P),
     "mojo_int8_matmul": (_P,) * 5 + (_I,) * 5 + (_P,),
@@ -63,7 +63,7 @@ SIGNATURES = {
     "mojo_rope_head_first": (_P,) * 7 + (_I,) * 9 + (_P,),
     "mojo_flce_stats": (_P,) * 7 + (_I,) * 4 + (_F, _I, _P),
     "mojo_flce_dz": (_P,) * 7 + (_I,) * 5 + (_F, _F, _I, _P),
-    "mojo_flce_dx": (_P,) * 3 + (_I,) * 5 + (_P,),
+    "mojo_flce_dx": (_P,) * 4 + (_I,) * 6 + (_P,),
     "mojo_flce_dw": (_P,) * 4 + (_I,) * 6 + (_P,),
     "mojo_conv1d_fwd": (_P,) * 5 + (_I,) * 7 + (_P,),
     "mojo_conv1d_bwd": (_P,) * 8 + (_I,) * 8 + (_P,),
@@ -153,6 +153,18 @@ def dtype_code(t: torch.Tensor) -> int:
     if t.dtype not in DTYPE_CODES:
         raise TypeError(f"kernels take float32, float16 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[t.dtype]
+
+
+H100_SMS = 132  # what a tensor on the meta device (shape checks only) counts
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``: shapes of kernel grids are
+    sized from it, never from tensor values."""
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require(cond: bool, msg: str) -> None:

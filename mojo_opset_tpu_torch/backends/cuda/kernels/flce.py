@@ -40,6 +40,8 @@ launches_dx = 0
 launches_dw = 0
 
 DZ_BUDGET_BYTES = 2**31  # the largest dz of one run
+DX_TILE = (128, 256)  # kernel N's output tile (rows, columns) on the tensor cores
+DX_MIN_STAGES = 16  # the fewest 64-deep stages of one K range of dx
 MAX_SPLITS = 2 * 132  # vocab splits of the statistics pass: at most two blocks a streaming multiprocessor
 _LD_ALIGN = 8  # dz's row pitch, in elements: 16-byte rows for 16-bit types
 
@@ -221,10 +223,32 @@ def flce_dz(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0) -> torch
     return _dz_kernel(x, w, target, lse, a, c, cap, label_smoothing, 0, x.shape[0], out)
 
 
+def dx_splits(rows: int, H: int, V: int, sms: int) -> int:
+    """K ranges of dx's product (its K is V): of 1, 2 and 4, the count that
+    leaves the fewest waves of full-length tiles on ``sms`` SMs (dx has few
+    output tiles: 320 at Qwen3-4B's step, 2.4 waves of 132), each range at
+    least ``DX_MIN_STAGES`` stages; a tie keeps the smaller."""
+    tiles = -(-rows // DX_TILE[0]) * -(-H // DX_TILE[1])
+    stages = -(-V // 64)
+
+    def waves(k):
+        return -(-k * tiles // sms) / k
+
+    best = 1
+    for k in (2, 4):
+        if stages // k >= DX_MIN_STAGES and waves(k) < waves(best):
+            best = k
+    return best
+
+
 def _dx_kernel(dz, w, out):
     global launches_dx
-    build.launch("mojo_flce_dx", dz.device, dz.data_ptr(), w.data_ptr(), out.data_ptr(), dz.shape[0], w.shape[1],
-                 w.shape[0], dz.stride(0), build.dtype_code(dz))
+    rows, H, V = dz.shape[0], w.shape[1], w.shape[0]
+    k_splits = 1 if dz.dtype == torch.float32 else dx_splits(rows, H, V, build.sm_count(dz.device))
+    # per K range, its fp32 sums: added in range order by the kernel's second pass; held until the launch is queued
+    part = torch.empty(k_splits, rows, H, dtype=torch.float32, device=dz.device) if k_splits > 1 else None
+    build.launch("mojo_flce_dx", dz.device, dz.data_ptr(), w.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), rows, H, V, dz.stride(0), k_splits, build.dtype_code(dz))
     launches_dx += 1
     return out
 

@@ -7,7 +7,10 @@ Replaces the JAX package's ``backends/pallas/kernels/paged_decode.py:260``
 int8 pages, the scale folding around it
 (``backends/pallas/operators/attention.py:225-268``). A window makes the
 kernel skip the pages and keys outside it, not mask them after reading.
-``launches`` counts kernel launches.
+The kernel splits each row's keys over ``split_count`` blocks, a number
+that depends on shapes only, and merges the splits' partials in split
+order (a second launch when there are several). ``launches`` counts
+calls of the kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +27,37 @@ from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import paged
 launches = 0
 
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 16
+KEYS_PER_STEP = 64  # a block's step over the kept keys (8 warps x 8 keys): the unit of the split ranges
+HEADS_PER_BLOCK = 16  # query heads of one block for groups above 4; a group of 4 or fewer takes one block
+BLOCKS_PER_SM = 2  # the splits aim at this many blocks a streaming multiprocessor
+MAX_SPLITS = 1024  # the kernel's merge takes at most this many
+
+
+def group_chunks(group: int) -> int:
+    """Blocks that share one kv head's group of query heads."""
+    return 1 if group <= 4 else -(-group // HEADS_PER_BLOCK)
+
+
+def split_count(batch: int, kv_heads: int, group: int, table_keys: int, local_window: Optional[int] = None,
+                global_window: Optional[int] = None, sms: int = build.H100_SMS) -> int:
+    """Splits of each row's kept keys, from shapes alone (never a sequence
+    length: reading one would sync the host with the card). A grid that
+    fills one wave of ``BLOCKS_PER_SM`` blocks an SM takes one split;
+    a smaller one as many as keep it within that wave, and at least two
+    (a grid just over one wave of short blocks pays a second wave, measured
+    in PERF.md); never more than one a 64-key step of the longest row the
+    table and windows allow."""
+    kept = table_keys
+    if local_window is not None:
+        kept = min(kept, local_window + 1 + (global_window or 0))
+    elif global_window is not None:
+        kept = min(kept, global_window)
+    blocks = batch * kv_heads * group_chunks(group)
+    wave = BLOCKS_PER_SM * sms
+    if blocks >= wave:
+        return 1
+    return max(1, min(max(2, wave // blocks), -(-kept // KEYS_PER_STEP), MAX_SPLITS))
+
 
 
 def cache_strides(cache: torch.Tensor, kv_layout: str) -> tuple[int, int, int]:
@@ -149,19 +182,23 @@ def _decode_kernel(query, key_cache, value_cache, total_seq_lens, block_tables, 
     code = build.dtype_code(query)
     build.require(query.ndim == 3, f"query must be (B, Hq, D), got {tuple(query.shape)}")
     Hq, Hkv, bs, D = check_paged_cache(query, key_cache, value_cache, kv_layout, key_scale, value_scale)
-    build.require(Hq // Hkv <= MAX_GROUP, f"decode kernel serves up to {MAX_GROUP} query heads per kv head")
     B = query.shape[0]
     build.require_device(query.device, total_seq_lens, block_tables)
     _int32_table(total_seq_lens, "total_seq_lens", (B,))
     _int32_table(block_tables, "block_tables", (B, block_tables.shape[1]))
     scale = 1.0 / math.sqrt(D) if softmax_scale is None else softmax_scale
     k_scale, v_scale, kv_int8 = scale_pointers(key_scale, value_scale)
+    splits = split_count(B, Hkv, Hq // Hkv, block_tables.shape[1] * bs, local_window, global_window,
+                         build.sm_count(query.device))
     out = torch.empty_like(query)
+    # per split and query head: acc (D), max, sum; held until the launch is queued
+    partial = torch.empty(B, Hq, splits, D + 2, dtype=torch.float32, device=query.device) if splits > 1 else None
+    partial_ptr = None if partial is None else partial.data_ptr()
     build.launch(
         "mojo_paged_decode", query.device,
         query.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(), k_scale, v_scale,
-        total_seq_lens.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-        B, Hq, Hkv, D, bs, block_tables.shape[1], *cache_strides(key_cache, kv_layout),
+        total_seq_lens.data_ptr(), block_tables.data_ptr(), out.data_ptr(), partial_ptr,
+        B, Hq, Hkv, D, bs, block_tables.shape[1], *cache_strides(key_cache, kv_layout), splits,
         float(scale), int(gqa_layout == "ABAB"), -1 if local_window is None else local_window,
         -1 if global_window is None else global_window, kv_int8, code,
     )

@@ -1,8 +1,9 @@
 // Shared helpers for the port's Hopper kernels: dtype conversion (int8
 // K/V pages included), warp reductions, vector row loads, the fixed-order
-// column sum of per-block partial rows (K, Q), the cp.async, ldmatrix and
-// bf16/fp16 mma.sync.m16n8k16 fragments of the tensor-core kernels (H, N,
-// J, O), and the dtype switch of the C entry points.
+// column sum of per-block partial rows (K, Q), cp.async (C, H, J, O and
+// N's fp32 tiles), the ldmatrix and bf16/fp16 mma.sync.m16n8k16 fragments
+// of H, J and O (N's wgmma and TMA are in hopper.cuh), and the dtype
+// switch of the C entry points.
 //
 // Every entry point is `extern "C"`, takes raw device pointers and the
 // CUDA stream from the caller, launches, and returns cudaGetLastError()

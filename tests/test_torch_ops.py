@@ -211,7 +211,9 @@ def test_store_paged_kv_cache_drops_tokens_without_a_block():
         check_tol_diff(out, [np.asarray(w) for w in want], atol=0.0, rtol=0.0)
 
 
-HEADS = {"mha": (4, 4), "group4": (8, 2)}
+# JAX's group sizes (tests/accuracy/operators/test_attention_edges.py:136: (16, 2), (8, 8), (7, 7)) and a group
+# above kernel C's former cap of 16
+HEADS = {"mha": (4, 4), "group4": (8, 2), "group8": (16, 2), "mha8": (8, 8), "mha7": (7, 7), "mqa32": (32, 1)}
 
 
 def _attn_args(case, q):

@@ -192,6 +192,25 @@ def test_build_raises_without_nvcc_and_writes_nothing(monkeypatch, tmp_path):
     assert build.library_path().name.startswith("libmojo_kernels-")
 
 
+def test_entry_point_signatures_match_the_sources():
+    """ctypes passes what build.SIGNATURES says: each C entry point's
+    parameters, in order, as pointer, int, int64 or float."""
+    import re
+
+    kinds = {"int": "int", "float": "float", "long long": "int64", "int64_t": "int64"}
+    found = {}
+    for src in build.CSRC_DIR.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            found[name] = [
+                "pointer" if "*" in p else kinds[" ".join(p.split()[:-1]).replace("const ", "")]
+                for p in params.split(",")
+            ]
+    ctype = {build._P: "pointer", build._I: "int", build._L: "int64", build._F: "float"}
+    assert set(found) == set(build.SIGNATURES)
+    for name, argtypes in build.SIGNATURES.items():
+        assert [ctype[t] for t in argtypes] == found[name], name
+
+
 def test_library_hash_follows_the_sources(monkeypatch, tmp_path):
     before = build.library_path().name
     (tmp_path / "extra.cu").write_text("// changed\n")
@@ -214,8 +233,8 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     table, lens = meta(2, 3, dtype=torch.int32), meta(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="head_dim"):
         paged_decode.paged_decode_gqa(meta(2, 8, 16), meta(5, 4, 2, 16), meta(5, 4, 2, 16), lens, table)
-    with pytest.raises(ValueError, match="up to 16"):
-        paged_decode.paged_decode_gqa(meta(2, 32, 64), meta(5, 1, 4, 64), meta(5, 1, 4, 64), lens, table)
+    with pytest.raises(ValueError, match="multiple of kv heads"):  # any group is taken (32/1 in test_torch_paged_decode)
+        paged_decode.paged_decode_gqa(meta(2, 12, 64), meta(5, 8, 4, 64), meta(5, 8, 4, 64), lens, table)
     with pytest.raises(ValueError, match="share one dtype"):
         paged_decode.paged_decode_gqa(meta(2, 8, 64, dtype=torch.float32), meta(5, 2, 4, 64),
                                       meta(5, 2, 4, 64), lens, table)
