@@ -25,11 +25,19 @@ is non-zero:
      chunk) and 32 (32/1), and at Qwen3-4B's geometry at bs 1, 8 and 24 at
      ctx 4000 (the first benchmark's decode grid) beside SDPA over the
      gathered pages; every C and C' case repeats bit for bit over two runs
-     (its split-KV merge runs in a fixed order). The grouped GEMM (H) runs at the MoE path's shapes (prefill
+     (its split-KV merge runs in a fixed order). Prefill (D, D') also runs
+     at block sizes 16 and 32 (below its 64-key tile), D 64/128/256,
+     Seed-OSS-36B's group 10 and group 64, each output held relative to its
+     size to PAGED_PREFILL_REL_LIMITS (whole tensor, worst (token, head)
+     row) and every bf16/fp16 case repeated bit for bit. The grouped GEMM (H)
+     runs at the MoE path's shapes (prefill
      and decode at bs 4 and 1, fc1 and down, routed top-8 of 128) and on
      empty and 1-row groups, ragged M, K and N, rows past the groups' end,
      both weight layouts and three dtypes, and refuses K % 8 != 0 in bf16;
-     and at G = 256 at DeepSeek-V3's expert shapes. The absorbed MLA kernel
+     at G = 256 with prefill tiles that straddle groups, and at DeepSeek-V3's
+     expert shapes; each output held relative to its size to
+     GROUP_GEMM_REL_LIMITS (whole, worst row) and every bf16/fp16 case on
+     its prefill tile repeated bit for bit. The absorbed MLA kernel
      (I) runs at DeepSeek-V3's widths: decode at bs 4 and 1, prefill's row
      mode over the prompt batch, and edge cases (a zero-length sequence, -1
      table padding, contexts off the block size, one page, H 4 and 16, a
@@ -115,7 +123,9 @@ is non-zero:
      just before and read just after; every kernel of the path must have
      launched. Last-token prefill logits agree with the plain path
      (per-row cosine >= 0.999: bf16 rounds at other places in the fp32
-     online softmax than in the gathered softmax).
+     online softmax than in the gathered softmax). One more prefill runs
+     under torch.profiler: its device busy ms and kernel D's share (phases
+     6, 8, 9 and 11 print the same, with H's and I's shares).
   6. the int8 slice at full width: the same geometry, bf16 weights from
      seed 0 quantized on the card by ``quantize_qwen3`` (w8a8) with the C8
      int8 cache (HND, block 64); the same prompts, 32 greedy steps and a
@@ -393,6 +403,16 @@ SMALL_TIE_BOUND = 0.05
 # absolutely
 FLASH_SWA_REL_LIMITS = {"bf16": (1e-3, 1e-2), "fp16": (1e-4, 2e-3), "fp32": (2e-6, 2e-3)}
 FLASH_SWA_REL_FLOOR = 1e-3
+# kernel D against its plain version, relative to its size as J's are (whole tensor, worst (token, head) row; floor
+# FLASH_SWA_REL_FLOOR). The plain version rounds the normalized probabilities to the query's dtype before the PV
+# product, so in bf16 and fp16 it parts from any fp32-P kernel by that rounding. The scalar kernel (before its
+# tensor-core route) read at most 2.54e-3 / 4.98e-3 in bf16, 3.15e-4 / 6.37e-4 in fp16 and 6.67e-7 / 2.67e-6 in
+# fp32 over phase 3's D and D' cases (PERF.md, section 6, PR 13): each limit leaves 5-7x
+PAGED_PREFILL_REL_LIMITS = {"bf16": (1.5e-2, 3e-2), "fp16": (2e-3, 4e-3), "fp32": (4e-6, 1.6e-5)}
+# kernel H against its plain version, the same way (worst row of N). Both sum in fp32 and round once. The kernel
+# before its wgmma prefill tile read at most 1.99e-4 / 1.03e-3 in bf16, 3.39e-5 / 2.37e-4 in fp16 and 8.02e-7 /
+# 9.84e-7 in fp32 over phase 3's H cases (PERF.md, section 6, PR 13): each limit leaves 6x
+GROUP_GEMM_REL_LIMITS = {"bf16": (1.2e-3, 6e-3), "fp16": (2e-4, 1.4e-3), "fp32": (5e-6, 6e-6)}
 # CudaSdpa (J's forward) against the golden SDPA, (whole, worst row) as above: the golden rounds its probabilities to
 # bf16 before the PV product; the run that set it read 2.55e-3 / 4.38e-3 at the Wan DiT's shape, so these leave 5x
 SDPA_GOLDEN_REL_LIMITS = (1.25e-2, 2.2e-2)
@@ -671,68 +691,9 @@ def phase_kernels(torch) -> dict:
                 lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, f"rope T={n} q {hq}x{d} k {hk}x{d}", main,
                 bound=((2 * elems + 2 * n * d) * q.element_size(), 3 * elems, "fp32"))
 
-    n_blocks = 4 * 69
     _decode_cases(torch, compare, gen, record)
     _decode_window_cases(torch, compare, gen, record)
-
-    def causal_pairs(q_lens, kv_lens):
-        return sum(q * (kv - q) + q * (q + 1) // 2 for q, kv in zip(q_lens, kv_lens))
-
-    # D / D': prefill of the main path's batch (main); chunked, empty, short, ABAB, HND, D 64/256; int8 pages
-    cases = [(bf16, "NHD", "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), None, True),
-             (bf16, "HND", "ABAB", H, Hkv, D, [5, 0, 1, 40], [69, 0, 9, 40], None, False),
-             (torch.float32, "NHD", "AABB", 8, 8, 64, [3, 70, 1], [3, 130, 0], 0.3, False),
-             (torch.float16, "HND", "AABB", 16, 1, 256, [33, 7], [33, 100], None, False)]
-    for dtype, layout, gqa, hq, hkv, d, q_lens, kv_lens, scale, main in cases:
-        kc, vc = _cache(torch, n_blocks, hkv, BLOCK_SIZE, d, layout, dtype, gen)
-        bt = _tables(torch, kv_lens, BLOCK_SIZE, 69, n_blocks, gen)
-        cu_q, cu_kv = _cu(torch, q_lens), _cu(torch, kv_lens)
-        q = torch.randn(sum(q_lens), hq, d, device="cuda", generator=gen).to(dtype)
-        lib = None
-        if main:  # SDPA over the padded prompt rows (q = kv here) and the pages gathered beforehand, causal + padding
-            S = max(kv_lens)
-            k_dense, v_dense = (_dense_pages(torch, cache, bt, kv_lens, layout) for cache in (kc, vc))
-            lens_t = torch.tensor(q_lens, device="cuda")
-            at = (torch.repeat_interleave(torch.arange(len(q_lens), device="cuda"), lens_t),
-                  torch.cat([torch.arange(n, device="cuda") for n in q_lens]))
-            q_pad = q.new_zeros(len(q_lens), S, hq, d)
-            q_pad[at] = q
-            q_pad = q_pad.transpose(1, 2).contiguous()
-            pos = torch.arange(S, device="cuda")
-            # (B, 1, S, S): a key is seen at or below the row and inside its sequence
-            mask = ((pos[None, :] <= pos[:, None])[None] & (pos < lens_t[:, None])[:, None])[:, None]
-            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q_pad, k_dense, v_dense, attn_mask=mask, enable_gqa=True)
-            check_tol_diff(lib().transpose(1, 2)[at],
-                           paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
-                           **tols_for(dtype))  # the library call computes the same function
-        compare("paged_prefill",
-                lambda: paged_prefill.paged_prefill_gqa(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout,
-                                                        max_q_len=max(q_lens)),
-                lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
-                dtype, f"prefill {layout} {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens} scale={scale}", main,
-                bound=attention_bound(torch, dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
-                                 kc.element_size()), library=lib)
-    del kc, vc
-    int8_cases = [(bf16, "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), True),
-                  (bf16, "ABAB", H, Hkv, D, [5, 0, 1, 40], [69, 0, 9, 40], False),
-                  (torch.float32, "AABB", 8, 8, 64, [3, 70, 1], [3, 130, 0], False),
-                  (torch.float16, "AABB", 16, 1, 256, [33, 7], [33, 100], False)]
-    for dtype, gqa, hq, hkv, d, q_lens, kv_lens, main in int8_cases:
-        (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, BLOCK_SIZE, d, gen)
-        bt = _tables(torch, kv_lens, BLOCK_SIZE, 69, n_blocks, gen)
-        cu_q, cu_kv = _cu(torch, q_lens), _cu(torch, kv_lens)
-        q = torch.randn(sum(q_lens), hq, d, device="cuda", generator=gen).to(dtype)
-        compare("paged_prefill",
-                lambda: paged_prefill.paged_prefill_gqa(q, kc, vc, cu_q, bt, None, cu_kv, gqa, "HND",
-                                                        max_q_len=max(q_lens), key_scale=ks, value_scale=vs),
-                lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, None, cu_kv, gqa, "HND",
-                                                              key_scale=ks, value_scale=vs),
-                dtype, f"prefill int8 pages HND {gqa} {hq}/{hkv}x{d} q={q_lens} kv={kv_lens}", main,
-                key="int8_pages",
-                bound=attention_bound(torch, dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
-                                      1))
-    del kc, vc
+    _prefill_cases(torch, compare, gen, record)
 
     # E: RMSNorm + int8 quant — the layer norms at the prefill batch (main) and a decode batch, odd
     # widths in f32/f16, a zero row, a smooth scale
@@ -823,9 +784,122 @@ def phase_kernels(torch) -> dict:
     else:
         raise AssertionError("the int4 GEMM took N = 192 (N % 128 != 0)")
 
-    # H: grouped GEMM at the MoE path's shapes (the Qwen3-30B-A3B experts, (G, N, K) weights, counts of a
-    # random top-8 routing over 128 experts), then empty and 1-row groups, ragged M, K and N, rows past
-    # the groups' end, both layouts, three dtypes
+    _gmm_cases(torch, compare, gen, record)
+    _mla_cases(torch, compare, gen)
+    _flash_swa_cases(torch, compare, gen)
+    _train_kernel_cases(torch, compare, gen)
+    _flce_cases(torch, compare, gen, record)
+    _flash_diffusion_cases(torch, compare, gen)
+    _residual_add_cases(torch, compare, gen)
+    _conv1d_cases(torch, compare, gen)
+    return record
+
+
+def _prefill_cases(torch, compare, gen, record) -> None:
+    """D / D': prefill of the main path's batch (main, beside SDPA over the padded prompt rows); chunked, empty,
+    short, ABAB, HND, D 64/128/256, block sizes 16 and 32 (below the 64-key tile), Seed-OSS-36B's group 10 (80/8,
+    which does not divide 64) and group 64; int8 pages. Every output to its dtype's ladder and, relative to its
+    size (whole tensor, worst (token, head) row), to PAGED_PREFILL_REL_LIMITS; every bf16/fp16 case of D and D'
+    repeats bit for bit over two runs."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import paged_prefill
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    H, Hkv, D = 32, 8, 128
+
+    def causal_pairs(q_lens, kv_lens):
+        return sum(q * (kv - q) + q * (q + 1) // 2 for q, kv in zip(q_lens, kv_lens))
+
+    def pages(lens, bs):
+        """(blocks, table columns) for a batch of these kv lengths at block size bs."""
+        return max(4 * 69, sum(-(-n // bs) for n in lens)), max(69, -(-max(lens) // bs))
+
+    # (dtype, layout, gqa, hq, hkv, d, q_lens, kv_lens, scale, block size, main)
+    cases = [(bf16, "NHD", "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), None, BLOCK_SIZE, True),
+             (bf16, "HND", "ABAB", H, Hkv, D, [5, 0, 1, 40], [69, 0, 9, 40], None, BLOCK_SIZE, False),
+             (f32, "NHD", "AABB", 8, 8, 64, [3, 70, 1], [3, 130, 0], 0.3, BLOCK_SIZE, False),
+             (f16, "HND", "AABB", 16, 1, 256, [33, 7], [33, 100], None, BLOCK_SIZE, False),
+             (f16, "NHD", "AABB", H, Hkv, D, [200, 37], [260, 37], None, BLOCK_SIZE, False),
+             (bf16, "NHD", "AABB", 16, 2, 64, [129, 64], [129, 200], None, BLOCK_SIZE, False),
+             (bf16, "HND", "ABAB", 8, 2, 256, [70, 3], [70, 40], 0.05, BLOCK_SIZE, False),
+             (bf16, "NHD", "AABB", H, Hkv, D, [200, 37], [260, 37], None, 16, False),
+             (f16, "HND", "ABAB", H, Hkv, 64, [90, 1, 33], [90, 70, 33], None, 32, False),
+             (bf16, "NHD", "AABB", 80, 8, D, [300, 5], [300, 77], None, BLOCK_SIZE, False),
+             (bf16, "HND", "ABAB", 80, 8, D, [61, 2], [100, 2], None, 16, False),
+             (f16, "NHD", "AABB", 64, 1, D, [20, 3], [20, 50], None, BLOCK_SIZE, False)]
+    for dtype, layout, gqa, hq, hkv, d, q_lens, kv_lens, scale, bs, main in cases:
+        n_blocks, cols = pages(kv_lens, bs)
+        kc, vc = _cache(torch, n_blocks, hkv, bs, d, layout, dtype, gen)
+        bt = _tables(torch, kv_lens, bs, cols, n_blocks, gen)
+        cu_q, cu_kv = _cu(torch, q_lens), _cu(torch, kv_lens)
+        q = torch.randn(sum(q_lens), hq, d, device="cuda", generator=gen).to(dtype)
+        lib = None
+        if main:  # SDPA over the padded prompt rows (q = kv here) and the pages gathered beforehand, causal + padding
+            S = max(kv_lens)
+            k_dense, v_dense = (_dense_pages(torch, cache, bt, kv_lens, layout) for cache in (kc, vc))
+            lens_t = torch.tensor(q_lens, device="cuda")
+            at = (torch.repeat_interleave(torch.arange(len(q_lens), device="cuda"), lens_t),
+                  torch.cat([torch.arange(n, device="cuda") for n in q_lens]))
+            q_pad = q.new_zeros(len(q_lens), S, hq, d)
+            q_pad[at] = q
+            q_pad = q_pad.transpose(1, 2).contiguous()
+            pos = torch.arange(S, device="cuda")
+            # (B, 1, S, S): a key is seen at or below the row and inside its sequence
+            mask = ((pos[None, :] <= pos[:, None])[None] & (pos < lens_t[:, None])[:, None])[:, None]
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q_pad, k_dense, v_dense, attn_mask=mask, enable_gqa=True)
+            check_tol_diff(lib().transpose(1, 2)[at],
+                           paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
+                           **tols_for(dtype))  # the library call computes the same function
+        run = lambda: paged_prefill.paged_prefill_gqa(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout,  # noqa: E731
+                                                      max_q_len=max(q_lens))
+        label = f"prefill {layout} {gqa} {hq}/{hkv}x{d} bs {bs} q={q_lens} kv={kv_lens} scale={scale}"
+        compare("paged_prefill", run,
+                lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, scale, cu_kv, gqa, layout),
+                dtype, label, main, check=_rel_checker(torch, PAGED_PREFILL_REL_LIMITS, dtype),
+                bound=attention_bound(torch, dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
+                                      kc.element_size()), library=lib)
+        if dtype != f32:
+            _repeats(torch, label, run)
+        del kc, vc
+    int8_cases = [(bf16, "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), BLOCK_SIZE, True),
+                  (bf16, "ABAB", H, Hkv, D, [5, 0, 1, 40], [69, 0, 9, 40], BLOCK_SIZE, False),
+                  (f32, "AABB", 8, 8, 64, [3, 70, 1], [3, 130, 0], BLOCK_SIZE, False),
+                  (f16, "AABB", 16, 1, 256, [33, 7], [33, 100], BLOCK_SIZE, False),
+                  (f16, "ABAB", H, Hkv, D, [200, 37], [260, 37], 16, False),
+                  (bf16, "AABB", 16, 2, 64, [129, 64], [129, 200], 32, False),
+                  (bf16, "AABB", 80, 8, D, [300, 5], [300, 77], BLOCK_SIZE, False)]
+    for dtype, gqa, hq, hkv, d, q_lens, kv_lens, bs, main in int8_cases:
+        n_blocks, cols = pages(kv_lens, bs)
+        (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, bs, d, gen)
+        bt = _tables(torch, kv_lens, bs, cols, n_blocks, gen)
+        cu_q, cu_kv = _cu(torch, q_lens), _cu(torch, kv_lens)
+        q = torch.randn(sum(q_lens), hq, d, device="cuda", generator=gen).to(dtype)
+        run = lambda: paged_prefill.paged_prefill_gqa(q, kc, vc, cu_q, bt, None, cu_kv, gqa, "HND",  # noqa: E731
+                                                      max_q_len=max(q_lens), key_scale=ks, value_scale=vs)
+        label = f"prefill int8 pages HND {gqa} {hq}/{hkv}x{d} bs {bs} q={q_lens} kv={kv_lens}"
+        compare("paged_prefill", run,
+                lambda: paged_prefill.paged_prefill_gqa_plain(q, kc, vc, cu_q, bt, None, cu_kv, gqa, "HND",
+                                                              key_scale=ks, value_scale=vs),
+                dtype, label, main, key="int8_pages", check=_rel_checker(torch, PAGED_PREFILL_REL_LIMITS, dtype),
+                bound=attention_bound(torch, dtype, hq, hkv, d, sum(q_lens), kv_lens, causal_pairs(q_lens, kv_lens),
+                                      1))
+        if dtype != f32:
+            _repeats(torch, label, run)
+        del kc, vc
+    torch.cuda.empty_cache()
+    log("kernel paged_prefill", "every bf16/fp16 D and D' case repeats bit for bit over two runs")
+
+
+def _gmm_cases(torch, compare, gen, record) -> None:
+    """H: grouped GEMM at the MoE path's shapes (the Qwen3-30B-A3B experts, (G, N, K) weights, counts of a random
+    top-8 routing over 128 experts), then empty and 1-row groups, ragged M, K and N, rows past the groups' end,
+    both layouts, three dtypes, prefill tiles that straddle groups at G = 256; DeepSeek-V3's routed experts (G =
+    256) at decode and prefill. Every output to its dtype's ladder and, relative to its size (whole tensor, worst
+    row), to GROUP_GEMM_REL_LIMITS; every bf16/fp16 case on the prefill tile (M >= 32 G) repeats bit for bit."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import group_gemm
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     route_rng = np.random.default_rng(2)
 
     def routed_counts(rows, experts=128, top_k=8):
@@ -846,20 +920,29 @@ def phase_kernels(torch) -> dict:
             offs = torch.cumsum(counts, 0, dtype=torch.int32)
             w_kn = w.transpose(-2, -1) if trans else w
             lib = lambda: torch._grouped_mm(x, w_kn, offs=offs)  # noqa: E731
-        compare("group_gemm", lambda: group_gemm.grouped_matmul(x, w, counts, trans),
-                lambda: group_gemm.grouped_matmul_plain(x, w, counts, trans), dtype,
-                f"group gemm{' ' + key if key else ''} M={M} K={K} N={N} G={G} ({active} active) trans={trans}", main, key=key,
-                bound=bound, library=lib)
+        run = lambda: group_gemm.grouped_matmul(x, w, counts, trans)  # noqa: E731
+        label = f"group gemm{' ' + key if key else ''} M={M} K={K} N={N} G={G} ({active} active) trans={trans}"
+        compare("group_gemm", run, lambda: group_gemm.grouped_matmul_plain(x, w, counts, trans), dtype, label, main,
+                key=key, check=_rel_checker(torch, GROUP_GEMM_REL_LIMITS, dtype), bound=bound, library=lib)
+        if dtype != f32 and M >= 32 * G:
+            _repeats(torch, label, run)
 
     for name, M, K, N in GMM_SHAPES:
         gmm_case(routed_counts(M), K, N, True, bf16, True, key=name)
-    for dtype in (bf16, torch.float16, torch.float32):
+    for dtype in (bf16, f16, f32):
         for trans in (True, False):
             gmm_case([0, 5, 1, 0, 17, 3], 72, 40, trans, dtype, False)                 # M 26, ragged K and N
-            gmm_case([300, 0, 1, 37], 136, 264, trans, dtype, False)                    # the 128-row tile
+            gmm_case([300, 0, 1, 37], 136, 264, trans, dtype, False)                    # the prefill tile
             gmm_case([1] * 9 + [0] * 7, 2048, 96, trans, dtype, False)                  # 1-row groups (decode)
             gmm_case([3, 0, 9], 64, 48, trans, dtype, False, M=21)                      # rows past the groups
-    gmm_case([7, 0, 2], 33, 17, True, torch.float32, False)                             # fp32 takes any K, N
+            gmm_case([130, 0, 64, 1, 200], 200, 136, trans, dtype, False, M=420)        # prefill tile, rows past
+    gmm_case([7, 0, 2], 33, 17, True, f32, False)                                       # fp32 takes any K, N
+    # prefill tiles that straddle two groups at G = 256: ~36 rows an expert, empty and one-row groups among them
+    straddle = routed_counts(9216, experts=256)
+    straddle[[3, 100]], straddle[[7, 200]] = 0, 1
+    for dtype in (bf16, f16):
+        for trans in (True, False):
+            gmm_case(straddle, 256, 384, trans, dtype, False)
     try:
         group_gemm.grouped_matmul(torch.zeros(4, 60, device="cuda", dtype=bf16),
                                   torch.zeros(2, 16, 60, device="cuda", dtype=bf16),
@@ -878,14 +961,7 @@ def phase_kernels(torch) -> dict:
             gmm_case(routed_counts(rows, experts=256), K, N, True, bf16, True, key=f"deepseek_{phase}_{name}", w=w)
         del w
     torch.cuda.empty_cache()
-    _mla_cases(torch, compare, gen)
-    _flash_swa_cases(torch, compare, gen)
-    _train_kernel_cases(torch, compare, gen)
-    _flce_cases(torch, compare, gen, record)
-    _flash_diffusion_cases(torch, compare, gen)
-    _residual_add_cases(torch, compare, gen)
-    _conv1d_cases(torch, compare, gen)
-    return record
+    log("kernel group_gemm", "every bf16/fp16 prefill-tile case repeats bit for bit over two runs")
 
 
 def attention_bound(torch, dtype, hq, hkv, d, q_tokens, kv_lens, pairs, page_bytes):
@@ -1844,6 +1920,28 @@ def phase_small_model(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# the kernels whose device time a profiled prefill reports, by the names of their CUDA kernels
+PREFILL_FAMILIES = {"D": ("paged_prefill_",), "H": ("gmm_",), "I": ("mla_decode_kernel",)}
+
+
+def _prefill_profile(torch, tag: str, card: str, gm, ids, lens) -> None:
+    """One more prefill of the batch under torch.profiler: its device busy ms, kernel count and the device ms of
+    kernels D, H and I (the prefill's wall ms is the PerfHook's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gm(ids, context_input_len=lens)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    fam = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
+           for f, pats in PREFILL_FAMILIES.items()}
+    log(tag, f"{card}: one prefill ({int(np.sum(lens))} tokens, bs {len(lens)}) profiled: device busy {busy:.3f} ms, "
+             f"{sum(e.count for e in device)} kernels; " + ", ".join(f"{f} {ms:.3f} ms" for f, ms in fam.items() if ms))
+
+
 def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, card: str, reference=None):
     """Phase 5's run for one model and its plain twin: prefill, DECODE_STEPS
     greedy steps and a FusedDecode window with the counters zeroed just
@@ -1919,6 +2017,7 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
              f"steps); FusedDecode {fused_ms:.3f} ms/step, {len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak "
              f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log(tag, f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    _prefill_profile(torch, tag, card, gm, ids, lens)
     return counts, logits, session
 
 
@@ -2202,6 +2301,7 @@ def phase_moe_full_width(torch, card: str) -> dict:
                           f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
                           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log("moe full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    _prefill_profile(torch, "moe full width", card, gm, ids, lens)
     del model, plain, gm, gen, session
     gc.collect()
     torch.cuda.empty_cache()
@@ -2378,6 +2478,7 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
                                f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
                                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log("deepseek full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    _prefill_profile(torch, "deepseek full width", card, gm, ids, lens)
     del model, plain, gm, gen, session
     gc.collect()
     torch.cuda.empty_cache()

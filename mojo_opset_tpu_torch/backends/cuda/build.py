@@ -55,7 +55,7 @@ SIGNATURES = {
     "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _P),
     "mojo_int8_matmul": (_P,) * 5 + (_I,) * 5 + (_P,),
     "mojo_int4_matmul": (_P,) * 5 + (_I,) * 4 + (_P,),
-    "mojo_group_gemm": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "mojo_group_gemm": (_P,) * 5 + (_L,) + (_I,) * 6 + (_P,),
     "mojo_mla_decode": (_P,) * 9 + (_I,) * 7 + (_P,),
     "mojo_rmsnorm_bwd": (_P,) * 6 + (_I, _I, _F, _I, _I, _I, _P),
     "mojo_silu_fwd": (_P, _P, _L, _I, _I, _P),

@@ -2,9 +2,10 @@
 PyTorch version.
 
 Replaces the JAX package's ``backends/pallas/kernels/group_gemm.py:220``
-(``grouped_matmul``). ``launches`` counts kernel launches. The counts stay
-on the device: the kernel finds each block's group itself, so a launch
-never waits for the host.
+(``grouped_matmul``). ``launches`` counts the wrapper's launches. The
+counts stay on the device: the kernel finds each block's group itself (the
+prefill tile from a row-tile table that its first launch writes to a
+scratch buffer), so a launch never waits for the host.
 """
 
 from __future__ import annotations
@@ -15,6 +16,22 @@ from mojo_opset_tpu_torch.backends.cuda import build
 from mojo_opset_tpu_torch.core.operators.gemm import grouped_matmul_reference as grouped_matmul_plain
 
 launches = 0
+
+PREFILL_TILE_ROWS = 128  # rows of the prefill tile's output tile
+
+
+def uses_prefill_tile(M: int, G: int, dtype: torch.dtype) -> bool:
+    """The kernel's route, from shapes alone: 16-bit inputs with at least 32
+    rows a group on average take the wgmma prefill tile (M >= 32 G), others
+    the 16-row decode tile or, in fp32, the FMA kernel."""
+    return dtype != torch.float32 and M >= 32 * G
+
+
+def prefill_scratch_ints(M: int, G: int) -> int:
+    """int32 of the prefill tile's scratch: (group, first row, end row, pad)
+    for each of at most ceil(M / 128) + G row tiles, then the tile count and
+    the rows the groups cover."""
+    return 4 * (-(-M // PREFILL_TILE_ROWS) + G) + 2
 
 
 def grouped_matmul(
@@ -63,9 +80,13 @@ def _group_gemm_kernel(x, weights, group_sizes, trans_weight):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    scratch = None
+    if uses_prefill_tile(M, G, x.dtype):
+        scratch = torch.empty(prefill_scratch_ints(M, G), dtype=torch.int32, device=x.device)
     build.launch(
         "mojo_group_gemm", x.device,
         x.data_ptr(), weights.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), 0 if scratch is None else scratch.numel(),
         M, N, K, G, int(trans_weight), code,
     )
     launches += 1

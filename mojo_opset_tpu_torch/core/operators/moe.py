@@ -180,7 +180,7 @@ class MojoMoE(MojoOperator):
             raise ValueError("MojoMoE: intermediate_size must be provided.")
         if ep_size != 1:
             raise NotImplementedError("MojoMoE: expert parallelism (ep_size > 1) waits for the distributed slice "
-                                      "(ROADMAP.md, queue 1 item 14)")
+                                      "(ROADMAP.md, queue 1, \"Distributed\": expert parallelism)")
         self.num_experts = num_experts
         self.top_k = top_k
         self.hidden_size = hidden_size

@@ -1,9 +1,9 @@
 // Shared helpers for the port's Hopper kernels: dtype conversion (int8
-// K/V pages included), warp reductions, vector row loads, the fixed-order
-// column sum of per-block partial rows (K, Q), cp.async (C, H, J, O and
-// N's fp32 tiles), the ldmatrix and bf16/fp16 mma.sync.m16n8k16 fragments
-// of H, J and O (N's wgmma and TMA are in hopper.cuh), and the dtype
-// switch of the C entry points.
+// K/V pages included), 16-bit pair stores (H, N), warp reductions, vector
+// row loads, the fixed-order column sum of per-block partial rows (K, Q),
+// cp.async (C, D, H, J, O and N's fp32 tiles), the ldmatrix and bf16/fp16
+// mma.sync.m16n8k16 fragments of D, H, J and O (N's and H's wgmma and TMA
+// are in hopper.cuh), and the dtype switch of the C entry points.
 //
 // Every entry point is `extern "C"`, takes raw device pointers and the
 // CUDA stream from the caller, launches, and returns cudaGetLastError()
@@ -35,6 +35,16 @@ __device__ __forceinline__ __half mojo_from_float<__half>(float x) { return __fl
 template <>
 __device__ __forceinline__ __nv_bfloat16 mojo_from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ uint32_t mojo_bits16(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
+__device__ __forceinline__ uint32_t mojo_bits16(__half v) { return __half_as_ushort(v); }
+
+// two neighbouring elements of a 16-bit type (p 4-byte aligned), each rounded once
+template <typename T>
+__device__ __forceinline__ void mojo_store2(T* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) =
+      mojo_bits16(mojo_from_float<T>(x)) | (mojo_bits16(mojo_from_float<T>(y)) << 16);
 }
 
 __device__ __forceinline__ float mojo_warp_sum(float v) {

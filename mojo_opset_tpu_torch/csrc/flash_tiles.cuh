@@ -375,14 +375,22 @@ struct FwdRows {
   }
 
   // One key tile (BK keys, K and V rows of ks, vs): S = Q K^T (Q's k-chunk
-  // from fq), scaled to log2 units, -inf where keep(h, column) is false
-  // unless the tile is full, an online-softmax step, O += P V with P split.
+  // from fq), then step().
   template <int BK, class FQ, class Keep>
   __device__ __forceinline__ void tile(FQ&& fq, const T* ks, const T* vs, float scale_log2, bool full, Keep&& keep) {
-    constexpr int P = D + 8, NT = BK / 8;
-    float s[NT][4];
+    float s[BK / 8][4];
     zero_frags(s);
-    mma_abt<T, P, D, NT>(s, fq, ks);
+    mma_abt<T, D + 8, D, BK / 8>(s, fq, ks);
+    this->template step<BK>(s, vs, scale_log2, full, keep);
+  }
+
+  // The tile's raw scores s (16 x BK fp32 fragments) scaled to log2 units,
+  // -inf where keep(h, column) is false unless the tile is full, an
+  // online-softmax step, O += P V with P split (V the rows of vs).
+  template <int BK, class Keep>
+  __device__ __forceinline__ void step(float (&s)[BK / 8][4], const T* vs, float scale_log2, bool full,
+                                       Keep&& keep) {
+    constexpr int P = D + 8, NT = BK / 8;
     const int cq = 2 * (threadIdx.x & 3);
 #pragma unroll
     for (int n = 0; n < NT; ++n)

@@ -112,16 +112,6 @@ cudaError_t allow_smem(KernelFn* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-int sm_count() {
-  static const int sms = [] {
-    int device = 0, n = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-    return n > 0 ? n : 1;
-  }();
-  return sms;
-}
-
 // vocab splits of the statistics pass: as many as fill `slots` blocks with
 // `row_tiles` row tiles, none empty
 void stats_splits(int row_tiles, int vtiles, int slots, int max_splits, int& splits, int& per_split) {
@@ -483,7 +473,7 @@ constexpr int kBM = 128;       // tile rows: two consumer warpgroups of 64
 constexpr int kBK = 64;        // K of a stage: one 128-byte swizzle row of 16-bit elements
 constexpr int kThreads = 384;  // warpgroups 0-1 consume; warpgroup 2's first thread loads
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kBoxBytes = 64 * kBK * 2;  // an MN-major box: 64 (M or N) x 64 (K)
+static_assert(kBK == kSw128K, "a stage is one 128-byte swizzle row deep");
 
 template <int BN>
 struct Ring {
@@ -534,45 +524,18 @@ struct Epi {
   float softcap, smoothing;
 };
 
-// A or B of a stage: R rows (M or N) by kBK; K-major as one box {64 K, R},
-// MN-major as R / 64 boxes {64 M or N, 64 K}
-template <int R, bool MN>
-__device__ __forceinline__ void load_operand(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int r0, int k0) {
-  if constexpr (MN) {
-#pragma unroll
-    for (int i = 0; i < R / 64; ++i) tma_load_2d(dst + i * kBoxBytes, map, bar, r0 + 64 * i, k0);
-  } else {
-    tma_load_2d(dst, map, bar, k0, r0);
-  }
-}
-
-// descriptor of rows [row0, row0 + 64 or BN) of an operand tile at shared address `tile`, k16 step kk
-template <bool MN>
-__device__ __forceinline__ uint64_t operand_desc(uint32_t tile, int row0, int kk) {
-  if constexpr (MN) return sw128_desc(tile + (row0 / 64) * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024);
-  return sw128_desc(tile + row0 * 128 + kk * 32, 16, 1024);
-}
-
 template <typename T, int BN, bool AMN, bool BMN>
 __device__ __forceinline__ void stage_product(float (&acc)[BN / 2], uint32_t a_tile, uint32_t b_tile, int half) {
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t da = operand_desc<AMN>(a_tile, 64 * half, kk), db = operand_desc<BMN>(b_tile, 0, kk);
+    const uint64_t da = sw128_operand_desc<AMN>(a_tile, 64 * half, kk);
+    const uint64_t db = sw128_operand_desc<BMN>(b_tile, 0, kk);
     if constexpr (BN == 256) {
       wgmma_m64n256k16<T, AMN, BMN>(acc, da, db);
     } else {
       wgmma_m64n128k16<T, AMN, BMN>(acc, da, db);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 v) { return __bfloat16_as_ushort(v); }
-__device__ __forceinline__ uint32_t bits16(__half v) { return __half_as_ushort(v); }
-
-// two neighbouring elements (p 4-byte aligned), each rounded once
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float x, float y) {
-  *reinterpret_cast<uint32_t*>(p) = bits16(mojo_from_float<T>(x)) | (bits16(mojo_from_float<T>(y)) << 16);
 }
 
 // acc[4j + 2h + e] is the output element at row `row + 8h` (the tile's
@@ -616,7 +579,7 @@ __device__ __forceinline__ void store_tile(const Epi& p, float (&acc)[BN / 2], i
         if (v + 1 < p.N) y += buf[v + 1];
       }
       if (v + 1 < p.N) {
-        store2<T>(out + v, x, y);
+        mojo_store2<T>(out + v, x, y);
       } else {
         out[v] = mojo_from_float<T>(x);
       }
@@ -690,8 +653,8 @@ flce_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_consta
             mbar_wait(&empty[stage], phase ^ 1);
             uint8_t* st = tiles + stage * Rg::kStageBytes;
             mbar_expect_tx(&full[stage], Rg::kStageBytes);
-            load_operand<kBM, AMN>(st, &map_a, &full[stage], m * kBM, kt * kBK);
-            load_operand<BN, BMN>(st + Rg::kABytes, &map_b, &full[stage], n * BN, kt * kBK);
+            tma_load_operand<kBM, AMN>(st, &map_a, &full[stage], m * kBM, kt * kBK);
+            tma_load_operand<BN, BMN>(st + Rg::kABytes, &map_b, &full[stage], n * BN, kt * kBK);
             if (++stage == Rg::kStages) {
               stage = 0;
               phase ^= 1;
@@ -852,7 +815,7 @@ __global__ void flce_split_sum_kernel(const float* __restrict__ part, T* __restr
     acc.x += v.x;
     acc.y += v.y;
   }
-  store2<T>(out + i, acc.x, acc.y);
+  mojo_store2<T>(out + i, acc.x, acc.y);
 }
 
 // dx (rows, H) = dz (rows, V) w (V, H): dz K-major, w MN-major; with

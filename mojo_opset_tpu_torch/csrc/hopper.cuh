@@ -5,7 +5,8 @@
 // init/arrive/expect-tx/try-wait, 2-D TMA loads (cp.async.bulk.tensor),
 // setmaxnreg, and on the host a 2-D tensor map from cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so that no library links
-// against libcuda. Kernel N (flce.cu) is the first user.
+// against libcuda; the TMA-loaded operand tiles of a stage and their
+// descriptors. Kernels N (flce.cu) and H's prefill tile (group_gemm.cu) use them.
 //
 // Tiles. A TMA box of {64 elements (128 bytes), R rows} with
 // CU_TENSOR_MAP_SWIZZLE_128B lands as R rows of 128 bytes whose 16-byte
@@ -196,6 +197,33 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// An operand tile of a pipeline stage: R rows (M or N) by kSw128K = 64
+// elements of K (one 128-byte swizzle row of 16-bit elements), loaded by
+// TMA: K-major as one box {64 K, R} at (k0, r0); MN-major (the map's inner
+// dimension runs along M or N) as R / 64 boxes {64 M or N, 64 K} at
+// (r0 + 64 i, k0), kSw128BoxBytes apart.
+constexpr int kSw128K = 64;
+constexpr int kSw128BoxBytes = 64 * kSw128K * 2;
+
+template <int R, bool MN>
+__device__ __forceinline__ void tma_load_operand(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int r0,
+                                                 int k0) {
+  if constexpr (MN) {
+#pragma unroll
+    for (int i = 0; i < R / 64; ++i) tma_load_2d(dst + i * kSw128BoxBytes, map, bar, r0 + 64 * i, k0);
+  } else {
+    tma_load_2d(dst, map, bar, k0, r0);
+  }
+}
+
+// the wgmma descriptor of rows [row0, row0 + 64 or the tile's R) of such a
+// tile at shared address `tile`, k16 step kk
+template <bool MN>
+__device__ __forceinline__ uint64_t sw128_operand_desc(uint32_t tile, int row0, int kk) {
+  if constexpr (MN) return sw128_desc(tile + (row0 / 64) * kSw128BoxBytes + kk * 16 * 128, kSw128BoxBytes, 1024);
+  return sw128_desc(tile + row0 * 128 + kk * 32, 16, 1024);
+}
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
@@ -203,6 +231,17 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int R>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Host: the SMs of the current device (a persistent grid's size), read once
+inline int sm_count() {
+  static const int sms = [] {
+    int device = 0, n = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    return n > 0 ? n : 1;
+  }();
+  return sms;
 }
 
 // Host: a 2-D tensor map over a row-major matrix of 16-bit elements

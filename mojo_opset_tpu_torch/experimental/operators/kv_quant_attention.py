@@ -153,7 +153,8 @@ class _KVDequantConfig:
         if query_scale is not None:
             raise NotImplementedError("query_scale: a quantized query is not implemented")
         if mask is not None:
-            raise NotImplementedError("custom masks are not ported yet (ROADMAP.md queue 1 item 8)")
+            raise NotImplementedError("custom masks are not ported yet (ROADMAP.md queue 1, 'The rest of the paged "
+                                      "SWA ops')")
 
     def extra_repr(self) -> str:
         return (

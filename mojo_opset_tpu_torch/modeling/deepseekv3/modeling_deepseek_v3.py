@@ -26,7 +26,8 @@ here the two ops share one tensor, both keys name it, and
 ``load_numpy_state`` raises if the two arrays differ.
 
 Only bf16/fp16/fp32 serving is ported: ``quant="w8a8"`` needs the
-quantized experts (``MojoQuantMoE``, ROADMAP.md queue 1 item 9).
+quantized experts (``MojoQuantMoE``, ROADMAP.md queue 1, "Quantized MoE
+and DeepSeek w8a8").
 """
 
 from __future__ import annotations
@@ -254,7 +255,7 @@ class DeepseekV3ForCausalLM(nn.Module):
         if config.quant is not None:
             raise NotImplementedError(
                 f"DeepSeek-V3 quant={config.quant!r}: the quantized experts (MojoQuantMoE) are not ported yet "
-                "(ROADMAP.md, queue 1 item 9)")
+                "(ROADMAP.md, queue 1, \"Quantized MoE and DeepSeek w8a8\")")
         device = resolve_device(device)
         self._config = config
         self.model = DeepseekV3Model(config, device)

@@ -14,8 +14,9 @@ As in the JAX model there is no ``model.`` level: ``state_dict()`` keys are
 the JAX package's ``utils.hf.state_dict_of``.
 
 Only bf16/fp16/fp32 serving is ported: the quantized experts (``quant=
-"w8a8"``, ``"w4a8"``) and the toy ``MojoQwen3MoeBlock`` come later
-(ROADMAP.md, queue 1 item 9).
+"w8a8"``, ``"w4a8"``) come with ROADMAP.md queue 1, "Quantized MoE and
+DeepSeek w8a8"; the toy ``MojoQwen3MoeBlock`` with "The rest of the
+experimental ops".
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ class Qwen3MoeForCausalLM(nn.Module):
         if config.quant is not None:
             raise NotImplementedError(
                 f"Qwen3-MoE quant={config.quant!r}: the quantized experts (MojoQuantMoE) are not ported yet "
-                "(ROADMAP.md, queue 1 item 9)")
+                "(ROADMAP.md, queue 1, \"Quantized MoE and DeepSeek w8a8\")")
         device = resolve_device(device)
         self._config = config
         self.embed_tokens = MojoEmbedding(config.vocab_size, config.hidden_size, device=device, dtype=config.dtype)

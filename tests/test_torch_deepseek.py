@@ -178,7 +178,7 @@ def test_mla_session_holds_only_latent_caches():
 
 
 def test_quantized_deepseek_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Quantized MoE and DeepSeek w8a8"):
         DeepseekV3ForCausalLM(DeepseekV3Config(**TINY, dtype=torch.float32, quant="w8a8"), device="cpu")
 
 
