@@ -13,12 +13,22 @@ is non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main-path shapes and on edge cases, both timed with CUDA events.
      Float outputs hold to the dtype's tolerance (utils/acc.py ladder);
+     RMSNorm (A) also runs at the q/k head norms (T x 32 and T x 8 rows of
+     128), DeepSeek-V3's, Seed-OSS-36B's and the Wan DiT's widths, and odd
+     ones, the head norms and the DiT's (4400, 3072) timed beside
+     F.rms_norm, every case repeated bit for bit;
      RMSNorm + quant (E) holds its scales to rtol 1e-6 and its int8 values
      to one step on at most 0.1% of them (a sum in another order can move
      a tie); the int8 GEMM (F) and the packed-int4 GEMM (G) equal their
      plain versions exactly with unit scales and fp32 output (the int32
-     sums). G runs at the w4a8 projection shapes with M = 1, 5 and 512, a
-     ragged M, and refuses N % 128 != 0; its main cases are also timed
+     sums). F runs at Qwen3-4B's and Seed-OSS-36B's projections at M = T
+     (its wgmma route, timed beside torch._int_mm) and M = 8 (its decode
+     route, K split where the output tiles leave SMs idle), the lm_head at
+     M = 4, ragged M, N and K on the wgmma route, the decode route split
+     and a (K, N) weight in three output dtypes, every case repeated bit
+     for bit. G runs at the
+     w4a8 projection shapes with M = 1, 5 and 512, a ragged M, and refuses
+     N % 128 != 0; its main cases are also timed
      replayed from a CUDA graph (device time, not the host's launch rate).
      The decode and prefill kernels run on bf16/fp32/fp16 pages and on int8
      (C8) pages; decode (C, C') also at groups 20 (40/2, a partial 16-head
@@ -362,6 +372,8 @@ SPEC_PATH_KERNELS = INT8_PATH_KERNELS + ("int4_matmul",)
 DEEPSEEK_PATH_KERNELS = ("norms", "rope", "mla_decode", "group_gemm")
 # (K, N) of the w8a8 and w4a8 projections at Qwen3-4B: q, k/v, o, gate/up, down; the lm_head at M = 4
 GEMM_SHAPES = ((2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560))
+# (K, N) of the w8a8 projections at Seed-OSS-36B's widths (SEED_OSS_36B below): q, k/v, o, gate/up, down
+SEED_OSS_GEMM_SHAPES = ((5120, 10240), (5120, 1024), (10240, 5120), (5120, 27648), (27648, 5120))
 # the w4a8 draft's decode (M = 1), a verify-sized batch and its prompt's prefill (bench.py:307)
 INT4_MS = (1, 5, 512)
 INT4_MAIN_SHAPE = f"1x{GEMM_SHAPES[3][0]}x{GEMM_SHAPES[3][1]}"  # the draft's gate/up at decode
@@ -662,20 +674,28 @@ def phase_kernels(torch) -> dict:
 
     T = sum(PROMPT_LENS)
     H, Hkv, D, hidden = 32, 8, 128, 2560
-    # A: RMSNorm — layer norm at the prefill batch (main), q/k head norms, odd widths
-    for shape, dtype, main in (((T, hidden), bf16, True), ((T, H, D), bf16, False), ((T, Hkv, D), bf16, False),
-                               ((4, hidden), bf16, False), ((5, 33), torch.float32, False),
-                               ((3, 300), torch.float16, False),
-                               # DeepSeek-V3's norms: kv_a (512), q_a (1536) and the layer norms (7168)
-                               ((T, 512), bf16, False), ((T, 1536), bf16, False), ((T, 7168), bf16, False),
-                               ((4, 7168), bf16, False)):
+    # A: RMSNorm — layer norm at the prefill batch (main), q/k head norms (timed), the Wan DiT's layer and q/k norms
+    # (timed), odd widths; every case repeats bit for bit
+    for shape, dtype, key in (((T, hidden), bf16, f"{T}x{hidden}"), ((T, H, D), bf16, f"{T * H}x{D}"),
+                              ((T, Hkv, D), bf16, f"{T * Hkv}x{D}"), ((4, hidden), bf16, None),
+                              ((5, 33), torch.float32, None), ((3, 300), torch.float16, None),
+                              ((7, D), torch.float32, None), ((9, hidden), torch.float16, None),
+                              # DeepSeek-V3's norms: kv_a (512), q_a (1536) and the layer norms (7168)
+                              ((T, 512), bf16, None), ((T, 1536), bf16, None), ((T, 7168), bf16, None),
+                              ((4, 7168), bf16, None),
+                              # Seed-OSS-36B's layer norms (5120); the Wan DiT clip's norms (WAN_TI2V_5B: 3072)
+                              ((T, 5120), bf16, None), ((4400, WAN_TI2V_5B["dim"]), bf16, "4400x3072")):
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         w = torch.rand(shape[-1], device="cuda", generator=gen) + 0.5
         w_lib = w.to(dtype)
         n = x.numel()
-        compare("norms", lambda: norms.rmsnorm(x, w, 1e-6), lambda: norms.rmsnorm_plain(x, w, 1e-6),
-                dtype, f"rmsnorm {shape}", main, bound=(2 * n * x.element_size() + 4 * shape[-1], 4 * n, "fp32"),
+        run = lambda: norms.rmsnorm(x, w, 1e-6)  # noqa: E731
+        label = f"rmsnorm {shape} layout {norms.row_layout(shape[-1], dtype)}"
+        compare("norms", run, lambda: norms.rmsnorm_plain(x, w, 1e-6), dtype, label, key is not None, key=key,
+                bound=(2 * n * x.element_size() + 4 * shape[-1], 4 * n, "fp32"),
                 library=lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, 1e-6))
+        _repeats(torch, label, run)
+    log("kernel norms", "every A case repeats bit for bit over two runs")
     # B: RoPE token-first on the prefill batch's q and k (main), odd T; DeepSeek-V3's rope lanes: q (T, 128, 64)
     # with one shared k head
     for n, hq, hk, d, dtype, main in ((T, H, Hkv, D, bf16, True), (7, H, Hkv, D, torch.float32, False),
@@ -733,27 +753,41 @@ def phase_kernels(torch) -> dict:
         return (M * K + weight_bytes + 4 * (M + N) + M * N * (torch.finfo(out_dtype).bits // 8), 2 * M * N * K,
                 "int8")
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
     def gemm_case(M, K, N, trans, dtype, unit, main, key=None):
         w = torch.randint(-127, 128, (N, K) if trans else (K, N), device="cuda", generator=gen, dtype=torch.int8)
         x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
         xs = torch.ones(M, 1, device="cuda") if unit else torch.rand(M, 1, device="cuda", generator=gen) * 0.1
         ws = torch.ones(N, device="cuda") if unit else torch.rand(N, device="cuda", generator=gen) * 1e-3
-        # torch._int_mm: the int32 product without the dequant epilogue; it takes M > 16 only
-        lib = (lambda: torch._int_mm(x, w.t())) if trans and M > 16 else None
-        compare("int8_matmul", lambda: int8_matmul.int8_scaled_matmul(x, w, xs, ws, trans, dtype),
-                lambda: int8_matmul.int8_scaled_matmul_plain(x, w, xs, ws, trans, dtype), dtype,
-                f"int8 gemm M={M} K={K} N={N} trans={trans} unit_scales={unit}", main, key=key,
-                check=exact if unit else None, bound=int_gemm_bound(M, K, N, N * K, dtype), library=lib)
+        # torch._int_mm: the int32 product without the dequant epilogue; it takes M > 16 and N % 8 == 0 only
+        lib = (lambda: torch._int_mm(x, w.t())) if trans and M > 16 and N % 8 == 0 else None
+        run = lambda: int8_matmul.int8_scaled_matmul(x, w, xs, ws, trans, dtype)  # noqa: E731
+        label = (f"int8 gemm M={M} K={K} N={N} trans={trans} unit_scales={unit} "
+                 f"route {tuple(int8_matmul.route(M, N, K, trans, sms))}")
+        compare("int8_matmul", run, lambda: int8_matmul.int8_scaled_matmul_plain(x, w, xs, ws, trans, dtype), dtype,
+                label, main, key=key, check=exact if unit else None, bound=int_gemm_bound(M, K, N, N * K, dtype),
+                library=lib)
+        _repeats(torch, label, run)
 
-    for K, N in GEMM_SHAPES:
+    # Qwen3-4B's and Seed-OSS-36B's projections at prefill (the wgmma route) and decode (split K where the output
+    # tiles leave SMs idle), each timed, beside torch._int_mm at prefill
+    for K, N in GEMM_SHAPES + SEED_OSS_GEMM_SHAPES:
         for M in (T, 8):
             gemm_case(M, K, N, True, bf16, False, True, key=f"{M}x{K}x{N}")
             gemm_case(M, K, N, True, torch.float32, True, False)
     gemm_case(4, hidden, 151936, True, bf16, False, True, key=f"4x{hidden}x151936")
+    # the wgmma route at ragged M, N and K (K % 128 != 0) and at an N that fills no 16-byte vector of the output; the
+    # decode route's K split at a ragged shape
+    for M, K, N in ((130, 272, 400), (70, 144, 37), (5, 272, 400)):
+        for dtype in (bf16, torch.float16, torch.float32):
+            gemm_case(M, K, N, True, dtype, False, False)
+        gemm_case(M, K, N, True, torch.float32, True, False)
     for M in (1, 7, 130):
         for dtype in (bf16, torch.float16, torch.float32):
             gemm_case(M, 272, 400, False, dtype, False, False)
         gemm_case(M, 272, 400, False, torch.float32, True, False)
+    log("kernel int8_matmul", "every F case repeats bit for bit over two runs")
 
     # G: packed-int4 GEMM at every w4a8 projection shape (the draft's decode M = 1, M = 5, its prefill
     # M = 512), a ragged M in three output dtypes; unit scales + fp32 output must be exact; an N that
@@ -1921,12 +1955,15 @@ def phase_small_model(torch) -> None:
 
 
 # the kernels whose device time a profiled prefill reports, by the names of their CUDA kernels
-PREFILL_FAMILIES = {"D": ("paged_prefill_",), "H": ("gmm_",), "I": ("mla_decode_kernel",)}
+# kernel A's row kernels in a profile (the register kernel, and the generic ones it shares with P)
+A_KERNEL_NAMES = ("rmsnorm_regs_kernel", "rmsnorm_warp_kernel", "rmsnorm_block_kernel")
+PREFILL_FAMILIES = {"D": ("paged_prefill_",), "F": ("int8_gemm_kernel", "int8_wgmma_kernel"), "H": ("gmm_",),
+                    "I": ("mla_decode_kernel",)}
 
 
 def _prefill_profile(torch, tag: str, card: str, gm, ids, lens) -> None:
     """One more prefill of the batch under torch.profiler: its device busy ms, kernel count and the device ms of
-    kernels D, H and I (the prefill's wall ms is the PerfHook's)."""
+    kernels D, F, H and I (the prefill's wall ms is the PerfHook's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2871,7 +2908,7 @@ def _dit_profile(torch, fn) -> tuple:
         torch.cuda.synchronize()
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e3
-    families = {"J": ("flash_swa",), "O": ("flash_diffusion",), "A": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel")}
+    families = {"J": ("flash_swa",), "O": ("flash_diffusion",), "A": A_KERNEL_NAMES}
     fam_ms = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
               for f, pats in families.items()}
     return busy, fam_ms
@@ -3310,7 +3347,7 @@ def _step_profile(torch, prof) -> tuple:
 
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
-    families = {"J": ("flash_swa",), "A": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel"), "K": ("rmsnorm_bwd_",),
+    families = {"J": ("flash_swa",), "A": A_KERNEL_NAMES, "K": ("rmsnorm_bwd_",),
                 "L": ("silu_fwd_kernel", "silu_bwd_kernel"), "M": ("rope_strided_kernel",), "N": ("flce_",)}
     fam_ms = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
               for f, pats in families.items()}
@@ -3327,15 +3364,16 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
     dq and dk/dv from the diffusion Function's, for P from the residual-add
     norm's run and for Q from the conv Function's; numbers of the main-path
     case (``ms`` replayed from a CUDA graph). C and D add their int8-page numbers, C its windowed cases
-    at ctx 32768 beside the same cases without windows; F, G, H, I, K, M, P
+    at ctx 32768 beside the same cases without windows; A, F, G, H, I, K, M, P
     and Q their numbers at each shape (M: each layout and direction; P: pre
-    and post), G, H, I, K, M, P and Q their largest error over those shapes;
+    and post), A, G, H, I, K, M, P and Q their largest error over those shapes;
     J's forward its numbers through CudaSdpa at the Wan DiT's shape and its
     clip's; O its numbers at SDAR's GQA and under the Wan DiT's key-padding
     mask."""
     line = []
     conv_main = f"b{CONV_B}_t{CONV_T}"
-    main_shapes = {"int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728", "int4_matmul": INT4_MAIN_SHAPE,
+    main_shapes = {"norms": f"{sum(PROMPT_LENS)}x2560", "int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728",
+                   "int4_matmul": INT4_MAIN_SHAPE,
                    "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4", "rmsnorm_vjp": f"{TRAIN_TOKENS}x2560",
                    "rope_head_first": "token_first_view_forward",
                    "residual_add_rmsnorm": "x".join(map(str, RESIDUAL_ADD_SHAPES[0])) + "_pre",
@@ -3347,7 +3385,7 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             extra["by_shape"] = rec
             rec = dict(rec[main_shapes[module]])
             extra["main_shape"] = main_shapes[module]
-            if module in ("int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first",
+            if module in ("norms", "int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first",
                           "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         for key in ("int8_pages", "wan_dit_sdpa", "wan_dit_clip_sdpa", "window_ctx32k", "no_window_ctx32k",

@@ -4,7 +4,9 @@
 A replaces the JAX package's ``backends/pallas/kernels/norms.py:45``
 (``rmsnorm``), P its ``norms.py:82`` (``residual_add_rmsnorm``, body
 ``_add_rmsnorm_kernel`` :68, call :96). ``launches`` counts A's launches,
-``launches_residual_add`` P's.
+``launches_residual_add`` P's. ``row_layout`` picks A's register kernel
+from the width and dtype alone; P and other widths take the generic row
+kernels.
 """
 
 from __future__ import annotations
@@ -18,6 +20,23 @@ from mojo_opset_tpu_torch.core.operators.normalization import rms_norm as rmsnor
 
 launches = 0
 launches_residual_add = 0
+
+# A's register kernel: 16-byte vectors a row -> (threads a row, vectors a thread), every lane busy. In bf16/fp16
+# (8 elements a vector): D 128 (8 lanes of 2: 4 rows a warp), 256, 512, 1024, 1536, 2560 (a warp of 10), 3072,
+# 4096, 5120 (2 warps of 10), 6144, 7168 (4 warps of 7); in fp32 the same vector counts at half the width.
+# csrc/rmsnorm.cu instantiates exactly these pairs (MOJO_ROW_LAYOUTS)
+ROW_LAYOUTS = {16: (8, 2), 32: (16, 2), 64: (32, 2), 128: (32, 4), 192: (32, 6), 320: (32, 10), 384: (32, 12),
+               512: (64, 8), 640: (64, 10), 768: (64, 12), 896: (128, 7)}
+ROW_BLOCK_THREADS = 128  # a block of the register kernel takes 128 / (threads a row) rows at a time
+
+
+def row_layout(D: int, dtype: torch.dtype):
+    """(threads a row, 16-byte vectors a thread) of A's register kernel for
+    rows of ``D`` elements of ``dtype``, or None (the generic row kernels)."""
+    per_vector = 16 // torch.empty((), dtype=dtype).element_size()
+    if D % per_vector:
+        return None
+    return ROW_LAYOUTS.get(D // per_vector)
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -39,9 +58,12 @@ def _rmsnorm_kernel(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.
     _require_weight("rmsnorm", weight, D)
     out = torch.empty_like(x)
     vec = (D * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    layout = row_layout(D, x.dtype) if vec and weight.data_ptr() % 16 == 0 else None
+    tpr, vpt = layout or (0, 0)
     build.launch(
         "mojo_rmsnorm", x.device,
-        x.data_ptr(), weight.data_ptr(), out.data_ptr(), x.numel() // max(D, 1), D, float(eps), int(vec), code,
+        x.data_ptr(), weight.data_ptr(), out.data_ptr(), x.numel() // max(D, 1), D, float(eps), int(vec), tpr, vpt,
+        code,
     )
     launches += 1
     return out

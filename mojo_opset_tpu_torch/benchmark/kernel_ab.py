@@ -1,4 +1,5 @@
-"""Kernels D (paged prefill) and H (grouped GEMM) of one tree, for comparing two trees on one card.
+"""Kernels D (paged prefill), H (grouped GEMM), F (int8 GEMM), A (RMSNorm) and P (residual add + RMSNorm) of
+one tree, for comparing two trees on one card.
 
 The kernels come from the ``mojo_opset_tpu_torch`` package that ``sys.path``
 finds first: this tree's, or another commit's (``git archive`` unpacked in
@@ -14,7 +15,16 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   times, 20 calls replayed from a CUDA graph: D and D' at the smoke's
   prefill batch (Qwen3-4B's 32/8 heads, D 128, bf16, pages of 64), H's fc1
   and down at Qwen3-30B-A3B's prefill (13200 rows) and decode (32 rows),
-  and at G = 256 (DeepSeek-V3's experts) at prefill.
+  and at G = 256 (DeepSeek-V3's experts) at prefill; F at Qwen3-4B's
+  gate/up and k/v projections at prefill (1650 rows) and decode (8 rows)
+  and Seed-OSS-36B's down projection at prefill, bf16 output; A at
+  Qwen3-4B's layer norm (1650, 2560), its q and k head norms (1650 x 32
+  and 1650 x 8 rows of 128) and the Wan DiT's (4400, 3072); P pre and post
+  at (1650, 2560), 4096 x 4096 and 8192 x 8192, bf16.
+- ``paths TAG``: this tree's phases 6 (Qwen3-4B w8a8 + C8) and 11
+  (Seed-OSS-36B cut to 32 layers, bf16 and w8a8) on the tree's kernels,
+  each printing its prefill and decode times and one profiled prefill
+  (device busy ms, D's and F's shares).
 
 Run on a machine with a GPU and nvcc, in turns (parent, change, change,
 parent) within one call::
@@ -53,7 +63,7 @@ def readings(s) -> None:
 
 
 def times(s, tag: str) -> None:
-    from mojo_opset_tpu_torch.backends.cuda.kernels import group_gemm, paged_prefill
+    from mojo_opset_tpu_torch.backends.cuda.kernels import group_gemm, int8_matmul, norms, paged_prefill
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, lens, n_blocks = torch.bfloat16, list(s.PROMPT_LENS), 4 * 69
@@ -78,19 +88,41 @@ def times(s, tag: str) -> None:
         out[name] = s.graph_ms(torch, lambda: group_gemm.grouped_matmul(x, w, counts, True))
         del w
         torch.cuda.empty_cache()
+    for M, K, N in ((1650, 2560, 9728), (1650, 2560, 1024), (1650, 27648, 5120), (8, 2560, 9728), (8, 2560, 1024)):
+        x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
+        w = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
+        xs, ws = torch.rand(M, 1, device="cuda", generator=gen), torch.rand(N, device="cuda", generator=gen)
+        out[f"F_{M}x{K}x{N}"] = s.graph_ms(torch, lambda: int8_matmul.int8_scaled_matmul(x, w, xs, ws, True, bf16))
+    for rows, D in ((1650, 2560), (1650 * 32, 128), (1650 * 8, 128), (4400, 3072)):
+        x = torch.randn(rows, D, device="cuda", generator=gen).to(bf16)
+        w = torch.rand(D, device="cuda", generator=gen) + 0.5
+        out[f"A_{rows}x{D}"] = s.graph_ms(torch, lambda: norms.rmsnorm(x, w, 1e-6))
+    for T, D in s.RESIDUAL_ADD_SHAPES:
+        x, r = (torch.randn(T, D, device="cuda", generator=gen).to(bf16) for _ in range(2))
+        w = torch.rand(D, device="cuda", generator=gen) + 0.5
+        for pos in ("pre", "post"):
+            out[f"P_{T}x{D}_{pos}"] = s.graph_ms(torch, lambda: norms.residual_add_rmsnorm(x, r, w, 1e-6, pos))
     print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+
+
+def paths(s, card: str, tag: str) -> None:
+    print(f"{tag}: phases 6 and 11", flush=True)
+    s.phase_int8_full_width(torch, card)
+    s.phase_seed_oss_full_width(torch, card)
 
 
 def main() -> int:
     s = load_chip_smoke()
-    s.phase_device(torch)
+    card = s.phase_device(torch)
     s.phase_build()
     if sys.argv[1:2] == ["readings"]:
         readings(s)
     elif sys.argv[1:2] == ["times"] and len(sys.argv) == 3:
         times(s, sys.argv[2])
+    elif sys.argv[1:2] == ["paths"] and len(sys.argv) == 3:
+        paths(s, card, sys.argv[2])
     else:
-        raise SystemExit("usage: kernel_ab.py readings | times TAG")
+        raise SystemExit("usage: kernel_ab.py readings | times TAG | paths TAG")
     return 0
 
 

@@ -1,22 +1,26 @@
-"""Kernel C's split count and kernel N's dx K ranges, swept at the smoke's shapes.
+"""Kernel C's split count, kernel N's dx K ranges and kernel F's routes, swept at the smoke's shapes.
 
 ``paged_decode.split_count`` sizes kernel C's split-KV grid from shapes
-alone, and ``flce.dx_splits`` picks how many K ranges kernel N's dx
-product takes. This script calls the two C entry points with explicit
-counts around each policy's choice, holds every result to the plain
-version (the dtype's tolerance ladder), and times each from a CUDA graph
-(20 calls replayed). Decode cases: Qwen3-4B's geometry (32/8 heads, D 128,
-bf16, NHD pages of 64) at the smoke's main batch (contexts 1032, 545, 162,
-39), at ctx 4000 with bs 1, 8 and 24, and at ctx 32768 with bs 4, with and
-without local 1024 + global 64 windows; SDPA over the gathered pages is
+alone, ``flce.dx_splits`` picks how many K ranges kernel N's dx product
+takes, and ``int8_matmul.route`` picks kernel F's wgmma tile width at
+prefill and its K splits at decode. This script calls the C entry points
+with explicit counts around each policy's choice, holds every result to
+the plain version (the dtype's tolerance ladder; F exactly, at unit scales
+with fp32 output), and times each from a CUDA graph (20 calls replayed).
+Decode cases: Qwen3-4B's geometry (32/8 heads, D 128, bf16, NHD pages of
+64) at the smoke's main batch (contexts 1032, 545, 162, 39), at ctx 4000
+with bs 1, 8 and 24, and at ctx 32768 with bs 4, with and without local
+1024 + global 64 windows; SDPA over the gathered pages is
 timed beside the unwindowed ones. dx: the train step's lm_head (N 4096, H
-2560, V 151936, bf16).
+2560, V 151936, bf16). F: the w8a8 projections of Qwen3-4B and
+Seed-OSS-36B at prefill (M 1650, tile width 128 and 256) and at decode (M
+8, and the lm_head at M 4: split counts 1 to 20), bf16 output.
 
 Run on a machine with a GPU and nvcc::
 
-    python -m mojo_opset_tpu_torch.benchmark.split_sweep
+    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8]
 
-It prints one JSON line.
+It prints one JSON line; with ``int8`` it sweeps F alone.
 """
 
 from __future__ import annotations
@@ -24,17 +28,22 @@ from __future__ import annotations
 import json
 import math
 import subprocess
+import sys
 
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
-from mojo_opset_tpu_torch.backends.cuda.kernels import flce, paged_decode
+from mojo_opset_tpu_torch.backends.cuda.kernels import flce, int8_matmul, paged_decode
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
 H, HKV, D, PAGE = 32, 8, 128, 64
 DECODE_CASES = (("main", [1032, 545, 162, 39], None, None), ("bs1_ctx4000", [4000], None, None),
                 ("bs8_ctx4000", [4000] * 8, None, None), ("bs24_ctx4000", [4000] * 24, None, None),
                 ("ctx32768", [32768] * 4, None, None), ("ctx32768_window", [32768] * 4, 1024, 64))
+# (K, N) of the w8a8 projections: Qwen3-4B's q, k/v, o, gate/up, down; Seed-OSS-36B's q, k/v, o, gate/up, down
+INT8_SHAPES = ((2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560),
+               (5120, 10240), (5120, 1024), (10240, 5120), (5120, 27648), (27648, 5120))
+INT8_PREFILL_M, INT8_DECODE_M = 1650, 8
 
 
 def graph_ms(fn, iters: int = 20) -> float:
@@ -130,13 +139,69 @@ def dx_case(gen) -> dict:
     return result
 
 
+def int8_case(M, K, N, gen) -> dict:
+    """F at one shape: every route or split count the shape can take, exact at unit scales with fp32 output, then
+    timed with bf16 output and random scales (the ladder)."""
+    dev = torch.device("cuda")
+    x = torch.randint(-128, 128, (M, K), device=dev, generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), device=dev, generator=gen, dtype=torch.int8)
+    ones_x, ones_w = torch.ones(M, device=dev), torch.ones(N, device=dev)
+    xs, ws = torch.rand(M, device=dev, generator=gen) * 0.1, torch.rand(N, device=dev, generator=gen) * 1e-3
+    lib = build.load_library()
+    arrivals = torch.zeros(int8_matmul.ARRIVAL_SLOTS, dtype=torch.int32, device=dev)
+
+    def run(code, splits, sx, sw, out, part):
+        rc = lib.mojo_int8_matmul(x.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
+                                  None if part is None else part.data_ptr(), arrivals.data_ptr(), M, N, K, 1, code,
+                                  splits, build.DTYPE_CODES[out.dtype], torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"mojo_int8_matmul failed: CUDA error {rc}")
+
+    policy = int8_matmul.route(M, N, K, True, build.sm_count(dev))
+    if M > int8_matmul.DECODE_M:
+        plans = [(code, 1) for code in (int8_matmul.WGMMA_128, int8_matmul.WGMMA_256)]
+    else:
+        k_tiles = -(-K // int8_matmul.DECODE_BK)
+        counts = sorted({s for s in (1, 2, 3, 4, 5, 7, 10, 20, policy.splits) if s <= k_tiles})
+        # only counts whose ranges of whole k-tiles leave none empty
+        plans = [(int8_matmul.DECODE_MMA, s) for s in counts if -(-k_tiles // -(-k_tiles // s)) == s]
+    want_exact = int8_matmul.int8_scaled_matmul_plain(x, w, ones_x, ones_w, True, torch.float32)
+    want = int8_matmul.int8_scaled_matmul_plain(x, w, xs, ws, True, torch.bfloat16)
+    result = {"policy": list(policy), "ms": {}}
+    for code, splits in plans:
+        part = (torch.empty(int8_matmul.split_scratch_ints(M, N, splits), dtype=torch.int32, device=dev)
+                if splits > 1 else None)
+        exact = torch.empty(M, N, device=dev)
+        run(code, splits, ones_x, ones_w, exact, part)
+        out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        run(code, splits, xs, ws, out, part)
+        torch.cuda.synchronize()
+        if not torch.equal(exact, want_exact):
+            raise AssertionError(f"F M={M} K={K} N={N} route {code} splits {splits}: int32 sums differ")
+        check_tol_diff(out, want, **tols_for(torch.bfloat16))
+        result["ms"][f"{code}/{splits}"] = graph_ms(lambda: run(code, splits, xs, ws, out, part))  # noqa: B023
+    if M > 16:
+        result["int_mm_ms"] = graph_ms(lambda: torch._int_mm(x, w.t()))
+    return result
+
+
+def int8_report(gen) -> dict:
+    cases = {f"{m}x{k}x{n}": (m, k, n) for k, n in INT8_SHAPES for m in (INT8_PREFILL_M, INT8_DECODE_M)}
+    cases["4x2560x151936"] = (4, 2560, 151936)
+    return {name: int8_case(m, k, n, gen) for name, (m, k, n) in cases.items()}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("split_sweep needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    report = {"decode": {name: decode_case(lens, local, glob, gen) for name, lens, local, glob in DECODE_CASES}}
-    torch.cuda.empty_cache()
-    report["flce_dx"] = dx_case(gen)
+    if sys.argv[1:] == ["int8"]:
+        report = {"int8_matmul": int8_report(gen)}
+    else:
+        report = {"decode": {name: decode_case(lens, local, glob, gen) for name, lens, local, glob in DECODE_CASES}}
+        torch.cuda.empty_cache()
+        report["flce_dx"] = dx_case(gen)
+        report["int8_matmul"] = int8_report(gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()
     report["card"] = smi[0] if smi else None

@@ -6,7 +6,12 @@
 // setmaxnreg, and on the host a 2-D tensor map from cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so that no library links
 // against libcuda; the TMA-loaded operand tiles of a stage and their
-// descriptors. Kernels N (flce.cu) and H's prefill tile (group_gemm.cu) use them.
+// descriptors. Kernels N (flce.cu) and H's prefill tile (group_gemm.cu) use
+// the 16-bit forms; F's prefill route (int8_matmul.cu) the 8-bit ones
+// (wgmma m64nNk32 s8 x s8 -> s32, a byte tensor map): an 8-bit swizzle row
+// holds kSw128K8 = 128 elements of K, and a k32 step advances 32 bytes in
+// it as a bf16 k16 step does, so K-major tiles and their descriptors are
+// the same bytes (8-bit wgmma takes K-major operands only).
 //
 // Tiles. A TMA box of {64 elements (128 bytes), R rows} with
 // CU_TENSOR_MAP_SWIZZLE_128B lands as R rows of 128 bytes whose 16-byte
@@ -20,7 +25,7 @@
 //     8-row groups along K sit SBO = 1024 apart, and the next 64 M or N
 //     elements (the next box) sit LBO = R * 128 bytes further.
 //
-// Accumulators of m64nNk16 (fp32): thread t of the warpgroup holds, for
+// Accumulators of m64nNk16 (fp32) and of m64nNk32 (s32): thread t of the warpgroup holds, for
 // j < N / 8, d[4j + 2h + e] = D[16 (t / 32) + (t % 32) / 4 + 8h][8j + 2 (t % 4) + e].
 #pragma once
 
@@ -154,6 +159,74 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
   }
 }
 
+// the int32 form of wgmma_hold
+template <int R>
+__device__ __forceinline__ void wgmma_hold(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define MOJO_WGMMA_I64(d) \
+    "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+    "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+    "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+    "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+    "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+    "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+    "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), \
+    "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+
+#define MOJO_WGMMA_I128(d) \
+    "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+    "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+    "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+    "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+    "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+    "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+    "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), \
+    "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), \
+    "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), \
+    "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), \
+    "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), \
+    "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), \
+    "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), \
+    "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), \
+    "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), \
+    "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+
+// d (64 x 128 int32, the accumulator layout above) += A (64 x 32) B (128 x 32)^T, int8 from shared memory, both
+// K-major (8-bit wgmma has no transpose); the int32 sums are exact
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : MOJO_WGMMA_I64(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (64 x 256 int32) += A (64 x 32) B (256 x 32)^T, as wgmma_m64n128k32_s8
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : MOJO_WGMMA_I128(d)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
 }
@@ -204,6 +277,10 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
 // (r0 + 64 i, k0), kSw128BoxBytes apart.
 constexpr int kSw128K = 64;
 constexpr int kSw128BoxBytes = 64 * kSw128K * 2;
+// the same swizzle row of 8-bit elements: a K-major int8 tile of R rows is
+// one box {128 K, R} loaded with tma_load_2d at (k0, r0), and
+// sw128_operand_desc<false> addresses it with kk counting k32 steps
+constexpr int kSw128K8 = 128;
 
 template <int R, bool MN>
 __device__ __forceinline__ void tma_load_operand(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int r0,
@@ -244,16 +321,12 @@ inline int sm_count() {
   return sms;
 }
 
-// Host: a 2-D tensor map over a row-major matrix of 16-bit elements
-// (`inner` elements a row, `outer` rows, rows `pitch_bytes` apart, a
-// multiple of 16; `base` 16-byte aligned) whose box is {64, box_rows}
-// elements with the 128-byte swizzle and zero fill. Returns a cudaError_t.
-inline int encode_tile_map(CUtensorMap* map, bool bf16, const void* base, uint64_t inner, uint64_t outer,
-                           uint64_t pitch_bytes, uint32_t box_rows) {
-  using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static const EncodeTiled encode = [] {
+// Host: cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, looked up once (null if absent)
+using MojoEncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                     const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline MojoEncodeTiled tensor_map_encoder() {
+  static const MojoEncodeTiled encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
@@ -261,20 +334,43 @@ inline int encode_tile_map(CUtensorMap* map, bool bf16, const void* base, uint64
 #else
     cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
 #endif
-    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(fn) : nullptr;
+    return found == cudaDriverEntryPointSuccess ? reinterpret_cast<MojoEncodeTiled>(fn) : nullptr;
   }();
+  return encode;
+}
+
+// Host: a 2-D tensor map over a row-major matrix of `type` (`inner`
+// elements a row, `outer` rows, rows `pitch_bytes` apart, a multiple of 16;
+// `base` 16-byte aligned) whose box is {box_inner, box_rows} elements
+// (box_inner of them 128 bytes) with the 128-byte swizzle and zero fill.
+// Returns a cudaError_t.
+inline int encode_sw128_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
+                            uint64_t outer, uint64_t pitch_bytes, uint32_t box_inner, uint32_t box_rows) {
+  const MojoEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   if (inner == 0 || outer == 0 || pitch_bytes % 16 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {pitch_bytes};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t box[2] = {box_inner, box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2,
-                            const_cast<void*>(base), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   // a refused map leaves the runtime's error state alone: report it here
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Host: the map of a matrix of 16-bit elements, box {64, box_rows}
+inline int encode_tile_map(CUtensorMap* map, bool bf16, const void* base, uint64_t inner, uint64_t outer,
+                           uint64_t pitch_bytes, uint32_t box_rows) {
+  return encode_sw128_map(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, base,
+                          inner, outer, pitch_bytes, 64, box_rows);
+}
+
+// Host: the map of a matrix of bytes (int8 read as its bits), box {kSw128K8, box_rows}
+inline int encode_tile_map_u8(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+                              uint64_t pitch_bytes, uint32_t box_rows) {
+  return encode_sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, inner, outer, pitch_bytes, kSw128K8, box_rows);
 }

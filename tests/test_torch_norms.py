@@ -4,7 +4,12 @@
 of mojo_opset_tpu_torch against mojo_opset_tpu, on the CPU; and kernel P
 (``residual_add_rmsnorm``): its plain version against the JAX package's
 Pallas kernel in interpret mode, and ``CudaResidualAddRMSNorm`` on CPU
-tensors (the plain version) against JAX's golden.
+tensors (the plain version) against JAX's golden. Kernel A's lane map: at
+the widths the models use, ``norms.row_layout`` splits a row over lanes
+that each read a fixed number of 16-byte vectors (each element once, no
+lane idle); a plain-PyTorch model of the kernel's reduction order
+(per-lane sums, shuffles over the row's lanes, whole warps in order) is
+held to ``rms_norm`` and to JAX's Pallas ``rmsnorm`` in interpret mode.
 
 The same numpy inputs and weights (carried across with ``load_numpy_state``
 from ``state_dict_of``) go through both packages. Tolerances, as in
@@ -15,6 +20,8 @@ part by one step where a sum in another order moves a value across a
 rounding tie: at most one step on at most 1% of the values.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,9 +29,10 @@ import torch
 
 import mojo_opset_tpu.core.operators as jo
 from mojo_opset_tpu.backends.pallas.kernels.norms import residual_add_rmsnorm as jax_residual_add_rmsnorm
+from mojo_opset_tpu.backends.pallas.kernels.norms import rmsnorm as jax_rmsnorm
 from mojo_opset_tpu.utils.hf import state_dict_of
 import mojo_opset_tpu_torch as tm
-from mojo_opset_tpu_torch.backends.cuda import kernels
+from mojo_opset_tpu_torch.backends.cuda import build, kernels
 from mojo_opset_tpu_torch.backends.cuda.kernels import norms
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
 from mojo_opset_tpu_torch.utils.weights import load_numpy_state
@@ -204,3 +212,111 @@ def test_residual_add_rmsnorm_wrapper_refuses_other_dtype_pairs():
         norms.residual_add_rmsnorm(torch.ones(2, 8), torch.ones(3, 8), w, EPS)
     with pytest.raises(ValueError, match="float32"):
         norms.residual_add_rmsnorm(torch.ones(2, 8), torch.ones(2, 8), w.bfloat16(), EPS)
+
+
+# ------------------------------------------------------------ kernel A
+
+# the widths the models run A at: the q/k head norms, DeepSeek-V3's kv_a, q_a and layer norms, Qwen3-4B's, the Wan
+# DiT's and Seed-OSS-36B's layer norms
+A_WIDTHS = (128, 512, 1536, 2560, 3072, 5120, 7168)
+A_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+def lane_map(D, dtype):
+    """csrc/rmsnorm.cu's register kernel: the elements of a row each of its TPR threads reads, in the order it
+    sums them (vector i * TPR + sub, then the vector's elements)."""
+    tpr, vpt = norms.row_layout(D, dtype)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    return torch.tensor([[(i * tpr + sub) * vec + k for i in range(vpt) for k in range(vec)] for sub in range(tpr)])
+
+
+def generic_map(D, vec, threads):
+    """The generic row kernels' pass over a row (each pass, the sum and the scaling, reads it once): thread t
+    reads chunks of ``vec`` elements from t * vec, stepping ``threads * vec``."""
+    return [[c + k for c in range(t * vec, D, threads * vec) for k in range(vec)] for t in range(threads)]
+
+
+def lane_model(x, w, eps):
+    """A's output as the register kernel computes it: fp32 sums of each lane's elements in its order, a xor
+    butterfly over the row's lanes (over 32 at most), then the warps' sums in order; y = (x * inv) * w."""
+    rows, D = x.shape
+    lanes = lane_map(D, x.dtype)
+    tpr = lanes.shape[0]
+    xf = x.float()
+    part = torch.zeros(rows, tpr)
+    for j in range(lanes.shape[1]):
+        part = part + xf[:, lanes[:, j]] ** 2
+    o = min(tpr, 32) // 2
+    while o:
+        part = part + part[:, torch.arange(tpr) ^ o]
+        o //= 2
+    ss = part[:, 0]
+    if tpr > 32:
+        ss = torch.zeros(rows)
+        for warp in range(tpr // 32):
+            ss = ss + part[:, 32 * warp]
+    inv = 1.0 / torch.sqrt(ss / D + eps)
+    return ((xf * inv[:, None]) * w.float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype_name", list(A_DTYPES))
+@pytest.mark.parametrize("D", A_WIDTHS)
+def test_rmsnorm_lanes_read_each_element_once_and_none_idles(D, dtype_name):
+    dtype = A_DTYPES[dtype_name]
+    layout = norms.row_layout(D, dtype)
+    if layout is None:  # fp32 rows of 5120 and 7168 take the generic kernels: each pass reads every element once
+        assert dtype == torch.float32 and D > 3072
+        reads = sorted(c for lane in generic_map(D, 4, 256) for c in lane)
+        assert reads == list(range(D))
+        return
+    tpr, vpt = layout
+    lanes = lane_map(D, dtype)
+    assert sorted(lanes.flatten().tolist()) == list(range(D))  # every element of a row, once
+    assert all(len(lane) == vpt * (16 // torch.empty((), dtype=dtype).element_size()) for lane in lanes.tolist())
+    # the row's lanes fill whole warps, or a warp holds whole rows: no lane of a block idles
+    assert (tpr <= 32 and 32 % tpr == 0) or tpr % 32 == 0
+    assert norms.ROW_BLOCK_THREADS % tpr == 0
+    if D == 128 and dtype != torch.float32:
+        assert layout == (8, 2)  # 4 rows a warp of 8 lanes with 2 vectors each
+
+
+@pytest.mark.parametrize("D, dtype_name", [(33, "f32"), (300, "f16"), (300, "bf16"), (96, "bf16")])
+def test_rmsnorm_odd_widths_take_the_generic_kernels(D, dtype_name):
+    dtype = A_DTYPES[dtype_name]
+    assert norms.row_layout(D, dtype) is None
+    per_vector = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = per_vector if D % per_vector == 0 else 1
+    threads = 32 if D <= 256 else 256  # a warp a short row, a block a long one
+    assert sorted(c for lane in generic_map(D, vec, threads) for c in lane) == list(range(D))
+
+
+# fp32 rows of 5120 and 7168 (no model runs them) take the generic kernels
+@pytest.mark.parametrize("D, dtype_name", [(D, n) for D in A_WIDTHS for n in A_DTYPES if n != "f32" or D <= 3072])
+def test_rmsnorm_lane_model_matches_the_plain_version(D, dtype_name):
+    dtype = A_DTYPES[dtype_name]
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((6, D)).astype(np.float32) * 2).to(dtype)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, D).astype(np.float32))
+    got, want = lane_model(x, w, EPS), norms.rmsnorm_plain(x, w, EPS)
+    assert got.dtype == want.dtype
+    tol = dict(atol=2e-6, rtol=2e-6) if dtype == torch.float32 else TOL[dtype_name]
+    check_tol_diff(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("D", [128, 2560])
+@pytest.mark.parametrize("dtype_name", ["bf16", "f32"])
+def test_rmsnorm_lane_model_matches_pallas_interpret(dtype_name, D):
+    jx, tx, _, _ = inputs((16, D), dtype_name, seed=D)
+    w = np.random.default_rng(D + 1).uniform(0.5, 1.5, D).astype(np.float32)
+    want = jax_rmsnorm(jx, jnp.asarray(w), EPS, interpret=True)
+    got = lane_model(tx, torch.from_numpy(w), EPS)
+    same_dtype(got, want)
+    close(got, want, TOL[dtype_name])
+
+
+def test_rmsnorm_row_layouts_match_the_kernel_source():
+    src = (build.CSRC_DIR / "rmsnorm.cu").read_text()
+    pairs = re.search(r"#define MOJO_ROW_LAYOUTS\(X\)(.*?)\n\n", src, re.S).group(1)
+    assert sorted((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", pairs)) == sorted(
+        norms.ROW_LAYOUTS.values())
+    assert f"kRegRowThreads = {norms.ROW_BLOCK_THREADS};" in src
