@@ -27,8 +27,11 @@ is non-zero:
      M = 4, ragged M, N and K on the wgmma route, the decode route split
      and a (K, N) weight in three output dtypes, every case repeated bit
      for bit. G runs at the
-     w4a8 projection shapes with M = 1, 5 and 512, a ragged M, and refuses
-     N % 128 != 0; its main cases are also timed
+     w4a8 projection shapes with M = 1, 5 and 512 (its decode and its wgmma
+     routes), ragged M, K split over the wgmma
+     units, every case repeated bit for bit, and refuses N % 128 != 0; its
+     main cases are also timed beside F on the unpacked int8 weight (a
+     reference, not a library call). Main cases are timed
      replayed from a CUDA graph (device time, not the host's launch rate).
      The decode and prefill kernels run on bf16/fp32/fp16 pages and on int8
      (C8) pages; decode (C, C') also at groups 20 (40/2, a partial 16-head
@@ -148,7 +151,9 @@ is non-zero:
      The draft's last-token logits hold per-row cosine >= 0.999 against its
      plain path. Counters as in 5 over vanilla greedy (stepwise and
      FusedDecode) and speculative ``generate_fused`` and ``generate``; all
-     seven kernels must launch. Each speculative stream equals vanilla
+     seven kernels must launch; G's launches are also logged by route and
+     M, and must add up to its count; one prefill of the draft alone is
+     profiled (device busy ms, G's share). Each speculative stream equals vanilla
      greedy, or first leaves it where the target's two best logits lie
      within 0.05 (the verify runs kernel D, vanilla kernel C: bf16 rounds
      differently). Prints vanilla and speculative ms/token, rounds, the
@@ -790,25 +795,42 @@ def phase_kernels(torch) -> dict:
     log("kernel int8_matmul", "every F case repeats bit for bit over two runs")
 
     # G: packed-int4 GEMM at every w4a8 projection shape (the draft's decode M = 1, M = 5, its prefill
-    # M = 512), a ragged M in three output dtypes; unit scales + fp32 output must be exact; an N that
-    # is not a multiple of 128 must be refused
+    # M = 512), ragged M in three output dtypes, a split prefill at one and two m tiles; unit scales + fp32 output
+    # must be exact; every case repeats bit for bit; an N that is not a multiple of 128 must be refused. Each main
+    # case also times F (int8_matmul) on the unpacked weight at the same shape: a reference kernel of this port, not
+    # a library call
     def int4_case(M, K, N, dtype, unit, main, key=None):
         wp = torch.randint(-128, 128, (N // 2, K), device="cuda", generator=gen, dtype=torch.int8)
         x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
         xs = torch.ones(M, 1, device="cuda") if unit else torch.rand(M, 1, device="cuda", generator=gen) * 0.1
         ws = torch.ones(N, device="cuda") if unit else torch.rand(N, device="cuda", generator=gen) * 1e-2
-        compare("int4_matmul", lambda: int4_matmul.int4_scaled_matmul(x, wp, xs, ws, dtype),
-                lambda: int4_matmul.int4_scaled_matmul_plain(x, wp, xs, ws, dtype), dtype,
-                f"int4 gemm M={M} K={K} N={N} unit_scales={unit}", main, key=key,
-                check=exact if unit else None, bound=int_gemm_bound(M, K, N, N * K // 2, dtype))
+        run = lambda: int4_matmul.int4_scaled_matmul(x, wp, xs, ws, dtype)  # noqa: E731
+        plan = int4_matmul.route(M, N, K, sms)
+        label = (f"int4 gemm M={M} K={K} N={N} unit_scales={unit} route "
+                 f"{int4_matmul.ROUTE_NAMES[plan.code]}/{plan.splits}/{plan.warps}")
+        compare("int4_matmul", run, lambda: int4_matmul.int4_scaled_matmul_plain(x, wp, xs, ws, dtype), dtype, label,
+                main, key=key, check=exact if unit else None, bound=int_gemm_bound(M, K, N, N * K // 2, dtype))
+        _repeats(torch, label, run)
+        if main:
+            w8 = int4_matmul.unpack_int4_rows(wp)
+            entry = record["int4_matmul"][key]
+            entry["f_unpacked_ms"] = graph_ms(
+                torch, lambda: int8_matmul.int8_scaled_matmul(x, w8, xs, ws, True, dtype))
+            log("kernel int4_matmul", f"{label}: F on the unpacked int8 weight (reference, not a library call) "
+                                      f"{entry['f_unpacked_ms']:.4f} ms against G's {entry['ms']:.4f}")
 
     for K, N in GEMM_SHAPES:
         for M in INT4_MS:
             int4_case(M, K, N, bf16, False, True, key=f"{M}x{K}x{N}")
             int4_case(M, K, N, torch.float32, True, False)
-    for dtype in (bf16, torch.float16, torch.float32):
-        int4_case(130, 272, 384, dtype, False, False)
+    for M in (130, 17, 3):
+        for dtype in (bf16, torch.float16, torch.float32):
+            int4_case(M, 272, 384, dtype, False, False)
     int4_case(17, 272, 384, torch.float32, True, False)
+    for M in (130, 40):  # K split over the wgmma units
+        int4_case(M, 2560, 1024, torch.float32, True, False)
+        int4_case(M, 2560, 1024, bf16, False, False)
+    log("kernel int4_matmul", "every G case repeats bit for bit over two runs")
     x = torch.zeros(4, 256, device="cuda", dtype=torch.int8)
     try:
         int4_matmul.int4_scaled_matmul(x, torch.zeros(96, 256, device="cuda", dtype=torch.int8),
@@ -1957,13 +1979,13 @@ def phase_small_model(torch) -> None:
 # the kernels whose device time a profiled prefill reports, by the names of their CUDA kernels
 # kernel A's row kernels in a profile (the register kernel, and the generic ones it shares with P)
 A_KERNEL_NAMES = ("rmsnorm_regs_kernel", "rmsnorm_warp_kernel", "rmsnorm_block_kernel")
-PREFILL_FAMILIES = {"D": ("paged_prefill_",), "F": ("int8_gemm_kernel", "int8_wgmma_kernel"), "H": ("gmm_",),
-                    "I": ("mla_decode_kernel",)}
+PREFILL_FAMILIES = {"D": ("paged_prefill_",), "F": ("int8_gemm_kernel", "int8_wgmma_kernel"),
+                    "G": ("int4_decode_kernel", "int4_wgmma_kernel"), "H": ("gmm_",), "I": ("mla_decode_kernel",)}
 
 
 def _prefill_profile(torch, tag: str, card: str, gm, ids, lens) -> None:
     """One more prefill of the batch under torch.profiler: its device busy ms, kernel count and the device ms of
-    kernels D, F, H and I (the prefill's wall ms is the PerfHook's)."""
+    kernels D, F, G, H and I (the prefill's wall ms is the PerfHook's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2117,9 +2139,10 @@ def _first_divergence(torch, gm, ids, want, got) -> str:
     return note + f" (<= {SPEC_TIE_GAP}: a bf16 tie)"
 
 
-def phase_w4a8_speculative(torch, card: str) -> dict:
+def phase_w4a8_speculative(torch, card: str) -> tuple:
     """bench.py:298-331 on the card: bs 1, a 512-token prompt, 64 new tokens,
-    a bf16 Qwen3-4B target and its w4a8 twin as the draft, k = 4."""
+    a bf16 Qwen3-4B target and its w4a8 twin as the draft, k = 4. Returns the
+    path's launches and G's by route and M."""
     from mojo_opset_tpu_torch.backends.cuda import kernels
     from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
     from mojo_opset_tpu_torch.runtime import (
@@ -2140,14 +2163,16 @@ def phase_w4a8_speculative(torch, card: str) -> dict:
     ids = np.random.default_rng(0).integers(1, QWEN3_4B["vocab_size"], SPEC_PROMPT).astype(np.int32)
     lens = np.array([SPEC_PROMPT], np.int32)
 
-    d_logits, _ = PagedAttentionGenerationModel(draft, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
+    draft_gm = PagedAttentionGenerationModel(draft, block_size=BLOCK_SIZE)
+    d_logits, _ = draft_gm(ids, context_input_len=lens)
     p_logits, _ = PagedAttentionGenerationModel(plain_draft, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
     cos = torch.nn.functional.cosine_similarity(d_logits, p_logits, dim=-1).min().item()
     log("w4a8 speculative", f"draft last-token logits finite: {bool(torch.isfinite(d_logits).all())}; cosine vs "
                             f"its plain path {cos:.6f} (bound 0.999)")
     if cos < 0.999 or not torch.isfinite(d_logits).all():
         raise AssertionError(f"the w4a8 draft's logits disagree with its plain path: cosine {cos}")
-    del plain_draft, p_logits
+    _prefill_profile(torch, "w4a8 speculative draft", card, draft_gm, ids, lens)
+    del plain_draft, p_logits, draft_gm
     torch.cuda.empty_cache()
 
     gm = PagedAttentionGenerationModel(target, block_size=BLOCK_SIZE)
@@ -2170,9 +2195,14 @@ def phase_w4a8_speculative(torch, card: str) -> dict:
     spec_out = spec.generate(ids, lens, max_new_tokens=SPEC_NEW)[0]
     spec_s, rounds = time.perf_counter() - t, spec.last_rounds
     counts = {k: v for k, v in kernels.launch_counts().items() if k in SPEC_PATH_KERNELS}
-    log("w4a8 speculative", f"launches on the path: {counts}")
+    # a tree from before G's routes counts none (benchmark/kernel_ab.py paths runs this phase on the parent's kernels)
+    routes = getattr(kernels.int4_matmul, "launches_by_route", None)
+    by_route = {f"{name} M={m}": n for (name, m), n in sorted((routes or {}).items())}
+    log("w4a8 speculative", f"launches on the path: {counts}; G's by route and M: {by_route}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the speculative path never launched: {counts}")
+    if routes is not None and sum(by_route.values()) != counts["int4_matmul"]:
+        raise AssertionError(f"G's launches by route {by_route} do not add up to {counts['int4_matmul']}")
 
     t = time.perf_counter()
     spec.prefill(spec.new_sessions(1), ids, lens)  # both models' prompt, shared by every run above
@@ -2195,7 +2225,7 @@ def phase_w4a8_speculative(torch, card: str) -> dict:
         f"{prefill_s * 1e3:.2f} ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     del target, draft, spec, gm, gen
     torch.cuda.empty_cache()
-    return counts
+    return counts, by_route
 
 
 @contextlib.contextmanager
@@ -3348,7 +3378,7 @@ def _step_profile(torch, prof) -> tuple:
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
     families = {"J": ("flash_swa",), "A": A_KERNEL_NAMES, "K": ("rmsnorm_bwd_",),
-                "L": ("silu_fwd_kernel", "silu_bwd_kernel"), "M": ("rope_strided_kernel",), "N": ("flce_",)}
+                "L": ("silu_fwd_", "silu_bwd_"), "M": ("rope_strided_kernel",), "N": ("flce_",)}
     fam_ms = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
               for f, pats in families.items()}
     return busy, fam_ms, sorted(device, key=lambda e: -e.self_device_time_total)[:8]
@@ -3426,7 +3456,7 @@ def main() -> int:
     timed("small models", phase_small_model, torch)
     bf16_counts = timed("full width", phase_full_width, torch, card)
     counts = timed("int8 full width", phase_int8_full_width, torch, card)
-    spec_counts = timed("w4a8 speculative", phase_w4a8_speculative, torch, card)
+    spec_counts, spec_routes = timed("w4a8 speculative", phase_w4a8_speculative, torch, card)
     moe_counts = timed("moe full width", phase_moe_full_width, torch, card)
     deepseek_counts = timed("deepseek full width", phase_deepseek_full_width, torch, card)
     train_counts = timed("train full width", phase_train_full_width, torch, card)
@@ -3435,9 +3465,10 @@ def main() -> int:
     fn_counts = timed("diffusion function", phase_diffusion_function, torch, card)
     res_counts = timed("residual add norm", phase_residual_add_norm, torch, card)
     conv_counts = timed("conv function", phase_conv_function, torch, card)
-    print(json.dumps({"kernels": kernels_line(record, counts, bf16_counts, spec_counts, moe_counts,
-                                              deepseek_counts, train_counts, seed_counts, seed_int8_counts,
-                                              dit_counts, fn_counts, res_counts, conv_counts)}))
+    line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
+                        seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts)
+    next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0

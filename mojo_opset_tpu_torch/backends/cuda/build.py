@@ -54,12 +54,12 @@ SIGNATURES = {
     "mojo_paged_prefill": (_P,) * 9 + (_I,) * 10 + (_F, _I, _I, _I, _P),
     "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _P),
     "mojo_int8_matmul": (_P,) * 7 + (_I,) * 7 + (_P,),
-    "mojo_int4_matmul": (_P,) * 5 + (_I,) * 4 + (_P,),
+    "mojo_int4_matmul": (_P,) * 7 + (_I,) * 7 + (_P,),
     "mojo_group_gemm": (_P,) * 5 + (_L,) + (_I,) * 6 + (_P,),
     "mojo_mla_decode": (_P,) * 9 + (_I,) * 7 + (_P,),
     "mojo_rmsnorm_bwd": (_P,) * 6 + (_I, _I, _F, _I, _I, _I, _P),
-    "mojo_silu_fwd": (_P, _P, _L, _I, _I, _P),
-    "mojo_silu_bwd": (_P, _P, _P, _L, _I, _I, _P),
+    "mojo_silu_fwd": (_P, _P, _L) + (_I,) * 4 + (_P,),
+    "mojo_silu_bwd": (_P, _P, _P, _L) + (_I,) * 4 + (_P,),
     "mojo_rope_head_first": (_P,) * 7 + (_I,) * 9 + (_P,),
     "mojo_flce_stats": (_P,) * 7 + (_I,) * 4 + (_F, _I, _P),
     "mojo_flce_dz": (_P,) * 7 + (_I,) * 5 + (_F, _F, _I, _P),

@@ -2,7 +2,8 @@
 PyTorch version and its ``launches`` counter; kernels J (``flash_swa``) and
 O (``flash_diffusion``) have three entry points, kernel N (``flce``) four,
 kernels L (``silu_vjp``) and Q (``conv1d_vjp``) two, each with its own
-counter, and ``norms`` holds kernels A and P, each with its own."""
+counter, and ``norms`` holds kernels A and P, each with its own; kernel G
+(``int4_matmul``) also counts its launches by route and M."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
     conv1d_vjp,
@@ -40,6 +41,7 @@ COUNTERS = [(module.__name__.rsplit(".", 1)[-1], module, "launches") for module 
 def reset_launch_counts() -> None:
     for _, module, attr in COUNTERS:
         setattr(module, attr, 0)
+    int4_matmul.launches_by_route.clear()
 
 
 def launch_counts() -> dict[str, int]:

@@ -84,7 +84,7 @@ def split_scratch_ints(M: int, N: int, splits: int) -> int:
     return splits * _cdiv(M, DECODE_M) * _cdiv(N, DECODE_BN) * DECODE_M * DECODE_BN
 
 
-def _arrival_counters(device: torch.device) -> torch.Tensor:
+def arrival_counters(device: torch.device) -> torch.Tensor:
     """The zeroed counters of split launches on ``device``'s current stream
     (one buffer a stream, so launches on two streams never share one)."""
     stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
@@ -141,7 +141,7 @@ def _int8_matmul_kernel(x, weight, input_scale, weight_scale, trans_weight, outp
     part = arrivals = None
     if plan.splits > 1:
         part = torch.empty(split_scratch_ints(M, N, plan.splits), dtype=torch.int32, device=x.device)
-        arrivals = _arrival_counters(x.device)
+        arrivals = arrival_counters(x.device)
     build.launch(
         "mojo_int8_matmul", x.device,
         x.data_ptr(), weight.data_ptr(), input_scale.data_ptr(), weight_scale.data_ptr(), out.data_ptr(),

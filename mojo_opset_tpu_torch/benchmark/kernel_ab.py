@@ -1,5 +1,5 @@
-"""Kernels D (paged prefill), H (grouped GEMM), F (int8 GEMM), A (RMSNorm) and P (residual add + RMSNorm) of
-one tree, for comparing two trees on one card.
+"""Kernels D (paged prefill), H (grouped GEMM), F (int8 GEMM), A (RMSNorm), P (residual add + RMSNorm), G
+(packed-int4 GEMM) and L (SiLU) of one tree, for comparing two trees on one card.
 
 The kernels come from the ``mojo_opset_tpu_torch`` package that ``sys.path``
 finds first: this tree's, or another commit's (``git archive`` unpacked in
@@ -35,6 +35,7 @@ parent) within one call::
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import math
 import sys
@@ -63,7 +64,9 @@ def readings(s) -> None:
 
 
 def times(s, tag: str) -> None:
-    from mojo_opset_tpu_torch.backends.cuda.kernels import group_gemm, int8_matmul, norms, paged_prefill
+    from mojo_opset_tpu_torch.backends.cuda.kernels import (
+        group_gemm, int4_matmul, int8_matmul, norms, paged_prefill, silu_vjp,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, lens, n_blocks = torch.bfloat16, list(s.PROMPT_LENS), 4 * 69
@@ -102,12 +105,35 @@ def times(s, tag: str) -> None:
         w = torch.rand(D, device="cuda", generator=gen) + 0.5
         for pos in ("pre", "post"):
             out[f"P_{T}x{D}_{pos}"] = s.graph_ms(torch, lambda: norms.residual_add_rmsnorm(x, r, w, 1e-6, pos))
+    digests = {}
+    for K, N in s.GEMM_SHAPES:
+        for M in s.INT4_MS:
+            x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
+            wp = torch.randint(-128, 128, (N // 2, K), device="cuda", generator=gen, dtype=torch.int8)
+            xs, ws = torch.rand(M, 1, device="cuda", generator=gen), torch.rand(N, device="cuda", generator=gen)
+            run = lambda: int4_matmul.int4_scaled_matmul(x, wp, xs, ws, bf16)  # noqa: E731
+            out[f"G_{M}x{K}x{N}"] = s.graph_ms(torch, run)
+            digests[f"G_{M}x{K}x{N}"] = run()
+    # L at the train step's activation in three dtypes (bf16 timed), and unaligned, which takes the scalar route
+    for dtype, shape, offset in ((bf16, (s.TRAIN_TOKENS, 9728), 0), (torch.float16, (s.TRAIN_TOKENS, 9728), 0),
+                                 (torch.float32, (s.TRAIN_TOKENS, 9728), 0), (bf16, (1001,), 1)):
+        n = math.prod(shape)
+        x = torch.randn(n + offset, device="cuda", generator=gen).to(dtype)[offset:].view(shape)
+        dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+        tag_l = "" if dtype == bf16 and not offset else f"_{str(dtype).split('.')[-1]}_{n}"
+        for name, run in (("L_fwd", lambda: silu_vjp.silu_fwd(x)), ("L_bwd", lambda: silu_vjp.silu_bwd(x, dy))):
+            if not tag_l:
+                out[name] = s.graph_ms(torch, run)
+            digests[name + tag_l] = run()
     print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    print(tag, "digests", " ".join(f"{k} {hashlib.sha256(v.cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]}"
+                                   for k, v in digests.items()), flush=True)
 
 
 def paths(s, card: str, tag: str) -> None:
-    print(f"{tag}: phases 6 and 11", flush=True)
+    print(f"{tag}: phases 6, 7 and 11", flush=True)
     s.phase_int8_full_width(torch, card)
+    s.phase_w4a8_speculative(torch, card)
     s.phase_seed_oss_full_width(torch, card)
 
 

@@ -7,7 +7,7 @@
 // reached through cudaGetDriverEntryPoint so that no library links
 // against libcuda; the TMA-loaded operand tiles of a stage and their
 // descriptors. Kernels N (flce.cu) and H's prefill tile (group_gemm.cu) use
-// the 16-bit forms; F's prefill route (int8_matmul.cu) the 8-bit ones
+// the 16-bit forms; F's and G's prefill routes (int_wgmma.cuh) the 8-bit ones
 // (wgmma m64nNk32 s8 x s8 -> s32, a byte tensor map): an 8-bit swizzle row
 // holds kSw128K8 = 128 elements of K, and a k32 step advances 32 bytes in
 // it as a bf16 k16 step does, so K-major tiles and their descriptors are

@@ -8,15 +8,22 @@
 //
 // Bound on the H100: bytes (elementwise: the forward reads x and writes y,
 // the backward reads x and dy and writes dx; ~10 FLOPs and one exp per
-// element). Design: the tensor as one flat run of n elements; a grid-stride
-// loop over 16-byte vectors when the pointers are 16-byte aligned, then the
-// scalar tail. Math in fp32, one rounding at the store; expf, not the fast
-// __expf, so fp32 agrees with PyTorch's silu to an ulp or two.
+// element). Design: the tensor as one flat run of n elements. When the
+// pointers are 16-byte aligned, one grid covers the n / V 16-byte vectors
+// once (V elements each), with no grid-stride loop: block b's thread t owns
+// vectors b * THREADS * U + u * THREADS + t for u < U (neighbouring threads
+// on neighbouring vectors), issues all of its U loads (2U in the backward:
+// x and dy) before any math, and stores U vectors. Nothing is read twice, so
+// the loads and stores carry the streaming hint (__ldcs, __stcs). The last
+// block also takes the n % V scalar tail. An unaligned tensor keeps a
+// grid-stride scalar loop. Math in fp32, one rounding at the store; expf,
+// not the fast __expf, so fp32 agrees with PyTorch's silu to an ulp or two.
+// U (2 or 4) and THREADS (128, 256 or 512) come from the wrapper
+// (silu_vjp.UNROLL, silu_vjp.THREADS), chosen by benchmark/split_sweep.py's
+// int4 mode.
 #include "common.cuh"
 
 namespace {
-
-constexpr int kSiluThreads = 256;
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
@@ -27,80 +34,191 @@ __device__ __forceinline__ float silu_bwd(float v, float g) {
   return g * s * (1.f + v * (1.f - s));
 }
 
-// N elements per vector: 16 bytes, or 1 (the scalar path: n_vec = 0)
-template <typename T, int N>
-__global__ void __launch_bounds__(kSiluThreads)
-silu_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n_vec, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  for (int64_t i = tid; i < n_vec; i += stride) {
-    float f[N];
-    mojo_load_row<T, N>(x + i * N, f);
+// one 16-byte vector of T as floats, and back, rounded once
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& u, float (&f)[16 / sizeof(T)]) {
+  const T* t = reinterpret_cast<const T*>(&u);
 #pragma unroll
-    for (int k = 0; k < N; ++k) f[k] = silu_fwd(f[k]);
-    mojo_store_row<T, N>(y + i * N, f);
-  }
-  for (int64_t i = n_vec * N + tid; i < n; i += stride) y[i] = mojo_from_float<T>(silu_fwd(mojo_to_float(x[i])));
+  for (int k = 0; k < static_cast<int>(16 / sizeof(T)); ++k) f[k] = mojo_to_float(t[k]);
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kSiluThreads)
-silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx, int64_t n_vec, int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  for (int64_t i = tid; i < n_vec; i += stride) {
-    float f[N], g[N];
-    mojo_load_row<T, N>(x + i * N, f);
-    mojo_load_row<T, N>(dy + i * N, g);
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float (&f)[16 / sizeof(T)]) {
+  uint4 u;
+  T* t = reinterpret_cast<T*>(&u);
 #pragma unroll
-    for (int k = 0; k < N; ++k) f[k] = silu_bwd(f[k], g[k]);
-    mojo_store_row<T, N>(dx + i * N, f);
+  for (int k = 0; k < static_cast<int>(16 / sizeof(T)); ++k) t[k] = mojo_from_float<T>(f[k]);
+  return u;
+}
+
+// the vector route: n_vec 16-byte vectors, then the n - n_vec * V tail in the last block
+template <typename T, int U, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+silu_fwd_vec_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n_vec, int64_t n) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * (THREADS * U) + threadIdx.x;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  uint4 in[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t i = base + u * THREADS;
+    if (i < n_vec) in[u] = __ldcs(xv + i);
   }
-  for (int64_t i = n_vec * N + tid; i < n; i += stride) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t i = base + u * THREADS;
+    if (i < n_vec) {
+      float f[V];
+      unpack16<T>(in[u], f);
+#pragma unroll
+      for (int k = 0; k < V; ++k) f[k] = silu_fwd(f[k]);
+      __stcs(yv + i, pack16<T>(f));
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const int64_t i = n_vec * V + threadIdx.x;  // the tail is shorter than V <= THREADS
+    if (i < n) y[i] = mojo_from_float<T>(silu_fwd(mojo_to_float(x[i])));
+  }
+}
+
+template <typename T, int U, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+silu_bwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx, int64_t n_vec,
+                    int64_t n) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * (THREADS * U) + threadIdx.x;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  const uint4* gv = reinterpret_cast<const uint4*>(dy);
+  uint4* dv = reinterpret_cast<uint4*>(dx);
+  uint4 in[U], grad[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t i = base + u * THREADS;
+    if (i < n_vec) {
+      in[u] = __ldcs(xv + i);
+      grad[u] = __ldcs(gv + i);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t i = base + u * THREADS;
+    if (i < n_vec) {
+      float f[V], g[V];
+      unpack16<T>(in[u], f);
+      unpack16<T>(grad[u], g);
+#pragma unroll
+      for (int k = 0; k < V; ++k) f[k] = silu_bwd(f[k], g[k]);
+      __stcs(dv + i, pack16<T>(f));
+    }
+  }
+  if (blockIdx.x == gridDim.x - 1) {
+    const int64_t i = n_vec * V + threadIdx.x;
+    if (i < n) dx[i] = mojo_from_float<T>(silu_bwd(mojo_to_float(x[i]), mojo_to_float(dy[i])));
+  }
+}
+
+// the unaligned route: a grid-stride scalar loop
+constexpr int kScalarThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kScalarThreads) silu_fwd_scalar_kernel(const T* __restrict__ x, T* __restrict__ y,
+                                                                         int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n; i += stride) {
+    y[i] = mojo_from_float<T>(silu_fwd(mojo_to_float(x[i])));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kScalarThreads)
+silu_bwd_scalar_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n; i += stride) {
     dx[i] = mojo_from_float<T>(silu_bwd(mojo_to_float(x[i]), mojo_to_float(dy[i])));
   }
 }
 
-int grid_for(int64_t work) {
-  const int64_t want = (work + kSiluThreads - 1) / kSiluThreads;
-  return static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);  // grid-stride past 16 per SM
+int scalar_grid(int64_t n) {
+  const int64_t want = (n + kScalarThreads - 1) / kScalarThreads;
+  return static_cast<int>(want < 132 * 16 ? want : 132 * 16);  // grid-stride past 16 blocks an SM
 }
+
+// blocks of the vector route: every vector once, at least one block for the tail
+int vec_grid(int64_t n_vec, int per_block) {
+  const int64_t want = (n_vec + per_block - 1) / per_block;
+  return static_cast<int>(want > 0 ? want : 1);
+}
+
+// Run BODY with U and THREADS bound to the compile-time values of `unroll` and `threads`; other values return
+// cudaErrorInvalidValue.
+#define MOJO_SILU_CONFIG(unroll, threads, ...)                             \
+  do {                                                                     \
+    if ((unroll) == 2 && (threads) == 128) {                               \
+      constexpr int U = 2, THREADS = 128;                                  \
+      __VA_ARGS__;                                                         \
+    } else if ((unroll) == 2 && (threads) == 256) {                        \
+      constexpr int U = 2, THREADS = 256;                                  \
+      __VA_ARGS__;                                                         \
+    } else if ((unroll) == 2 && (threads) == 512) {                        \
+      constexpr int U = 2, THREADS = 512;                                  \
+      __VA_ARGS__;                                                         \
+    } else if ((unroll) == 4 && (threads) == 128) {                        \
+      constexpr int U = 4, THREADS = 128;                                  \
+      __VA_ARGS__;                                                         \
+    } else if ((unroll) == 4 && (threads) == 256) {                        \
+      constexpr int U = 4, THREADS = 256;                                  \
+      __VA_ARGS__;                                                         \
+    } else if ((unroll) == 4 && (threads) == 512) {                        \
+      constexpr int U = 4, THREADS = 512;                                  \
+      __VA_ARGS__;                                                         \
+    } else {                                                               \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+    }                                                                      \
+  } while (0)
 
 }  // namespace
 
 // x, y: n contiguous elements of `dtype`; `vec` = 1 when x and y are
-// 16-byte aligned.
-extern "C" int mojo_silu_fwd(const void* x, void* y, long long n, int vec, int dtype, void* stream) {
+// 16-byte aligned; `unroll` (2, 4) vectors a thread, `threads` (128, 256,
+// 512) a block on the vector route.
+extern "C" int mojo_silu_fwd(const void* x, void* y, long long n, int vec, int unroll, int threads, int dtype,
+                             void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MOJO_DISPATCH_DTYPE(dtype, T, {
-    constexpr int N = 16 / static_cast<int>(sizeof(T));
+    constexpr int V = 16 / static_cast<int>(sizeof(T));
     const T* xt = static_cast<const T*>(x);
     T* yt = static_cast<T*>(y);
     if (vec) {
-      silu_fwd_kernel<T, N><<<grid_for(n / N), kSiluThreads, 0, s>>>(xt, yt, n / N, n);
+      MOJO_SILU_CONFIG(unroll, threads, {
+        silu_fwd_vec_kernel<T, U, THREADS><<<vec_grid(n / V, U * THREADS), THREADS, 0, s>>>(xt, yt, n / V, n);
+      });
     } else {
-      silu_fwd_kernel<T, 1><<<grid_for(n), kSiluThreads, 0, s>>>(xt, yt, 0, n);
+      silu_fwd_scalar_kernel<T><<<scalar_grid(n), kScalarThreads, 0, s>>>(xt, yt, n);
     }
   });
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, dy, dx: n contiguous elements of `dtype`; `vec` = 1 when all three are
-// 16-byte aligned.
-extern "C" int mojo_silu_bwd(const void* x, const void* dy, void* dx, long long n, int vec, int dtype,
-                             void* stream) {
+// 16-byte aligned; `unroll` and `threads` as mojo_silu_fwd's.
+extern "C" int mojo_silu_bwd(const void* x, const void* dy, void* dx, long long n, int vec, int unroll, int threads,
+                             int dtype, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   MOJO_DISPATCH_DTYPE(dtype, T, {
-    constexpr int N = 16 / static_cast<int>(sizeof(T));
+    constexpr int V = 16 / static_cast<int>(sizeof(T));
     const T* xt = static_cast<const T*>(x);
     const T* dyt = static_cast<const T*>(dy);
     T* dxt = static_cast<T*>(dx);
     if (vec) {
-      silu_bwd_kernel<T, N><<<grid_for(n / N), kSiluThreads, 0, s>>>(xt, dyt, dxt, n / N, n);
+      MOJO_SILU_CONFIG(unroll, threads, {
+        silu_bwd_vec_kernel<T, U, THREADS><<<vec_grid(n / V, U * THREADS), THREADS, 0, s>>>(xt, dyt, dxt, n / V,
+                                                                                          n);
+      });
     } else {
-      silu_bwd_kernel<T, 1><<<grid_for(n), kSiluThreads, 0, s>>>(xt, dyt, dxt, 0, n);
+      silu_bwd_scalar_kernel<T><<<scalar_grid(n), kScalarThreads, 0, s>>>(xt, dyt, dxt, n);
     }
   });
   return static_cast<int>(cudaGetLastError());
