@@ -52,10 +52,18 @@ is non-zero:
      GROUP_GEMM_REL_LIMITS (whole, worst row) and every bf16/fp16 case on
      its prefill tile repeated bit for bit. The absorbed MLA kernel
      (I) runs at DeepSeek-V3's widths: decode at bs 4 and 1, prefill's row
-     mode over the prompt batch, and edge cases (a zero-length sequence, -1
+     mode over the prompt batch, decode at bs 1 over ctx 4096 and 32768 and
+     at bs 24 over ctx 4000, and edge cases (a zero-length sequence, -1
      table padding, contexts off the block size, one page, H 4 and 16, a
-     sink, fp16, fp32), its fp32 output to the fp32 ladder; A and B also
-     run at DeepSeek's widths. Kernel J's three entry points (forward, dq,
+     sink, fp16 decode and prefill, fp32, r 256, r 1024 on one ring stage,
+     r 16 / dr 8), its fp32 output to the fp32 ladder, every case repeated
+     bit for bit (its split merge runs in a fixed order); A and B also
+     run at DeepSeek's widths. Shapes the port once refused and JAX
+     computes run through their ops against the golden op: C and C' at
+     head_dim 96 (C in fp32 at 80), D and D' at 96, D at group 71/1, J at
+     71/1 and at head_dim 96 and O at 96 (forward and backward), each
+     launching its kernel; F and G at K 40 and H at K 36 take the golden
+     (golden_calls + 1, no launch). Kernel J's three entry points (forward, dq,
      dk/dv) run at the training shape (B 2 x S 2048, 32/8 heads, D 128,
      causal), varlen with both windows and a local one, suffix-q, a
      zero-length sequence and fully masked rows (their o, dq, dk, dv exactly
@@ -249,6 +257,8 @@ is non-zero:
      forward and backward once a call; fwd + bwd ms and peak memory of each
      tier; one cu_seqlens call takes the golden, the only one counted in
      golden_calls.
+Phases 5-12 (the models) must leave every cuda-tier class's golden_calls
+where it was: a golden route on a model path fails its phase.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -842,6 +852,7 @@ def phase_kernels(torch) -> dict:
 
     _gmm_cases(torch, compare, gen, record)
     _mla_cases(torch, compare, gen)
+    _queue3_cases(torch, gen)
     _flash_swa_cases(torch, compare, gen)
     _train_kernel_cases(torch, compare, gen)
     _flce_cases(torch, compare, gen, record)
@@ -1162,17 +1173,22 @@ def _decode_window_cases(torch, compare, gen, record) -> None:
 
 def _mla_cases(torch, compare, gen) -> None:
     """I: absorbed MLA attention at DeepSeek-V3's widths (H 128, r 512, dr 64, block 64, bf16): decode at bs 4
-    over the main path's first-step contexts (main) and at bs 1, prefill's row mode over the prompt batch, then a
-    zero-length sequence, -1 table padding, contexts off the block size, one page, H = 4 and 16, a sink, fp16
-    and fp32. The output is fp32 in every case, computed in fp32 by both versions: the fp32 ladder."""
+    over the main path's first-step contexts (main) and at bs 1, prefill's row mode over the prompt batch, decode
+    at bs 1 over ctx 4096 and 32768 and at bs 24 over ctx 4000 (timed beside SDPA), then a zero-length sequence,
+    -1 table padding, contexts off the block size, one page, H = 4 and 16, a sink, fp16 decode and prefill, fp32,
+    r 256, r 1024 (one ring stage) and a tiny r 16 / dr 8 (a column block wider than r, K padded to 16). The
+    output is fp32 in every case, computed in fp32 by both versions: the fp32 ladder. Every case repeats bit for
+    bit over two runs (the split merge runs in a fixed order)."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import mla_decode
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
-    bf16, r, dr, bs, n_blocks = torch.bfloat16, 512, 64, BLOCK_SIZE, 4 * 17 + 4
+    bf16, bs = torch.bfloat16, BLOCK_SIZE
     first_step = [n + 1 for n in PROMPT_LENS]  # the contexts of the first decode step: 1001, 514, 131, 8
 
-    def mla_case(case, lens, dtype=bf16, H=128, rows=None, sink=False, cols=17, main=False, key=None,
+    def mla_case(case, lens, dtype=bf16, H=128, r=512, dr=64, rows=None, sink=False, cols=17, main=False, key=None,
                  library=False):
+        cols = max(cols, -(-max(lens) // bs))
+        n_blocks = max(4 * 17 + 4, sum(-(-n // bs) for n in lens) + 4)
         c = torch.randn(n_blocks, 1, bs, r, device="cuda", generator=gen).to(dtype)
         pe = torch.randn(n_blocks, 1, bs, dr, device="cuda", generator=gen).to(dtype)
         table = _tables(torch, lens, bs, cols, n_blocks, gen)
@@ -1215,9 +1231,13 @@ def _mla_cases(torch, compare, gen) -> None:
                 q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
             # the library call computes the same function: its rows against the plain version (output in dtype)
             check_tol_diff(lib().transpose(1, 2)[at], mla_decode.mla_decode_absorbed_plain(*args), **tols_for(dtype))
-        compare("mla_decode", lambda: mla_decode.mla_decode_absorbed(*args),
-                lambda: mla_decode.mla_decode_absorbed_plain(*args), dtype, case, main, key=key,
-                check=lambda got, want: check_fp32(got, want), bound=bound, library=lib)
+        run = lambda: mla_decode.mla_decode_absorbed(*args)  # noqa: E731
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = 1 if dtype == torch.float32 else mla_decode.split_count(R, H, r, cols * bs, sms)
+        compare("mla_decode", run, lambda: mla_decode.mla_decode_absorbed_plain(*args), dtype,
+                f"{case} (splits {splits})", main, key=key, check=lambda got, want: check_fp32(got, want),
+                bound=bound, library=lib)
+        _repeats(torch, case, run)
 
     def check_fp32(got, want):
         check_tol_diff(got, want, **tols_for(torch.float32))
@@ -1229,6 +1249,10 @@ def _mla_cases(torch, compare, gen) -> None:
     prompt_rows = [(b, p + 1) for b, n in enumerate(PROMPT_LENS) for p in range(n)]  # causal limit of each row
     mla_case(f"mla prefill rows over {list(PROMPT_LENS)} ({len(prompt_rows)} rows)", list(PROMPT_LENS),
              rows=prompt_rows, main=True, key="prefill_rows", library=True)
+    for n, ctx in ((1, 4096), (1, 32768), (24, 4000)):
+        # SDPA's math route would expand the latent to every head: 14 GB at bs 24, so it is timed at bs 1 only
+        mla_case(f"mla decode bs {n} H 128 ctx {ctx}", [ctx] * n, main=True, key=f"decode_bs{n}_ctx{ctx}",
+                 library=n == 1)
     mla_case("mla decode zero-length, one page, off the block size", [0, 1, 64, 65])
     mla_case("mla decode -1 table padding", [3, 130], cols=6)
     mla_case("mla decode H 4", [100, 7], H=4)
@@ -1237,6 +1261,172 @@ def _mla_cases(torch, compare, gen) -> None:
     mla_case("mla prefill rows chunked, sink", [40, 300], rows=[(1, 300), (1, 299), (0, 21), (0, 0)], sink=True)
     mla_case("mla decode fp16", [300, 5], dtype=torch.float16, H=32)
     mla_case("mla decode fp32", [300, 5], dtype=torch.float32, H=32)
+    fp16_rows = [(b, p + 1) for b, n in enumerate((130, 7)) for p in range(n)]
+    mla_case("mla prefill rows fp16 over [130, 7]", [130, 7], dtype=torch.float16, rows=fp16_rows)
+    mla_case("mla decode r 256", [700, 33, 0], r=256)
+    mla_case("mla decode r 1024 (one ring stage), sink", [513, 64], r=1024, H=16, sink=True)
+    mla_case("mla decode r 16 dr 8", [70, 3], r=16, dr=8, H=4, cols=6)
+    log("kernel mla_decode", "every I case repeats bit for bit over two runs")
+
+
+def _queue3_cases(torch, gen) -> None:
+    """Shapes the cuda tier once refused and JAX computes, each through its op against the golden op on the same
+    inputs (the dtype ladder; gradients through autograd): kernels C and C' at head_dim 96 (C in fp32 at 80), D and
+    D' at 96, D at group 71/1 in bf16 and fp32, J at group 71/1 and at head_dim 96, forward and backward, O at
+    head_dim 96 forward and backward (CudaSdpa's bool mask), each launching its kernel; then F and G at K 40
+    (``CudaQuantGemm``) and H at 16-bit K 36 (``CudaGroupGemm``), each taking the golden: golden_calls + 1 and no
+    launch."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaGroupGemm, CudaQuantGemm
+    from mojo_opset_tpu_torch.core.operators import (
+        MojoGroupGemm, MojoPagedDecodeGQA, MojoPagedPrefillGQA, MojoQuantGemm, MojoSdpa, MojoSWA,
+    )
+    from mojo_opset_tpu_torch.core.operators.gemm import pack_int4_rows
+    from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import (
+        MojoPagedDecodeGQAWithKVDequant, MojoPagedPrefillGQAWithKVDequant,
+    )
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    bf16, bs = torch.bfloat16, BLOCK_SIZE
+
+    def ops(cls, *a, **kw):
+        """The op's cuda tier and its golden, built alike."""
+        return cls.get_backend_impl("cuda")(*a, **kw), cls.get_backend_impl("ref")(*a, **kw)
+
+    def held(case, kernel, got, want, dtype, golden_cls=None):
+        """got against want on the dtype ladder; ``kernel`` launched (or, with ``golden_cls``, nothing launched and
+        that class's golden_calls rose by one, counted by the caller)."""
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        for g, w in zip(got, want):
+            check_tol_diff(g, w, **tols_for(dtype))
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        log("kernel queue 3", f"{case} {str(dtype).split('.')[-1]}: max_abs_err {err:.3g} against the golden op "
+                              f"({tols_for(dtype)}); {kernel}")
+
+    def launched(module, fn):
+        before = module.launches
+        out = fn()
+        torch.cuda.synchronize()
+        if module.launches == before:
+            raise AssertionError(f"{module.__name__} did not launch")
+        return out
+
+    # C / C': paged decode at head_dim 96 (bf16, int8 pages) and 80 (fp32)
+    for dtype, d, int8 in ((bf16, 96, False), (torch.float32, 80, False), (bf16, 96, True)):
+        lens, hq, hkv = [300, 7, 0, 65], 16, 2
+        n_blocks = sum(-(-n // bs) for n in lens) + 4
+        bt = _tables(torch, lens, bs, 6, n_blocks, gen)
+        sl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = torch.randn(len(lens), hq, d, device="cuda", generator=gen).to(dtype)
+        if int8:
+            (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, bs, d, gen)
+            op, gold = ops(MojoPagedDecodeGQAWithKVDequant, compute_dtype=dtype)
+            run = lambda: op(q, None, kc, ks, vc, vs, sl, bt)  # noqa: E731
+            want = gold(q, None, kc, ks, vc, vs, sl, bt)
+        else:
+            kc, vc = _cache(torch, n_blocks, hkv, bs, d, "NHD", dtype, gen)
+            op, gold = ops(MojoPagedDecodeGQA, kv_layout="NHD")
+            run = lambda: op(q, kc, vc, sl, bt)  # noqa: E731
+            want = gold(q, kc, vc, sl, bt)
+        held(f"paged decode{' int8 pages' if int8 else ''} {hq}/{hkv} head_dim {d} lens={lens}", "C launched",
+             launched(kernels.paged_decode, run), want, dtype)
+    # D / D': paged prefill at head_dim 96 (bf16, int8 pages) and at group 71/1 (bf16, fp32)
+    for dtype, hq, hkv, d, int8 in ((bf16, 16, 2, 96, False), (bf16, 16, 2, 96, True), (bf16, 71, 1, 128, False),
+                                   (torch.float32, 71, 1, 64, False)):
+        lens = [200, 77, 1]
+        n_blocks = sum(-(-n // bs) for n in lens) + 4
+        bt = _tables(torch, lens, bs, 6, n_blocks, gen)
+        cu = _cu(torch, lens)
+        q = torch.randn(sum(lens), hq, d, device="cuda", generator=gen).to(dtype)
+        if int8:
+            (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, bs, d, gen)
+            op, gold = ops(MojoPagedPrefillGQAWithKVDequant, compute_dtype=dtype)
+            run = lambda: op(q, None, kc, ks, vc, vs, cu, bt, None, cu, max_q_len=max(lens))  # noqa: E731
+            want = gold(q, None, kc, ks, vc, vs, cu, bt, None, cu, max_q_len=max(lens))
+        else:
+            kc, vc = _cache(torch, n_blocks, hkv, bs, d, "NHD", dtype, gen)
+            op, gold = ops(MojoPagedPrefillGQA, kv_layout="NHD")
+            run = lambda: op(q, kc, vc, cu, bt, None, cu, max_q_len=max(lens))  # noqa: E731
+            want = gold(q, kc, vc, cu, bt, None, cu)
+        held(f"paged prefill{' int8 pages' if int8 else ''} {hq}/{hkv} head_dim {d} lens={lens}", "D launched",
+             launched(kernels.paged_prefill, run), want, dtype)
+    # J: causal varlen attention at group 71/1 and at head_dim 96, forward and backward (autograd)
+    for hq, hkv, d in ((71, 1, 128), (16, 4, 96)):
+        lens = [256, 129]
+        cu = _cu(torch, lens)
+        x = [torch.randn(sum(lens), h, d, device="cuda", generator=gen).to(bf16) for h in (hq, hkv, hkv)]
+        do = torch.randn(sum(lens), hq, d, device="cuda", generator=gen).to(bf16)
+        outs = []
+        for op in ops(MojoSWA):
+            leaves = [t.clone().requires_grad_(True) for t in x]
+            y = op(*leaves, cu, cu)
+            outs.append((y.detach(), *torch.autograd.grad(y, leaves, do)))
+        torch.cuda.synchronize()
+        held(f"swa causal {hq}/{hkv} head_dim {d} lens={lens}: o, dq, dk, dv", "J forward, dq and dk/dv launched",
+             outs[0], outs[1], bf16)
+    # O: SDPA under a bool (causal) mask at head_dim 96, forward and backward
+    B, hq, hkv, S, d = 2, 8, 2, 200, 96
+    x = [torch.randn(B, h, S, d, device="cuda", generator=gen).to(bf16) for h in (hq, hkv, hkv)]
+    mask = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    do = torch.randn(B, hq, S, d, device="cuda", generator=gen).to(bf16)
+    outs = []
+    before = kernels.flash_diffusion.launches_dkv
+    for op in ops(MojoSdpa, enable_gqa=True):
+        leaves = [t.clone().requires_grad_(True) for t in x]
+        y = op(*leaves, mask)
+        outs.append((y.detach(), *torch.autograd.grad(y, leaves, do)))
+    torch.cuda.synchronize()
+    if kernels.flash_diffusion.launches_dkv == before:
+        raise AssertionError("kernel O's dk/dv did not launch")
+    held(f"sdpa bool mask {hq}/{hkv} S {S} head_dim {d}: o, dq, dk, dv", "O forward, dq and dk/dv launched",
+         outs[0], outs[1], bf16)
+    # F and G at K 40, H at 16-bit K 36: the golden
+    M, K, N = 8, 40, 256
+    x8 = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
+    xs = torch.rand(M, 1, device="cuda", generator=gen)
+    for wdt in (torch.int8, "int4"):
+        op, gold = ops(MojoQuantGemm, K, N, bf16, True, weight_dtype=wdt, device="cuda")
+        w = torch.randint(-8 if wdt == "int4" else -127, 8 if wdt == "int4" else 128, (N, K), device="cuda",
+                          generator=gen, dtype=torch.int8)
+        ws = torch.rand(N, device="cuda", generator=gen)
+        for m in (op, gold):
+            m.weight.copy_(pack_int4_rows(w) if wdt == "int4" else w)
+            m.weight_scale.copy_(ws)
+        counts = (CudaQuantGemm.golden_calls, kernels.int8_matmul.launches, kernels.int4_matmul.launches)
+        got = op(x8, xs)
+        if (CudaQuantGemm.golden_calls, kernels.int8_matmul.launches, kernels.int4_matmul.launches) != (
+                counts[0] + 1, counts[1], counts[2]):
+            raise AssertionError(f"CudaQuantGemm ({wdt}) at K {K} must take the golden once and launch nothing")
+        held(f"quant gemm {wdt} {M}x{K}x{N}", "golden route (golden_calls + 1, no launch)", got, gold(x8, xs), bf16)
+    G, M, K, N = 4, 40, 36, 64
+    w = torch.randn(G, K, N, device="cuda", generator=gen).to(bf16)
+    op, gold = ops(MojoGroupGemm, w)
+    xg = torch.randn(M, K, device="cuda", generator=gen).to(bf16)
+    sizes = torch.tensor([10, 0, 25, 5], dtype=torch.int32, device="cuda")
+    counts = (CudaGroupGemm.golden_calls, kernels.group_gemm.launches)
+    got = op(xg, sizes)
+    if (CudaGroupGemm.golden_calls, kernels.group_gemm.launches) != (counts[0] + 1, counts[1]):
+        raise AssertionError(f"CudaGroupGemm at 16-bit K {K} must take the golden once and launch nothing")
+    held(f"group gemm bf16 G {G} {M}x{K}x{N}", "golden route (golden_calls + 1, no launch)", got, gold(xg, sizes),
+         bf16)
+
+
+def golden_counts() -> dict:
+    """``golden_calls`` of every cuda-tier op and Function class, by class name."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    from mojo_opset_tpu_torch.backends.cuda import functions, operators
+
+    counts = {}
+    for package in (operators, functions):
+        for info in pkgutil.iter_modules(package.__path__):
+            module = importlib.import_module(f"{package.__name__}.{info.name}")
+            for name, cls in inspect.getmembers(module, inspect.isclass):
+                if "golden_calls" in vars(cls):
+                    counts[name] = cls.golden_calls
+    return counts
 
 
 def rel_errors(got, want):
@@ -1980,7 +2170,8 @@ def phase_small_model(torch) -> None:
 # kernel A's row kernels in a profile (the register kernel, and the generic ones it shares with P)
 A_KERNEL_NAMES = ("rmsnorm_regs_kernel", "rmsnorm_warp_kernel", "rmsnorm_block_kernel")
 PREFILL_FAMILIES = {"D": ("paged_prefill_",), "F": ("int8_gemm_kernel", "int8_wgmma_kernel"),
-                    "G": ("int4_decode_kernel", "int4_wgmma_kernel"), "H": ("gmm_",), "I": ("mla_decode_kernel",)}
+                    "G": ("int4_decode_kernel", "int4_wgmma_kernel"), "H": ("gmm_",),
+                    "I": ("mla_mma_kernel", "mla_merge_kernel", "mla_fma_kernel")}
 
 
 def _prefill_profile(torch, tag: str, card: str, gm, ids, lens) -> None:
@@ -2512,7 +2703,7 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
     n_kernels = sum(e.count for e in device)
-    mla = sum(e.self_device_time_total for e in device if "mla_decode" in e.key) / 1e3
+    mla = sum(e.self_device_time_total for e in device if any(p in e.key for p in PREFILL_FAMILIES["I"])) / 1e3
     gmm = sum(e.self_device_time_total for e in device if "gmm_" in e.key) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
     log("deepseek full width", f"{card}: one decode step (bs 4, context ~1050): wall {step_ms:.2f} ms unprofiled; "
@@ -3454,14 +3645,25 @@ def main() -> int:
     timed("build", phase_build)
     record = timed("kernels", phase_kernels, torch)
     timed("small models", phase_small_model, torch)
-    bf16_counts = timed("full width", phase_full_width, torch, card)
-    counts = timed("int8 full width", phase_int8_full_width, torch, card)
-    spec_counts, spec_routes = timed("w4a8 speculative", phase_w4a8_speculative, torch, card)
-    moe_counts = timed("moe full width", phase_moe_full_width, torch, card)
-    deepseek_counts = timed("deepseek full width", phase_deepseek_full_width, torch, card)
-    train_counts = timed("train full width", phase_train_full_width, torch, card)
-    seed_counts, seed_int8_counts = timed("seed-oss full width", phase_seed_oss_full_width, torch, card)
-    dit_counts = timed("wan dit", phase_wan_dit, torch, card)
+    def model_phase(name, phase, *args):
+        """A model phase (5-12): no op of the path may take a golden route."""
+        before = golden_counts()
+        result = timed(name, phase, *args)
+        after = golden_counts()
+        if after != before:
+            raise AssertionError(f"{name}: golden routes taken: "
+                                 f"{ {k: after[k] - before[k] for k in after if after[k] != before[k]} }")
+        return result
+
+    bf16_counts = model_phase("full width", phase_full_width, torch, card)
+    counts = model_phase("int8 full width", phase_int8_full_width, torch, card)
+    spec_counts, spec_routes = model_phase("w4a8 speculative", phase_w4a8_speculative, torch, card)
+    moe_counts = model_phase("moe full width", phase_moe_full_width, torch, card)
+    deepseek_counts = model_phase("deepseek full width", phase_deepseek_full_width, torch, card)
+    train_counts = model_phase("train full width", phase_train_full_width, torch, card)
+    seed_counts, seed_int8_counts = model_phase("seed-oss full width", phase_seed_oss_full_width, torch, card)
+    dit_counts = model_phase("wan dit", phase_wan_dit, torch, card)
+    log("golden routes", f"every golden_calls stayed put over phases 5-12: {golden_counts()}")
     fn_counts = timed("diffusion function", phase_diffusion_function, torch, card)
     res_counts = timed("residual add norm", phase_residual_add_norm, torch, card)
     conv_counts = timed("conv function", phase_conv_function, torch, card)

@@ -22,7 +22,10 @@ rowsum(do * o)``, ``ds = p * (dp - delta)`` on the kept pairs.
 
 CPU tensors take the plain versions; CUDA tensors the kernels
 (``launches``, ``launches_dq``, ``launches_dkv`` count them), which raise
-on what they do not take: no fallback.
+on what they do not take: no fallback. A head_dim that is a multiple of 16
+up to 256 and not one of ``HEAD_DIMS`` runs at the next of them, q, k, v,
+o and do zero-padded by the wrappers, as kernel J's
+(``flash_swa.pad_head_dim``).
 """
 
 from __future__ import annotations
@@ -33,13 +36,15 @@ from typing import Optional
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
+from mojo_opset_tpu_torch.backends.cuda.kernels.flash_swa import narrow_head_dim, pad_head_dim
+from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import padded_head_dim, takes_head_dim
 
 launches = 0  # the forward kernel
 launches_dq = 0
 launches_dkv = 0
 
 EMPTY_LSE = 1e30  # lse of a row whose mask keeps no key (JAX diffusion_vjp.py:35)
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256)  # the widths the kernels are instantiated at
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -139,7 +144,8 @@ def _check(q, k, v, mask, *rows):
                   f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    build.require(D in HEAD_DIMS and k.shape[3] == D, f"flash_diffusion takes head_dim in {HEAD_DIMS}, got {D}")
+    build.require(takes_head_dim(D) and k.shape[3] == D,
+                  f"flash_diffusion takes a head_dim that is a multiple of 16 up to {HEAD_DIMS[-1]}, got {D}")
     build.require(Hkv >= 1 and Hq % Hkv == 0, f"flash_diffusion takes Hq a multiple of Hkv, got {Hq}/{Hkv}")
     for t in (k, v, *rows):
         build.require(t.dtype == q.dtype, f"q, k, v, o and do must share one dtype, got {q.dtype} and {t.dtype}")
@@ -150,7 +156,7 @@ def _check(q, k, v, mask, *rows):
                       "flash_diffusion takes contiguous 16-byte aligned tensors")
     keep = keep_mask(mask, q, k)
     build.require_device(q.device, k, v, keep, *rows)
-    return keep, (B, Hq, Hkv, Sq, Sk, D, *keep.stride())
+    return keep, (B, Hq, Hkv, Sq, Sk, padded_head_dim(D), *keep.stride())
 
 
 def _check_rowstats(q, *stats):
@@ -168,14 +174,16 @@ def flash_diffusion_fwd(q, k, v, mask, scale=None, empty=0.0):
     global launches
     build.require_no_grad("flash_diffusion_fwd", q, k, v)
     keep, args = _check(q, k, v, mask)
+    scale, d = _scale(q, scale), q.shape[-1]
+    q, k, v = pad_head_dim(args[5], q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if o.numel() > 0:
         build.launch("mojo_flash_diffusion_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     keep.data_ptr(), o.data_ptr(), lse.data_ptr(), *args, _scale(q, scale), float(empty),
+                     keep.data_ptr(), o.data_ptr(), lse.data_ptr(), *args, scale, float(empty),
                      build.dtype_code(q))
         launches += 1
-    return o, lse
+    return narrow_head_dim(d, o)[0], lse
 
 
 def flash_diffusion_dq(q, k, v, o, do, lse, mask, scale=None):
@@ -186,14 +194,16 @@ def flash_diffusion_dq(q, k, v, o, do, lse, mask, scale=None):
     build.require_no_grad("flash_diffusion_dq", q, k, v, o, do)
     keep, args = _check(q, k, v, mask, o, do)
     _check_rowstats(q, lse)
+    scale, d = _scale(q, scale), q.shape[-1]
+    q, k, v, o, do = pad_head_dim(args[5], q, k, v, o, do)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if dq.numel() > 0:
         build.launch("mojo_flash_diffusion_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), keep.data_ptr(), dq.data_ptr(), delta.data_ptr(), *args,
-                     _scale(q, scale), build.dtype_code(q))
+                     scale, build.dtype_code(q))
         launches_dq += 1
-    return dq, delta
+    return narrow_head_dim(d, dq)[0], delta
 
 
 def flash_diffusion_dkv(q, k, v, do, lse, delta, mask, scale=None):
@@ -205,13 +215,15 @@ def flash_diffusion_dkv(q, k, v, do, lse, delta, mask, scale=None):
     build.require_no_grad("flash_diffusion_dkv", q, k, v, do)
     keep, args = _check(q, k, v, mask, do)
     _check_rowstats(q, lse, delta)
+    scale, d = _scale(q, scale), q.shape[-1]
+    q, k, v, do = pad_head_dim(args[5], q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() > 0:
         build.launch("mojo_flash_diffusion_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(), keep.data_ptr(), dk.data_ptr(),
-                     dv.data_ptr(), *args, _scale(q, scale), build.dtype_code(q))
+                     dv.data_ptr(), *args, scale, build.dtype_code(q))
         launches_dkv += 1
-    return dk, dv
+    return narrow_head_dim(d, dk, dv)
 
 
 def flash_diffusion_bwd(q, k, v, o, lse, do, mask, scale=None):

@@ -16,9 +16,14 @@ exactly 0. The backward recomputes ``p = exp(s - lse)`` (FlashAttention-2):
 ``delta = rowsum(do * o)``, ``ds = p * (dp - delta)``.
 
 GQA: q head h reads kv head ``h // group`` (``AABB``) or ``h % Hkv``
-(``ABAB``). CPU tensors take the plain versions; CUDA tensors the kernels
-(``launches``, ``launches_dq``, ``launches_dkv`` count them), which raise
-on what they do not take: no fallback.
+(``ABAB``), any group (the kernels take a group over 64 in chunks). CPU
+tensors take the plain versions; CUDA tensors the kernels (``launches``,
+``launches_dq``, ``launches_dkv`` count them), which raise on what they do
+not take: no fallback. A head_dim that is a multiple of 16 up to 256
+(``paged_decode.takes_head_dim``) and not one of ``HEAD_DIMS`` runs at the
+next of them: the wrappers zero-pad q, k, v, o and do to that width (a
+copy; the kernels are bound by operations) and return the first head_dim
+columns of o, dq, dk and dv.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Optional
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
+from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import padded_head_dim, takes_head_dim
 from mojo_opset_tpu_torch.core.operators.attention import GQA_LAYOUTS, expand_gqa, window_mask_rows
 
 launches = 0  # the forward kernel
@@ -36,8 +42,7 @@ launches_dq = 0
 launches_dkv = 0
 
 EMPTY_LSE = 1e30  # lse of a row that sees no key: exp(s - 1e30) == 0 (JAX flash_vjp.py:44)
-HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 64  # a forward / dq block holds 64 (token, head) rows of one kv head's group
+HEAD_DIMS = (64, 128, 256)  # the widths the kernels are instantiated at
 
 
 def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
@@ -158,10 +163,9 @@ def _check(q, k, v, cu_q, cu_k, local_window, global_window, gqa_layout, *rows):
                   f"{tuple(v.shape)}")
     Tq, Hq, D = q.shape
     Tk, Hkv, _ = k.shape
-    build.require(D in HEAD_DIMS and k.shape[2] == D, f"flash_swa takes head_dim in {HEAD_DIMS}, got {D}")
-    build.require(Hq % Hkv == 0 and Hq // Hkv <= MAX_GROUP,
-                  f"flash_swa takes Hq a multiple of Hkv with up to {MAX_GROUP} query heads per kv head, "
-                  f"got {Hq}/{Hkv}")
+    build.require(takes_head_dim(D) and k.shape[2] == D,
+                  f"flash_swa takes a head_dim that is a multiple of 16 up to {HEAD_DIMS[-1]}, got {D}")
+    build.require(Hq % Hkv == 0, f"flash_swa takes Hq a multiple of Hkv, got {Hq}/{Hkv}")
     build.require(gqa_layout in GQA_LAYOUTS, f"gqa_layout must be one of {GQA_LAYOUTS}, got {gqa_layout}")
     for window in (local_window, global_window):
         build.require(window is None or window >= 0, f"windows are None or >= 0, got {window}")
@@ -179,14 +183,26 @@ def _check(q, k, v, cu_q, cu_k, local_window, global_window, gqa_layout, *rows):
                       f"{tuple(cu.shape)}")
     lws = -1 if local_window is None else int(local_window)
     gws = -1 if global_window is None else int(global_window)
-    return B, Tq, Tk, Hq, Hkv, D, lws, gws, int(gqa_layout == "ABAB"), code
+    return B, Tq, Tk, Hq, Hkv, padded_head_dim(D), lws, gws, int(gqa_layout == "ABAB"), code
 
 
 def _tail(args, scale, causal):
     """The scalar arguments every entry point ends with: B, Tq, Tk, hq, hkv,
-    D, scale, causal, lws, gws, abab, dtype."""
+    D (the padded width), scale, causal, lws, gws, abab, dtype."""
     B, Tq, Tk, Hq, Hkv, D, lws, gws, abab, code = args
     return (B, Tq, Tk, Hq, Hkv, D, float(scale), int(bool(causal)), lws, gws, abab, code)
+
+
+def pad_head_dim(width: int, *tensors):
+    """The tensors zero-padded on their last dim to ``width`` (unchanged
+    when they have it)."""
+    return tuple(t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
+
+
+def narrow_head_dim(width: int, *tensors):
+    """The first ``width`` columns of each tensor's last dim, contiguous."""
+    return tuple(t if t.shape[-1] == width else t[..., :width].contiguous() for t in tensors)
 
 
 def flash_swa_fwd(q, k, v, cu_q, cu_k, causal=True, local_window=None, global_window=None, scale=None,
@@ -197,13 +213,15 @@ def flash_swa_fwd(q, k, v, cu_q, cu_k, causal=True, local_window=None, global_wi
         return flash_swa_fwd_plain(q, k, v, cu_q, cu_k, causal, local_window, global_window, scale, gqa_layout)
     global launches
     args = _check(q, k, v, cu_q, cu_k, local_window, global_window, gqa_layout)
+    scale, d = _scale(q, scale), q.shape[-1]
+    q, k, v = pad_head_dim(args[5], q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if q.shape[0] > 0:
         build.launch("mojo_flash_swa_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), cu_q.data_ptr(),
-                     cu_k.data_ptr(), o.data_ptr(), lse.data_ptr(), *_tail(args, _scale(q, scale), causal))
+                     cu_k.data_ptr(), o.data_ptr(), lse.data_ptr(), *_tail(args, scale, causal))
         launches += 1
-    return o, lse
+    return narrow_head_dim(d, o)[0], lse
 
 
 def flash_swa_dq(q, k, v, o, do, lse, cu_q, cu_k, causal=True, local_window=None, global_window=None, scale=None,
@@ -215,14 +233,16 @@ def flash_swa_dq(q, k, v, o, do, lse, cu_q, cu_k, causal=True, local_window=None
     global launches_dq
     args = _check(q, k, v, cu_q, cu_k, local_window, global_window, gqa_layout, o, do)
     _check_rowstats(q, lse)
+    scale, d = _scale(q, scale), q.shape[-1]
+    q, k, v, o, do = pad_head_dim(args[5], q, k, v, o, do)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if q.shape[0] > 0:
         build.launch("mojo_flash_swa_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                      do.data_ptr(), lse.data_ptr(), cu_q.data_ptr(), cu_k.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-                     *_tail(args, _scale(q, scale), causal))
+                     *_tail(args, scale, causal))
         launches_dq += 1
-    return dq, delta
+    return narrow_head_dim(d, dq)[0], delta
 
 
 def flash_swa_dkv(q, k, v, do, lse, delta, cu_q, cu_k, causal=True, local_window=None, global_window=None,
@@ -235,13 +255,15 @@ def flash_swa_dkv(q, k, v, do, lse, delta, cu_q, cu_k, causal=True, local_window
     global launches_dkv
     args = _check(q, k, v, cu_q, cu_k, local_window, global_window, gqa_layout, do)
     _check_rowstats(q, lse, delta)
+    scale, d = _scale(q, scale), q.shape[-1]
+    q, k, v, do = pad_head_dim(args[5], q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.shape[0] > 0:
         build.launch("mojo_flash_swa_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), cu_q.data_ptr(), cu_k.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                     *_tail(args, _scale(q, scale), causal))
+                     *_tail(args, scale, causal))
         launches_dkv += 1
-    return dk, dv
+    return narrow_head_dim(d, dk, dv)
 
 
 def _check_rowstats(q, *stats):

@@ -6,7 +6,16 @@ Replaces the JAX package's ``backends/pallas/kernels/mla_decode.py:151``
 (``backends/xla/operators/mla.py:51-167``): an online-softmax scan over
 the logical blocks in the latent space, written per query row so that one
 function serves decode (a row per sequence) and prefill (a row per packed
-query token with its causal limit). ``launches`` counts kernel launches.
+query token with its causal limit). ``launches`` counts the wrapper's
+launches (a split call's merge launch included in the one).
+
+bf16 and fp16 run tensor-core tiles of 64 heads of one row over a column
+block of the latent (``column_tile``), the row's positions in 32-position
+stages (``stages``: two where they fit in shared memory, else one), the KV
+walk split ``split_count`` ways, a number read from shapes alone, with a
+merge launch in split order when it is above 1. fp32 runs the scalar
+kernel (``FP32_MAX_LATENT``, ``FP32_MAX_WIDTH``). ``takes`` says which
+shapes the kernel takes; the ops send the others to the golden.
 """
 
 from __future__ import annotations
@@ -19,9 +28,65 @@ from mojo_opset_tpu_torch.backends.cuda import build
 
 launches = 0
 
-MAX_LATENT = 512  # r: two latent columns per thread of the kernel's 256
-MAX_WIDTH = 576  # r + dr: one row of the kernel's shared-memory tiles
+FP32_MAX_LATENT = 512  # fp32 r: two latent columns per thread of the scalar kernel's 256
+FP32_MAX_WIDTH = 576  # fp32 r + dr: one row of the scalar kernel's shared-memory tiles
+ROWS = 64  # query rows of a tensor-core tile: 64 heads of one row
+KEYS = 32  # positions of a ring stage
+COLUMN_TILES = (512, 256, 128)  # latent columns of a block: 8 warps x 64, 32 or 16
+SMEM_LIMIT = 227 * 1024 - 1024  # dynamic shared memory a block may take (csrc kMaxSmemI)
+# a split walks at least two stages of the table's width: the split sweep (benchmark/split_sweep.py mla) had 16
+# splits fastest at the smoke's bs-4 decode (0.0248 ms against 0.0319 at 9, a 4-stage floor's count) and 32-66 at
+# bs 1 over ctx 4096-32768, within 6% of the best there
+MIN_SPLIT_KEYS = 2 * KEYS
+MAX_SPLITS = 256  # the merge takes at most this many
 _NEG = -1e30  # the XLA tier's mask value
+
+
+def column_tile(r: int) -> int:
+    """Latent columns of a block: the widest of ``COLUMN_TILES`` that
+    divides r, else 128 (the last block's columns past r are not stored)."""
+    return next((c for c in COLUMN_TILES if r % c == 0), COLUMN_TILES[-1])
+
+
+def row_pitch(r: int, dr: int) -> int:
+    """Elements of a staged query or position row: r + dr rounded up to the
+    16-deep k-chunk, at least the column blocks' span, plus 8 (bank spread)."""
+    tile = column_tile(r)
+    return max(-(-(r + dr) // 16) * 16, -(-r // tile) * tile) + 8
+
+
+def smem_bytes(r: int, dr: int, stages: int) -> int:
+    """Dynamic shared memory of a tensor-core block (csrc mma_smem_bytes)."""
+    tiles = (ROWS + stages * KEYS) * row_pitch(r, dr) * 2  # the query tile and the stages, 16-bit
+    return tiles + ROWS * (KEYS + 4) * 4 + 2 * ROWS * (KEYS + 8) * 2 + 3 * ROWS * 4  # scores, P hi + lo, row stats
+
+
+def stages(r: int, dr: int) -> int:
+    """Ring stages that fit beside the query tile: 2, 1, or 0 (the shape does not fit)."""
+    return next((n for n in (2, 1) if smem_bytes(r, dr, n) <= SMEM_LIMIT), 0)
+
+
+def takes(dtype: torch.dtype, r: int, dr: int) -> bool:
+    """Whether the kernel takes latent width r and rope width dr in dtype:
+    whole 16-byte rows, and for 16-bit types a tile that fits in shared
+    memory, for fp32 the scalar kernel's widths."""
+    if r <= 0 or dr <= 0:
+        return False
+    if dtype == torch.float32:
+        return r % 4 == 0 and dr % 4 == 0 and r <= FP32_MAX_LATENT and r + dr <= FP32_MAX_WIDTH
+    return dtype in (torch.bfloat16, torch.float16) and r % 8 == 0 and dr % 8 == 0 and stages(r, dr) > 0
+
+
+def split_count(rows: int, heads: int, r: int, table_keys: int, sms: int = build.H100_SMS) -> int:
+    """Splits of each row's KV walk, from shapes alone (never a length: that
+    would sync the host with the card, and a CUDA graph's replay would keep
+    a stale one): as many as keep the (row, head tile, column block) units
+    within one wave of the SMs (one block an SM), each split walking at least
+    ``MIN_SPLIT_KEYS`` of the table's width; 1 once the units fill a wave."""
+    units = rows * -(-heads // ROWS) * -(-r // column_tile(r))
+    if units >= sms:
+        return 1
+    return max(1, min(sms // units, -(-table_keys // MIN_SPLIT_KEYS), MAX_SPLITS))
 
 
 def mla_decode_absorbed_plain(
@@ -106,10 +171,10 @@ def _mla_kernel(q_lat, q_pe, c_cache, pe_cache, row_lens, block_tables, row_seqs
     build.require(all(t.dtype == q_lat.dtype for t in (q_pe, c_cache, pe_cache)),
                   f"mla_decode: queries and caches share one dtype, got {q_lat.dtype}, {q_pe.dtype}, "
                   f"{c_cache.dtype}, {pe_cache.dtype}")
-    per16 = 16 // q_lat.element_size()
-    build.require(0 < r <= MAX_LATENT and dr > 0 and r + dr <= MAX_WIDTH and r % per16 == 0 and dr % per16 == 0,
-                  f"mla_decode: the kernel takes r <= {MAX_LATENT}, r + dr <= {MAX_WIDTH}, each a multiple of "
-                  f"{per16} elements in {q_lat.dtype}; got r = {r}, dr = {dr}")
+    build.require(takes(q_lat.dtype, r, dr),
+                  f"mla_decode: the kernel takes r and dr of whole 16-byte rows, in fp32 r <= {FP32_MAX_LATENT} and "
+                  f"r + dr <= {FP32_MAX_WIDTH}, in bf16/fp16 a tile within {SMEM_LIMIT} bytes of shared memory; "
+                  f"got r = {r}, dr = {dr} in {q_lat.dtype}")
     build.require_device(q_lat.device, q_pe, c_cache, pe_cache, row_lens, block_tables)
     for name, t in (("q_lat", q_lat), ("q_pe", q_pe), ("c_cache", c_cache), ("pe_cache", pe_cache)):
         build.require(t.is_contiguous() and t.data_ptr() % 16 == 0,
@@ -133,12 +198,16 @@ def _mla_kernel(q_lat, q_pe, c_cache, pe_cache, row_lens, block_tables, row_seqs
     out = torch.empty((R, H, r), dtype=torch.float32, device=q_lat.device)
     if R == 0:
         return out
+    fp32 = q_lat.dtype == torch.float32
+    splits = 1 if fp32 else split_count(R, H, r, block_tables.shape[1] * bs, build.sm_count(q_lat.device))
+    # per split, head and row: the unnormalized acc (r), then every (max, sum); held until the launch is queued
+    partial = torch.empty(R * H * splits * (r + 2), dtype=torch.float32, device=q_lat.device) if splits > 1 else None
     build.launch(
         "mojo_mla_decode", q_lat.device,
         q_lat.data_ptr(), q_pe.data_ptr(), c_cache.data_ptr(), pe_cache.data_ptr(), row_lens.data_ptr(),
         None if row_seqs is None else row_seqs.data_ptr(), block_tables.data_ptr(),
-        None if sink is None else sink.data_ptr(), out.data_ptr(),
-        R, H, r, dr, bs, block_tables.shape[1], code,
+        None if sink is None else sink.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
+        R, H, r, dr, bs, block_tables.shape[1], column_tile(r), 0 if fp32 else stages(r, dr), splits, code,
     )
     launches += 1
     return out

@@ -10,7 +10,10 @@ kernel skip the pages and keys outside it, not mask them after reading.
 The kernel splits each row's keys over ``split_count`` blocks, a number
 that depends on shapes only, and merges the splits' partials in split
 order (a second launch when there are several). ``launches`` counts
-calls of the kernel.
+calls of the kernel. Any head_dim that is a multiple of 16 up to 256 runs
+at the next of ``HEAD_DIMS`` (``padded_head_dim``), the extra columns
+zero in shared memory and never stored; ``takes_head_dim`` says which, and
+the ops send the others to the golden.
 """
 
 from __future__ import annotations
@@ -26,11 +29,22 @@ from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import paged
 
 launches = 0
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256)  # the widths the kernels are instantiated at
 KEYS_PER_STEP = 64  # a block's step over the kept keys (8 warps x 8 keys): the unit of the split ranges
 HEADS_PER_BLOCK = 16  # query heads of one block for groups above 4; a group of 4 or fewer takes one block
 BLOCKS_PER_SM = 2  # the splits aim at this many blocks a streaming multiprocessor
 MAX_SPLITS = 1024  # the kernel's merge takes at most this many
+
+
+def takes_head_dim(head_dim: int) -> bool:
+    """Whether the paged kernels (C, C', D, D') take ``head_dim``: a
+    multiple of 16 (a 16-byte chunk of int8 pages) up to the widest width."""
+    return 0 < head_dim <= HEAD_DIMS[-1] and head_dim % 16 == 0
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The instantiated width a head_dim runs at: the next of ``HEAD_DIMS``."""
+    return next(d for d in HEAD_DIMS if d >= head_dim)
 
 
 def group_chunks(group: int) -> int:
@@ -74,7 +88,8 @@ def check_paged_cache(query: torch.Tensor, key_cache: torch.Tensor, value_cache:
     _, Hkv, bs, D = paged_cache_dims(key_cache, kv_layout)
     Hq = query.shape[1]
     build.require_device(query.device, key_cache, value_cache)
-    build.require(D in HEAD_DIMS, f"paged attention kernels take head_dim in {HEAD_DIMS}, got {D}")
+    build.require(takes_head_dim(D), f"paged attention kernels take a head_dim that is a multiple of 16 up to "
+                                     f"{HEAD_DIMS[-1]}, got {D}")
     build.require(query.shape[-1] == D, f"query head_dim {query.shape[-1]} != cache head_dim {D}")
     build.require(Hq % Hkv == 0, f"query heads {Hq} must be a multiple of kv heads {Hkv}")
     int8 = key_scale is not None or value_scale is not None
@@ -191,8 +206,9 @@ def _decode_kernel(query, key_cache, value_cache, total_seq_lens, block_tables, 
     splits = split_count(B, Hkv, Hq // Hkv, block_tables.shape[1] * bs, local_window, global_window,
                          build.sm_count(query.device))
     out = torch.empty_like(query)
-    # per split and query head: acc (D), max, sum; held until the launch is queued
-    partial = torch.empty(B, Hq, splits, D + 2, dtype=torch.float32, device=query.device) if splits > 1 else None
+    # per split and query head: acc (the padded width), max, sum; held until the launch is queued
+    width = padded_head_dim(D) + 2
+    partial = torch.empty(B, Hq, splits, width, dtype=torch.float32, device=query.device) if splits > 1 else None
     partial_ptr = None if partial is None else partial.data_ptr()
     build.launch(
         "mojo_paged_decode", query.device,

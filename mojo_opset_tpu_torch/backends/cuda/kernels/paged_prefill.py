@@ -5,7 +5,10 @@ int8 (C8) pages.
 Replaces the JAX package's ``backends/pallas/kernels/flash_prefill.py:358``
 (``paged_prefill_gqa``) and, for int8 pages, the scale folding around it
 (``backends/pallas/operators/attention.py:271-318``). ``launches`` counts
-kernel launches.
+kernel launches. Groups over 64 query heads a kv head go in chunks of at
+most 64 (a query tile holds 64 (token, head) rows; the kernel splits the
+group itself); head_dims are ``paged_decode.takes_head_dim``'s, run at the
+next instantiated width.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import paged
 
 launches = 0
 
-MAX_GROUP = 64  # one query tile holds 64 (token, head) rows
 
 
 def paged_prefill_gqa_plain(
@@ -99,7 +101,6 @@ def _prefill_kernel(query, key_cache, value_cache, cu_q_lens, block_tables, soft
     build.require(max_q_len is not None, "the prefill kernel needs max_q_len (a host int) for its grid")
     build.require(query.ndim == 3, f"query must be (T, Hq, D), got {tuple(query.shape)}")
     Hq, Hkv, bs, D = check_paged_cache(query, key_cache, value_cache, kv_layout, key_scale, value_scale)
-    build.require(Hq // Hkv <= MAX_GROUP, f"prefill kernel serves up to {MAX_GROUP} query heads per kv head")
     B = block_tables.shape[0]
     build.require_device(query.device, cu_q_lens, block_tables)
     _int32_table(cu_q_lens, "cu_q_lens", (B + 1,))

@@ -9,10 +9,14 @@ the training path on kernel J (``csrc/flash_swa.cu``): ``CudaSWA``,
 Function, so they carry gradients; ``CudaSdpa`` with a bool mask runs
 kernel O (``csrc/flash_diffusion.cu``) under its own. The KV-dequant ops
 take no ``compute_dtype=torch.int8``, no ``query_scale`` and no ``mask``
-here: those raise, they do not fall back to the golden. Two routes take
-the golden, as in JAX, each counted in its class's ``golden_calls``: a
-non-causal windowed decode (:339-343) and ``CudaSdpa``'s additive float
-mask (:134-149)."""
+here: those raise, they do not fall back to the golden. Routes that take
+the golden, each counted in its class's ``golden_calls``: a non-causal
+windowed decode (:339-343) and ``CudaSdpa``'s additive float mask
+(:134-149), as in JAX; and in every op here, a head_dim the kernels do not
+take (``takes_head_dim``: a multiple of 16 up to 256; 16, 80 and 96 run
+on the kernels, padded to the next instantiated width), as JAX's Pallas
+ops send ``D % 128 != 0`` to their golden (:66, :101, :138, :200). A group
+of any size runs on the kernels."""
 
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from mojo_opset_tpu_torch.backends.cuda.functions.attention import flash_attention
 from mojo_opset_tpu_torch.backends.cuda.functions.diffusion_attention import diffusion_attention
 from mojo_opset_tpu_torch.backends.cuda.kernels.flash_swa import flash_swa_bwd, flash_swa_fwd
-from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import paged_decode_gqa
+from mojo_opset_tpu_torch.backends.cuda.kernels.paged_decode import paged_decode_gqa, takes_head_dim
 from mojo_opset_tpu_torch.backends.cuda.kernels.paged_prefill import paged_prefill_gqa
 from mojo_opset_tpu_torch.core.operators.attention import (
     MojoPagedDecodeGQA,
@@ -42,6 +46,15 @@ from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import (
 )
 
 
+def _golden_head_dim(cls, head_dim: int) -> bool:
+    """Whether a call with ``head_dim`` takes the golden (the kernels do
+    not take it); counted in ``cls.golden_calls``."""
+    if takes_head_dim(head_dim):
+        return False
+    cls.golden_calls += 1
+    return True
+
+
 def _check_kernel_options(op, query_scale, mask) -> None:
     if op.compute_dtype == torch.int8:
         raise NotImplementedError("compute_dtype=torch.int8 runs in the golden tier only (MOJO_BACKEND=ref)")
@@ -49,6 +62,8 @@ def _check_kernel_options(op, query_scale, mask) -> None:
 
 
 class CudaPagedDecodeGQA(MojoPagedDecodeGQA):
+    golden_calls = 0
+
     def forward(
         self,
         query: torch.Tensor,
@@ -60,6 +75,8 @@ class CudaPagedDecodeGQA(MojoPagedDecodeGQA):
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
+        if _golden_head_dim(CudaPagedDecodeGQA, query.shape[-1]):
+            return super().forward(query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale)
         return paged_decode_gqa(
             query, key_cache, value_cache, total_seq_lens, block_tables,
             softmax_scale, self.gqa_layout, self.kv_layout,
@@ -67,6 +84,8 @@ class CudaPagedDecodeGQA(MojoPagedDecodeGQA):
 
 
 class CudaPagedPrefillGQA(MojoPagedPrefillGQA):
+    golden_calls = 0
+
     def forward(
         self,
         query: torch.Tensor,
@@ -80,6 +99,9 @@ class CudaPagedPrefillGQA(MojoPagedPrefillGQA):
         max_q_len: Optional[int] = None,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
+        if _golden_head_dim(CudaPagedPrefillGQA, query.shape[-1]):
+            return super().forward(query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale,
+                                   cu_total_seq_lens, max_q_len=max_q_len, max_total_seq_len=max_total_seq_len)
         return paged_prefill_gqa(
             query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale, cu_total_seq_lens,
             self.gqa_layout, self.kv_layout, is_causal=self.is_causal, max_q_len=max_q_len,
@@ -87,6 +109,8 @@ class CudaPagedPrefillGQA(MojoPagedPrefillGQA):
 
 
 class CudaPagedDecodeGQAWithKVDequant(MojoPagedDecodeGQAWithKVDequant):
+    golden_calls = 0
+
     def forward(
         self,
         query: torch.Tensor,
@@ -103,6 +127,9 @@ class CudaPagedDecodeGQAWithKVDequant(MojoPagedDecodeGQAWithKVDequant):
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
         _check_kernel_options(self, query_scale, mask)
+        if _golden_head_dim(CudaPagedDecodeGQAWithKVDequant, query.shape[-1]):
+            return super().forward(query, query_scale, key_cache, key_scale, value_cache, value_scale,
+                                   total_seq_lens, block_tables, softmax_scale, mask)
         return paged_decode_gqa(
             query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, self.gqa_layout, "HND",
             key_scale, value_scale,
@@ -112,7 +139,7 @@ class CudaPagedDecodeGQAWithKVDequant(MojoPagedDecodeGQAWithKVDequant):
 class CudaPagedDecodeSWA(MojoPagedDecodeSWA):
     """Kernel C with the op's windows. A non-causal call sees every key; it
     takes the golden, as the JAX tier does (:339-343), and ``golden_calls``
-    counts it."""
+    counts it, as it counts a head_dim the kernel does not take."""
 
     golden_calls = 0
 
@@ -127,8 +154,8 @@ class CudaPagedDecodeSWA(MojoPagedDecodeSWA):
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        if not self.is_causal:
-            CudaPagedDecodeSWA.golden_calls += 1
+        if not self.is_causal or _golden_head_dim(CudaPagedDecodeSWA, query.shape[-1]):
+            CudaPagedDecodeSWA.golden_calls += not self.is_causal
             return super().forward(query, key_cache, value_cache, total_seq_lens, block_table, softmax_scale)
         return paged_decode_gqa(
             query, key_cache, value_cache, total_seq_lens, block_table, softmax_scale, self.gqa_layout,
@@ -157,8 +184,8 @@ class CudaPagedDecodeSWAWithKVDequant(MojoPagedDecodeSWAWithKVDequant):
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
         _check_kernel_options(self, query_scale, None)
-        if not self.is_causal:
-            CudaPagedDecodeSWAWithKVDequant.golden_calls += 1
+        if not self.is_causal or _golden_head_dim(CudaPagedDecodeSWAWithKVDequant, query.shape[-1]):
+            CudaPagedDecodeSWAWithKVDequant.golden_calls += not self.is_causal
             return super().forward(query, query_scale, key_cache, key_scale, value_cache, value_scale,
                                    total_seq_lens, block_table, softmax_scale)
         return paged_decode_gqa(
@@ -168,6 +195,8 @@ class CudaPagedDecodeSWAWithKVDequant(MojoPagedDecodeSWAWithKVDequant):
 
 
 class CudaPagedPrefillGQAWithKVDequant(MojoPagedPrefillGQAWithKVDequant):
+    golden_calls = 0
+
     def forward(
         self,
         query: torch.Tensor,
@@ -185,6 +214,9 @@ class CudaPagedPrefillGQAWithKVDequant(MojoPagedPrefillGQAWithKVDequant):
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
         _check_kernel_options(self, query_scale, mask)
+        if _golden_head_dim(CudaPagedPrefillGQAWithKVDequant, query.shape[-1]):
+            return super().forward(query, query_scale, key_cache, key_scale, value_cache, value_scale, cu_q_lens,
+                                   block_tables, softmax_scale, cu_total_seq_lens, mask, max_q_len, max_total_seq_len)
         return paged_prefill_gqa(
             query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale, cu_total_seq_lens,
             self.gqa_layout, "HND", is_causal=self.is_causal, max_q_len=max_q_len,
@@ -203,8 +235,11 @@ class CudaSWA(MojoSWA):
 
     fwd = staticmethod(flash_swa_fwd)
     bwd = staticmethod(flash_swa_bwd)
+    golden_calls = 0
 
     def forward(self, query, key, value, cu_q_lens, cu_total_seq_lens, softmax_scale=None):
+        if _golden_head_dim(CudaSWA, query.shape[-1]):
+            return super().forward(query, key, value, cu_q_lens, cu_total_seq_lens, softmax_scale)
         return flash_attention(query, key, value, cu_q_lens, cu_total_seq_lens, self.is_causal,
                                self.local_window_size, self.global_window_size, softmax_scale, self.gqa_layout,
                                self.fwd, self.bwd)
@@ -223,8 +258,8 @@ class CudaSdpa(MojoSdpa):
     golden_calls = 0
 
     def forward(self, query, key, value, attn_mask=None):
-        if attn_mask is not None and attn_mask.dtype != torch.bool:
-            CudaSdpa.golden_calls += 1
+        if (attn_mask is not None and attn_mask.dtype != torch.bool) or _golden_head_dim(CudaSdpa, query.shape[-1]):
+            CudaSdpa.golden_calls += attn_mask is not None and attn_mask.dtype != torch.bool
             return super().forward(query, key, value, attn_mask)
         *lead, Hq, Lq, D = query.shape
         Hkv, Lk = key.shape[-3], key.shape[-2]
@@ -253,10 +288,14 @@ class CudaPrefillGQA(MojoPrefillGQA):
     Causality alone keeps a valid row off the pad keys after it, so this is
     the golden's function, which reads ``cu_q_lens`` no further either."""
 
+    golden_calls = 0
+
     def forward(self, query, k_cache, v_cache, cu_q_lens, softmax_scale=None):
         _require_int32("cu_q_lens", cu_q_lens)
         if not self.is_causal:
             raise NotImplementedError("MojoPrefillGQA is causal only")
+        if _golden_head_dim(CudaPrefillGQA, query.shape[-1]):
+            return super().forward(query, k_cache, v_cache, cu_q_lens, softmax_scale)
         B, Hq, S, D = query.shape
 
         def pack(x):  # (B, H, S, D) -> (B * S, H, D)

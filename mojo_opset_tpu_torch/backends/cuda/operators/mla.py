@@ -11,11 +11,16 @@ passes one kernel row per sequence; prefill one per packed query token,
 with its sequence and its causal limit ``min(kv_len, q_abs + 1)`` built on
 the device, so neither syncs with the host.
 
-Every CUDA tensor goes to the kernel, the attention sink included (the
-kernel folds it into the softmax sum): the TPU wrapper's fallbacks (its
-``r % 128`` alignment and its sink) are TPU matters, and what the kernel
-does not take raises. ``attend`` is the latent attention the op runs;
-a plain twin on the card sets it to ``mla_decode_absorbed_plain``.
+The attention sink goes to the kernel too (it folds the sink into the
+softmax sum), and any latent width r whose rows are whole 16-byte rows:
+the TPU wrapper's fallbacks (its ``r % 128`` alignment and its sink) are
+TPU matters. Widths the kernel does not take (``mla_decode.takes``: r or
+dr not whole 16-byte rows, a bf16/fp16 tile past shared memory, fp32 past
+the scalar kernel's r 512 / r + dr 576) take the golden op, counted in
+``golden_calls``, as JAX's Pallas op sends ``r % 128 != 0`` to its XLA
+tier (``backends/pallas/operators/mla.py:36``). ``attend`` is the latent
+attention the op runs; a plain twin on the card sets it to
+``mla_decode_absorbed_plain``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from mojo_opset_tpu_torch.backends.cuda.kernels.mla_decode import mla_decode_absorbed
+from mojo_opset_tpu_torch.backends.cuda.kernels.mla_decode import mla_decode_absorbed, takes
 from mojo_opset_tpu_torch.core.operators.attention import (
     assert_paged_decode_contract,
     assert_paged_prefill_contract,
@@ -46,8 +51,18 @@ def _absorbed(op, query, compressed_kv_cache, k_pe_cache, row_lens, block_tables
     return torch.where(attended[:, None, None], out, 0.0).to(query.dtype)
 
 
+def _golden(cls, compressed_kv_cache, k_pe_cache) -> bool:
+    """Whether the call takes the golden (kernel I does not take the
+    caches' widths); counted in ``cls.golden_calls``."""
+    if takes(compressed_kv_cache.dtype, compressed_kv_cache.shape[-1], k_pe_cache.shape[-1]):
+        return False
+    cls.golden_calls += 1
+    return True
+
+
 class CudaPagedDecodeMLA(MojoPagedDecodeMLA):
     attend = staticmethod(mla_decode_absorbed)
+    golden_calls = 0
 
     def forward(
         self,
@@ -59,12 +74,16 @@ class CudaPagedDecodeMLA(MojoPagedDecodeMLA):
         softmax_scale: Optional[float] = None,
     ) -> torch.Tensor:
         assert_paged_decode_contract(block_tables, total_seq_lens)
+        if _golden(CudaPagedDecodeMLA, compressed_kv_cache, k_pe_cache):
+            return super().forward(query, compressed_kv_cache, k_pe_cache, total_seq_lens, block_tables,
+                                   softmax_scale)
         return _absorbed(self, query, compressed_kv_cache, k_pe_cache, total_seq_lens, block_tables, None,
                          softmax_scale, total_seq_lens > 0)
 
 
 class CudaPagedPrefillMLA(MojoPagedPrefillMLA):
     attend = staticmethod(mla_decode_absorbed)
+    golden_calls = 0
 
     def forward(
         self,
@@ -77,6 +96,9 @@ class CudaPagedPrefillMLA(MojoPagedPrefillMLA):
         cu_total_seq_lens: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         assert_paged_prefill_contract(cu_q_lens, block_tables, cu_total_seq_lens)
+        if _golden(CudaPagedPrefillMLA, compressed_kv_cache, k_pe_cache):
+            return super().forward(query, compressed_kv_cache, k_pe_cache, cu_q_lens, block_tables, softmax_scale,
+                                   cu_total_seq_lens)
         q_lens = seq_lens_from_cu(cu_q_lens)
         kv_lens = q_lens if cu_total_seq_lens is None else seq_lens_from_cu(cu_total_seq_lens)
         batch, q_pos = _token_batch(cu_q_lens, query.shape[0], q_lens.shape[0])

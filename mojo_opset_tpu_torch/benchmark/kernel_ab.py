@@ -21,6 +21,17 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   Qwen3-4B's layer norm (1650, 2560), its q and k head norms (1650 x 32
   and 1650 x 8 rows of 128) and the Wan DiT's (4400, 3072); P pre and post
   at (1650, 2560), 4096 x 4096 and 8192 x 8192, bf16.
+- ``host TAG``: the host microseconds of one G call at M = 1 at the w4a8
+  draft's five projections (2000 eager calls on the host clock after a
+  warm-up; the kernel's few microseconds are shorter, so the host paces
+  the loop) and of its ``route`` alone; then ``mla``'s first three cases
+  and phase 7 (bs-1 w4a8 speculative decoding at full width).
+- ``mla TAG``: I (absorbed MLA, DeepSeek-V3's H 128, r 512, dr 64, bf16,
+  pages of 64) at the smoke's decode bs 4 and bs 1 and prefill row mode,
+  decode bs 1 at ctx 4096 and 32768 and bs 24 at ctx 4000: device ms from
+  a CUDA graph, and from one profiled call the device ms of each CUDA
+  kernel it launched (the tile kernel, the split merge), with the output's
+  digest.
 - ``paths TAG``: this tree's phases 6 (Qwen3-4B w8a8 + C8) and 11
   (Seed-OSS-36B cut to 32 layers, bf16 and w8a8) on the tree's kernels,
   each printing its prefill and decode times and one profiled prefill
@@ -130,6 +141,79 @@ def times(s, tag: str) -> None:
                                    for k, v in digests.items()), flush=True)
 
 
+def host(s, card: str, tag: str) -> None:
+    import time
+
+    from mojo_opset_tpu_torch.backends.cuda import build
+    from mojo_opset_tpu_torch.backends.cuda.kernels import int4_matmul, mla_decode
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out, sms, n = {}, build.sm_count(torch.device("cuda")), 2000
+    for K, N in s.GEMM_SHAPES:
+        x = torch.randint(-128, 128, (1, K), device="cuda", generator=gen, dtype=torch.int8)
+        wp = torch.randint(-128, 128, (N // 2, K), device="cuda", generator=gen, dtype=torch.int8)
+        xs, ws = torch.rand(1, 1, device="cuda", generator=gen), torch.rand(N, device="cuda", generator=gen)
+        for _ in range(50):
+            int4_matmul.int4_scaled_matmul(x, wp, xs, ws, torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            int4_matmul.int4_scaled_matmul(x, wp, xs, ws, torch.bfloat16)
+        torch.cuda.synchronize()
+        out[f"G_call_us_1x{K}x{N}"] = (time.perf_counter() - t0) / n * 1e6
+        t0 = time.perf_counter()
+        for _ in range(n):
+            int4_matmul.route(1, N, K, sms)
+        out[f"G_route_us_1x{K}x{N}"] = (time.perf_counter() - t0) / n * 1e6
+    print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    mla(s, tag, cases=3)
+    print(f"{tag}: phase 7", flush=True)
+    s.phase_w4a8_speculative(torch, card)
+
+
+def mla(s, tag: str, cases: int = 6) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mojo_opset_tpu_torch.backends.cuda.kernels import mla_decode
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, r, dr, bs = torch.bfloat16, 512, 64, s.BLOCK_SIZE
+    first_step = [m + 1 for m in s.PROMPT_LENS]
+    rows = [(b, p + 1) for b, m in enumerate(s.PROMPT_LENS) for p in range(m)]
+    out, digests = {}, {}
+    for name, lens, row_pairs in (("I_decode_bs4", first_step, None), ("I_decode_bs1", first_step[:1], None),
+                                  ("I_prefill_rows", list(s.PROMPT_LENS), rows), ("I_bs1_ctx4096", [4096], None),
+                                  ("I_bs1_ctx32768", [32768], None), ("I_bs24_ctx4000", [4000] * 24, None))[:cases]:
+        cols = max(17, -(-max(lens) // bs))
+        n_blocks = max(4 * 17 + 4, sum(-(-m // bs) for m in lens) + 4)
+        c = torch.randn(n_blocks, 1, bs, r, device="cuda", generator=gen).to(bf16)
+        pe = torch.randn(n_blocks, 1, bs, dr, device="cuda", generator=gen).to(bf16)
+        table = s._tables(torch, lens, bs, cols, n_blocks, gen)
+        pairs = list(enumerate(lens)) if row_pairs is None else row_pairs
+        seqs = None if row_pairs is None else torch.tensor([b for b, _ in pairs], dtype=torch.int32, device="cuda")
+        limits = torch.tensor([m for _, m in pairs], dtype=torch.int32, device="cuda")
+        q_lat = (torch.randn(len(pairs), 128, r, device="cuda", generator=gen) * 0.05).to(bf16)
+        q_pe = (torch.randn(len(pairs), 128, dr, device="cuda", generator=gen) * 0.05).to(bf16)
+        run = lambda: mla_decode.mla_decode_absorbed(q_lat, q_pe, c, pe, limits, table, seqs)  # noqa: E731
+        out[name] = s.graph_ms(torch, run)
+        digests[name] = run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        for kernel in ("mla_mma_kernel", "mla_merge_kernel", "mla_fma_kernel", "mla_decode_kernel"):
+            ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3
+            if ms:
+                out[f"{name}:{kernel}"] = ms
+        del c, pe
+        torch.cuda.empty_cache()
+    print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    print(tag, "digests", " ".join(f"{k} {hashlib.sha256(v.cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]}"
+                                   for k, v in digests.items()), flush=True)
+
+
 def paths(s, card: str, tag: str) -> None:
     print(f"{tag}: phases 6, 7 and 11", flush=True)
     s.phase_int8_full_width(torch, card)
@@ -145,10 +229,14 @@ def main() -> int:
         readings(s)
     elif sys.argv[1:2] == ["times"] and len(sys.argv) == 3:
         times(s, sys.argv[2])
+    elif sys.argv[1:2] == ["host"] and len(sys.argv) == 3:
+        host(s, card, sys.argv[2])
+    elif sys.argv[1:2] == ["mla"] and len(sys.argv) == 3:
+        mla(s, sys.argv[2])
     elif sys.argv[1:2] == ["paths"] and len(sys.argv) == 3:
         paths(s, card, sys.argv[2])
     else:
-        raise SystemExit("usage: kernel_ab.py readings | times TAG | paths TAG")
+        raise SystemExit("usage: kernel_ab.py readings | times TAG | host TAG | mla TAG | paths TAG")
     return 0
 
 

@@ -24,14 +24,19 @@ policy's; every plan exact at unit scales with fp32 output. It also
 sweeps kernel L's 16-byte vectors a thread and threads a block
 (``silu_vjp.UNROLL``, ``THREADS``) at the train step's (4096, 9728) bf16
 activation, forward and backward, beside ``F.silu`` and
-``aten.silu_backward``, every launch shape equal bit for bit.
+``aten.silu_backward``, every launch shape equal bit for bit. ``mla``
+sweeps kernel I's split count (``mla_decode.split_count``) at
+DeepSeek-V3's widths (H 128, r 512, dr 64, bf16, pages of 64): the smoke's
+decode at bs 4 and bs 1 (contexts 1001, 514, 131, 8), bs 1 at ctx 4096
+and 32768, bs 24 at ctx 4000; every count held to the plain version on
+the fp32 ladder.
 
 Run on a machine with a GPU and nvcc::
 
-    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4]
+    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4 | mla]
 
-It prints one JSON line; with ``int8`` or ``int4`` it sweeps F, or G and
-L, alone.
+It prints one JSON line; with ``int8``, ``int4`` or ``mla`` it sweeps F,
+G and L, or I alone.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ import sys
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
-from mojo_opset_tpu_torch.backends.cuda.kernels import flce, int4_matmul, int8_matmul, paged_decode, silu_vjp
+from mojo_opset_tpu_torch.backends.cuda.kernels import (
+    flce, int4_matmul, int8_matmul, mla_decode, paged_decode, silu_vjp,
+)
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
 H, HKV, D, PAGE = 32, 8, 128, 64
@@ -274,6 +281,43 @@ def silu_case(gen) -> dict:
     return result
 
 
+MLA_CASES = (("bs4", [1001, 514, 131, 8]), ("bs1", [1001]), ("bs1_ctx4096", [4096]), ("bs1_ctx32768", [32768]),
+             ("bs24_ctx4000", [4000] * 24))
+
+
+def mla_case(lens, gen) -> dict:
+    """Kernel I through its wrapper with ``split_count`` forced to each count."""
+    dev, bf16, r, dr, H = torch.device("cuda"), torch.bfloat16, 512, 64, 128
+    cols = max(17, -(-max(lens) // PAGE))
+    n_pages = max(4 * 17 + 4, sum(-(-n // PAGE) for n in lens) + 4)
+    c = torch.randn(n_pages, 1, PAGE, r, device=dev, generator=gen).to(bf16)
+    pe = torch.randn(n_pages, 1, PAGE, dr, device=dev, generator=gen).to(bf16)
+    perm = torch.randperm(n_pages, device=dev, generator=gen).tolist()
+    rows, used = [], 0
+    for n in lens:
+        need = -(-n // PAGE)
+        rows.append(perm[used:used + need] + [-1] * (cols - need))
+        used += need
+    table = torch.tensor(rows, dtype=torch.int32, device=dev)
+    limits = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q_lat = (torch.randn(len(lens), H, r, device=dev, generator=gen) * 0.05).to(bf16)
+    q_pe = (torch.randn(len(lens), H, dr, device=dev, generator=gen) * 0.05).to(bf16)
+    want = mla_decode.mla_decode_absorbed_plain(q_lat, q_pe, c, pe, limits, table)
+    policy = mla_decode.split_count(len(lens), H, r, cols * PAGE, build.sm_count(dev))
+    result, forced = {"policy": policy, "ms": {}}, mla_decode.split_count
+    try:
+        for splits in sorted({1, 2, 4, 8, 16, 32, 66, 132, policy}):
+            if splits > mla_decode.MAX_SPLITS:
+                continue
+            mla_decode.split_count = lambda *_, n=splits: n
+            run = lambda: mla_decode.mla_decode_absorbed(q_lat, q_pe, c, pe, limits, table)  # noqa: E731
+            check_tol_diff(run(), want, **tols_for(torch.float32))
+            result["ms"][splits] = graph_ms(run)
+    finally:
+        mla_decode.split_count = forced
+    return result
+
+
 def int4_report(gen) -> dict:
     cases = {f"{m}x{k}x{n}": (m, k, n) for k, n in INT4_SHAPES for m in (1, 2, 3, 4, 5, 8, 512)}
     cases.update({f"{m}x{k}x{n}": (m, k, n) for k, n in INT4_SHAPES[:3] for m in (17, 64, 130)})
@@ -288,6 +332,8 @@ def main() -> None:
         report = {"int8_matmul": int8_report(gen)}
     elif sys.argv[1:] == ["int4"]:
         report = {"int4_matmul": int4_report(gen), "silu": silu_case(gen)}
+    elif sys.argv[1:] == ["mla"]:
+        report = {"mla_decode": {name: mla_case(lens, gen) for name, lens in MLA_CASES}}
     else:
         report = {"decode": {name: decode_case(lens, local, glob, gen) for name, lens, local, glob in DECODE_CASES}}
         torch.cuda.empty_cache()

@@ -36,7 +36,9 @@
 //     fp16 route launching the tiles with the most keys first. A row is a
 //     (token, query head of the kv head's group) pair, 64 / group tokens a
 //     tile (a ragged 63 rows at group 7), so each staged K/V tile serves
-//     the whole group. The forward keeps an fp32 online softmax. dq
+//     the whole group (a group over 64 heads, 71/1 MQA, in chunks of at
+//     most 64 heads, one more grid dimension: SwaArgs gsize, chunks; dk/dv
+//     walks every head of the group in one block whatever its size). The forward keeps an fp32 online softmax. dq
 //     recomputes p = exp(s - lse), computes delta = rowsum(do * o) for its
 //     rows (and writes it for dk/dv), ds = p * (dp - delta),
 //     dq = scale * ds K.
@@ -64,6 +66,7 @@ struct SwaArgs {
   int B, Tq, Tk, hq, hkv;
   float scale;
   int causal, lws, gws, abab;
+  int gsize, chunks;  // forward / dq: a kv head's group in `chunks` tiles of at most gsize (<= 64) heads
 };
 
 // the last b in [0, B-1] with cu[b] <= t (0 when t < cu[1])
@@ -147,8 +150,9 @@ __device__ __forceinline__ void swa_key_full(const SwaArgs& a, int seg, int kpos
   fhi = min(hi, kpos + a.lws - off + 1);
 }
 
-__device__ __forceinline__ int64_t swa_row(int r, int tok0, int kvh, int group, const SwaArgs& a) {
-  return static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a);
+// row r of a forward / dq tile (tokens of gn heads from g0 of the group) as a row of q
+__device__ __forceinline__ int64_t swa_row(int r, int tok0, int kvh, int g0, int gn, const SwaArgs& a) {
+  return static_cast<int64_t>(tok0 + r / gn) * a.hq + swa_head(g0 + r % gn, kvh, a.hq / a.hkv, a);
 }
 
 // -- forward --------------------------------------------------------------------
@@ -159,12 +163,14 @@ flash_swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      float* __restrict__ lse, SwaArgs a) {
   constexpr int QS = D + 1;
   constexpr int DC = D / kCG;
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / a.chunks;
   const int group = a.hq / a.hkv;
-  const int tpt = kRows / group;  // tokens per tile
+  const int g0 = (blockIdx.y % a.chunks) * a.gsize;  // the tile's heads: g0 .. g0 + gn - 1 of the group
+  const int gn = min(a.gsize, group - g0);
+  const int tpt = kRows / a.gsize;  // tokens per tile
   const int tok0 = blockIdx.x * tpt;
   const int n_tok = min(tpt, a.Tq - tok0);
-  const int n_rows = n_tok * group;
+  const int n_rows = n_tok * gn;
 
   extern __shared__ float mojo_smem[];
   float* q_s = mojo_smem;
@@ -195,8 +201,8 @@ flash_swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int r = i / D, d = i % D;
     float val = 0.f;
     if (r < n_rows) {
-      const int h = swa_head(r % group, kvh, group, a);
-      val = mojo_to_float(q[(static_cast<int64_t>(tok0 + r / group) * a.hq + h) * D + d]) * a.scale;
+      const int h = swa_head(g0 + r % gn, kvh, group, a);
+      val = mojo_to_float(q[(static_cast<int64_t>(tok0 + r / gn) * a.hq + h) * D + d]) * a.scale;
     }
     q_s[r * QS + d] = val;
   }
@@ -209,8 +215,8 @@ flash_swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int r = rg * kTR + i;
     m[i] = -INFINITY;
     l[i] = 0.f;
-    row_seg[i] = r < n_rows ? tok_seg[r / group] : -2;
-    row_abs[i] = r < n_rows ? tok_abs[r / group] : 0;
+    row_seg[i] = r < n_rows ? tok_seg[r / gn] : -2;
+    row_abs[i] = r < n_rows ? tok_abs[r / gn] : 0;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
@@ -247,7 +253,7 @@ flash_swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int i = 0; i < kTR; ++i) {
     const int r = rg * kTR + i;
     if (r < n_rows) {
-      const int64_t row = static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a);
+      const int64_t row = static_cast<int64_t>(tok0 + r / gn) * a.hq + swa_head(g0 + r % gn, kvh, group, a);
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
       for (int c = 0; c < DC; ++c) o[row * D + cg + kCG * c] = mojo_from_float<T>(acc[i][c] * inv);
@@ -265,12 +271,14 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     T* __restrict__ dq, float* __restrict__ delta_out, SwaArgs a) {
   constexpr int QS = D + 1;
   constexpr int DC = D / kCG;
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / a.chunks;
   const int group = a.hq / a.hkv;
-  const int tpt = kRows / group;
+  const int g0 = (blockIdx.y % a.chunks) * a.gsize;  // the tile's heads: g0 .. g0 + gn - 1 of the group
+  const int gn = min(a.gsize, group - g0);
+  const int tpt = kRows / a.gsize;
   const int tok0 = blockIdx.x * tpt;
   const int n_tok = min(tpt, a.Tq - tok0);
-  const int n_rows = n_tok * group;
+  const int n_rows = n_tok * gn;
 
   extern __shared__ float mojo_smem[];
   float* q_s = mojo_smem;
@@ -302,7 +310,7 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int r = i / D, d = i % D;
     float qv = 0.f, dv = 0.f;
     if (r < n_rows) {
-      const int64_t off = (static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a)) * D + d;
+      const int64_t off = (static_cast<int64_t>(tok0 + r / gn) * a.hq + swa_head(g0 + r % gn, kvh, group, a)) * D + d;
       qv = mojo_to_float(q[off]) * a.scale;
       dv = mojo_to_float(dout[off]);
     }
@@ -318,7 +326,7 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < kTR; ++i) {
     const int r = rg * kTR + i;
     const bool valid = r < n_rows;
-    const int64_t row = valid ? static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a) : 0;
+    const int64_t row = valid ? static_cast<int64_t>(tok0 + r / gn) * a.hq + swa_head(g0 + r % gn, kvh, group, a) : 0;
     float part = 0.f;
     if (valid) {
 #pragma unroll
@@ -329,8 +337,8 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     row_delta[i] = part;
     row_lse[i] = valid ? lse[row] : kEmptyLse;
     if (valid && cg == 0) delta_out[row] = part;
-    row_seg[i] = valid ? tok_seg[r / group] : -2;
-    row_abs[i] = valid ? tok_abs[r / group] : 0;
+    row_seg[i] = valid ? tok_seg[r / gn] : -2;
+    row_abs[i] = valid ? tok_abs[r / gn] : 0;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
@@ -370,7 +378,7 @@ flash_swa_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < kTR; ++i) {
     const int r = rg * kTR + i;
     if (r < n_rows) {
-      const int64_t row = static_cast<int64_t>(tok0 + r / group) * a.hq + swa_head(r % group, kvh, group, a);
+      const int64_t row = static_cast<int64_t>(tok0 + r / gn) * a.hq + swa_head(g0 + r % gn, kvh, group, a);
 #pragma unroll
       for (int c = 0; c < DC; ++c) dq[row * D + cg + kCG * c] = mojo_from_float<T>(acc[i][c] * a.scale);
     }
@@ -566,12 +574,14 @@ flash_swa_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   float* __restrict__ lse, SwaArgs a) {
   constexpr int BK = mma_keys<D>(), P = D + 8, NTH = kMmaWarps * 32;
   constexpr bool kQRegs = D <= 128;  // Q's fragments in registers for the whole key loop
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / a.chunks;
   const int group = a.hq / a.hkv;
-  const int tpt = kRows / group;
+  const int g0 = (blockIdx.y % a.chunks) * a.gsize;  // the tile's heads: g0 .. g0 + gn - 1 of the group
+  const int gn = min(a.gsize, group - g0);
+  const int tpt = kRows / a.gsize;
   const int tok0 = (gridDim.x - 1 - blockIdx.x) * tpt;  // the causal tiles with the most keys first
   const int n_tok = min(tpt, a.Tq - tok0);
-  const int n_rows = n_tok * group;
+  const int n_rows = n_tok * gn;
 
   T* kv_s = reinterpret_cast<T*>(mojo_mma_smem);  // ring stage st: K at kv_s + 2 st BK P, V after it
   T* q_s = kv_s + fwd_q_offset<D>();
@@ -579,7 +589,7 @@ flash_swa_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   cp_rows<D, kRows, NTH>(q_s, q, [&](int r) -> const T* {
-    return r < n_rows ? q + swa_row(r, tok0, kvh, group, a) * D : nullptr;
+    return r < n_rows ? q + swa_row(r, tok0, kvh, g0, gn, a) * D : nullptr;
   });
   cp_async_commit();
   swa_block_rows(tok0, n_tok, a, tok_seg, tok_abs, range_s);
@@ -592,8 +602,8 @@ flash_swa_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * warp + lane / 4 + 8 * h;
-    row_seg[h] = r < n_rows ? tok_seg[r / group] : -2;
-    row_abs[h] = r < n_rows ? tok_abs[r / group] : 0;
+    row_seg[h] = r < n_rows ? tok_seg[r / gn] : -2;
+    row_abs[h] = r < n_rows ? tok_abs[r / gn] : 0;
   }
   FwdRows<T, D> f;
   f.init();
@@ -637,7 +647,7 @@ flash_swa_fwd_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * warp + lane / 4 + 8 * h;
     if (r < n_rows) {
-      const int64_t row = swa_row(r, tok0, kvh, group, a);
+      const int64_t row = swa_row(r, tok0, kvh, g0, gn, a);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         store_pair(o + row * D + 8 * n + 2 * (lane & 3), f.acc[n][2 * h] * inv[h], f.acc[n][2 * h + 1] * inv[h]);
@@ -652,12 +662,14 @@ flash_swa_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  const T* __restrict__ dout, const float* __restrict__ lse, T* __restrict__ dq,
                  float* __restrict__ delta_out, SwaArgs a) {
   constexpr int BK = mma_keys<D>(), P = D + 8, NTH = kMmaWarps * 32;
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / a.chunks;
   const int group = a.hq / a.hkv;
-  const int tpt = kRows / group;
+  const int g0 = (blockIdx.y % a.chunks) * a.gsize;  // the tile's heads: g0 .. g0 + gn - 1 of the group
+  const int gn = min(a.gsize, group - g0);
+  const int tpt = kRows / a.gsize;
   const int tok0 = (gridDim.x - 1 - blockIdx.x) * tpt;
   const int n_tok = min(tpt, a.Tq - tok0);
-  const int n_rows = n_tok * group;
+  const int n_rows = n_tok * gn;
 
   T* q_s = reinterpret_cast<T*>(mojo_mma_smem);
   T* do_s = q_s + kRows * P;
@@ -667,7 +679,7 @@ flash_swa_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   auto row_src = [&](const T* x) {
-    return [=, &a](int r) -> const T* { return r < n_rows ? x + swa_row(r, tok0, kvh, group, a) * D : nullptr; };
+    return [=, &a](int r) -> const T* { return r < n_rows ? x + swa_row(r, tok0, kvh, g0, gn, a) * D : nullptr; };
   };
   cp_rows<D, kRows, NTH>(q_s, q, row_src(q));
   cp_rows<D, kRows, NTH>(do_s, dout, row_src(dout));
@@ -681,7 +693,7 @@ flash_swa_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   {  // delta = rowsum(do * o): two threads a row, D / 2 columns each, added in one order
     const int r = tid >> 1, half = tid & 1;
     const bool valid = r < n_rows;
-    const int64_t row = valid ? swa_row(r, tok0, kvh, group, a) : 0;
+    const int64_t row = valid ? swa_row(r, tok0, kvh, g0, gn, a) : 0;
     float part = 0.f;
     if (valid) {
       const int64_t off = row * D + half * (D / 2);
@@ -710,8 +722,8 @@ flash_swa_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * warp + lane / 4 + 8 * h;
-    row_seg[h] = r < n_rows ? tok_seg[r / group] : -2;
-    row_abs[h] = r < n_rows ? tok_abs[r / group] : 0;
+    row_seg[h] = r < n_rows ? tok_seg[r / gn] : -2;
+    row_abs[h] = r < n_rows ? tok_abs[r / gn] : 0;
     row_lse2[h] = lse_s[r];
     row_delta[h] = delta_s[r];
   }
@@ -738,7 +750,7 @@ flash_swa_dq_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * warp + lane / 4 + 8 * h;
     if (r < n_rows) {
-      const int64_t row = swa_row(r, tok0, kvh, group, a);
+      const int64_t row = swa_row(r, tok0, kvh, g0, gn, a);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         store_pair(dq + row * D + 8 * n + 2 * (lane & 3), acc[n][2 * h] * a.scale, acc[n][2 * h + 1] * a.scale);
@@ -860,8 +872,8 @@ flash_swa_dkv_mma(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const SwaArgs& a,
                cudaStream_t s) {
-  const int tpt = kRows / (a.hq / a.hkv);
-  const dim3 grid((a.Tq + tpt - 1) / tpt, a.hkv);
+  const int tpt = kRows / a.gsize;
+  const dim3 grid((a.Tq + tpt - 1) / tpt, a.hkv * a.chunks);
   if constexpr (std::is_same_v<T, float>) {
     constexpr size_t smem = rows_smem_floats<D>(kRows, 1, kBK, 2) * sizeof(float);
     if (int rc = set_smem(flash_swa_fwd_kernel<T, D>, smem)) return rc;
@@ -879,8 +891,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
               void* dq, float* delta, const SwaArgs& a, cudaStream_t s) {
-  const int tpt = kRows / (a.hq / a.hkv);
-  const dim3 grid((a.Tq + tpt - 1) / tpt, a.hkv);
+  const int tpt = kRows / a.gsize;
+  const dim3 grid((a.Tq + tpt - 1) / tpt, a.hkv * a.chunks);
   if constexpr (std::is_same_v<T, float>) {
     constexpr size_t smem = rows_smem_floats<D>(kRows, 2, kBK, 2) * sizeof(float);
     if (int rc = set_smem(flash_swa_dq_kernel<T, D>, smem)) return rc;
@@ -920,20 +932,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 }
 
 bool bad_args(int B, int hq, int hkv) {
-  return B < 1 || hkv < 1 || hq % hkv != 0 || hq / hkv > kRows;
+  return B < 1 || hkv < 1 || hq % hkv != 0;
 }
 
 SwaArgs make_args(const void* cu_q, const void* cu_k, int B, int Tq, int Tk, int hq, int hkv, float scale, int causal,
                   int lws, int gws, int abab) {
+  const int group = hq / hkv, chunks = (group + kRows - 1) / kRows;
   return SwaArgs{static_cast<const int*>(cu_q), static_cast<const int*>(cu_k), B, Tq, Tk, hq, hkv, scale, causal,
-                 lws, gws, abab};
+                 lws, gws, abab, (group + chunks - 1) / chunks, chunks};
 }
 
 }  // namespace
 
 // q/o/do/dq (Tq, hq, D), k/v/dk/dv (Tk, hkv, D) contiguous in one dtype;
 // cu_q/cu_k (B+1,) int32; lse/delta (Tq, hq) fp32. D in {64, 128, 256};
-// hq / hkv <= 64; lws, gws >= 0 or -1 (none). The trailing int list of all
+// any hq a multiple of hkv; lws, gws >= 0 or -1 (none). The trailing int list of all
 // three: B, Tq, Tk, hq, hkv, D, scale, causal, lws, gws, abab, dtype.
 extern "C" int mojo_flash_swa_fwd(const void* q, const void* k, const void* v, const void* cu_q, const void* cu_k,
                                   void* o, void* lse, int B, int Tq, int Tk, int hq, int hkv, int hd, float scale,

@@ -223,14 +223,17 @@ extern __shared__ __align__(16) unsigned char mojo_mma_smem[];
 
 // Stage ROWS rows of D 16-bit elements into s (pitch D + 8) by cp.async.
 // src(r) is row r's first element, or nullptr for a zero-filled row (then
-// `base`, a valid address, stands in and is not read).
+// `base`, a valid address, stands in and is not read). Only the first
+// `chunks` 16-byte chunks of a row are read (a row narrower than D); the
+// rest are zero-filled.
 template <int D, int ROWS, int NTH, typename T, class Src>
-__device__ __forceinline__ void cp_rows(T* s, const T* base, Src&& src) {
+__device__ __forceinline__ void cp_rows(T* s, const T* base, Src&& src, int chunks = D / 8) {
   constexpr int CH = D / 8;
   for (int i = threadIdx.x; i < ROWS * CH; i += NTH) {
     const int r = i / CH, c = i % CH;
     const T* p = src(r);
-    cp_async16(s + r * (D + 8) + c * 8, p ? p + c * 8 : base, p != nullptr);
+    const bool ok = p != nullptr && c < chunks;
+    cp_async16(s + r * (D + 8) + c * 8, ok ? p + c * 8 : base, ok);
   }
 }
 
@@ -503,7 +506,8 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[DH / 8][4], float (&dv)[DH 
 }  // namespace mojo_flash
 
 // Run BODY with T bound to the dtype and D to the head dim (64, 128, 256);
-// others fail.
+// others fail. MOJO_FLASH_DISPATCH_PADDED binds D to the next of those at
+// or above hd instead (hd a multiple of 16 up to 256).
 #define MOJO_FLASH_DISPATCH(dtype, hd, ...)                            \
   MOJO_DISPATCH_DTYPE(dtype, T, {                                      \
     if (hd == 64) {                                                    \
@@ -519,3 +523,6 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[DH / 8][4], float (&dv)[DH 
       return static_cast<int>(cudaErrorInvalidValue);                  \
     }                                                                  \
   })
+
+#define MOJO_FLASH_DISPATCH_PADDED(dtype, hd, ...)                                          \
+  MOJO_FLASH_DISPATCH(dtype, ((hd) <= 64 ? 64 : (hd) <= 128 ? 128 : (hd) <= 256 ? 256 : 0), __VA_ARGS__)

@@ -62,6 +62,11 @@
 // Any group: query heads go in chunks of 16, the last one partial (a
 // group of 20 runs 16 + 4), as the TPU kernel pads its group to
 // max(8, group) (:297).
+// Any head_dim hd that is a multiple of 16 up to 256 runs at the next
+// instantiated width D (64, 128, 256): the staged query and K/V rows are
+// zero past hd (the ring's copies of those chunks zero-fill and read
+// nothing), so they add nothing to q . k or p v, and columns past hd are
+// never stored; rows in device memory are hd wide.
 #include <type_traits>
 
 #include "common.cuh"
@@ -145,7 +150,7 @@ __global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
                     const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                     const int* __restrict__ seq_lens, const int* __restrict__ block_tables,
-                    T* __restrict__ out, float* __restrict__ part, int hq, int hkv, int block_size,
+                    T* __restrict__ out, float* __restrict__ part, int hq, int hkv, int hd, int block_size,
                     int max_blocks, int page_stride, int tok_stride, int head_stride, int splits, float scale,
                     int abab, int local_window, int global_window) {
   constexpr int E = D / 32;  // head_dim elements per lane
@@ -187,7 +192,7 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
     for (int i = tid; i < gn * D; i += kDecThreads) {
       const int h = query_head(g0 + i / D, kvh, group, hkv, abab);
       if (splits == 1) {
-        out[(part_row + h) * D + i % D] = mojo_from_float<T>(0.f);
+        if (i % D < hd) out[(part_row + h) * hd + i % D] = mojo_from_float<T>(0.f);
       } else if (i % D == 0) {
         float* p = part + ((part_row + h) * splits + split) * (D + 2);
         p[D] = -INFINITY;
@@ -200,9 +205,13 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
   for (int i = tid; i < gn * D; i += kDecThreads) {
     const int g = i / D;
     const int h = query_head(g0 + g, kvh, group, hkv, abab);
-    float qv = mojo_to_float(q[(part_row + h) * D + i % D]) * scale;
-    if constexpr (kInt8) qv *= k_scale[kvh * D + i % D];
-    q_s[g][i % D] = qv;
+    const int d = i % D;
+    float qv = 0.f;  // columns past hd: zero
+    if (d < hd) {
+      qv = mojo_to_float(q[(part_row + h) * hd + d]) * scale;
+      if constexpr (kInt8) qv *= k_scale[kvh * hd + d];
+    }
+    q_s[g][d] = qv;
   }
   __syncthreads();
 
@@ -242,10 +251,10 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
       const int row_page = __shfl_sync(kFull, page, k);
       const int j = j0 + k;
       const int pos = j < g_hi ? j : j - g_hi + b_lo;
-      const bool keep = row_page >= 0;
+      const int col = (c % Ring::kRowChunks) * (16 / static_cast<int>(sizeof(TC)));
+      const bool keep = row_page >= 0 && col < hd;  // chunks past hd zero-fill
       const int64_t at = keep ? static_cast<int64_t>(row_page) * page_stride +
-                                    static_cast<int64_t>(pos % block_size) * tok_stride + head_off +
-                                    (c % Ring::kRowChunks) * (16 / static_cast<int>(sizeof(TC)))
+                                    static_cast<int64_t>(pos % block_size) * tok_stride + head_off + col
                               : 0;
       cp_async16(dst + c * 16, kc + at, keep);
       cp_async16(dst + kDecKeys * Ring::kRowBytes + c * 16, vc + at, keep);
@@ -351,9 +360,10 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
     for (int w = 0; w < kDecWarps; ++w) sum += m_w[w][g] == -INFINITY ? 0.f : l_w[w][g] * expf(m_w[w][g] - mx);
     const int h = query_head(g0 + g, kvh, group, hkv, abab);
     if (splits == 1) {
+      if (d >= hd) continue;
       float o = sum > 0.f ? q_s[g][d] / sum : 0.f;
-      if constexpr (kInt8) o *= v_scale[kvh * D + d];
-      out[(part_row + h) * D + d] = mojo_from_float<T>(o);
+      if constexpr (kInt8) o *= v_scale[kvh * hd + d];
+      out[(part_row + h) * hd + d] = mojo_from_float<T>(o);
     } else {
       float* p = part + ((part_row + h) * splits + split) * (D + 2);
       p[d] = q_s[g][d];
@@ -374,7 +384,7 @@ paged_decode_kernel(const T* __restrict__ q, const TC* __restrict__ kc, const TC
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
 paged_decode_merge_kernel(const float* __restrict__ part, const float* __restrict__ v_scale, T* __restrict__ out,
-                          int hq, int hkv, int splits, int abab) {
+                          int hq, int hkv, int hd, int splits, int abab) {
   __shared__ float w_s[kDecMaxSplits], l_s[kDecMaxSplits];
   __shared__ float warp_max[D / 32];
   __shared__ float total;
@@ -409,12 +419,13 @@ paged_decode_merge_kernel(const float* __restrict__ part, const float* __restric
     acc += wgt == 0.f ? 0.f : v * wgt;
   }
   __syncthreads();
+  if (d >= hd) return;
   float o = total > 0.f ? acc / total : 0.f;
   if (v_scale != nullptr) {
     const int kvh = abab ? h % hkv : h / (hq / hkv);
-    o *= v_scale[kvh * D + d];
+    o *= v_scale[kvh * hd + d];
   }
-  out[row * D + d] = mojo_from_float<T>(o);
+  out[row * hd + d] = mojo_from_float<T>(o);
 }
 
 struct DecodeArgs {
@@ -423,7 +434,7 @@ struct DecodeArgs {
   const int* sl;
   const int* bt;
   float* part;
-  int B, hq, hkv, block_size, max_blocks, page_stride, tok_stride, head_stride, splits;
+  int B, hq, hkv, hd, block_size, max_blocks, page_stride, tok_stride, head_stride, splits;
   float scale;
   int abab, local_window, global_window;
 };
@@ -437,7 +448,7 @@ int launch_walk(const DecodeArgs& a, const T* q, const TC* kc, const TC* vc, T* 
   const int chunks = (a.hq / a.hkv + G - 1) / G;
   const dim3 grid(a.hkv * chunks, a.B, a.splits);
   paged_decode_kernel<T, TC, D, G><<<grid, kDecThreads, smem, s>>>(
-      q, kc, vc, a.ks, a.vs, a.sl, a.bt, out, a.part, a.hq, a.hkv, a.block_size, a.max_blocks, a.page_stride,
+      q, kc, vc, a.ks, a.vs, a.sl, a.bt, out, a.part, a.hq, a.hkv, a.hd, a.block_size, a.max_blocks, a.page_stride,
       a.tok_stride, a.head_stride, a.splits, a.scale, a.abab, a.local_window, a.global_window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -453,24 +464,19 @@ int launch_decode(const DecodeArgs& a, const void* q, const void* kc, const void
   if (rc != 0) return rc;
   if (a.splits > 1) {
     paged_decode_merge_kernel<T, D><<<dim3(a.hq, a.B), D, 0, s>>>(
-        a.part, std::is_same_v<TC, int8_t> ? a.vs : nullptr, ot, a.hq, a.hkv, a.splits, a.abab);
+        a.part, std::is_same_v<TC, int8_t> ? a.vs : nullptr, ot, a.hq, a.hkv, a.hd, a.splits, a.abab);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// the instantiated width that holds hd (a multiple of 16 up to 256)
 template <typename T, typename TC>
-int dispatch_head_dim(const DecodeArgs& a, int D, const void* q, const void* kc, const void* vc, void* out,
+int dispatch_head_dim(const DecodeArgs& a, const void* q, const void* kc, const void* vc, void* out,
                       cudaStream_t s) {
-  switch (D) {
-    case 64:
-      return launch_decode<T, TC, 64>(a, q, kc, vc, out, s);
-    case 128:
-      return launch_decode<T, TC, 128>(a, q, kc, vc, out, s);
-    case 256:
-      return launch_decode<T, TC, 256>(a, q, kc, vc, out, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (a.hd <= 0 || a.hd % 16 != 0 || a.hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.hd <= 64) return launch_decode<T, TC, 64>(a, q, kc, vc, out, s);
+  if (a.hd <= 128) return launch_decode<T, TC, 128>(a, q, kc, vc, out, s);
+  return launch_decode<T, TC, 256>(a, q, kc, vc, out, s);
 }
 
 }  // namespace
@@ -478,9 +484,10 @@ int dispatch_head_dim(const DecodeArgs& a, int D, const void* q, const void* kc,
 // q/out (B, hq, D) contiguous; caches addressed as
 // page * page_stride + token * tok_stride + kv_head * head_stride + d, in
 // q's dtype, or int8 when kv_int8 with k_scale/v_scale (hkv, D) fp32;
-// seq_lens (B,) and block_tables (B, max_blocks) int32. D in {64, 128,
-// 256}; any hq a multiple of hkv. 1 <= splits <= 1024 (module note); with
-// splits > 1, partial holds B * hq * splits * (D + 2) fp32 of scratch.
+// seq_lens (B,) and block_tables (B, max_blocks) int32. D a multiple of
+// 16 up to 256, run at the next of 64, 128, 256 (Dp); any hq a multiple of
+// hkv. 1 <= splits <= 1024 (module note); with splits > 1, partial holds
+// B * hq * splits * (Dp + 2) fp32 of scratch.
 // local_window / global_window >= 0 set a window, -1 none.
 extern "C" int mojo_paged_decode(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
                                  const void* v_scale, const void* seq_lens, const void* block_tables, void* out,
@@ -494,13 +501,13 @@ extern "C" int mojo_paged_decode(const void* q, const void* k_cache, const void*
   if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   const DecodeArgs a{static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                      static_cast<const int*>(seq_lens), static_cast<const int*>(block_tables),
-                     static_cast<float*>(partial), B, hq, hkv, block_size, max_blocks, page_stride, tok_stride,
+                     static_cast<float*>(partial), B, hq, hkv, D, block_size, max_blocks, page_stride, tok_stride,
                      head_stride, splits, scale, abab, local_window, global_window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = static_cast<int>(cudaErrorInvalidValue);
   MOJO_DISPATCH_DTYPE(dtype, T, {
-    rc = kv_int8 ? dispatch_head_dim<T, int8_t>(a, D, q, k_cache, v_cache, out, s)
-                 : dispatch_head_dim<T, T>(a, D, q, k_cache, v_cache, out, s);
+    rc = kv_int8 ? dispatch_head_dim<T, int8_t>(a, q, k_cache, v_cache, out, s)
+                 : dispatch_head_dim<T, T>(a, q, k_cache, v_cache, out, s);
   });
   return rc;
 }

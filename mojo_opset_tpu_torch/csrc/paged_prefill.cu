@@ -45,6 +45,13 @@
 // fp32: scalar FMAs (no exact fp32 tensor-core product): each thread owns
 //   4 rows x (32/8) score columns and 4 rows x (D/8) output columns of a
 //   32-key tile staged in fp32, the key scale on the staged fp32 query.
+// Groups over 64 query heads a kv head (71/1 MQA) go in chunks of at most
+// 64 heads (gsize, from the caller: ceil(group / ceil(group / 64))), one
+// more grid dimension, as kernel C's chunks of 16; a tile holds
+// 64 / gsize tokens of its chunk's heads. Any head_dim hd that is a
+// multiple of 16 up to 256 runs at the next instantiated width D: the
+// staged Q and K/V rows are zero past hd (those chunks are zero-filled,
+// not read), and columns past hd are never stored.
 #include <type_traits>
 
 #include "flash_tiles.cuh"
@@ -74,9 +81,9 @@ __global__ void __launch_bounds__(kPreThreads)
 paged_prefill_fma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
                      const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                      const int* __restrict__ cu_q, const int* __restrict__ cu_kv,
-                     const int* __restrict__ block_tables, T* __restrict__ out, int hq, int hkv,
-                     int block_size, int max_blocks, int page_stride, int tok_stride, int head_stride,
-                     float scale, int abab) {
+                     const int* __restrict__ block_tables, T* __restrict__ out, int hq, int hkv, int hd,
+                     int gsize, int chunks, int block_size, int max_blocks, int page_stride, int tok_stride,
+                     int head_stride, float scale, int abab) {
   constexpr int QS = D + 1;       // padded row stride of Q, K, V (bank spread)
   constexpr int DC = D / kPreCG;  // output columns per thread
   constexpr bool kInt8 = std::is_same_v<TC, int8_t>;
@@ -84,18 +91,20 @@ paged_prefill_fma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
   static_assert(kPreBK == 32, "staging maps the tile's keys onto the 32 lanes");
 
   const int tile = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / chunks;
+  const int g0 = (blockIdx.y % chunks) * gsize;  // the chunk's first head of the group
   const int b = blockIdx.z;
   const int group = hq / hkv;
-  const int tokens_per_tile = kPreRows / group;
+  const int gn = min(gsize, group - g0);  // heads of this chunk
+  const int tokens_per_tile = kPreRows / gsize;
   const int q_start = cu_q[b];
   const int q_len = cu_q[b + 1] - q_start;
   const int kv_len = cu_kv != nullptr ? cu_kv[b + 1] - cu_kv[b] : q_len;
   const int tok0 = tile * tokens_per_tile;  // first token of the tile, within the sequence
   if (tok0 >= q_len) return;                // block-uniform
-  const int n_rows = min(tokens_per_tile, q_len - tok0) * group;
+  const int n_rows = min(tokens_per_tile, q_len - tok0) * gn;
   const int abs0 = kv_len - q_len + tok0;   // absolute position of the tile's first token
-  const int kv_end = min(kv_len, abs0 + n_rows / group);  // keys any row of the tile sees
+  const int kv_end = min(kv_len, abs0 + n_rows / gn);  // keys any row of the tile sees
 
   extern __shared__ float mojo_smem[];
   float* q_s = mojo_smem;
@@ -112,11 +121,11 @@ paged_prefill_fma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
     const int r = i / D;
     const int d = i % D;
     float val = 0.f;
-    if (r < n_rows) {
-      const int g = r % group;
+    if (r < n_rows && d < hd) {
+      const int g = g0 + r % gn;
       const int h = abab ? g * hkv + kvh : kvh * group + g;
-      val = mojo_to_float(q[(static_cast<int64_t>(q_start + tok0 + r / group) * hq + h) * D + d]) * scale;
-      if constexpr (kInt8) val *= k_scale[kvh * D + d];
+      val = mojo_to_float(q[(static_cast<int64_t>(q_start + tok0 + r / gn) * hq + h) * hd + d]) * scale;
+      if constexpr (kInt8) val *= k_scale[kvh * hd + d];
     }
     q_s[r * QS + d] = val;
   }
@@ -128,7 +137,7 @@ paged_prefill_fma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
     const int r = rg * kPreTR + i;
     m[i] = -INFINITY;
     l[i] = 0.f;
-    row_abs[i] = r < n_rows ? abs0 + r / group : -1;  // -1: no key is visible
+    row_abs[i] = r < n_rows ? abs0 + r / gn : -1;  // -1: no key is visible
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
@@ -151,7 +160,7 @@ paged_prefill_fma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
       const int d0 = (i / kPreBK) * VE;
       const int64_t off = off_s[j];
       float kf[VE], vf[VE];
-      if (off >= 0) {
+      if (off >= 0 && d0 < hd) {
         mojo_load_row<TC, VE>(kc + off + d0, kf);
         mojo_load_row<TC, VE>(vc + off + d0, vf);
       } else {
@@ -233,15 +242,17 @@ paged_prefill_fma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
   for (int i = 0; i < kPreTR; ++i) {
     const int r = rg * kPreTR + i;
     if (r < n_rows) {
-      const int g = r % group;
+      const int g = g0 + r % gn;
       const int h = abab ? g * hkv + kvh : kvh * group + g;
       const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-      T* o = out + (static_cast<int64_t>(q_start + tok0 + r / group) * hq + h) * D;
+      T* o = out + (static_cast<int64_t>(q_start + tok0 + r / gn) * hq + h) * hd;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
+        const int col = cg + kPreCG * c;
+        if (col >= hd) continue;
         float val = acc[i][c] * inv;
-        if constexpr (kInt8) val *= v_scale[kvh * D + cg + kPreCG * c];
-        o[cg + kPreCG * c] = mojo_from_float<T>(val);
+        if constexpr (kInt8) val *= v_scale[kvh * hd + col];
+        o[col] = mojo_from_float<T>(val);
       }
     }
   }
@@ -253,9 +264,9 @@ struct PrefillArgs {
   const int* cu_q;
   const int* cu_kv;  // null: kv_len = q_len
   const int* block_tables;
-  const float* k_scale;  // int8 pages: (hkv, D)
+  const float* k_scale;  // int8 pages: (hkv, hd)
   const float* v_scale;
-  int B, q_tiles, hq, hkv, block_size, max_blocks, page_stride, tok_stride, head_stride;
+  int B, q_tiles, hq, hkv, hd, gsize, chunks, block_size, max_blocks, page_stride, tok_stride, head_stride;
   float scale;
   int abab;
 };
@@ -285,21 +296,24 @@ paged_prefill_mma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
   using C = PreMma<T, TC, D>;
   constexpr int BK = C::BK, P = C::P, NTH = C::NTH;
   constexpr bool kInt8 = C::kInt8, kQRegs = C::kQRegs;
-  // blockIdx.x = (query tile counted from the last, sequence, kv head), kv head fastest
+  // blockIdx.x = (query tile counted from the last, sequence, kv head, chunk of its group), chunk fastest
   int x = blockIdx.x;
+  const int g0 = (x % a.chunks) * a.gsize;  // the chunk's first head of the group
+  x /= a.chunks;
   const int kvh = x % a.hkv;
   x /= a.hkv;
   const int b = x % a.B;
   const int tile = a.q_tiles - 1 - x / a.B;
   const int group = a.hq / a.hkv;
-  const int tpt = kRows / group;
+  const int gn = min(a.gsize, group - g0);  // heads of this chunk
+  const int tpt = kRows / a.gsize;
   const int q_start = a.cu_q[b];
   const int q_len = a.cu_q[b + 1] - q_start;
   const int kv_len = a.cu_kv != nullptr ? a.cu_kv[b + 1] - a.cu_kv[b] : q_len;
   const int tok0 = tile * tpt;  // first token of the tile, within the sequence
   if (tok0 >= q_len) return;     // block-uniform
   const int n_tok = min(tpt, q_len - tok0);
-  const int n_rows = n_tok * group;
+  const int n_rows = n_tok * gn;
   const int abs0 = kv_len - q_len + tok0;               // absolute position of the tile's first token
   const int kv_end = max(0, min(kv_len, abs0 + n_tok));  // keys any row of the tile sees
   const int n_tiles = (kv_end + BK - 1) / BK;
@@ -315,9 +329,9 @@ paged_prefill_mma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
   const int64_t head_off = static_cast<int64_t>(kvh) * a.head_stride;
 
   auto row_of = [&](int r) -> int64_t {  // (token, head) row r of the tile as a row of q and out
-    const int g = r % group;
+    const int g = g0 + r % gn;
     const int h = a.abab ? g * a.hkv + kvh : kvh * group + g;
-    return static_cast<int64_t>(q_start + tok0 + r / group) * a.hq + h;
+    return static_cast<int64_t>(q_start + tok0 + r / gn) * a.hq + h;
   };
   auto locate = [&](int j) {  // key tile j's offsets into slot j % 3
     if (tid < BK) {
@@ -340,12 +354,14 @@ paged_prefill_mma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
       for (int i = tid; i < 2 * BK * CH; i += NTH) {
         const int rr = i / CH, c = i % CH, r = rr % BK;  // rows 0 .. BK - 1: K, BK .. 2 BK - 1: V
         const TC* src = rr < BK ? kc : vc;
-        cp_async16(r8 + rr * D + c * 16, off[r] >= 0 ? src + off[r] + c * 16 : src, off[r] >= 0);
+        const bool ok = off[r] >= 0 && c < a.hd / 16;
+        cp_async16(r8 + rr * D + c * 16, ok ? src + off[r] + c * 16 : src, ok);
       }
     } else {
       T* ks = ts + st * 2 * BK * P;
-      cp_rows<D, BK, NTH>(ks, kc, [&](int r) -> const T* { return off[r] >= 0 ? kc + off[r] : nullptr; });
-      cp_rows<D, BK, NTH>(ks + BK * P, vc, [&](int r) -> const T* { return off[r] >= 0 ? vc + off[r] : nullptr; });
+      cp_rows<D, BK, NTH>(ks, kc, [&](int r) -> const T* { return off[r] >= 0 ? kc + off[r] : nullptr; }, a.hd / 8);
+      cp_rows<D, BK, NTH>(ks + BK * P, vc, [&](int r) -> const T* { return off[r] >= 0 ? vc + off[r] : nullptr; },
+                          a.hd / 8);
     }
   };
 
@@ -359,15 +375,16 @@ paged_prefill_mma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
     for (int i = tid; i < kRows * (D / 2); i += NTH) {
       const int r = i / (D / 2), d = 2 * (i % (D / 2));
       float x0 = 0.f, x1 = 0.f;
-      if (r < n_rows) {
-        const T* src = q + row_of(r) * D + d;
-        x0 = mojo_to_float(src[0]) * a.k_scale[kvh * D + d];
-        x1 = mojo_to_float(src[1]) * a.k_scale[kvh * D + d + 1];
+      if (r < n_rows && d < a.hd) {
+        const T* src = q + row_of(r) * a.hd + d;
+        x0 = mojo_to_float(src[0]) * a.k_scale[kvh * a.hd + d];
+        x1 = mojo_to_float(src[1]) * a.k_scale[kvh * a.hd + d + 1];
       }
       store_pair(q_s + r * P + d, x0, x1);
     }
   } else {
-    cp_rows<D, kRows, NTH>(q_s, q, [&](int r) -> const T* { return r < n_rows ? q + row_of(r) * D : nullptr; });
+    cp_rows<D, kRows, NTH>(q_s, q, [&](int r) -> const T* { return r < n_rows ? q + row_of(r) * a.hd : nullptr; },
+                           a.hd / 8);
   }
   cp_async_commit();
   if (n_tiles > 0) load_kv(0, 0);
@@ -377,7 +394,7 @@ paged_prefill_mma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * warp + lane / 4 + 8 * h;
-    row_abs[h] = r < n_rows ? abs0 + r / group : -1;
+    row_abs[h] = r < n_rows ? abs0 + r / gn : -1;
   }
   FwdRows<T, D> f;
   f.init();
@@ -444,14 +461,15 @@ paged_prefill_mma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
   for (int h = 0; h < 2; ++h) {
     const int r = 16 * warp + lane / 4 + 8 * h;
     if (r < n_rows) {
-      T* o = out + row_of(r) * D;
+      T* o = out + row_of(r) * a.hd;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const int col = 8 * n + 2 * (lane & 3);
+        if (col >= a.hd) continue;
         float x0 = f.acc[n][2 * h] * inv[h], x1 = f.acc[n][2 * h + 1] * inv[h];
         if constexpr (kInt8) {
-          x0 *= a.v_scale[kvh * D + col];
-          x1 *= a.v_scale[kvh * D + col + 1];
+          x0 *= a.v_scale[kvh * a.hd + col];
+          x1 *= a.v_scale[kvh * a.hd + col + 1];
         }
         store_pair(o + col, x0, x1);
       }
@@ -465,21 +483,21 @@ paged_prefill_mma(const T* __restrict__ q, const TC* __restrict__ kc, const TC* 
 template <typename T, typename TC, int D>
 int launch_prefill(const T* q, const TC* kc, const TC* vc, T* out, int max_q_len, const PrefillArgs& a,
                    cudaStream_t stream) {
-  const int tpt = kRows / (a.hq / a.hkv);
+  const int tpt = kRows / a.gsize;
   const int q_tiles = (max_q_len + tpt - 1) / tpt;
   if constexpr (std::is_same_v<T, float>) {
     constexpr size_t smem = prefill_smem_floats<D>() * sizeof(float);
     if (int rc = set_smem(paged_prefill_fma<T, TC, D>, smem)) return rc;
-    const dim3 grid(q_tiles, a.hkv, a.B);
+    const dim3 grid(q_tiles, a.hkv * a.chunks, a.B);
     paged_prefill_fma<T, TC, D><<<grid, kPreThreads, smem, stream>>>(
-        q, kc, vc, a.k_scale, a.v_scale, a.cu_q, a.cu_kv, a.block_tables, out, a.hq, a.hkv, a.block_size,
-        a.max_blocks, a.page_stride, a.tok_stride, a.head_stride, a.scale, a.abab);
+        q, kc, vc, a.k_scale, a.v_scale, a.cu_q, a.cu_kv, a.block_tables, out, a.hq, a.hkv, a.hd, a.gsize, a.chunks,
+        a.block_size, a.max_blocks, a.page_stride, a.tok_stride, a.head_stride, a.scale, a.abab);
   } else {
     using C = PreMma<T, TC, D>;
     if (int rc = set_smem(paged_prefill_mma<T, TC, D>, C::kBytes)) return rc;
     PrefillArgs args = a;
     args.q_tiles = q_tiles;
-    const int64_t blocks = static_cast<int64_t>(q_tiles) * a.B * a.hkv;
+    const int64_t blocks = static_cast<int64_t>(q_tiles) * a.B * a.hkv * a.chunks;
     if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
     paged_prefill_mma<T, TC, D><<<static_cast<unsigned>(blocks), C::NTH, C::kBytes, stream>>>(q, kc, vc, out, args);
   }
@@ -492,25 +510,29 @@ int launch_prefill(const T* q, const TC* kc, const TC* vc, T* out, int max_q_len
 // null (kv_len = q_len); caches addressed as
 // page * page_stride + token * tok_stride + kv_head * head_stride + d, in
 // q's dtype, or int8 when kv_int8 with k_scale/v_scale (hkv, D) fp32;
-// block_tables (B, max_blocks) int32. max_q_len bounds the grid. D in
-// {64, 128, 256}; hq / hkv <= 64.
+// block_tables (B, max_blocks) int32. max_q_len bounds the grid. hd a
+// multiple of 16 up to 256; any hq a multiple of hkv (groups over 64 in
+// chunks).
 extern "C" int mojo_paged_prefill(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
                                   const void* v_scale, const void* cu_q, const void* cu_kv,
                                   const void* block_tables, void* out, int B, int max_q_len, int hq, int hkv, int hd,
                                   int block_size, int max_blocks, int page_stride, int tok_stride, int head_stride,
                                   float scale, int abab, int kv_int8, int dtype, void* stream) {
   if (B <= 0 || max_q_len <= 0) return static_cast<int>(cudaSuccess);
-  if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kRows || block_size <= 0) {
+  if (hkv <= 0 || hq % hkv != 0 || block_size <= 0 || hd <= 0 || hd % 16 != 0 || hd > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int group = hq / hkv;
+  const int chunks = (group + kRows - 1) / kRows;
+  const int gsize = (group + chunks - 1) / chunks;
   if (kv_int8 && (k_scale == nullptr || v_scale == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PrefillArgs a{static_cast<const int*>(cu_q), static_cast<const int*>(cu_kv),
                       static_cast<const int*>(block_tables), static_cast<const float*>(k_scale),
-                      static_cast<const float*>(v_scale), B, 0, hq, hkv, block_size, max_blocks, page_stride,
-                      tok_stride, head_stride, scale, abab};
+                      static_cast<const float*>(v_scale), B, 0, hq, hkv, hd, gsize, chunks, block_size, max_blocks,
+                      page_stride, tok_stride, head_stride, scale, abab};
   int rc = static_cast<int>(cudaErrorInvalidValue);
-  MOJO_FLASH_DISPATCH(dtype, hd, {
+  MOJO_FLASH_DISPATCH_PADDED(dtype, hd, {
     rc = kv_int8 ? launch_prefill<T, int8_t, D>(static_cast<const T*>(q), static_cast<const int8_t*>(k_cache),
                                                 static_cast<const int8_t*>(v_cache), static_cast<T*>(out), max_q_len,
                                                 a, s)

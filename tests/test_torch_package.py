@@ -231,8 +231,8 @@ def test_kernel_path_never_falls_back(monkeypatch):
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
     table, lens = meta(2, 3, dtype=torch.int32), meta(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="head_dim"):
-        paged_decode.paged_decode_gqa(meta(2, 8, 16), meta(5, 4, 2, 16), meta(5, 4, 2, 16), lens, table)
+    with pytest.raises(ValueError, match="head_dim"):  # 16, 80, 96 are taken, padded; 8 is not a 16-byte row of int8
+        paged_decode.paged_decode_gqa(meta(2, 8, 8), meta(5, 4, 2, 8), meta(5, 4, 2, 8), lens, table)
     with pytest.raises(ValueError, match="multiple of kv heads"):  # any group is taken (32/1 in test_torch_paged_decode)
         paged_decode.paged_decode_gqa(meta(2, 12, 64), meta(5, 8, 4, 64), meta(5, 8, 4, 64), lens, table)
     with pytest.raises(ValueError, match="share one dtype"):
@@ -368,11 +368,14 @@ def test_mla_wrapper_rejects_what_the_kernel_does_not_take():
     lens, table = meta(2, dtype=torch.int32), meta(2, 3, dtype=torch.int32)
     c, pe = meta(5, 1, 64, 512), meta(5, 1, 64, 64)
     mla = mla_decode.mla_decode_absorbed
-    with pytest.raises(ValueError, match="r <= 512"):
-        mla(meta(2, 16, 640), meta(2, 16, 64), meta(5, 1, 64, 640), pe, lens, table)
-    with pytest.raises(ValueError, match="r <= 512"):  # r + dr > 576
-        mla(meta(2, 16, 512), meta(2, 16, 128), c, meta(5, 1, 64, 128), lens, table)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    f32 = lambda *shape: meta(*shape, dtype=torch.float32)  # noqa: E731
+    with pytest.raises(ValueError, match="r <= 512"):  # the fp32 scalar kernel; bf16 takes r 640
+        mla(f32(2, 16, 640), f32(2, 16, 64), f32(5, 1, 64, 640), f32(5, 1, 64, 64), lens, table)
+    with pytest.raises(ValueError, match="r <= 512"):  # fp32 r + dr > 576
+        mla(f32(2, 16, 512), f32(2, 16, 128), f32(5, 1, 64, 512), f32(5, 1, 64, 128), lens, table)
+    with pytest.raises(ValueError, match="shared memory"):  # bf16: the tile and one stage past 227 KB
+        mla(meta(2, 16, 1024), meta(2, 16, 128), meta(5, 1, 64, 1024), meta(5, 1, 64, 128), lens, table)
+    with pytest.raises(ValueError, match="16-byte rows"):
         mla(meta(2, 16, 500), meta(2, 16, 64), meta(5, 1, 64, 500), pe, lens, table)
     with pytest.raises(ValueError, match="share one dtype"):
         mla(meta(2, 16, 512, dtype=torch.float32), meta(2, 16, 64, dtype=torch.float32), c, pe, lens, table)
@@ -531,7 +534,8 @@ def test_flash_diffusion_never_falls_back_and_rejects_what_it_does_not_take(monk
     meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
     mask = torch.empty(9, 9, device="meta", dtype=torch.bool)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_diffusion.flash_diffusion_fwd(meta(1, 4, 9, 32), meta(1, 2, 9, 32), meta(1, 2, 9, 32), mask)
+        # 32 is taken, padded to 64; 40 is not a multiple of 16
+        flash_diffusion.flash_diffusion_fwd(meta(1, 4, 9, 40), meta(1, 2, 9, 40), meta(1, 2, 9, 40), mask)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash_diffusion.flash_diffusion_fwd(meta(1, 3, 9, 64), meta(1, 2, 9, 64), meta(1, 2, 9, 64), mask)
     with pytest.raises(ValueError, match="share one dtype"):

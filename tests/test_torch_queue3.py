@@ -1,0 +1,277 @@
+"""Shapes the JAX package computes and the cuda tier once refused, on the CPU.
+
+Each shape either reaches its kernel's launch (tensors on the ``meta``
+device go to the kernel wrappers, and a stubbed ``build.load_library``
+raises "no kernels built" where the build would start) or takes the
+golden through its op, counted in the class's ``golden_calls`` and equal
+to the golden op's output on CPU tensors:
+
+- kernels D and J at a group of 71 query heads a kv head (71/1 MQA): the
+  kernels take the group in chunks of at most 64 heads;
+- kernels C, C', D, D', J and O at head_dim 16, 80 and 96: run at the
+  next instantiated width (64, 128), the extra columns zero; a head_dim
+  that is no multiple of 16 (8, 24) takes the golden in every attention op;
+- kernel I at r 256 and 1024 (one ring stage); r + dr past shared memory
+  in bf16, and fp32 past the scalar kernel, take the golden MLA op;
+- F and G at K 40 (``CudaQuantGemm``), G at K past ``MAX_K``, H at 16-bit
+  K 36 (``CudaGroupGemm``, ``CudaExperts``): the golden.
+
+J's and O's padding is exact: the plain versions on zero-padded q, k, v
+(the scale kept at the real head_dim) give the unpadded outputs and
+gradients in their first head_dim columns, at fp32 tolerance.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from mojo_opset_tpu_torch.backends.cuda import build
+from mojo_opset_tpu_torch.backends.cuda.kernels import flash_diffusion as fd
+from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
+from mojo_opset_tpu_torch.backends.cuda.kernels import int4_matmul, paged_decode, paged_prefill
+from mojo_opset_tpu_torch.backends.cuda.operators import (
+    CudaGroupGemm, CudaPagedDecodeGQA, CudaPagedDecodeMLA, CudaPagedPrefillGQA, CudaQuantGemm, CudaSdpa, CudaSWA,
+)
+from mojo_opset_tpu_torch.backends.cuda.operators.moe import CudaExperts
+from mojo_opset_tpu_torch.core.operators import (
+    MojoGroupGemm, MojoPagedDecodeGQA, MojoPagedPrefillGQA, MojoQuantGemm, MojoSdpa, MojoSWA,
+)
+from mojo_opset_tpu_torch.core.operators.gemm import pack_int4_rows
+from mojo_opset_tpu_torch.core.operators.moe import MojoExperts
+from mojo_opset_tpu_torch.experimental.operators import MojoPagedDecodeMLA
+from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+NO_BUILD = "no kernels built"
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    monkeypatch.setattr(build, "load_library", lambda: (_ for _ in ()).throw(RuntimeError(NO_BUILD)))
+
+
+def meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, device="meta", dtype=dtype)
+
+
+def i32(*shape):
+    return meta(*shape, dtype=torch.int32)
+
+
+def cpu(seed, *shape, dtype=torch.float32, scale=1.0):
+    return torch.from_numpy((np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)).to(dtype)
+
+
+# ---------------------------------------------------------------- the kernels' launches
+
+
+@pytest.mark.parametrize("d", [16, 80, 96])
+@pytest.mark.parametrize("int8", [False, True], ids=["C", "C_int8"])
+def test_paged_decode_reaches_the_launch(no_build, d, int8):
+    scales = (meta(2, d, dtype=torch.float32), meta(2, d, dtype=torch.float32)) if int8 else (None, None)
+    cache = meta(9, 2, 16, d, dtype=torch.int8 if int8 else torch.bfloat16)
+    with pytest.raises(RuntimeError, match=NO_BUILD):
+        paged_decode.paged_decode_gqa(meta(3, 16, d), cache, cache, i32(3), i32(3, 4), None, "AABB", "HND", *scales)
+
+
+@pytest.mark.parametrize("hq, hkv, d", [(71, 1, 128), (16, 2, 16), (16, 2, 80), (16, 2, 96), (142, 2, 96)])
+@pytest.mark.parametrize("int8", [False, True], ids=["D", "D_int8"])
+def test_paged_prefill_reaches_the_launch(no_build, hq, hkv, d, int8):
+    scales = (meta(hkv, d, dtype=torch.float32), meta(hkv, d, dtype=torch.float32)) if int8 else (None, None)
+    cache = meta(9, hkv, 16, d, dtype=torch.int8 if int8 else torch.bfloat16)
+    with pytest.raises(RuntimeError, match=NO_BUILD):
+        paged_prefill.paged_prefill_gqa(meta(40, hq, d), cache, cache, i32(3), i32(2, 4), None, None, "AABB", "HND",
+                                        max_q_len=30, key_scale=scales[0], value_scale=scales[1])
+
+
+@pytest.mark.parametrize("hq, hkv, d", [(71, 1, 128), (16, 4, 16), (16, 4, 80), (16, 4, 96)])
+@pytest.mark.parametrize("entry", ["fwd", "dq", "dkv"])
+def test_flash_swa_reaches_the_launch(no_build, hq, hkv, d, entry):
+    q, k, cu = meta(10, hq, d), meta(10, hkv, d), i32(3)
+    lse = meta(10, hq, dtype=torch.float32)
+    call = {"fwd": lambda: fs.flash_swa_fwd(q, k, k, cu, cu),
+            "dq": lambda: fs.flash_swa_dq(q, k, k, q, q, lse, cu, cu),
+            "dkv": lambda: fs.flash_swa_dkv(q, k, k, q, lse, lse, cu, cu)}[entry]
+    with pytest.raises(RuntimeError, match=NO_BUILD):
+        call()
+
+
+@pytest.mark.parametrize("d", [16, 80, 96])
+@pytest.mark.parametrize("entry", ["fwd", "dq", "dkv"])
+def test_flash_diffusion_reaches_the_launch(no_build, d, entry):
+    q, k, mask = meta(1, 4, 9, d), meta(1, 2, 9, d), torch.empty(9, 9, device="meta", dtype=torch.bool)
+    lse = meta(1, 4, 9, dtype=torch.float32)
+    call = {"fwd": lambda: fd.flash_diffusion_fwd(q, k, k, mask),
+            "dq": lambda: fd.flash_diffusion_dq(q, k, k, q, q, lse, mask),
+            "dkv": lambda: fd.flash_diffusion_dkv(q, k, k, q, lse, lse, mask)}[entry]
+    with pytest.raises(RuntimeError, match=NO_BUILD):
+        call()
+
+
+def test_head_dims_the_kernels_take():
+    assert [d for d in range(1, 300) if paged_decode.takes_head_dim(d)] == list(range(16, 257, 16))
+    assert [paged_decode.padded_head_dim(d) for d in (16, 64, 80, 96, 128, 144, 256)] == [64, 64, 128, 128, 128,
+                                                                                         256, 256]
+
+
+# ---------------------------------------------------------------- J's and O's padding is exact
+
+
+@pytest.mark.parametrize("d", [16, 80, 96])
+def test_flash_swa_padding_is_exact(d):
+    cu = torch.tensor([0, 20, 33], dtype=torch.int32)
+    q, k, v = cpu(1, 33, 4, d), cpu(2, 33, 2, d), cpu(3, 33, 2, d)
+    do = cpu(4, 33, 4, d)
+    scale, D = 1 / math.sqrt(d), paged_decode.padded_head_dim(d)
+    o, lse = fs.flash_swa_fwd_plain(q, k, v, cu, cu, True, 7, 2)
+    po, plse = fs.flash_swa_fwd_plain(*fs.pad_head_dim(D, q, k, v), cu, cu, True, 7, 2, scale)
+    check_tol_diff(po[..., :d], o, **F32)
+    check_tol_diff(plse, lse, **F32)
+    assert not po[..., d:].any()
+    want = fs.flash_swa_bwd_plain(q, k, v, o, lse, do, cu, cu, local_window=7, global_window=2)
+    got = fs.flash_swa_bwd_plain(*fs.pad_head_dim(D, q, k, v, o), lse, *fs.pad_head_dim(D, do), cu, cu, local_window=7,
+                                 global_window=2, scale=scale)
+    for g, w in zip(got, want):
+        check_tol_diff(g[..., :d], w, **F32)
+    assert fs.narrow_head_dim(d, po)[0].is_contiguous()
+
+
+@pytest.mark.parametrize("d", [16, 96])
+def test_flash_diffusion_padding_is_exact(d):
+    q, k, v, do = cpu(5, 2, 4, 12, d), cpu(6, 2, 2, 12, d), cpu(7, 2, 2, 12, d), cpu(8, 2, 4, 12, d)
+    mask = torch.from_numpy(np.random.default_rng(9).random((12, 12)) < 0.6) | torch.eye(12, dtype=torch.bool)
+    scale, D = 1 / math.sqrt(d), paged_decode.padded_head_dim(d)
+    o, lse = fd.flash_diffusion_fwd_plain(q, k, v, mask)
+    po, plse = fd.flash_diffusion_fwd_plain(*fs.pad_head_dim(D, q, k, v), mask, scale)
+    check_tol_diff(po[..., :d], o, **F32)
+    check_tol_diff(plse, lse, **F32)
+    want = fd.flash_diffusion_bwd_plain(q, k, v, o, lse, do, mask)
+    got = fd.flash_diffusion_bwd_plain(*fs.pad_head_dim(D, q, k, v, o), lse, *fs.pad_head_dim(D, do), mask, scale)
+    for g, w in zip(got, want):
+        check_tol_diff(g[..., :d], w, **F32)
+
+
+# ---------------------------------------------------------------- the ops' golden routes
+
+
+def _paged(lens, hkv, d, bs=16, seed=0):
+    n_blocks = sum(-(-n // bs) for n in lens) + 2
+    kc, vc = cpu(seed, n_blocks, hkv, bs, d), cpu(seed + 1, n_blocks, hkv, bs, d)
+    perm = np.random.default_rng(seed).permutation(n_blocks)
+    cols = max(-(-n // bs) for n in lens)
+    rows, used = [], 0
+    for n in lens:
+        need = -(-n // bs)
+        rows.append(list(perm[used:used + need]) + [-1] * (cols - need))
+        used += need
+    return kc, vc, torch.tensor(rows, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("d, golden", [(8, 1), (24, 1), (16, 0), (80, 0), (96, 0)])
+def test_paged_attention_ops_take_the_golden_off_the_kernels_head_dims(d, golden):
+    lens = [20, 5]
+    kc, vc, bt = _paged(lens, 2, d)
+    sl = torch.tensor(lens, dtype=torch.int32)
+    q = cpu(3, 2, 4, d)
+    before = CudaPagedDecodeGQA.golden_calls
+    got = CudaPagedDecodeGQA()(q, kc, vc, sl, bt)
+    assert CudaPagedDecodeGQA.golden_calls == before + golden
+    check_tol_diff(got, MojoPagedDecodeGQA.get_backend_impl("ref")()(q, kc, vc, sl, bt), **F32)
+    cu = torch.tensor([0, 20, 25], dtype=torch.int32)
+    qp = cpu(4, 25, 4, d)
+    before = CudaPagedPrefillGQA.golden_calls
+    got = CudaPagedPrefillGQA()(qp, kc, vc, cu, bt, None, cu, max_q_len=20)
+    assert CudaPagedPrefillGQA.golden_calls == before + golden
+    check_tol_diff(got, MojoPagedPrefillGQA.get_backend_impl("ref")()(qp, kc, vc, cu, bt, None, cu), **F32)
+
+
+@pytest.mark.parametrize("d, golden", [(8, 1), (96, 0)])
+def test_dense_attention_ops_take_the_golden_off_the_kernels_head_dims(d, golden):
+    cu = torch.tensor([0, 9, 14], dtype=torch.int32)
+    q, k, v = cpu(1, 14, 4, d), cpu(2, 14, 2, d), cpu(3, 14, 2, d)
+    before = CudaSWA.golden_calls
+    check_tol_diff(CudaSWA()(q, k, v, cu, cu), MojoSWA.get_backend_impl("ref")()(q, k, v, cu, cu), **F32)
+    assert CudaSWA.golden_calls == before + golden
+    qs, ks = cpu(4, 2, 4, 9, d), cpu(5, 2, 2, 9, d)
+    mask = torch.ones(9, 9, dtype=torch.bool).tril()
+    before = CudaSdpa.golden_calls
+    check_tol_diff(CudaSdpa(enable_gqa=True)(qs, ks, ks, mask),
+                   MojoSdpa.get_backend_impl("ref")(enable_gqa=True)(qs, ks, ks, mask), **F32)
+    assert CudaSdpa.golden_calls == before + golden
+
+
+def _mla_ops(r, dr, dtype):
+    H, dn, dv = 4, 16, 16
+    ops = []
+    for tier in ("cuda", "ref"):
+        op = MojoPagedDecodeMLA.get_backend_impl(tier)(H, dn, dr, dv, r, device="cpu")
+        op.kv_b_proj.data.copy_(cpu(11, *op.kv_b_proj.shape, scale=0.1))
+        ops.append(op)
+    return ops
+
+
+@pytest.mark.parametrize("r, dr, dtype, golden", [(1024, 128, torch.bfloat16, 1), (640, 64, torch.float32, 1),
+                                                  (20, 8, torch.bfloat16, 1), (256, 64, torch.bfloat16, 0),
+                                                  (1024, 64, torch.bfloat16, 0)])
+def test_mla_op_takes_the_golden_where_kernel_i_cannot(r, dr, dtype, golden):
+    op, gold = _mla_ops(r, dr, dtype)
+    lens = [20, 3]
+    c, pe, bt = _paged(lens, 1, r, seed=12)
+    pe = cpu(13, c.shape[0], 1, 16, dr)
+    c, pe = c.to(dtype), pe.to(dtype)
+    q = cpu(14, 2, 4, 16 + dr).to(dtype)
+    sl = torch.tensor(lens, dtype=torch.int32)
+    before = CudaPagedDecodeMLA.golden_calls
+    got = op(q, c, pe, sl, bt)
+    assert CudaPagedDecodeMLA.golden_calls == before + golden
+    if golden:
+        assert torch.equal(got, gold(q, c, pe, sl, bt))
+
+
+@pytest.mark.parametrize("weight_dtype, K, golden", [(torch.int8, 40, 1), ("int4", 40, 1), (torch.int8, 48, 0),
+                                                     ("int4", 64, 0)])
+def test_quant_gemm_takes_the_golden_off_whole_16_byte_rows(weight_dtype, K, golden):
+    N = 128
+    ops = [MojoQuantGemm.get_backend_impl(t)(K, N, torch.bfloat16, True, weight_dtype=weight_dtype, device="cpu")
+           for t in ("cuda", "ref")]
+    rng = np.random.default_rng(K)
+    w = torch.from_numpy(rng.integers(-8, 8, (N, K)).astype(np.int8))
+    for op in ops:
+        op.weight.data.copy_(pack_int4_rows(w) if weight_dtype == "int4" else w)
+        op.weight_scale.data.copy_(torch.rand(N, generator=torch.Generator().manual_seed(1)))
+    x = torch.from_numpy(rng.integers(-128, 128, (5, K)).astype(np.int8))
+    xs = torch.rand(5, 1, generator=torch.Generator().manual_seed(2))
+    before = CudaQuantGemm.golden_calls
+    assert torch.equal(ops[0](x, xs), ops[1](x, xs))
+    assert CudaQuantGemm.golden_calls == before + golden
+
+
+def test_int4_gemm_past_max_k_takes_the_golden():
+    K, N = int4_matmul.MAX_K + 16, 128
+    op = MojoQuantGemm.get_backend_impl("cuda")(K, N, torch.float32, True, weight_dtype="int4", device="cpu")
+    before = CudaQuantGemm.golden_calls
+    out = op(torch.ones(1, K, dtype=torch.int8), torch.ones(1, 1))
+    assert CudaQuantGemm.golden_calls == before + 1 and out.shape == (1, N)
+
+
+@pytest.mark.parametrize("dtype, K, golden", [(torch.bfloat16, 36, 1), (torch.float16, 20, 1),
+                                              (torch.bfloat16, 40, 0), (torch.float32, 36, 0)])
+def test_group_gemm_takes_the_golden_off_whole_16_byte_rows(dtype, K, golden):
+    w = cpu(1, 3, K, 24).to(dtype)
+    x = cpu(2, 11, K).to(dtype)
+    sizes = torch.tensor([4, 0, 7], dtype=torch.int32)
+    before = CudaGroupGemm.golden_calls
+    check_tol_diff(CudaGroupGemm(w)(x, sizes), MojoGroupGemm.get_backend_impl("ref")(w)(x, sizes), **F32)
+    assert CudaGroupGemm.golden_calls == before + golden
+
+
+def test_experts_take_the_golden_off_whole_16_byte_rows():
+    ops = [MojoExperts.get_backend_impl(t)(4, 36, 24, device="cpu", dtype=torch.bfloat16) for t in ("cuda", "ref")]
+    for p, q in zip(ops[0].parameters(), ops[1].parameters()):
+        q.data.copy_(p.data)
+    x, counts = cpu(3, 9, 36).to(torch.bfloat16), torch.tensor([2, 0, 4, 3])
+    before = CudaExperts.golden_calls
+    assert torch.equal(ops[0](x, counts), ops[1](x, counts))
+    assert CudaExperts.golden_calls == before + 1

@@ -253,10 +253,10 @@ def test_flash_swa_wrappers_refuse_what_the_kernels_do_not_take():
     meta = lambda *shape, dtype=torch.bfloat16: torch.empty(shape, device="meta", dtype=dtype)  # noqa: E731
     cu = meta(3, dtype=torch.int32)
     q, k = meta(10, 8, 128), meta(10, 2, 128)
-    with pytest.raises(ValueError, match="head_dim"):
-        fs.flash_swa_fwd(meta(10, 8, 96), meta(10, 2, 96), meta(10, 2, 96), cu, cu)
-    with pytest.raises(ValueError, match="up to 64"):
-        fs.flash_swa_fwd(meta(10, 128, 64), meta(10, 1, 64), meta(10, 1, 64), cu, cu)
+    with pytest.raises(ValueError, match="head_dim"):  # 96 is taken, padded to 128; 72 is not a multiple of 16
+        fs.flash_swa_fwd(meta(10, 8, 72), meta(10, 2, 72), meta(10, 2, 72), cu, cu)
+    with pytest.raises(ValueError, match="up to 256"):  # any group is taken (128/1 in chunks of 64)
+        fs.flash_swa_fwd(meta(10, 8, 320), meta(10, 1, 320), meta(10, 1, 320), cu, cu)
     with pytest.raises(ValueError, match="multiple of Hkv"):
         fs.flash_swa_fwd(meta(10, 6, 64), meta(10, 4, 64), meta(10, 4, 64), cu, cu)
     with pytest.raises(TypeError, match="float32, float16 or bfloat16"):
