@@ -57,13 +57,21 @@ is non-zero:
      table padding, contexts off the block size, one page, H 4 and 16, a
      sink, fp16 decode and prefill, fp32, r 256, r 1024 on one ring stage,
      r 16 / dr 8), its fp32 output to the fp32 ladder, every case repeated
-     bit for bit (its split merge runs in a fixed order); A and B also
+     bit for bit (its split merge runs in a fixed order), each main case
+     timed beside SDPA as MQA over the gathered latent; A and B also
      run at DeepSeek's widths. Shapes the port once refused and JAX
      computes run through their ops against the golden op: C and C' at
      head_dim 96 (C in fp32 at 80), D and D' at 96, D at group 71/1, J at
      71/1 and at head_dim 96 and O at 96 (forward and backward), each
      launching its kernel; F and G at K 40 and H at K 36 take the golden
-     (golden_calls + 1, no launch). Kernel J's three entry points (forward, dq,
+     (golden_calls + 1, no launch). The same head_dims (96 and 80) and
+     groups over 64 also run among C's, D's, J's and O's own cases against
+     their plain versions, held as those kernels' other cases are (the
+     relative limits included), in bf16, fp16 and fp32; C and D, which run
+     them at a wider width in shared memory, store nothing past their
+     columns (a guard after the output stays untouched), and J's and O's
+     padding is inert (their outputs equal the first columns of a run on
+     inputs padded by hand, the other columns exactly 0). Kernel J's three entry points (forward, dq,
      dk/dv) run at the training shape (B 2 x S 2048, 32/8 heads, D 128,
      causal), varlen with both windows and a local one, suffix-q, a
      zero-length sequence and fully masked rows (their o, dq, dk, dv exactly
@@ -865,10 +873,12 @@ def phase_kernels(torch) -> dict:
 def _prefill_cases(torch, compare, gen, record) -> None:
     """D / D': prefill of the main path's batch (main, beside SDPA over the padded prompt rows); chunked, empty,
     short, ABAB, HND, D 64/128/256, block sizes 16 and 32 (below the 64-key tile), Seed-OSS-36B's group 10 (80/8,
-    which does not divide 64) and group 64; int8 pages. Every output to its dtype's ladder and, relative to its
-    size (whole tensor, worst (token, head) row), to PAGED_PREFILL_REL_LIMITS; every bf16/fp16 case of D and D'
-    repeats bit for bit over two runs."""
-    from mojo_opset_tpu_torch.backends.cuda.kernels import paged_prefill
+    which does not divide 64) and group 64; D 96 and 80 at the next instantiated width (bf16, fp32, fp16) and groups
+    71/1 and 130/1 in chunks of <= 64 heads (bf16, fp32, fp16), the widened head_dims then shown to store nothing
+    past their columns (``_stores_within``); int8 pages, at D 96 and group 71/1 too. Every output to its dtype's
+    ladder and, relative to its size (whole tensor, worst (token, head) row), to PAGED_PREFILL_REL_LIMITS; every
+    bf16/fp16 case of D and D' repeats bit for bit over two runs."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import paged_decode, paged_prefill
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -893,7 +903,13 @@ def _prefill_cases(torch, compare, gen, record) -> None:
              (f16, "HND", "ABAB", H, Hkv, 64, [90, 1, 33], [90, 70, 33], None, 32, False),
              (bf16, "NHD", "AABB", 80, 8, D, [300, 5], [300, 77], None, BLOCK_SIZE, False),
              (bf16, "HND", "ABAB", 80, 8, D, [61, 2], [100, 2], None, 16, False),
-             (f16, "NHD", "AABB", 64, 1, D, [20, 3], [20, 50], None, BLOCK_SIZE, False)]
+             (f16, "NHD", "AABB", 64, 1, D, [20, 3], [20, 50], None, BLOCK_SIZE, False),
+             # head_dims at the next instantiated width, groups over 64 in chunks of <= 64 heads
+             (bf16, "NHD", "AABB", 16, 2, 96, [200, 77, 1], [200, 77, 1], None, BLOCK_SIZE, False),
+             (f32, "HND", "ABAB", 16, 2, 96, [70, 3], [130, 3], None, BLOCK_SIZE, False),
+             (bf16, "NHD", "AABB", 71, 1, D, [200, 77, 1], [200, 77, 1], None, BLOCK_SIZE, False),
+             (f32, "NHD", "AABB", 71, 1, 64, [40, 3], [90, 3], None, BLOCK_SIZE, False),
+             (f16, "HND", "AABB", 130, 1, 80, [33, 5], [60, 5], None, 32, False)]
     for dtype, layout, gqa, hq, hkv, d, q_lens, kv_lens, scale, bs, main in cases:
         n_blocks, cols = pages(kv_lens, bs)
         kc, vc = _cache(torch, n_blocks, hkv, bs, d, layout, dtype, gen)
@@ -928,6 +944,8 @@ def _prefill_cases(torch, compare, gen, record) -> None:
                                       kc.element_size()), library=lib)
         if dtype != f32:
             _repeats(torch, label, run)
+        if d not in paged_decode.HEAD_DIMS:
+            _stores_within(torch, label, "mojo_paged_prefill", 8, run)
         del kc, vc
     int8_cases = [(bf16, "AABB", H, Hkv, D, list(PROMPT_LENS), list(PROMPT_LENS), BLOCK_SIZE, True),
                   (bf16, "ABAB", H, Hkv, D, [5, 0, 1, 40], [69, 0, 9, 40], BLOCK_SIZE, False),
@@ -935,7 +953,9 @@ def _prefill_cases(torch, compare, gen, record) -> None:
                   (f16, "AABB", 16, 1, 256, [33, 7], [33, 100], BLOCK_SIZE, False),
                   (f16, "ABAB", H, Hkv, D, [200, 37], [260, 37], 16, False),
                   (bf16, "AABB", 16, 2, 64, [129, 64], [129, 200], 32, False),
-                  (bf16, "AABB", 80, 8, D, [300, 5], [300, 77], BLOCK_SIZE, False)]
+                  (bf16, "AABB", 80, 8, D, [300, 5], [300, 77], BLOCK_SIZE, False),
+                  (bf16, "AABB", 16, 2, 96, [200, 77, 1], [200, 77, 1], BLOCK_SIZE, False),
+                  (f32, "ABAB", 71, 1, 96, [30, 2], [70, 2], 32, False)]
     for dtype, gqa, hq, hkv, d, q_lens, kv_lens, bs, main in int8_cases:
         n_blocks, cols = pages(kv_lens, bs)
         (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, bs, d, gen)
@@ -953,6 +973,8 @@ def _prefill_cases(torch, compare, gen, record) -> None:
                                       1))
         if dtype != f32:
             _repeats(torch, label, run)
+        if d not in paged_decode.HEAD_DIMS:
+            _stores_within(torch, label, "mojo_paged_prefill", 8, run)
         del kc, vc
     torch.cuda.empty_cache()
     log("kernel paged_prefill", "every bf16/fp16 D and D' case repeats bit for bit over two runs")
@@ -1044,10 +1066,62 @@ def _repeats(torch, name, fn) -> None:
         raise AssertionError(f"{name}: two runs on the same inputs differ")
 
 
+STORE_GUARD_BYTES = 4096
+
+
+def _stores_within(torch, name, entry, out_index, run) -> None:
+    """A kernel that runs a head_dim at a wider instantiated width (zeros past it in shared memory) stores none of
+    the columns past it: ``run()`` (one wrapper call) again, with entry point ``entry``'s output (its launch
+    argument ``out_index``) sent to a buffer of the output's bytes followed by STORE_GUARD_BYTES of 0xff. The guard
+    must stay 0xff (the last head's padded columns would land there) and the output equal the first call's bit for
+    bit (the other heads' padded columns would land on their neighbours')."""
+    from mojo_opset_tpu_torch.backends.cuda import build
+
+    want = run()
+    torch.cuda.synchronize()
+    nbytes = want.numel() * want.element_size()
+    buf = torch.full((nbytes + STORE_GUARD_BYTES,), 0xFF, dtype=torch.uint8, device="cuda")
+    real = build.launch
+
+    def launch(entry_name, device, *args):
+        if entry_name == entry:
+            args = (*args[:out_index], buf.data_ptr(), *args[out_index + 1:])
+        real(entry_name, device, *args)
+
+    build.launch = launch
+    try:
+        run()
+    finally:
+        build.launch = real
+    torch.cuda.synchronize()
+    if not bool((buf[nbytes:] == 0xFF).all()):
+        raise AssertionError(f"{name}: {entry} stored past its output's last column")
+    if not torch.equal(buf[:nbytes], want.contiguous().view(-1).view(torch.uint8)):
+        raise AssertionError(f"{name}: {entry} into a buffer of its own differs from the first call")
+    log(f"kernel {entry.removeprefix('mojo_')}", f"{name}: nothing stored past the output's {want.shape[-1]} "
+                                                  f"columns (a {STORE_GUARD_BYTES}-byte guard after it untouched)")
+
+
+def _padding_inert(torch, name, narrow_fn, wide_fn) -> None:
+    """A wrapper that zero-pads head_dim d to the next instantiated width: its outputs (``narrow_fn()``, a tuple of
+    head_dim tensors) equal bit for bit the first d columns of the same kernels run on inputs padded by hand at d's
+    scale (``wide_fn()``), whose columns past d are exactly 0: the padding adds nothing and never reaches the
+    output."""
+    for i, (n, w) in enumerate(zip(narrow_fn(), wide_fn())):
+        d = n.shape[-1]
+        if not torch.equal(w[..., :d], n):
+            raise AssertionError(f"{name}: output {i} differs from the hand-padded run's first {d} columns")
+        if bool(w[..., d:].any()):
+            raise AssertionError(f"{name}: output {i} has non-zero columns past head_dim {d} in the padded run")
+    log("kernel padding", f"{name}: every output equals the hand-padded run's first columns, the rest exactly 0")
+
+
 def _decode_cases(torch, compare, gen, record) -> None:
     """C / C': decode at the main path's lengths after prefill + decode (main, beside SDPA over the gathered pages),
-    edge cases, groups 20 (40/2: a partial 16-head chunk) and 32 (32/1), int8 pages; Qwen3-4B's geometry at bs 1, 8
-    and 24 at ctx 4000 beside SDPA; C and C' repeat bit for bit over two runs (the split merge runs in a fixed
+    edge cases, groups 20 (40/2: a partial 16-head chunk) and 32 (32/1), int8 pages; head_dims 96 and 80 (bf16,
+    fp32, fp16 at group 71/1, int8 pages at 96 in bf16 and fp32), run at the next instantiated width and held like
+    the others, then shown to store nothing past their columns (``_stores_within``); Qwen3-4B's geometry at bs 1,
+    8 and 24 at ctx 4000 beside SDPA; C and C' repeat bit for bit over two runs (the split merge runs in a fixed
     order)."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import paged_decode
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
@@ -1075,7 +1149,11 @@ def _decode_cases(torch, compare, gen, record) -> None:
              (torch.float16, "HND", "AABB", 16, 1, 256, [200, 3], None, False, None),
              (bf16, "NHD", "AABB", 40, 2, D, [1032, 0, 545, 39], None, False, None),
              (bf16, "HND", "ABAB", 40, 2, D, [700, 9, 64], None, False, None),
-             (bf16, "NHD", "AABB", 32, 1, D, dec_lens, None, False, None)]
+             (bf16, "NHD", "AABB", 32, 1, D, dec_lens, None, False, None),
+             # head_dims run at the next instantiated width (zeros past them in shared memory)
+             (bf16, "NHD", "AABB", 16, 2, 96, [300, 7, 0, 65], None, False, None),
+             (torch.float32, "HND", "ABAB", 8, 2, 80, [130, 1, 64], None, False, None),
+             (torch.float16, "NHD", "AABB", 71, 1, 96, [1000, 33], None, False, None)]
     # Qwen3-4B's geometry at the first benchmark's decode grid: bs 1, 8 and 24 at ctx 4000
     cases += [(bf16, "NHD", "AABB", H, Hkv, D, [4000] * bs, None, True, f"bs{bs}_ctx4000") for bs in DECODE_GRID_BS]
     for dtype, layout, gqa, hq, hkv, d, lens, scale, main, key in cases:
@@ -1094,13 +1172,17 @@ def _decode_cases(torch, compare, gen, record) -> None:
                 bound=attention_bound(torch, dtype, hq, hkv, d, len(lens), lens, sum(lens), kc.element_size()),
                 library=lib)
         _repeats(torch, f"decode {hq}/{hkv} lens={lens[:4]}", run)
+        if d not in paged_decode.HEAD_DIMS:
+            _stores_within(torch, f"decode {hq}/{hkv}x{d}", "mojo_paged_decode", 7, run)
         del kc, vc
     int8_cases = [(bf16, "AABB", H, Hkv, D, dec_lens, True),
                   (bf16, "ABAB", H, Hkv, D, [0, 1, 64, 65], False),
                   (torch.float32, "AABB", 8, 8, 64, [17, 0, 130], False),
                   (torch.float16, "ABAB", 16, 2, 256, [200, 3], False),
                   (bf16, "AABB", 40, 2, D, [1032, 0, 545, 39], False),
-                  (bf16, "ABAB", 32, 1, D, dec_lens, False)]
+                  (bf16, "ABAB", 32, 1, D, dec_lens, False),
+                  (bf16, "AABB", 16, 2, 96, [300, 7, 0, 65], False),
+                  (torch.float32, "ABAB", 8, 2, 96, [130, 1, 64], False)]
     for dtype, gqa, hq, hkv, d, lens, main in int8_cases:
         (kc, vc), (ks, vs) = _int8_cache(torch, n_blocks, hkv, BLOCK_SIZE, d, gen)
         bt = _tables(torch, lens, BLOCK_SIZE, 69, n_blocks, gen)
@@ -1112,6 +1194,8 @@ def _decode_cases(torch, compare, gen, record) -> None:
                 dtype, f"decode int8 pages HND {gqa} {hq}/{hkv}x{d} lens={lens}", main, key="int8_pages",
                 bound=attention_bound(torch, dtype, hq, hkv, d, len(lens), lens, sum(lens), 1))
         _repeats(torch, f"decode int8 pages {hq}/{hkv} lens={lens}", run)
+        if d not in paged_decode.HEAD_DIMS:
+            _stores_within(torch, f"decode int8 pages {hq}/{hkv}x{d}", "mojo_paged_decode", 7, run)
         del kc, vc
     torch.cuda.empty_cache()
     log("kernel paged_decode", "every C and C' case repeats bit for bit over two runs")
@@ -1174,7 +1258,8 @@ def _decode_window_cases(torch, compare, gen, record) -> None:
 def _mla_cases(torch, compare, gen) -> None:
     """I: absorbed MLA attention at DeepSeek-V3's widths (H 128, r 512, dr 64, block 64, bf16): decode at bs 4
     over the main path's first-step contexts (main) and at bs 1, prefill's row mode over the prompt batch, decode
-    at bs 1 over ctx 4096 and 32768 and at bs 24 over ctx 4000 (timed beside SDPA), then a zero-length sequence,
+    at bs 1 over ctx 4096 and 32768 and at bs 24 over ctx 4000 (each timed beside SDPA as MQA: the (row, head)
+    pairs as the query rows of the one latent head, no copy of it to the heads), then a zero-length sequence,
     -1 table padding, contexts off the block size, one page, H = 4 and 16, a sink, fp16 decode and prefill, fp32,
     r 256, r 1024 (one ring stage) and a tiny r 16 / dr 8 (a column block wider than r, K padded to 16). The
     output is fp32 in every case, computed in fp32 by both versions: the fp32 ladder. Every case repeats bit for
@@ -1211,7 +1296,7 @@ def _mla_cases(torch, compare, gen) -> None:
         if library:  # SDPA as MQA over the latent gathered beforehand (the page gather and query padding left out)
             B, S = len(lens), max(lens)
             dense = torch.cat([c, pe], -1)[table.clamp(min=0).long()][:, :, 0].reshape(B, -1, r + dr)
-            k = dense[:, None, :S].contiguous()
+            k = dense[:, None, :S].contiguous()  # (B, 1, S, r + dr): one kv head, never copied to the query heads
             v = dense[:, None, :S, :r].contiguous()
             # each sequence's query rows in order, padded to the most rows; a padding row sees one position
             row_seqs = list(range(B)) if rows is None else [s for s, _ in rows]
@@ -1220,17 +1305,20 @@ def _mla_cases(torch, compare, gen) -> None:
                 slots.append(taken.get(s, 0))
                 taken[s] = slots[-1] + 1
             at = (torch.tensor(row_seqs, device="cuda"), torch.tensor(slots, device="cuda"))
-            q = q_lat.new_zeros(B, max(slots) + 1, H, r + dr)
+            n_slots = max(slots) + 1
+            q = q_lat.new_zeros(B, n_slots, H, r + dr)
             q[at] = torch.cat([q_lat, q_pe], -1)
-            q = q.transpose(1, 2).contiguous()
-            row_limits = torch.ones(B, max(slots) + 1, dtype=torch.int32, device="cuda")
+            q = q.view(B, 1, n_slots * H, r + dr)  # every (row, head) a query row of the one head
+            row_limits = torch.ones(B, n_slots, dtype=torch.int32, device="cuda")
             row_limits[at] = limits
-            # (B, 1, rows, S): a position is seen below its row's causal-and-length limit
-            mask = (torch.arange(S, device="cuda") < row_limits[..., None])[:, None]
+            # (B, 1, rows x H, S): a position is seen below its row's causal-and-length limit, by each of its heads
+            mask = (torch.arange(S, device="cuda") < row_limits[..., None])[:, :, None].expand(B, n_slots, H, S)
+            mask = mask.reshape(B, 1, n_slots * H, S)
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, attn_mask=mask, scale=1.0, enable_gqa=True)
+                q, k, v, attn_mask=mask, scale=1.0)
             # the library call computes the same function: its rows against the plain version (output in dtype)
-            check_tol_diff(lib().transpose(1, 2)[at], mla_decode.mla_decode_absorbed_plain(*args), **tols_for(dtype))
+            check_tol_diff(lib().view(B, n_slots, H, r)[at], mla_decode.mla_decode_absorbed_plain(*args),
+                           **tols_for(dtype))
         run = lambda: mla_decode.mla_decode_absorbed(*args)  # noqa: E731
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         splits = 1 if dtype == torch.float32 else mla_decode.split_count(R, H, r, cols * bs, sms)
@@ -1250,9 +1338,8 @@ def _mla_cases(torch, compare, gen) -> None:
     mla_case(f"mla prefill rows over {list(PROMPT_LENS)} ({len(prompt_rows)} rows)", list(PROMPT_LENS),
              rows=prompt_rows, main=True, key="prefill_rows", library=True)
     for n, ctx in ((1, 4096), (1, 32768), (24, 4000)):
-        # SDPA's math route would expand the latent to every head: 14 GB at bs 24, so it is timed at bs 1 only
         mla_case(f"mla decode bs {n} H 128 ctx {ctx}", [ctx] * n, main=True, key=f"decode_bs{n}_ctx{ctx}",
-                 library=n == 1)
+                 library=True)
     mla_case("mla decode zero-length, one page, off the block size", [0, 1, 64, 65])
     mla_case("mla decode -1 table padding", [3, 130], cols=6)
     mla_case("mla decode H 4", [100, 7], H=4)
@@ -1447,8 +1534,9 @@ def _flash_swa_cases(torch, compare, gen) -> None:
     training shape (main: B 2 x S 2048, 32/8 heads, D 128, causal, one cu vector), then varlen with both windows
     and with a local one, suffix-q (cu_q != cu_k), a zero-length sequence and fully masked rows (their o and dq,
     and the dk and dv of keys no row sees, exactly 0), MHA, group 4 under ABAB, groups 8 and 7 (a ragged 63-row
-    tile), D 64 and 256, fp16 and fp32, dq, dk and dv bit for bit over two runs; and the Wan DiT's maskless
-    L = 1560 and its clip's L = 4400 through CudaSdpa against the golden SDPA. bf16/fp16/fp32 outputs to
+    tile), D 64 and 256, fp16 and fp32, D 96 and 80 and groups 71/1 and 65 (130/2) held the same way (the padded
+    head_dims then shown inert: ``_padding_inert``), dq, dk and dv bit for bit over two runs; and the Wan DiT's
+    maskless L = 1560 and its clip's L = 4400 through CudaSdpa against the golden SDPA. bf16/fp16/fp32 outputs to
     their ladder, lse and delta to the fp32 ladder."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
     from mojo_opset_tpu_torch.core.operators import MojoSdpa
@@ -1549,6 +1637,24 @@ def _flash_swa_cases(torch, compare, gen) -> None:
     case("group 7 ABAB", [250, 130], None, 14, 2, 128, f16, lws=64, layout="ABAB")
     case("D 64", [333, 100], None, 8, 2, 64, f16, lws=50)
     case("D 256", [130, 60], None, 4, 2, 256, bf16, causal=False)
+    # head_dims the wrappers pad to the next instantiated width; groups over 64 in chunks (a ragged 65 = 64 + 1)
+    case("D 96", [300, 77], None, 16, 4, 96, bf16)
+    case("D 96 fp32, local window", [130, 60], None, 8, 2, 96, f32, lws=40)
+    case("group 71/1", [256, 129], None, 71, 1, 128, bf16)
+    case("group 71/1 fp32, D 80", [100, 33], None, 71, 1, 80, f32)
+    case("group 65 fp16, D 64", [200, 3], None, 130, 2, 64, f16)
+    lens = [300, 77]
+    cu = _cu(torch, lens)
+    q, do = (torch.randn(sum(lens), 16, 96, device="cuda", generator=gen).to(bf16) for _ in range(2))
+    k, v = (torch.randn(sum(lens), 4, 96, device="cuda", generator=gen).to(bf16) for _ in range(2))
+
+    def j_outputs(q, k, v, do, scale):
+        o, lse = fs.flash_swa_fwd(q, k, v, cu, cu, scale=scale)
+        dq, delta = fs.flash_swa_dq(q, k, v, o, do, lse, cu, cu, scale=scale)
+        return (o, dq, *fs.flash_swa_dkv(q, k, v, do, lse, delta, cu, cu, scale=scale))
+
+    _padding_inert(torch, "J at D 96 (o, dq, dk, dv)", lambda: j_outputs(q, k, v, do, None),
+                   lambda: j_outputs(*fs.pad_head_dim(128, q, k, v, do), fs._scale(q, None)))
     empty = torch.empty(0, 8, 128, device="cuda", dtype=bf16)
     kv = torch.randn(10, 2, 128, device="cuda", generator=gen).to(bf16)
     before = fs.launches
@@ -1595,10 +1701,12 @@ def _flash_diffusion_cases(torch, compare, gen) -> None:
     Function's shape (main: B 2 x 16 heads x S 4096, D 128, block_diffusion_mask(4096, 64)) in bf16, fp16 and fp32
     (S 2048), SDAR-30B-A3B's GQA (32/4 heads, S 2048), a random mask with empty rows, a full (B, H, Sq, Sk) mask
     with Sq != Sk and empty rows NaN (CudaSdpa's semantics), odd S 1000 at D 64 and 256, and the Wan DiT's
-    key-padding mask (B 2, 24 heads, S 4400, lens 4400 and 880). Each output to its ladder and, relative to its
-    size, to FLASH_DIFFUSION_REL_LIMITS; an empty row's o is exactly 0 (or NaN) and its dq 0, a key no row keeps
+    key-padding mask (B 2, 24 heads, S 4400, lens 4400 and 880), D 96 (bf16, fp32) and 80 (fp16), whose padding
+    is then shown inert (``_padding_inert``). Each output to its ladder and, relative to its size, to
+    FLASH_DIFFUSION_REL_LIMITS; an empty row's o is exactly 0 (or NaN) and its dq 0, a key no row keeps
     gets dk = dv = 0, and dq, dk, dv repeat bit for bit."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import flash_diffusion as fd
+    from mojo_opset_tpu_torch.backends.cuda.kernels.flash_swa import pad_head_dim
     from mojo_opset_tpu_torch.experimental.functions import block_diffusion_mask
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
@@ -1700,6 +1808,21 @@ def _flash_diffusion_cases(torch, compare, gen) -> None:
     odd = block_diffusion_mask(1000, 37, device="cuda")
     case("odd S, D 64", 2, 4, 2, 1000, 1000, 64, f16, odd)
     case("odd S, D 256", 1, 4, 4, 1000, 1000, 256, bf16, odd)
+    # head_dims the wrappers pad to the next instantiated width
+    causal = torch.ones(200, 200, dtype=torch.bool, device="cuda").tril()
+    case("causal, D 96", 2, 8, 2, 200, 200, 96, bf16, causal)
+    case("odd S, D 96 fp32", 1, 4, 2, 333, 333, 96, f32, block_diffusion_mask(333, 37, device="cuda"))
+    case("D 80 fp16", 1, 4, 4, 300, 300, 80, f16, block_diffusion_mask(300, blk, device="cuda"))
+    q, do = (torch.randn(2, 8, 200, 96, device="cuda", generator=gen).to(bf16) for _ in range(2))
+    k, v = (torch.randn(2, 2, 200, 96, device="cuda", generator=gen).to(bf16) for _ in range(2))
+
+    def o_outputs(q, k, v, do, scale):
+        o, lse = fd.flash_diffusion_fwd(q, k, v, causal, scale)
+        dq, delta = fd.flash_diffusion_dq(q, k, v, o, do, lse, causal, scale)
+        return (o, dq, *fd.flash_diffusion_dkv(q, k, v, do, lse, delta, causal, scale))
+
+    _padding_inert(torch, "O at D 96 (o, dq, dk, dv)", lambda: o_outputs(q, k, v, do, None),
+                   lambda: o_outputs(*pad_head_dim(128, q, k, v, do), fd._scale(q, None)))
     lens = torch.tensor([4400, 880], device="cuda")
     pad = (torch.arange(4400, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
     case("Wan DiT key padding", 2, 24, 24, 4400, 4400, 128, bf16, pad, empty=float("nan"), main=True,

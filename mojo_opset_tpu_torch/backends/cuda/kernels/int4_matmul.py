@@ -13,7 +13,6 @@ block, with K split where the blocks leave most SMs idle.
 
 from __future__ import annotations
 
-import functools
 from collections import Counter
 from typing import NamedTuple
 
@@ -105,10 +104,8 @@ def decode_warps(N: int, K: int, splits: int, sms: int) -> int:
     return max(1, min(DECODE_MAX_WARPS, _cdiv(steps, DECODE_UNROLL), wave))
 
 
-@functools.lru_cache(maxsize=1024)
 def route(M: int, N: int, K: int, sms: int) -> Route:
-    """The kernel's route, from shapes alone; cached by shape, since a
-    decode step asks for the same few shapes on every call."""
+    """The kernel's route, from shapes alone."""
     if M <= DECODE_M:
         splits = decode_splits(M, N, K, sms)
         return Route(DECODE, splits, decode_warps(N, K, splits, sms))

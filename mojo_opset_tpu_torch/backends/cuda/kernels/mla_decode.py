@@ -11,11 +11,12 @@ launches (a split call's merge launch included in the one).
 
 bf16 and fp16 run tensor-core tiles of 64 heads of one row over a column
 block of the latent (``column_tile``), the row's positions in 32-position
-stages (``stages``: two where they fit in shared memory, else one), the KV
-walk split ``split_count`` ways, a number read from shapes alone, with a
-merge launch in split order when it is above 1. fp32 runs the scalar
-kernel (``FP32_MAX_LATENT``, ``FP32_MAX_WIDTH``). ``takes`` says which
-shapes the kernel takes; the ops send the others to the golden.
+stages (two where they fit in shared memory, else one: the kernel sizes
+its ring), the KV walk split ``split_count`` ways, a number read from
+shapes alone, with a merge launch in split order when it is above 1. fp32
+runs the scalar kernel (``FP32_MAX_LATENT``, ``FP32_MAX_WIDTH``).
+``takes`` says which shapes the kernel takes; the ops send the others to
+the golden.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ FP32_MAX_WIDTH = 576  # fp32 r + dr: one row of the scalar kernel's shared-memor
 ROWS = 64  # query rows of a tensor-core tile: 64 heads of one row
 KEYS = 32  # positions of a ring stage
 COLUMN_TILES = (512, 256, 128)  # latent columns of a block: 8 warps x 64, 32 or 16
-SMEM_LIMIT = 227 * 1024 - 1024  # dynamic shared memory a block may take (csrc kMaxSmemI)
+# the widest staged row (r + dr rounded up to 16, at least the column blocks' span) that one ring stage fits beside
+# the query tile in shared memory (csrc kMaxRowI)
+MAX_ROW = 1088
 # a split walks at least two stages of the table's width: the split sweep (benchmark/split_sweep.py mla) had 16
 # splits fastest at the smoke's bs-4 decode (0.0248 ms against 0.0319 at 9, a 4-stage floor's count) and 32-66 at
 # bs 1 over ctx 4096-32768, within 6% of the best there
@@ -48,33 +51,17 @@ def column_tile(r: int) -> int:
     return next((c for c in COLUMN_TILES if r % c == 0), COLUMN_TILES[-1])
 
 
-def row_pitch(r: int, dr: int) -> int:
-    """Elements of a staged query or position row: r + dr rounded up to the
-    16-deep k-chunk, at least the column blocks' span, plus 8 (bank spread)."""
-    tile = column_tile(r)
-    return max(-(-(r + dr) // 16) * 16, -(-r // tile) * tile) + 8
-
-
-def smem_bytes(r: int, dr: int, stages: int) -> int:
-    """Dynamic shared memory of a tensor-core block (csrc mma_smem_bytes)."""
-    tiles = (ROWS + stages * KEYS) * row_pitch(r, dr) * 2  # the query tile and the stages, 16-bit
-    return tiles + ROWS * (KEYS + 4) * 4 + 2 * ROWS * (KEYS + 8) * 2 + 3 * ROWS * 4  # scores, P hi + lo, row stats
-
-
-def stages(r: int, dr: int) -> int:
-    """Ring stages that fit beside the query tile: 2, 1, or 0 (the shape does not fit)."""
-    return next((n for n in (2, 1) if smem_bytes(r, dr, n) <= SMEM_LIMIT), 0)
-
-
 def takes(dtype: torch.dtype, r: int, dr: int) -> bool:
     """Whether the kernel takes latent width r and rope width dr in dtype:
-    whole 16-byte rows, and for 16-bit types a tile that fits in shared
-    memory, for fp32 the scalar kernel's widths."""
+    whole 16-byte rows, and for 16-bit types a staged row of at most
+    ``MAX_ROW`` elements, for fp32 the scalar kernel's widths."""
     if r <= 0 or dr <= 0:
         return False
     if dtype == torch.float32:
         return r % 4 == 0 and dr % 4 == 0 and r <= FP32_MAX_LATENT and r + dr <= FP32_MAX_WIDTH
-    return dtype in (torch.bfloat16, torch.float16) and r % 8 == 0 and dr % 8 == 0 and stages(r, dr) > 0
+    tile = column_tile(r)
+    row = max(-(-(r + dr) // 16) * 16, -(-r // tile) * tile)
+    return dtype in (torch.bfloat16, torch.float16) and r % 8 == 0 and dr % 8 == 0 and row <= MAX_ROW
 
 
 def split_count(rows: int, heads: int, r: int, table_keys: int, sms: int = build.H100_SMS) -> int:
@@ -173,7 +160,8 @@ def _mla_kernel(q_lat, q_pe, c_cache, pe_cache, row_lens, block_tables, row_seqs
                   f"{c_cache.dtype}, {pe_cache.dtype}")
     build.require(takes(q_lat.dtype, r, dr),
                   f"mla_decode: the kernel takes r and dr of whole 16-byte rows, in fp32 r <= {FP32_MAX_LATENT} and "
-                  f"r + dr <= {FP32_MAX_WIDTH}, in bf16/fp16 a tile within {SMEM_LIMIT} bytes of shared memory; "
+                  f"r + dr <= {FP32_MAX_WIDTH}, in bf16/fp16 a staged row of at most {MAX_ROW} elements (the query tile "
+                  f"and one stage in shared memory); "
                   f"got r = {r}, dr = {dr} in {q_lat.dtype}")
     build.require_device(q_lat.device, q_pe, c_cache, pe_cache, row_lens, block_tables)
     for name, t in (("q_lat", q_lat), ("q_pe", q_pe), ("c_cache", c_cache), ("pe_cache", pe_cache)):
@@ -207,7 +195,7 @@ def _mla_kernel(q_lat, q_pe, c_cache, pe_cache, row_lens, block_tables, row_seqs
         q_lat.data_ptr(), q_pe.data_ptr(), c_cache.data_ptr(), pe_cache.data_ptr(), row_lens.data_ptr(),
         None if row_seqs is None else row_seqs.data_ptr(), block_tables.data_ptr(),
         None if sink is None else sink.data_ptr(), out.data_ptr(), None if partial is None else partial.data_ptr(),
-        R, H, r, dr, bs, block_tables.shape[1], column_tile(r), 0 if fp32 else stages(r, dr), splits, code,
+        R, H, r, dr, bs, block_tables.shape[1], column_tile(r), splits, code,
     )
     launches += 1
     return out

@@ -1,5 +1,6 @@
 """Kernels D (paged prefill), H (grouped GEMM), F (int8 GEMM), A (RMSNorm), P (residual add + RMSNorm), G
-(packed-int4 GEMM) and L (SiLU) of one tree, for comparing two trees on one card.
+(packed-int4 GEMM), L (SiLU), I (absorbed MLA) and the dk/dv entry points of J and O of one tree, for comparing
+two trees on one card.
 
 The kernels come from the ``mojo_opset_tpu_torch`` package that ``sys.path``
 finds first: this tree's, or another commit's (``git archive`` unpacked in
@@ -32,6 +33,13 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   a CUDA graph, and from one profiled call the device ms of each CUDA
   kernel it launched (the tile kernel, the split merge), with the output's
   digest.
+- ``dkv TAG``: J's dk/dv at the training shape (B 2 x S 2048, 32/8 heads,
+  D 128, causal) in bf16 and fp16 and at group 65 (130/2 heads, D 64,
+  sequences of 200 and 3) in fp16, and O's at the diffusion Function's
+  shape (B 2, 16 heads, S 4096, D 128, block_diffusion_mask(4096, 64)) in
+  bf16 and fp16: device ms from a CUDA graph and each output's error
+  relative to its size against the plain version (whole tensor), fed the
+  plain forward's lse and delta.
 - ``paths TAG``: this tree's phases 6 (Qwen3-4B w8a8 + C8) and 11
   (Seed-OSS-36B cut to 32 layers, bf16 and w8a8) on the tree's kernels,
   each printing its prefill and decode times and one profiled prefill
@@ -214,6 +222,38 @@ def mla(s, tag: str, cases: int = 6) -> None:
                                    for k, v in digests.items()), flush=True)
 
 
+def dkv(s, tag: str) -> None:
+    from mojo_opset_tpu_torch.backends.cuda.kernels import flash_diffusion as fd
+    from mojo_opset_tpu_torch.backends.cuda.kernels import flash_swa as fs
+    from mojo_opset_tpu_torch.experimental.functions import block_diffusion_mask
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, f16, out = torch.bfloat16, torch.float16, {}
+    for name, lens, hq, hkv, d, dtype in (("J_train_bf16", [2048, 2048], 32, 8, 128, bf16),
+                                          ("J_train_fp16", [2048, 2048], 32, 8, 128, f16),
+                                          ("J_group65_fp16", [200, 3], 130, 2, 64, f16)):
+        cu = s._cu(torch, lens)
+        q, do = (torch.randn(sum(lens), hq, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        k, v = (torch.randn(sum(lens), hkv, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+        o, lse = fs.flash_swa_fwd_plain(q, k, v, cu, cu)
+        _, delta = fs.flash_swa_dq_plain(q, k, v, o, do, lse, cu, cu)
+        want = fs.flash_swa_dkv_plain(q, k, v, do, lse, delta, cu, cu)
+        run = lambda: fs.flash_swa_dkv(q, k, v, do, lse, delta, cu, cu)  # noqa: E731
+        out[f"{name}_ms"] = s.graph_ms(torch, run)
+        out[f"{name}_rel_dk"], out[f"{name}_rel_dv"] = (s.rel_errors(g, w)[0] for g, w in zip(run(), want))
+    mask = block_diffusion_mask(s.DIFFUSION_S, s.DIFFUSION_BLOCK, device="cuda")
+    for name, dtype in (("O_function_bf16", bf16), ("O_function_fp16", f16)):
+        shape = (s.DIFFUSION_B, s.DIFFUSION_H, s.DIFFUSION_S, s.DIFFUSION_D)
+        q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+        o, lse = fd.flash_diffusion_fwd_plain(q, k, v, mask)
+        _, delta = fd.flash_diffusion_dq_plain(q, k, v, o, do, lse, mask)
+        want = fd.flash_diffusion_dkv_plain(q, k, v, do, lse, delta, mask)
+        run = lambda: fd.flash_diffusion_dkv(q, k, v, do, lse, delta, mask)  # noqa: E731
+        out[f"{name}_ms"] = s.graph_ms(torch, run)
+        out[f"{name}_rel_dk"], out[f"{name}_rel_dv"] = (s.rel_errors(g, w)[0] for g, w in zip(run(), want))
+    print(tag, " ".join(f"{k} {v:.6g}" for k, v in out.items()), flush=True)
+
+
 def paths(s, card: str, tag: str) -> None:
     print(f"{tag}: phases 6, 7 and 11", flush=True)
     s.phase_int8_full_width(torch, card)
@@ -233,10 +273,12 @@ def main() -> int:
         host(s, card, sys.argv[2])
     elif sys.argv[1:2] == ["mla"] and len(sys.argv) == 3:
         mla(s, sys.argv[2])
+    elif sys.argv[1:2] == ["dkv"] and len(sys.argv) == 3:
+        dkv(s, sys.argv[2])
     elif sys.argv[1:2] == ["paths"] and len(sys.argv) == 3:
         paths(s, card, sys.argv[2])
     else:
-        raise SystemExit("usage: kernel_ab.py readings | times TAG | host TAG | mla TAG | paths TAG")
+        raise SystemExit("usage: kernel_ab.py readings | times TAG | host TAG | mla TAG | dkv TAG | paths TAG")
     return 0
 
 

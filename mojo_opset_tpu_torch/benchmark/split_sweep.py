@@ -25,11 +25,13 @@ sweeps kernel L's 16-byte vectors a thread and threads a block
 (``silu_vjp.UNROLL``, ``THREADS``) at the train step's (4096, 9728) bf16
 activation, forward and backward, beside ``F.silu`` and
 ``aten.silu_backward``, every launch shape equal bit for bit. ``mla``
-sweeps kernel I's split count (``mla_decode.split_count``) at
-DeepSeek-V3's widths (H 128, r 512, dr 64, bf16, pages of 64): the smoke's
-decode at bs 4 and bs 1 (contexts 1001, 514, 131, 8), bs 1 at ctx 4096
-and 32768, bs 24 at ctx 4000; every count held to the plain version on
-the fp32 ladder.
+sweeps kernel I's column tile and split count (``mla_decode.column_tile``,
+``mla_decode.split_count``) at DeepSeek-V3's widths (H 128, r 512, dr 64,
+bf16, pages of 64): the smoke's decode at bs 4 and bs 1 (contexts 1001,
+514, 131, 8), bs 1 at ctx 4096 and 32768, bs 24 at ctx 4000; a narrower
+column tile gives more blocks a row, so fewer splits fill the card, at
+the cost of reading the latent once for each column block. Every plan is
+held to the plain version on the fp32 ladder.
 
 Run on a machine with a GPU and nvcc::
 
@@ -286,7 +288,8 @@ MLA_CASES = (("bs4", [1001, 514, 131, 8]), ("bs1", [1001]), ("bs1_ctx4096", [409
 
 
 def mla_case(lens, gen) -> dict:
-    """Kernel I through its wrapper with ``split_count`` forced to each count."""
+    """Kernel I through its wrapper with ``column_tile`` and ``split_count`` forced to each plan, keyed
+    ``tile/splits``."""
     dev, bf16, r, dr, H = torch.device("cuda"), torch.bfloat16, 512, 64, 128
     cols = max(17, -(-max(lens) // PAGE))
     n_pages = max(4 * 17 + 4, sum(-(-n // PAGE) for n in lens) + 4)
@@ -304,17 +307,21 @@ def mla_case(lens, gen) -> dict:
     q_pe = (torch.randn(len(lens), H, dr, device=dev, generator=gen) * 0.05).to(bf16)
     want = mla_decode.mla_decode_absorbed_plain(q_lat, q_pe, c, pe, limits, table)
     policy = mla_decode.split_count(len(lens), H, r, cols * PAGE, build.sm_count(dev))
-    result, forced = {"policy": policy, "ms": {}}, mla_decode.split_count
+    result = {"policy": f"{mla_decode.column_tile(r)}/{policy}", "ms": {}}
+    forced = mla_decode.column_tile, mla_decode.split_count
     try:
-        for splits in sorted({1, 2, 4, 8, 16, 32, 66, 132, policy}):
-            if splits > mla_decode.MAX_SPLITS:
-                continue
-            mla_decode.split_count = lambda *_, n=splits: n
-            run = lambda: mla_decode.mla_decode_absorbed(q_lat, q_pe, c, pe, limits, table)  # noqa: E731
-            check_tol_diff(run(), want, **tols_for(torch.float32))
-            result["ms"][splits] = graph_ms(run)
+        for tile in mla_decode.COLUMN_TILES:
+            for splits in sorted({1, 2, 4, 8, 16, 32, 66, 132, policy}):
+                if splits > mla_decode.MAX_SPLITS:
+                    continue
+                mla_decode.column_tile = lambda *_, n=tile: n
+                mla_decode.split_count = lambda *_, n=splits: n
+                run = lambda: mla_decode.mla_decode_absorbed(q_lat, q_pe, c, pe, limits, table)  # noqa: E731
+                check_tol_diff(run(), want, **tols_for(torch.float32))
+                result["ms"][f"{tile}/{splits}"] = graph_ms(run)
     finally:
-        mla_decode.split_count = forced
+        mla_decode.column_tile, mla_decode.split_count = forced
+    result["best"] = min(result["ms"], key=result["ms"].get)
     return result
 
 

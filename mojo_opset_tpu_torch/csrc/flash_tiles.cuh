@@ -355,6 +355,44 @@ __device__ __forceinline__ void mma_xv_split(float (&c)[NT][4], const float (&x)
   }
 }
 
+// c += X V as mma_xv_split, but each pair of column tiles sums this call's
+// share from zero in the tensor cores and adds it to c in fp32 (round to
+// nearest). dk and dv walk every query tile of a kv head's group into one
+// accumulator, hundreds of calls: added straight into it, each mma.sync's
+// truncating accumulate biases the long sum. fp16's 11-bit output shows
+// it (on an H100, dk 1.4e-4 off the fp32 plain version, relative, at the
+// training shape; 1.7e-4 at 65 heads x 200 queries), bf16's 8 bits hide
+// it, and the fp32 adds cost ~19% of dk/dv's time at the training shape:
+// dkv_tile takes this for fp16 only.
+template <typename T, int P, int K, int NT>
+__device__ __forceinline__ void mma_xv_split_add(float (&c)[NT][4], const float (&x)[K / 8][4], const T* vs,
+                                                 int n0) {
+  unsigned hi[K / 16][4], lo[K / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < K / 16; ++kc) {
+    split_pair<T>(x[2 * kc][0], x[2 * kc][1], hi[kc][0], lo[kc][0]);
+    split_pair<T>(x[2 * kc][2], x[2 * kc][3], hi[kc][1], lo[kc][1]);
+    split_pair<T>(x[2 * kc + 1][0], x[2 * kc + 1][1], hi[kc][2], lo[kc][2]);
+    split_pair<T>(x[2 * kc + 1][2], x[2 * kc + 1][3], hi[kc][3], lo[kc][3]);
+  }
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    float t[2][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < K / 16; ++kc) {
+      unsigned b[4];
+      frag_b_kn<P>(b, vs, kc * 16, n0 + np * 16);
+      mma_pair<T>(t[0], t[1], hi[kc], b);
+      mma_pair<T>(t[0], t[1], lo[kc], b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      c[2 * np][e] += t[0][e];
+      c[2 * np + 1][e] += t[1][e];
+    }
+  }
+}
+
 template <int N>
 __device__ __forceinline__ void zero_frags(float (&c)[N][4]) {
 #pragma unroll
@@ -477,7 +515,8 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], FQ&& fq, FDO&& f
 // kMmaQ query rows (qs, dos; lse2 = lse log2(e) and delta by query row):
 // S^T = K Q^T, dP^T = V dO^T, P^T = exp(S^T scale - lse) on the kept cells
 // (keep(h, query row)), dS^T = P^T (dP^T - delta); dV += P^T dO and
-// dK += dS^T Q on D's columns d0 .. d0 + DH - 1, P^T and dS^T split.
+// dK += dS^T Q on D's columns d0 .. d0 + DH - 1, P^T and dS^T split; in
+// fp16 each tile's share added in fp32 (mma_xv_split_add).
 template <typename T, int D, int DH, class Keep>
 __device__ __forceinline__ void dkv_tile(float (&dk)[DH / 8][4], float (&dv)[DH / 8][4], const T* ks, const T* vs,
                                          int kr0, const T* qs, const T* dos, const float* lse2, const float* delta,
@@ -499,8 +538,13 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[DH / 8][4], float (&dv)[DH 
       s[n][e] = p;
       dp[n][e] = kept ? p * (dp[n][e] - delta[c]) : 0.f;
     }
-  mma_xv_split<T, P, kMmaQ, DH / 8>(dv, s, dos, d0);
-  mma_xv_split<T, P, kMmaQ, DH / 8>(dk, dp, qs, d0);
+  if constexpr (std::is_same_v<T, __half>) {
+    mma_xv_split_add<T, P, kMmaQ, DH / 8>(dv, s, dos, d0);
+    mma_xv_split_add<T, P, kMmaQ, DH / 8>(dk, dp, qs, d0);
+  } else {
+    mma_xv_split<T, P, kMmaQ, DH / 8>(dv, s, dos, d0);
+    mma_xv_split<T, P, kMmaQ, DH / 8>(dk, dp, qs, d0);
+  }
 }
 
 }  // namespace mojo_flash

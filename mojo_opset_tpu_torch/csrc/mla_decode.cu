@@ -56,7 +56,9 @@
 // block. Rows go out last first: in a packed prefill batch the last
 // rows of a sequence walk the longest prefixes, so they start first.
 // Any r and dr that are whole 16-byte rows, while the tile and one stage
-// fit in shared memory (r + dr up to ~1090 at one stage).
+// fit in shared memory: a staged row (r + dr rounded up to 16, at least
+// the column blocks' span) of at most kMaxRowI elements. The entry point
+// sizes the ring from r and dr: two stages where they fit, else one.
 //
 // fp32 (mla_fma_kernel): scalar FMAs, the tensor cores having no exact
 // fp32 product. One block per (query row, group of 16 heads): the block
@@ -289,6 +291,12 @@ struct MlaArgs {
 __host__ __device__ constexpr int mma_smem_bytes(int kp, int stages) {
   return (kRowsI + stages * kKeysI) * kp * 2 + kRowsI * kSP * 4 + 2 * kRowsI * kPP * 2 + 3 * kRowsI * 4;
 }
+
+// the widest staged row one stage fits beside the query tile (the wrapper's
+// takes, backends/cuda/kernels/mla_decode.py MAX_ROW, reads the same number)
+constexpr int kMaxRowI = 1088;
+static_assert(mma_smem_bytes(kMaxRowI + 8, 1) <= kMaxSmemI && mma_smem_bytes(kMaxRowI + 16 + 8, 1) > kMaxSmemI,
+              "kMaxRowI is the widest 16-element row that one stage fits");
 
 // flash_tiles.cuh's fragments at a pitch known only at run time (r and dr are the caller's)
 template <typename T>
@@ -639,15 +647,15 @@ int launch_mma(const MlaArgs& a, int col_tile, cudaStream_t s) {
 // and pe_cache (N, 1, bs, dr); all contiguous in `dtype`, 16-byte aligned,
 // r and dr whole 16-byte rows. row_lens (R,), row_seqs (R,) or null,
 // block_tables (B, max_blocks) int32; sink (H,) fp32 or null; out (R, H, r)
-// fp32. bf16 / fp16: col_tile 512, 256 or 128 latent columns a block,
-// `stages` 1 or 2 (the wrapper sizes both, backends/cuda/kernels/
-// mla_decode.py), 1 <= splits <= 256, with splits > 1 `partial` holds
-// R * H * splits * (r + 2) fp32 of scratch (acc rows, then (m, l) pairs). fp32: r <= 512, r + dr <= 576,
-// one split.
+// fp32. bf16 / fp16: col_tile 512, 256 or 128 latent columns a block (the
+// wrapper's column_tile, from r), a staged row of at most kMaxRowI
+// elements, 1 <= splits <= 256, with splits > 1 `partial` holds
+// R * H * splits * (r + 2) fp32 of scratch (acc rows, then (m, l) pairs).
+// fp32: r <= 512, r + dr <= 576, one split.
 extern "C" int mojo_mla_decode(const void* q_lat, const void* q_pe, const void* c_cache, const void* pe_cache,
                                const void* row_lens, const void* row_seqs, const void* block_tables,
                                const void* sink, void* out, void* partial, int R, int H, int r, int dr,
-                               int block_size, int max_blocks, int col_tile, int stages, int splits, int dtype,
+                               int block_size, int max_blocks, int col_tile, int splits, int dtype,
                                void* stream) {
   if (R <= 0 || H <= 0) return static_cast<int>(cudaSuccess);
   if (r <= 0 || dr <= 0 || block_size <= 0 || splits < 1 || splits > kMaxSplitsI ||
@@ -665,13 +673,13 @@ extern "C" int mojo_mla_decode(const void* q_lat, const void* q_pe, const void* 
                       static_cast<const float*>(c_cache), static_cast<const float*>(pe_cache), lens, seqs, bt, sk, o,
                       R, H, r, dr, block_size, max_blocks, s);
   }
-  if (r % 8 != 0 || dr % 8 != 0 || (stages != 1 && stages != 2) || col_tile <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (r % 8 != 0 || dr % 8 != 0 || col_tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int col_blocks = (r + col_tile - 1) / col_tile;
   const int k16 = (r + dr + 15) / 16 * 16;
-  const int kp = (k16 > col_blocks * col_tile ? k16 : col_blocks * col_tile) + 8;
-  if (mma_smem_bytes(kp, stages) > kMaxSmemI) return static_cast<int>(cudaErrorInvalidValue);
+  const int row = k16 > col_blocks * col_tile ? k16 : col_blocks * col_tile;
+  if (row > kMaxRowI) return static_cast<int>(cudaErrorInvalidValue);
+  const int kp = row + 8;  // 8 more elements spread ldmatrix rows over the banks
+  const int stages = mma_smem_bytes(kp, 2) <= kMaxSmemI ? 2 : 1;
   const MlaArgs a{q_lat, q_pe, c_cache, pe_cache, lens, seqs, bt, sk, o, static_cast<float*>(partial),
                   R, H, r, dr, block_size, max_blocks, kp, (H + kRowsI - 1) / kRowsI, col_blocks, splits, stages};
   if (dtype == kMojoBF16) return launch_mma<__nv_bfloat16>(a, col_tile, s);

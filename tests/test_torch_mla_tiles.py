@@ -17,6 +17,8 @@ a single bf16 rounding of P is shown to miss a tighter bound the split
 keeps. The split count and the tile's sizes come from shapes only.
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -174,14 +176,27 @@ def test_split_count_reads_shapes_only():
     assert sc(1, 16, 512, 64) == 1
 
 
-@pytest.mark.parametrize("r, dr, tile, pitch, stages", [(512, 64, 512, 584, 2), (256, 64, 256, 328, 2),
-                                                        (1024, 64, 512, 1096, 1), (16, 8, 128, 136, 2),
-                                                        (640, 64, 128, 712, 2), (1024, 128, 512, 1160, 0)])
-def test_tile_sizes_come_from_the_widths(r, dr, tile, pitch, stages):
-    assert (mla_decode.column_tile(r), mla_decode.row_pitch(r, dr), mla_decode.stages(r, dr)) == (tile, pitch, stages)
-    assert mla_decode.takes(torch.bfloat16, r, dr) == (stages > 0)
-    if stages:
-        assert mla_decode.smem_bytes(r, dr, stages) <= mla_decode.SMEM_LIMIT
+@pytest.mark.parametrize("r, dr, tile, row", [(512, 64, 512, 576), (256, 64, 256, 320), (1024, 64, 512, 1088),
+                                               (16, 8, 128, 128), (640, 64, 128, 704), (1024, 128, 512, 1152),
+                                               (1000, 64, 128, 1072), (1032, 8, 128, 1152)])
+def test_tile_sizes_come_from_the_widths(r, dr, tile, row):
+    """The column tile, and the staged row (r + dr to 16, at least the column blocks' span) against MAX_ROW."""
+    assert mla_decode.column_tile(r) == tile
+    assert max(-(-(r + dr) // 16) * 16, -(-r // tile) * tile) == row
+    assert mla_decode.takes(torch.bfloat16, r, dr) == (row <= mla_decode.MAX_ROW)
+    assert mla_decode.takes(torch.float16, r, dr) == mla_decode.takes(torch.bfloat16, r, dr)
+
+
+def test_max_row_is_the_widest_that_one_stage_fits():
+    """MAX_ROW mirrors the kernel's kMaxRowI: the query tile and one 32-position stage at a pitch of row + 8, with
+    the scores, P's hi and lo and the row stats, within 227 KB less 1 KB; 16 more elements do not fit."""
+    def smem(row):
+        rows, keys, pitch = mla_decode.ROWS, mla_decode.KEYS, row + 8
+        return (rows + keys) * pitch * 2 + rows * (keys + 4) * 4 + 2 * rows * (keys + 8) * 2 + 3 * rows * 4
+    limit = 227 * 1024 - 1024
+    assert smem(mla_decode.MAX_ROW) <= limit < smem(mla_decode.MAX_ROW + 16)
+    src = (pathlib.Path(mla_decode.__file__).parents[3] / "csrc" / "mla_decode.cu").read_text()
+    assert f"constexpr int kMaxRowI = {mla_decode.MAX_ROW};" in src
 
 
 @pytest.mark.parametrize("r", [256, 512, 1024])
