@@ -19,7 +19,14 @@ is non-zero:
      F.rms_norm, every case repeated bit for bit;
      RMSNorm + quant (E) holds its scales to rtol 1e-6 and its int8 values
      to one step on at most 0.1% of them (a sum in another order can move
-     a tie); the int8 GEMM (F) and the packed-int4 GEMM (G) equal their
+     a tie), at the prefill batch, decode rows (T 1, 4, 8 with a zero row)
+     and Seed-OSS-36B's width on its register route (timed) and on its
+     generic kernel (fp32 at 5120, odd widths), every case repeated bit for
+     bit; token-first RoPE (B) at the prefill batch and decode rows (T 1
+     and 4) at Qwen3-4B's and Seed-OSS-36B's heads and DeepSeek-V3's rope
+     lanes on its vector route (timed), and on its generic route (D 96, an
+     unaligned view, whose outputs equal the vector route's bit for bit),
+     every case repeated bit for bit; the int8 GEMM (F) and the packed-int4 GEMM (G) equal their
      plain versions exactly with unit scales and fp32 output (the int32
      sums). F runs at Qwen3-4B's and Seed-OSS-36B's projections at M = T
      (its wgmma route, timed beside torch._int_mm) and M = 8 (its decode
@@ -719,27 +726,44 @@ def phase_kernels(torch) -> dict:
                 library=lambda: torch.nn.functional.rms_norm(x, (shape[-1],), w_lib, 1e-6))
         _repeats(torch, label, run)
     log("kernel norms", "every A case repeats bit for bit over two runs")
-    # B: RoPE token-first on the prefill batch's q and k (main), odd T; DeepSeek-V3's rope lanes: q (T, 128, 64)
-    # with one shared k head
-    for n, hq, hk, d, dtype, main in ((T, H, Hkv, D, bf16, True), (7, H, Hkv, D, torch.float32, False),
-                                      (1, H, Hkv, D, torch.float16, False), (T, 128, 1, 64, bf16, False),
-                                      (4, 128, 1, 64, bf16, False)):
-        q = torch.randn(n, hq, d, device="cuda", generator=gen).to(dtype)
+    # B: RoPE token-first on the prefill batch's q and k (main) and at Seed-OSS-36B's 80/8 heads; decode rows (T 4
+    # and 1) at Qwen3-4B's 32/8 and T 4 at Seed-OSS-36B's 80/8; DeepSeek-V3's rope lanes, q (T, 128, 64) with one
+    # shared k head (all timed, on the vector route); odd T in fp32 and fp16; the generic route at D 96 and on an
+    # unaligned view, whose outputs equal the vector route's on the same values bit for bit. Every case repeats bit
+    # for bit
+    f16, f32 = torch.float16, torch.float32
+    for n, hq, hk, d, dtype, key, offset in ((T, H, Hkv, D, bf16, "main", 0), (T, 80, 8, D, bf16, f"t{T}_80x8", 0),
+                                             (4, H, Hkv, D, bf16, "t4_32x8", 0), (1, H, Hkv, D, bf16, "t1_32x8", 0),
+                                             (4, 80, 8, D, bf16, "t4_80x8", 0),
+                                             (4, 128, 1, 64, bf16, "t4_128x1_d64", 0),
+                                             (T, 128, 1, 64, bf16, None, 0), (7, H, Hkv, D, f32, None, 0),
+                                             (1, H, Hkv, D, f16, None, 0), (3, 8, 2, 64, f32, None, 0),
+                                             (5, 4, 2, 96, bf16, None, 0), (3, H, Hkv, D, bf16, None, 1)):
+        q = torch.randn(n * hq * d + offset, device="cuda", generator=gen).to(dtype)[offset:].view(n, hq, d)
         k = torch.randn(n, hk, d, device="cuda", generator=gen).to(dtype)
         pos = torch.arange(n, device="cuda", dtype=torch.float32)[:, None]
         ang = pos * (1.0 / 10000 ** (torch.arange(0, d, 2, device="cuda") / d))
         cos, sin = torch.cat([ang, ang], -1).cos().to(dtype), torch.cat([ang, ang], -1).sin().to(dtype)
         elems = n * (hq + hk) * d
-        compare("rope", lambda: rope.rope_token_first(q, k, cos, sin),
-                lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, f"rope T={n} q {hq}x{d} k {hk}x{d}", main,
+        run = lambda: rope.rope_token_first(q, k, cos, sin)  # noqa: E731
+        label = f"rope T={n} q {hq}x{d} k {hk}x{d} {rope.route(q, k, cos, sin)}{' (unaligned q)' if offset else ''}"
+        compare("rope", run, lambda: rope.rope_token_first_plain(q, k, cos, sin), dtype, label, key is not None,
+                key=None if key == "main" else key,
                 bound=((2 * elems + 2 * n * d) * q.element_size(), 3 * elems, "fp32"))
+        for i in range(2):
+            _repeats(torch, f"{label} output {i}", lambda i=i: run()[i])
+        if rope.route(q, k, cos, sin) == "generic" and d in rope.VECTOR_WIDTHS:
+            q_aligned = q.clone()
+            assert rope.route(q_aligned, k, cos, sin) == "vector"
+            if not all(map(torch.equal, run(), rope.rope_token_first(q_aligned, k, cos, sin))):
+                raise AssertionError(f"{label}: the generic route's outputs differ from the vector route's")
+    log("kernel rope", "every B case repeats bit for bit; the generic route equals the vector route bit for bit")
 
     _decode_cases(torch, compare, gen, record)
     _decode_window_cases(torch, compare, gen, record)
     _prefill_cases(torch, compare, gen, record)
 
-    # E: RMSNorm + int8 quant — the layer norms at the prefill batch (main) and a decode batch, odd
-    # widths in f32/f16, a zero row, a smooth scale
+    # E: RMSNorm + int8 quant, each case held by check_quant:
     def check_quant(got, want):
         (q_k, s_k), (q_p, s_p) = got, want
         check_tol_diff(s_k, s_p, atol=0.0, rtol=1e-6)
@@ -749,21 +773,36 @@ def phase_kernels(torch) -> dict:
             raise AssertionError(f"rmsnorm_quant: {moved} int8 values moved, max step {diff.max().item()}")
         return f"scale rtol 1e-6, q +-1 on {moved}/{diff.numel()} <= 0.1%"
 
-    for shape, dtype, zero_row, smooth, main in (((T, hidden), bf16, False, False, True),
-                                                 ((8, hidden), bf16, True, False, False),
-                                                 ((5, 33), torch.float32, False, True, False),
-                                                 ((3, 300), torch.float16, True, True, False),
-                                                 ((6, 2560), torch.float32, False, True, False)):
+    # the layer norms at the prefill batch (main), decode rows (T 4, 1, 8 with a zero row) and Seed-OSS-36B's width
+    # (all timed, on the register route); a smooth scale on both routes, odd widths in fp32 and fp16, fp32 at 5120
+    # (generic). Every case repeats bit for bit
+    for shape, dtype, zero_row, smooth, key in (((T, hidden), bf16, False, False, "main"),
+                                                ((4, hidden), bf16, False, False, f"4x{hidden}"),
+                                                ((1, hidden), bf16, False, False, f"1x{hidden}"),
+                                                ((8, hidden), bf16, True, False, f"8x{hidden}"),
+                                                ((4, 5120), bf16, False, False, "4x5120"),
+                                                ((T, 5120), bf16, False, False, f"{T}x5120"),
+                                                ((9, hidden), bf16, True, True, None),
+                                                ((5, 33), torch.float32, False, True, None),
+                                                ((3, 300), torch.float16, True, True, None),
+                                                ((6, 2560), torch.float32, False, True, None),
+                                                ((6, 5120), torch.float32, True, True, None)):
         x = torch.randn(shape, device="cuda", generator=gen).to(dtype)
         if zero_row:
             x[1] = 0
         w = torch.rand(shape[-1], device="cuda", generator=gen) + 0.5
         sm = torch.rand(shape[-1], device="cuda", generator=gen) + 0.5 if smooth else None
         rows = x.numel() // shape[-1]
-        compare("rmsnorm_quant", lambda: rmsnorm_quant.rmsnorm_quant(x, w, 1e-6, sm),
-                lambda: rmsnorm_quant.rmsnorm_quant_plain(x, w, 1e-6, sm), dtype,
-                f"rmsnorm_quant {shape} zero_row={zero_row} smooth={smooth}", main, check=check_quant,
-                bound=(x.numel() * (x.element_size() + 1) + 4 * shape[-1] + 4 * rows, 6 * x.numel(), "fp32"))
+        run = lambda: rmsnorm_quant.rmsnorm_quant(x, w, 1e-6, sm)  # noqa: E731
+        label = (f"rmsnorm_quant {shape} layout {rmsnorm_quant.layout(x, w, sm)} zero_row={zero_row} "
+                 f"smooth={smooth}")
+        compare("rmsnorm_quant", run, lambda: rmsnorm_quant.rmsnorm_quant_plain(x, w, 1e-6, sm), dtype, label,
+                key is not None, key=None if key == "main" else key, check=check_quant,
+                bound=(x.numel() * (x.element_size() + 1) + 4 * shape[-1] * (2 if smooth else 1) + 4 * rows,
+                       6 * x.numel(), "fp32"))
+        for i in range(2):
+            _repeats(torch, f"{label} output {i}", lambda i=i: run()[i])
+    log("kernel rmsnorm_quant", "every E case repeats bit for bit")
 
     # F: int8 GEMM at every w8a8 projection shape (prefill M = T, decode M = 8), the lm_head at M = 4,
     # a (K, N) weight at ragged M, three output dtypes; unit scales + fp32 output must be exact
@@ -2294,12 +2333,13 @@ def phase_small_model(torch) -> None:
 A_KERNEL_NAMES = ("rmsnorm_regs_kernel", "rmsnorm_warp_kernel", "rmsnorm_block_kernel")
 PREFILL_FAMILIES = {"D": ("paged_prefill_",), "F": ("int8_gemm_kernel", "int8_wgmma_kernel"),
                     "G": ("int4_decode_kernel", "int4_wgmma_kernel"), "H": ("gmm_",),
-                    "I": ("mla_mma_kernel", "mla_merge_kernel", "mla_fma_kernel")}
+                    "I": ("mla_mma_kernel", "mla_merge_kernel", "mla_fma_kernel"), "B": ("rope_token_first",),
+                    "E": ("rmsnorm_quant",)}
 
 
 def _prefill_profile(torch, tag: str, card: str, gm, ids, lens) -> None:
     """One more prefill of the batch under torch.profiler: its device busy ms, kernel count and the device ms of
-    kernels D, F, G, H and I (the prefill's wall ms is the PerfHook's)."""
+    kernels D, F, G, H, I, B and E (the prefill's wall ms is the PerfHook's)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -49,10 +49,10 @@ SIGNATURES = {
     "mojo_flash_diffusion_dkv": (_P,) * 9 + _DIFF_TAIL + (_I, _P),
     "mojo_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P),
     "mojo_residual_add_rmsnorm": (_P,) * 5 + (_I, _I, _F) + (_I,) * 4 + (_P,),
-    "mojo_rope_token_first": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mojo_rope_token_first": (_P,) * 6 + (_I,) * 7 + (_P,),
     "mojo_paged_decode": (_P,) * 9 + (_I,) * 10 + (_F,) + (_I,) * 5 + (_P,),
     "mojo_paged_prefill": (_P,) * 9 + (_I,) * 10 + (_F, _I, _I, _I, _P),
-    "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _P),
+    "mojo_rmsnorm_quant": (_P,) * 5 + (_I, _I, _F, _F, _F, _I, _I, _I, _I, _P),
     "mojo_int8_matmul": (_P,) * 7 + (_I,) * 7 + (_P,),
     "mojo_int4_matmul": (_P,) * 7 + (_I,) * 7 + (_P,),
     "mojo_group_gemm": (_P,) * 5 + (_L,) + (_I,) * 6 + (_P,),

@@ -24,7 +24,7 @@ launches_residual_add = 0
 # A's register kernel: 16-byte vectors a row -> (threads a row, vectors a thread), every lane busy. In bf16/fp16
 # (8 elements a vector): D 128 (8 lanes of 2: 4 rows a warp), 256, 512, 1024, 1536, 2560 (a warp of 10), 3072,
 # 4096, 5120 (2 warps of 10), 6144, 7168 (4 warps of 7); in fp32 the same vector counts at half the width.
-# csrc/rmsnorm.cu instantiates exactly these pairs (MOJO_ROW_LAYOUTS)
+# csrc/row_regs.cuh names exactly these pairs (MOJO_ROW_LAYOUTS), which A and E (csrc/rmsnorm_quant.cu) instantiate
 ROW_LAYOUTS = {16: (8, 2), 32: (16, 2), 64: (32, 2), 128: (32, 4), 192: (32, 6), 320: (32, 10), 384: (32, 12),
                512: (64, 8), 640: (64, 10), 768: (64, 12), 896: (128, 7)}
 ROW_BLOCK_THREADS = 128  # a block of the register kernel takes 128 / (threads a row) rows at a time

@@ -2,7 +2,10 @@
 
 Replaces the JAX package's ``backends/pallas/kernels/rope.py:166``
 (``rope_token_first``). One launch rotates q and k together.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. ``route`` picks the kernel's route
+from shapes and pointers alone: the vector route (16-byte vectors, a
+token's tables shared by its heads) at the head dims in
+``VECTOR_WIDTHS``, the generic scalar kernel otherwise.
 """
 
 from __future__ import annotations
@@ -14,6 +17,11 @@ import torch
 from mojo_opset_tpu_torch.backends.cuda import build
 
 launches = 0
+
+# head dims the vector route instantiates: DeepSeek-V3's rope lanes (64), Qwen3's and Seed-OSS's heads (128)
+VECTOR_WIDTHS = (64, 128)
+# the vector route's threads a block (csrc/rope.cu takes 128 or 256)
+THREADS = 128
 
 
 def _rotate_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -41,6 +49,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tenso
         cos.shape == (T, D) and sin.shape == (T, D),
         f"rope_token_first: cos/sin must be ({T}, {D}) full-rope tables, got {tuple(cos.shape)}",
     )
+
+
+def route(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> str:
+    """``"vector"`` when the head dim is in ``VECTOR_WIDTHS``, every input
+    starts on a 16-byte boundary and q and k together hold fewer than 2^31
+    elements (the route's offsets are 32-bit); ``"generic"`` otherwise.
+    Contiguous inputs are assumed (the wrapper requires them); the outputs
+    are new, so aligned."""
+    vector = (q.shape[-1] in VECTOR_WIDTHS and all(t.data_ptr() % 16 == 0 for t in (q, k, cos, sin))
+              and q.numel() + k.numel() < 2**31)
+    return "vector" if vector else "generic"
 
 
 def rope_token_first(
@@ -73,7 +92,7 @@ def _rope_kernel(q, k, cos, sin):
     build.launch(
         "mojo_rope_token_first", q.device,
         q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(), k_out.data_ptr(),
-        T, Hq, k.shape[1], D, code,
+        T, Hq, k.shape[1], D, int(route(q, k, cos, sin) == "vector"), THREADS, code,
     )
     launches += 1
     return q_out, k_out

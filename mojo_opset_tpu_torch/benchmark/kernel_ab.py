@@ -1,6 +1,6 @@
 """Kernels D (paged prefill), H (grouped GEMM), F (int8 GEMM), A (RMSNorm), P (residual add + RMSNorm), G
-(packed-int4 GEMM), L (SiLU), I (absorbed MLA) and the dk/dv entry points of J and O of one tree, for comparing
-two trees on one card.
+(packed-int4 GEMM), L (SiLU), B (token-first RoPE), E (RMSNorm + int8 quant), I (absorbed MLA) and the dk/dv entry
+points of J and O of one tree, for comparing two trees on one card.
 
 The kernels come from the ``mojo_opset_tpu_torch`` package that ``sys.path``
 finds first: this tree's, or another commit's (``git archive`` unpacked in
@@ -21,7 +21,19 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   and Seed-OSS-36B's down projection at prefill, bf16 output; A at
   Qwen3-4B's layer norm (1650, 2560), its q and k head norms (1650 x 32
   and 1650 x 8 rows of 128) and the Wan DiT's (4400, 3072); P pre and post
-  at (1650, 2560), 4096 x 4096 and 8192 x 8192, bf16.
+  at (1650, 2560), 4096 x 4096 and 8192 x 8192, bf16; G at the w4a8
+  projections and L at the train step's activation; B on q and k at the
+  prefill batch (1650 tokens) with Qwen3-4B's 32/8 heads and Seed-OSS-36B's
+  80/8, D 128, at decode rows (T 4 and 1 at 32/8, T 4 at 80/8) and on
+  DeepSeek-V3's rope lanes (T 4, 128/1 heads, D 64); E at (1650, 2560),
+  (4, 2560), (1, 2560), (8, 2560) with a zero row, (4, 5120) and (1650,
+  5120), bf16. A second line gives the digest of each output of G, L, B
+  and E (B's q and k together, E's int8 values and scales apart).
+  ``times TAG DIR`` also saves B's and E's outputs to ``DIR/TAG.pt``
+  (~120 MB: keep DIR out of what a run copies back).
+- ``ulps DIR TAG_A TAG_B``: for each output saved by two ``times`` runs,
+  how many elements differ and by how many ulps at most (float outputs,
+  ordered by their bits), or by how many steps (int8).
 - ``host TAG``: the host microseconds of one G call at M = 1 at the w4a8
   draft's five projections (2000 eager calls on the host clock after a
   warm-up; the kernel's few microseconds are shorter, so the host paces
@@ -40,10 +52,11 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   bf16 and fp16: device ms from a CUDA graph and each output's error
   relative to its size against the plain version (whole tensor), fed the
   plain forward's lse and delta.
-- ``paths TAG``: this tree's phases 6 (Qwen3-4B w8a8 + C8) and 11
-  (Seed-OSS-36B cut to 32 layers, bf16 and w8a8) on the tree's kernels,
-  each printing its prefill and decode times and one profiled prefill
-  (device busy ms, D's and F's shares).
+- ``paths TAG``: this tree's phases 5 (Qwen3-4B bf16), 6 (Qwen3-4B w8a8 +
+  C8), 7 (bs-1 w4a8 speculative) and 11 (Seed-OSS-36B cut to 32 layers,
+  bf16 and w8a8) on the tree's kernels, each printing its prefill and
+  decode times and one profiled prefill (device busy ms, the largest hand
+  kernels' shares).
 
 Run on a machine with a GPU and nvcc, in turns (parent, change, change,
 parent) within one call::
@@ -82,7 +95,48 @@ def readings(s) -> None:
     s._gmm_cases(torch, compare, gen, record)
 
 
-def times(s, tag: str) -> None:
+# B's cases (tokens, q heads, k heads, head dim) and E's (rows, width)
+ROPE_CASES = ((1650, 32, 8, 128), (1650, 80, 8, 128), (4, 32, 8, 128), (1, 32, 8, 128), (4, 80, 8, 128),
+              (4, 128, 1, 64))
+RMSNORM_QUANT_CASES = ((1650, 2560), (4, 2560), (1, 2560), (8, 2560), (4, 5120), (1650, 5120))
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+
+def rope_and_quant(s, out: dict, digests: dict, saved: dict) -> None:
+    """B's and E's cases (bf16), on inputs of their own generator: times into ``out``, outputs' digests into
+    ``digests``, the outputs into ``saved``."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import rmsnorm_quant, rope
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bf16 = torch.bfloat16
+    for n, hq, hk, d in ROPE_CASES:
+        q = torch.randn(n, hq, d, device="cuda", generator=gen).to(bf16)
+        k = torch.randn(n, hk, d, device="cuda", generator=gen).to(bf16)
+        ang = torch.arange(n, device="cuda", dtype=torch.float32)[:, None] * (
+            1.0 / 10000 ** (torch.arange(0, d, 2, device="cuda") / d))
+        cos, sin = torch.cat([ang, ang], -1).cos().to(bf16), torch.cat([ang, ang], -1).sin().to(bf16)
+        run = lambda: rope.rope_token_first(q, k, cos, sin)  # noqa: E731
+        name = f"B_{n}x{hq}x{hk}x{d}"
+        out[name] = s.graph_ms(torch, run)
+        q_out, k_out = run()
+        saved[name] = torch.cat([q_out.flatten(), k_out.flatten()])
+        digests[name] = digest(saved[name])
+    for rows, D in RMSNORM_QUANT_CASES:
+        x = torch.randn(rows, D, device="cuda", generator=gen).to(bf16)
+        if rows == 8:
+            x[1] = 0
+        w = torch.rand(D, device="cuda", generator=gen) + 0.5
+        run = lambda: rmsnorm_quant.rmsnorm_quant(x, w, 1e-6)  # noqa: E731
+        name = f"E_{rows}x{D}"
+        out[name] = s.graph_ms(torch, run)
+        saved[name + "_q"], saved[name + "_scale"] = run()
+        digests[name + "_q"], digests[name + "_scale"] = digest(saved[name + "_q"]), digest(saved[name + "_scale"])
+
+
+def times(s, tag: str, save_dir: str | None = None) -> None:
     from mojo_opset_tpu_torch.backends.cuda.kernels import (
         group_gemm, int4_matmul, int8_matmul, norms, paged_prefill, silu_vjp,
     )
@@ -144,9 +198,34 @@ def times(s, tag: str) -> None:
             if not tag_l:
                 out[name] = s.graph_ms(torch, run)
             digests[name + tag_l] = run()
+    digests = {k: digest(v) for k, v in digests.items()}
+    saved = {}
+    rope_and_quant(s, out, digests, saved)
     print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
-    print(tag, "digests", " ".join(f"{k} {hashlib.sha256(v.cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]}"
-                                   for k, v in digests.items()), flush=True)
+    print(tag, "digests", " ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
+    if save_dir is not None:
+        Path(save_dir).mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in saved.items()}, Path(save_dir) / f"{tag}.pt")
+
+
+def ordered_bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers in the order of the values (sign and magnitude to two's complement)."""
+    width = t.element_size() * 8
+    bits = t.view({16: torch.int16, 32: torch.int32}[width]).long()
+    return torch.where(bits < 0, -(bits & ((1 << (width - 1)) - 1)), bits)
+
+
+def ulps(save_dir: str, tag_a: str, tag_b: str) -> None:
+    a, b = (torch.load(Path(save_dir) / f"{tag}.pt") for tag in (tag_a, tag_b))
+    for name in a:
+        x, y = a[name], b[name]
+        if x.dtype == torch.int8:
+            step = (x.int() - y.int()).abs()
+        else:
+            step = (ordered_bits(x) - ordered_bits(y)).abs()
+        unit = "steps" if x.dtype == torch.int8 else "ulps"
+        print(f"{tag_a} vs {tag_b} {name}: {int((step > 0).sum())} of {x.numel()} differ, at most "
+              f"{int(step.max())} {unit}", flush=True)
 
 
 def host(s, card: str, tag: str) -> None:
@@ -218,8 +297,7 @@ def mla(s, tag: str, cases: int = 6) -> None:
         del c, pe
         torch.cuda.empty_cache()
     print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
-    print(tag, "digests", " ".join(f"{k} {hashlib.sha256(v.cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]}"
-                                   for k, v in digests.items()), flush=True)
+    print(tag, "digests", " ".join(f"{k} {digest(v)}" for k, v in digests.items()), flush=True)
 
 
 def dkv(s, tag: str) -> None:
@@ -255,20 +333,24 @@ def dkv(s, tag: str) -> None:
 
 
 def paths(s, card: str, tag: str) -> None:
-    print(f"{tag}: phases 6, 7 and 11", flush=True)
+    print(f"{tag}: phases 5, 6, 7 and 11", flush=True)
+    s.phase_full_width(torch, card)
     s.phase_int8_full_width(torch, card)
     s.phase_w4a8_speculative(torch, card)
     s.phase_seed_oss_full_width(torch, card)
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["ulps"] and len(sys.argv) == 5:
+        ulps(*sys.argv[2:])
+        return 0
     s = load_chip_smoke()
     card = s.phase_device(torch)
     s.phase_build()
     if sys.argv[1:2] == ["readings"]:
         readings(s)
-    elif sys.argv[1:2] == ["times"] and len(sys.argv) == 3:
-        times(s, sys.argv[2])
+    elif sys.argv[1:2] == ["times"] and len(sys.argv) in (3, 4):
+        times(s, *sys.argv[2:])
     elif sys.argv[1:2] == ["host"] and len(sys.argv) == 3:
         host(s, card, sys.argv[2])
     elif sys.argv[1:2] == ["mla"] and len(sys.argv) == 3:
@@ -278,7 +360,8 @@ def main() -> int:
     elif sys.argv[1:2] == ["paths"] and len(sys.argv) == 3:
         paths(s, card, sys.argv[2])
     else:
-        raise SystemExit("usage: kernel_ab.py readings | times TAG | host TAG | mla TAG | dkv TAG | paths TAG")
+        raise SystemExit("usage: kernel_ab.py readings | times TAG [DIR] | ulps DIR TAG_A TAG_B | host TAG | mla TAG | "
+                         "dkv TAG | paths TAG")
     return 0
 
 

@@ -1,5 +1,5 @@
-"""Kernel C's split count, kernel N's dx K ranges, kernel F's and G's routes and kernel L's launch shape, swept at
-the smoke's shapes.
+"""Kernel C's split count, kernel N's dx K ranges, kernel F's and G's routes and kernel L's and B's launch shapes,
+swept at the smoke's shapes.
 
 ``paged_decode.split_count`` sizes kernel C's split-KV grid from shapes
 alone, ``flce.dx_splits`` picks how many K ranges kernel N's dx product
@@ -31,14 +31,19 @@ bf16, pages of 64): the smoke's decode at bs 4 and bs 1 (contexts 1001,
 514, 131, 8), bs 1 at ctx 4096 and 32768, bs 24 at ctx 4000; a narrower
 column tile gives more blocks a row, so fewer splits fill the card, at
 the cost of reading the latent once for each column block. Every plan is
-held to the plain version on the fp32 ladder.
+held to the plain version on the fp32 ladder. ``rope`` times kernel B's
+vector route at both block sizes it takes (``rope.THREADS``: 128 or 256
+threads) on q and k at the prefill batch (1650 tokens) with Qwen3-4B's
+32/8 heads and Seed-OSS-36B's 80/8, D 128, at decode rows (T 4 and 1 at
+32/8) and on DeepSeek-V3's rope lanes (T 4, 128/1 heads, D 64), bf16,
+every block size equal bit for bit.
 
 Run on a machine with a GPU and nvcc::
 
-    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4 | mla]
+    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4 | mla | rope]
 
-It prints one JSON line; with ``int8``, ``int4`` or ``mla`` it sweeps F,
-G and L, or I alone.
+It prints one JSON line; with ``int8``, ``int4``, ``mla`` or ``rope`` it
+sweeps F, G and L, I alone, or B alone.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
-    flce, int4_matmul, int8_matmul, mla_decode, paged_decode, silu_vjp,
+    flce, int4_matmul, int8_matmul, mla_decode, paged_decode, rope, silu_vjp,
 )
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
@@ -283,6 +288,42 @@ def silu_case(gen) -> dict:
     return result
 
 
+# (tokens, q heads, k heads, head dim) of kernel B's sweep
+ROPE_CASES = ((1650, 32, 8, 128), (1650, 80, 8, 128), (4, 32, 8, 128), (1, 32, 8, 128), (4, 128, 1, 64))
+
+
+def rope_case(n, hq, hk, d, gen) -> dict:
+    """B's vector route at each block size, equal bit for bit, beside the generic route's one (rope.THREADS set
+    around the wrapper; the generic kernel through the C entry point)."""
+    bf16 = torch.bfloat16
+    q = torch.randn(n, hq, d, device="cuda", generator=gen).to(bf16)
+    k = torch.randn(n, hk, d, device="cuda", generator=gen).to(bf16)
+    ang = torch.rand(n, d, device="cuda", generator=gen) * 6
+    cos, sin = ang.cos().to(bf16), ang.sin().to(bf16)
+    assert rope.route(q, k, cos, sin) == "vector"
+    result, first, chosen = {}, None, rope.THREADS
+    for threads in (128, 256):
+        rope.THREADS = threads
+        run = lambda: rope.rope_token_first(q, k, cos, sin)  # noqa: E731
+        got = torch.cat([t.flatten() for t in run()])
+        first = got if first is None else first
+        if not torch.equal(got, first):
+            raise AssertionError(f"B at {threads} threads differs from 128 threads")
+        result[threads] = graph_ms(run)
+    rope.THREADS = chosen
+    q_out, k_out = torch.empty_like(q), torch.empty_like(k)
+
+    def generic():
+        build.launch("mojo_rope_token_first", q.device, q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                     q_out.data_ptr(), k_out.data_ptr(), n, hq, hk, d, 0, 0, build.dtype_code(q))
+        return q_out, k_out
+
+    if not torch.equal(torch.cat([t.flatten() for t in generic()]), first):
+        raise AssertionError("B's generic route differs from its vector route")
+    result["generic"] = graph_ms(generic)
+    return result
+
+
 MLA_CASES = (("bs4", [1001, 514, 131, 8]), ("bs1", [1001]), ("bs1_ctx4096", [4096]), ("bs1_ctx32768", [32768]),
              ("bs24_ctx4000", [4000] * 24))
 
@@ -339,6 +380,8 @@ def main() -> None:
         report = {"int8_matmul": int8_report(gen)}
     elif sys.argv[1:] == ["int4"]:
         report = {"int4_matmul": int4_report(gen), "silu": silu_case(gen)}
+    elif sys.argv[1:] == ["rope"]:
+        report = {"rope": {f"{n}x{hq}x{hk}x{d}": rope_case(n, hq, hk, d, gen) for n, hq, hk, d in ROPE_CASES}}
     elif sys.argv[1:] == ["mla"]:
         report = {"mla_decode": {name: mla_case(lens, gen) for name, lens in MLA_CASES}}
     else:

@@ -11,7 +11,8 @@
 // Design: statistics and scaling in fp32, one rounding to each output's
 // dtype at the store.
 // A at the widths the models use (norms.row_layout: 16-byte vectors a row
-// of 16 to 896, D = 128 to 7168 in bf16) reads each row once into
+// of 16 to 896, D = 128 to 7168 in bf16; the layouts and the grid in
+// row_regs.cuh, shared with E) reads each row once into
 // registers: a row is split evenly over TPR threads (8, 16 or 32 lanes of
 // a warp, or 2 or 4 whole warps) of VPT 16-byte vectors each, the lanes on
 // consecutive vectors, so no lane idles (D = 128 bf16: 8 lanes of 2
@@ -30,6 +31,7 @@
 // residual beside a bf16/fp16 x as it is; MODE says whether a residual is
 // added and which row is the new residual.
 #include "common.cuh"
+#include "row_regs.cuh"
 
 namespace {
 
@@ -185,24 +187,13 @@ rmsnorm_regs_kernel(const T* __restrict__ x, const float* __restrict__ w, T* __r
 // of row groups
 template <typename T, int TPR, int VPT>
 int launch_regs(const T* x, const float* w, T* y, int rows, float eps, cudaStream_t stream) {
-  static const int resident = [] {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rmsnorm_regs_kernel<T, TPR, VPT>, kRegRowThreads, 0);
-    return sms * per_sm > 0 ? sms * per_sm : 1;
-  }();
+  static const int resident = mojo_resident_blocks(rmsnorm_regs_kernel<T, TPR, VPT>, kRegRowThreads);
   constexpr int RPB = kRegRowThreads / TPR;
   const int groups = (rows + RPB - 1) / RPB;
-  const int rounds = (groups + resident - 1) / resident;
-  rmsnorm_regs_kernel<T, TPR, VPT><<<(groups + rounds - 1) / rounds, kRegRowThreads, 0, stream>>>(x, w, y, rows,
-                                                                                                   eps);
+  rmsnorm_regs_kernel<T, TPR, VPT><<<mojo_even_rounds_grid(groups, resident), kRegRowThreads, 0, stream>>>(
+      x, w, y, rows, eps);
   return static_cast<int>(cudaGetLastError());
 }
-
-// The (threads a row, vectors a thread) layouts that norms.ROW_LAYOUTS names; another pair is refused
-#define MOJO_ROW_LAYOUTS(X) \
-  X(8, 2) X(16, 2) X(32, 2) X(32, 4) X(32, 6) X(32, 10) X(32, 12) X(64, 8) X(64, 10) X(64, 12) X(128, 7)
 
 template <typename T>
 int dispatch_regs(const void* x, const float* w, void* y, int rows, float eps, int tpr, int vpt,

@@ -10,6 +10,12 @@ that each read a fixed number of 16-byte vectors (each element once, no
 lane idle); a plain-PyTorch model of the kernel's reduction order
 (per-lane sums, shuffles over the row's lanes, whole warps in order) is
 held to ``rms_norm`` and to JAX's Pallas ``rmsnorm`` in interpret mode.
+Kernel E (RMSNorm + int8 quant) takes A's row layouts: a model of its sum
+order, amax and int8 step (the register kernel at the layouts' widths, the
+generic block kernel elsewhere) is held to ``rmsnorm_quant_plain`` and to
+JAX's Pallas ``rmsnorm_quant`` in interpret mode (scale rtol 1e-6, int8
+values one step apart on at most 0.1%, as tests/test_torch_quant.py holds
+the ops), and each of E's routes reaches its launch.
 
 The same numpy inputs and weights (carried across with ``load_numpy_state``
 from ``state_dict_of``) go through both packages. Tolerances, as in
@@ -21,6 +27,7 @@ rounding tie: at most one step on at most 1% of the values.
 """
 
 import re
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,10 +37,11 @@ import torch
 import mojo_opset_tpu.core.operators as jo
 from mojo_opset_tpu.backends.pallas.kernels.norms import residual_add_rmsnorm as jax_residual_add_rmsnorm
 from mojo_opset_tpu.backends.pallas.kernels.norms import rmsnorm as jax_rmsnorm
+from mojo_opset_tpu.backends.pallas.kernels.norms import rmsnorm_quant as jax_rmsnorm_quant
 from mojo_opset_tpu.utils.hf import state_dict_of
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
-from mojo_opset_tpu_torch.backends.cuda.kernels import norms
+from mojo_opset_tpu_torch.backends.cuda.kernels import norms, rmsnorm_quant
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff
 from mojo_opset_tpu_torch.utils.weights import load_numpy_state
 
@@ -314,9 +322,209 @@ def test_rmsnorm_lane_model_matches_pallas_interpret(dtype_name, D):
     close(got, want, TOL[dtype_name])
 
 
-def test_rmsnorm_row_layouts_match_the_kernel_source():
-    src = (build.CSRC_DIR / "rmsnorm.cu").read_text()
+def source_row_layouts():
+    """The (threads a row, vectors a thread) pairs that csrc/row_regs.cuh's MOJO_ROW_LAYOUTS names."""
+    src = (build.CSRC_DIR / "row_regs.cuh").read_text()
     pairs = re.search(r"#define MOJO_ROW_LAYOUTS\(X\)(.*?)\n\n", src, re.S).group(1)
-    assert sorted((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", pairs)) == sorted(
-        norms.ROW_LAYOUTS.values())
+    return sorted((int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", pairs))
+
+
+def test_rmsnorm_row_layouts_match_the_kernel_source():
+    """A's register kernel instantiates the shared header's layouts, which are norms.ROW_LAYOUTS's pairs."""
+    src = (build.CSRC_DIR / "rmsnorm.cu").read_text()
+    assert source_row_layouts() == sorted(norms.ROW_LAYOUTS.values())
+    assert '#include "row_regs.cuh"' in src and "MOJO_ROW_LAYOUTS(MOJO_ROW_CASE)" in src
     assert f"kRegRowThreads = {norms.ROW_BLOCK_THREADS};" in src
+
+
+# ------------------------------------------------------------ kernel E
+
+# the widths the models run E at: Qwen3-4B's layer norms (2560), Seed-OSS-36B's (5120); fp32 rows of 5120 take the
+# generic kernel
+E_WIDTHS = (2560, 5120)
+E_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def butterfly(part, lanes, width):
+    """``part`` (rows, lanes) summed by xor shuffles over groups of ``width`` lanes, as the kernels' loops do."""
+    o = width // 2
+    while o:
+        part = part + part[:, torch.arange(lanes) ^ o]
+        o //= 2
+    return part
+
+
+def rq_sum_of_squares(xf, dtype):
+    """E's fp32 sum of squares of each row in its kernel's order. The register kernel: each lane's elements in
+    order, a butterfly over the row's lanes (32 at most), the warps' sums in order. The generic kernel: each of 256
+    threads its chunks in order, a butterfly over each warp, the 8 warps' sums in order."""
+    rows, D = xf.shape
+    layout = norms.row_layout(D, dtype)
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    lanes = lane_map(D, dtype) if layout else generic_map(D, vec if D % vec == 0 else 1, 256)
+    threads = len(lanes)
+    part = torch.zeros(rows, threads)
+    for j in range(max(len(lane) for lane in lanes)):
+        cols = torch.tensor([lane[j] if j < len(lane) else -1 for lane in lanes])
+        part = part + torch.where(cols >= 0, xf[:, cols.clamp(min=0)] ** 2, torch.zeros(()))
+    part = butterfly(part, threads, min(threads, 32))
+    ss = torch.zeros(rows)
+    for warp in range(max(threads // 32, 1)):
+        ss = ss + part[:, 32 * warp]
+    return ss
+
+
+def rq_lane_model(x, w, eps, smooth=None, q_min=-128.0, q_max=127.0):
+    """E's outputs as its kernel computes them: the sum of squares in the kernel's order, inv = 1 / sqrt(ss / D +
+    eps), normed = (x * inv) * w [* smooth] in fp32, the row's amax (max has no order), scale = max(amax, 1e-12) /
+    q_max, q = clamp(rint(normed / scale)) by a true division."""
+    xf = x.float()
+    inv = 1.0 / torch.sqrt(rq_sum_of_squares(xf, x.dtype) / x.shape[-1] + eps)
+    normed = (xf * inv[:, None]) * w
+    if smooth is not None:
+        normed = normed * smooth
+    scale = normed.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) / q_max
+    return torch.round(normed / scale).clamp(q_min, q_max).to(torch.int8), scale
+
+
+def rn32(x: Fraction) -> float:
+    """``x`` rounded to the nearest float32, ties to even (subnormals kept, overflow not reached here)."""
+    if x == 0:
+        return 0.0
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    e -= Fraction(2) ** e > x
+    quantum = Fraction(2) ** (max(e, -126) - 23)
+    units, rest = divmod(x / quantum, 1)
+    units += rest > Fraction(1, 2) or (rest == Fraction(1, 2) and units % 2 == 1)
+    return sign * float(units * quantum)
+
+
+def row_quant_step(n: float, scale: float, q_min: float, q_max: float) -> int:
+    """csrc/rmsnorm_quant.cu's RowQuant on one value, in exact arithmetic with one float32 rounding an operation:
+    the reciprocal, the quotient and its two fused corrections, the addition of 1.5 * 2^23, the clamp."""
+    F = Fraction
+    rcp = rn32(1 / F(scale))
+    q0 = rn32(F(n) * F(rcp))
+    q1 = rn32(F(rn32(F(n) - F(q0) * F(scale))) * F(rcp) + F(q0))
+    quot = rn32(F(rn32(F(n) - F(q1) * F(scale))) * F(rcp) + F(q1))
+    t = min(max(rn32(F(quot) + 12582912), q_min + 12582912), q_max + 12582912)
+    return int(t) - 12582912
+
+
+@pytest.mark.parametrize("scale", [np.float32(2.5) / np.float32(127.0), np.float32(1e-12) / np.float32(127.0),
+                                   np.float32(3.3e-3), np.float32(7.0)])
+def test_rmsnorm_quant_int8_step_equals_the_division_and_rint_at_ties(scale):
+    """The register kernel's int8 step gives clamp(rint(n / scale)) for values whose quotient lies on and within
+    three ulps of every tie k + 0.5, where the division's rounding decides the int8 value."""
+    scale = float(scale)
+    values = []
+    for k in range(-129, 128):
+        v = np.float32(rn32((k + Fraction(1, 2)) * Fraction(scale)))
+        for _ in range(3):
+            v = np.nextafter(v, np.float32(-np.inf))
+        for _ in range(7):
+            values.append(v)
+            v = np.nextafter(v, np.float32(np.inf))
+    for n in values:
+        want = int(np.clip(np.rint(rn32(Fraction(float(n)) / Fraction(scale))), -128, 127))
+        assert row_quant_step(float(n), scale, -128.0, 127.0) == want, (n, scale)
+
+
+def assert_quant_close(got, want):
+    """Scales to rtol 1e-6; int8 values at most one step apart, on at most 0.1% of them (a sum in another order
+    moves a value across a rounding tie)."""
+    (q, s), (q_want, s_want) = got, want
+    check_tol_diff(s, np.asarray(s_want), atol=0.0, rtol=1e-6)
+    diff = (q.int() - torch.from_numpy(np.asarray(q_want).astype(np.int32))).abs()
+    assert diff.max().item() <= 1 and int((diff > 0).sum()) <= 1e-3 * diff.numel(), (diff.max(), (diff > 0).sum())
+
+
+def rq_inputs(rows, D, dtype, seed, smooth):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32) * 2).to(dtype)
+    x[1] = 0  # a zero row keeps its floor scale
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, D).astype(np.float32))
+    sm = torch.from_numpy(rng.uniform(0.5, 1.5, D).astype(np.float32)) if smooth else None
+    return x, w, sm
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("dtype_name", list(E_DTYPES))
+@pytest.mark.parametrize("D", E_WIDTHS)
+def test_rmsnorm_quant_lane_model_matches_the_plain_version(D, dtype_name, smooth):
+    x, w, sm = rq_inputs(12, D, E_DTYPES[dtype_name], D, smooth)
+    got = rq_lane_model(x, w, EPS, sm)
+    want = rmsnorm_quant.rmsnorm_quant_plain(x, w, EPS, sm)
+    assert got[0].dtype == torch.int8 and got[1].shape == want[1].shape == (12, 1)
+    assert_quant_close(got, (want[0].numpy(), want[1].numpy()))
+    assert got[1][1].item() == want[1][1].item() == np.float32(1e-12) / np.float32(127.0)
+
+
+@pytest.mark.parametrize("dtype_name", list(E_DTYPES))
+@pytest.mark.parametrize("D", E_WIDTHS)
+def test_rmsnorm_quant_lane_model_matches_pallas_interpret(D, dtype_name):
+    x, w, _ = rq_inputs(16, D, E_DTYPES[dtype_name], D + 1, False)
+    jx = jnp.asarray(x.float().numpy(), JAX_DTYPE[x.dtype])
+    want = jax_rmsnorm_quant(jx, jnp.asarray(w.numpy()), EPS, -128.0, 127.0, interpret=True)
+    assert_quant_close(rq_lane_model(x, w, EPS), want)
+
+
+@pytest.mark.parametrize("D, dtype_name, layout", [(2560, "bf16", (32, 10)), (5120, "bf16", (64, 10)),
+                                                   (2560, "f32", (64, 10)), (5120, "f32", None), (300, "bf16", None),
+                                                   (33, "f32", None)])
+def test_rmsnorm_quant_layouts_are_norms_row_layouts(D, dtype_name, layout):
+    dtype = A_DTYPES[dtype_name]
+    x, w = torch.zeros(3, D, dtype=dtype), torch.ones(D)
+    assert rmsnorm_quant.layout(x, w) == rmsnorm_quant.layout(x, w, torch.ones(D)) == norms.row_layout(D, dtype)
+    assert norms.row_layout(D, dtype) == layout
+
+
+@pytest.mark.parametrize("q_min, q_max", [(-127.5, 127.0), (-128.0, 127.25), (-129.0, 127.0), (-128.0, 200.0)])
+def test_rmsnorm_quant_limits_off_int8_take_the_generic_kernel(q_min, q_max):
+    x, w = torch.zeros(3, 2560, dtype=torch.bfloat16), torch.ones(2560)
+    assert rmsnorm_quant.layout(x, w, None, -127.0, 127.0) == (32, 10)
+    assert rmsnorm_quant.layout(x, w, None, q_min, q_max) is None
+
+
+@pytest.mark.parametrize("which", ["x", "weight", "smooth_scale"])
+def test_rmsnorm_quant_unaligned_pointers_take_the_generic_kernel(which):
+    def tensor(name, shape, dtype):
+        n = int(np.prod(shape))
+        return torch.zeros(n + 1, dtype=dtype)[int(name == which):][:n].view(shape)
+
+    x = tensor("x", (3, 2560), torch.bfloat16)
+    assert rmsnorm_quant.layout(x, tensor("weight", (2560,), torch.float32),
+                                tensor("smooth_scale", (2560,), torch.float32)) is None
+
+
+def test_rmsnorm_quant_row_layouts_match_the_kernel_source():
+    """E's register kernel instantiates the header's layouts (norms.ROW_LAYOUTS's pairs) in A's block size."""
+    src = (build.CSRC_DIR / "rmsnorm_quant.cu").read_text()
+    assert source_row_layouts() == sorted(norms.ROW_LAYOUTS.values())
+    assert '#include "row_regs.cuh"' in src and "MOJO_ROW_LAYOUTS(MOJO_ROW_CASE)" in src
+    assert f"kRqRegThreads = {norms.ROW_BLOCK_THREADS};" in src
+    # the generic kernel divides; the register kernel divides too, or corrects the reciprocal's quotient twice
+    # (the division's bits), so that ties land as in the golden
+    assert "rintf(v[j][e] / scale)" in src and "quot = n / scale;" in src
+    assert "__fmaf_rn(__fmaf_rn(-q1, scale, n), rcp, q1)" in src
+
+
+@pytest.mark.parametrize("shape, dtype, smooth, layout", [
+    ((1650, 2560), torch.bfloat16, False, (32, 10)), ((4, 5120), torch.bfloat16, True, (64, 10)),
+    ((1, 2560), torch.float16, False, (32, 10)), ((6, 5120), torch.float32, True, None),
+    ((5, 33), torch.float32, False, None), ((3, 300), torch.float16, True, None),
+])
+def test_rmsnorm_quant_each_route_reaches_its_launch(monkeypatch, shape, dtype, smooth, layout):
+    """Off the CPU the wrapper picks the route from the width, the dtype and the pointers alone and launches once
+    with its layout ((0, 0): the generic kernel)."""
+    calls = []
+    monkeypatch.setattr(build, "launch", lambda name, device, *args: calls.append((name, args)))
+    monkeypatch.setattr(rmsnorm_quant, "launches", rmsnorm_quant.launches)
+    meta = lambda *s, dtype=torch.float32: torch.empty(s, device="meta", dtype=dtype)  # noqa: E731
+    D, before = shape[-1], rmsnorm_quant.launches
+    q, scale = rmsnorm_quant.rmsnorm_quant(meta(*shape, dtype=dtype), meta(D), EPS, meta(D) if smooth else None)
+    assert q.dtype == torch.int8 and q.shape == shape and scale.shape == shape[:-1] + (1,)
+    ((name, args),) = calls
+    assert name == "mojo_rmsnorm_quant" and args[5:7] == (shape[0], D)
+    assert args[11:13] == (layout or (0, 0)) and rmsnorm_quant.launches == before + 1
