@@ -97,8 +97,11 @@ is non-zero:
      and GQA orders, fp16 and fp32.
      The training kernels at the step's shapes in bf16, fp16 and fp32 at
      one shape, and edge cases: K (RMSNorm backward) at (4096, 2560),
-     (131072, 128) and (32768, 128), its dx and dw also bit for bit over two
-     runs; L (SiLU forward and backward) at (4096, 9728); M (RoPE over a
+     (131072, 128) and (32768, 128) on its register route, also at (4097,
+     2560), (13, 2560), (1, 128) and (5, 5120), and on its generic kernels
+     (odd widths, unaligned views, (4096, 2560) unaligned), its dx and dw also
+     bit for bit over two runs, the timed cases with their kernel's registers
+     and blocks an SM; L (SiLU forward and backward) at (4096, 9728); M (RoPE over a
      strided head-first view, forward and backward) on q (2, 32, 2048, 128)
      and k (2, 8, 2048, 128) head-first, token-first as a transposed view
      and as (T, H, D) rows; each output to its ladder and, relative to its
@@ -124,11 +127,13 @@ is non-zero:
      fp16, fp32, an fp32 residual beside bf16 rows, odd T and D, T = 1 and a
      misaligned view; kernel Q (causal conv1d forward and backward) at the
      conv Function's benchmark shape (B 8, T 8192, D 2048, W 4, SiLU, bf16,
-     fp32 weight and bias) and T 2048, JAX's test matrix (W 1, 3, 4, 8, a
-     chunk shorter than the window, odd T, no bias, a state), fp16, D not a
-     multiple of 128, W 16 and a misaligned view, refusing W 17; each output
-     to its ladder and, relative to its size, to SLICE_E_REL_LIMITS; Q's dx,
-     dw, db bit for bit over two runs.
+     fp32 weight and bias) and T 2048, W 2 and 3 at T 8192 (its exact-width
+     kernels), JAX's test matrix (W 1, 3, 4, 8, a chunk shorter than the
+     window, odd T, no bias, a state), fp16 (also T 257 with a state), D not
+     a multiple of 128, W 16 (the generic kernels) and a misaligned view,
+     refusing W 17; each output to its ladder and, relative to its size, to
+     SLICE_E_REL_LIMITS; Q's dx, dw, db bit for bit over two runs; the timed
+     cases with their kernels' registers and blocks an SM.
      Every main case is timed replayed from a CUDA graph (``ms``: device
      time; ``eager_ms`` is the host-paced loop), beside its bound (bytes over
      3.35 TB/s or operations over the dtype's peak, the larger) and, where
@@ -654,11 +659,12 @@ def make_compare(torch, record: dict):
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
     def compare(name, kernel_fn, plain_fn, dtype, case, main=False, key=None, check=None, bound=None, library=None,
-                library_graph=True):
+                library_graph=True, note=None):
         """``bound``: (bytes, operations, operand kind) of the main case;
         ``library``: one PyTorch call computing the same function, or None,
         replayed from a CUDA graph, or with ``library_graph=False`` timed in
-        an eager loop (an autograd backward)."""
+        an eager loop (an autograd backward); ``note``: appended to a main
+        case's log line."""
         t0 = time.perf_counter()
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
@@ -681,6 +687,8 @@ def make_compare(torch, record: dict):
             line += (f"; kernel {entry['ms']:.4f} ms in a CUDA graph ({entry['eager_ms']:.4f} eager), plain "
                      f"{entry['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library {lib}; checked in "
                      f"{t1 - t0:.1f} s, timed in {time.perf_counter() - t1:.1f} s")
+            if note:
+                line += f"; {note}"
             if key is None:
                 record[name] = entry
             else:
@@ -1871,12 +1879,14 @@ def _flash_diffusion_cases(torch, compare, gen) -> None:
 
 def _train_kernel_cases(torch, compare, gen) -> None:
     """K, L and M, each against its plain version on the same inputs: at the training step's shapes in bf16 (main:
-    timed from a CUDA graph beside the bound, the plain version and, for K and L, a library call), in fp16 and fp32
-    at one shape, and on edge cases (widths and pointers that take no vector loads, short and long rows, a width
-    whose dw sums need more than 48 KB of shared memory, no rows). Every output to the dtype ladder and to
+    timed from a CUDA graph beside the bound, the plain version and, for K and L, a library call; K's with its
+    route, grid, registers and blocks an SM), in fp16 and fp32 at one shape, and on edge cases (K's register route
+    at row counts that fill no whole group or round and at 5120; widths and pointers that take K's generic kernels:
+    no vector loads, short and long rows, a width whose dw sums need more than 48 KB of shared memory; no rows). Every output to the dtype ladder and to
     TRAIN_KERNEL_REL_LIMITS; K's dx and dw run twice and compared bit for bit. M runs forward and backward (sin
     negated) on the head-first contract, the training forward's token-first (B, S, H, D) tensors as a transposed
     view (its output must come back token-first) and (T, H, D) rows."""
+    from mojo_opset_tpu_torch.backends.cuda import build
     from mojo_opset_tpu_torch.backends.cuda.functions.position_embedding import rotate_layout
     from mojo_opset_tpu_torch.backends.cuda.kernels import rmsnorm_vjp as kv
     from mojo_opset_tpu_torch.backends.cuda.kernels import rope_head_first as rh
@@ -1900,26 +1910,43 @@ def _train_kernel_cases(torch, compare, gen) -> None:
     t0 = time.perf_counter()
     k_cases = [((TRAIN_TOKENS, hidden), bf16, True, 0), ((TRAIN_TOKENS * H, D), bf16, True, 0),
                ((TRAIN_TOKENS * Hkv, D), bf16, True, 0), ((TRAIN_TOKENS, hidden), f16, False, 0),
-               ((TRAIN_TOKENS, hidden), f32, False, 0), ((37, 128), bf16, False, 1), ((5, 33), f32, False, 0),
+               ((TRAIN_TOKENS, hidden), f32, False, 0), ((TRAIN_TOKENS + 1, hidden), bf16, False, 0),
+               ((13, hidden), bf16, False, 0), ((1, D), bf16, False, 0), ((5, 5120), bf16, False, 0),
+               ((TRAIN_TOKENS, hidden), bf16, False, 1), ((37, 128), bf16, False, 1), ((9, 96), bf16, False, 0),
+               ((5, 33), f32, False, 0),
                ((9, 256), bf16, False, 0), ((2, 257), bf16, False, 0), ((3, 300), f16, False, 0),
                ((7, 7168), bf16, False, 0), ((3, 16384), f32, False, 0), ((6, 5120), bf16, False, 1)]
+    routes = {}
     for (rows, d), dtype, main, offset in k_cases:
         x, dy = rand(rows, d, dtype=dtype, offset=offset), rand(rows, d, dtype=dtype)
         w = torch.rand(d, device="cuda", generator=gen) + 0.5
+        layout = kv.layout(x, dy, w)
+        route = f"register route {layout}" if layout else "generic kernels"
+        routes[route] = routes.get(route, 0) + 1
         lib = None
         if main:  # the backward of F.rms_norm, its forward outside the timed window
             xg, wg = x.detach().requires_grad_(True), w.to(dtype).requires_grad_(True)
             y = torch.nn.functional.rms_norm(xg, (d,), wg, eps)
             lib = lambda y=y, xg=xg, wg=wg, dy=dy: torch.autograd.grad(y, (xg, wg), dy, retain_graph=True)  # noqa: E731
         n = rows * d
+        note = None
+        if main:
+            tpr, vpt = layout or (0, 0)
+            vec = int(d % (4 if d <= kv.SHORT_MAX_D else 16 // x.element_size()) == 0 and not offset)
+            res = build.resources("mojo_rmsnorm_bwd_resources", d, vec, tpr, vpt, build.dtype_code(x))
+            note = (f"{route}, {kv.grid_blocks(rows, d, dtype, layout, build.sm_count(x.device))} blocks, "
+                    f"{res['regs']} registers a thread, {res['blocks_per_sm']} blocks an SM, {res['spill_bytes']} "
+                    f"spill bytes")
         compare("rmsnorm_vjp", lambda: kv.rmsnorm_bwd(x, w, dy, eps), lambda: kv.rmsnorm_bwd_plain(x, w, dy, eps),
-                dtype, f"rmsnorm_bwd ({rows}, {d}){' unaligned' if offset else ''}", main, key=f"{rows}x{d}",
-                check=checker(dtype, f32), bound=(3 * n * x.element_size() + 8 * d, 11 * n, "fp32"), library=lib,
-                library_graph=False)
+                dtype, f"rmsnorm_bwd ({rows}, {d}){' unaligned' if offset else ''} on the {route}", main,
+                key=f"{rows}x{d}", check=checker(dtype, f32), bound=(3 * n * x.element_size() + 8 * d, 11 * n, "fp32"),
+                library=lib, library_graph=False, note=note)
         runs = [kv.rmsnorm_bwd(x, w, dy, eps) for _ in range(2)]
         if not all(torch.equal(a, b) for a, b in zip(*runs)):
             raise AssertionError(f"rmsnorm_bwd ({rows}, {d}): two runs on the same inputs differ")
-    log("kernel rmsnorm_vjp", "every case's dx and dw equal bit for bit over two runs")
+    log("kernel rmsnorm_vjp", f"every case's dx and dw equal bit for bit over two runs; cases by route {routes}")
+    if len(routes) < 2:
+        raise AssertionError(f"K's cases took one route only: {routes}")
     x = torch.empty(0, D, device="cuda", dtype=bf16)
     before = kv.launches
     dx, dw = kv.rmsnorm_bwd(x, torch.ones(D, device="cuda"), x, eps)
@@ -3522,9 +3549,11 @@ def _conv1d_cases(torch, compare, gen) -> None:
     """Q: the causal conv1d forward and backward, each against its plain version on the same inputs: at the conv
     Function's benchmark shape (B 8, T 8192, D 2048, W 4, SiLU, bf16 rows, fp32 weight and bias) and the perf
     descriptor's (T 2048) (main: timed from a CUDA graph beside the bound and depthwise F.conv1d with bias, which
-    leaves out the SiLU, and its autograd backward), JAX's test matrix, fp16, D not a multiple of 128, W 16 and a
-    misaligned view. Outputs to the dtype ladder and to SLICE_E_REL_LIMITS; dx, dw and db bit for bit over two
-    runs."""
+    leaves out the SiLU, and its autograd backward, with the kernels' plan, registers and blocks an SM), JAX's test
+    matrix, fp16, D not a multiple of 128, W 16 (the generic kernels), a misaligned view, W 2 and 3 on the conv
+    Function's rows and T 257 in fp16 from a state. Outputs to the dtype ladder and to SLICE_E_REL_LIMITS; dx, dw
+    and db bit for bit over two runs."""
+    from mojo_opset_tpu_torch.backends.cuda import build
     from mojo_opset_tpu_torch.backends.cuda.kernels import conv1d_vjp as cv
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -3540,7 +3569,11 @@ def _conv1d_cases(torch, compare, gen) -> None:
              (2, 64, 128, 1, True, False, True, f32, False, 0),
              (2, 300, 2048, 4, True, True, True, f16, False, 0), (3, 130, 100, 4, True, True, True, bf16, False, 0),
              (2, 777, 72, 16, True, True, True, bf16, False, 0), (2, 1, 2048, 4, True, True, True, bf16, False, 0),
-             (2, 129, 256, 2, False, True, False, bf16, False, 1)]
+             (2, 129, 256, 2, False, True, False, bf16, False, 1),
+             # the exact-width kernels at W 2 and 3 on the conv Function's rows, and a short fp16 run from a state
+             (CONV_B, CONV_T, CONV_D, 2, True, True, True, bf16, False, 0),
+             (CONV_B, CONV_T, CONV_D, 3, True, True, True, bf16, False, 0),
+             (CONV_B, 257, CONV_D, 4, True, True, True, f16, False, 0)]
     for B, T, D, W, bias, state, act, dtype, main, offset in cases:
         n = B * T * D
         x = torch.randn(n + offset, device="cuda", generator=gen).to(dtype)[offset:].view(B, T, D)
@@ -3559,17 +3592,28 @@ def _conv1d_cases(torch, compare, gen) -> None:
             out = lib_fwd()
             g_lib = g.transpose(1, 2).contiguous()
             lib_bwd = lambda: torch.autograd.grad(out, (stream, w_lib, b_lib), g_lib, retain_graph=True)  # noqa: E731
-        name = (f"B {B} T {T} D {D} W {W} bias={bias} state={state} act={act}{' misaligned' if offset else ''}")
+        name = (f"B {B} T {T} D {D} W {W} bias={bias} state={state} act={act}{' misaligned' if offset else ''} on "
+                f"the {cv.route(W)} kernels")
         key = f"b{B}_t{T}" if main else None
+        notes = {}
+        if main:
+            vec = int(D % (16 // isz) == 0 and not offset)
+            for direction in ("fwd", "bwd"):
+                chunk, groups, slots = cv.plan(B, T, D, W, 16 // isz if vec else 1, direction == "bwd",
+                                               build.sm_count(x.device))
+                res = build.resources("mojo_conv1d_resources", W, vec, int(direction == "bwd"), cv.RING, cv.THREADS,
+                                      cv.PREFETCH, build.dtype_code(x))
+                notes[direction] = (f"chunks of {chunk} rows, {groups} x {slots} blocks, {res['regs']} registers a "
+                                    f"thread, {res['blocks_per_sm']} blocks an SM, {res['spill_bytes']} spill bytes")
         compare("conv1d_fwd", lambda: cv.conv1d_fwd(x, w, b, st, act), lambda: cv.conv1d_fwd_plain(x, w, b, st, act),
                 dtype, f"conv1d forward {name}", main, key=key, check=_rel_checker(torch, SLICE_E_REL_LIMITS, dtype),
                 bound=(2 * n * isz + st.numel() * isz + 4 * D * (W + 1), (2 * W + (4 if act else 0)) * n, "fp32"),
-                library=lib_fwd)
+                library=lib_fwd, note=notes.get("fwd"))
         compare("conv1d_bwd", lambda: cv.conv1d_bwd(x, w, b, st, g, act),
                 lambda: cv.conv1d_bwd_plain(x, w, b, st, g, act), dtype, f"conv1d backward {name}", main, key=key,
                 check=_rel_checker(torch, SLICE_E_REL_LIMITS, dtype, f32, f32),
                 bound=(3 * n * isz + st.numel() * isz + 4 * D * (2 * W + 2), (6 * W + 7) * n, "fp32"),
-                library=lib_bwd, library_graph=False)
+                library=lib_bwd, library_graph=False, note=notes.get("bwd"))
         runs = [cv.conv1d_bwd(x, w, b, st, g, act) for _ in range(2)]
         if not all(torch.equal(p, q) for p, q in zip(*runs)):
             raise AssertionError(f"conv1d_bwd {name}: two runs on the same inputs differ")
@@ -3731,7 +3775,8 @@ def _step_profile(torch, prof) -> tuple:
 
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
-    families = {"J": ("flash_swa",), "A": A_KERNEL_NAMES, "K": ("rmsnorm_bwd_",),
+    # K's column sum of its dw partial rows is its own launch (Q's, which shares it, runs in no train step)
+    families = {"J": ("flash_swa",), "A": A_KERNEL_NAMES, "K": ("rmsnorm_bwd_", "mojo_column_sum_kernel"),
                 "L": ("silu_fwd_", "silu_bwd_"), "M": ("rope_strided_kernel",), "N": ("flce_",)}
     fam_ms = {f: sum(e.self_device_time_total for e in device if any(p in e.key for p in pats)) / 1e3
               for f, pats in families.items()}

@@ -57,7 +57,7 @@ SIGNATURES = {
     "mojo_int4_matmul": (_P,) * 7 + (_I,) * 7 + (_P,),
     "mojo_group_gemm": (_P,) * 5 + (_L,) + (_I,) * 6 + (_P,),
     "mojo_mla_decode": (_P,) * 10 + (_I,) * 9 + (_P,),
-    "mojo_rmsnorm_bwd": (_P,) * 6 + (_I, _I, _F, _I, _I, _I, _P),
+    "mojo_rmsnorm_bwd": (_P,) * 6 + (_I, _I, _F) + (_I,) * 5 + (_P,),
     "mojo_silu_fwd": (_P, _P, _L) + (_I,) * 4 + (_P,),
     "mojo_silu_bwd": (_P, _P, _P, _L) + (_I,) * 4 + (_P,),
     "mojo_rope_head_first": (_P,) * 7 + (_I,) * 9 + (_P,),
@@ -65,8 +65,11 @@ SIGNATURES = {
     "mojo_flce_dz": (_P,) * 7 + (_I,) * 5 + (_F, _F, _I, _P),
     "mojo_flce_dx": (_P,) * 4 + (_I,) * 6 + (_P,),
     "mojo_flce_dw": (_P,) * 4 + (_I,) * 6 + (_P,),
-    "mojo_conv1d_fwd": (_P,) * 5 + (_I,) * 7 + (_P,),
-    "mojo_conv1d_bwd": (_P,) * 8 + (_I,) * 8 + (_P,),
+    "mojo_conv1d_fwd": (_P,) * 5 + (_I,) * 12 + (_P,),
+    "mojo_conv1d_bwd": (_P,) * 8 + (_I,) * 12 + (_P,),
+    # the resource queries (``resources``): ints in, an int[4] out last in place of the stream
+    "mojo_rmsnorm_bwd_resources": (_I,) * 5 + (_P,),
+    "mojo_conv1d_resources": (_I,) * 7 + (_P,),
 }
 
 _CUDA_ERRORS = {
@@ -147,6 +150,17 @@ def launch(name: str, device: torch.device, *args) -> None:
         rc = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed: CUDA error {rc} ({_CUDA_ERRORS.get(rc, 'see cudaError_t')})")
+
+
+def resources(name: str, *args) -> dict:
+    """What the kernel that entry point ``name`` picks for ``args`` takes on
+    the current card: registers a thread, blocks an SM, spill (local) bytes
+    a thread and static shared bytes a block."""
+    out = (ctypes.c_int * 4)()
+    rc = getattr(load_library(), name)(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {rc} ({_CUDA_ERRORS.get(rc, 'see cudaError_t')})")
+    return dict(zip(("regs", "blocks_per_sm", "spill_bytes", "smem_bytes"), out))
 
 
 def dtype_code(t: torch.Tensor) -> int:

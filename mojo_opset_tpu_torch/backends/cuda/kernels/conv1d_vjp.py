@@ -11,7 +11,9 @@ sequence, in fp32: ``z[t] = b + sum_w stream[t + w] * k[w]``,
 each block writes fp32 partial sums that a second pass adds in a fixed
 order, and the blocks' work depends on the shape alone. ``launches`` counts
 the forward's launches, ``launches_bwd`` the backward's (one a call, its
-two passes together).
+two passes together). ``route`` picks the exact-width kernels (W <= 4) or
+the generic ones (W 5-16) from W alone; ``plan`` sizes the grid and the
+partial buffer from the shapes alone.
 """
 
 from __future__ import annotations
@@ -27,7 +29,14 @@ launches = 0  # the forward entry point
 launches_bwd = 0
 
 MAX_W = 16  # csrc/conv1d.cu kMaxW: the widest window the kernel takes
-MAX_SLOTS = 256  # rows of the backward's dw/db partial buffer; the kernel uses as many as it has chunks
+EXACT_MAX_W = 4  # csrc/conv1d.cu kExactMaxW: W <= 4 takes the exact-width kernels
+CHUNK = 256  # time rows a chunk, both routes (split_sweep conv1d)
+MIN_CHUNK = 32  # the exact route's chunks halve down to this while they fill under half the card's blocks
+# the exact-width kernels' rows loaded ahead a thread, threads a block, and whether the next rows are loaded before
+# the current rows' math (csrc/conv1d.cu kRing, kExactThreads, kPrefetch; split_sweep conv1d sets others)
+RING, THREADS, PREFETCH = 4, 128, 1
+GENERIC_THREADS = 128  # csrc/conv1d.cu kThreads
+GENERIC_MAX_SLOTS = 256  # the generic backward's slots along time
 
 
 def conv_z(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], state: torch.Tensor) -> torch.Tensor:
@@ -96,6 +105,47 @@ def _vec(D: int, *tensors: torch.Tensor) -> bool:
     return D % (16 // tensors[0].element_size()) == 0 and all(t.data_ptr() % 16 == 0 for t in tensors if t.numel())
 
 
+def route(W: int) -> str:
+    """``exact`` (a kernel instantiated at this W) for W <= 4, else ``generic``."""
+    return "exact" if W <= EXACT_MAX_W else "generic"
+
+
+def blocks_per_sm(bwd: bool, threads: int) -> int:
+    """Blocks an SM an exact-width kernel holds at least (its launch bounds,
+    csrc/conv1d.cu ``exact_min_blocks``)."""
+    return (256 if bwd else 512) // threads
+
+
+def plan(B: int, T: int, D: int, W: int, vec_width: int, bwd: bool, sms: int = build.H100_SMS
+         ) -> Tuple[int, int, int]:
+    """``(chunk, channel groups, slots)`` of a launch, from the shapes alone:
+    the grid is (channel groups, slots), slot s walking chunks s, s + slots,
+    ... of ``chunk`` rows over all sequences, and the backward's partial
+    buffer has one row a slot. The exact-width kernels take CHUNK rows
+    (halved, down to MIN_CHUNK, while the chunks of all channel groups fill
+    under half the blocks the card holds at once) and as many slots as the
+    card holds blocks for the channel groups, cut so each takes the same
+    number of chunks. The generic kernels take CHUNK rows; their backward at
+    most GENERIC_MAX_SLOTS slots, their forward one block a chunk (slots
+    unused: 1). ``vec_width``: channels a thread of the exact route owns (16
+    bytes' worth, or 1 unaligned)."""
+    chunk = CHUNK
+    if route(W) == "generic":
+        units = B * -(-T // chunk)
+        return chunk, -(-D // GENERIC_THREADS), min(units, GENERIC_MAX_SLOTS) if bwd else 1
+    groups = -(-D // (THREADS * vec_width))
+    resident = sms * blocks_per_sm(bwd, THREADS)
+    while chunk > MIN_CHUNK and 2 * B * -(-T // chunk) * groups < resident:
+        chunk //= 2
+    units = B * -(-T // chunk)
+    per_group = max(1, resident // groups)
+    return chunk, groups, -(-units // -(-units // per_group))
+
+
+def _vec_width(vec: bool, x: torch.Tensor) -> int:
+    return 16 // x.element_size() if vec else 1
+
+
 def conv1d_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], state: torch.Tensor,
                act: bool) -> torch.Tensor:
     """x (B, T, D), fp32 ``weight`` (D, W), fp32 ``bias`` (D,) or None,
@@ -109,10 +159,13 @@ def conv1d_fwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
     B, T, D = x.shape
     code = build.dtype_code(x)
     ptrs = _pointers(x, weight, bias, state)
+    W = weight.shape[1]
     out = torch.empty_like(x)
     if out.numel():
-        build.launch("mojo_conv1d_fwd", x.device, *ptrs, out.data_ptr(), B, T, D, weight.shape[1], int(act),
-                     int(_vec(D, x, state, out)), code)
+        vec = _vec(D, x, state, out)
+        chunk, _, slots = plan(B, T, D, W, _vec_width(vec, x), False, build.sm_count(x.device))
+        build.launch("mojo_conv1d_fwd", x.device, *ptrs, out.data_ptr(), B, T, D, W, int(act), int(vec), chunk,
+                     slots, RING, THREADS, PREFETCH, code)
         launches += 1
     return out
 
@@ -138,9 +191,11 @@ def conv1d_bwd(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
     dx = torch.empty_like(x)
     if not dx.numel():
         return dx, torch.zeros(W, D, device=x.device), torch.zeros(D, device=x.device)
-    part = torch.empty(MAX_SLOTS, W + 1, D, dtype=torch.float32, device=x.device)
+    vec = _vec(D, x, state, g, dx)
+    chunk, _, slots = plan(B, T, D, W, _vec_width(vec, x), True, build.sm_count(x.device))
+    part = torch.empty(slots, W + 1, D, dtype=torch.float32, device=x.device)
     dwb = torch.empty(W + 1, D, dtype=torch.float32, device=x.device)
     build.launch("mojo_conv1d_bwd", x.device, *ptrs, g.data_ptr(), dx.data_ptr(), part.data_ptr(), dwb.data_ptr(),
-                 B, T, D, W, int(act), MAX_SLOTS, int(_vec(D, x, state, g, dx)), code)
+                 B, T, D, W, int(act), int(vec), chunk, slots, RING, THREADS, PREFETCH, code)
     launches_bwd += 1
     return dx, dwb[:W], dwb[W]

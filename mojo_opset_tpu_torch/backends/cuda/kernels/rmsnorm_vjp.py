@@ -8,7 +8,10 @@ fp32: ``rstd = rsqrt(mean(x^2) + eps)``, ``g = dy * w``,
 ``dw = sum over rows of dy * x * rstd`` in fp32. The kernel's dw is
 deterministic: each block writes fp32 partial sums that a second pass adds
 in a fixed order, and the grid depends on the shape alone. ``launches``
-counts calls that launched it.
+counts calls that launched it. ``layout`` picks the register kernel (kernel
+A's row layouts, ``norms.row_layout``) from the width, the dtype and the
+pointers alone; other widths and unaligned views take the generic row
+kernels.
 """
 
 from __future__ import annotations
@@ -18,12 +21,12 @@ from typing import Tuple
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
+from mojo_opset_tpu_torch.backends.cuda.kernels.norms import ROW_BLOCK_THREADS, row_layout
 
 launches = 0
 
-SHORT_MAX_D = 256  # rows up to this width take a warp each (csrc/rmsnorm_vjp.cu kShortMaxD)
-MAX_D = 49152  # a long row's dw sums live in shared memory: 4 bytes a column
-SMS = 132
+SHORT_MAX_D = 256  # generic rows up to this width take a warp each (csrc/rmsnorm_vjp.cu kShortMaxD)
+MAX_D = 49152  # a generic long row's dw sums live in shared memory: 4 bytes a column
 
 
 def rmsnorm_bwd_plain(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps: float
@@ -53,13 +56,38 @@ def rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps: fl
     return _rmsnorm_bwd_kernel(x, weight, dy, eps)
 
 
-def _grid_blocks(rows: int, D: int) -> int:
-    """The row pass's grid: a warp per short row and 8 a block, or a block
-    per long row, capped at 4 (short) or 2 (long) blocks an SM; the number
-    of dw partial rows."""
+def layout(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor):
+    """(threads a row, 16-byte vectors a thread) of the register kernel for
+    ``x``'s rows, or None (the generic kernels): ``norms.row_layout`` of the
+    width and dtype, when x, dy and the weight start on 16-byte boundaries
+    (dx is allocated aligned)."""
+    if any(t.data_ptr() % 16 for t in (x, dy, weight)):
+        return None
+    return row_layout(x.shape[-1], x.dtype)
+
+
+def blocks_per_sm(tpr: int, vpt: int, dtype: torch.dtype) -> int:
+    """Blocks an SM the register kernel holds at least (its launch bounds,
+    csrc/rmsnorm_vjp.cu ``reg_min_blocks``) and its grid takes, from a
+    thread's values."""
+    values = vpt * 16 // torch.empty((), dtype=dtype).element_size()
+    return 4 if values <= 40 else 2
+
+
+def grid_blocks(rows: int, D: int, dtype: torch.dtype, reg_layout=None, sms: int = build.H100_SMS) -> int:
+    """The row pass's grid, the number of dw partial rows, from the shape
+    alone. The register kernel: at most the blocks the card holds at once,
+    cut so every block takes the same number of row groups (128 / threads a
+    row rows each). The generic kernels: a warp per short row and 8 a block,
+    or a block per long row, capped at 4 (short) or 2 (long) blocks an SM."""
+    if reg_layout is not None:
+        tpr, vpt = reg_layout
+        groups = -(-rows // (ROW_BLOCK_THREADS // tpr))
+        resident = sms * blocks_per_sm(tpr, vpt, dtype)
+        return -(-groups // -(-groups // resident))
     if D <= SHORT_MAX_D:
-        return max(1, min(-(-rows // 8), 4 * SMS))
-    return max(1, min(rows, 2 * SMS))
+        return max(1, min(-(-rows // 8), 4 * sms))
+    return max(1, min(rows, 2 * sms))
 
 
 def _rmsnorm_bwd_kernel(x, weight, dy, eps):
@@ -74,13 +102,15 @@ def _rmsnorm_bwd_kernel(x, weight, dy, eps):
     dx = torch.empty_like(x)
     if rows == 0:
         return dx, torch.zeros(D, dtype=torch.float32, device=x.device)
-    blocks = _grid_blocks(rows, D)
+    reg_layout = layout(x, dy, weight)
+    blocks = grid_blocks(rows, D, x.dtype, reg_layout, build.sm_count(x.device))
     part = torch.empty(blocks, D, dtype=torch.float32, device=x.device)
     dw = torch.empty(D, dtype=torch.float32, device=x.device)
     isz = x.element_size()
-    width = 4 if D <= SHORT_MAX_D else 16 // isz  # elements a vector load takes
+    width = 4 if D <= SHORT_MAX_D else 16 // isz  # elements a generic vector load takes
     vec = D % width == 0 and all(t.data_ptr() % (width * isz) == 0 for t in (x, dy, dx))
+    tpr, vpt = reg_layout or (0, 0)
     build.launch("mojo_rmsnorm_bwd", x.device, x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 part.data_ptr(), dw.data_ptr(), rows, D, float(eps), blocks, int(vec), code)
+                 part.data_ptr(), dw.data_ptr(), rows, D, float(eps), blocks, int(vec), tpr, vpt, code)
     launches += 1
     return dx, dw

@@ -1,13 +1,15 @@
-"""A/B of kernel Q's two window instantiations at one shape.
+"""A/B of kernel Q's two routes at one W <= 4.
 
-``csrc/conv1d.cu`` keeps the last W stream rows and the taps in registers,
-in MAXW slots: a narrow instantiation (MAXW = 4) serves W <= 4, a wide one
-(MAXW = 16) every W up to 16. This script compiles the file twice into a
-private directory under ``_build/``: as it is, and with its W <= 4 branches
-disabled, so the wide instantiation runs at the same W. Both builds get the
-same inputs; their outputs must agree bit for bit (the wide build's extra
-taps are zeros). The forward and the backward of each build are timed with
-CUDA events, in the order narrow, wide, wide, narrow.
+``csrc/conv1d.cu`` keeps the last W stream rows and the taps in registers:
+the exact-width kernels (W a template parameter, rows loaded ahead) serve
+W <= 4, the generic kernels (W in 16 slots) every W up to 16. This script
+compiles the file twice into a private directory under ``_build/``: as it
+is, and with its W <= 4 branches disabled, so the generic kernels run at
+the same W. Both builds get the same inputs and the same launch plan (the
+exact route's chunk and slots, ``conv1d_vjp.plan``); their outputs must
+agree bit for bit (each sum runs in the taps' order on both routes, and dw
+and db in the same chunk order). The forward and the backward of each
+build are timed with CUDA events, in the order narrow, wide, wide, narrow.
 
 Run on a machine with a GPU and nvcc (the default shape is the conv
 Function's training benchmark: B 8, T 8192, D 2048, W 4, SiLU, bf16 with an
@@ -30,7 +32,7 @@ from pathlib import Path
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
-from mojo_opset_tpu_torch.backends.cuda.kernels.conv1d_vjp import MAX_SLOTS
+from mojo_opset_tpu_torch.backends.cuda.kernels import conv1d_vjp
 
 NARROW_BRANCH = "if (W <= 4) {"
 ENTRY_POINTS = ("mojo_conv1d_fwd", "mojo_conv1d_bwd")
@@ -101,6 +103,10 @@ def main() -> None:
     bias = torch.randn(D, device=dev, generator=gen) * 0.1
     code = build.DTYPE_CODES[torch.bfloat16]
     vec = int(D % 8 == 0)
+    sms = build.sm_count(dev)
+    fwd_chunk, _, fwd_slots = conv1d_vjp.plan(B, T, D, W, 8 if vec else 1, False, sms)
+    bwd_chunk, _, bwd_slots = conv1d_vjp.plan(B, T, D, W, 8 if vec else 1, True, sms)
+    exact = conv1d_vjp.RING, conv1d_vjp.THREADS, conv1d_vjp.PREFETCH
     stream = torch.cuda.current_stream().cuda_stream
     ins = (x.data_ptr(), state.data_ptr(), weight.data_ptr(), bias.data_ptr())
 
@@ -110,15 +116,17 @@ def main() -> None:
         results = {}
         for tag, dll in libs.items():
             out, dx = torch.empty_like(x), torch.empty_like(x)
-            part = torch.empty(MAX_SLOTS, W + 1, D, device=dev)
+            part = torch.empty(bwd_slots, W + 1, D, device=dev)
             dwb = torch.empty(W + 1, D, device=dev)
 
             def fwd(dll=dll, out=out):
-                _check(dll.mojo_conv1d_fwd(*ins, out.data_ptr(), B, T, D, W, 1, vec, code, stream), "fwd")
+                _check(dll.mojo_conv1d_fwd(*ins, out.data_ptr(), B, T, D, W, 1, vec, fwd_chunk, fwd_slots, *exact,
+                                           code, stream), "fwd")
 
             def bwd(dll=dll, dx=dx, part=part, dwb=dwb):
                 _check(dll.mojo_conv1d_bwd(*ins, g.data_ptr(), dx.data_ptr(), part.data_ptr(), dwb.data_ptr(),
-                                           B, T, D, W, 1, MAX_SLOTS, vec, code, stream), "bwd")
+                                           B, T, D, W, 1, vec, bwd_chunk, bwd_slots, *exact, code, stream),
+                       "bwd")
 
             fwd()
             bwd()

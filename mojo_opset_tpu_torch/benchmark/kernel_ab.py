@@ -1,6 +1,7 @@
 """Kernels D (paged prefill), H (grouped GEMM), F (int8 GEMM), A (RMSNorm), P (residual add + RMSNorm), G
-(packed-int4 GEMM), L (SiLU), B (token-first RoPE), E (RMSNorm + int8 quant), I (absorbed MLA) and the dk/dv entry
-points of J and O of one tree, for comparing two trees on one card.
+(packed-int4 GEMM), L (SiLU), B (token-first RoPE), E (RMSNorm + int8 quant), K (RMSNorm backward), Q (causal
+conv1d), I (absorbed MLA) and the dk/dv entry points of J and O of one tree, and the paths and the train step on
+them, for comparing two trees on one card.
 
 The kernels come from the ``mojo_opset_tpu_torch`` package that ``sys.path``
 finds first: this tree's, or another commit's (``git archive`` unpacked in
@@ -27,10 +28,14 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   80/8, D 128, at decode rows (T 4 and 1 at 32/8, T 4 at 80/8) and on
   DeepSeek-V3's rope lanes (T 4, 128/1 heads, D 64); E at (1650, 2560),
   (4, 2560), (1, 2560), (8, 2560) with a zero row, (4, 5120) and (1650,
-  5120), bf16. A second line gives the digest of each output of G, L, B
-  and E (B's q and k together, E's int8 values and scales apart).
-  ``times TAG DIR`` also saves B's and E's outputs to ``DIR/TAG.pt``
-  (~120 MB: keep DIR out of what a run copies back).
+  5120), bf16; K at the train step's norms ((4096, 2560), (131072, 128)
+  and (32768, 128), bf16) and Q's forward and backward at the conv
+  Function's shape (B 8, T 8192, D 2048, W 4, SiLU, bf16) and at T 2048. A
+  second line gives the digest of each output of G, L, B, E, K and Q (B's q
+  and k together, E's int8 values and scales apart, K's dx and dw apart,
+  Q's out, dx, dw and db apart). ``times TAG DIR`` also saves B's, E's,
+  K's and Q's outputs to ``DIR/TAG.pt`` (~1.4 GB: keep DIR out of what a
+  run copies back).
 - ``ulps DIR TAG_A TAG_B``: for each output saved by two ``times`` runs,
   how many elements differ and by how many ulps at most (float outputs,
   ordered by their bits), or by how many steps (int8).
@@ -52,6 +57,13 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   bf16 and fp16: device ms from a CUDA graph and each output's error
   relative to its size against the plain version (whole tensor), fed the
   plain forward's lse and delta.
+- ``train TAG``: this tree's phase 10 (Qwen3 training at Qwen3-4B
+  geometry, 36 layers, its 5 timed steps) and phase 15 (the conv Function
+  on Q) on the tree's kernels; then one line ``TAG train ...``: the mean
+  step ms of the 5 steps (forward + loss, backward, AdamW), the profiled
+  step's device busy ms and kernel K's device ms in it (its row kernels
+  and its column sum), and the conv Function's ms a forward + backward
+  call on Q, in each of phase 15's two forms.
 - ``paths TAG``: this tree's phases 5 (Qwen3-4B bf16), 6 (Qwen3-4B w8a8 +
   C8), 7 (bs-1 w4a8 speculative) and 11 (Seed-OSS-36B cut to 32 layers,
   bf16 and w8a8) on the tree's kernels, each printing its prefill and
@@ -136,6 +148,40 @@ def rope_and_quant(s, out: dict, digests: dict, saved: dict) -> None:
         digests[name + "_q"], digests[name + "_scale"] = digest(saved[name + "_q"]), digest(saved[name + "_scale"])
 
 
+# K's cases (rows, width) and Q's (B, T, D; W 4, SiLU)
+RMSNORM_BWD_CASES = ((4096, 2560), (131072, 128), (32768, 128))
+CONV_CASES = ((8, 8192, 2048), (8, 2048, 2048))
+
+
+def backward_kernels(s, out: dict, digests: dict, saved: dict) -> None:
+    """K's and Q's cases (bf16), on inputs of their own generator: times into ``out``, outputs' digests into
+    ``digests``, the outputs into ``saved``."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import conv1d_vjp, rmsnorm_vjp
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    bf16 = torch.bfloat16
+    for rows, D in RMSNORM_BWD_CASES:
+        x, dy = (torch.randn(rows, D, device="cuda", generator=gen).to(bf16) for _ in range(2))
+        w = torch.rand(D, device="cuda", generator=gen) + 0.5
+        run = lambda: rmsnorm_vjp.rmsnorm_bwd(x, w, dy, 1e-6)  # noqa: E731
+        name = f"K_{rows}x{D}"
+        out[name] = s.graph_ms(torch, run)
+        saved[name + "_dx"], saved[name + "_dw"] = run()
+    for B, T, D in CONV_CASES:
+        x, g = (torch.randn(B, T, D, device="cuda", generator=gen).to(bf16) for _ in range(2))
+        w = torch.randn(D, 4, device="cuda", generator=gen) * 0.3
+        b = torch.randn(D, device="cuda", generator=gen) * 0.1
+        st = torch.randn(B, 3, D, device="cuda", generator=gen).to(bf16)
+        fwd = lambda: conv1d_vjp.conv1d_fwd(x, w, b, st, True)  # noqa: E731
+        bwd = lambda: conv1d_vjp.conv1d_bwd(x, w, b, st, g, True)  # noqa: E731
+        name = f"Q_b{B}_t{T}"
+        out[name + "_fwd"], out[name + "_bwd"] = s.graph_ms(torch, fwd), s.graph_ms(torch, bwd)
+        saved[name + "_out"] = fwd()
+        saved[name + "_dx"], saved[name + "_dw"], saved[name + "_db"] = bwd()
+        del x, g
+    digests.update({k: digest(v) for k, v in saved.items() if k.startswith(("K_", "Q_"))})
+
+
 def times(s, tag: str, save_dir: str | None = None) -> None:
     from mojo_opset_tpu_torch.backends.cuda.kernels import (
         group_gemm, int4_matmul, int8_matmul, norms, paged_prefill, silu_vjp,
@@ -201,6 +247,7 @@ def times(s, tag: str, save_dir: str | None = None) -> None:
     digests = {k: digest(v) for k, v in digests.items()}
     saved = {}
     rope_and_quant(s, out, digests, saved)
+    backward_kernels(s, out, digests, saved)
     print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
     print(tag, "digests", " ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
     if save_dir is not None:
@@ -332,6 +379,53 @@ def dkv(s, tag: str) -> None:
     print(tag, " ".join(f"{k} {v:.6g}" for k, v in out.items()), flush=True)
 
 
+def train(s, card: str, tag: str) -> None:
+    """Phases 10 and 15 as chip_smoke.py runs them, recording the train steps' times, the kernel path's profiled
+    step and the conv Function's timed calls on the way."""
+    steps, profiles, conv_ms = [], [], []
+    step_fn, profile_fn, cuda_ms = s._train_step, s._step_profile, s.cuda_ms
+
+    def record_step(*args, **kwargs):
+        result = step_fn(*args, **kwargs)
+        if not profiles:  # the kernel path's steps come before its profiled step
+            steps.append(result[1:])
+        return result
+
+    def record_profile(torch_, prof):
+        from torch.autograd import DeviceType
+
+        result = profile_fn(torch_, prof)
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        split = {n: sum(e.self_device_time_total for e in device if n in e.key) / 1e3
+                 for n in ("rmsnorm_bwd_", "mojo_column_sum_kernel")}
+        profiles.append((*result[:2], split))
+        return result
+
+    def record_ms(*args, **kwargs):
+        result = cuda_ms(*args, **kwargs)
+        conv_ms.append(result)
+        return result
+
+    s._train_step, s._step_profile = record_step, record_profile
+    try:
+        s.phase_train_full_width(torch, card)
+    finally:
+        s._train_step, s._step_profile = step_fn, profile_fn
+    s.cuda_ms = record_ms
+    try:
+        s.phase_conv_function(torch, card)
+    finally:
+        s.cuda_ms = cuda_ms
+    timed = steps[-(s.TRAIN_STEPS + 1):-1]  # the 5 timed steps, before the profiled one
+    parts = [float(np.mean([t[i] for t in timed])) for i in range(3)]
+    busy, fam_ms, split = profiles[0]
+    # phase 15 times the cuda tier, then the ref tier, in each of its two forms
+    print(f"{tag} train step_ms {sum(parts):.2f} fwd_ms {parts[0]:.2f} bwd_ms {parts[1]:.2f} adamw_ms "
+          f"{parts[2]:.2f} busy_ms {busy:.3f} K_ms {fam_ms['K']:.4f} K_row_kernels_ms {split['rmsnorm_bwd_']:.4f} "
+          f"column_sum_ms {split['mojo_column_sum_kernel']:.4f} conv_fwd_bwd_ms_state {conv_ms[0]:.4f} "
+          f"conv_fwd_bwd_ms_residual {conv_ms[2]:.4f} ({card})", flush=True)
+
+
 def paths(s, card: str, tag: str) -> None:
     print(f"{tag}: phases 5, 6, 7 and 11", flush=True)
     s.phase_full_width(torch, card)
@@ -359,9 +453,11 @@ def main() -> int:
         dkv(s, sys.argv[2])
     elif sys.argv[1:2] == ["paths"] and len(sys.argv) == 3:
         paths(s, card, sys.argv[2])
+    elif sys.argv[1:2] == ["train"] and len(sys.argv) == 3:
+        train(s, card, sys.argv[2])
     else:
         raise SystemExit("usage: kernel_ab.py readings | times TAG [DIR] | ulps DIR TAG_A TAG_B | host TAG | mla TAG | "
-                         "dkv TAG | paths TAG")
+                         "dkv TAG | paths TAG | train TAG")
     return 0
 
 

@@ -1,5 +1,5 @@
-"""Kernel C's split count, kernel N's dx K ranges, kernel F's and G's routes and kernel L's and B's launch shapes,
-swept at the smoke's shapes.
+"""Kernel C's split count, kernel N's dx K ranges, kernel F's and G's routes, kernel L's, B's, K's and Q's launch
+shapes, swept at the smoke's shapes.
 
 ``paged_decode.split_count`` sizes kernel C's split-KV grid from shapes
 alone, ``flce.dx_splits`` picks how many K ranges kernel N's dx product
@@ -36,14 +36,30 @@ vector route at both block sizes it takes (``rope.THREADS``: 128 or 256
 threads) on q and k at the prefill batch (1650 tokens) with Qwen3-4B's
 32/8 heads and Seed-OSS-36B's 80/8, D 128, at decode rows (T 4 and 1 at
 32/8) and on DeepSeek-V3's rope lanes (T 4, 128/1 heads, D 64), bf16,
-every block size equal bit for bit.
+every block size equal bit for bit. ``rmsnorm_bwd`` times kernel K's
+register route at the train step's norms ((4096, 2560), (131072, 128) and
+(32768, 128), bf16; A's layouts, ``norms.row_layout``) at each count of
+blocks an SM up to what the card holds (the grid,
+``rmsnorm_vjp.blocks_per_sm``), beside the generic kernels: device ms from a
+CUDA graph, and from a profiled window the row pass's and the column sum's
+ms, with each kernel's registers and blocks an SM; every result within the
+dtype ladder of the plain version. ``conv1d`` times kernel Q's exact-width
+route (W 4, SiLU, bf16) at the conv Function's shape (B 8, T 8192, D 2048)
+and the perf descriptor's (T 2048), forward and backward, at each ring depth,
+block size and prefetch choice it instantiates (``conv1d_vjp.RING``,
+``THREADS``, ``PREFETCH``) and chunks of 64, 128 and 256 rows
+(``conv1d_vjp.CHUNK``), and at the plan's own chunk; every out and dx equal
+bit for bit, dw and db within the fp32 ladder; the backward's row pass and
+column sum apart, the forward and backward without the SiLU beside, and
+each kernel's registers and blocks an SM.
 
 Run on a machine with a GPU and nvcc::
 
-    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4 | mla | rope]
+    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4 | mla | rope | rmsnorm_bwd | conv1d]
 
-It prints one JSON line; with ``int8``, ``int4``, ``mla`` or ``rope`` it
-sweeps F, G and L, I alone, or B alone.
+It prints one JSON line; with ``int8``, ``int4``, ``mla``, ``rope``,
+``rmsnorm_bwd`` or ``conv1d`` it sweeps F, G and L, I alone, B alone, K alone
+or Q alone.
 """
 
 from __future__ import annotations
@@ -57,7 +73,7 @@ import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
-    flce, int4_matmul, int8_matmul, mla_decode, paged_decode, rope, silu_vjp,
+    conv1d_vjp, flce, int4_matmul, int8_matmul, mla_decode, norms, paged_decode, rmsnorm_vjp, rope, silu_vjp,
 )
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
@@ -366,6 +382,122 @@ def mla_case(lens, gen) -> dict:
     return result
 
 
+def kernel_ms(fn, names, calls: int = 10) -> dict:
+    """Device ms a call of each kernel whose name holds one of ``names``, over ``calls`` profiled calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {n: sum(e.self_device_time_total for e in events if n in e.key) / 1e3 / calls for n in names}
+
+
+RMSNORM_BWD_CASES = ((4096, 2560), (131072, 128), (32768, 128))
+
+
+def rmsnorm_bwd_case(rows, D, gen) -> dict:
+    """K's register route at each count of blocks an SM, and the generic kernels (the entry point with no layout),
+    each held to the plain version; keyed by blocks an SM."""
+    dev, bf16, eps = torch.device("cuda"), torch.bfloat16, 1e-6
+    x = torch.randn(rows, D, device=dev, generator=gen).to(bf16)
+    dy = torch.randn(rows, D, device=dev, generator=gen).to(bf16)
+    w = torch.rand(D, device=dev, generator=gen) + 0.5
+    want = rmsnorm_vjp.rmsnorm_bwd_plain(x, w, dy, eps)
+    names = ("rmsnorm_bwd_", "mojo_column_sum_kernel")
+    tpr, vpt = rmsnorm_vjp.layout(x, dy, w)
+    result = {"layout": (tpr, vpt), "policy": rmsnorm_vjp.blocks_per_sm(tpr, vpt, bf16), "ms": {}, "split": {},
+              "resources": {"regs": build.resources("mojo_rmsnorm_bwd_resources", D, 1, tpr, vpt,
+                                                    build.DTYPE_CODES[bf16])}}
+    chosen = rmsnorm_vjp.blocks_per_sm
+    try:
+        for bps in range(1, result["resources"]["regs"]["blocks_per_sm"] + 1):
+            rmsnorm_vjp.blocks_per_sm = lambda *_, n=bps: n
+            run = lambda: rmsnorm_vjp.rmsnorm_bwd(x, w, dy, eps)  # noqa: E731
+            for got, ref in zip(run(), want):
+                check_tol_diff(got, ref, **tols_for(bf16))
+            result["ms"][bps] = graph_ms(run)
+            result["split"][bps] = kernel_ms(run, names)
+    finally:
+        rmsnorm_vjp.blocks_per_sm = chosen
+    blocks = rmsnorm_vjp.grid_blocks(rows, D, bf16, None, build.sm_count(dev))
+    part = torch.empty(blocks, D, device=dev)
+    dx, dw = torch.empty_like(x), torch.empty(D, device=dev)
+
+    def generic():
+        build.launch("mojo_rmsnorm_bwd", dev, x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                     part.data_ptr(), dw.data_ptr(), rows, D, eps, blocks, 1, 0, 0, build.DTYPE_CODES[bf16])
+        return dx, dw
+
+    for got, ref in zip(generic(), want):
+        check_tol_diff(got, ref, **tols_for(bf16))
+    result["ms"]["generic"] = graph_ms(generic)
+    result["split"]["generic"] = kernel_ms(generic, names)
+    result["resources"]["generic"] = build.resources("mojo_rmsnorm_bwd_resources", D, 1, 0, 0,
+                                                     build.DTYPE_CODES[bf16])
+    result["best"] = min(result["ms"], key=result["ms"].get)
+    return result
+
+
+CONV_CASES = ((8, 8192, 2048), (8, 2048, 2048))
+# (rows loaded ahead, threads a block, prefetch) of the exact-width kernel that csrc/conv1d.cu instantiates for
+# bf16 at W 4
+CONV_VARIANTS = ((4, 128, 0), (8, 128, 0), (2, 128, 1), (4, 64, 1), (4, 128, 1), (4, 256, 1))
+
+
+def conv1d_case(B, T, D, gen) -> dict:
+    """Q's exact-width route at W 4 (bf16, SiLU) at each variant and chunk, keyed ``ring/threads/prefetch/chunk``
+    (``plan``: the plan's own chunk), forward and backward; without the SiLU at the chosen variant."""
+    dev, bf16, W = torch.device("cuda"), torch.bfloat16, 4
+    x = torch.randn(B, T, D, device=dev, generator=gen).to(bf16)
+    g = torch.randn(B, T, D, device=dev, generator=gen).to(bf16)
+    w = torch.randn(D, W, device=dev, generator=gen) * 0.3
+    b = torch.randn(D, device=dev, generator=gen) * 0.1
+    st = torch.randn(B, W - 1, D, device=dev, generator=gen).to(bf16)
+    ref_out = conv1d_vjp.conv1d_fwd_plain(x, w, b, st, True)
+    ref_dx, ref_dw, ref_db = conv1d_vjp.conv1d_bwd_plain(x, w, b, st, g, True)
+    chosen = (conv1d_vjp.RING, conv1d_vjp.THREADS, conv1d_vjp.PREFETCH, conv1d_vjp.CHUNK, conv1d_vjp.MIN_CHUNK)
+    result = {"policy": "/".join(map(str, chosen[:3])) + "/plan", "fwd": {}, "bwd": {}, "bwd_split": {},
+              "resources": {}}
+    first = None
+    try:
+        for ring, threads, prefetch in CONV_VARIANTS:
+            conv1d_vjp.RING, conv1d_vjp.THREADS, conv1d_vjp.PREFETCH = ring, threads, prefetch
+            tag = f"{ring}/{threads}/{prefetch}"
+            result["resources"][tag] = {
+                d: build.resources("mojo_conv1d_resources", W, 1, int(d == "bwd"), ring, threads, prefetch,
+                                   build.DTYPE_CODES[bf16]) for d in ("fwd", "bwd")}
+            for chunk in (64, 128, 256, "plan"):
+                conv1d_vjp.CHUNK, conv1d_vjp.MIN_CHUNK = (chosen[3:] if chunk == "plan" else (chunk, chunk))
+                fwd = lambda: conv1d_vjp.conv1d_fwd(x, w, b, st, True)  # noqa: E731
+                bwd = lambda: conv1d_vjp.conv1d_bwd(x, w, b, st, g, True)  # noqa: E731
+                out, (dx, dw, db) = fwd(), bwd()
+                if first is None:
+                    first = out, dx
+                    check_tol_diff(out, ref_out, **tols_for(bf16))
+                    check_tol_diff(dx, ref_dx, **tols_for(bf16))
+                if not (torch.equal(out, first[0]) and torch.equal(dx, first[1])):
+                    raise AssertionError(f"Q {tag}/{chunk}: out or dx differs from the first variant's")
+                check_tol_diff(dw, ref_dw, **tols_for(torch.float32))
+                check_tol_diff(db, ref_db, **tols_for(torch.float32))
+                key = f"{tag}/{chunk}"
+                result["fwd"][key], result["bwd"][key] = graph_ms(fwd), graph_ms(bwd)
+                if chunk == "plan":
+                    result["bwd_split"][tag] = kernel_ms(bwd, ("conv1d_bwd_exact_kernel", "mojo_column_sum_kernel"))
+    finally:
+        (conv1d_vjp.RING, conv1d_vjp.THREADS, conv1d_vjp.PREFETCH, conv1d_vjp.CHUNK,
+         conv1d_vjp.MIN_CHUNK) = chosen
+    result["no_silu"] = {"fwd": graph_ms(lambda: conv1d_vjp.conv1d_fwd(x, w, b, st, False)),
+                         "bwd": graph_ms(lambda: conv1d_vjp.conv1d_bwd(x, w, b, st, g, False))}
+    result["best_fwd"] = min(result["fwd"], key=result["fwd"].get)
+    result["best_bwd"] = min(result["bwd"], key=result["bwd"].get)
+    return result
+
+
 def int4_report(gen) -> dict:
     cases = {f"{m}x{k}x{n}": (m, k, n) for k, n in INT4_SHAPES for m in (1, 2, 3, 4, 5, 8, 512)}
     cases.update({f"{m}x{k}x{n}": (m, k, n) for k, n in INT4_SHAPES[:3] for m in (17, 64, 130)})
@@ -384,6 +516,10 @@ def main() -> None:
         report = {"rope": {f"{n}x{hq}x{hk}x{d}": rope_case(n, hq, hk, d, gen) for n, hq, hk, d in ROPE_CASES}}
     elif sys.argv[1:] == ["mla"]:
         report = {"mla_decode": {name: mla_case(lens, gen) for name, lens in MLA_CASES}}
+    elif sys.argv[1:] == ["rmsnorm_bwd"]:
+        report = {"rmsnorm_bwd": {f"{r}x{d}": rmsnorm_bwd_case(r, d, gen) for r, d in RMSNORM_BWD_CASES}}
+    elif sys.argv[1:] == ["conv1d"]:
+        report = {"conv1d": {f"b{b}_t{t}_d{d}": conv1d_case(b, t, d, gen) for b, t, d in CONV_CASES}}
     else:
         report = {"decode": {name: decode_case(lens, local, glob, gen) for name, lens, local, glob in DECODE_CASES}}
         torch.cuda.empty_cache()

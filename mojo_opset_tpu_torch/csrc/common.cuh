@@ -1,7 +1,7 @@
 // Shared helpers for the port's Hopper kernels: dtype conversion (int8
 // K/V pages included), 16-bit pair stores (H, N), warp reductions, vector
 // row loads, the fixed-order column sum of per-block partial rows (K, Q),
-// cp.async (C, D, H, J, O and N's fp32 tiles), the ldmatrix and bf16/fp16
+// a kernel's registers and occupancy for the resource queries (K, Q), cp.async (C, D, H, J, O and N's fp32 tiles), the ldmatrix and bf16/fp16
 // mma.sync.m16n8k16 fragments of D, H, J and O (N's and H's wgmma and TMA
 // are in hopper.cuh), and the dtype switch of the C entry points.
 //
@@ -154,6 +154,20 @@ mojo_column_sum_kernel(const float* __restrict__ part, float* __restrict__ out, 
 }
 
 }  // namespace
+
+// What `kernel` takes on this card, into out[0..3]: registers a thread, blocks an SM at `threads` threads and
+// `dyn_smem` bytes of dynamic shared memory, local (spill) bytes a thread, static shared bytes a block
+template <typename Kernel>
+int mojo_kernel_resources(Kernel kernel, int threads, size_t dyn_smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, threads, dyn_smem);
+  out[0] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(err);
+}
 
 // 16-byte asynchronous copy global -> shared; with pred false nothing is
 // read and the 16 bytes are zero-filled.

@@ -15,7 +15,13 @@ order, amax and int8 step (the register kernel at the layouts' widths, the
 generic block kernel elsewhere) is held to ``rmsnorm_quant_plain`` and to
 JAX's Pallas ``rmsnorm_quant`` in interpret mode (scale rtol 1e-6, int8
 values one step apart on at most 0.1%, as tests/test_torch_quant.py holds
-the ops), and each of E's routes reaches its launch.
+the ops), and each of E's routes reaches its launch. Kernel K (the RMSNorm
+backward) takes A's row layouts too: a model of its register route (each
+team's shuffled sums, dx from the registers, dw per team across its rows,
+per block in team order, per column in block order through the column
+sum's slices) is held to ``rmsnorm_bwd_plain`` (fp32 1e-5, bf16 the dtype
+ladder) and to JAX's Pallas ``rmsnorm_vjp`` in interpret mode, and each of
+K's routes reaches its launch with its grid fixed by the shape alone.
 
 The same numpy inputs and weights (carried across with ``load_numpy_state``
 from ``state_dict_of``) go through both packages. Tolerances, as in
@@ -29,6 +35,7 @@ rounding tie: at most one step on at most 1% of the values.
 import re
 from fractions import Fraction
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -38,11 +45,12 @@ import mojo_opset_tpu.core.operators as jo
 from mojo_opset_tpu.backends.pallas.kernels.norms import residual_add_rmsnorm as jax_residual_add_rmsnorm
 from mojo_opset_tpu.backends.pallas.kernels.norms import rmsnorm as jax_rmsnorm
 from mojo_opset_tpu.backends.pallas.kernels.norms import rmsnorm_quant as jax_rmsnorm_quant
+from mojo_opset_tpu.backends.pallas.kernels.rmsnorm_vjp import rmsnorm_vjp as jax_rmsnorm_vjp
 from mojo_opset_tpu.utils.hf import state_dict_of
 import mojo_opset_tpu_torch as tm
 from mojo_opset_tpu_torch.backends.cuda import build, kernels
-from mojo_opset_tpu_torch.backends.cuda.kernels import norms, rmsnorm_quant
-from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+from mojo_opset_tpu_torch.backends.cuda.kernels import norms, rmsnorm_quant, rmsnorm_vjp
+from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 from mojo_opset_tpu_torch.utils.weights import load_numpy_state
 
 EPS = 1e-6
@@ -528,3 +536,179 @@ def test_rmsnorm_quant_each_route_reaches_its_launch(monkeypatch, shape, dtype, 
     ((name, args),) = calls
     assert name == "mojo_rmsnorm_quant" and args[5:7] == (shape[0], D)
     assert args[11:13] == (layout or (0, 0)) and rmsnorm_quant.launches == before + 1
+
+
+# ------------------------------------------------------------ kernel K
+
+
+def column_sum(part):
+    """common.cuh's mojo_column_sum_kernel over (rows, cols) partial rows: slice s of 32 adds rows s, s + 32, ... in
+    order, then the 32 slice sums are added in slice order."""
+    slices = torch.zeros(32, part.shape[1])
+    for r in range(part.shape[0]):
+        slices[r % 32] = slices[r % 32] + part[r]
+    total = torch.zeros(part.shape[1])
+    for sl in slices:
+        total = total + sl
+    return total
+
+
+def k_lane_model(x, w, dy, eps, blocks):
+    """K's register route as its kernel computes it, for ``blocks`` blocks: per-lane fp32 sums of x^2 and (dy * w) * x
+    in the lane's order, a xor butterfly over the row's lanes (32 at most), the warps' sums in order; dx from the
+    registers; each team's dw sums over the rows it takes (team t of block b: row t of groups b, b + blocks, ...),
+    the block's partial row its teams' sums in team order, dw the column sum of the blocks' rows."""
+    rows, D = x.shape
+    lanes = lane_map(D, x.dtype)
+    tpr = lanes.shape[0]
+    rpb = norms.ROW_BLOCK_THREADS // tpr
+    xf, dyf = x.float(), dy.float()
+    g = dyf * w
+    ss, sg = torch.zeros(rows, tpr), torch.zeros(rows, tpr)
+    for j in range(lanes.shape[1]):
+        cols = lanes[:, j]
+        ss = ss + xf[:, cols] ** 2
+        sg = sg + g[:, cols] * xf[:, cols]
+    ss, sg = butterfly(ss, tpr, min(tpr, 32)), butterfly(sg, tpr, min(tpr, 32))
+    ss_row, sg_row = torch.zeros(rows), torch.zeros(rows)
+    for warp in range(max(tpr // 32, 1)):
+        ss_row, sg_row = ss_row + ss[:, 32 * warp], sg_row + sg[:, 32 * warp]
+    rstd = 1.0 / torch.sqrt(ss_row / D + eps)
+    coef = rstd * rstd * rstd * (sg_row / D)
+    dx = (rstd[:, None] * g - coef[:, None] * xf).to(x.dtype)
+    terms = dyf * (xf * rstd[:, None])
+    groups = -(-rows // rpb)
+    part = torch.zeros(blocks, D)
+    for b in range(blocks):
+        teams = []
+        for t in range(rpb):
+            acc = torch.zeros(D)
+            for grp in range(b, groups, blocks):
+                if grp * rpb + t < rows:
+                    acc = acc + terms[grp * rpb + t]
+            teams.append(acc)
+        total = teams[0]
+        for acc in teams[1:]:
+            total = total + acc
+        part[b] = total
+    return dx, column_sum(part)
+
+
+K_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def k_inputs(rows, D, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32) * 2).to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((rows, D)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, D).astype(np.float32)).to(dtype).float()
+    return x, w, dy
+
+
+# rows that do not divide the block's teams (16 at D 128 bf16, 4 at 2560 bf16, 2 at 2560 fp32), over grids of one
+# and of several rounds (sms 1 and 2: the grid is cut from the blocks an SM)
+@pytest.mark.parametrize("sms", [1, 2])
+@pytest.mark.parametrize("rows", [37, 13])
+@pytest.mark.parametrize("dtype_name", list(K_DTYPES))
+@pytest.mark.parametrize("D", [128, 2560])
+def test_rmsnorm_bwd_lane_model_matches_the_plain_version(D, dtype_name, rows, sms):
+    dtype = K_DTYPES[dtype_name]
+    x, w, dy = k_inputs(rows, D, dtype, seed=D + rows)
+    layout = rmsnorm_vjp.layout(x, dy, w)
+    assert layout == norms.row_layout(D, dtype) is not None
+    blocks = rmsnorm_vjp.grid_blocks(rows, D, dtype, layout, sms)
+    got_dx, got_dw = k_lane_model(x, w, dy, EPS, blocks)
+    want_dx, want_dw = rmsnorm_vjp.rmsnorm_bwd_plain(x, w, dy, EPS)
+    assert got_dx.dtype == want_dx.dtype == dtype and got_dw.dtype == torch.float32
+    check_tol_diff(got_dx.float(), want_dx.float(), **(dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32
+                                                       else tols_for(dtype)))
+    check_tol_diff(got_dw, want_dw, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype_name", list(K_DTYPES))
+@pytest.mark.parametrize("D", [128, 2560])
+def test_rmsnorm_bwd_lane_model_matches_pallas_interpret(D, dtype_name):
+    """Against JAX's Pallas rmsnorm_vjp in interpret mode, its weight in the rows' dtype, as
+    tests/test_torch_train_functions.py runs it; dw's tolerance grows with sqrt(rows)."""
+    dtype = K_DTYPES[dtype_name]
+    rows = 21
+    x, w, dy = k_inputs(rows, D, dtype, seed=D + 7)
+    jdt = JAX_DTYPE[dtype]
+    jx, jw, jdy = (jnp.asarray(t.float().numpy(), jdt) for t in (x, w, dy))
+    _, pull = jax.vjp(lambda a, b: jax_rmsnorm_vjp(a, b, EPS, True), jx, jw)
+    want_dx, want_dw = pull(jdy)
+    blocks = rmsnorm_vjp.grid_blocks(rows, D, dtype, rmsnorm_vjp.layout(x, dy, w), 1)
+    got_dx, got_dw = k_lane_model(x, w, dy, EPS, blocks)
+    tol = TOL[dtype_name]
+    close(got_dx, want_dx, tol)
+    close(got_dw, want_dw, {k: v * rows**0.5 for k, v in tol.items()})
+
+
+@pytest.mark.parametrize("D, dtype_name, layout", [
+    (128, "bf16", (8, 2)), (2560, "bf16", (32, 10)), (5120, "bf16", (64, 10)), (2560, "f32", (64, 10)),
+    (128, "f32", (16, 2)), (128, "f16", (8, 2)), (33, "f32", None), (300, "f16", None), (96, "bf16", None),
+    (257, "bf16", None), (5120, "f32", None)])
+def test_rmsnorm_bwd_layouts_are_norms_row_layouts(D, dtype_name, layout):
+    """The register route at A's widths; every other width takes the generic kernels."""
+    dtype = A_DTYPES[dtype_name]
+    x = torch.zeros(3, D, dtype=dtype)
+    assert rmsnorm_vjp.layout(x, torch.zeros_like(x), torch.ones(D)) == norms.row_layout(D, dtype) == layout
+
+
+@pytest.mark.parametrize("which", ["x", "dy", "weight"])
+def test_rmsnorm_bwd_unaligned_views_take_the_generic_kernels(which):
+    def tensor(name, shape, dtype):
+        n = int(np.prod(shape))
+        return torch.zeros(n + 1, dtype=dtype)[int(name == which):][:n].view(shape)
+
+    x, dy = tensor("x", (3, 2560), torch.bfloat16), tensor("dy", (3, 2560), torch.bfloat16)
+    assert rmsnorm_vjp.layout(x, dy, tensor("weight", (2560,), torch.float32)) is None
+
+
+def test_rmsnorm_bwd_layouts_match_the_kernel_source():
+    """K's register kernel instantiates the shared header's layouts (norms.ROW_LAYOUTS's pairs) in A's block size,
+    and is built to hold the blocks an SM that rmsnorm_vjp.blocks_per_sm counts for its grid."""
+    src = (build.CSRC_DIR / "rmsnorm_vjp.cu").read_text()
+    assert source_row_layouts() == sorted(norms.ROW_LAYOUTS.values())
+    assert '#include "row_regs.cuh"' in src and src.count("MOJO_ROW_LAYOUTS(MOJO_ROW_CASE)") == 2
+    assert f"kRegThreads = {norms.ROW_BLOCK_THREADS};" in src
+    assert "return values <= 40 ? 4 : 2;" in src
+    assert "__launch_bounds__(kRegThreads, reg_min_blocks(VPT * 16 / static_cast<int>(sizeof(T))))" in src
+    per = {(8, 2, torch.bfloat16): 4, (16, 2, torch.bfloat16): 4, (32, 10, torch.bfloat16): 2,
+           (64, 10, torch.bfloat16): 2, (64, 10, torch.float32): 4, (16, 2, torch.float32): 4}
+    for (tpr, vpt, dtype), want in per.items():
+        assert rmsnorm_vjp.blocks_per_sm(tpr, vpt, dtype) == want
+
+
+@pytest.mark.parametrize("shape, dtype, offset, layout, blocks", [
+    # the train step's norms on 132 SMs: 1024 groups of 4 rows over 264 resident blocks -> 4 rounds of 256
+    ((4096, 2560), torch.bfloat16, 0, (32, 10), 256),
+    ((131072, 128), torch.bfloat16, 0, (8, 2), 512), ((32768, 128), torch.bfloat16, 0, (8, 2), 512),
+    ((4097, 2560), torch.bfloat16, 0, (32, 10), 257), ((13, 2560), torch.bfloat16, 0, (32, 10), 4),
+    ((1, 128), torch.bfloat16, 0, (8, 2), 1), ((5, 5120), torch.bfloat16, 0, (64, 10), 3),
+    ((6, 2560), torch.float32, 0, (64, 10), 3),
+    # the generic kernels: a block a long row (at most 2 an SM), a warp a short row (8 a block, at most 4 an SM)
+    ((4096, 2560), torch.bfloat16, 1, None, 264), ((37, 300), torch.float16, 0, None, 37),
+    ((9, 33), torch.float32, 0, None, 2), ((4096, 96), torch.bfloat16, 0, None, 512),
+])
+def test_rmsnorm_bwd_each_route_reaches_its_launch(monkeypatch, shape, dtype, offset, layout, blocks):
+    """Off the CPU the wrapper picks the route from the width, the dtype and the pointers alone, and launches once
+    with its layout ((0, 0): the generic kernels) and a grid, the rows of the dw partial buffer, fixed by the
+    shape."""
+    calls, empties = [], []
+    monkeypatch.setattr(build, "launch", lambda name, device, *args: calls.append((name, args)))
+    monkeypatch.setattr(rmsnorm_vjp, "launches", rmsnorm_vjp.launches)
+    real_empty = torch.empty
+    monkeypatch.setattr(rmsnorm_vjp.torch, "empty", lambda *s, **k: empties.append(s) or real_empty(*s, **k))
+    n = int(np.prod(shape))
+    x = real_empty(n + offset, device="meta", dtype=dtype)[offset:].view(shape)
+    dy = real_empty(shape, device="meta", dtype=dtype)
+    if offset:  # a meta tensor's storage starts at 0: an element in is unaligned
+        assert x.data_ptr() % 16 == x.element_size() * offset
+    before = rmsnorm_vjp.launches
+    dx, dw = rmsnorm_vjp.rmsnorm_bwd(x, real_empty(shape[-1], device="meta"), dy, EPS)
+    assert dx.shape == shape and dx.dtype == dtype and dw.shape == (shape[-1],) and dw.dtype == torch.float32
+    ((name, args),) = calls
+    assert name == "mojo_rmsnorm_bwd" and args[6:8] == (shape[0], shape[-1]) and args[9] == blocks
+    assert args[11:13] == (layout or (0, 0)) and rmsnorm_vjp.launches == before + 1
+    assert (blocks, shape[-1]) in empties  # the partial buffer: one row a block
