@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and the exit code
 is non-zero:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
      TF32 off for fp32 matmuls and convolutions.
-  2. build: compiles the seventeen kernels' sources (sixteen files: A and P
+  2. build: compiles the eighteen kernels' sources (seventeen files: A and P
      share ``rmsnorm.cu``) from ``mojo_opset_tpu_torch/csrc`` (one nvcc per
      source, all at once, then one link).
   3. kernels: each kernel against its plain PyTorch version on the card, at
@@ -57,7 +57,15 @@ is non-zero:
      at G = 256 with prefill tiles that straddle groups, and at DeepSeek-V3's
      expert shapes; each output held relative to its size to
      GROUP_GEMM_REL_LIMITS (whole, worst row) and every bf16/fp16 case on
-     its prefill tile repeated bit for bit. The absorbed MLA kernel
+     its prefill tile repeated bit for bit. The int8 / packed-int4 grouped
+     GEMM (R) runs at the quantized MoE paths' shapes (Qwen3-30B-A3B's fc1
+     and down, G 128, int8 and int4, DeepSeek-V3's, G 256, int8; decode at
+     bs 4 from one top-8 routing and the prefill batch's 13200 rows), then
+     groups of 0, 1, 15, 16, 17 and 129 rows, an empty tail, every tile and
+     every output dtype, and refuses K % 16 != 0; every case equals the
+     plain version bit for bit and repeats bit for bit, each main case
+     timed beside H's bf16 time on the same shapes (a reference: no
+     PyTorch call computes an int8 grouped product). The absorbed MLA kernel
      (I) runs at DeepSeek-V3's widths: decode at bs 4 and 1, prefill's row
      mode over the prompt batch, decode at bs 1 over ctx 4096 and 32768 and
      at bs 24 over ctx 4000, and edge cases (a zero-length sequence, -1
@@ -144,13 +152,17 @@ is non-zero:
   4. small fp32 Qwen3 (4 layers, hidden 512, 8/2 heads, head_dim 128,
      vocab 4096), a small fp32 Seed-OSS of the same widths (q/k/v biases),
      a small fp32 Qwen3-MoE of the same widths (16 experts,
-     top-4, expert width 256), and the dense model's w8a8, w8a8 + C8 and
-     w4a8 twins: greedy tokens of
+     top-4, expert width 256) with its w8a8 and w4a8 twins (kernel R), a
+     small w8a8 DeepSeek-V3 (SMALL_DEEPSEEK: one dense and one MoE layer),
+     and the dense model's w8a8, w8a8 + C8 and w4a8 twins: greedy tokens of
      the kernel path equal the plain path's (MOJO_BACKEND=ref, same
-     weights) over 16 steps, and the FusedDecode window's. The w4a8 twin's
-     paths may part once at a near-tie: there the two paths' logits differ
-     by <= 0.05 and the plain path's top-2 gap is below that difference (an
-     int8 activation crossed a rounding tie). Then, exactly:
+     weights) over 16 steps, and the FusedDecode window's. The w4a8 twins',
+     the quantized MoE twins' and the DeepSeek twin's paths may part once
+     at a near-tie: there the two paths' logits differ by <= 0.05 and the
+     plain path's top-2 gap is below that difference (an int8 activation
+     crossed a rounding tie). The w8a8 MoE twin's continuous batcher (4
+     requests on 2 slots) gives each request its standalone greedy tokens.
+     Then, exactly:
      SpeculativeDecoder (k = 4) ``generate`` and ``generate_fused`` with
      the w4a8 draft and with a 1-layer truncated draft equal vanilla greedy
      of the fp32 model; ContinuousBatchingGenerator (6 requests on 2 slots,
@@ -200,7 +212,17 @@ is non-zero:
      on and the per-row cosine of the last-token logits (bound
      MOE_COSINE_BOUND: routes flip at near-ties, see PERF.md). Prints the
      readings, peak memory and one decode step's device time from
-     torch.profiler.
+     torch.profiler. Then the w8a8 and w4a8 halves: the plain twin goes,
+     and the model turns into both quantized twins one layer at a time
+     (``quantize_qwen3_moe_layer``), each bf16 layer freed once both hold it
+     (the peak stays near the bf16 model's, and is printed); each twin runs
+     phase 5's run against its plain twin on its tensors (its path kernels,
+     R among them, must launch; the FusedDecode window with host syncs as
+     errors; the decode step's R, F and G shares; logits per-row cosine
+     against the plain twin >= MOE_INT8_COSINE_BOUND / MOE_INT4_COSINE_BOUND,
+     against the bf16 model printed), and one layer's quantized experts
+     equal the plain experts bit for bit under one routing, for the prefill
+     batch and the last tokens.
   9. DeepSeek-V3 at full width (DEEPSEEK_V3: hidden 7168, 128 heads, q LoRA
      1536, kv LoRA 512, rope 64, 256 experts top-8 of width 2048, a shared
      expert, vocab 129280), depth cut 61 -> 5 (its 3 dense layers and 2 MoE
@@ -214,7 +236,12 @@ is non-zero:
      the golden decompressing op on its cache (DEEPSEEK_LAYER_TOL); end to end,
      the top-8 route agreement and the per-row logit cosine (bound
      DEEPSEEK_COSINE_BOUND). Prints the readings, peak memory and one
-     decode step's device time from torch.profiler.
+     decode step's device time from torch.profiler. Then the w8a8 half:
+     the model turns into its w8a8 twin one layer at a time
+     (``quantize_deepseek_v3_layer``), each bf16 layer freed as it goes, and
+     runs the same checks on its path (E, F and R in place of H, R 4 times
+     a decode step), its logits held to its plain twin
+     (DEEPSEEK_INT8_COSINE_BOUND) and printed against the bf16 model's.
  10. Qwen3 training at Qwen3-4B geometry in bf16 (random weights from seed
      0, one repeated batch of B 2 x S 2048 random ids): a twin check at
      depth 2, one step on the training path's kernels (A and K under the
@@ -277,8 +304,9 @@ is non-zero:
      forward and backward once a call; fwd + bwd ms and peak memory of each
      tier; one cu_seqlens call takes the golden, the only one counted in
      golden_calls.
-Phases 5-12 (the models) must leave every cuda-tier class's golden_calls
-where it was: a golden route on a model path fails its phase.
+Phases 5-12 (the models, the quantized halves of 8 and 9 among them) must
+leave every cuda-tier class's golden_calls where it was: a golden route on
+a model path fails its phase.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -313,6 +341,14 @@ QWEN3_30B_A3B = dict(
     num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
 )
 SMALL_MOE = dict(SMALL, num_experts=16, num_experts_per_tok=4, moe_intermediate_size=256)
+# a small DeepSeek-V3 of the same widths for its w8a8 twin: one dense and one MoE layer, MLA with q LoRA 256,
+# kv LoRA 128, rope 32
+SMALL_DEEPSEEK = dict(
+    hidden_size=512, intermediate_size=1536, moe_intermediate_size=256, num_attention_heads=8, num_hidden_layers=2,
+    vocab_size=4096, max_position_embeddings=256, q_lora_rank=256, kv_lora_rank=128, qk_rope_head_dim=32,
+    qk_nope_head_dim=64, v_head_dim=64, n_routed_experts=16, n_shared_experts=1, num_experts_per_tok=4,
+    first_k_dense_replace=1,
+)
 # DeepSeek-V3 (huggingface.co/deepseek-ai/DeepSeek-V3, config.json) at full width; the depth is cut 61 -> 5 (its 3
 # dense layers and 2 MoE layers: 50 GiB of bf16 weights, a third MoE layer would not leave room on one card) and the
 # positions to 1088 (the longest prompt, its decode steps and one more)
@@ -337,6 +373,15 @@ MOE_LAYER_CHECKED = 24  # the layer whose experts are held to the plain experts 
 # end-to-end prefill logits against the plain path: bf16 rounding flips ~1.7% of the top-8 routes at near-ties
 # over 48 layers; the run that set it saw cosines 0.99933-0.99968 (PERF.md, section 6)
 MOE_COSINE_BOUND = 0.998
+# the quantized halves of phases 8 and 9, end-to-end prefill logits against their plain twins (the golden tier on
+# the same int8 tensors): R equals its plain version bit for bit, but the attention kernels round bf16 at other
+# places, which moves int8 activations across rounding ties (in E's and the experts' dynamic quant) and flips top-8
+# routes at near-ties, as in bf16. The run that set them (PERF.md, section 6) saw 1 - cosine of at most
+# 7.99e-4 (Qwen3-30B-A3B w8a8), 8.07e-4 (w4a8) and 2.58e-4 (DeepSeek-V3 w8a8): each bound leaves 5x room, while a
+# wrong expert, scale or nibble order moves the logits wholesale
+MOE_INT8_COSINE_BOUND = 0.996
+MOE_INT4_COSINE_BOUND = 0.9959
+DEEPSEEK_INT8_COSINE_BOUND = 0.9987
 PROMPT_LENS = (1000, 513, 130, 7)
 DECODE_STEPS = 32
 DECODE_GRID_BS = (1, 8, 24)  # kernel C at Qwen3-4B's geometry and ctx 4000: the first benchmark's decode batches
@@ -399,12 +444,20 @@ KERNEL_INFO = {
                    "mojo_opset_tpu/backends/pallas/kernels/conv1d_vjp.py:149"),
     "conv1d_bwd": ("conv1d_train_bwd", "mojo_opset_tpu_torch/csrc/conv1d.cu",
                    "mojo_opset_tpu/backends/pallas/kernels/conv1d_vjp.py:188"),
+    # kernel R has no Pallas counterpart: it replaces the xla tier's int8 ragged_dot of the quantized experts
+    "group_quant_gemm": ("grouped_quant_matmul", "mojo_opset_tpu_torch/csrc/group_quant_gemm.cu",
+                         "mojo_opset_tpu/backends/xla/operators/moe.py:51"),
 }
 BF16_PATH_KERNELS = ("norms", "rope", "paged_decode", "paged_prefill")
 MOE_PATH_KERNELS = BF16_PATH_KERNELS + ("group_gemm",)
 INT8_PATH_KERNELS = BF16_PATH_KERNELS + ("rmsnorm_quant", "int8_matmul")
 SPEC_PATH_KERNELS = INT8_PATH_KERNELS + ("int4_matmul",)
 DEEPSEEK_PATH_KERNELS = ("norms", "rope", "mla_decode", "group_gemm")
+# the quantized MoE paths (phases 8 and 9): the experts on R; F under the int8 projections and the lm_head, E before
+# them; w4a8 puts Qwen3-30B-A3B's attention projections on G
+MOE_INT8_PATH_KERNELS = INT8_PATH_KERNELS + ("group_quant_gemm",)
+MOE_INT4_PATH_KERNELS = MOE_INT8_PATH_KERNELS + ("int4_matmul",)
+DEEPSEEK_INT8_PATH_KERNELS = ("norms", "rope", "mla_decode", "rmsnorm_quant", "int8_matmul", "group_quant_gemm")
 # (K, N) of the w8a8 and w4a8 projections at Qwen3-4B: q, k/v, o, gate/up, down; the lm_head at M = 4
 GEMM_SHAPES = ((2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728), (9728, 2560))
 # (K, N) of the w8a8 projections at Seed-OSS-36B's widths (SEED_OSS_36B below): q, k/v, o, gate/up, down
@@ -906,6 +959,7 @@ def phase_kernels(torch) -> dict:
         raise AssertionError("the int4 GEMM took N = 192 (N % 128 != 0)")
 
     _gmm_cases(torch, compare, gen, record)
+    _gqmm_cases(torch, compare, gen, record)
     _mla_cases(torch, compare, gen)
     _queue3_cases(torch, gen)
     _flash_swa_cases(torch, compare, gen)
@@ -1098,6 +1152,95 @@ def _gmm_cases(torch, compare, gen, record) -> None:
         del w
     torch.cuda.empty_cache()
     log("kernel group_gemm", "every bf16/fp16 prefill-tile case repeats bit for bit over two runs")
+
+
+def _gqmm_cases(torch, compare, gen, record) -> None:
+    """R: the int8 / packed-int4 grouped GEMM at the quantized MoE paths' shapes (Qwen3-30B-A3B's fc1 and down, G
+    128, int8 and int4; DeepSeek-V3's, G 256, int8; decode at bs 4, 32 rows from one top-8 routing, and the
+    prefill batch's 13200 rows), then groups of 0, 1, 15, 16, 17 and 129 rows, an empty tail, both tiles and every
+    output dtype. Every case equals the plain version bit for bit and repeats bit for bit; each main case is timed
+    from one CUDA graph beside its bound and H's bf16 time on the same (M, K, N, counts), a reference: no PyTorch
+    call computes an int8 grouped product, so R has no library time."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import group_gemm, group_quant_gemm
+    from mojo_opset_tpu_torch.modeling.qwen3 import pack_int4
+
+    bf16 = torch.bfloat16
+    route_rng = np.random.default_rng(3)
+
+    def routed_counts(rows, experts, top_k=8):
+        choice = np.argsort(route_rng.random((rows // top_k, experts)), axis=1)[:, :top_k]
+        return np.bincount(choice.reshape(-1), minlength=experts)
+
+    def bit_for_bit(got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"R differs from its plain version at {int((got != want).sum())} elements")
+        return "bit for bit"
+
+    def case(counts, K, N, int4, dtype, main=False, key=None, M=None, w=None):
+        counts = torch.tensor(np.asarray(counts), dtype=torch.int32, device="cuda")
+        G, routed = counts.numel(), int(counts.sum())
+        M = routed if M is None else M
+        if w is None:
+            lo, hi = (-8, 8) if int4 else (-127, 128)
+            w = torch.randint(lo, hi, (G, N, K), device="cuda", generator=gen, dtype=torch.int8)
+            w = pack_int4(w) if int4 else w
+        x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
+        ws = torch.rand(G, N, device="cuda", generator=gen) * 0.01 + 1e-3
+        xs = torch.rand(M, 1, device="cuda", generator=gen) * 0.05 + 1e-3
+        run = lambda: group_quant_gemm.grouped_quant_matmul(x, w, counts, ws, xs, dtype, int4)  # noqa: E731
+        active = int((counts > 0).sum())
+        out_bytes = torch.finfo(dtype).bits // 8
+        # each input read once (the active experts' slabs and scales, x, x's scales, the counts), the output once
+        bound = (active * (w.shape[1] * K + 4 * N) + M * (K + 4) + 4 * G + M * N * out_bytes, 2 * routed * K * N,
+                 "int8")
+        route = group_quant_gemm.ROUTE_NAMES[group_quant_gemm.route(M, G)]
+        label = (f"grouped quant gemm{' ' + key if key else ''} M={M} K={K} N={N} G={G} ({active} active) "
+                 f"{'int4' if int4 else 'int8'} {route} tile")
+        note = None
+        if main:
+            xb = torch.randn(M, K, device="cuda", generator=gen, dtype=bf16)
+            wb = torch.randn(G, N, K, device="cuda", generator=gen, dtype=bf16)
+            h_ms = graph_ms(torch, lambda: group_gemm.grouped_matmul(xb, wb, counts, True))
+            del xb, wb
+            note = f"H in bf16 on the same shapes {h_ms:.4f} ms (a reference); library none: no PyTorch call " \
+                   f"computes an int8 grouped product"
+        compare("group_quant_gemm", run, lambda: group_quant_gemm.grouped_quant_matmul_plain(
+            x, w, counts, ws, xs, dtype, int4), dtype, label, main, key=key, check=bit_for_bit, bound=bound, note=note)
+        _repeats(torch, label, run)
+        if main:
+            record["group_quant_gemm"][key]["h_bf16_ms"] = h_ms
+        return w
+
+    for int4 in (False, True):
+        suffix = "_int4" if int4 else ""
+        for name, rows, K, N in (("decode_bs4_fc1", 32, 2048, 1536), ("decode_bs4_down", 32, 768, 2048),
+                                 ("prefill_fc1", sum(PROMPT_LENS) * 8, 2048, 1536),
+                                 ("prefill_down", sum(PROMPT_LENS) * 8, 768, 2048)):
+            case(routed_counts(rows, 128), K, N, int4, bf16, True, key=name + suffix)
+    for name, K, N in (("fc1", 7168, 2 * 2048), ("down", 2048, 7168)):
+        w = None
+        for rows, phase in ((4 * 8, "decode_bs4"), (sum(PROMPT_LENS) * 8, "prefill")):
+            w = case(routed_counts(rows, 256), K, N, False, bf16, True, key=f"deepseek_{phase}_{name}", w=w)
+        del w
+        torch.cuda.empty_cache()
+    edges = [0, 1, 15, 16, 17, 129, 0, 3]
+    for dtype in (bf16, torch.float16, torch.float32):
+        for int4 in (False, True):
+            case(edges, 64, 48, int4, dtype, M=sum(edges) + 21)          # the decode tile, an empty tail
+            case([300, 0, 1, 37, 129], 160, 264, int4, dtype, M=500)       # the prefill tile, an empty tail
+            case(routed_counts(32, 16), 2048, 96, int4, dtype)             # one-row groups
+            case([7, 0, 2], 48, 34, int4, dtype)                           # N off the tiles, K of 3 chunks
+    try:
+        group_quant_gemm.grouped_quant_matmul(
+            torch.zeros(4, 40, device="cuda", dtype=torch.int8),
+            torch.zeros(2, 16, 40, device="cuda", dtype=torch.int8),
+            torch.tensor([2, 2], dtype=torch.int32, device="cuda"), torch.ones(2, 16, device="cuda"),
+            torch.ones(4, 1, device="cuda"), bf16)
+    except ValueError as e:
+        log("kernel group_quant_gemm", f"K = 40 refused: {e}")
+    else:
+        raise AssertionError("the grouped quant GEMM took K = 40 (K % 16 != 0)")
+    log("kernel group_quant_gemm", "every R case equals its plain version and repeats, bit for bit")
 
 
 def attention_bound(torch, dtype, hq, hkv, d, q_tokens, kv_lens, pairs, page_bytes):
@@ -2151,9 +2294,7 @@ def _build_pair(torch, config, model_cls=None):
 
     model_cls = model_cls or Qwen3ForCausalLM
     model = model_cls(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
-    with plain_tier():
-        plain = model_cls(config, device="meta")
-    _bind(plain, model)
+    plain = _plain_twin(torch, model, model_cls)
     attn = _layers(model)[0].self_attn
     assert type(attn.attn_decode).__name__.startswith("Cuda"), type(attn.attn_decode)
     assert type(_layers(plain)[0].self_attn.attn_decode).__name__.startswith("Ref")
@@ -2162,6 +2303,15 @@ def _build_pair(torch, config, model_cls=None):
         assert type(mlp.experts).__name__ == "CudaExperts", type(mlp.experts)
         assert type(_layers(plain)[0].mlp.experts).__name__ == "RefExperts"
     return model, plain
+
+
+def _plain_twin(torch, model, model_cls):
+    """A plain twin (MOJO_BACKEND=ref) of ``model`` built on the meta device
+    and bound to its tensors."""
+    with plain_tier():
+        plain = model_cls(model._config, device="meta")
+    _bind(plain, model)
+    return plain
 
 
 def _bind(plain, model) -> None:
@@ -2209,7 +2359,7 @@ def _prompts(vocab: int, lens) -> tuple[np.ndarray, np.ndarray]:
     return rng.integers(1, vocab, int(sum(lens))).astype(np.int32), np.asarray(lens, np.int32)
 
 
-def _greedy_match(torch, name, model, plain, ids, lens, tie_bound=None) -> None:
+def _greedy_match(torch, name, model, plain, ids, lens, tie_bound=None, session_cls=None) -> None:
     """16 greedy steps: kernel path == plain path == fused window.
 
     With ``tie_bound`` (the quantized twins whose activations are int8), the
@@ -2231,8 +2381,8 @@ def _greedy_match(torch, name, model, plain, ids, lens, tie_bound=None) -> None:
             self.steps.append(logits)
 
     def generate(m, fused=False, hook=None):
-        gen = MojoGenerator(PagedAttentionGenerationModel(m, block_size=16), None, GreedySampler(), max_new_tokens=16,
-                            hooks=[hook] if hook else None)
+        gm = PagedAttentionGenerationModel(m, block_size=16, **({"session_cls": session_cls} if session_cls else {}))
+        gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=16, hooks=[hook] if hook else None)
         return gen.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=fused)
 
     kept, plain_kept = KeepLogits(), KeepLogits()
@@ -2330,8 +2480,41 @@ def _continuous_match(torch, model, draft) -> None:
         raise AssertionError("the shared 128-token prefix never entered the prefix cache")
 
 
+def _converted_pair(torch, convert, source, *args):
+    """A converter's twin of ``source`` on the kernel path and on the plain
+    path (MOJO_BACKEND=ref): the same weights, converted on the card."""
+    model = convert(source, *args)
+    with plain_tier():
+        plain = convert(source, *args)
+    for a, b in zip(model.state_dict().values(), plain.state_dict().values()):
+        assert torch.equal(a, b)
+    return model, plain
+
+
+def _batcher_match(torch, name, model) -> None:
+    """4 requests on 2 slots of the continuous batcher: each gets its standalone greedy tokens."""
+    from mojo_opset_tpu_torch.runtime import ContinuousBatchingGenerator
+
+    steps, rng = 12, np.random.default_rng(2)
+    prompts = [rng.integers(1, SMALL["vocab_size"], n).astype(np.int32) for n in (9, 33, 2, 20)]
+    want = [_standalone_greedy(model, p, [p.size], steps)[0] for p in prompts]
+    gen = ContinuousBatchingGenerator(model, batch_slots=2, block_size=16, max_new_tokens=steps)
+    rids = [gen.submit(p) for p in prompts]
+    results = gen.run()
+    for rid, w in zip(rids, want):
+        if not np.array_equal(results[rid], w):
+            raise AssertionError(f"{name}, continuous batcher: request {rid} gave {results[rid].tolist()}, "
+                                 f"standalone {w.tolist()}")
+    log("small continuous", f"{name}: {len(prompts)} requests on 2 slots == standalone greedy")
+
+
 def phase_small_model(torch) -> None:
-    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3MoeConfig, Qwen3MoeForCausalLM
+    from mojo_opset_tpu_torch.modeling.deepseekv3 import (
+        DeepseekV3Config, DeepseekV3ForCausalLM, MLARuntimeState, quantize_deepseek_v3,
+    )
+    from mojo_opset_tpu_torch.modeling.qwen3 import (
+        Qwen3Config, Qwen3MoeConfig, Qwen3MoeForCausalLM, quantize_qwen3_moe,
+    )
     from mojo_opset_tpu_torch.modeling.seed_oss import SeedOssConfig, SeedOssForCausalLM
 
     ids, lens = _prompts(SMALL["vocab_size"], (37, 20, 5, 64))
@@ -2340,7 +2523,20 @@ def phase_small_model(torch) -> None:
     del seed, seed_plain
     moe, moe_plain = _build_pair(torch, Qwen3MoeConfig(**SMALL_MOE, dtype=torch.float32), Qwen3MoeForCausalLM)
     _greedy_match(torch, "small fp32 MoE model", moe, moe_plain, ids, lens)
-    del moe, moe_plain
+    for weight_dtype, name in (("int8", "small w8a8 MoE model"), ("int4", "small w4a8 MoE model")):
+        q_moe, q_plain = _converted_pair(torch, quantize_qwen3_moe, moe, weight_dtype)
+        assert type(q_moe.layers[0].mlp.experts).__name__ == "CudaQuantExperts", type(q_moe.layers[0].mlp.experts)
+        assert type(q_plain.layers[0].mlp.experts).__name__ == "RefQuantExperts"
+        _greedy_match(torch, name, q_moe, q_plain, ids, lens, tie_bound=SMALL_TIE_BOUND)
+        if weight_dtype == "int8":
+            _batcher_match(torch, name, q_moe)
+    ds = DeepseekV3ForCausalLM(DeepseekV3Config(**SMALL_DEEPSEEK, dtype=torch.float32), device="cuda",
+                               generator=torch.Generator(device="cuda").manual_seed(0))
+    q_ds, q_ds_plain = _converted_pair(torch, quantize_deepseek_v3, ds)
+    assert type(q_ds.model.layers[1].mlp.routed_experts.experts).__name__ == "CudaQuantExperts"
+    _greedy_match(torch, "small w8a8 DeepSeek-V3 model", q_ds, q_ds_plain, ids, lens, tie_bound=SMALL_TIE_BOUND,
+                  session_cls=MLARuntimeState)
+    del moe, moe_plain, q_moe, q_plain, ds, q_ds, q_ds_plain
     model, plain = _build_pair(torch, Qwen3Config(**SMALL, dtype=torch.float32))
     _greedy_match(torch, "small fp32 model", model, plain, ids, lens)
     for quant_kv, name in ((False, "small w8a8 model"), (True, "small w8a8 + C8 model")):
@@ -2360,6 +2556,7 @@ def phase_small_model(torch) -> None:
 A_KERNEL_NAMES = ("rmsnorm_regs_kernel", "rmsnorm_warp_kernel", "rmsnorm_block_kernel")
 PREFILL_FAMILIES = {"D": ("paged_prefill_",), "F": ("int8_gemm_kernel", "int8_wgmma_kernel"),
                     "G": ("int4_decode_kernel", "int4_wgmma_kernel"), "H": ("gmm_",),
+                    "R": ("group_quant_gemm_kernel",),
                     "I": ("mla_mma_kernel", "mla_merge_kernel", "mla_fma_kernel"), "B": ("rope_token_first",),
                     "E": ("rmsnorm_quant",)}
 
@@ -2382,14 +2579,18 @@ def _prefill_profile(torch, tag: str, card: str, gm, ids, lens) -> None:
              f"{sum(e.count for e in device)} kernels; " + ", ".join(f"{f} {ms:.3f} ms" for f, ms in fam.items() if ms))
 
 
-def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, card: str, reference=None):
+def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, card: str, reference=None,
+                     cosine_bound: float = 0.999, host_sync_errors: bool = False, step_families=()):
     """Phase 5's run for one model and its plain twin: prefill, DECODE_STEPS
-    greedy steps and a FusedDecode window with the counters zeroed just
-    before and read just after (every kernel of ``path_kernels`` must
-    launch), one more decode step counted and profiled, and the last-token
-    prefill logits against the plain path (per-row cosine >= 0.999; against
-    ``reference`` printed with no bound). Peak memory counts from the
-    caller's last reset. Returns (counts, logits, session)."""
+    greedy steps and a FusedDecode window (with ``host_sync_errors`` under
+    ``no_host_sync``) with the counters zeroed just before and read just
+    after (every kernel of ``path_kernels`` must launch), one more decode
+    step counted and profiled (with the device ms and share of busy of each
+    PREFILL_FAMILIES kernel named in ``step_families``), and the last-token
+    prefill logits against the plain path (per-row cosine >=
+    ``cosine_bound``; against ``reference`` printed with no bound). Peak
+    memory counts from the caller's last reset. Returns (counts, logits,
+    session)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2408,7 +2609,8 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
     first = torch.argmax(logits, dim=-1).to(torch.int32)
     torch.cuda.synchronize()
     t_fused = time.perf_counter()
-    window = FusedDecode(model)(session, first, FUSED_STEPS)
+    with no_host_sync(torch, model) if host_sync_errors else contextlib.nullcontext():
+        window = FusedDecode(model)(session, first, FUSED_STEPS)
     torch.cuda.synchronize()
     fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
     counts = {k: v for k, v in kernels.launch_counts().items() if k in path_kernels}
@@ -2420,6 +2622,8 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
     window = window.T.cpu().numpy()
     if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
         raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
+    if host_sync_errors:
+        log(tag, f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
 
@@ -2437,9 +2641,13 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
         torch.cuda.synchronize()
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e3
+    shares = "".join(
+        f"; {f} {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)" for f, ms in (
+            (f, sum(e.self_device_time_total for e in device if any(p in e.key for p in PREFILL_FAMILIES[f])) / 1e3)
+            for f in step_families))
     log(tag, f"{card}: one decode step (bs 4, context ~1050): {sum(e.count for e in device)} device kernels, the "
              f"port's kernels {per_step}; wall {step_ms:.2f} ms unprofiled, device busy {busy:.3f} ms (idle "
-             f"{100 * (1 - busy / step_ms):.1f}%)")
+             f"{100 * (1 - busy / step_ms):.1f}%){shares}")
 
     plain_logits, _ = PagedAttentionGenerationModel(plain, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
     cos = torch.nn.functional.cosine_similarity(logits, plain_logits, dim=-1)
@@ -2448,8 +2656,8 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
         ref_cos = torch.nn.functional.cosine_similarity(logits, reference, dim=-1)
         note = f"; vs the bf16 model {[round(c, 4) for c in ref_cos.tolist()]} (no bound: random weights)"
     log(tag, f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
-             f"{[round(c, 6) for c in cos.tolist()]} (bound 0.999){note}")
-    if cos.min().item() < 0.999:
+             f"{[round(c, 6) for c in cos.tolist()]} (bound {cosine_bound}){note}")
+    if cos.min().item() < cosine_bound:
         raise AssertionError(f"{tag} prefill logits disagree with the plain path: cosine {cos.tolist()}")
     rec = hook.records[-1]
     log(tag, f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); decode "
@@ -2629,10 +2837,11 @@ def _routes(moe_blocks) -> tuple[list, list]:
     return routes, hooks
 
 
-def phase_moe_full_width(torch, card: str) -> dict:
+def phase_moe_full_width(torch, card: str) -> tuple:
     """Qwen3-30B-A3B at full width and depth, bf16, random weights: the MoE
     path end to end, its experts held to the plain experts, and one decode
-    step's device time."""
+    step's device time; then its w8a8 and w4a8 halves (``_moe_quant_halves``).
+    Returns (the bf16 path's counts, the quantized paths' counts)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2750,25 +2959,90 @@ def phase_moe_full_width(torch, card: str) -> dict:
                           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log("moe full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
     _prefill_profile(torch, "moe full width", card, gm, ids, lens)
-    del model, plain, gm, gen, session
+    del plain, gm, gen, session, mlp_in, routes, plain_routes
     gc.collect()
     torch.cuda.empty_cache()
+    return counts, _moe_quant_halves(torch, card, model, ids, lens, logits)
+
+
+def _moe_quant_halves(torch, card, model, ids, lens, reference) -> dict:
+    """Phase 8's w8a8 and w4a8 halves: ``model`` (the bf16 Qwen3-30B-A3B,
+    its plain twin gone) turns into both quantized twins one layer at a
+    time, each bf16 layer freed once both twins hold it (the embedding,
+    the norms and the gate are shared), so the peak stays near the bf16
+    model's; then each twin runs ``_serve_and_check`` against its plain
+    twin on its tensors (FusedDecode under ``no_host_sync``, the decode
+    step's R share, logits against the bf16 model's ``reference``), and one
+    layer's experts equal the plain experts under one routing, bit for bit,
+    for the prefill batch and the last tokens. Returns each twin's counts."""
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3MoeForCausalLM, quantize_qwen3_moe_layer, qwen3_moe_twin
+    from mojo_opset_tpu_torch.modeling.qwen3.quantize import check_filled
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    modes = {"w8a8": ("int8", MOE_INT8_PATH_KERNELS, MOE_INT8_COSINE_BOUND),
+             "w4a8": ("int4", MOE_INT4_PATH_KERNELS, MOE_INT4_COSINE_BOUND)}
+    twins = {mode: qwen3_moe_twin(model, weight_dtype) for mode, (weight_dtype, _, _) in modes.items()}
+    for i in range(len(model.layers)):
+        for mode, twin in twins.items():
+            quantize_qwen3_moe_layer(twin.layers[i], model.layers[i], modes[mode][0])
+        model.layers[i] = torch.nn.Identity()  # the bf16 layer leaves the card
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
+    log("moe quant", f"both twins converted layer by layer in {time.perf_counter() - t0:.1f} s: "
+                     + ", ".join(f"{mode} {_weight_gib(twin):.1f} GiB of weights" for mode, twin in twins.items())
+                     + f" (the bf16 embedding shared); peak memory during the conversion "
+                       f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    counts = {}
+    for mode, twin in twins.items():
+        check_filled(twin, f"the {mode} conversion")
+        tag = f"moe {mode}"
+        plain = _plain_twin(torch, twin, Qwen3MoeForCausalLM)
+        experts = twin.layers[MOE_LAYER_CHECKED].mlp.experts
+        assert type(experts).__name__ == "CudaQuantExperts", type(experts)
+        assert type(plain.layers[MOE_LAYER_CHECKED].mlp.experts).__name__ == "RefQuantExperts"
+        torch.cuda.reset_peak_memory_stats()
+        counts[f"moe_{mode}"], _, _ = _serve_and_check(
+            torch, tag, twin, plain, ids, lens, modes[mode][1], card, reference=reference,
+            cosine_bound=modes[mode][2], host_sync_errors=True, step_families=("R", "F", "G"))
+        # the experts of one layer, fed the prefill batch's hidden states, under one routing
+        layer, plain_layer = twin.layers[MOE_LAYER_CHECKED].mlp, plain.layers[MOE_LAYER_CHECKED].mlp
+        mlp_in = []
+        in_hook = layer.register_forward_pre_hook(lambda mod, args: mlp_in.append(args[0]))
+        PagedAttentionGenerationModel(twin, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
+        in_hook.remove()
+        last = torch.as_tensor(np.cumsum(lens) - 1, device="cuda")
+        for name, x in (("prefill batch", mlp_in[0]), ("last tokens", mlp_in[0][last])):
+            idx, gates = layer.gating(x)
+            sorted_h, per_expert, _, _ = layer.dispatch(x, gates, idx)
+            got, want = layer.experts(sorted_h, per_expert), plain_layer.experts(sorted_h, per_expert)
+            if not torch.equal(got, want):
+                err = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(f"{tag}: layer {MOE_LAYER_CHECKED}'s experts differ from the plain experts "
+                                     f"({name}): max_abs_err {err:.4g}")
+            log(tag, f"layer {MOE_LAYER_CHECKED} experts, {name} ({sorted_h.shape[0]} rows over "
+                     f"{int((per_expert > 0).sum())} experts), same routing: equal to the plain experts bit for bit")
+        del plain, mlp_in
+        twins[mode] = None
+        del twin
+        gc.collect()
+        torch.cuda.empty_cache()
     return counts
 
 
-def _deepseek_pair(torch, config):
-    """The kernel-path DeepSeek-V3 (random weights from seed 0) and its plain
-    twin on the same tensors: built on the meta device in the golden tier,
-    except its two paged MLA ops, which run kernel I's plain (absorbed)
-    version (the golden paged prefill gathers T * K * H * 192 elements, 88 GB
-    here)."""
+def _deepseek_plain_twin(torch, model):
+    """The plain twin of a DeepSeek-V3 model (bf16 or w8a8) on its tensors:
+    built on the meta device in the golden tier, except its two paged MLA
+    ops, which run kernel I's plain (absorbed) version (the golden paged
+    prefill gathers T * K * H * 192 elements, 88 GB here)."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import mla_decode
     from mojo_opset_tpu_torch.backends.cuda.operators import CudaPagedDecodeMLA, CudaPagedPrefillMLA
     from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3ForCausalLM
 
-    model = DeepseekV3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     with plain_tier():
-        plain = DeepseekV3ForCausalLM(config, device="meta")
+        plain = DeepseekV3ForCausalLM(model._config, device="meta")
     for layer in plain.model.layers:
         attn = layer.self_attn
         for name, cls in (("attn_decode", CudaPagedDecodeMLA), ("attn_prefill", CudaPagedPrefillMLA)):
@@ -2777,11 +3051,7 @@ def _deepseek_pair(torch, config):
                      golden.kv_lora_rank, device="meta")
             op.attend = mla_decode.mla_decode_absorbed_plain
             setattr(attn, name, op)
-    plain.load_state_dict(model.state_dict(), assign=True)
-    for name, buf in model.named_buffers():  # the rotary table
-        module_name, _, attr = name.rpartition(".")
-        setattr(plain.get_submodule(module_name), attr, buf)
-    assert all(p.device.type == "cuda" for p in plain.parameters())
+    _bind(plain, model)
     attn, plain_attn = model.model.layers[0].self_attn, plain.model.layers[0].self_attn
     assert type(attn.attn_decode).__name__ == "CudaPagedDecodeMLA"
     assert attn.attn_decode.attend is mla_decode.mla_decode_absorbed
@@ -2789,40 +3059,40 @@ def _deepseek_pair(torch, config):
     assert plain_attn.attn_prefill.kv_b_proj.data_ptr() == attn.attn_decode.kv_b_proj.data_ptr()
     assert type(plain_attn.kv_a_layernorm).__name__ == "RefRMSNorm" and type(plain_attn.rope).__name__ == "RefApplyRoPE"
     moe, plain_moe = model.model.layers[-1].mlp.routed_experts, plain.model.layers[-1].mlp.routed_experts
-    assert type(moe.experts).__name__ == "CudaExperts" and type(plain_moe.experts).__name__ == "RefExperts"
-    return model, plain
+    experts = "QuantExperts" if model._config.quant else "Experts"
+    assert type(moe.experts).__name__ == "Cuda" + experts and type(plain_moe.experts).__name__ == "Ref" + experts
+    return plain
 
 
-def phase_deepseek_full_width(torch, card: str) -> dict:
-    """DeepSeek-V3 at full width, depth cut to its 3 dense and 2 MoE layers,
-    bf16, random weights: the MLA path end to end, one layer's MLA decode
-    held to the golden op, the logits to the plain twin, one decode step's
-    device time."""
+def _deepseek_pair(torch, config):
+    """The kernel-path DeepSeek-V3 (random weights from seed 0) and its plain twin on the same tensors."""
+    from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3ForCausalLM
+
+    model = DeepseekV3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    return model, _deepseek_plain_twin(torch, model)
+
+
+def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, cosine_bound, reference=None):
+    """Phase 9's run for one DeepSeek-V3 model and its plain twin: prefill, DECODE_STEPS greedy steps and a
+    FusedDecode window with host syncs as errors, counters zeroed just before and read just after (every kernel of
+    ``path_kernels`` must launch, the GQA attention kernels never); one decode step counted (mla_decode once a
+    layer, ``experts_kernel`` twice a MoE layer), its MLA decode at DEEPSEEK_LAYER_CHECKED held to the golden op
+    on its cache, then timed and profiled; the top-8 route agreement and the last-token logits against the plain
+    twin (per-row cosine >= ``cosine_bound``; against ``reference`` printed with no bound); one profiled prefill.
+    Peak memory counts from the caller's last reset. Returns (counts, the last-token prefill logits)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mojo_opset_tpu_torch.backends.cuda import kernels
     from mojo_opset_tpu_torch.experimental.operators import MojoPagedDecodeMLA
-    from mojo_opset_tpu_torch.modeling.deepseekv3 import DeepseekV3Config, MLARuntimeState
+    from mojo_opset_tpu_torch.modeling.deepseekv3 import MLARuntimeState
     from mojo_opset_tpu_torch.runtime import (
         FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
     )
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    config = DeepseekV3Config(**DEEPSEEK_V3, dtype=torch.bfloat16)
-    t0 = time.perf_counter()
-    model, plain = _deepseek_pair(torch, config)
-    n_params = sum(p.numel() for p in model.parameters())
+    config = model._config
     n_moe = config.num_hidden_layers - config.first_k_dense_replace
-    log("deepseek full width", f"DeepSeek-V3 widths, depth cut {DEEPSEEK_FULL['num_hidden_layers']} -> "
-                               f"{config.num_hidden_layers} ({config.first_k_dense_replace} dense + {n_moe} MoE "
-                               f"layers), max_position_embeddings {DEEPSEEK_FULL['max_position_embeddings']} -> "
-                               f"{config.max_position_embeddings}: {n_params / 1e9:.2f} B params bf16 "
-                               f"({n_params * 2 / 2**30:.1f} GiB), built in {time.perf_counter() - t0:.1f} s; the "
-                               f"plain twin shares its tensors")
     ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
     gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE, session_cls=MLARuntimeState)
     hook = PerfHook(silent=True)
@@ -2844,9 +3114,9 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     torch.cuda.synchronize()
     fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
     counts = kernels.launch_counts()
-    log("deepseek full width", f"launches on the main path: {counts}")
-    if min(counts[k] for k in DEEPSEEK_PATH_KERNELS) <= 0:
-        raise AssertionError(f"a kernel of the DeepSeek path never launched: {counts}")
+    log(tag, f"launches on the main path: {counts}")
+    if min(counts[k] for k in path_kernels) <= 0:
+        raise AssertionError(f"a kernel of the {tag} path never launched: {counts}")
     if counts["paged_decode"] or counts["paged_prefill"]:
         raise AssertionError(f"the GQA attention kernels launched on the MLA path: {counts}")
     if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
@@ -2854,7 +3124,7 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     window = window.T.cpu().numpy()
     if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
         raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
-    log("deepseek full width", f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
+    log(tag, f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
 
@@ -2867,9 +3137,9 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     gm(token, session=session)
     per_step = kernels.launch_counts()
     seen_hook.remove()
-    if per_step["mla_decode"] != config.num_hidden_layers or per_step["group_gemm"] != 2 * n_moe:
+    if per_step["mla_decode"] != config.num_hidden_layers or per_step[experts_kernel] != 2 * n_moe:
         raise AssertionError(f"a decode step launched {per_step}: mla_decode must launch "
-                             f"{config.num_hidden_layers} times, group_gemm {2 * n_moe}")
+                             f"{config.num_hidden_layers} times, {experts_kernel} {2 * n_moe}")
     golden = MojoPagedDecodeMLA.get_backend_impl("ref")(op.num_heads, op.qk_nope_head_dim, op.qk_rope_head_dim,
                                                          op.v_head_dim, op.kv_lora_rank, device="meta")
     golden.kv_b_proj = op.kv_b_proj
@@ -2878,10 +3148,9 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     check_tol_diff(got, want, **DEEPSEEK_LAYER_TOL)
     err = (got.float() - want.float()).abs().max().item()
     rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
-    log("deepseek full width", f"layer {DEEPSEEK_LAYER_CHECKED} MLA decode (bs 4, contexts "
-                               f"{seen[0][3].tolist()}): kernel I path vs the golden decompressing op on the same "
-                               f"cache: max_abs_err {err:.4g} (tol {DEEPSEEK_LAYER_TOL}), relative norm error "
-                               f"{rel:.3g}; output scale {want.float().abs().max().item():.3g}")
+    log(tag, f"layer {DEEPSEEK_LAYER_CHECKED} MLA decode (bs 4, contexts {seen[0][3].tolist()}): kernel I path vs "
+             f"the golden decompressing op on the same cache: max_abs_err {err:.4g} (tol {DEEPSEEK_LAYER_TOL}), "
+             f"relative norm error {rel:.3g}; output scale {want.float().abs().max().item():.3g}")
     torch.cuda.synchronize()
     t = time.perf_counter()
     gm(token, session=session)
@@ -2894,14 +3163,14 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
     n_kernels = sum(e.count for e in device)
     mla = sum(e.self_device_time_total for e in device if any(p in e.key for p in PREFILL_FAMILIES["I"])) / 1e3
-    gmm = sum(e.self_device_time_total for e in device if "gmm_" in e.key) / 1e3
+    fam = "R" if experts_kernel == "group_quant_gemm" else "H"
+    moe = sum(e.self_device_time_total for e in device if any(p in e.key for p in PREFILL_FAMILIES[fam])) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-    log("deepseek full width", f"{card}: one decode step (bs 4, context ~1050): wall {step_ms:.2f} ms unprofiled; "
-                               f"device busy {busy:.3f} ms (idle {100 * (1 - busy / step_ms):.1f}%), {n_kernels} "
-                               f"kernels; mla_decode {mla:.3f} ms ({100 * mla / busy:.1f}% of busy, "
-                               f"{per_step['mla_decode']} launches); group_gemm {gmm:.3f} ms ({100 * gmm / busy:.1f}%, "
-                               f"{per_step['group_gemm']} launches)")
-    log("deepseek full width", "device time by kernel: " + "; ".join(
+    log(tag, f"{card}: one decode step (bs 4, context ~1050): wall {step_ms:.2f} ms unprofiled; device busy "
+             f"{busy:.3f} ms (idle {100 * (1 - busy / step_ms):.1f}%), {n_kernels} kernels; mla_decode {mla:.3f} ms "
+             f"({100 * mla / busy:.1f}% of busy, {per_step['mla_decode']} launches); {experts_kernel} {moe:.3f} ms "
+             f"({100 * moe / busy:.1f}%, {per_step[experts_kernel]} launches)")
+    log(tag, "device time by kernel: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
 
     plain_moe = [layer.mlp.routed_experts for layer in plain.model.layers[config.first_k_dense_replace:]]
@@ -2912,25 +3181,90 @@ def phase_deepseek_full_width(torch, card: str) -> dict:
         h.remove()
     agree = [(a[:, :, None] == b[:, None, :]).any(-1).float().mean().item() for a, b in zip(routes, plain_routes)]
     cos = torch.nn.functional.cosine_similarity(logits, plain_logits, dim=-1)
-    log("deepseek full width", f"top-8 routes the kernel and plain paths agree on: "
-                               f"{[round(100 * a, 3) for a in agree]}% (the {n_moe} MoE layers)")
-    log("deepseek full width", f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
-                               f"{[round(c, 6) for c in cos.tolist()]} (bound {DEEPSEEK_COSINE_BOUND})")
-    if cos.min().item() < DEEPSEEK_COSINE_BOUND:
-        raise AssertionError(f"DeepSeek prefill logits disagree with the plain path: cosine {cos.tolist()}")
+    note = ""
+    if reference is not None:
+        ref_cos = torch.nn.functional.cosine_similarity(logits, reference, dim=-1)
+        note = f"; vs the bf16 model {[round(c, 4) for c in ref_cos.tolist()]} (no bound: random weights)"
+    log(tag, f"top-8 routes the kernel and plain paths agree on: {[round(100 * a, 3) for a in agree]}% (the {n_moe} "
+             f"MoE layers)")
+    log(tag, f"last-token logits {tuple(logits.shape)} finite; per-row cosine vs plain path "
+             f"{[round(c, 6) for c in cos.tolist()]} (bound {cosine_bound}){note}")
+    if cos.min().item() < cosine_bound:
+        raise AssertionError(f"{tag}: prefill logits disagree with the plain path: cosine {cos.tolist()}")
 
     rec = hook.records[-1]
-    log("deepseek full width", f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); "
-                               f"decode {rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, "
-                               f"{rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step, "
-                               f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
-                               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log("deepseek full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
-    _prefill_profile(torch, "deepseek full width", card, gm, ids, lens)
-    del model, plain, gm, gen, session
+    log(tag, f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); decode "
+             f"{rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, {rec['decode_steps']} "
+             f"steps); FusedDecode {fused_ms:.3f} ms/step, {len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak "
+             f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(tag, f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
+    _prefill_profile(torch, tag, card, gm, ids, lens)
+    return {k: counts[k] for k in path_kernels}, logits
+
+
+def _weight_gib(model) -> float:
+    """GiB of the model's parameters and buffers, each tensor counted once."""
+    seen = {}
+    for t in [*model.parameters(), *model.buffers()]:
+        seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values()) / 2**30
+
+
+def phase_deepseek_full_width(torch, card: str) -> tuple:
+    """DeepSeek-V3 at full width, depth cut to its 3 dense and 2 MoE layers,
+    bf16, random weights: the MLA path end to end, one layer's MLA decode
+    held to the golden op, the logits to the plain twin, one decode step's
+    device time; then its w8a8 twin, converted layer by layer on the card
+    (each bf16 layer freed once converted), through the same run on kernel
+    R. Returns (the bf16 path's counts, {"deepseek_w8a8": its counts})."""
+    from mojo_opset_tpu_torch.modeling.deepseekv3 import (
+        DeepseekV3Config, deepseek_v3_twin, quantize_deepseek_v3_layer,
+    )
+    from mojo_opset_tpu_torch.modeling.qwen3.quantize import check_filled
+
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in DEEPSEEK_PATH_KERNELS}
+    torch.cuda.reset_peak_memory_stats()
+    config = DeepseekV3Config(**DEEPSEEK_V3, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model, plain = _deepseek_pair(torch, config)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = config.num_hidden_layers - config.first_k_dense_replace
+    log("deepseek full width", f"DeepSeek-V3 widths, depth cut {DEEPSEEK_FULL['num_hidden_layers']} -> "
+                               f"{config.num_hidden_layers} ({config.first_k_dense_replace} dense + {n_moe} MoE "
+                               f"layers), max_position_embeddings {DEEPSEEK_FULL['max_position_embeddings']} -> "
+                               f"{config.max_position_embeddings}: {n_params / 1e9:.2f} B params bf16 "
+                               f"({n_params * 2 / 2**30:.1f} GiB), built in {time.perf_counter() - t0:.1f} s; the "
+                               f"plain twin shares its tensors")
+    counts, logits = _deepseek_run(torch, card, "deepseek full width", model, plain, DEEPSEEK_PATH_KERNELS,
+                                   "group_gemm", DEEPSEEK_COSINE_BOUND)
+
+    # the w8a8 half: the plain twin goes, the model turns into its w8a8 twin one layer at a time
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    twin = deepseek_v3_twin(model)
+    for i in range(config.num_hidden_layers):
+        quantize_deepseek_v3_layer(twin.model.layers[i], model.model.layers[i])
+        model.model.layers[i] = torch.nn.Identity()  # the bf16 layer leaves the card (the twin shares its norms)
+    check_filled(twin, "the w8a8 conversion")
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
+    tag = "deepseek w8a8"
+    log(tag, f"converted layer by layer in {time.perf_counter() - t0:.1f} s: {_weight_gib(twin):.1f} GiB of "
+             f"weights (the embedding and the fp32 kv_b_proj shared with the bf16 model); peak memory during the "
+             f"conversion {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    plain = _deepseek_plain_twin(torch, twin)
+    int8_counts, _ = _deepseek_run(torch, card, tag, twin, plain, DEEPSEEK_INT8_PATH_KERNELS, "group_quant_gemm",
+                                   DEEPSEEK_INT8_COSINE_BOUND, reference=logits)
+    del twin, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"deepseek_w8a8": int8_counts}
 
 
 def phase_seed_oss_full_width(torch, card: str) -> tuple:
@@ -3785,13 +4119,15 @@ def _step_profile(torch, prof) -> tuple:
 
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
-                 dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict) -> list:
+                 dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict, quant_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
     MoE run, for I from the DeepSeek run, for J, K, L, M and N from the
     training run, for O's forward from the Wan DiT's ragged run and for its
     dq and dk/dv from the diffusion Function's, for P from the residual-add
-    norm's run and for Q from the conv Function's; numbers of the main-path
+    norm's run, for Q from the conv Function's and for R from phase 8's w8a8
+    half (``quant_counts``: phase 8's w8a8 and w4a8 and phase 9's w8a8
+    counts, by path); numbers of the main-path
     case (``ms`` replayed from a CUDA graph). C and D add their int8-page numbers, C its windowed cases
     at ctx 32768 beside the same cases without windows; A, F, G, H, I, K, M, P
     and Q their numbers at each shape (M: each layout and direction; P: pre
@@ -3803,7 +4139,8 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
     conv_main = f"b{CONV_B}_t{CONV_T}"
     main_shapes = {"norms": f"{sum(PROMPT_LENS)}x2560", "int8_matmul": f"{sum(PROMPT_LENS)}x2560x9728",
                    "int4_matmul": INT4_MAIN_SHAPE,
-                   "group_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4", "rmsnorm_vjp": f"{TRAIN_TOKENS}x2560",
+                   "group_gemm": GMM_MAIN_SHAPE, "group_quant_gemm": GMM_MAIN_SHAPE, "mla_decode": "decode_bs4",
+                   "rmsnorm_vjp": f"{TRAIN_TOKENS}x2560",
                    "rope_head_first": "token_first_view_forward",
                    "residual_add_rmsnorm": "x".join(map(str, RESIDUAL_ADD_SHAPES[0])) + "_pre",
                    "conv1d_fwd": conv_main, "conv1d_bwd": conv_main}
@@ -3814,8 +4151,8 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             extra["by_shape"] = rec
             rec = dict(rec[main_shapes[module]])
             extra["main_shape"] = main_shapes[module]
-            if module in ("norms", "int4_matmul", "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first",
-                          "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"):
+            if module in ("norms", "int4_matmul", "group_gemm", "group_quant_gemm", "mla_decode", "rmsnorm_vjp",
+                          "rope_head_first", "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
         for key in ("int8_pages", "wan_dit_sdpa", "wan_dit_clip_sdpa", "window_ctx32k", "no_window_ctx32k",
                     "window_ctx32k_int8", "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding",
@@ -3826,12 +4163,13 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
                                   ("deepseek", deepseek_counts), ("train", train_counts), ("seed_oss", seed_counts),
                                   ("seed_oss_int8", seed_int8_counts), ("wan_dit", dit_counts),
                                   ("diffusion_function", fn_counts), ("residual_add_norm", res_counts),
-                                  ("conv_function", conv_counts)):
+                                  ("conv_function", conv_counts), *quant_counts.items()):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
         launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts,
-                    "flash_diffusion_fwd": dit_counts, "flash_diffusion_dq": fn_counts,
-                    "flash_diffusion_dkv": fn_counts, "residual_add_rmsnorm": res_counts, "conv1d_fwd": conv_counts,
+                    "group_quant_gemm": quant_counts["moe_w8a8"], "flash_diffusion_fwd": dit_counts,
+                    "flash_diffusion_dq": fn_counts, "flash_diffusion_dkv": fn_counts,
+                    "residual_add_rmsnorm": res_counts, "conv1d_fwd": conv_counts,
                     "conv1d_bwd": conv_counts}.get(module, counts if module in counts else train_counts)[module]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
                          max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
@@ -3866,8 +4204,9 @@ def main() -> int:
     bf16_counts = model_phase("full width", phase_full_width, torch, card)
     counts = model_phase("int8 full width", phase_int8_full_width, torch, card)
     spec_counts, spec_routes = model_phase("w4a8 speculative", phase_w4a8_speculative, torch, card)
-    moe_counts = model_phase("moe full width", phase_moe_full_width, torch, card)
-    deepseek_counts = model_phase("deepseek full width", phase_deepseek_full_width, torch, card)
+    moe_counts, quant_counts = model_phase("moe full width", phase_moe_full_width, torch, card)
+    deepseek_counts, deepseek_int8_counts = model_phase("deepseek full width", phase_deepseek_full_width, torch, card)
+    quant_counts.update(deepseek_int8_counts)
     train_counts = model_phase("train full width", phase_train_full_width, torch, card)
     seed_counts, seed_int8_counts = model_phase("seed-oss full width", phase_seed_oss_full_width, torch, card)
     dit_counts = model_phase("wan dit", phase_wan_dit, torch, card)
@@ -3876,7 +4215,7 @@ def main() -> int:
     res_counts = timed("residual add norm", phase_residual_add_norm, torch, card)
     conv_counts = timed("conv function", phase_conv_function, torch, card)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
-                        seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts)
+                        seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts)
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ PyTorch version and its ``launches`` counter; kernels J (``flash_swa``) and
 O (``flash_diffusion``) have three entry points, kernel N (``flce``) four,
 kernels L (``silu_vjp``) and Q (``conv1d_vjp``) two, each with its own
 counter, and ``norms`` holds kernels A and P, each with its own; kernel G
-(``int4_matmul``) also counts its launches by route and M."""
+(``int4_matmul``) also counts its launches by route and M, kernel R
+(``group_quant_gemm``) by route."""
 
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
     conv1d_vjp,
@@ -11,6 +12,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     flash_swa,
     flce,
     group_gemm,
+    group_quant_gemm,
     int4_matmul,
     int8_matmul,
     mla_decode,
@@ -25,7 +27,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
 )
 
 ALL = (norms, rope, paged_decode, paged_prefill, rmsnorm_quant, int8_matmul, int4_matmul, group_gemm, mla_decode,
-       rmsnorm_vjp, rope_head_first)
+       rmsnorm_vjp, rope_head_first, group_quant_gemm)
 
 # (name, module, counter attribute) of every entry point
 COUNTERS = [(module.__name__.rsplit(".", 1)[-1], module, "launches") for module in ALL] + [
@@ -42,6 +44,7 @@ def reset_launch_counts() -> None:
     for _, module, attr in COUNTERS:
         setattr(module, attr, 0)
     int4_matmul.launches_by_route.clear()
+    group_quant_gemm.launches_by_route.clear()
 
 
 def launch_counts() -> dict[str, int]:

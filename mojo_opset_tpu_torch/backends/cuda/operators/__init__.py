@@ -11,7 +11,7 @@ from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
 )
 from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaGroupGemm, CudaQuantGemm
 from mojo_opset_tpu_torch.backends.cuda.operators.mla import CudaPagedDecodeMLA, CudaPagedPrefillMLA
-from mojo_opset_tpu_torch.backends.cuda.operators.moe import CudaExperts, CudaMoE
+from mojo_opset_tpu_torch.backends.cuda.operators.moe import CudaExperts, CudaMoE, CudaQuantExperts, CudaQuantMoE
 from mojo_opset_tpu_torch.backends.cuda.operators.normalization import (
     CudaResidualAddRMSNorm,
     CudaRMSNorm,
@@ -33,7 +33,9 @@ __all__ = [
     "CudaPagedPrefillGQAWithKVDequant",
     "CudaPagedPrefillMLA",
     "CudaPrefillGQA",
+    "CudaQuantExperts",
     "CudaQuantGemm",
+    "CudaQuantMoE",
     "CudaResidualAddRMSNorm",
     "CudaRMSNorm",
     "CudaRMSNormQuant",

@@ -1,7 +1,7 @@
 """Kernels D (paged prefill), H (grouped GEMM), F (int8 GEMM), A (RMSNorm), P (residual add + RMSNorm), G
 (packed-int4 GEMM), L (SiLU), B (token-first RoPE), E (RMSNorm + int8 quant), K (RMSNorm backward), Q (causal
-conv1d), I (absorbed MLA) and the dk/dv entry points of J and O of one tree, and the paths and the train step on
-them, for comparing two trees on one card.
+conv1d), R (int8 / int4 grouped GEMM), I (absorbed MLA) and the dk/dv entry points of J and O of one tree, and the
+paths and the train step on them, for comparing two trees on one card.
 
 The kernels come from the ``mojo_opset_tpu_torch`` package that ``sys.path``
 finds first: this tree's, or another commit's (``git archive`` unpacked in
@@ -30,12 +30,14 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   (4, 2560), (1, 2560), (8, 2560) with a zero row, (4, 5120) and (1650,
   5120), bf16; K at the train step's norms ((4096, 2560), (131072, 128)
   and (32768, 128), bf16) and Q's forward and backward at the conv
-  Function's shape (B 8, T 8192, D 2048, W 4, SiLU, bf16) and at T 2048. A
-  second line gives the digest of each output of G, L, B, E, K and Q (B's q
-  and k together, E's int8 values and scales apart, K's dx and dw apart,
-  Q's out, dx, dw and db apart). ``times TAG DIR`` also saves B's, E's,
-  K's and Q's outputs to ``DIR/TAG.pt`` (~1.4 GB: keep DIR out of what a
-  run copies back).
+  Function's shape (B 8, T 8192, D 2048, W 4, SiLU, bf16) and at T 2048;
+  R at phase 3's main shapes (Qwen3-30B-A3B's fc1 and down at decode, 32
+  rows, and prefill, 13200 rows, int8 and int4; DeepSeek-V3's, int8; bf16
+  output; a tree without R skips it). A second line gives the digest of
+  each output of G, L, B, E, K, Q and R (B's q and k together, E's int8
+  values and scales apart, K's dx and dw apart, Q's out, dx, dw and db
+  apart). ``times TAG DIR`` also saves B's, E's, K's, Q's and R's outputs
+  to ``DIR/TAG.pt`` (~1.8 GB: keep DIR out of what a run copies back).
 - ``ulps DIR TAG_A TAG_B``: for each output saved by two ``times`` runs,
   how many elements differ and by how many ulps at most (float outputs,
   ordered by their bits), or by how many steps (int8).
@@ -182,6 +184,40 @@ def backward_kernels(s, out: dict, digests: dict, saved: dict) -> None:
     digests.update({k: digest(v) for k, v in saved.items() if k.startswith(("K_", "Q_"))})
 
 
+# R's cases at phase 3's main shapes: (name, G, rows, K, N, int4), decode (32 rows) and prefill (13200 rows) of
+# Qwen3-30B-A3B's experts (int8 and int4) and DeepSeek-V3's (int8)
+GQMM_EXPERTS = {"qwen": (128, ((2048, 1536, "fc1"), (768, 2048, "down"))),
+                "deepseek": (256, ((7168, 4096, "fc1"), (2048, 7168, "down")))}
+GQMM_CASES = tuple((f"R_{model}_{phase}_{stage}{'_int4' if int4 else ''}", GQMM_EXPERTS[model][0], rows, K, N, int4)
+                   for model, int4 in (("qwen", False), ("qwen", True), ("deepseek", False))
+                   for phase, rows in (("decode", 32), ("prefill", 13200))
+                   for K, N, stage in GQMM_EXPERTS[model][1])
+
+
+def grouped_quant(s, out: dict, digests: dict, saved: dict) -> None:
+    """R's cases (bf16 output), on inputs of their own generator and routing: times into ``out``, outputs'
+    digests into ``digests``, the outputs into ``saved``. A tree without kernel R skips them."""
+    try:
+        from mojo_opset_tpu_torch.backends.cuda.kernels import group_quant_gemm
+    except ImportError:
+        return
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    rng = np.random.default_rng(19)
+    for name, G, rows, K, N, int4 in GQMM_CASES:
+        choice = np.argsort(rng.random((rows // 8, G)), axis=1)[:, :8]  # a random top-8 routing
+        counts = torch.tensor(np.bincount(choice.reshape(-1), minlength=G), dtype=torch.int32, device="cuda")
+        x = torch.randint(-128, 128, (rows, K), device="cuda", generator=gen, dtype=torch.int8)
+        w = torch.randint(-128, 128, (G, N // 2 if int4 else N, K), device="cuda", generator=gen, dtype=torch.int8)
+        ws = torch.rand(G, N, device="cuda", generator=gen) * 0.01 + 1e-3
+        xs = torch.rand(rows, 1, device="cuda", generator=gen) * 0.05 + 1e-3
+        run = lambda: group_quant_gemm.grouped_quant_matmul(x, w, counts, ws, xs, torch.bfloat16, int4)  # noqa: E731
+        out[name] = s.graph_ms(torch, run)
+        saved[name] = run()
+        digests[name] = digest(saved[name])
+        del w
+        torch.cuda.empty_cache()
+
+
 def times(s, tag: str, save_dir: str | None = None) -> None:
     from mojo_opset_tpu_torch.backends.cuda.kernels import (
         group_gemm, int4_matmul, int8_matmul, norms, paged_prefill, silu_vjp,
@@ -248,6 +284,7 @@ def times(s, tag: str, save_dir: str | None = None) -> None:
     saved = {}
     rope_and_quant(s, out, digests, saved)
     backward_kernels(s, out, digests, saved)
+    grouped_quant(s, out, digests, saved)
     print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
     print(tag, "digests", " ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
     if save_dir is not None:

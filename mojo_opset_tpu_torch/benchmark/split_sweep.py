@@ -1,5 +1,5 @@
-"""Kernel C's split count, kernel N's dx K ranges, kernel F's and G's routes, kernel L's, B's, K's and Q's launch
-shapes, swept at the smoke's shapes.
+"""Kernel C's split count, kernel N's dx K ranges, kernel F's, G's and R's routes, kernel L's, B's, K's and Q's
+launch shapes, swept at the smoke's shapes.
 
 ``paged_decode.split_count`` sizes kernel C's split-KV grid from shapes
 alone, ``flce.dx_splits`` picks how many K ranges kernel N's dx product
@@ -51,15 +51,21 @@ block size and prefetch choice it instantiates (``conv1d_vjp.RING``,
 (``conv1d_vjp.CHUNK``), and at the plan's own chunk; every out and dx equal
 bit for bit, dw and db within the fp32 ladder; the backward's row pass and
 column sum apart, the forward and backward without the SiLU beside, and
-each kernel's registers and blocks an SM.
+each kernel's registers and blocks an SM. ``gqmm`` times each of kernel R's
+tiles (``group_quant_gemm.TILES``: decode, prefill, tall) at the quantized
+MoE experts' shapes (Qwen3-30B-A3B's fc1 and down, G 128, int8 and int4;
+DeepSeek-V3's, G 256, int8) for the rows of a top-8 routing at 32, 64 and
+103 rows a group on average (the smoke's prefill batch at G 128), and 52
+(the same batch at G 256), every tile equal to the plain version bit for
+bit; ``route`` picks from these readings.
 
 Run on a machine with a GPU and nvcc::
 
-    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4 | mla | rope | rmsnorm_bwd | conv1d]
+    python -m mojo_opset_tpu_torch.benchmark.split_sweep [int8 | int4 | mla | rope | rmsnorm_bwd | conv1d | gqmm]
 
 It prints one JSON line; with ``int8``, ``int4``, ``mla``, ``rope``,
-``rmsnorm_bwd`` or ``conv1d`` it sweeps F, G and L, I alone, B alone, K alone
-or Q alone.
+``rmsnorm_bwd``, ``conv1d`` or ``gqmm`` it sweeps F, G and L, I alone, B
+alone, K alone, Q alone or R alone.
 """
 
 from __future__ import annotations
@@ -69,11 +75,13 @@ import math
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
 from mojo_opset_tpu_torch.backends.cuda.kernels import (
-    conv1d_vjp, flce, int4_matmul, int8_matmul, mla_decode, norms, paged_decode, rmsnorm_vjp, rope, silu_vjp,
+    conv1d_vjp, flce, group_quant_gemm, int4_matmul, int8_matmul, mla_decode, norms, paged_decode, rmsnorm_vjp, rope,
+    silu_vjp,
 )
 from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
@@ -498,6 +506,51 @@ def conv1d_case(B, T, D, gen) -> dict:
     return result
 
 
+# R: (name, G, K, N, int4) of the quantized experts' products, and the rows a group holds on average
+GQMM_SHAPES = (("qwen_fc1", 128, 2048, 1536, False), ("qwen_down", 128, 768, 2048, False),
+               ("qwen_fc1_int4", 128, 2048, 1536, True), ("qwen_down_int4", 128, 768, 2048, True),
+               ("deepseek_fc1", 256, 7168, 4096, False), ("deepseek_down", 256, 2048, 7168, False))
+GQMM_ROWS_PER_GROUP = {128: (32, 64, 103), 256: (52,)}
+
+
+def gqmm_case(G, K, N, int4, rows, gen) -> dict:
+    """Each of R's tiles on one top-8 routing of ``rows`` rows: device ms from a CUDA graph, bit for bit against
+    the plain version, and the policy's choice."""
+    rng = np.random.default_rng(rows)
+    choice = np.argsort(rng.random((rows // 8, G)), axis=1)[:, :8]
+    counts = torch.tensor(np.bincount(choice.reshape(-1), minlength=G), dtype=torch.int32, device="cuda")
+    x = torch.randint(-128, 128, (rows, K), device="cuda", generator=gen, dtype=torch.int8)
+    w = torch.randint(-8, 8, (G, N // 2, K), device="cuda", generator=gen, dtype=torch.int8) if int4 else \
+        torch.randint(-127, 128, (G, N, K), device="cuda", generator=gen, dtype=torch.int8)
+    ws = torch.rand(G, N, device="cuda", generator=gen) * 0.01 + 1e-3
+    xs = torch.rand(rows, 1, device="cuda", generator=gen) * 0.05 + 1e-3
+    want = group_quant_gemm.grouped_quant_matmul_plain(x, w, counts, ws, xs, torch.bfloat16, int4)
+    out = torch.empty_like(want)
+    result = {"policy": group_quant_gemm.ROUTE_NAMES[group_quant_gemm.route(rows, G)]}
+
+    for code, name in group_quant_gemm.ROUTE_NAMES.items():
+        def run(code=code):
+            build.launch("mojo_group_quant_gemm", x.device, x.data_ptr(), w.data_ptr(), counts.data_ptr(),
+                         xs.data_ptr(), ws.data_ptr(), out.data_ptr(), rows, N, K, G, int(int4), code,
+                         build.DTYPE_CODES[torch.bfloat16])
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"R's {name} tile differs from the plain version at G {G} K {K} N {N} rows {rows}")
+        result[name] = graph_ms(run)
+    return result
+
+
+def gqmm_report(gen) -> dict:
+    report = {}
+    for name, G, K, N, int4 in GQMM_SHAPES:
+        for per_group in GQMM_ROWS_PER_GROUP[G]:
+            report[f"{name}_{per_group}"] = gqmm_case(G, K, N, int4, per_group * G, gen)
+        torch.cuda.empty_cache()
+    return report
+
+
 def int4_report(gen) -> dict:
     cases = {f"{m}x{k}x{n}": (m, k, n) for k, n in INT4_SHAPES for m in (1, 2, 3, 4, 5, 8, 512)}
     cases.update({f"{m}x{k}x{n}": (m, k, n) for k, n in INT4_SHAPES[:3] for m in (17, 64, 130)})
@@ -520,6 +573,8 @@ def main() -> None:
         report = {"rmsnorm_bwd": {f"{r}x{d}": rmsnorm_bwd_case(r, d, gen) for r, d in RMSNORM_BWD_CASES}}
     elif sys.argv[1:] == ["conv1d"]:
         report = {"conv1d": {f"b{b}_t{t}_d{d}": conv1d_case(b, t, d, gen) for b, t, d in CONV_CASES}}
+    elif sys.argv[1:] == ["gqmm"]:
+        report = {"group_quant_gemm": gqmm_report(gen)}
     else:
         report = {"decode": {name: decode_case(lens, local, glob, gen) for name, lens, local, glob in DECODE_CASES}}
         torch.cuda.empty_cache()

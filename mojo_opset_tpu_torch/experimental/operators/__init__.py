@@ -9,6 +9,10 @@ from mojo_opset_tpu_torch.experimental.operators.kv_quant_attention import (
     MojoPagedPrefillGQAWithKVDequant,
     dynamic_quantize,
 )
+from mojo_opset_tpu_torch.experimental.operators.moe import (
+    MojoFusedSwiGLUMoEScaleDynamicQuantize,
+    MojoMoEInitRoutingDynamicQuant,
+)
 from mojo_opset_tpu_torch.experimental.operators.mla import (
     MojoDecodeMLA,
     MojoPagedDecodeMLA,
@@ -20,7 +24,9 @@ from mojo_opset_tpu_torch.experimental.operators.position_embedding import MojoG
 __all__ = [
     "MojoDecodeMLA",
     "MojoDequantFromPagedKVCache",
+    "MojoFusedSwiGLUMoEScaleDynamicQuantize",
     "MojoGridRoPE",
+    "MojoMoEInitRoutingDynamicQuant",
     "MojoPagedDecodeGQAWithKVDequant",
     "MojoPagedDecodeMLA",
     "MojoPagedDecodeSWAWithKVDequant",

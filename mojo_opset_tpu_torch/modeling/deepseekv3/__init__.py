@@ -8,6 +8,11 @@ from mojo_opset_tpu_torch.modeling.deepseekv3.modeling_deepseek_v3 import (
     DeepseekV3MoE,
     MLARuntimeState,
 )
+from mojo_opset_tpu_torch.modeling.deepseekv3.quantize import (
+    deepseek_v3_twin,
+    quantize_deepseek_v3,
+    quantize_deepseek_v3_layer,
+)
 
 __all__ = [
     "DeepseekV3Attention",
@@ -18,4 +23,7 @@ __all__ = [
     "DeepseekV3Model",
     "DeepseekV3MoE",
     "MLARuntimeState",
+    "deepseek_v3_twin",
+    "quantize_deepseek_v3",
+    "quantize_deepseek_v3_layer",
 ]

@@ -25,9 +25,16 @@ the JAX model (with its ``model.`` level). The JAX model keeps two fp32
 here the two ops share one tensor, both keys name it, and
 ``load_numpy_state`` raises if the two arrays differ.
 
-Only bf16/fp16/fp32 serving is ported: ``quant="w8a8"`` needs the
-quantized experts (``MojoQuantMoE``, ROADMAP.md queue 1, "Quantized MoE
-and DeepSeek w8a8").
+``quant="w8a8"`` (JAX :199-227, :253-260, :306-308, :362-385): the q LoRA
+is int8 GEMM -> ``MojoRMSNormQuant`` -> int8 GEMM, fed by the input norm's
+per-token int8 (``MojoRMSNormQuant``); ``kv_a_proj_with_mqa`` and
+``o_proj`` are int8 GEMMs, with a ``MojoDynamicQuant`` before ``o_proj``;
+the dense and shared MLPs quantize their fp input (``in_quant``) and their
+activation (``act_quant``) around int8 gate/up and down GEMMs; the routed
+experts are ``MojoQuantMoE`` (int8); the lm_head is int8 behind a
+``MojoDynamicQuant``. The MLA ops and their fp32 ``kv_b_proj`` and every
+norm but the two quantizing ones stay as they are. The weights come from
+``quantize_deepseek_v3`` or ``load_numpy_state``.
 """
 
 from __future__ import annotations
@@ -40,10 +47,14 @@ from torch import nn
 
 from mojo_opset_tpu_torch.core.operators import (
     MojoApplyRoPE,
+    MojoDynamicQuant,
     MojoEmbedding,
     MojoGemm,
     MojoMoE,
+    MojoQuantGemm,
+    MojoQuantMoE,
     MojoRMSNorm,
+    MojoRMSNormQuant,
     MojoRotaryEmbedding,
     MojoSilu,
 )
@@ -55,6 +66,9 @@ from mojo_opset_tpu_torch.experimental.operators import (
 from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches, PagedAttentionRuntimeState
 from mojo_opset_tpu_torch.utils.platform import resolve_device
+
+
+QUANT_MODES = (None, "w8a8")
 
 
 @dataclass
@@ -83,7 +97,12 @@ class DeepseekV3Config:
 
     tie_word_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
+    # "w8a8": int8 weights and per-token int8 activations on every projection and the routed experts
     quant: Optional[str] = None
+
+    def __post_init__(self):
+        if self.quant not in QUANT_MODES:
+            raise ValueError(f"quant must be one of {QUANT_MODES}, got {self.quant!r}")
 
     @property
     def qk_head_dim(self) -> int:
@@ -130,17 +149,32 @@ class MLARuntimeState(PagedAttentionRuntimeState):
         return KVCaches(zeros(mc.extra["kv_lora_rank"]), zeros(mc.extra["qk_rope_head_dim"]))
 
 
+def _linear(c: DeepseekV3Config, in_features: int, out_features: int, device):
+    """A projection: an int8 GEMM under w8a8, else a float one."""
+    if c.quant is not None:
+        return MojoQuantGemm(in_features, out_features, output_dtype=c.dtype, trans_weight=True, device=device)
+    return MojoGemm(in_features, out_features, bias=False, device=device, dtype=c.dtype)
+
+
 class DeepseekV3MLP(nn.Module):
     def __init__(self, c: DeepseekV3Config, intermediate_size: Optional[int] = None, device=None):
         super().__init__()
         inter = intermediate_size or c.intermediate_size
-        f = dict(bias=False, device=device, dtype=c.dtype)
-        self.gate_proj = MojoGemm(c.hidden_size, inter, **f)
-        self.up_proj = MojoGemm(c.hidden_size, inter, **f)
-        self.down_proj = MojoGemm(inter, c.hidden_size, **f)
+        self.quant = c.quant is not None
+        self.gate_proj = _linear(c, c.hidden_size, inter, device)
+        self.up_proj = _linear(c, c.hidden_size, inter, device)
+        self.down_proj = _linear(c, inter, c.hidden_size, device)
+        if self.quant:
+            # the input is a shared fp norm output (the MoE layers feed the same hidden to the fp gate)
+            self.in_quant = MojoDynamicQuant()
+            self.act_quant = MojoDynamicQuant()
         self.act = MojoSilu()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant:
+            x = self.in_quant(x)
+            h = self.act(self.gate_proj(*x)) * self.up_proj(*x)
+            return self.down_proj(*self.act_quant(h))
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
 
@@ -149,9 +183,9 @@ class DeepseekV3MoE(nn.Module):
 
     def __init__(self, c: DeepseekV3Config, device=None):
         super().__init__()
-        self.routed_experts = MojoMoE(num_experts=c.n_routed_experts, top_k=c.num_experts_per_tok,
-                                      hidden_size=c.hidden_size, intermediate_size=c.moe_intermediate_size,
-                                      device=device, dtype=c.dtype)
+        moe = dict(num_experts=c.n_routed_experts, top_k=c.num_experts_per_tok, hidden_size=c.hidden_size,
+                   intermediate_size=c.moe_intermediate_size, device=device)
+        self.routed_experts = MojoMoE(**moe, dtype=c.dtype) if c.quant is None else MojoQuantMoE(**moe)
         self.shared_experts = DeepseekV3MLP(c, c.moe_intermediate_size * c.n_shared_experts, device)
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -169,16 +203,20 @@ class DeepseekV3Attention(nn.Module):
         self.qk_nope_head_dim = c.qk_nope_head_dim
         self.qk_head_dim = c.qk_head_dim
         self.v_head_dim = c.v_head_dim
-        f = dict(bias=False, device=device, dtype=c.dtype)
+        self.quant = c.quant is not None
         if c.q_lora_rank is None:
-            self.q_proj = MojoGemm(c.hidden_size, self.num_heads * self.qk_head_dim, **f)
+            self.q_proj = _linear(c, c.hidden_size, self.num_heads * self.qk_head_dim, device)
         else:
-            self.q_a_proj = MojoGemm(c.hidden_size, c.q_lora_rank, **f)
-            self.q_a_layernorm = MojoRMSNorm(c.q_lora_rank, eps=c.rms_norm_eps, device=device)
-            self.q_b_proj = MojoGemm(c.q_lora_rank, self.num_heads * self.qk_head_dim, **f)
-        self.kv_a_proj_with_mqa = MojoGemm(c.hidden_size, c.kv_lora_rank + c.qk_rope_head_dim, **f)
+            self.q_a_proj = _linear(c, c.hidden_size, c.q_lora_rank, device)
+            # under w8a8 the fused norm + quant sits between the two q LoRA stages
+            norm = MojoRMSNormQuant if self.quant else MojoRMSNorm
+            self.q_a_layernorm = norm(c.q_lora_rank, eps=c.rms_norm_eps, device=device)
+            self.q_b_proj = _linear(c, c.q_lora_rank, self.num_heads * self.qk_head_dim, device)
+        self.kv_a_proj_with_mqa = _linear(c, c.hidden_size, c.kv_lora_rank + c.qk_rope_head_dim, device)
         self.kv_a_layernorm = MojoRMSNorm(c.kv_lora_rank, eps=c.rms_norm_eps, device=device)
-        self.o_proj = MojoGemm(self.num_heads * c.v_head_dim, c.hidden_size, **f)
+        self.o_proj = _linear(c, self.num_heads * c.v_head_dim, c.hidden_size, device)
+        if self.quant:
+            self.attn_quant = MojoDynamicQuant()
 
         self.rope = MojoApplyRoPE()
         self.store_kv = MojoStorePagedMLAKVCache()
@@ -189,13 +227,16 @@ class DeepseekV3Attention(nn.Module):
         self.scaling = self.qk_head_dim ** (-0.5)
 
     def forward(self, hidden, cos, sin, meta: AttentionMetadata, caches: KVCaches, layer_idx: int) -> torch.Tensor:
-        T = hidden.shape[0]
+        """``hidden``: (T, hidden), or (int8 (T, hidden), scale (T, 1)) under w8a8."""
+        x = hidden if self.quant else (hidden,)  # the projections' arguments
+        T = x[0].shape[0]
         if self.q_lora_rank is None:
-            q = self.q_proj(hidden)
+            q = self.q_proj(*x)
         else:
-            q = self.q_b_proj(self.q_a_layernorm(self.q_a_proj(hidden)))
+            q_a = self.q_a_layernorm(self.q_a_proj(*x))
+            q = self.q_b_proj(*q_a) if self.quant else self.q_b_proj(q_a)
         q = q.reshape(T, self.num_heads, self.qk_head_dim)
-        ckv_full = self.kv_a_proj_with_mqa(hidden)
+        ckv_full = self.kv_a_proj_with_mqa(*x)
         c_kv = self.kv_a_layernorm(ckv_full[:, : self.kv_lora_rank].contiguous())
         q_rot, k_rot = self.rope(q[..., self.qk_nope_head_dim:].contiguous(),
                                  ckv_full[:, None, self.kv_lora_rank:].contiguous(), cos, sin, head_first=False)
@@ -209,13 +250,17 @@ class DeepseekV3Attention(nn.Module):
         else:
             attn = self.attn_decode(query, ckv_cache, kpe_cache, meta.total_seq_lens, meta.block_tables,
                                     self.scaling)
-        return self.o_proj(attn.reshape(T, self.num_heads * self.v_head_dim))
+        attn = attn.reshape(T, self.num_heads * self.v_head_dim)
+        return self.o_proj(*self.attn_quant(attn)) if self.quant else self.o_proj(attn)
 
 
 class DeepseekV3DecoderLayer(nn.Module):
     def __init__(self, c: DeepseekV3Config, layer_idx: int, device=None):
         super().__init__()
-        self.input_layernorm = MojoRMSNorm(c.hidden_size, eps=c.rms_norm_eps, device=device)
+        # under w8a8 the fused norm + quant feeds int8 into the attention; the post-attention norm stays fp (it
+        # feeds the fp MoE gate; the MLPs and the routed experts quantize their own inputs)
+        norm = MojoRMSNorm if c.quant is None else MojoRMSNormQuant
+        self.input_layernorm = norm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.self_attn = DeepseekV3Attention(c, device)
         self.post_attention_layernorm = MojoRMSNorm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.mlp = DeepseekV3MoE(c, device) if layer_idx >= c.first_k_dense_replace else DeepseekV3MLP(c, None, device)
@@ -252,15 +297,13 @@ class DeepseekV3ForCausalLM(nn.Module):
 
     def __init__(self, config: DeepseekV3Config, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.quant is not None:
-            raise NotImplementedError(
-                f"DeepSeek-V3 quant={config.quant!r}: the quantized experts (MojoQuantMoE) are not ported yet "
-                "(ROADMAP.md, queue 1, \"Quantized MoE and DeepSeek w8a8\")")
         device = resolve_device(device)
         self._config = config
         self.model = DeepseekV3Model(config, device)
-        self.lm_head = None if config.tie_word_embeddings else MojoGemm(
-            config.hidden_size, config.vocab_size, bias=False, device=device, dtype=config.dtype)
+        quant = config.quant is not None and not config.tie_word_embeddings
+        self.lm_head_quant = MojoDynamicQuant() if quant else None
+        self.lm_head = None if config.tie_word_embeddings else _linear(config, config.hidden_size,
+                                                                        config.vocab_size, device)
         if generator is not None:
             from mojo_opset_tpu_torch.utils.weights import init_random_
 
@@ -276,6 +319,8 @@ class DeepseekV3ForCausalLM(nn.Module):
             hidden = hidden[lm_head_indices]
         if self.lm_head is None:
             logits = torch.matmul(hidden, self.model.embed_tokens.weight.t())
+        elif self.lm_head_quant is not None:
+            logits = self.lm_head(*self.lm_head_quant(hidden))
         else:
             logits = self.lm_head(hidden)
         return logits.float()

@@ -11,7 +11,15 @@ from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3_moe import (
     Qwen3MoeDecoderLayer,
     Qwen3MoeForCausalLM,
 )
-from mojo_opset_tpu_torch.modeling.qwen3.quantize import quantize_linear_weight, quantize_qwen3
+from mojo_opset_tpu_torch.modeling.qwen3.quantize import (
+    pack_int4,
+    quantize_expert_weight,
+    quantize_linear_weight,
+    quantize_qwen3,
+    quantize_qwen3_moe,
+    quantize_qwen3_moe_layer,
+    qwen3_moe_twin,
+)
 
 __all__ = [
     "Qwen3Attention",
@@ -23,6 +31,11 @@ __all__ = [
     "Qwen3MoeConfig",
     "Qwen3MoeDecoderLayer",
     "Qwen3MoeForCausalLM",
+    "pack_int4",
+    "quantize_expert_weight",
     "quantize_linear_weight",
     "quantize_qwen3",
+    "quantize_qwen3_moe",
+    "quantize_qwen3_moe_layer",
+    "qwen3_moe_twin",
 ]

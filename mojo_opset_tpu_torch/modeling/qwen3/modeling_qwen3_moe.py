@@ -7,16 +7,26 @@ Counterpart of the JAX package's ``modeling/qwen3/modeling_qwen3_moe.py``
 ``forward`` and ``config`` are those of the dense model, so the session,
 ``FusedDecode``, ``MojoGenerator`` and the batchers take it unchanged.
 
+Serving modes, as in the JAX model: ``quant="w8a8"`` and ``"w4a8"`` feed
+the attention per-token int8 from ``MojoRMSNormQuant`` (its projections are
+the dense model's: w4a8 packs int4 where the width is a multiple of 128),
+keep the post-attention norm in fp (the MoE gate reads fp hidden states)
+and run ``MojoQuantMoE``, whose experts quantize their own activations
+(int8 weights, or packed int4 under w4a8); the lm_head is int8 behind a
+``MojoDynamicQuant``. The quantized weights come from
+``quantize_qwen3_moe`` or ``load_numpy_state``.
+
 As in the JAX model there is no ``model.`` level: ``state_dict()`` keys are
 ``embed_tokens.weight``, ``layers.N.mlp.gating.gate_weight`` (fp32 (H, E)),
 ``layers.N.mlp.experts.{up,down}_proj_weight`` ((E, 2I, H), (E, H, I)),
 ``layers.N.self_attn.*``, ``norm.weight`` and ``lm_head.weight``: those of
-the JAX package's ``utils.hf.state_dict_of``.
+the JAX package's ``utils.hf.state_dict_of``. The quantized modes add the
+experts' ``{up,down}_proj_weight_scale`` and
+``{up,down}_proj_quantize.inv_smooth_scale`` and the projections'
+``weight_scale``.
 
-Only bf16/fp16/fp32 serving is ported: the quantized experts (``quant=
-"w8a8"``, ``"w4a8"``) come with ROADMAP.md queue 1, "Quantized MoE and
-DeepSeek w8a8"; the toy ``MojoQwen3MoeBlock`` with "The rest of the
-experimental ops".
+The toy ``MojoQwen3MoeBlock`` waits for ROADMAP.md queue 1, "The rest of
+the experimental ops".
 """
 
 from __future__ import annotations
@@ -27,8 +37,17 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mojo_opset_tpu_torch.core.operators import MojoEmbedding, MojoGemm, MojoMoE, MojoRMSNorm, MojoRotaryEmbedding
-from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3 import Qwen3Attention, Qwen3Config
+from mojo_opset_tpu_torch.core.operators import (
+    MojoDynamicQuant,
+    MojoEmbedding,
+    MojoGemm,
+    MojoMoE,
+    MojoQuantMoE,
+    MojoRMSNorm,
+    MojoRMSNormQuant,
+    MojoRotaryEmbedding,
+)
+from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3 import Qwen3Attention, Qwen3Config, _quant_gemm
 from mojo_opset_tpu_torch.runtime.config import MojoConfig
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
@@ -51,11 +70,19 @@ class Qwen3MoeConfig(Qwen3Config):
 class Qwen3MoeDecoderLayer(nn.Module):
     def __init__(self, c: Qwen3MoeConfig, device=None):
         super().__init__()
-        self.input_layernorm = MojoRMSNorm(c.hidden_size, eps=c.rms_norm_eps, device=device)
+        # the fused norm + quant feeds int8 into the attention; the MoE gate wants fp hidden states, so the
+        # post-attention norm stays fp and MojoQuantMoE quantizes its experts' activations itself (JAX :126-131)
+        norm = MojoRMSNorm if c.quant is None else MojoRMSNormQuant
+        self.input_layernorm = norm(c.hidden_size, eps=c.rms_norm_eps, device=device)
         self.self_attn = Qwen3Attention(c, device)
         self.post_attention_layernorm = MojoRMSNorm(c.hidden_size, eps=c.rms_norm_eps, device=device)
-        self.mlp = MojoMoE(num_experts=c.num_experts, top_k=c.num_experts_per_tok, hidden_size=c.hidden_size,
-                           intermediate_size=c.moe_intermediate_size, device=device, dtype=c.dtype)
+        moe = dict(num_experts=c.num_experts, top_k=c.num_experts_per_tok, hidden_size=c.hidden_size,
+                   intermediate_size=c.moe_intermediate_size, device=device)
+        if c.quant is None:
+            self.mlp = MojoMoE(**moe, dtype=c.dtype)
+        else:
+            weight_dtype = "int4" if c.quant == "w4a8" else torch.int8
+            self.mlp = MojoQuantMoE(**moe, up_weight_dtype=weight_dtype, down_weight_dtype=weight_dtype)
 
     def forward(self, hidden, cos, sin, meta, caches, layer_idx):
         hidden = hidden + self.self_attn(self.input_layernorm(hidden), cos, sin, meta, caches, layer_idx)
@@ -71,18 +98,21 @@ class Qwen3MoeForCausalLM(nn.Module):
 
     def __init__(self, config: Qwen3MoeConfig, device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.quant is not None:
-            raise NotImplementedError(
-                f"Qwen3-MoE quant={config.quant!r}: the quantized experts (MojoQuantMoE) are not ported yet "
-                "(ROADMAP.md, queue 1, \"Quantized MoE and DeepSeek w8a8\")")
         device = resolve_device(device)
         self._config = config
         self.embed_tokens = MojoEmbedding(config.vocab_size, config.hidden_size, device=device, dtype=config.dtype)
         self.layers = nn.ModuleList(Qwen3MoeDecoderLayer(config, device) for _ in range(config.num_hidden_layers))
         self.norm = MojoRMSNorm(config.hidden_size, eps=config.rms_norm_eps, device=device)
         self.rotary_emb = MojoRotaryEmbedding(config.rope_theta, config.head_dim, device=device)
-        self.lm_head = None if config.tie_word_embeddings else MojoGemm(
-            config.hidden_size, config.vocab_size, bias=False, device=device, dtype=config.dtype)
+        quant = config.quant is not None and not config.tie_word_embeddings
+        self.lm_head_quant = MojoDynamicQuant() if quant else None
+        if config.tie_word_embeddings:
+            self.lm_head = None
+        elif quant:  # int8 under w4a8 too, as in the JAX model (:205-209)
+            self.lm_head = _quant_gemm(config, config.hidden_size, config.vocab_size, device, int4=False)
+        else:
+            self.lm_head = MojoGemm(config.hidden_size, config.vocab_size, bias=False, device=device,
+                                    dtype=config.dtype)
         if generator is not None:
             from mojo_opset_tpu_torch.utils.weights import init_random_
 
@@ -107,6 +137,8 @@ class Qwen3MoeForCausalLM(nn.Module):
             hidden = hidden[lm_head_indices]
         if self.lm_head is None:
             logits = torch.matmul(hidden, self.embed_tokens.weight.t())
+        elif self.lm_head_quant is not None:
+            logits = self.lm_head(*self.lm_head_quant(hidden))
         else:
             logits = self.lm_head(hidden)
         return logits.float()

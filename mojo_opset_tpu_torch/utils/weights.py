@@ -20,7 +20,24 @@ kv_a_proj_with_mqa,o_proj}.weight`` (``q_proj`` without q LoRA),
 port: the two arrays must be equal), ``mlp.{gate,up,down}_proj.weight`` in
 the dense layers and ``mlp.routed_experts.{gating.gate_weight,
 experts.up_proj_weight,experts.down_proj_weight}`` with
-``mlp.shared_experts.*`` in the MoE layers. A Seed-OSS model has no
+``mlp.shared_experts.*`` in the MoE layers. A quantized Qwen3-MoE
+(``state_dict_of(quantize_qwen3_moe(jax_model, weight_dtype))`` into
+``Qwen3MoeConfig(quant="w8a8" | "w4a8")``) carries the dense w8a8 / w4a8
+attention projections above, an int8 ``lm_head.weight`` (N, K) with fp32
+``lm_head.weight_scale``, and per MoE layer
+``layers.N.mlp.experts.{up,down}_proj_weight`` int8 ((E, 2I, H), (E, H, I);
+under w4a8 packed two output rows a byte, (E, I, H), (E, H / 2, I), the
+experts' own layout, not ``pack_int4_rows``'), fp32
+``layers.N.mlp.experts.{up,down}_proj_weight_scale`` ((E, 2I), (E, H)) and
+fp32 ``layers.N.mlp.experts.{up,down}_proj_quantize.inv_smooth_scale`` ((E,
+H), (E, I)), beside the fp32 gate and the fp norms. A w8a8 DeepSeek-V3
+(``state_dict_of(quantize_deepseek_v3(jax_model))`` into
+``DeepseekV3Config(quant="w8a8")``) carries int8 ``weight`` and fp32
+``weight_scale`` for ``q_a_proj``, ``q_b_proj`` (or ``q_proj``),
+``kv_a_proj_with_mqa``, ``o_proj``, the dense and shared MLPs' projections
+and the lm_head, the routed experts as the quantized Qwen3-MoE's under
+``mlp.routed_experts.experts``, and the fp32 ``kv_b_proj`` under both MLA
+ops as before. A Seed-OSS model has no
 ``model.`` level either: ``layers.N.self_attn.{q,k,v}_proj.bias`` beside
 the weights; its w8a8 twin (``state_dict_of(quantize_seed_oss(jax_model))``
 into ``SeedOssConfig(quant="w8a8")``) carries int8 projections and the

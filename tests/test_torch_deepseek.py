@@ -178,8 +178,13 @@ def test_mla_session_holds_only_latent_caches():
 
 
 def test_quantized_deepseek_is_refused():
-    with pytest.raises(NotImplementedError, match="Quantized MoE and DeepSeek w8a8"):
-        DeepseekV3ForCausalLM(DeepseekV3Config(**TINY, dtype=torch.float32, quant="w8a8"), device="cpu")
+    """Once refused, ``quant="w8a8"`` now builds (tests/test_torch_deepseek_quant.py holds it to JAX); a quant
+    mode the model has not is refused."""
+    model = DeepseekV3ForCausalLM(DeepseekV3Config(**TINY, dtype=torch.float32, quant="w8a8"), device="cpu")
+    assert type(model.model.layers[1].mlp.routed_experts.experts).__name__ == "CudaQuantExperts"
+    assert model.lm_head.weight.dtype == torch.int8
+    with pytest.raises(ValueError, match="quant must be one of"):
+        DeepseekV3Config(**TINY, dtype=torch.float32, quant="int2")
 
 
 def test_random_init_is_seeded():

@@ -371,9 +371,16 @@ def test_continuous_batching_equals_standalone_greedy(pair):
 
 
 def test_quantized_moe_is_refused_and_device_is_explicit():
+    """Once refused, the quantized modes now build (tests/test_torch_quant_moe.py holds them to JAX): on the CPU
+    when asked, on the card otherwise, which a machine without one refuses."""
     for quant in ("w8a8", "w4a8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Qwen3MoeForCausalLM(Qwen3MoeConfig(**TINY, dtype=torch.float32, quant=quant), device="cpu")
+        model = Qwen3MoeForCausalLM(Qwen3MoeConfig(**TINY, dtype=torch.float32, quant=quant), device="cpu")
+        experts = model.layers[0].mlp.experts
+        assert type(experts).__name__ == "CudaQuantExperts" and experts.up_proj_weight.device.type == "cpu"
+        assert experts.up_weight_dtype == ("int4" if quant == "w4a8" else torch.int8)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                Qwen3MoeForCausalLM(Qwen3MoeConfig(**TINY, dtype=torch.float32, quant=quant))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Qwen3MoeForCausalLM(Qwen3MoeConfig(**TINY, dtype=torch.float32))

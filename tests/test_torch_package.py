@@ -33,6 +33,7 @@ from mojo_opset_tpu_torch.backends.cuda.kernels import (
     flash_swa,
     flce,
     group_gemm,
+    group_quant_gemm,
     int4_matmul,
     int8_matmul,
     mla_decode,
@@ -56,7 +57,7 @@ from mojo_opset_tpu_torch.utils.platform import resolve_device
 REPO = Path(__file__).resolve().parents[1]
 KERNEL_MODULES = ["norms", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
                   "group_gemm", "mla_decode", "rmsnorm_vjp", "rope_head_first", "flash_swa", "silu_vjp", "flce",
-                  "flash_diffusion", "conv1d_vjp"]
+                  "flash_diffusion", "conv1d_vjp", "group_quant_gemm"]
 # the counters of the entry points beside the single-entry modules' own (norms holds A's and P's)
 MULTI_ENTRY = {"flash_swa_fwd", "flash_swa_dq", "flash_swa_dkv", "silu_fwd", "silu_bwd", "flce_stats", "flce_dz",
                "flce_dx", "flce_dw", "flash_diffusion_fwd", "flash_diffusion_dq", "flash_diffusion_dkv",
@@ -89,7 +90,7 @@ def test_kernel_modules_import_without_nvcc(name):
     assert {p.stem for p in build.sources() if p.suffix == ".cu"} == {
         "rmsnorm", "rope", "paged_decode", "paged_prefill", "rmsnorm_quant", "int8_matmul", "int4_matmul",
         "group_gemm", "mla_decode", "flash_swa", "rmsnorm_vjp", "silu", "rope_head_first", "flce", "flash_diffusion",
-        "conv1d"}
+        "conv1d", "group_quant_gemm"}
 
 
 def _cpu_calls():
@@ -161,6 +162,12 @@ def _cpu_calls():
            lambda: tm.MojoCausalConv1dFunction.get_backend_impl("cuda")()(xc, wc, None, None, sc, True, "silu"),
            lambda: (conv1d_vjp.conv1d_fwd_plain(xc, wc, None, sc.transpose(1, 2), True),
                     torch.cat([sc, xc.transpose(1, 2)], -1)[..., -3:]))
+    qe = tm.MojoQuantExperts.get_backend_impl("cuda")(3, 64, 32, up_weight_dtype="int4", device="cpu")
+    qe_ref = tm.MojoQuantExperts.get_backend_impl("ref")(3, 64, 32, up_weight_dtype="int4", device="cpu")
+    for stack in (qe.up_proj_weight, qe.down_proj_weight):
+        stack.copy_(torch.from_numpy(rng.integers(-128, 128, stack.shape).astype(np.int8)))
+    qe_ref.load_state_dict(qe.state_dict())
+    yield ("group_quant_gemm", lambda: qe(xg, counts), lambda: qe_ref(xg, counts))
 
 
 @pytest.mark.parametrize("case", list(_cpu_calls()), ids=KERNEL_MODULES)
@@ -452,7 +459,9 @@ def test_entry_points_without_a_device_never_land_on_the_cpu(monkeypatch):
            (tm.MojoRMSNorm, 8), (tm.MojoLayerNorm, 8), (tm.MojoRMSNormQuant, 8), (tm.MojoRotaryEmbedding, 1e4, 8),
            (tm.MojoVisionRotaryEmbedding2D,), (tm.MojoSwiGLUMLP, 8, 8, 16), (tm.MojoGemm, 8, 8),
            (tm.MojoQuantGemm, 8, 8), (tm.MojoStaticQuant, 8), (tm.MojoDynamicQuant, 8), (tm.MojoEmbedding, 8, 8),
-           (tm.MojoMoEGating, 8, 4, 2), (tm.MojoExperts, 4, 8, 16), (tm.MojoPagedDecodeMLA, 2, 8, 8, 8, 16))
+           (tm.MojoMoEGating, 8, 4, 2), (tm.MojoExperts, 4, 8, 16), (tm.MojoPagedDecodeMLA, 2, 8, 8, 8, 16),
+           (tm.MojoQuantExperts, 4, 16, 16), (tm.MojoQuantMoE, 4, 2, 16, 16), (tm.MojoMoEDynamicQuant, 4, 8),
+           (tm.MojoDequantSwiGLUQuant, 4, 8))
     for op, *args in ops:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             op(*args)
