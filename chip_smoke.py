@@ -1156,9 +1156,9 @@ def _gmm_cases(torch, compare, gen, record) -> None:
 
 def _gqmm_cases(torch, compare, gen, record) -> None:
     """R: the int8 / packed-int4 grouped GEMM at the quantized MoE paths' shapes (Qwen3-30B-A3B's fc1 and down, G
-    128, int8 and int4; DeepSeek-V3's, G 256, int8; decode at bs 4, 32 rows from one top-8 routing, and the
-    prefill batch's 13200 rows), then groups of 0, 1, 15, 16, 17 and 129 rows, an empty tail, both tiles and every
-    output dtype. Every case equals the plain version bit for bit and repeats bit for bit; each main case is timed
+    128, int8 and int4; DeepSeek-V3's, G 256, int8; decode at bs 4, 32 rows from one top-8 routing, on the decode
+    tile, and the prefill batch's 13200 rows, on the wgmma route), then groups of 0, 1, 15, 16, 17 and 129 rows, an
+    empty tail, N and K off the tiles, both routes and every output dtype. Every case equals the plain version bit for bit and repeats bit for bit; each main case is timed
     from one CUDA graph beside its bound and H's bf16 time on the same (M, K, N, counts), a reference: no PyTorch
     call computes an int8 grouped product, so R has no library time."""
     from mojo_opset_tpu_torch.backends.cuda.kernels import group_gemm, group_quant_gemm
@@ -1176,26 +1176,31 @@ def _gqmm_cases(torch, compare, gen, record) -> None:
             raise AssertionError(f"R differs from its plain version at {int((got != want).sum())} elements")
         return "bit for bit"
 
-    def case(counts, K, N, int4, dtype, main=False, key=None, M=None, w=None):
+    own_gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def case(counts, K, N, int4, dtype, main=False, key=None, M=None, w=None, g=gen, wgmma=None):
         counts = torch.tensor(np.asarray(counts), dtype=torch.int32, device="cuda")
         G, routed = counts.numel(), int(counts.sum())
         M = routed if M is None else M
         if w is None:
             lo, hi = (-8, 8) if int4 else (-127, 128)
-            w = torch.randint(lo, hi, (G, N, K), device="cuda", generator=gen, dtype=torch.int8)
+            w = torch.randint(lo, hi, (G, N, K), device="cuda", generator=g, dtype=torch.int8)
             w = pack_int4(w) if int4 else w
-        x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
-        ws = torch.rand(G, N, device="cuda", generator=gen) * 0.01 + 1e-3
-        xs = torch.rand(M, 1, device="cuda", generator=gen) * 0.05 + 1e-3
+        x = torch.randint(-128, 128, (M, K), device="cuda", generator=g, dtype=torch.int8)
+        ws = torch.rand(G, N, device="cuda", generator=g) * 0.01 + 1e-3
+        xs = torch.rand(M, 1, device="cuda", generator=g) * 0.05 + 1e-3
         run = lambda: group_quant_gemm.grouped_quant_matmul(x, w, counts, ws, xs, dtype, int4)  # noqa: E731
         active = int((counts > 0).sum())
         out_bytes = torch.finfo(dtype).bits // 8
         # each input read once (the active experts' slabs and scales, x, x's scales, the counts), the output once
         bound = (active * (w.shape[1] * K + 4 * N) + M * (K + 4) + 4 * G + M * N * out_bytes, 2 * routed * K * N,
                  "int8")
-        route = group_quant_gemm.ROUTE_NAMES[group_quant_gemm.route(M, G)]
+        plan = group_quant_gemm.route(M, G, int4)
+        if (wgmma or (key and "prefill" in key)) and plan not in group_quant_gemm.PERSISTENT:
+            raise AssertionError(f"R's case M={M} G={G} {key or ''} takes the {group_quant_gemm.ROUTE_NAMES[plan]} "
+                                 f"route, not wgmma")
         label = (f"grouped quant gemm{' ' + key if key else ''} M={M} K={K} N={N} G={G} ({active} active) "
-                 f"{'int4' if int4 else 'int8'} {route} tile")
+                 f"{'int4' if int4 else 'int8'} {group_quant_gemm.ROUTE_NAMES[plan]} route")
         note = None
         if main:
             xb = torch.randn(M, K, device="cuda", generator=gen, dtype=bf16)
@@ -1227,9 +1232,16 @@ def _gqmm_cases(torch, compare, gen, record) -> None:
     for dtype in (bf16, torch.float16, torch.float32):
         for int4 in (False, True):
             case(edges, 64, 48, int4, dtype, M=sum(edges) + 21)          # the decode tile, an empty tail
-            case([300, 0, 1, 37, 129], 160, 264, int4, dtype, M=500)       # the prefill tile, an empty tail
-            case(routed_counts(32, 16), 2048, 96, int4, dtype)             # one-row groups
-            case([7, 0, 2], 48, 34, int4, dtype)                           # N off the tiles, K of 3 chunks
+            # the prefill route: a group of three row tiles, groups starting inside another's TMA box, empty groups
+            # and an empty tail, N off the tile, K 160
+            case([300, 0, 1, 37, 129], 160, 264, int4, dtype, M=500, wgmma=True)
+            case(routed_counts(32, 16), 2048, 96, int4, dtype)             # the decode tile, one-row groups
+            case([7, 0, 2], 48, 34, int4, dtype)                           # the decode tile, N off its tiles
+            # the prefill route at N 34 (its scalar stores) and K 48 (below one 128-byte k slice), and groups that
+            # start inside another's box at K 2048, on inputs of their own generator (the cases after phase 3's R
+            # cases keep their inputs)
+            case([70, 0, 5, 45], 48, 34, int4, dtype, M=130, g=own_gen, wgmma=True)
+            case([0, 100, 3, 0, 90, 1, 0], 2048, 256, int4, dtype, M=230, g=own_gen, wgmma=True)
     try:
         group_quant_gemm.grouped_quant_matmul(
             torch.zeros(4, 40, device="cuda", dtype=torch.int8),
@@ -2556,7 +2568,8 @@ def phase_small_model(torch) -> None:
 A_KERNEL_NAMES = ("rmsnorm_regs_kernel", "rmsnorm_warp_kernel", "rmsnorm_block_kernel")
 PREFILL_FAMILIES = {"D": ("paged_prefill_",), "F": ("int8_gemm_kernel", "int8_wgmma_kernel"),
                     "G": ("int4_decode_kernel", "int4_wgmma_kernel"), "H": ("gmm_",),
-                    "R": ("group_quant_gemm_kernel",),
+                    "R": ("group_quant_gemm_kernel", "group_quant_wgmma_kernel"),
+                    "H/R tiles": ("group_tile_table",),
                     "I": ("mla_mma_kernel", "mla_merge_kernel", "mla_fma_kernel"), "B": ("rope_token_first",),
                     "E": ("rmsnorm_quant",)}
 
@@ -2577,6 +2590,24 @@ def _prefill_profile(torch, tag: str, card: str, gm, ids, lens) -> None:
            for f, pats in PREFILL_FAMILIES.items()}
     log(tag, f"{card}: one prefill ({int(np.sum(lens))} tokens, bs {len(lens)}) profiled: device busy {busy:.3f} ms, "
              f"{sum(e.count for e in device)} kernels; " + ", ".join(f"{f} {ms:.3f} ms" for f, ms in fam.items() if ms))
+
+
+# R's launches by route on each quantized MoE path's counted run (prefills and decode steps), by phase tag
+R_ROUTES: dict = {}
+
+
+def _r_routes(tag: str, launched: int) -> None:
+    """R's launches by route in the run just counted: the prefills' on a wgmma route, the decode steps' on the
+    decode tile, adding up to R's count."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import group_quant_gemm
+
+    routes = dict(group_quant_gemm.launches_by_route)
+    log(tag, f"R's launches by route: {routes}")
+    wgmma = sum(n for name, n in routes.items() if name.startswith("wgmma"))
+    if sum(routes.values()) != launched or not wgmma or not routes.get("decode"):
+        raise AssertionError(f"{tag}: R's prefills must run a wgmma route and its decode steps the decode tile, "
+                             f"{launched} launches in all: {routes}")
+    R_ROUTES[tag] = routes
 
 
 def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, card: str, reference=None,
@@ -2617,6 +2648,8 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
     log(tag, f"launches on the main path: {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the {tag} path never launched: {counts}")
+    if "group_quant_gemm" in counts:
+        _r_routes(tag, counts["group_quant_gemm"])
     if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
         raise AssertionError(f"generated ids shape {out.shape}")
     window = window.T.cpu().numpy()
@@ -3117,6 +3150,8 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
     log(tag, f"launches on the main path: {counts}")
     if min(counts[k] for k in path_kernels) <= 0:
         raise AssertionError(f"a kernel of the {tag} path never launched: {counts}")
+    if "group_quant_gemm" in path_kernels:
+        _r_routes(tag, counts["group_quant_gemm"])
     if counts["paged_decode"] or counts["paged_prefill"]:
         raise AssertionError(f"the GQA attention kernels launched on the MLA path: {counts}")
     if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
@@ -4217,6 +4252,7 @@ def main() -> int:
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts)
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
+    next(k for k in line if k["name"] == KERNEL_INFO["group_quant_gemm"][0])["launches_by_route"] = R_ROUTES
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -5,8 +5,10 @@ Replaces no Pallas kernel: the JAX package computes the quantized experts'
 products with XLA's ``ragged_dot`` on int8 with int32 sums
 (``backends/xla/operators/moe.py:51``, ``XlaQuantExperts._ragged_quant_linear``).
 ``launches`` counts the wrapper's launches, ``launches_by_route`` the same
-by route. The counts stay on the device: each block finds its group from
-them (kernel H's row tiles), so a launch never waits for the host.
+by route. The counts stay on the device: the decode tile's blocks find
+their group from them, the prefill route's first launch writes the row
+tiles into a scratch buffer (kernel H's row tiles), so a launch never
+waits for the host.
 """
 
 from __future__ import annotations
@@ -22,34 +24,45 @@ launches = 0
 launches_by_route: dict = {}
 
 # route codes shared with csrc/group_quant_gemm.cu, and each route's output tile (rows, columns)
-DECODE, PREFILL, TALL = 0, 1, 2
-TILES = {DECODE: (16, 32), PREFILL: (64, 128), TALL: (128, 128)}
-ROUTE_NAMES = {DECODE: "decode", PREFILL: "prefill", TALL: "tall"}
-GRID_Y_MAX = 65535  # the row tiles are the grid's y dimension
+DECODE, WGMMA, WGMMA_WIDE = 0, 1, 2
+TILES = {DECODE: (16, 32), WGMMA: (128, 128), WGMMA_WIDE: (128, 256)}
+ROUTE_NAMES = {DECODE: "decode", WGMMA: "wgmma", WGMMA_WIDE: "wgmma_wide"}
+PERSISTENT = (WGMMA, WGMMA_WIDE)  # the routes of a row-tile table and a persistent grid
+GRID_Y_MAX = 65535  # the decode tile's row tiles are the grid's y dimension
 
 
-def route(M: int, G: int) -> int:
-    """The kernel's tile, from shapes alone, by the rows a group holds on
-    average: the 16-row decode tile below 32 (as kernel H's
-    ``uses_prefill_tile``), the 64-row prefill tile from 32, the 128-row
-    tall tile from 96, where one tile covers a typical group."""
+def route(M: int, G: int, int4: bool = False) -> int:
+    """The kernel's route, from shapes alone, by the rows a group holds on
+    average: the 16-row ``mma.sync`` decode tile below 32 (as kernel H's
+    ``uses_prefill_tile``), the ``wgmma`` prefill route from 32, with
+    128-wide tiles for int8 and 256-wide ones for packed int4 (``split_sweep
+    gqmm``: each faster at 32-103 rows a group)."""
     if M < 32 * G:
         return DECODE
-    return TALL if M >= 96 * G else PREFILL
+    return WGMMA_WIDE if int4 else WGMMA
 
 
 def row_tiles(M: int, G: int, bm: int) -> int:
-    """The grid's row tiles: a static bound on the groups' tiles of ``bm``
-    rows, min(ceil(M / bm) + G, M), the kernel's ``row_tiles``. Each tile
-    holds at least one row and no group wastes more than one tile, so the
-    bound covers any counts that sum to at most M."""
+    """The static bound on the groups' tiles of ``bm`` rows, min(ceil(M /
+    bm) + G, M), the kernel's ``row_tiles``. Each tile holds at least one
+    row and no group wastes more than one tile, so the bound covers any
+    counts that sum to at most M."""
     return min(-(-M // bm) + G, M)
 
 
-def grid(M: int, N: int, G: int) -> tuple[int, int]:
-    """(n tiles, row tiles) of a launch: the n tile is the fastest over blocks."""
-    bm, bn = TILES[route(M, G)]
+def grid(M: int, N: int, G: int, code: int) -> tuple[int, int]:
+    """(n tiles, row tiles) of a launch of route ``code``: on the prefill
+    routes the units (row tile, n tile) that a persistent grid walks, on the
+    decode tile the blocks; the n tile fastest."""
+    bm, bn = TILES[code]
     return -(-N // bn), row_tiles(M, G, bm)
+
+
+def scratch_ints(M: int, G: int, code: int) -> int:
+    """int32 of a persistent route's scratch: (group, first row, end row,
+    pad) for each row tile of the bound, then the tile count and the rows
+    the groups cover; 0 for the decode tile, which takes none."""
+    return 4 * row_tiles(M, G, TILES[code][0]) + 2 if code in PERSISTENT else 0
 
 
 def grouped_quant_matmul(
@@ -103,16 +116,19 @@ def _group_quant_gemm_kernel(x, weight, group_sizes, weight_scale, x_scale, outp
     for name, t in (("x", x), ("weight", weight)):
         build.require(t.dtype == torch.int8 and t.is_contiguous() and t.data_ptr() % 16 == 0,
                       f"grouped_quant_matmul: {name} must be contiguous 16-byte aligned int8, got {t.dtype}")
-    plan = route(M, G)
-    build.require(grid(M, N, G)[1] <= GRID_Y_MAX, f"grouped_quant_matmul: {M} rows over {G} groups need more "
-                                                  f"than {GRID_Y_MAX} row tiles")
+    plan = route(M, G, int4)
+    build.require(plan in PERSISTENT or grid(M, N, G, plan)[1] <= GRID_Y_MAX,
+                  f"grouped_quant_matmul: {M} rows over {G} groups need more than {GRID_Y_MAX} row tiles")
     out = torch.empty((M, N), dtype=output_dtype, device=x.device)
     if M == 0 or N == 0:
         return out
+    n_scratch = scratch_ints(M, G, plan)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=x.device) if n_scratch else None
     build.launch(
         "mojo_group_quant_gemm", x.device,
         x.data_ptr(), weight.data_ptr(), group_sizes.data_ptr(), x_scale.data_ptr(), weight_scale.data_ptr(),
-        out.data_ptr(), M, N, K, G, int(int4), plan, build.DTYPE_CODES[output_dtype],
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), n_scratch, M, N, K, G, int(int4), plan,
+        build.DTYPE_CODES[output_dtype],
     )
     launches += 1
     name = ROUTE_NAMES[plan]

@@ -38,6 +38,14 @@ a directory) put first with ``PYTHONPATH``. The cases are this tree's
   values and scales apart, K's dx and dw apart, Q's out, dx, dw and db
   apart). ``times TAG DIR`` also saves B's, E's, K's, Q's and R's outputs
   to ``DIR/TAG.pt`` (~1.8 GB: keep DIR out of what a run copies back).
+- ``gqmm TAG``: the two lines of ``times`` for R's cases and H's alone
+  (H's prefill shares R's row-tile table launch), with H's outputs'
+  digests too.
+- ``turns times|gqmm PARENT_DIR``: that mode of the tree at PARENT_DIR and
+  of this one in turns (parent, change, change, parent), each in its own
+  process with its package first on ``PYTHONPATH``; fails unless every
+  output's digest agrees across the four runs, then prints each case's
+  two times a tree and one JSON line of the means.
 - ``ulps DIR TAG_A TAG_B``: for each output saved by two ``times`` runs,
   how many elements differ and by how many ulps at most (float outputs,
   ordered by their bits), or by how many steps (int8).
@@ -218,10 +226,76 @@ def grouped_quant(s, out: dict, digests: dict, saved: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# H's cases (name, G, rows, K, N): Qwen3-30B-A3B's fc1 and down at prefill and decode, and at G = 256
+H_CASES = (("H_fc1", 128, 13200, 2048, 1536), ("H_down", 128, 13200, 768, 2048),
+           ("H_decode_fc1", 128, 32, 2048, 1536), ("H_decode_down", 128, 32, 768, 2048),
+           ("H_g256_fc1", 256, 13200, 7168, 4096), ("H_g256_down", 256, 13200, 2048, 7168))
+
+
+def grouped_bf16(s, out: dict, outputs: dict, gen) -> None:
+    """H's cases (bf16) on one random top-8 routing each: times into ``out``, the outputs into ``outputs``."""
+    from mojo_opset_tpu_torch.backends.cuda.kernels import group_gemm
+
+    rng = np.random.default_rng(2)
+    for name, G, M, K, N in H_CASES:
+        choice = np.argsort(rng.random((M // 8, G)), axis=1)[:, :8]  # a random top-8 routing
+        counts = torch.tensor(np.bincount(choice.reshape(-1), minlength=G), dtype=torch.int32, device="cuda")
+        x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+        w = torch.randn((G, N, K), device="cuda", generator=gen, dtype=torch.bfloat16).mul_(0.05)
+        run = lambda: group_gemm.grouped_matmul(x, w, counts, True)  # noqa: E731
+        out[name] = s.graph_ms(torch, run)
+        outputs[name] = run()
+        del w
+        torch.cuda.empty_cache()
+
+
+def gqmm(s, tag: str) -> None:
+    """R's cases and H's (whose row-tile table R shares): the two lines of ``times`` for them alone."""
+    out, digests, saved = {}, {}, {}
+    grouped_bf16(s, out, saved, torch.Generator(device="cuda").manual_seed(1))
+    digests.update({k: digest(v) for k, v in saved.items()})
+    grouped_quant(s, out, digests, {})
+    print(tag, " ".join(f"{k} {v:.4f}" for k, v in out.items()), flush=True)
+    print(tag, "digests", " ".join(f"{k} {v}" for k, v in digests.items()), flush=True)
+
+
+def turns(mode: str, parent_dir: str) -> None:
+    """``mode`` (``times`` or ``gqmm``) of the parent's tree (its package put first on ``PYTHONPATH``) and of this
+    one, in turns (parent, change, change, parent), each in its own process; every output's digest must agree
+    across the four runs. Prints each case's ms, the two runs of each tree, and one JSON line of the means."""
+    import json
+    import os
+    import subprocess
+
+    here = Path(__file__).resolve().parents[2]
+    runs = []
+    for tree, path in (("parent", parent_dir), ("change", str(here)), ("change", str(here)), ("parent", parent_dir)):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(Path(path).resolve()), str(here)]))
+        lines = subprocess.run([sys.executable, str(Path(__file__).resolve()), mode, tree], env=env, check=True,
+                               stdout=subprocess.PIPE, text=True).stdout.splitlines()
+        mine = [line.split()[1:] for line in lines if line.split()[:1] == [tree]]
+        print("\n".join(" ".join([tree, *fields]) for fields in mine), flush=True)
+        digest_line = next(fields[1:] for fields in mine if fields[:1] == ["digests"])
+        times_line = next(fields for fields in mine if fields[:1] != ["digests"])
+        runs.append((tree, dict(zip(times_line[::2], map(float, times_line[1::2]))),
+                     dict(zip(digest_line[::2], digest_line[1::2]))))
+    digests = [d for _, _, d in runs]
+    for name in digests[0]:
+        seen = {d.get(name) for d in digests}
+        if len(seen) != 1:
+            raise AssertionError(f"{name}: the trees' outputs differ ({seen})")
+    print("digests equal over the four runs:", len(digests[0]), "outputs", flush=True)
+    means = {}
+    for name in runs[0][1]:
+        got = {tree: [t[name] for tr, t, _ in runs if tr == tree and name in t] for tree in ("parent", "change")}
+        if got["parent"] and got["change"]:
+            means[name] = {tree: sum(v) / len(v) for tree, v in got.items()}
+            print(name, "parent", got["parent"], "change", got["change"], flush=True)
+    print(json.dumps(means), flush=True)
+
+
 def times(s, tag: str, save_dir: str | None = None) -> None:
-    from mojo_opset_tpu_torch.backends.cuda.kernels import (
-        group_gemm, int4_matmul, int8_matmul, norms, paged_prefill, silu_vjp,
-    )
+    from mojo_opset_tpu_torch.backends.cuda.kernels import int4_matmul, int8_matmul, norms, paged_prefill, silu_vjp
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     bf16, lens, n_blocks = torch.bfloat16, list(s.PROMPT_LENS), 4 * 69
@@ -235,17 +309,8 @@ def times(s, tag: str, save_dir: str | None = None) -> None:
     (k8, v8), (ks, vs) = s._int8_cache(torch, n_blocks, 8, s.BLOCK_SIZE, 128, gen)
     out["D_int8"] = s.graph_ms(torch, lambda: paged_prefill.paged_prefill_gqa(
         q, k8, v8, cu, bt, None, cu, "AABB", "HND", max_q_len=max(lens), key_scale=ks, value_scale=vs))
-    rng = np.random.default_rng(2)
-    for name, G, M, K, N in (("H_fc1", 128, 13200, 2048, 1536), ("H_down", 128, 13200, 768, 2048),
-                             ("H_decode_fc1", 128, 32, 2048, 1536), ("H_decode_down", 128, 32, 768, 2048),
-                             ("H_g256_fc1", 256, 13200, 7168, 4096), ("H_g256_down", 256, 13200, 2048, 7168)):
-        choice = np.argsort(rng.random((M // 8, G)), axis=1)[:, :8]  # a random top-8 routing
-        counts = torch.tensor(np.bincount(choice.reshape(-1), minlength=G), dtype=torch.int32, device="cuda")
-        x = torch.randn(M, K, device="cuda", generator=gen).to(bf16)
-        w = torch.randn((G, N, K), device="cuda", generator=gen, dtype=bf16).mul_(0.05)
-        out[name] = s.graph_ms(torch, lambda: group_gemm.grouped_matmul(x, w, counts, True))
-        del w
-        torch.cuda.empty_cache()
+    digests = {}
+    grouped_bf16(s, out, digests, gen)
     for M, K, N in ((1650, 2560, 9728), (1650, 2560, 1024), (1650, 27648, 5120), (8, 2560, 9728), (8, 2560, 1024)):
         x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
         w = torch.randint(-127, 128, (N, K), device="cuda", generator=gen, dtype=torch.int8)
@@ -260,7 +325,6 @@ def times(s, tag: str, save_dir: str | None = None) -> None:
         w = torch.rand(D, device="cuda", generator=gen) + 0.5
         for pos in ("pre", "post"):
             out[f"P_{T}x{D}_{pos}"] = s.graph_ms(torch, lambda: norms.residual_add_rmsnorm(x, r, w, 1e-6, pos))
-    digests = {}
     for K, N in s.GEMM_SHAPES:
         for M in s.INT4_MS:
             x = torch.randint(-128, 128, (M, K), device="cuda", generator=gen, dtype=torch.int8)
@@ -475,6 +539,9 @@ def main() -> int:
     if sys.argv[1:2] == ["ulps"] and len(sys.argv) == 5:
         ulps(*sys.argv[2:])
         return 0
+    if sys.argv[1:2] == ["turns"] and len(sys.argv) == 4 and sys.argv[2] in ("times", "gqmm"):
+        turns(*sys.argv[2:])
+        return 0
     s = load_chip_smoke()
     card = s.phase_device(torch)
     s.phase_build()
@@ -482,6 +549,8 @@ def main() -> int:
         readings(s)
     elif sys.argv[1:2] == ["times"] and len(sys.argv) in (3, 4):
         times(s, *sys.argv[2:])
+    elif sys.argv[1:2] == ["gqmm"] and len(sys.argv) == 3:
+        gqmm(s, sys.argv[2])
     elif sys.argv[1:2] == ["host"] and len(sys.argv) == 3:
         host(s, card, sys.argv[2])
     elif sys.argv[1:2] == ["mla"] and len(sys.argv) == 3:
@@ -493,8 +562,8 @@ def main() -> int:
     elif sys.argv[1:2] == ["train"] and len(sys.argv) == 3:
         train(s, card, sys.argv[2])
     else:
-        raise SystemExit("usage: kernel_ab.py readings | times TAG [DIR] | ulps DIR TAG_A TAG_B | host TAG | mla TAG | "
-                         "dkv TAG | paths TAG | train TAG")
+        raise SystemExit("usage: kernel_ab.py readings | times TAG [DIR] | gqmm TAG | turns times|gqmm PARENT_DIR | "
+                         "ulps DIR TAG_A TAG_B | host TAG | mla TAG | dkv TAG | paths TAG | train TAG")
     return 0
 
 

@@ -52,11 +52,11 @@ block size and prefetch choice it instantiates (``conv1d_vjp.RING``,
 bit for bit, dw and db within the fp32 ladder; the backward's row pass and
 column sum apart, the forward and backward without the SiLU beside, and
 each kernel's registers and blocks an SM. ``gqmm`` times each of kernel R's
-tiles (``group_quant_gemm.TILES``: decode, prefill, tall) at the quantized
-MoE experts' shapes (Qwen3-30B-A3B's fc1 and down, G 128, int8 and int4;
-DeepSeek-V3's, G 256, int8) for the rows of a top-8 routing at 32, 64 and
-103 rows a group on average (the smoke's prefill batch at G 128), and 52
-(the same batch at G 256), every tile equal to the plain version bit for
+routes (``group_quant_gemm.TILES``) at the quantized MoE experts' shapes
+(Qwen3-30B-A3B's fc1 and down, G 128, int8 and int4; DeepSeek-V3's, G
+256, int8) for the rows of a top-8 routing at 32, 52, 64 and 103 rows a
+group on average at G 128 (103: the smoke's prefill batch) and 32 and 52 at
+G 256 (52: the same batch), every route equal to the plain version bit for
 bit; ``route`` picks from these readings.
 
 Run on a machine with a GPU and nvcc::
@@ -510,11 +510,11 @@ def conv1d_case(B, T, D, gen) -> dict:
 GQMM_SHAPES = (("qwen_fc1", 128, 2048, 1536, False), ("qwen_down", 128, 768, 2048, False),
                ("qwen_fc1_int4", 128, 2048, 1536, True), ("qwen_down_int4", 128, 768, 2048, True),
                ("deepseek_fc1", 256, 7168, 4096, False), ("deepseek_down", 256, 2048, 7168, False))
-GQMM_ROWS_PER_GROUP = {128: (32, 64, 103), 256: (52,)}
+GQMM_ROWS_PER_GROUP = {128: (32, 52, 64, 103), 256: (32, 52)}
 
 
 def gqmm_case(G, K, N, int4, rows, gen) -> dict:
-    """Each of R's tiles on one top-8 routing of ``rows`` rows: device ms from a CUDA graph, bit for bit against
+    """Each of R's routes on one top-8 routing of ``rows`` rows: device ms from a CUDA graph, bit for bit against
     the plain version, and the policy's choice."""
     rng = np.random.default_rng(rows)
     choice = np.argsort(rng.random((rows // 8, G)), axis=1)[:, :8]
@@ -526,18 +526,21 @@ def gqmm_case(G, K, N, int4, rows, gen) -> dict:
     xs = torch.rand(rows, 1, device="cuda", generator=gen) * 0.05 + 1e-3
     want = group_quant_gemm.grouped_quant_matmul_plain(x, w, counts, ws, xs, torch.bfloat16, int4)
     out = torch.empty_like(want)
-    result = {"policy": group_quant_gemm.ROUTE_NAMES[group_quant_gemm.route(rows, G)]}
+    result = {"policy": group_quant_gemm.ROUTE_NAMES[group_quant_gemm.route(rows, G, int4)]}
 
     for code, name in group_quant_gemm.ROUTE_NAMES.items():
-        def run(code=code):
+        n_scratch = group_quant_gemm.scratch_ints(rows, G, code)
+        scratch = torch.empty(max(n_scratch, 1), dtype=torch.int32, device="cuda")
+
+        def run(code=code, scratch=scratch, n_scratch=n_scratch):
             build.launch("mojo_group_quant_gemm", x.device, x.data_ptr(), w.data_ptr(), counts.data_ptr(),
-                         xs.data_ptr(), ws.data_ptr(), out.data_ptr(), rows, N, K, G, int(int4), code,
-                         build.DTYPE_CODES[torch.bfloat16])
+                         xs.data_ptr(), ws.data_ptr(), out.data_ptr(), scratch.data_ptr() if n_scratch else None,
+                         n_scratch, rows, N, K, G, int(int4), code, build.DTYPE_CODES[torch.bfloat16])
 
         run()
         torch.cuda.synchronize()
         if not torch.equal(out, want):
-            raise AssertionError(f"R's {name} tile differs from the plain version at G {G} K {K} N {N} rows {rows}")
+            raise AssertionError(f"R's {name} route differs from the plain version at G {G} K {K} N {N} rows {rows}")
         result[name] = graph_ms(run)
     return result
 

@@ -298,36 +298,7 @@ constexpr int kABytes = kBM * kBK * 2;
 constexpr int kStageBytes = kABytes + kBN * kBK * 2;
 // the stages, slack to align them on 1024 bytes, a full and an empty barrier a stage
 constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
-constexpr int kTableThreads = 1024;
 }  // namespace pre
-
-// The groups' row tiles in order, (group, first row, end row) each, and
-// meta = {row tiles, rows the groups cover (<= M)}. One block.
-__global__ void __launch_bounds__(pre::kTableThreads)
-gmm_tile_table(const int* __restrict__ group_sizes, int G, int M, int4* __restrict__ table, int* __restrict__ meta) {
-  constexpr int TH = pre::kTableThreads, BM = pre::kBM;
-  __shared__ int scratch[TH / 32];
-  int row_carry = 0, tile_carry = 0;
-  for (int base = 0; base < G; base += TH) {
-    const int g = base + static_cast<int>(threadIdx.x);
-    const int c = g < G ? max(group_sizes[g], 0) : 0;
-    int chunk_rows, chunk_tiles;
-    const int row_start = row_carry + block_exclusive_scan<TH>(c, scratch, chunk_rows);
-    const int rows = max(0, min(c, M - row_start));
-    const int tiles = (rows + BM - 1) / BM;
-    const int tile_start = tile_carry + block_exclusive_scan<TH>(tiles, scratch, chunk_tiles);
-    for (int i = 0; i < tiles; ++i) {
-      const int lo = row_start + i * BM;
-      table[tile_start + i] = make_int4(g, lo, min(lo + BM, row_start + rows), 0);
-    }
-    row_carry = min(row_carry + chunk_rows, M);
-    tile_carry += chunk_tiles;
-  }
-  if (threadIdx.x == 0) {
-    meta[0] = tile_carry;
-    meta[1] = row_carry;
-  }
-}
 
 // Units (row tile, n tile), n tile fastest, dealt round robin to a
 // persistent grid. W's map: (G N, K) rows K-major, or with BMN (a (G, K, N)
@@ -472,7 +443,7 @@ int launch_wgmma(const T* x, const T* w, const int* gs, T* out, int* scratch, in
   if (attr != cudaSuccess) return static_cast<int>(attr);
   int4* table = reinterpret_cast<int4*>(scratch);
   int* meta = scratch + 4 * bound;
-  gmm_tile_table<<<1, kTableThreads, 0, s>>>(gs, G, M, table, meta);
+  group_tile_table<kBM><<<1, kTileTableThreads, 0, s>>>(gs, G, M, table, meta);
   if (cudaError_t err = cudaGetLastError(); err != cudaSuccess) return static_cast<int>(err);
   const int64_t units_bound = static_cast<int64_t>(bound) * ((N + kBN - 1) / kBN);
   const int grid = static_cast<int>(units_bound < sm_count() ? units_bound : sm_count());

@@ -1,7 +1,8 @@
 // The row tiles of the grouped GEMMs, kernels H (group_gemm.cu) and R (group_quant_gemm.cu): a row tile belongs
 // to one group and starts at that group's first row or BM rows after, found on the device from group_sizes, with
-// the grid sized by a static bound (row_tiles), so the host never reads a count. group_gemm.cu's module note
-// has the design.
+// the grid sized by a static bound (row_tiles), so the host never reads a count. Two forms: each block finds its
+// own tile (locate_tile, the decode tiles), or one block writes every tile into a table that a persistent grid
+// walks (group_tile_table, the wgmma prefill routes). group_gemm.cu's module note has the design.
 #pragma once
 
 #include "common.cuh"
@@ -73,6 +74,37 @@ __device__ void locate_tile(const int* __restrict__ group_sizes, int G, int M, i
     info.filled = row_carry;
   }
   __syncthreads();
+}
+
+constexpr int kTileTableThreads = 1024;
+
+// The groups' row tiles of BM rows in order, (group, first row, end row, 0) each, and meta = {row tiles, rows the
+// groups cover (<= M)}. One block of kTileTableThreads.
+template <int BM>
+__global__ void __launch_bounds__(kTileTableThreads)
+group_tile_table(const int* __restrict__ group_sizes, int G, int M, int4* __restrict__ table, int* __restrict__ meta) {
+  constexpr int TH = kTileTableThreads;
+  __shared__ int scratch[TH / 32];
+  int row_carry = 0, tile_carry = 0;
+  for (int base = 0; base < G; base += TH) {
+    const int g = base + static_cast<int>(threadIdx.x);
+    const int c = g < G ? max(group_sizes[g], 0) : 0;
+    int chunk_rows, chunk_tiles;
+    const int row_start = row_carry + block_exclusive_scan<TH>(c, scratch, chunk_rows);
+    const int rows = max(0, min(c, M - row_start));
+    const int tiles = (rows + BM - 1) / BM;
+    const int tile_start = tile_carry + block_exclusive_scan<TH>(tiles, scratch, chunk_tiles);
+    for (int i = 0; i < tiles; ++i) {
+      const int lo = row_start + i * BM;
+      table[tile_start + i] = make_int4(g, lo, min(lo + BM, row_start + rows), 0);
+    }
+    row_carry = min(row_carry + chunk_rows, M);
+    tile_carry += chunk_tiles;
+  }
+  if (threadIdx.x == 0) {
+    meta[0] = tile_carry;
+    meta[1] = row_carry;
+  }
 }
 
 inline int row_tiles(int M, int G, int bm) {

@@ -53,7 +53,7 @@ def routed_counts(G, seed):
 
 
 def tile_table(group_sizes, M):
-    """gmm_tile_table: [(group, first row, end row)] in group order, and the rows the groups cover (<= M)."""
+    """group_tile_table: [(group, first row, end row)] in group order, and the rows the groups cover (<= M)."""
     table, start = [], 0
     for g, c in enumerate(group_sizes.tolist()):
         c = max(c, 0)

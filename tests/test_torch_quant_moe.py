@@ -388,22 +388,29 @@ def meta(*shape, dtype=torch.int8):
 
 def test_route_and_grid_come_from_shapes():
     R = group_quant_gemm
-    assert R.route(13200, 128) == R.TALL  # Qwen3-30B-A3B's prefill batch: 103 rows an expert
-    assert R.route(96 * 128, 128) == R.TALL and R.route(96 * 128 - 1, 128) == R.PREFILL
-    assert R.route(13200, 256) == R.PREFILL  # DeepSeek-V3's: 52 rows an expert
-    assert R.route(8192, 256) == R.PREFILL and R.route(8191, 256) == R.DECODE
-    assert R.route(32, 128) == R.DECODE
-    # the grid: (n tiles, the static bound min(ceil(M / BM) + G, M))
-    assert R.grid(32, 1536, 128) == (48, 32)
-    assert R.grid(13200, 1536, 128) == (12, 104 + 128)
-    assert R.grid(13200, 7168, 256) == (56, 207 + 256)
+    assert R.route(13200, 128) == R.WGMMA  # Qwen3-30B-A3B's prefill batch: 103 rows an expert
+    assert R.route(13200, 128, int4=True) == R.WGMMA_WIDE  # packed int4 on 256-wide tiles
+    assert R.route(13200, 256) == R.WGMMA  # DeepSeek-V3's: 52 rows an expert
+    assert R.route(8192, 256) == R.WGMMA and R.route(8191, 256) == R.DECODE
+    assert R.route(32, 128) == R.DECODE == R.route(32, 128, int4=True)
+    # the decode tile's grid: (n tiles, the static bound min(ceil(M / 16) + G, M)) blocks
+    assert R.grid(32, 1536, 128, R.DECODE) == (48, 32)
+    # the prefill route's units: (n tiles, the bound on 128-row tiles), walked by a persistent grid from a table
+    # of 4 ints a row tile and 2 of meta
+    assert R.grid(13200, 1536, 128, R.WGMMA) == (12, 104 + 128)
+    assert R.grid(13200, 7168, 256, R.WGMMA) == (56, 104 + 256)
+    assert R.grid(13200, 7168, 256, R.WGMMA_WIDE) == (28, 104 + 256)
+    assert R.scratch_ints(13200, 128, R.WGMMA) == 4 * (104 + 128) + 2
+    assert R.scratch_ints(32, 128, R.DECODE) == 0
 
 
-@pytest.mark.parametrize("M, G, int4", [(13200, 128, False), (32, 128, True)], ids=["prefill-int8", "decode-int4"])
+@pytest.mark.parametrize("M, G, int4", [(13200, 128, False), (32, 128, True), (13200, 256, True)],
+                         ids=["prefill-int8", "decode-int4", "prefill-int4"])
 def test_launch_reads_no_count_on_the_host(monkeypatch, M, G, int4):
-    """Off the CPU the wrapper sizes the grid from shapes alone: with meta
-    tensors (no values to read) it reaches the launch, and hands the kernel
-    the route that ``route`` chose."""
+    """Off the CPU the wrapper sizes the grid and the scratch from shapes
+    alone: with meta tensors (no values to read) it reaches the launch, and
+    hands the kernel the route that ``route`` chose, with the prefill
+    route's row-tile scratch."""
     seen = []
     monkeypatch.setattr(build, "launch", lambda name, device, *args: seen.append((name, args)))
     K, N = 2048, 1536
@@ -413,8 +420,11 @@ def test_launch_reads_no_count_on_the_host(monkeypatch, M, G, int4):
         meta(M, 1, dtype=torch.float32), torch.bfloat16, int4=int4)
     assert out.shape == (M, N) and out.dtype == torch.bfloat16
     (name, args), = seen
-    assert name == "mojo_group_quant_gemm" and args[6:10] == (M, N, K, G)
-    assert args[10:12] == (int(int4), group_quant_gemm.route(M, G))
+    plan = group_quant_gemm.route(M, G, int4)
+    assert name == "mojo_group_quant_gemm" and args[8:12] == (M, N, K, G)
+    assert args[12:14] == (int(int4), plan)
+    assert args[7] == group_quant_gemm.scratch_ints(M, G, plan)
+    assert (args[6] is None) == (plan not in group_quant_gemm.PERSISTENT)
     assert group_quant_gemm.launches == before + 1
 
 
@@ -449,9 +459,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
 
 
 def tile_map(counts, M, bm):
-    """The kernel's row tiles (locate_tile), in blockIdx.y order: (group, first row, end row) for the groups'
-    tiles, then the surplus blocks' tail rows (each covering bm rows from filled + u bm, stepping by the
-    surplus count)."""
+    """The groups' row tiles of ``bm`` rows in order, (group, first row, end row), and the rows the groups cover:
+    the decode tile's blocks find theirs in this order (locate_tile), the table launch writes them (group_tile_table,
+    meta = (len(tiles), filled))."""
     tiles, start = [], 0
     for g, c in enumerate(counts):
         rows = max(0, min(max(c, 0), M - start))
@@ -462,33 +472,108 @@ def tile_map(counts, M, bm):
 
 @pytest.mark.parametrize("routed, extra", [(32, 0), (13200, 0), (4200, 0), (200, 37), (5, 0)])
 def test_tile_map_writes_every_row_once(routed, extra):
-    """A model of the launch: every routed row is written by exactly one row tile of its own group, the rows past
-    the groups' end by the surplus blocks, and the blocks of a row tile (its n tiles) are consecutive."""
+    """A model of both launch forms at every route's row tile: every routed row is written by exactly one row tile
+    of its own group for each n tile, the rows past the groups' end once. The decode tile: blocks (n tile, row
+    tile), blockIdx.x the n tile, so a row tile's n tiles are consecutive blocks; the surplus blocks zero the tail.
+    The persistent routes: the BM-templated table (shared with kernel H) fits the scratch, units (row tile, n tile)
+    with the n tile fastest dealt round robin, a tile's TMA box of 128 rows stored only within its group, and the
+    tail zeroed from meta[1]."""
+    R = group_quant_gemm
     rng = np.random.default_rng(routed)
-    G = 128
+    G, N = 128, 1536
     counts = np.bincount(rng.integers(0, G, routed), minlength=G)
     counts[3] += counts[9]  # an empty group among them
     counts[9] = 0
     M = routed + extra
-    n_tiles, bound = group_quant_gemm.grid(M, 1536, G)
-    bm = group_quant_gemm.TILES[group_quant_gemm.route(M, G)][0]
-    tiles, filled = tile_map(counts.tolist(), M, bm)
-    assert filled == M - extra and len(tiles) <= bound
-    written = np.zeros(M, np.int64)
     starts = np.concatenate([[0], np.cumsum(counts)])
-    for g, lo, hi in tiles:
-        assert starts[g] <= lo < hi <= starts[g + 1] and hi - lo <= bm
-        written[lo:hi] += 1
-    surplus = bound - len(tiles)
-    assert surplus >= 1 or extra == 0
-    for u in range(surplus):  # the surplus blocks' zeroing loop
-        for r0 in range(filled + u * bm, M, surplus * bm):
-            written[r0:min(r0 + bm, M)] += 1
-    assert (written == 1).all()
-    # launch order: blockIdx.x (the n tile) fastest, so a row tile's n tiles are consecutive blocks
-    order = [(y, x) for y in range(bound) for x in range(n_tiles)]
-    for y in range(len(tiles)):
-        assert [i for i, (yy, _) in enumerate(order) if yy == y] == list(range(y * n_tiles, (y + 1) * n_tiles))
+    for code in R.TILES:
+        n_tiles, bound = R.grid(M, N, G, code)
+        bm, bn = R.TILES[code]
+        tiles, filled = tile_map(counts.tolist(), M, bm)
+        assert filled == M - extra and len(tiles) <= bound
+        written = np.zeros(M, np.int64)
+        for g, lo, hi in tiles:
+            assert starts[g] <= lo < hi <= starts[g + 1] and hi - lo <= bm
+            if code in R.PERSISTENT:
+                box = np.arange(lo, lo + bm)  # the rows the TMA box brings: the next group's are not stored
+                written[box[(box < hi)]] += 1
+            else:
+                written[lo:hi] += 1
+        if code in R.PERSISTENT:
+            assert 4 * len(tiles) + 2 <= R.scratch_ints(M, G, code)
+            written[filled:] += 1  # the consumers' tail loop from meta[1]
+            units = [(tiles[u // n_tiles], (u % n_tiles) * bn) for u in range(len(tiles) * n_tiles)]
+            # n fastest: a wave of 132 blocks spans ceil(132 / n_tiles) + 1 row tiles at most, so x's rows stay in L2
+            for w0 in range(0, len(units), 132):
+                assert len({t for t, _ in units[w0:w0 + 132]}) <= -(-132 // n_tiles) + 1
+            assert sorted(n0 for t, n0 in units if t == tiles[0]) == list(range(0, n_tiles * bn, bn))
+        else:
+            surplus = bound - len(tiles)
+            assert surplus >= 1 or extra == 0
+            for u in range(surplus):  # the surplus blocks' zeroing loop
+                for r0 in range(filled + u * bm, M, surplus * bm):
+                    written[r0:min(r0 + bm, M)] += 1
+            # launch order: blockIdx.x (the n tile) fastest, so a row tile's n tiles are consecutive blocks
+            order = [(y, x) for y in range(bound) for x in range(n_tiles)]
+            for y in range(len(tiles)):
+                assert [i for i, (yy, _) in enumerate(order) if yy == y] == list(range(y * n_tiles, (y + 1) * n_tiles))
+        assert (written == 1).all(), R.ROUTE_NAMES[code]
+
+
+def int4_channel(col):
+    """The prefill route's epilogue map for packed int4: the n tile's channel of accumulator column ``col``
+    (columns c and c + 64 of each 128-column group are the channels 2 c and 2 c + 1 of the group)."""
+    group, c = divmod(col, 128)
+    return 128 * group + 2 * (c % 64) + c // 64
+
+
+@pytest.mark.parametrize("BN", [128, 256])
+def test_int4_stage_unpack_and_column_map_equal_unpack_int4(BN):
+    """A numpy model of a packed int4 stage on the prefill route, against ``unpack_int4``: TMA brings BN / 2 packed
+    rows of one 128-byte k slice in the 128-byte swizzle (16-byte chunk j of row r at j ^ (r % 8)); the consumers
+    unpack chunk c of it to the same offset in B rows 128 (r / 64) + r % 64 (16 x the low nibbles) and + 64 (the
+    high), G's unpack_stage; wgmma reads B's rows through the same swizzle; the epilogue takes column c as channel
+    ``int4_channel(c)``, and each lane's four adjacent channels from its accumulators; the 16-bit stores of a lane
+    pair cover the n tile once."""
+    rng = np.random.default_rng(BN)
+    N, K, n0, k0 = 3 * BN, 384, BN, 128
+    slab = torch.from_numpy(rng.integers(-128, 128, (N // 2, K)).astype(np.int8))
+    want = tm.core.operators.moe.unpack_int4(slab).numpy()[n0:n0 + BN, k0:k0 + 128].astype(np.int32)
+    box = slab.numpy()[n0 // 2:n0 // 2 + BN // 2, k0:k0 + 128].view(np.uint8)
+    packed = np.zeros(BN // 2 * 128, np.uint8)  # the stage's packed tile as TMA writes it
+    for r in range(BN // 2):
+        for j in range(8):
+            packed[r * 128 + 16 * (j ^ (r % 8)):][:16] = box[r, 16 * j:16 * j + 16]
+    b = np.zeros(BN * 128, np.uint8)
+    for c in range(BN // 2 * 8):  # unpack_stage: 16 bytes a chunk, low then high nibbles as 16 x the int4
+        p = packed[16 * c:16 * c + 16]
+        lo = (c // 512) * 16384 + (c % 512) * 16
+        b[lo:lo + 16] = (p << 4) & 0xF0
+        b[lo + 8192:lo + 8192 + 16] = p & 0xF0
+    tile = np.zeros((BN, 128), np.int32)  # B as wgmma reads it: row c is the tile's column c
+    for row in range(BN):
+        for j in range(8):
+            tile[row, 16 * j:16 * j + 16] = b[row * 128 + 16 * (j ^ (row % 8)):][:16].view(np.int8)
+    assert (tile % 16 == 0).all()
+    got = np.zeros_like(want)
+    got[[int4_channel(c) for c in range(BN)]] = tile >> 4  # the sums' shift by 4, per weight
+    np.testing.assert_array_equal(got, want)
+    # lane q's accumulators acc[4 j + 2 h + e] are columns 8 j + 2 q + e: for column group jj of 128-column group
+    # i, columns j = 16 i + jj (low) and j + 8 (high) give channels 128 i + 16 jj + 4 q + (2 e, 2 e + 1)
+    owned = []
+    for q in range(4):
+        for i in range(BN // 128):
+            for jj in range(8):
+                jl, jh = 16 * i + jj, 16 * i + jj + 8
+                four = [int4_channel(8 * jl + 2 * q), int4_channel(8 * jh + 2 * q),
+                        int4_channel(8 * jl + 2 * q + 1), int4_channel(8 * jh + 2 * q + 1)]
+                assert four == list(range(128 * i + 16 * jj + 4 * q, 128 * i + 16 * jj + 4 * q + 4))
+                owned += four
+    assert sorted(owned) == list(range(BN))
+    # the 16-bit stores: even lanes group 2 p's 8 channels from 4 q, odd lanes group 2 p + 1's from 4 q - 4
+    stored = [128 * i + 32 * p + (16 + 4 * q - 4 if q % 2 else 4 * q) + e
+              for q in range(4) for i in range(BN // 128) for p in range(4) for e in range(8)]
+    assert sorted(stored) == list(range(BN))
 
 
 # ---------------------------------------------------------------- the Qwen3-MoE model, w8a8 and w4a8

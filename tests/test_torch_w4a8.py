@@ -221,11 +221,22 @@ def test_w4a8_prefill_logits_match_jax(w4a8_pair):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["stepwise", "fused"])
 def test_w4a8_greedy_tokens_match_jax(w4a8_pair, fused):
+    """Both of the port's streams are held to JAX's stepwise stream: JAX's
+    jitted FusedDecode window, run from the persistent XLA:CPU cache under
+    several workers, is not a stable reference (ROADMAP.md, queue 3). The
+    fused case also holds the port's window to the port's stepwise loop."""
     qm_j, _, qm_t = w4a8_pair
     ids = _prompt()
-    want = JaxGenerator(JaxPaged(qm_j, block_size=BLOCK, jit=fused), Tok(), JaxGreedy(),
-                        max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True, silent=True,
-                                                                fused_decode=fused)
-    got = MojoGenerator(PagedAttentionGenerationModel(qm_t, block_size=BLOCK), Tok(), GreedySampler(),
-                        max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True, fused_decode=fused)
+    want = JaxGenerator(JaxPaged(qm_j, block_size=BLOCK, jit=False), Tok(), JaxGreedy(),
+                        max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True, silent=True)
+
+    def port_stream(fused_decode):
+        return MojoGenerator(PagedAttentionGenerationModel(qm_t, block_size=BLOCK), Tok(), GreedySampler(),
+                             max_new_tokens=STEPS).generate_from_ids(ids, LENS, ignore_eos=True,
+                                                                     fused_decode=fused_decode)
+
+    got = port_stream(fused)
+    assert got.shape == (len(LENS), STEPS)
     np.testing.assert_array_equal(got, np.asarray(want))
+    if fused:
+        np.testing.assert_array_equal(got, port_stream(False))
