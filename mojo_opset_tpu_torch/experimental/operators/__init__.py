@@ -19,9 +19,11 @@ from mojo_opset_tpu_torch.experimental.operators.mla import (
     MojoPagedPrefillMLA,
     MojoPrefillMLA,
 )
-from mojo_opset_tpu_torch.experimental.operators.position_embedding import MojoGridRoPE
+from mojo_opset_tpu_torch.experimental.operators.normalization import MojoChannelRMSNorm
+from mojo_opset_tpu_torch.experimental.operators.position_embedding import MojoGridRoPE, MojoRelativeEmbedding
 
 __all__ = [
+    "MojoChannelRMSNorm",
     "MojoDecodeMLA",
     "MojoDequantFromPagedKVCache",
     "MojoFusedSwiGLUMoEScaleDynamicQuantize",
@@ -33,6 +35,7 @@ __all__ = [
     "MojoPagedPrefillGQAWithKVDequant",
     "MojoPagedPrefillMLA",
     "MojoPrefillMLA",
+    "MojoRelativeEmbedding",
     "MojoStorePagedKVCacheC8",
     "MojoStorePagedMLAKVCache",
     "dynamic_quantize",

@@ -49,7 +49,19 @@ package's module names: ``patch_weight``, ``patch_bias``,
 ``blocks.N.{self_attn,cross_attn}.norm_{q,k}.weight``,
 ``blocks.N.norm3.{weight,bias}``, ``blocks.N.ffn_{in,out}.*``,
 ``blocks.N.modulation``, ``head.head.*`` and ``head.modulation``; its complex
-RoPE table ``freqs`` is recomputed, not loaded. A single op loads the same
+RoPE table ``freqs`` is recomputed, not loaded. The umT5 encoder
+(``T5Encoder``, ``umt5_xxl_encoder``) has ``token_embedding.weight``,
+``blocks.N.attn.{q,k,v,o}.weight``, ``blocks.N.ffn.{gate,fc1,fc2}.weight``,
+``blocks.N.norm{1,2}.weight``, ``norm.weight`` and the relative bias
+``blocks.N.pos_embedding.embedding`` (or one shared ``pos_embedding.embedding``);
+``T5Model`` adds ``encoder.``/``decoder.`` prefixes, the decoder blocks'
+``self_attn``, ``cross_attn`` and ``norm3``, and ``head.weight``, with its
+shared embedding under ``token_embedding``, ``encoder.token_embedding`` and
+``decoder.token_embedding`` (one tensor: the three arrays must be equal).
+The VAE (``WanVAE_``) has ``{encoder,decoder}.*.{weight,bias}`` of every
+conv (5-D causal convs, 4-D resample and attention convs), the channel
+norms' ``(C, 1, 1, 1)`` weights (``(C, 1, 1)`` in the mid attention), and
+the top-level ``conv1`` and ``conv2``. A single op loads the same
 way under the JAX op's names: a norm op's ``weight`` and ``bias``,
 ``MojoSwiGLUMLP``'s ``fc1.weight`` and ``fc2.weight``.
 """
@@ -99,6 +111,35 @@ def load_numpy_state(model: nn.Module, arrays: Dict[str, np.ndarray], strict: bo
             raise ValueError(f"{name}: {source.dtype} array for a {target.dtype} parameter")
         target.copy_(source)
     return model
+
+
+def random_numpy_state(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
+    """fp32 numpy draws from ``seed`` for every entry of ``model``'s state,
+    in its order, for parity checks that load one set of weights into two
+    models: norm weights 1 + 0.2 N(0, 1), embeddings N(0, 1), biases
+    0.1 N(0, 1), other weights N(0, 1) / sqrt(fan_in), fan_in being the
+    product of every dim but the first. No entry keeps the constant it
+    starts at (the norms' ones, a zero-started projection), so every path
+    counts. Names of one shared tensor get one draw."""
+    rng = np.random.default_rng(seed)
+    out, drawn = {}, {}
+    for name, tensor in model.state_dict().items():
+        if name.rsplit(".", 1)[-1] in IGNORED_SUFFIXES:
+            continue
+        key = (tensor.data_ptr(), tuple(tensor.shape), tensor.dtype)
+        if key not in drawn:
+            z = rng.standard_normal(tuple(tensor.shape)).astype(np.float32)
+            if "norm" in name:
+                z = 1.0 + 0.2 * z
+            elif name.endswith("embedding") or "token_embedding" in name:
+                pass
+            elif name.endswith("bias"):
+                z = 0.1 * z
+            else:
+                z = z / np.float32(np.sqrt(np.prod(tensor.shape[1:])))
+            drawn[key] = z.astype(np.float32)
+        out[name] = drawn[key]
+    return out
 
 
 @torch.no_grad()
