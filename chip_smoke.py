@@ -332,6 +332,27 @@ is non-zero:
      steps' ms, decode and encode ms, video frames/s, the VAE's parameters,
      each stage's peak memory above its start and the phase's seconds; no
      golden route but the T5's.
+ 17. CUDA graphs (``runtime/compile_cache.py``), JAX's capture suite
+     (tests/accuracy/operators/test_attention_capture.py) at its small
+     shapes: a store and a decode through one CompiledStepPool graph equal
+     to eager bit for bit over 5 steps, on bf16 pages (C), with SWA windows
+     (C), on int8 (C8) pages (C') and on MLA latents (I); two sessions of
+     batch 2 and 3 stepped in turns through one pool (2 graphs, no
+     cross-talk); a permuted block table permuting a replay's rows; a top-k
+     FusedDecode window on a small bf16 Qwen3 whose generator the graph
+     registers (one seed: the warm-up and two replays alike; unseeded, new
+     draws).
+Decode runs on CUDA graphs by default (phases 4-9 and 11): a key's first
+call is its eager warm-up, its second captures. Phase 4 runs every graphed
+generator twice and checks it against device_graph=False; phases 5, 6, 8,
+9 and 11 check 32 graphed steps and two FusedDecode windows (the second
+replayed, then replayed again from the same state and timed) against
+device_graph=False token for token, a replayed step's launch counts
+against its eager warm-up's, its logits against an eager step's (bit for
+bit, else per-row cosine >= GRAPH_COSINE_BOUND), and time GRAPH_TURNS graph
+and eager steps in turns (``_graph_vs_eager``: device busy and idle share
+of a graph step, capture ms, the graph pool's memory); phase 7 does the
+same for vanilla and speculative decoding (``_speculative_turns``).
 Phases 5-12 (the models, the quantized halves of 8 and 9 among them) must
 leave every cuda-tier class's golden_calls where it was: a golden route on
 a model path fails its phase.
@@ -1768,20 +1789,9 @@ def _queue3_cases(torch, gen) -> None:
 
 def golden_counts() -> dict:
     """``golden_calls`` of every cuda-tier op and Function class, by class name."""
-    import importlib
-    import inspect
-    import pkgutil
+    from mojo_opset_tpu_torch.backends.cuda import kernels
 
-    from mojo_opset_tpu_torch.backends.cuda import functions, operators
-
-    counts = {}
-    for package in (operators, functions):
-        for info in pkgutil.iter_modules(package.__path__):
-            module = importlib.import_module(f"{package.__name__}.{info.name}")
-            for name, cls in inspect.getmembers(module, inspect.isclass):
-                if "golden_calls" in vars(cls):
-                    counts[name] = cls.golden_calls
-    return counts
+    return {cls.__name__: cls.golden_calls for cls in kernels.golden_classes()}
 
 
 def rel_errors(got, want):
@@ -2505,14 +2515,18 @@ def _prompts(vocab: int, lens) -> tuple[np.ndarray, np.ndarray]:
 
 
 def _greedy_match(torch, name, model, plain, ids, lens, tie_bound=None, session_cls=None) -> None:
-    """16 greedy steps: kernel path == plain path == fused window.
+    """16 greedy steps: kernel path == plain path == fused window; the
+    kernel path's steps and window replayed from CUDA graphs == eager.
 
     With ``tie_bound`` (the quantized twins whose activations are int8), the
     kernel and plain paths may part at one step of one row, if there the
     two paths' logits differ by at most ``tie_bound`` and the plain path's
     two best logits lie closer than that difference: a sum in another order
     moved an int8 activation across a rounding tie, and the argmax was a
-    near-tie. The fused window must equal the stepwise kernel path."""
+    near-tie. The fused window must equal the stepwise kernel path. Each
+    graphed generator runs twice (its second call replays from its first
+    step, and its window replays); the plain twin runs eagerly (its golden
+    ops read device values back, which a capture cannot)."""
     from mojo_opset_tpu_torch.runtime import GeneratorHook, GreedySampler, MojoGenerator, PagedAttentionGenerationModel
 
     class KeepLogits(GeneratorHook):
@@ -2525,19 +2539,32 @@ def _greedy_match(torch, name, model, plain, ids, lens, tie_bound=None, session_
         def after_decode_step(self, *, step, logits, next_token_id):
             self.steps.append(logits)
 
-    def generate(m, fused=False, hook=None):
-        gm = PagedAttentionGenerationModel(m, block_size=16, **({"session_cls": session_cls} if session_cls else {}))
-        gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=16, hooks=[hook] if hook else None)
-        return gen.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=fused)
+    def generator(m, hook=None, device_graph=None):
+        gm = PagedAttentionGenerationModel(m, block_size=16, device_graph=device_graph,
+                                           **({"session_cls": session_cls} if session_cls else {}))
+        return MojoGenerator(gm, None, GreedySampler(), max_new_tokens=16, hooks=[hook] if hook else None)
 
     kept, plain_kept = KeepLogits(), KeepLogits()
-    tokens, plain_tokens = generate(model, hook=kept), generate(plain, hook=plain_kept)
-    fused = generate(model, fused=True)
+    graphed = generator(model, hook=kept)
+    graphed.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up: the decode graph is captured
+    kept.steps.clear()
+    tokens = graphed.generate_from_ids(ids, lens, ignore_eos=True)  # replayed from its first step
+    plain_tokens = generator(plain, hook=plain_kept, device_graph=False).generate_from_ids(ids, lens, ignore_eos=True)
+    fused_gen = generator(model)
+    fused = [fused_gen.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=True) for _ in range(2)]
+    eager = generator(model, device_graph=False)
+    eager_tokens = eager.generate_from_ids(ids, lens, ignore_eos=True)
+    eager_fused = eager.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=True)
     log(name, f"kernel tokens {tokens.tolist()}")
-    if not np.array_equal(tokens, fused):
-        raise AssertionError(f"{name}: fused tokens differ from stepwise: {fused.tolist()} vs {tokens.tolist()}")
+    for what, got in (("fused window", fused[0]), ("replayed fused window", fused[1]), ("eager stepwise", eager_tokens),
+                      ("eager fused window", eager_fused)):
+        if not np.array_equal(tokens, got):
+            raise AssertionError(f"{name}: {what} tokens differ from the graphed stepwise: {got.tolist()} vs "
+                                 f"{tokens.tolist()}")
+    if not graphed.model.runners() or graphed.model.runners()[-1].graph is None:
+        raise AssertionError(f"{name}: the decode steps never replayed from a graph")
     if np.array_equal(tokens, plain_tokens):
-        log(name, "16 greedy steps: kernel path == plain path == fused window")
+        log(name, "16 greedy steps: kernel path == plain path == fused window; graphs == eager")
         return
     parted = np.argwhere(tokens != plain_tokens)  # (row, step) pairs
     row, step = (int(i) for i in parted[np.argmin(parted[:, 1])])
@@ -2550,7 +2577,8 @@ def _greedy_match(torch, name, model, plain, ids, lens, tie_bound=None, session_
     if tie_bound is None or delta > tie_bound or gap > delta:
         raise AssertionError(f"{name}: greedy tokens differ: kernel {tokens.tolist()} plain {plain_tokens.tolist()}; "
                              f"{note}")
-    log(name, f"16 greedy steps: kernel path == fused window; {note} (a near-tie, bound {tie_bound})")
+    log(name, f"16 greedy steps: kernel path == fused window; graphs == eager; {note} (a near-tie, bound "
+              f"{tie_bound})")
 
 
 def _standalone_greedy(model, ids, lens, steps: int) -> np.ndarray:
@@ -2585,13 +2613,17 @@ def _speculative_match(torch, target, drafts: dict, ids, lens, steps: int = 24) 
     want = _standalone_greedy(target, ids, lens, steps)
     for name, draft in drafts.items():
         spec = SpeculativeDecoder(target, draft, k=4, mode="greedy", block_size=16)
-        for run in (spec.generate, spec.generate_fused):
+        eager = SpeculativeDecoder(target, draft, k=4, mode="greedy", block_size=16, device_graph=False)
+        for run in (spec.generate, spec.generate_fused, eager.generate_fused):
             got = run(ids, lens, max_new_tokens=steps)
             if not np.array_equal(got, want):
                 raise AssertionError(f"speculative {run.__name__} with the {name} differs from vanilla greedy: "
                                      f"{got.tolist()} vs {want.tolist()}")
-            log("small speculative", f"{name}, {run.__name__}: {steps} tokens x {len(lens)} == vanilla greedy "
-                                     f"in {spec.last_rounds} rounds")
+            graphs = "eager" if run.__self__ is eager else "draft rounds and verifies replayed from graphs"
+            log("small speculative", f"{name}, {run.__name__} ({graphs}): {steps} tokens x {len(lens)} == vanilla "
+                                     f"greedy in {run.__self__.last_rounds} rounds")
+        if not all(r.graph is not None for pool in (spec._draft_pool, spec._verify_pool) for r in pool.runners()):
+            raise AssertionError(f"speculative decoding with the {name}: a round never replayed from its graph")
 
 
 def _continuous_match(torch, model, draft) -> None:
@@ -2612,6 +2644,8 @@ def _continuous_match(torch, model, draft) -> None:
             model, batch_slots=2, block_size=16, max_new_tokens=steps, prefix_cache_blocks=16),
         "speculative batcher, w4a8 draft": SpeculativeContinuousBatchingGenerator(
             model, draft, speculative_k=4, batch_slots=2, block_size=16, max_new_tokens=steps),
+        "continuous batcher, decode windows of 4": ContinuousBatchingGenerator(
+            model, batch_slots=2, block_size=16, max_new_tokens=steps, decode_window=4),
     }
     for name, gen in batchers.items():
         rids = [gen.submit(p) for p in prompts]
@@ -2620,7 +2654,13 @@ def _continuous_match(torch, model, draft) -> None:
             if not np.array_equal(results[rid], w):
                 raise AssertionError(f"{name}: request {rid} gave {results[rid].tolist()}, standalone {w.tolist()}")
         extra = f"; {gen._prefix_owned} blocks held by the prefix cache" if gen.prefix_cache_blocks else ""
-        log("small continuous", f"{name}: {len(prompts)} requests on 2 slots == standalone greedy{extra}")
+        pools = [gen.gm._pool] + ([gen._fused._pool] if gen._fused else []) + (
+            [gen.spec._draft_pool, gen.spec._verify_pool] if hasattr(gen, "spec") else [])
+        graphs = [r for pool in pools for r in pool.runners() if r.graph is not None]
+        if not graphs:
+            raise AssertionError(f"{name}: nothing replayed from a graph")
+        log("small continuous", f"{name}: {len(prompts)} requests on 2 slots == standalone greedy{extra}; "
+                                f"{sum(r.calls - 1 for r in graphs)} replays of {len(graphs)} graphs")
     if batchers["continuous batcher, prefix cache"]._prefix_owned < 128 // 16:
         raise AssertionError("the shared 128-token prefix never entered the prefix cache")
 
@@ -2743,40 +2783,172 @@ def _r_routes(tag: str, launched: int) -> None:
     R_ROUTES[tag] = routes
 
 
-def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, card: str, reference=None,
-                     cosine_bound: float = 0.999, host_sync_errors: bool = False, step_families=()):
-    """Phase 5's run for one model and its plain twin: prefill, DECODE_STEPS
-    greedy steps and a FusedDecode window (with ``host_sync_errors`` under
-    ``no_host_sync``) with the counters zeroed just before and read just
-    after (every kernel of ``path_kernels`` must launch), one more decode
-    step counted and profiled (with the device ms and share of busy of each
-    PREFILL_FAMILIES kernel named in ``step_families``), and the last-token
-    prefill logits against the plain path (per-row cosine >=
-    ``cosine_bound``; against ``reference`` printed with no bound). Peak
-    memory counts from the caller's last reset. Returns (counts, logits,
-    session)."""
+GRAPH_TURNS = 5  # graph and eager decode steps timed in turns, of each
+GRAPH_COSINE_BOUND = 0.99999  # a graph step's logits against the eager step's, where cuBLAS picked another algorithm
+
+
+def _rewind(session, steps: int = 1) -> None:
+    """Take the session's last ``steps`` tokens back: its next step writes the same cache slots again."""
+    session.total_seq_lens[:] -= steps
+
+
+def _fused_windows(torch, tag, model, session, first, out, host_sync_errors: bool) -> tuple:
+    """Two FusedDecode windows of FUSED_STEPS on ``session`` from ``first``: the first the window's eager warm-up,
+    the second captured and replayed (with ``host_sync_errors`` both under ``no_host_sync``), together equal to
+    steps 1..2 * FUSED_STEPS of ``out``; then the second taken back and replayed again, timed, to the same tokens.
+    Returns (the windows (B, 2 * FUSED_STEPS), the timed replay's ms a step, its FusedDecode)."""
+    from mojo_opset_tpu_torch.runtime import FusedDecode
+
+    fused = FusedDecode(model)
+    windows, cur = [], first
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with no_host_sync(torch, model) if host_sync_errors else contextlib.nullcontext():
+            window = fused(session, cur, FUSED_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / FUSED_STEPS
+        windows.append(window)
+        cur = window[-1]
+        if len(windows) == 2:  # the replay to time starts where the second window did
+            _rewind(session, FUSED_STEPS)
+            cur = windows[0][-1]
+    runner = fused._pool.runners()[-1]
+    if runner.graph is None or runner.calls != 3:
+        raise AssertionError(f"{tag}: the FusedDecode windows did not replay from their graph")
+    if not torch.equal(windows[2], windows[1]):
+        raise AssertionError(f"{tag}: a FusedDecode window replayed from the same state gave other tokens")
+    windows = torch.cat(windows[:2]).T.cpu().numpy()
+    if not np.array_equal(windows, out[:, 1:2 * FUSED_STEPS + 1]):
+        raise AssertionError(f"FusedDecode tokens {windows.tolist()} differ from stepwise {out[:, 1:].tolist()}")
+    what = "with host syncs as errors; " if host_sync_errors else ""
+    log(tag, f"FusedDecode windows ({FUSED_STEPS} steps: its warm-up, then captured in {runner.capture_ms:.1f} ms "
+             f"and replayed, then replayed again from the same state) ran {what}== stepwise")
+    return windows, ms, fused
+
+
+def _eager_check(torch, tag, model, ids, lens, out, windows, **gm_kw):
+    """The same path with device_graph=False: its prefill, DECODE_STEPS greedy steps and two FusedDecode windows
+    give the graphs' tokens ``out`` and ``windows``. Returns the eager model wrapper."""
+    from mojo_opset_tpu_torch.runtime import FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel
+
+    gm_e = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE, device_graph=False, **gm_kw)
+    eager = MojoGenerator(gm_e, None, GreedySampler(), max_new_tokens=DECODE_STEPS + 1).generate_from_ids(
+        ids, lens, ignore_eos=True)
+    if not np.array_equal(eager, out):
+        raise AssertionError(f"{tag}: graphed tokens {out.tolist()} differ from eager {eager.tolist()}")
+    _, session = gm_e(ids, context_input_len=lens)
+    fused = FusedDecode(model, device_graph=False)
+    first = fused(session, torch.as_tensor(eager[:, 0], device="cuda"), FUSED_STEPS)
+    eager_windows = torch.cat([first, fused(session, first[-1], FUSED_STEPS)]).T.cpu().numpy()
+    if not np.array_equal(eager_windows, windows):
+        raise AssertionError(f"{tag}: graphed FusedDecode windows {windows.tolist()} differ from eager "
+                             f"{eager_windows.tolist()}")
+    log(tag, f"device_graph=False gives the graphs' tokens: prefill, {DECODE_STEPS} steps and both windows")
+    return gm_e
+
+
+def _graph_vs_eager(torch, tag, card, gm, gm_e, session, token, per_step: dict) -> dict:
+    """One decode step of ``session`` from its graph (its warm-up already run, counted in ``per_step``) and from
+    the eager ``gm_e``, each step taken back after it, so all see one state: the replayed step counts
+    ``per_step``'s launches; its logits equal the eager step's bit for bit, or else per-row cosine >=
+    GRAPH_COSINE_BOUND (the difference printed); GRAPH_TURNS steps of each timed in turns; one graph step
+    profiled (device busy, idle share of its wall); capture ms and the graph pool's memory. Returns the
+    readings."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from mojo_opset_tpu_torch.backends.cuda import kernels
-    from mojo_opset_tpu_torch.runtime import (
-        FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
-    )
+
+    def step(m):
+        logits, _ = m(token, session=session)
+        _rewind(session)
+        return logits
+
+    step(gm)  # captured here, then replayed
+    runner = gm.runners()[-1]
+    if runner.graph is None:
+        raise AssertionError(f"{tag}: the decode step was not captured")
+    kernels.reset_launch_counts()
+    graph_logits = step(gm)
+    replayed = {k: v for k, v in kernels.launch_counts().items() if v}
+    if replayed != per_step:
+        raise AssertionError(f"{tag}: a replayed step counts {replayed}, its eager warm-up {per_step}")
+    eager_logits = step(gm_e)
+    if torch.equal(graph_logits, eager_logits):
+        same = "equal bit for bit"
+    else:
+        cos = torch.nn.functional.cosine_similarity(graph_logits.float(), eager_logits.float(), dim=-1)
+        diff = (graph_logits.float() - eager_logits.float()).abs().max().item()
+        same = f"not equal bit for bit: max |diff| {diff:.4g}, per-row cosine {cos.tolist()}"
+        if cos.min().item() < GRAPH_COSINE_BOUND:
+            raise AssertionError(f"{tag}: the graph step's logits part from the eager step's: {same}")
+    times = {"graph": [], "eager": []}
+    for _ in range(GRAPH_TURNS):
+        for name, m in (("graph", gm), ("eager", gm_e)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(m)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(gm)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    step(gm)
+    end.record()
+    torch.cuda.synchronize()
+    span = start.elapsed_time(end)
+    graph_ms, eager_ms = (float(np.median(times[k])) for k in ("graph", "eager"))
+    pool_mib = gm._pool.memory_bytes() / 2**20
+    log(tag, f"{card}: decode step in turns ({GRAPH_TURNS} of each, bs {session.batch_size}): graph ms "
+             f"{times['graph']}, eager ms {times['eager']}; median graph {graph_ms:.3f} ms, eager {eager_ms:.3f} ms "
+             f"({eager_ms / graph_ms:.2f}x), host ms a step the graph saves {eager_ms - graph_ms:.3f}; graph step "
+             f"profiled: device busy {busy:.3f} ms in {sum(e.count for e in device)} kernels, idle "
+             f"{100 * (1 - busy / graph_ms):.1f}% of its median wall; its device span (CUDA events) {span:.3f} ms; "
+             f"capture {runner.capture_ms:.1f} ms; the decode graph pool holds {pool_mib:.1f} MiB; one step's "
+             f"logits graph vs eager: {same}; a replayed step counts {replayed}")
+    return {"graph_ms": graph_ms, "eager_ms": eager_ms, "busy_ms": busy, "capture_ms": runner.capture_ms,
+            "pool_mib": pool_mib}
+
+
+def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, card: str, reference=None,
+                     cosine_bound: float = 0.999, host_sync_errors: bool = False, step_families=()):
+    """Phase 5's run for one model and its plain twin, its decode on CUDA
+    graphs (the entry points' default): prefill, DECODE_STEPS greedy steps
+    (the generator's second call, replayed from its first step) and two
+    FusedDecode windows (``_fused_windows``; with ``host_sync_errors`` under
+    ``no_host_sync``) with the counters zeroed just before and read just
+    after (every kernel of ``path_kernels`` must launch); the same with
+    device_graph=False, token for token (``_eager_check``); one more decode
+    step counted (its graph's eager warm-up), then one eager step profiled
+    (with the device ms and share of busy of each PREFILL_FAMILIES kernel
+    named in ``step_families``) and ``_graph_vs_eager`` on that session;
+    and the last-token prefill logits against the plain path (per-row
+    cosine >= ``cosine_bound``; against ``reference`` printed with no
+    bound). Peak memory counts from the caller's last reset. Returns
+    (counts, logits, session)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook
 
     gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE)
+    if not gm.device_graph:
+        raise AssertionError(f"{tag}: the entry point does not serve on graphs by default")
     hook = PerfHook(silent=True)
     gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=DECODE_STEPS + 1, hooks=[hook])
-    gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up: allocator, cuBLAS handles
+    gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up: allocator, cuBLAS handles, the decode graph
     kernels.reset_launch_counts()
     out = gen.generate_from_ids(ids, lens, ignore_eos=True)
     logits, session = gm(ids, context_input_len=lens)
     first = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    t_fused = time.perf_counter()
-    with no_host_sync(torch, model) if host_sync_errors else contextlib.nullcontext():
-        window = FusedDecode(model)(session, first, FUSED_STEPS)
-    torch.cuda.synchronize()
-    fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
+    windows, fused_ms, _ = _fused_windows(torch, tag, model, session, first, out, host_sync_errors)
     counts = {k: v for k, v in kernels.launch_counts().items() if k in path_kernels}
     log(tag, f"launches on the main path: {counts}")
     if min(counts.values()) <= 0:
@@ -2785,35 +2957,27 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
         _r_routes(tag, counts["group_quant_gemm"])
     if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
         raise AssertionError(f"generated ids shape {out.shape}")
-    window = window.T.cpu().numpy()
-    if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
-        raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
-    if host_sync_errors:
-        log(tag, f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
+    gm_e = _eager_check(torch, tag, model, ids, lens, out, windows)
 
-    token = torch.as_tensor(window[:, -1], device="cuda")
+    token = torch.as_tensor(windows[:, -1], device="cuda")
     kernels.reset_launch_counts()
     gm(token, session=session)
     per_step = {k: v for k, v in kernels.launch_counts().items() if v}
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    gm(token, session=session)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gm(token, session=session)
+        gm_e(token, session=session)
         torch.cuda.synchronize()
+    _rewind(session)
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in device) / 1e3
     shares = "".join(
         f"; {f} {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)" for f, ms in (
             (f, sum(e.self_device_time_total for e in device if any(p in e.key for p in PREFILL_FAMILIES[f])) / 1e3)
             for f in step_families))
-    log(tag, f"{card}: one decode step (bs 4, context ~1050): {sum(e.count for e in device)} device kernels, the "
-             f"port's kernels {per_step}; wall {step_ms:.2f} ms unprofiled, device busy {busy:.3f} ms (idle "
-             f"{100 * (1 - busy / step_ms):.1f}%){shares}")
+    log(tag, f"{card}: one eager decode step (bs 4, context ~1050): {sum(e.count for e in device)} device kernels, "
+             f"the port's kernels {per_step}; device busy {busy:.3f} ms{shares}")
+    _graph_vs_eager(torch, tag, card, gm, gm_e, session, token, per_step)
 
     plain_logits, _ = PagedAttentionGenerationModel(plain, block_size=BLOCK_SIZE)(ids, context_input_len=lens)
     cos = torch.nn.functional.cosine_similarity(logits, plain_logits, dim=-1)
@@ -2827,9 +2991,10 @@ def _serve_and_check(torch, tag: str, model, plain, ids, lens, path_kernels, car
         raise AssertionError(f"{tag} prefill logits disagree with the plain path: cosine {cos.tolist()}")
     rec = hook.records[-1]
     log(tag, f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); decode "
-             f"{rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, {rec['decode_steps']} "
-             f"steps); FusedDecode {fused_ms:.3f} ms/step, {len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak "
-             f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+             f"{rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise on graphs, "
+             f"{rec['decode_steps']} steps, each read back); FusedDecode {fused_ms:.3f} ms/step, "
+             f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s (the replayed window); peak memory "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log(tag, f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
     _prefill_profile(torch, tag, card, gm, ids, lens)
     return counts, logits, session
@@ -2934,7 +3099,11 @@ def phase_w4a8_speculative(torch, card: str) -> tuple:
     hook = PerfHook(silent=True)
     gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=SPEC_NEW, hooks=[hook])
     spec = SpeculativeDecoder(target, draft, k=SPEC_K, mode="greedy", block_size=BLOCK_SIZE)
-    gen.generate_from_ids(ids, lens, ignore_eos=True)  # warm-up
+    # warm-up: the decode graph, the window's graph (its first call is its eager warm-up, its second captures), the
+    # draft round's and the verify's graphs
+    gen.generate_from_ids(ids, lens, ignore_eos=True)
+    for _ in range(2):
+        gen.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=True)
     spec.generate_fused(ids, lens, max_new_tokens=SPEC_NEW)
 
     kernels.reset_launch_counts()
@@ -2978,9 +3147,64 @@ def phase_w4a8_speculative(torch, card: str) -> tuple:
         f"unfused ({rounds} rounds, {(SPEC_NEW - 1) / rounds:.2f} tokens per round, acceptance >= {accept:.3f}); "
         f"speed-up over FusedDecode {fused['decode_avg_ms'] / spec_fused_ms:.2f}x; prefill of both models "
         f"{prefill_s * 1e3:.2f} ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    _speculative_turns(torch, card, target, draft, gen, spec, ids, lens, vanilla, spec_fused, prefill_s)
     del target, draft, spec, gm, gen
     torch.cuda.empty_cache()
     return counts, by_route
+
+
+def _speculative_turns(torch, card, target, draft, gen, spec, ids, lens, vanilla, spec_fused, prefill_s) -> None:
+    """Phase 7's pair on graphs against device_graph=False: the same tokens; then GRAPH_TURNS runs of each, in
+    turns, of vanilla stepwise decoding and of fused speculative decoding, ms/token; one graphed speculative run
+    profiled (device busy, idle share of its wall); the draft round's and the verify's capture ms and pool memory."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook
+    from mojo_opset_tpu_torch.runtime import SpeculativeDecoder
+
+    hook_e = PerfHook(silent=True)
+    gen_e = MojoGenerator(PagedAttentionGenerationModel(target, block_size=BLOCK_SIZE, device_graph=False), None,
+                          GreedySampler(), max_new_tokens=SPEC_NEW, hooks=[hook_e])
+    spec_e = SpeculativeDecoder(target, draft, k=SPEC_K, mode="greedy", block_size=BLOCK_SIZE, device_graph=False)
+    for what, got, want in (("vanilla", gen_e.generate_from_ids(ids, lens, ignore_eos=True)[0], vanilla),
+                            ("speculative", spec_e.generate_fused(ids, lens, max_new_tokens=SPEC_NEW)[0],
+                             spec_fused)):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{what} decoding with device_graph=False gives {got.tolist()}, on graphs "
+                                 f"{want.tolist()}")
+    times = {name: [] for name in ("vanilla graph", "vanilla eager", "speculative graph", "speculative eager")}
+
+    def speculative(decoder):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        decoder.generate_fused(ids, lens, max_new_tokens=SPEC_NEW)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t) - prefill_s) * 1e3 / SPEC_NEW
+
+    for _ in range(GRAPH_TURNS):
+        for name, g in (("vanilla graph", gen), ("vanilla eager", gen_e)):
+            g.generate_from_ids(ids, lens, ignore_eos=True)
+            times[name].append(g._hooks[0].records[-1]["decode_avg_ms"])
+        times["speculative graph"].append(speculative(spec))
+        times["speculative eager"].append(speculative(spec_e))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        spec.generate_fused(ids, lens, max_new_tokens=SPEC_NEW)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+    med = {name: float(np.median(v)) for name, v in times.items()}
+    wall = med["speculative graph"] * SPEC_NEW + prefill_s * 1e3  # an unprofiled run, its prefill included
+    pools = {"draft round": spec._draft_pool, "verify": spec._verify_pool}
+    captures = "; ".join(f"{name} capture {pool.runners()[-1].capture_ms:.1f} ms, pool "
+                         f"{pool.memory_bytes() / 2**20:.1f} MiB" for name, pool in pools.items())
+    log("w4a8 speculative", f"{card}: in turns ({GRAPH_TURNS} of each, bs 1, {SPEC_NEW} new tokens), ms/token: "
+                            + "; ".join(f"{name} {v}" for name, v in times.items()) + "; medians "
+                            + ", ".join(f"{name} {v:.3f}" for name, v in med.items())
+                            + f"; speculative on graphs {med['speculative eager'] / med['speculative graph']:.2f}x "
+                              f"its eager run and {med['vanilla graph'] / med['speculative graph']:.2f}x vanilla on "
+                              f"graphs; one graphed speculative run profiled (prefill included): device busy "
+                              f"{busy:.3f} ms, {busy / SPEC_NEW:.3f} ms a token, idle {100 * (1 - busy / wall):.1f}% "
+                              f"of an unprofiled run's wall ({wall:.3f} ms from the median); {captures}")
 
 
 @contextlib.contextmanager
@@ -3013,9 +3237,7 @@ def phase_moe_full_width(torch, card: str) -> tuple:
 
     from mojo_opset_tpu_torch.backends.cuda import kernels
     from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3MoeConfig, Qwen3MoeForCausalLM
-    from mojo_opset_tpu_torch.runtime import (
-        FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
-    )
+    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
 
     gc.collect()
@@ -3043,52 +3265,41 @@ def phase_moe_full_width(torch, card: str) -> tuple:
     for h in route_hooks:
         h.remove()
     first = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    t_fused = time.perf_counter()
-    with no_host_sync(torch, model):
-        window = FusedDecode(model)(session, first, FUSED_STEPS)
-    torch.cuda.synchronize()
-    fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
+    windows, fused_ms, _ = _fused_windows(torch, "moe full width", model, session, first, out, True)
     counts = {k: v for k, v in kernels.launch_counts().items() if k in MOE_PATH_KERNELS}
     log("moe full width", f"launches on the main path: {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel of the MoE path never launched: {counts}")
     if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
         raise AssertionError(f"generated ids shape {out.shape}")
-    window = window.T.cpu().numpy()
-    if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
-        raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
-    log("moe full width", f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
+    gm_e = _eager_check(torch, "moe full width", model, ids, lens, out, windows)
 
-    # one more decode step: grouped GEMM launches per step, then its time unprofiled and profiled
-    token = torch.as_tensor(window[:, -1], device="cuda")
+    # one more decode step (its graph's eager warm-up): grouped GEMM launches per step, then an eager step profiled
+    # and the graph step against the eager one
+    token = torch.as_tensor(windows[:, -1], device="cuda")
     kernels.reset_launch_counts()
     gm(token, session=session)
-    per_step = kernels.launch_counts()["group_gemm"]
-    if per_step != 2 * config.num_hidden_layers:
-        raise AssertionError(f"group_gemm launched {per_step} times in a decode step, not "
+    per_step = {k: v for k, v in kernels.launch_counts().items() if v}
+    if per_step["group_gemm"] != 2 * config.num_hidden_layers:
+        raise AssertionError(f"group_gemm launched {per_step['group_gemm']} times in a decode step, not "
                              f"{2 * config.num_hidden_layers}")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    gm(token, session=session)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gm(token, session=session)
+        gm_e(token, session=session)
         torch.cuda.synchronize()
+    _rewind(session)
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
     n_kernels = sum(e.count for e in device)
     gmm = sum(e.self_device_time_total for e in device if "gmm_" in e.key) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:6]
-    log("moe full width", f"{card}: one decode step (bs 4, context ~1050): wall {step_ms:.2f} ms unprofiled; "
-                          f"device busy {busy:.3f} ms (idle {100 * (1 - busy / step_ms):.1f}%), {n_kernels} "
-                          f"kernels; group_gemm {gmm:.3f} ms ({100 * gmm / busy:.1f}% of busy, "
-                          f"{per_step} launches)")
+    log("moe full width", f"{card}: one eager decode step (bs 4, context ~1050): device busy {busy:.3f} ms, "
+                          f"{n_kernels} kernels; group_gemm {gmm:.3f} ms ({100 * gmm / busy:.1f}% of busy, "
+                          f"{per_step['group_gemm']} launches)")
     log("moe full width", "device time by kernel: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    _graph_vs_eager(torch, "moe full width", card, gm, gm_e, session, token, per_step)
 
     # the experts of one layer, fed the prefill batch's hidden states, under one routing: all 1650 tokens,
     # and the last token of each request (a decode step's 32 rows)
@@ -3119,13 +3330,13 @@ def phase_moe_full_width(torch, card: str) -> tuple:
 
     rec = hook.records[-1]
     log("moe full width", f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); "
-                          f"decode {rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, "
-                          f"{rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step, "
+                          f"decode {rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise on "
+                          f"graphs, {rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step (replayed), "
                           f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
                           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log("moe full width", f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
     _prefill_profile(torch, "moe full width", card, gm, ids, lens)
-    del plain, gm, gen, session, mlp_in, routes, plain_routes
+    del plain, gm, gm_e, gen, session, mlp_in, routes, plain_routes
     gc.collect()
     torch.cuda.empty_cache()
     return counts, _moe_quant_halves(torch, card, model, ids, lens, logits)
@@ -3252,9 +3463,7 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
     from mojo_opset_tpu_torch.backends.cuda import kernels
     from mojo_opset_tpu_torch.experimental.operators import MojoPagedDecodeMLA
     from mojo_opset_tpu_torch.modeling.deepseekv3 import MLARuntimeState
-    from mojo_opset_tpu_torch.runtime import (
-        FusedDecode, GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook,
-    )
+    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel, PerfHook
     from mojo_opset_tpu_torch.utils.acc import check_tol_diff
 
     config = model._config
@@ -3273,12 +3482,7 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
     for h in route_hooks:
         h.remove()
     first = torch.argmax(logits, dim=-1).to(torch.int32)
-    torch.cuda.synchronize()
-    t_fused = time.perf_counter()
-    with no_host_sync(torch, model):
-        window = FusedDecode(model)(session, first, FUSED_STEPS)
-    torch.cuda.synchronize()
-    fused_ms = (time.perf_counter() - t_fused) * 1e3 / FUSED_STEPS
+    windows, fused_ms, _ = _fused_windows(torch, tag, model, session, first, out, True)
     counts = kernels.launch_counts()
     log(tag, f"launches on the main path: {counts}")
     if min(counts[k] for k in path_kernels) <= 0:
@@ -3289,15 +3493,13 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
         raise AssertionError(f"the GQA attention kernels launched on the MLA path: {counts}")
     if out.shape != (len(PROMPT_LENS), DECODE_STEPS + 1):
         raise AssertionError(f"generated ids shape {out.shape}")
-    window = window.T.cpu().numpy()
-    if not np.array_equal(window, out[:, 1:FUSED_STEPS + 1]):
-        raise AssertionError(f"FusedDecode tokens {window.tolist()} differ from stepwise {out[:, 1:].tolist()}")
-    log(tag, f"FusedDecode window ({FUSED_STEPS} steps) ran with host syncs as errors; == stepwise")
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite prefill logits")
+    gm_e = _eager_check(torch, tag, model, ids, lens, out, windows, session_cls=MLARuntimeState)
 
-    # one more decode step: launches per step, and one layer's MLA decode held to the golden op on its cache
-    token = torch.as_tensor(window[:, -1], device="cuda")
+    # one more decode step (its graph's eager warm-up): launches per step, and one layer's MLA decode held to the
+    # golden op on its cache
+    token = torch.as_tensor(windows[:, -1], device="cuda")
     op = model.model.layers[DEEPSEEK_LAYER_CHECKED].self_attn.attn_decode
     seen = []
     seen_hook = op.register_forward_pre_hook(lambda mod, args: seen.append(args))
@@ -3305,6 +3507,8 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
     gm(token, session=session)
     per_step = kernels.launch_counts()
     seen_hook.remove()
+    if not seen:
+        raise AssertionError(f"{tag}: the decode step's warm-up did not run the MLA op eagerly")
     if per_step["mla_decode"] != config.num_hidden_layers or per_step[experts_kernel] != 2 * n_moe:
         raise AssertionError(f"a decode step launched {per_step}: mla_decode must launch "
                              f"{config.num_hidden_layers} times, {experts_kernel} {2 * n_moe}")
@@ -3319,14 +3523,10 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
     log(tag, f"layer {DEEPSEEK_LAYER_CHECKED} MLA decode (bs 4, contexts {seen[0][3].tolist()}): kernel I path vs "
              f"the golden decompressing op on the same cache: max_abs_err {err:.4g} (tol {DEEPSEEK_LAYER_TOL}), "
              f"relative norm error {rel:.3g}; output scale {want.float().abs().max().item():.3g}")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    gm(token, session=session)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gm(token, session=session)
+        gm_e(token, session=session)
         torch.cuda.synchronize()
+    _rewind(session)
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = max(sum(e.self_device_time_total for e in device) / 1e3, 1e-9)
     n_kernels = sum(e.count for e in device)
@@ -3334,12 +3534,12 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
     fam = "R" if experts_kernel == "group_quant_gemm" else "H"
     moe = sum(e.self_device_time_total for e in device if any(p in e.key for p in PREFILL_FAMILIES[fam])) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-    log(tag, f"{card}: one decode step (bs 4, context ~1050): wall {step_ms:.2f} ms unprofiled; device busy "
-             f"{busy:.3f} ms (idle {100 * (1 - busy / step_ms):.1f}%), {n_kernels} kernels; mla_decode {mla:.3f} ms "
-             f"({100 * mla / busy:.1f}% of busy, {per_step['mla_decode']} launches); {experts_kernel} {moe:.3f} ms "
-             f"({100 * moe / busy:.1f}%, {per_step[experts_kernel]} launches)")
+    log(tag, f"{card}: one eager decode step (bs 4, context ~1050): device busy {busy:.3f} ms, {n_kernels} kernels; "
+             f"mla_decode {mla:.3f} ms ({100 * mla / busy:.1f}% of busy, {per_step['mla_decode']} launches); "
+             f"{experts_kernel} {moe:.3f} ms ({100 * moe / busy:.1f}%, {per_step[experts_kernel]} launches)")
     log(tag, "device time by kernel: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    _graph_vs_eager(torch, tag, card, gm, gm_e, session, token, {k: v for k, v in per_step.items() if v})
 
     plain_moe = [layer.mlp.routed_experts for layer in plain.model.layers[config.first_k_dense_replace:]]
     plain_routes, route_hooks = _routes(plain_moe)
@@ -3362,9 +3562,10 @@ def _deepseek_run(torch, card, tag, model, plain, path_kernels, experts_kernel, 
 
     rec = hook.records[-1]
     log(tag, f"{card}: prefill {rec['prefill_ms']:.2f} ms ({rec['in_tok']} tokens, bs 4); decode "
-             f"{rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise, {rec['decode_steps']} "
-             f"steps); FusedDecode {fused_ms:.3f} ms/step, {len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak "
-             f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+             f"{rec['decode_avg_ms']:.3f} ms/step, {rec['throughput']:.1f} tok/s (stepwise on graphs, "
+             f"{rec['decode_steps']} steps); FusedDecode {fused_ms:.3f} ms/step (replayed), "
+             f"{len(PROMPT_LENS) * 1e3 / fused_ms:.1f} tok/s; peak memory "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     log(tag, f"tokens of request 3 (7-token prompt): {out[3].tolist()}")
     _prefill_profile(torch, tag, card, gm, ids, lens)
     return {k: counts[k] for k in path_kernels}, logits
@@ -4508,6 +4709,192 @@ def phase_wan_t2v(torch, card: str, dit: list) -> dict:
     return counts
 
 
+def _paged_state(torch, batch, hkv, d, bs, max_blocks, dtype):
+    """Empty caches (N, Hkv, bs, D) and a block table giving each sequence its own blocks (JAX's capture suite)."""
+    n_blocks = batch * max_blocks + 2
+    caches = [torch.zeros((n_blocks, hkv, bs, d), dtype=dtype, device="cuda") for _ in range(2)]
+    table = torch.arange(batch * max_blocks, dtype=torch.int32, device="cuda").reshape(batch, max_blocks)
+    return caches, table
+
+
+def _slots(torch, table, lens, bs):
+    """The KV store's (block, row) of each sequence's new token at ``lens``, on the device."""
+    blocks = torch.gather(table, 1, (lens // bs).long()[:, None])[:, 0]
+    return blocks.long(), (lens % bs).long()
+
+
+def _replay_matches_eager(torch, name, step, init, inputs) -> None:
+    """``step(state, *inputs[t])`` (a store and a decode into the donated ``state``) for each t: eagerly on one
+    state, and through a CompiledStepPool on another (its warm-up, its capture, then replays of one graph);
+    every output equal bit for bit, as JAX's suite holds them to rtol = atol = 1e-5."""
+    from mojo_opset_tpu_torch.runtime import CompiledStepPool
+
+    eager_state, graph_state = init(), init()
+    pool = CompiledStepPool(step, donate_argnums=(0,), name=name)
+    with torch.inference_mode():
+        want = [step(eager_state, *x) for x in inputs]
+        got = [pool.get_runner(graph_state, *x)(graph_state, *x) for x in inputs]
+    for t, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: replayed step {t} differs from eager: max |diff| "
+                                 f"{(g.float() - w.float()).abs().max().item():.4g}")
+    runner = pool.runners()[0]
+    if len(pool.runners()) != 1 or runner.calls != len(inputs) or runner.graph is None:
+        raise AssertionError(f"{name}: {len(pool.runners())} graphs, {runner.calls} calls: not one replayed graph")
+    log("capture", f"{name}: {len(inputs)} steps (warm-up, capture in {runner.capture_ms:.1f} ms, "
+                   f"{len(inputs) - 2} more replays) equal to eager bit for bit")
+
+
+def phase_capture(torch) -> None:
+    """JAX's capture suite (tests/accuracy/operators/test_attention_capture.py) on the card at its small shapes,
+    through the port's CompiledStepPool: decode replay equal to eager for bf16 pages, int8 (C8) pages, SWA
+    windows and MLA; two sessions of different batch stepped in turns through one pool; a permuted block table
+    permuting a replay's rows; a top-k FusedDecode window replayed from one seeded generator."""
+    from mojo_opset_tpu_torch.core.operators import MojoPagedDecodeGQA, MojoPagedDecodeSWA, MojoStorePagedKVCache
+    from mojo_opset_tpu_torch.experimental.operators import (
+        MojoPagedDecodeGQAWithKVDequant, MojoPagedDecodeMLA, MojoStorePagedKVCacheC8, MojoStorePagedMLAKVCache,
+    )
+    from mojo_opset_tpu_torch.runtime import CompiledStepPool
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    batch, hq, hkv, d, bs, mb = 3, 8, 2, 128, 16, 6
+    seq0 = torch.tensor([0, 19, 40], dtype=torch.int32, device="cuda")
+    steps = 5
+
+    def gqa_inputs(dtype=torch.bfloat16, scale=1.0):
+        return [(randn(batch, hq, d, dtype=dtype, scale=scale), randn(batch, hkv, d, dtype=dtype, scale=scale),
+                 randn(batch, hkv, d, dtype=dtype, scale=scale), seq0 + t) for t in range(steps)]
+
+    store, attend = MojoStorePagedKVCache(), MojoPagedDecodeGQA()
+    swa = MojoPagedDecodeSWA(local_window_size=24, global_window_size=4)
+    for name, op in (("bf16 pages, kernel C", attend), ("SWA windows (local 24, global 4), kernel C", swa)):
+        def step(state, q, kn, vn, lens, op=op):
+            (kc, vc), table = state
+            store(kn, vn, kc, vc, token_indices=_slots(torch, table, lens, bs))
+            return op(q, kc, vc, lens + 1, table)
+
+        _replay_matches_eager(torch, name, step, lambda: _paged_state(torch, batch, hkv, d, bs, mb, torch.bfloat16),
+                              gqa_inputs())
+
+    ks = torch.full((hkv, d), 0.02, device="cuda")
+    vs = torch.full((hkv, d), 0.015, device="cuda")
+    store8, attend8 = MojoStorePagedKVCacheC8(), MojoPagedDecodeGQAWithKVDequant()
+
+    def step8(state, q, kn, vn, lens):
+        (kc, vc), table = state
+        store8(kn, vn, kc, vc, ks, vs, token_indices=_slots(torch, table, lens, bs))
+        return attend8(q, None, kc, ks, vc, vs, lens + 1, table)
+
+    _replay_matches_eager(torch, "int8 (C8) pages, kernel C'", step8,
+                          lambda: _paged_state(torch, batch, hkv, d, bs, mb, torch.int8), gqa_inputs(scale=0.5))
+
+    h, r, dr, dn, dv = 8, 128, 32, 64, 64
+    store_mla = MojoStorePagedMLAKVCache()
+    attend_mla = MojoPagedDecodeMLA(h, dn, dr, dv, r, device="cuda")
+
+    def init_mla():
+        table = torch.arange(batch * mb, dtype=torch.int32, device="cuda").reshape(batch, mb)
+        return (torch.zeros((batch * mb + 1, 1, bs, r), dtype=torch.bfloat16, device="cuda"),
+                torch.zeros((batch * mb + 1, 1, bs, dr), dtype=torch.bfloat16, device="cuda")), table
+
+    def step_mla(state, q, cn, pn, lens):
+        (cc, pc), table = state
+        store_mla(cn, pn, cc, pc, token_indices=_slots(torch, table, lens, bs))
+        return attend_mla(q, cc, pc, lens + 1, table)
+
+    _replay_matches_eager(torch, "MLA latents, kernel I", step_mla, init_mla,
+                          [(randn(batch, h, dn + dr), randn(batch, r), randn(batch, dr), seq0 + t)
+                           for t in range(steps)])
+
+    # two sessions of different batch through one pool, stepped in turns: no cross-talk, no recapture
+    def step_gqa(state, q, kn, vn, lens):
+        (kc, vc), table = state
+        store(kn, vn, kc, vc, token_indices=_slots(torch, table, lens, bs))
+        return attend(q, kc, vc, lens + 1, table)
+
+    pool = CompiledStepPool(step_gqa, donate_argnums=(0,), name="interleaved sessions")
+    sessions = {}
+    for name, b, lens0 in (("a", 2, [0, 4]), ("b", 3, [1, 2, 30])):
+        lens0 = torch.tensor(lens0, dtype=torch.int32, device="cuda")
+        inputs = [(randn(b, hq, d), randn(b, hkv, d), randn(b, hkv, d), lens0 + t) for t in range(4)]
+        eager = _paged_state(torch, b, hkv, d, bs, 5, torch.bfloat16)
+        with torch.inference_mode():
+            want = [step_gqa(eager, *x) for x in inputs]
+        sessions[name] = dict(state=_paged_state(torch, b, hkv, d, bs, 5, torch.bfloat16), inputs=inputs, want=want)
+    with torch.inference_mode():
+        for t in range(4):
+            for name in ("a", "b") if t % 2 == 0 else ("b", "a"):
+                sess = sessions[name]
+                got = pool.get_runner(sess["state"], *sess["inputs"][t])(sess["state"], *sess["inputs"][t])
+                if not torch.equal(got, sess["want"][t]):
+                    raise AssertionError(f"interleaved sessions: session {name} step {t} differs from its eager run")
+    runners = pool.runners()
+    if len(runners) != 2 or any(r.calls != 4 or r.graph is None for r in runners):
+        raise AssertionError(f"interleaved sessions: {len(runners)} graphs, calls {[r.calls for r in runners]}")
+    log("capture", "two sessions (bs 2 and 3) in turns through one pool: 2 graphs, each replayed, no cross-talk")
+
+    # operands stay runtime inputs: a permuted block table permutes the replay's rows, other lengths change it
+    kc, vc = randn(2 * 4 + 1, hkv, bs, d), randn(2 * 4 + 1, hkv, bs, d)
+    t_a = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32, device="cuda")
+    t_b = t_a.flip(0)
+    q = randn(1, hq, d).expand(2, hq, d).contiguous()
+    lens = torch.tensor([37, 37], dtype=torch.int32, device="cuda")
+    pool = CompiledStepPool(lambda q, kc, vc, lens, table: attend(q, kc, vc, lens, table), donate_argnums=(),
+                            name="operands")
+    with torch.inference_mode():
+        run = pool.get_runner(q, kc, vc, lens, t_a)
+        run(q, kc, vc, lens, t_a)  # warm-up
+        out_a = run(q, kc, vc, lens, t_a)
+        out_b = run(q, kc, vc, lens, t_b)
+        out_c = run(q, kc, vc, torch.tensor([9, 5], dtype=torch.int32, device="cuda"), t_a)
+    if len(pool.runners()) != 1 or not (torch.equal(out_b[0], out_a[1]) and torch.equal(out_b[1], out_a[0])):
+        raise AssertionError("a permuted block table did not permute the replayed rows")
+    if (out_c.float() - out_a.float()).abs().max().item() <= 1e-4:
+        raise AssertionError("other lengths did not change the replayed step")
+    log("capture", "a permuted block table permutes the replay's rows; other lengths change it (one graph)")
+
+    _topk_window(torch)
+
+
+def _topk_window(torch) -> None:
+    """A top-k FusedDecode window on a small bf16 Qwen3 replayed from a generator registered with its graph: from
+    one state and one seed, the eager warm-up and two replays give the same tokens; a replay without reseeding
+    draws other ones."""
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+    from mojo_opset_tpu_torch.runtime import FusedDecode, PagedAttentionGenerationModel
+
+    model = Qwen3ForCausalLM(Qwen3Config(**SMALL, dtype=torch.bfloat16), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(3))
+    ids, lens = _prompts(SMALL["vocab_size"], (37, 20, 5, 64))
+    logits, session = PagedAttentionGenerationModel(model, block_size=16)(ids, context_input_len=lens)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    window = FusedDecode(model, sample_method="topk", top_k=50)
+    gen = torch.Generator(device="cuda")
+    runs = []
+    for reseed in (True, True, True, False):
+        if reseed:
+            gen.manual_seed(11)
+        runs.append(window(session, first, FUSED_STEPS, generator=gen).cpu().numpy())
+        _rewind(session, FUSED_STEPS)
+    runner = window._pool.runners()[0]
+    if runner.graph is None or runner.calls != 4:
+        raise AssertionError("the top-k window did not replay from one graph")
+    warm, first_replay, second_replay, unseeded = runs
+    if not np.array_equal(first_replay, second_replay):
+        raise AssertionError("two replays from one seeded generator drew different tokens")
+    if not np.array_equal(warm, first_replay):
+        raise AssertionError("the eager warm-up and the replay drew different tokens from one seed")
+    if np.array_equal(unseeded, second_replay):
+        raise AssertionError("a replay without reseeding repeated the previous window's draws")
+    log("capture", f"top-k window ({FUSED_STEPS} steps, bs 4, k 50): eager warm-up == two replays from seed 11; "
+                   f"the next replay draws anew ({int((unseeded != second_replay).sum())} of {unseeded.size} tokens "
+                   f"differ)")
+
+
 def _step_profile(torch, prof) -> tuple:
     """Device busy ms of a profiled step, the device ms of kernels J, A, K, L,
     M and N, and the eight largest entries."""
@@ -4624,6 +5011,7 @@ def main() -> int:
     fn_counts = timed("diffusion function", phase_diffusion_function, torch, card)
     res_counts = timed("residual add norm", phase_residual_add_norm, torch, card)
     conv_counts = timed("conv function", phase_conv_function, torch, card)
+    timed("capture", phase_capture, torch)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts,
                         t2v_counts)

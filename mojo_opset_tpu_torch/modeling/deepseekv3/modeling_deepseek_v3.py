@@ -63,7 +63,7 @@ from mojo_opset_tpu_torch.experimental.operators import (
     MojoPagedPrefillMLA,
     MojoStorePagedMLAKVCache,
 )
-from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
+from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches, PagedAttentionRuntimeState
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
@@ -128,7 +128,8 @@ class DeepseekV3Config:
                 moe_ffn_internal_dim=self.moe_intermediate_size,
                 tie_word_embeddings=self.tie_word_embeddings,
                 extra={"kv_lora_rank": self.kv_lora_rank, "qk_rope_head_dim": self.qk_rope_head_dim},
-            )
+            ),
+            runtime_config=MojoRunTimeConfig(use_device_graph=True),
         )
 
 

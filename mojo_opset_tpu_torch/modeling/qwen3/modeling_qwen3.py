@@ -61,7 +61,7 @@ from mojo_opset_tpu_torch.experimental.operators import (
     MojoPagedPrefillGQAWithKVDequant,
     MojoStorePagedKVCacheC8,
 )
-from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
+from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
@@ -113,7 +113,8 @@ class Qwen3Config:
                 tie_word_embeddings=self.tie_word_embeddings,
                 kv_layout="HND" if self.quant_kv else self.kv_layout,
                 kv_cache_quant=self.quant_kv,
-            )
+            ),
+            runtime_config=MojoRunTimeConfig(use_device_graph=True),
         )
 
 

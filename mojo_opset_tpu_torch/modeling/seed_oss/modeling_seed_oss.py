@@ -39,7 +39,7 @@ from mojo_opset_tpu_torch.core.operators import (
     MojoSilu,
     MojoStorePagedKVCache,
 )
-from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
+from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
@@ -91,7 +91,8 @@ class SeedOssConfig:
                 tie_word_embeddings=self.tie_word_embeddings,
                 kv_layout=self.kv_layout,
                 extra=dict(has_attn_bias=self.attention_bias),
-            )
+            ),
+            runtime_config=MojoRunTimeConfig(use_device_graph=True),
         )
 
 

@@ -1,4 +1,5 @@
-from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
+from mojo_opset_tpu_torch.runtime.compile_cache import CompiledStepPool, round_up_bucket
+from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig
 from mojo_opset_tpu_torch.runtime.generation import (
     GeneratorHook,
     GreedySampler,
@@ -22,6 +23,7 @@ from mojo_opset_tpu_torch.runtime.continuous import (
 
 __all__ = [
     "AttentionMetadata",
+    "CompiledStepPool",
     "ContinuousBatchingGenerator",
     "FusedDecode",
     "GeneratorHook",
@@ -30,6 +32,7 @@ __all__ = [
     "MojoConfig",
     "MojoGenerator",
     "MojoModelConfig",
+    "MojoRunTimeConfig",
     "MojoSampler",
     "PagedAttentionGenerationModel",
     "PagedAttentionRuntimeState",
@@ -37,4 +40,5 @@ __all__ = [
     "SpeculativeContinuousBatchingGenerator",
     "SpeculativeDecoder",
     "TopKSampler",
+    "round_up_bucket",
 ]

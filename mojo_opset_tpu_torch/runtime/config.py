@@ -1,6 +1,13 @@
 """Runtime configuration (counterpart of the JAX package's ``runtime/config.py``).
 
 The fields the serving slice reads; dtypes are torch dtypes.
+``MojoRunTimeConfig`` keeps the JAX package's fields, names and defaults
+(:125-143); of them the port reads ``use_device_graph``: the serving entry
+points (``PagedAttentionGenerationModel``, ``FusedDecode``,
+``SpeculativeDecoder``, the continuous batchers) replay their decode steps
+from CUDA graphs when the caller passes no ``device_graph`` and the model's
+config sets it. The port's models set it (their ``to_mojo``); the
+dataclass default stays JAX's ``False``.
 """
 
 from __future__ import annotations
@@ -46,5 +53,28 @@ class MojoModelConfig:
 
 
 @dataclass
+class MojoRunTimeConfig:
+    preshard_only: bool = False
+    is_deterministic: bool = False
+
+    use_device_graph: bool = False  # decode steps replayed from CUDA graphs (runtime/compile_cache.py)
+    use_paged_attention: bool = False
+    use_mtp: bool = False
+    mtp_draft_recurrent: bool = False
+
+    max_batch_size: int = 16
+    max_length: int = 2048
+    max_total_tokens: int = 0
+    max_num_pred_tokens: int = -1
+
+    num_pages: int = 32
+    page_block_size: int = 256
+
+    vanilla_checkpoint_path: Optional[str] = None
+    preshard_checkpoint_path: Optional[str] = None
+
+
+@dataclass
 class MojoConfig:
     model_config: Optional[MojoModelConfig] = None
+    runtime_config: MojoRunTimeConfig = field(default_factory=MojoRunTimeConfig)

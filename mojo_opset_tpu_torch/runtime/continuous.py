@@ -10,6 +10,12 @@ chunks (``max_prefill_chunk``), reuse cached prompt prefixes
 scratch slot (``bucket_admits``); decode can run in windows of
 ``decode_window`` steps (``FusedDecode``). ``SpeculativeContinuousBatchingGenerator``
 advances every slot by speculative rounds (``SpeculativeDecoder.round``).
+
+On the card (``device_graph``, as in ``PagedAttentionGenerationModel``)
+the decode steps, windows and rounds replay from CUDA graphs: the
+batcher's session and slots persist, so one graph per window length (and
+one per step, draft round and verify) serves every round; an admission
+only rewrites the block table and the lengths that each replay copies in.
 """
 
 from __future__ import annotations
@@ -20,19 +26,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from mojo_opset_tpu_torch.runtime.compile_cache import BUCKETS as ADMIT_BUCKETS
+from mojo_opset_tpu_torch.runtime.compile_cache import round_up_bucket
 from mojo_opset_tpu_torch.runtime.session import FusedDecode, PagedAttentionGenerationModel
 from mojo_opset_tpu_torch.runtime.speculative import SpeculativeDecoder
-
-ADMIT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
-
-
-def round_up_bucket(n: int, buckets=ADMIT_BUCKETS) -> int:
-    """The smallest bucket that holds ``n`` tokens (multiples of the
-    largest past it)."""
-    for b in buckets:
-        if n <= b:
-            return b
-    return -(-n // buckets[-1]) * buckets[-1]
 
 
 class ContinuousBatchingGenerator:
@@ -48,8 +45,8 @@ class ContinuousBatchingGenerator:
                  bucket_admits: bool = False,
                  max_prefill_chunk: Optional[int] = None,
                  sampler=None, seed: int = 0,
-                 prefix_cache_blocks: int = 0):
-        self.gm = PagedAttentionGenerationModel(model, block_size=block_size)
+                 prefix_cache_blocks: int = 0, device_graph: Optional[bool] = None):
+        self.gm = PagedAttentionGenerationModel(model, block_size=block_size, device_graph=device_graph)
         self.B = batch_slots
         self.block_size = block_size
         self.max_new_tokens = max_new_tokens
@@ -89,7 +86,7 @@ class ContinuousBatchingGenerator:
         # between admission checks; finished slots decode garbage for the
         # rest of the window, truncated at EOS and reclaimed on admission
         self.decode_window = max(1, int(decode_window))
-        self._fused = FusedDecode(model) if self.decode_window > 1 else None
+        self._fused = FusedDecode(model, device_graph=device_graph) if self.decode_window > 1 else None
         self.session = None
         self._queue: deque = deque()
         self._next_id = 0
@@ -124,7 +121,7 @@ class ContinuousBatchingGenerator:
             if int(self.session.total_seq_lens[self._scratch]) > 0:
                 self.session.release_sequence(self._scratch)
             total = int(q_lens.sum())
-            q_lens[self._scratch] = round_up_bucket(total) - total
+            q_lens[self._scratch] = round_up_bucket(total, ADMIT_BUCKETS) - total
             chunks[self._scratch] = np.full(q_lens[self._scratch], self.pad_token_id, np.int32)
         flat = [chunks[s] for s in range(self._nslots) if q_lens[s]]
         flat = np.concatenate(flat) if flat else np.empty((0,), np.int32)
@@ -329,8 +326,9 @@ class SpeculativeContinuousBatchingGenerator(ContinuousBatchingGenerator):
             raise ValueError("speculative rounds are greedy-only; a sampler would be silently ignored")
         super().__init__(model, **kw)
         self.spec = SpeculativeDecoder(model, draft_model, k=speculative_k, mode="greedy",
-                                       block_size=self.block_size)
-        self.dgm = PagedAttentionGenerationModel(draft_model, block_size=self.block_size)
+                                       block_size=self.block_size, device_graph=kw.get("device_graph"))
+        self.dgm = PagedAttentionGenerationModel(draft_model, block_size=self.block_size,
+                                                 device_graph=kw.get("device_graph"))
         self.dsession = None
 
     def _ensure_sessions(self) -> None:

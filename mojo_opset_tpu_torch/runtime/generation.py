@@ -6,7 +6,11 @@ Counterpart of the JAX package's ``runtime/generation.py`` (``MojoSampler``
 the stepwise loop reads each step's tokens back for EOS handling, the
 fused loop (``FusedDecode``) only at the end. Randomness comes from one
 ``torch.Generator`` that the generator holds on the model's device, where
-the JAX package splits a key chain.
+the JAX package splits a key chain. With the model's decode graphs on
+(``PagedAttentionGenerationModel.device_graph``) the generator keeps one
+session per batch size and one ``FusedDecode`` per sampler, renewing the
+session each call, so a call's decode steps and window replay the graphs
+of the calls before it (a graph holds its session's cache addresses).
 """
 
 from __future__ import annotations
@@ -142,6 +146,19 @@ class MojoGenerator:
         self._hooks = hooks or []
         device = next(model.model.parameters()).device
         self.generator = torch.Generator(device=device).manual_seed(seed)
+        self._session = None
+        self._fused: dict = {}  # (sample method, top_k) -> FusedDecode
+
+    def _session_for(self, context_input_len):
+        """None (the model makes a new session) or, with decode graphs, the
+        generator's session for this batch size, renewed."""
+        if not getattr(self.model, "device_graph", False):
+            return None
+        batch_size = int(np.asarray(context_input_len).size)
+        if self._session is None or self._session.batch_size != batch_size:
+            self._session = self.model._new_session(None, context_input_len)
+        self._session.renew()
+        return self._session
 
     def _run_hooks(self, method: str, **kwargs):
         for hook in self._hooks:
@@ -172,15 +189,18 @@ class MojoGenerator:
         afterwards."""
         eos_id = self._eos_id()
         self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
-        logits, session = self.model(input_ids, context_input_len=context_input_len)
+        logits, session = self.model(input_ids, context_input_len=context_input_len,
+                                     session=self._session_for(context_input_len))
         self._run_hooks("after_prefill", logits=logits, session=session)
 
         first = self.sampler(logits, session, generator=self.generator)
         self._run_hooks("before_decode")
         method = "greedy" if isinstance(self.sampler, GreedySampler) else "topk"
-        fused = FusedDecode(self.model.model, sample_method=method,
-                            top_k=getattr(getattr(self.sampler, "op", None), "top_k", 50))
-        toks = fused(session, first, max_decode_steps - 1, generator=self.generator)
+        top_k = getattr(getattr(self.sampler, "op", None), "top_k", 50)
+        if (method, top_k) not in self._fused:
+            self._fused[method, top_k] = FusedDecode(self.model.model, sample_method=method, top_k=top_k,
+                                                     device_graph=getattr(self.model, "device_graph", None))
+        toks = self._fused[method, top_k](session, first, max_decode_steps - 1, generator=self.generator)
         out = torch.cat([first[None], toks], dim=0).T.cpu().numpy()  # (B, steps); waits for the device
         self._run_hooks("after_decode", decode_steps=max_decode_steps - 1, generated_ids=list(out.T))
         if not ignore_eos and eos_id >= 0:
@@ -191,7 +211,8 @@ class MojoGenerator:
     def _generate_stepwise(self, input_ids, context_input_len, max_decode_steps, ignore_eos):
         eos_id = self._eos_id()
         self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
-        logits, session = self.model(input_ids, context_input_len=context_input_len)
+        logits, session = self.model(input_ids, context_input_len=context_input_len,
+                                     session=self._session_for(context_input_len))
         self._run_hooks("after_prefill", logits=logits, session=session)
 
         next_token_id = self.sampler(logits, session, generator=self.generator)

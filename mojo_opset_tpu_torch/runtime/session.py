@@ -11,7 +11,14 @@ Counterpart of the JAX package's ``runtime/session.py`` (``AttentionMetadata``
   * each step's host values (``max_q_len``, ``max_total_seq_len``) and
     device metadata (``cu_q_lens``, ``cu_total_seq_lens``, the KV store's
     token slots) are built once per step from numpy, so no layer reads a
-    device value back or rebuilds an index.
+    device value back or rebuilds an index;
+  * on the card, decode steps and ``FusedDecode`` windows replay from CUDA
+    graphs (``runtime/compile_cache.py``), as the JAX package jits them
+    through its ``CompiledStepPool``: the host builds a step's metadata and
+    the graph's static buffers take a copy. Inside a graph no host int may
+    vary, so a decode step's ``max_total_seq_len`` is the block table's
+    capacity (no decode kernel reads it; kernel C sizes its split from the
+    table's width). Prefill stays eager.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from mojo_opset_tpu_torch.core.operators.sampling import MojoTopKSampling
+from mojo_opset_tpu_torch.runtime.compile_cache import CompiledStepPool, resolve_device_graph
 from mojo_opset_tpu_torch.runtime.config import MojoConfig
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
@@ -181,6 +189,18 @@ class PagedAttentionRuntimeState:
             if int(self.total_seq_lens[batch_idx]) > 0:
                 self.release_sequence(batch_idx)
 
+    def renew(self) -> None:
+        """Back to a new session's state, keeping the cache tensors (and so
+        the graphs that baked their addresses): every block free in its
+        first order, no sequence, an int8 cache's channel scales 0
+        (uncalibrated, as a new session's first prefill finds them)."""
+        self.block_tables.fill(-1)
+        self.total_seq_lens[:] = 0
+        self.free_blocks = np.arange(self.free_blocks.size, dtype=np.int32)
+        self.num_free_blocks = self.free_blocks.size
+        for scale in self.caches.key_scales + self.caches.value_scales:
+            scale.zero_()
+
     def release_sequence(self, batch_idx: int) -> None:
         """Return a finished sequence's blocks to the pool: every valid row
         entry, since a speculative rollback can leave reserved blocks past
@@ -231,22 +251,34 @@ class PagedAttentionRuntimeState:
         meta = self._metadata(cu_q_lens, q_lens, positions)
         return self._tensor(input_ids), self._tensor(positions), meta
 
-    def prepare_decode_inputs(self, input_ids):
-        """One token per sequence. A device tensor of tokens (the previous
-        step's argmax) stays on the device: no host round trip."""
-        if isinstance(input_ids, torch.Tensor):
-            ids = input_ids.reshape(-1).to(self.device)
-        else:
-            ids = self._tensor(np.asarray(input_ids).reshape(-1).astype(np.int32))
-        if ids.numel() != self.batch_size:
-            raise ValueError(
-                f"Decode input_ids must provide exactly one token per sequence: "
-                f"{ids.numel()} != {self.batch_size}"
-            )
-        q_lens = np.ones(self.batch_size, np.int32)
-        positions = self._reserve(q_lens)  # each token sits at its sequence's old length
-        meta = self._metadata(None, q_lens, positions)
-        return ids, self._tensor(positions), meta
+    def decode_arrays(self, n_steps: int = 1) -> Tuple[np.ndarray, ...]:
+        """Reserve ``n_steps`` tokens per sequence; the host arrays of those
+        steps' inputs, each (n_steps, B) but the table: positions, lengths
+        after each step, the block table and the KV store's (block, row)."""
+        lens0 = self.total_seq_lens.copy()
+        ones = np.ones(self.batch_size, np.int32)
+        for _ in range(n_steps):
+            self._reserve(ones)
+        positions = lens0[None, :] + np.arange(n_steps, dtype=np.int32)[:, None]
+        batch = np.broadcast_to(np.arange(self.batch_size), positions.shape)
+        blocks = self.block_tables[batch, positions // self.block_size].astype(np.int64)
+        rows = (positions % self.block_size).astype(np.int64)
+        return positions, positions + 1, self.block_tables.copy(), blocks, rows
+
+
+def decode_step(model, block_size: int, caches: KVCaches, tokens, positions, lens, block_tables, slot_blocks,
+                slot_rows) -> torch.Tensor:
+    """One decode step on device tensors, as a graph captures it: the
+    logits (B, V). ``max_total_seq_len`` is the table's capacity."""
+    meta = AttentionMetadata(
+        cu_q_lens=None,
+        total_seq_lens=lens,
+        block_tables=block_tables,
+        is_prefill=False,
+        token_indices=(slot_blocks, slot_rows),
+        max_total_seq_len=block_tables.shape[1] * block_size,
+    )
+    return model(tokens, positions, meta, caches, lm_head_indices=None)
 
 
 class PagedAttentionGenerationModel:
@@ -259,12 +291,23 @@ class PagedAttentionGenerationModel:
     ``session_cls`` builds each new session (``MLARuntimeState`` for
     DeepSeek's latent caches), as in the JAX package; the generators and
     ``FusedDecode`` take their sessions from here.
+
+    ``device_graph`` (JAX's ``jit``): decode steps replay from one CUDA
+    graph per session and batch (``CompiledStepPool``). ``None`` reads the
+    model config's ``runtime_config.use_device_graph`` on the card and is
+    off on the CPU; ``True`` for a model off the card raises. Prefill runs
+    eagerly either way.
     """
 
-    def __init__(self, model, *, block_size: int = 128, session_cls=PagedAttentionRuntimeState):
+    def __init__(self, model, *, block_size: int = 128, session_cls=PagedAttentionRuntimeState,
+                 device_graph: Optional[bool] = None):
         self.model = model
         self.block_size = block_size
         self.session_cls = session_cls
+        self.device_graph = resolve_device_graph(device_graph, model)
+        self._pool = CompiledStepPool(
+            lambda *args: decode_step(model, *args), donate_argnums=(1,), static_argnums=(0,), name="decode step",
+        ) if self.device_graph else None
 
     def _new_session(self, input_ids, context_input_len):
         batch_size = (
@@ -276,14 +319,40 @@ class PagedAttentionGenerationModel:
     def __call__(self, input_ids, context_input_len=None, session=None):
         if session is None:
             session = self._new_session(input_ids, context_input_len)
-        if context_input_len is not None:
-            ids, positions, meta = session.prepare_prefill_inputs(input_ids, context_input_len)
-            lm_head_indices = meta.cu_q_lens[1:] - 1
-        else:
-            ids, positions, meta = session.prepare_decode_inputs(input_ids)
-            lm_head_indices = None
-        logits = self.model(ids, positions, meta, session.caches, lm_head_indices=lm_head_indices)
+        if context_input_len is None:
+            return self._decode(session, input_ids), session
+        ids, positions, meta = session.prepare_prefill_inputs(input_ids, context_input_len)
+        logits = self.model(ids, positions, meta, session.caches, lm_head_indices=meta.cu_q_lens[1:] - 1)
         return logits, session
+
+    def _decode(self, session: PagedAttentionRuntimeState, input_ids) -> torch.Tensor:
+        """One token per sequence. Tokens on the device (the previous
+        step's argmax) stay there: no host round trip. With graphs the
+        host's arrays go to the graph's buffers."""
+        tokens = _tokens(input_ids)
+        if tokens.numel() != session.batch_size:
+            raise ValueError(
+                f"Decode input_ids must provide exactly one token per sequence: "
+                f"{tokens.numel()} != {session.batch_size}"
+            )
+        positions, lens, tables, blocks, rows = session.decode_arrays()
+        arrays = (positions[0], lens[0], tables, blocks[0], rows[0])
+        if self._pool is None:
+            return decode_step(self.model, session.block_size, session.caches, tokens.to(session.device),
+                               *map(session._tensor, arrays))
+        args = (session.block_size, session.caches, tokens, *map(torch.from_numpy, arrays))
+        return self._pool.get_runner(*args)(*args)
+
+    def runners(self) -> list:
+        """The decode graphs held now (one per live session and batch)."""
+        return self._pool.runners() if self._pool is not None else []
+
+
+def _tokens(ids) -> torch.Tensor:
+    """(B,) int32 tokens: a device tensor stays on its device, host ids go to a CPU tensor."""
+    if isinstance(ids, torch.Tensor):
+        return ids.reshape(-1).to(torch.int32)
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(ids).reshape(-1), dtype=np.int32))
 
 
 class FusedDecode:
@@ -294,24 +363,41 @@ class FusedDecode:
     the tokens it samples on the device straight into the next: the
     argmax (``sample_method="greedy"``) or a top-k sample
     (``sample_method="topk"``, ``top_k``) drawn from ``generator``. EOS
-    handling happens on the host afterwards. (The JAX package compiles the
-    window into one ``lax.scan``; CUDA graphs are the later step here.) An
-    int8 (C8) session needs nothing more: its channel scales, like its
-    caches, are tensors updated in place, and decode steps only read them.
+    handling happens on the host afterwards. On the card the whole window
+    is one CUDA graph per session and ``n_steps`` (``device_graph``, as in
+    ``PagedAttentionGenerationModel``), the counterpart of the JAX
+    package's ``lax.scan``; a top-k window registers its generator with
+    the graph, so each replay draws new numbers. An int8 (C8) session
+    needs nothing more: its channel scales, like its caches, are tensors
+    updated in place, and decode steps only read them.
     """
 
-    def __init__(self, model, sample_method: str = "greedy", top_k: int = 50):
+    def __init__(self, model, sample_method: str = "greedy", top_k: int = 50, device_graph: Optional[bool] = None):
         if sample_method not in ("greedy", "topk"):
             raise ValueError(f"unknown sample method {sample_method!r}")
         self.model = model
         self.sample_method = sample_method
         self.top_k = top_k
         self._topk = MojoTopKSampling(top_k=top_k) if sample_method == "topk" else None
+        self.device_graph = resolve_device_graph(device_graph, model)
+        self._pool = CompiledStepPool(self._window, donate_argnums=(1,), static_argnums=(0, 9),
+                                      name="FusedDecode window") if self.device_graph else None
+        self._generators: dict = {}  # device -> the window's default generator, reseeded 0 each call
 
     def sample(self, logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
         if self._topk is None:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return self._topk(logits, generator)[1][:, 0].to(torch.int32)
+
+    def _window(self, block_size, caches, tokens, positions, lens, block_tables, slot_blocks, slot_rows, generator,
+                n_steps) -> torch.Tensor:
+        out = []
+        for i in range(n_steps):
+            logits = decode_step(self.model, block_size, caches, tokens, positions[i], lens[i], block_tables,
+                                 slot_blocks[i], slot_rows[i])
+            tokens = self.sample(logits, generator)
+            out.append(tokens)
+        return torch.stack(out)
 
     @torch.inference_mode()
     def __call__(self, session: PagedAttentionRuntimeState, first_tokens, n_steps: int,
@@ -320,29 +406,16 @@ class FusedDecode:
         caches and lengths advance by ``n_steps``. Top-k draws from
         ``generator`` (default: one seeded 0 for the window)."""
         if generator is None and self._topk is not None:
-            generator = torch.Generator(device=session.device).manual_seed(0)
-        lens0 = session.total_seq_lens.copy()
-        ones = np.ones(session.batch_size, np.int32)
-        for _ in range(n_steps):
-            session._reserve(ones)
-        block_tables = session._tensor(session.block_tables)
-        positions = lens0[None, :] + np.arange(n_steps, dtype=np.int32)[:, None]  # (n_steps, B)
-        slot_blocks, slot_rows = session.token_slots(
-            positions, np.broadcast_to(np.arange(session.batch_size), positions.shape))
-        positions_t, lens_t = session._tensor(positions), session._tensor(positions + 1)
-        max_len0 = int(lens0.max(initial=0))
-        tokens = torch.as_tensor(first_tokens, device=session.device).reshape(-1)
-        out = []
-        for i in range(n_steps):
-            meta = AttentionMetadata(
-                cu_q_lens=None,
-                total_seq_lens=lens_t[i],
-                block_tables=block_tables,
-                is_prefill=False,
-                token_indices=(slot_blocks[i], slot_rows[i]),
-                max_total_seq_len=max_len0 + i + 1,
-            )
-            logits = self.model(tokens, positions_t[i], meta, session.caches, lm_head_indices=None)
-            tokens = self.sample(logits, generator)
-            out.append(tokens)
-        return torch.stack(out) if out else torch.empty((0, session.batch_size), dtype=torch.int32)
+            if session.device not in self._generators:
+                self._generators[session.device] = torch.Generator(device=session.device)
+            generator = self._generators[session.device].manual_seed(0)
+        if n_steps == 0:
+            return torch.empty((0, session.batch_size), dtype=torch.int32, device=session.device)
+        arrays = session.decode_arrays(n_steps)
+        tokens = _tokens(first_tokens)
+        if self._pool is None:
+            args = (session.block_size, session.caches, tokens.to(session.device), *map(session._tensor, arrays),
+                    generator, n_steps)
+            return self._window(*args)
+        args = (session.block_size, session.caches, tokens, *map(torch.from_numpy, arrays), generator, n_steps)
+        return self._pool.get_runner(*args)(*args)

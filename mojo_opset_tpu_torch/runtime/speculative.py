@@ -13,10 +13,15 @@ block-table tensor: positions, the KV store's cache slots (a gather of
 the block table), ``cu_q_lens = arange(B + 1) * (k + 1)`` and
 ``cu_total_seq_lens``. ``max_q_len = k + 1`` is a host int known in
 advance (the prefill kernel sizes its grid with it); ``max_total_seq_len``
-is read by no kernel, so an upper bound serves. So ``fused_window`` keeps
-every round of a window on the device and reads back once; ``round``
-reads back once per round. PyTorch runs eagerly: the JAX package's
-compiled-step pools have no counterpart (CUDA graphs are later work).
+is read by no kernel, so the table's capacity serves. So ``fused_window``
+keeps every round of a window on the device and reads back once; ``round``
+reads back once per round. On the card (``device_graph``, as in
+``PagedAttentionGenerationModel``) the draft's k + 1 steps and the
+target's verify each replay from a CUDA graph keyed by the batch, ``k``
+and the session, the JAX package's ``_draft_pool`` and ``_verify_pool``
+(:58-93); the acceptance runs eagerly between them, and the prefill too.
+The decoder keeps one pair of sessions per batch size for its generate
+calls, renewed each call, so their graphs replay across calls.
 
 Modes:
   * ``greedy``: draft greedy, target greedy, accept the longest matching
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from mojo_opset_tpu_torch.core.operators.sampling import MojoRejectSampling, sample_from_probs
+from mojo_opset_tpu_torch.runtime.compile_cache import CompiledStepPool, resolve_device_graph
 from mojo_opset_tpu_torch.runtime.session import (
     AttentionMetadata,
     PagedAttentionGenerationModel,
@@ -54,7 +60,8 @@ class SpeculativeDecoder:
     vocab. ``k`` draft tokens are proposed per round and verified by one
     chunked-prefill forward of the target."""
 
-    def __init__(self, target_model, draft_model, k: int = 4, mode: str = "greedy", block_size: int = 128):
+    def __init__(self, target_model, draft_model, k: int = 4, mode: str = "greedy", block_size: int = 128,
+                 device_graph: Optional[bool] = None):
         if mode not in ("greedy", "reject"):
             raise ValueError(f"mode must be 'greedy' or 'reject', got {mode!r}")
         self.target = target_model
@@ -63,8 +70,17 @@ class SpeculativeDecoder:
         self.mode = mode
         self.block_size = block_size
         self.reject_op = MojoRejectSampling()
-        self._target_gm = PagedAttentionGenerationModel(target_model, block_size=block_size)
-        self._draft_gm = PagedAttentionGenerationModel(draft_model, block_size=block_size)
+        self.device_graph = resolve_device_graph(device_graph, target_model)
+        self._target_gm = PagedAttentionGenerationModel(target_model, block_size=block_size,
+                                                        device_graph=self.device_graph)
+        self._draft_gm = PagedAttentionGenerationModel(draft_model, block_size=block_size,
+                                                       device_graph=self.device_graph)
+        self._draft_pool = self._verify_pool = None
+        if self.device_graph:
+            self._draft_pool = CompiledStepPool(self._draft_steps, donate_argnums=(0,), static_argnums=(4, 5),
+                                                name="speculative draft round")
+            self._verify_pool = CompiledStepPool(self._verify, donate_argnums=(0,), name="speculative verify")
+        self._sessions: dict = {}  # batch size -> the generate calls' sessions
         self.last_rounds = 0
 
     # -- session plumbing --------------------------------------------------
@@ -88,10 +104,11 @@ class SpeculativeDecoder:
         session.total_seq_lens[:] = new_lens.astype(np.int32)
 
     # -- one round on the device ---------------------------------------------
-    def _draft_steps(self, dsess, cur, lens, block_tables, n_steps: int, max_len: int, with_probs: bool):
-        """``n_steps`` greedy draft decode steps from ``cur`` at ``lens``;
-        returns tokens (B, n_steps) int32 and, with ``with_probs``, their
-        softmax probabilities (B, n_steps)."""
+    def _draft_steps(self, caches, cur, lens, block_tables, n_steps: int, with_probs: bool):
+        """``n_steps`` greedy draft decode steps from ``cur`` at ``lens`` on
+        the draft's ``caches``; returns tokens (B, n_steps) int32 and, with
+        ``with_probs``, their softmax probabilities (B, n_steps)."""
+        max_len = block_tables.shape[1] * self.block_size
         toks, probs = [], []
         tok = cur
         for i in range(n_steps):
@@ -104,7 +121,7 @@ class SpeculativeDecoder:
                 token_indices=_cache_slots(block_tables, pos[:, None], self.block_size),
                 max_total_seq_len=max_len,
             )
-            logits = self.draft(tok, pos, meta, dsess.caches, lm_head_indices=None)
+            logits = self.draft(tok, pos, meta, caches, lm_head_indices=None)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             toks.append(tok)
             if with_probs:
@@ -112,10 +129,12 @@ class SpeculativeDecoder:
                 probs.append(torch.gather(p, 1, tok.long()[:, None])[:, 0])
         return torch.stack(toks, dim=1), (torch.stack(probs, dim=1) if with_probs else None)
 
-    def _verify(self, tsess, window, lens, block_tables, max_len: int) -> torch.Tensor:
+    def _verify(self, caches, window, lens, block_tables) -> torch.Tensor:
         """One chunked prefill of the target over ``window`` (B, k+1) at
-        ``lens``; returns the logits of every position (B, k+1, V)."""
+        ``lens`` on its ``caches``; returns the logits of every position
+        (B, k+1, V)."""
         B, q = window.shape
+        max_len = block_tables.shape[1] * self.block_size
         pos = lens[:, None] + torch.arange(q, dtype=torch.int32, device=lens.device)
         total = lens + q
         meta = AttentionMetadata(
@@ -128,11 +147,15 @@ class SpeculativeDecoder:
             max_q_len=q,
             max_total_seq_len=max_len,
         )
-        logits = self.target(window.reshape(-1), pos.reshape(-1), meta, tsess.caches, lm_head_indices=None)
+        logits = self.target(window.reshape(-1), pos.reshape(-1), meta, caches, lm_head_indices=None)
         return logits.reshape(B, q, -1)
 
-    def _round_on_device(self, sessions, cur, lens, t_bt, d_bt, max_len: int,
-                         generator: Optional[torch.Generator]):
+    @staticmethod
+    def _run(pool, fn, *args):
+        """``fn(*args)`` replayed from ``pool``'s graph, or eagerly without one."""
+        return fn(*args) if pool is None else pool.get_runner(*args)(*args)
+
+    def _round_on_device(self, sessions, cur, lens, t_bt, d_bt, generator: Optional[torch.Generator]):
         """Draft k + 1 steps (the last stores d_k's KV, so a round that
         accepts all leaves the draft ready at context + k + 1), verify,
         accept. Returns device tensors ``emitted`` (B, k+1) int32, ``m``
@@ -140,9 +163,11 @@ class SpeculativeDecoder:
         bonus token, which ``emitted[b, m[b]]`` also holds."""
         tsess, dsess = sessions
         k = self.k
-        drafted, draft_p = self._draft_steps(dsess, cur, lens, d_bt, k + 1, max_len, self.mode == "reject")
+        drafted, draft_p = self._run(self._draft_pool, self._draft_steps, dsess.caches, cur, lens, d_bt, k + 1,
+                                     self.mode == "reject")
         d_toks = drafted[:, :k]
-        logits = self._verify(tsess, torch.cat([cur[:, None], d_toks], dim=1), lens, t_bt, max_len)
+        logits = self._run(self._verify_pool, self._verify, tsess.caches, torch.cat([cur[:, None], d_toks], dim=1),
+                           lens, t_bt)
         if self.mode == "greedy":
             t_arg = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, k+1)
             match = (d_toks == t_arg[:, :k]).to(torch.int32)
@@ -166,8 +191,7 @@ class SpeculativeDecoder:
         tsess._reserve(need)
         dsess._reserve(need)
         cur = torch.as_tensor(cur_tokens, device=tsess.device).reshape(-1).to(torch.int32)
-        return (lens0, tsess._tensor(lens0), tsess._tensor(tsess.block_tables), dsess._tensor(dsess.block_tables),
-                cur, int(lens0.max(initial=0)) + budget)
+        return lens0, tsess._tensor(lens0), tsess._tensor(tsess.block_tables), dsess._tensor(dsess.block_tables), cur
 
     @torch.inference_mode()
     def round(self, sessions, cur_tokens, generator: Optional[torch.Generator] = None):
@@ -177,8 +201,8 @@ class SpeculativeDecoder:
         k+1 slots are real, next_cur_tokens (B,) on the device)``.
         ``cur_tokens`` is the last emitted token per sequence (not yet in
         either KV cache)."""
-        lens0, lens, t_bt, d_bt, cur, max_len = self._begin(sessions, cur_tokens, self.k + 1)
-        emitted, m, next_cur = self._round_on_device(sessions, cur, lens, t_bt, d_bt, max_len, generator)
+        lens0, lens, t_bt, d_bt, cur = self._begin(sessions, cur_tokens, self.k + 1)
+        emitted, m, next_cur = self._round_on_device(sessions, cur, lens, t_bt, d_bt, generator)
         emitted, m = emitted.cpu().numpy(), m.cpu().numpy().astype(np.int64)
         for session in sessions:  # both caches keep exactly context + 1 + m valid rows
             self._rollback(session, lens0 + 1 + m)
@@ -196,10 +220,10 @@ class SpeculativeDecoder:
         are synced from the device afterwards."""
         if self.mode != "greedy":
             raise ValueError("fused windows support greedy mode only")
-        lens0, lens, t_bt, d_bt, cur, max_len = self._begin(sessions, cur_tokens, rounds * (self.k + 1))
+        lens0, lens, t_bt, d_bt, cur = self._begin(sessions, cur_tokens, rounds * (self.k + 1))
         emits, accepted = [], []
         for _ in range(rounds):
-            emitted, m, cur = self._round_on_device(sessions, cur, lens, t_bt, d_bt, max_len, None)
+            emitted, m, cur = self._round_on_device(sessions, cur, lens, t_bt, d_bt, None)
             lens = lens + 1 + m.to(torch.int32)
             emits.append(emitted)
             accepted.append(m)
@@ -227,10 +251,21 @@ class SpeculativeDecoder:
         out[b, filled[b]:filled[b] + chunk.size] = chunk
         filled[b] += chunk.size
 
+    def _sessions_for(self, batch_size: int):
+        """Sessions for a generate call: new ones, or with graphs the
+        decoder's pair for this batch size, renewed, whose graphs replay."""
+        if not self.device_graph:
+            return self.new_sessions(batch_size)
+        if batch_size not in self._sessions:
+            self._sessions[batch_size] = self.new_sessions(batch_size)
+        for session in self._sessions[batch_size]:
+            session.renew()
+        return self._sessions[batch_size]
+
     def _start(self, input_ids, q_lens, max_new_tokens, eos_token_id):
         q_lens = np.asarray(q_lens, np.int32)
         B = q_lens.size
-        sessions = self.new_sessions(B)
+        sessions = self._sessions_for(B)
         cur = self.prefill(sessions, input_ids, q_lens)
         out = np.zeros((B, max_new_tokens), np.int32)
         out[:, 0] = cur.cpu().numpy()  # the first token comes from the prefill
