@@ -342,6 +342,24 @@ is non-zero:
      FusedDecode window on a small bf16 Qwen3 whose generator the graph
      registers (one seed: the warm-up and two replays alike; unseeded, new
      draws).
+ 18. The distributed layer (``mojo_opset_tpu_torch.parallel``), after
+     phase 17: a one-rank NCCL world through the port's
+     ``init_distributed`` (a ``file://`` rendezvous in a temporary
+     directory) and its (tp, ep) groups; Qwen3-4B at full width in bf16
+     (phase 5's geometry and prompts) through ``qwen3_tp_rules`` at tp 1,
+     then Qwen3-30B-A3B at full width cut to TP_MOE_LAYERS layers through
+     ``qwen3_tp_rules + moe_ep_rules`` at tp 1 x ep 1, each against its
+     unsharded twin from the same seed: prefill logits bit for bit (a
+     one-rank collective is an identity), TP_STEPS greedy steps stepwise and
+     in a FusedDecode window, on graphs (the NCCL collectives captured) and
+     eager, one token stream, the graphed steps' logits bit for bit, every
+     kernel of the path launched; a decode step of each on its graph timed
+     in turns and profiled (its NCCL kernels). Then Qwen3-4B at full width
+     and tp 2 in two processes on the one card: NCCL refuses two ranks on
+     one device, so gloo carries the CUDA tensors, eager (a graph asked for
+     over gloo must raise); both ranks one stream, which may part from the
+     unsharded stream only at a near-tie (TP2_TIE_GAP), prefill logits'
+     per-row cosine >= TP2_COSINE_BOUND. No golden route.
 Decode runs on CUDA graphs by default (phases 4-9 and 11): a key's first
 call is its eager warm-up, its second captures. Phase 4 runs every graphed
 generator twice and checks it against device_graph=False; phases 5, 6, 8,
@@ -4910,10 +4928,301 @@ def _step_profile(torch, prof) -> tuple:
     return busy, fam_ms, sorted(device, key=lambda e: -e.self_device_time_total)[:8]
 
 
+# phase 18: the distributed layer (parallel/) on the card
+TP_STEPS = 16  # greedy steps of phase 18's runs
+TP_MOE_LAYERS = 6  # Qwen3-30B-A3B's depth cut 48 -> 6 for phase 18's MoE run
+# the two-rank run against the unsharded model: bf16 row-parallel sums in another order (the probe that set it, a
+# 4-layer tp 2 model, read per-row cosines 0.99998)
+TP2_COSINE_BOUND = 0.999
+TP2_TIE_GAP = 0.05  # a tp 2 stream may leave the unsharded stream only where the unsharded top-2 logits lie this close
+TP2_TIMEOUT_S = 420
+
+
+def _keep_logits():
+    """A generator hook that keeps the logits of the prefill and of every decode step (``.steps``)."""
+    from mojo_opset_tpu_torch.runtime import GeneratorHook
+
+    class KeepLogits(GeneratorHook):
+        def __init__(self):
+            self.steps = []
+
+        def after_prefill(self, *, logits, session):
+            self.steps.append(logits)
+
+        def after_decode_step(self, *, step, logits, next_token_id):
+            self.steps.append(logits)
+
+    return KeepLogits()
+
+
+def _tp_stream(model, ids, lens, device_graph=None, fused=False, hook=None):
+    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel
+
+    gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE, device_graph=device_graph)
+    gen = MojoGenerator(gm, None, GreedySampler(), max_new_tokens=TP_STEPS, hooks=[hook] if hook else None)
+    return gen.generate_from_ids(ids, lens, ignore_eos=True, fused_decode=fused), gm
+
+
+def _nccl_profile(torch, step) -> tuple:
+    """(device busy ms, [(NCCL kernel, count, ms)]) of one profiled ``step()``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = [(e.key, e.count, round(e.self_device_time_total / 1e3, 4)) for e in device if "nccl" in e.key.lower()]
+    return sum(e.self_device_time_total for e in device) / 1e3, nccl
+
+
+def _tp1_check(torch, tag, card, model, sharded, ids, lens, path_kernels) -> dict:
+    """The sharded model on its one-rank NCCL group against the unsharded model (both from seed 0): prefill logits
+    bit for bit; TP_STEPS greedy steps, stepwise and in a FusedDecode window, on graphs (each generator's second
+    call replays) and eager, all one token stream, the graphed stepwise logits of each step bit for bit; every
+    kernel of ``path_kernels`` launched by the sharded runs; a decode step of each timed in turns on its graph and
+    profiled (the NCCL kernels). Returns the sharded runs' launch counts."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel
+
+    logits = [PagedAttentionGenerationModel(m, block_size=BLOCK_SIZE)(ids, context_input_len=lens)[0]
+              for m in (model, sharded)]
+    if not torch.equal(*logits):
+        raise AssertionError(f"{tag}: prefill logits differ from the unsharded model's by "
+                             f"{(logits[0] - logits[1]).abs().max().item()}")
+    streams, kept = {}, []
+    for name, m in (("unsharded", model), ("sharded", sharded)):
+        if name == "sharded":
+            kernels.reset_launch_counts()
+        hook = _keep_logits()
+        graphed, gm = _tp_stream(m, ids, lens)
+        streams[f"{name} graphed"] = graphed
+        streams[f"{name} graphed again"] = _tp_stream(m, ids, lens, hook=hook)[0]  # a new pool: warm-up, capture, replay
+        if not any(r.graph is not None for r in gm.runners()):
+            raise AssertionError(f"{tag}: {name} decode steps never replayed from a graph")
+        kept.append(hook.steps)
+        for fused in (False, True):
+            streams[f"{name} eager{' fused' if fused else ''}"] = _tp_stream(m, ids, lens, False, fused)[0]
+        streams[f"{name} graphed fused"] = _tp_stream(m, ids, lens, None, True)[0]
+        if name == "sharded":
+            counts = {k: v for k, v in kernels.launch_counts().items() if k in path_kernels}
+    want = streams["unsharded graphed"]
+    for what, got in streams.items():
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{tag}: {what} tokens {got.tolist()} differ from {want.tolist()}")
+    unequal = [i for i, (a, b) in enumerate(zip(*kept)) if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"{tag}: graphed step logits differ from the unsharded model's at steps {unequal}")
+    if min(counts.get(k, 0) for k in path_kernels) <= 0:
+        raise AssertionError(f"{tag}: a kernel of the path never launched in the sharded runs: {counts}")
+    log(tag, f"prefill logits bit for bit; {TP_STEPS} greedy steps (stepwise and FusedDecode, graphs and eager) "
+             f"one stream == unsharded, graphed step logits bit for bit; launches {counts}")
+
+    def graph_step(m):
+        gm = PagedAttentionGenerationModel(m, block_size=BLOCK_SIZE)
+        out, session = gm(ids, context_input_len=lens)
+        token = torch.argmax(out, dim=-1).to(torch.int32)
+        for _ in range(2):  # warm-up, capture
+            gm(token, session=session)
+            _rewind(session)
+        eager = PagedAttentionGenerationModel(m, block_size=BLOCK_SIZE, device_graph=False)
+
+        def step(g=gm):
+            g(token, session=session)
+            _rewind(session)
+        return step, lambda: step(eager)
+
+    steps = {name: graph_step(m) for name, m in (("unsharded", model), ("sharded", sharded))}
+    times = {name: [] for name in steps}
+    for _ in range(GRAPH_TURNS):
+        for name, (step, _) in steps.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    busy, nccl = _nccl_profile(torch, steps["sharded"][0])
+    plain_busy, _ = _nccl_profile(torch, steps["unsharded"][0])
+    eager_busy, eager_nccl = _nccl_profile(torch, steps["sharded"][1])
+    medians = {k: float(np.median(v)) for k, v in times.items()}
+    log(tag, f"{card}: decode step on its graph (bs {len(lens)}, context ~1050), {GRAPH_TURNS} turns each: sharded "
+             f"{times['sharded']} ms, unsharded {times['unsharded']} ms; medians {medians['sharded']:.3f} vs "
+             f"{medians['unsharded']:.3f} ms; device busy {busy:.3f} vs {plain_busy:.3f} ms; NCCL kernels of the "
+             f"graph step {nccl} (of the eager step {eager_nccl}, busy {eager_busy:.3f} ms); a one-rank all_reduce "
+             f"in place launches nothing")
+    return counts
+
+
+def _tp_reference(torch, model, ids, lens) -> dict:
+    """The unsharded model's eager stream, its logits of every step kept (on the host), for the tp 2 run."""
+    hook = _keep_logits()
+    tokens, gm = _tp_stream(model, ids, lens, device_graph=False, hook=hook)
+    return dict(tokens=tokens, steps=[s.float().cpu() for s in hook.steps])
+
+
+def _tp2_worker(rank: int, workdir: str) -> None:
+    """One of phase 18's two ranks on the one card (gloo carries CUDA tensors; NCCL refuses two ranks on one
+    device): Qwen3-4B at full width and tp 2, eager; writes its prefill logits, tokens and step times."""
+    import torch
+
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+    from mojo_opset_tpu_torch.parallel import build_mesh, init_distributed, qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(rank, 2, f"file://{workdir}/rendezvous", device="cuda", backend="gloo")
+    mesh = build_mesh((2,), ("tp",))
+    config = Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16, kv_layout="NHD")
+    model = Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    model = shard_model(model, mesh, qwen3_tp_rules("tp"))
+    torch.cuda.empty_cache()
+    try:
+        PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE)
+        refused = None
+    except ValueError as err:
+        refused = str(err)
+    ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
+    gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE, device_graph=False)
+    logits, session = gm(ids, context_input_len=lens)
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    ms = []
+    for _ in range(GRAPH_TURNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gm(token, session=session)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        _rewind(session)
+    tokens = _tp_stream(model, ids, lens, device_graph=False)[0]
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), logits=logits.float().cpu().numpy(), tokens=tokens,
+             step_ms=np.asarray(ms), refused=np.asarray(refused or ""),
+             weights_gib=np.asarray(sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30),
+             peak_gib=np.asarray(torch.cuda.max_memory_allocated() / 2**30))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tp2_run(torch, card, reference) -> None:
+    """Qwen3-4B at tp 2 in two processes on the one card (gloo), eager, against the unsharded ``reference``: each
+    rank's greedy tokens equal, or part from the unsharded stream only at a near-tie (TP2_TIE_GAP), and its
+    prefill logits' per-row cosine >= TP2_COSINE_BOUND."""
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="tp2_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as s; s._tp2_worker({r}, {workdir!r})"],
+                              cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=TP2_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode, o[-3000:]) for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode]
+    if failed:
+        raise AssertionError(f"tp 2: rank processes failed: {failed}")
+    ranks = [dict(np.load(os.path.join(workdir, f"rank{r}.npz"))) for r in range(2)]
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not np.array_equal(ranks[0]["tokens"], ranks[1]["tokens"]) or not np.array_equal(ranks[0]["logits"],
+                                                                                         ranks[1]["logits"]):
+        raise AssertionError("tp 2: the two ranks hold other tokens or logits")
+    if not all(str(r["refused"]) and "gloo" in str(r["refused"]) for r in ranks):
+        raise AssertionError(f"tp 2: graphs over gloo were not refused: {[str(r['refused']) for r in ranks]}")
+    want = reference["steps"][0].numpy()
+    got = ranks[0]["logits"]
+    cos = (got * want).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(want, axis=-1)
+    if cos.min() < TP2_COSINE_BOUND:
+        raise AssertionError(f"tp 2: prefill logits part from the unsharded model's: cosine {cos.tolist()}")
+    tokens, ref_tokens = ranks[0]["tokens"], reference["tokens"]
+    note = "== the unsharded stream"
+    if not np.array_equal(tokens, ref_tokens):
+        parted = np.argwhere(tokens != ref_tokens)
+        row, step = (int(i) for i in parted[np.argmin(parted[:, 1])])
+        top2 = np.sort(reference["steps"][step][row].numpy())[-2:]
+        gap = float(top2[1] - top2[0])
+        note = (f"parts from the unsharded stream at step {step} of row {row}, where the unsharded top-2 gap is "
+                f"{gap:.4g} (a near-tie, bound {TP2_TIE_GAP})")
+        if gap >= TP2_TIE_GAP:
+            raise AssertionError(f"tp 2: tokens {tokens.tolist()} differ from {ref_tokens.tolist()}: {note}")
+    log("parallel tp 2", f"{card}: Qwen3-4B at full width, tp 2 in two processes on the one card over gloo "
+                         f"(NCCL refuses two ranks on one device), eager (graphs refused over gloo); both ranks one "
+                         f"stream, {TP_STEPS} greedy steps {note}; prefill logits per-row cosine vs unsharded "
+                         f"{[round(float(c), 6) for c in cos]} (bound {TP2_COSINE_BOUND}); eager decode step ms "
+                         f"{ranks[0]['step_ms'].round(3).tolist()} (rank 0); a rank's weights "
+                         f"{float(ranks[0]['weights_gib']):.2f} GiB, peak {float(ranks[0]['peak_gib']):.1f} GiB; "
+                         f"{time.perf_counter() - t0:.1f} s with the processes' start")
+
+
+def phase_parallel(torch, card: str) -> dict:
+    """Phase 18: the distributed layer (``mojo_opset_tpu_torch.parallel``) on the card. (a) a one-rank NCCL group
+    through the port's init: Qwen3-4B at full width in bf16 through ``qwen3_tp_rules`` at tp 1, then Qwen3-30B-A3B
+    at full width cut to TP_MOE_LAYERS layers through ``qwen3_tp_rules + moe_ep_rules`` at tp 1 x ep 1, each
+    against its unsharded twin (``_tp1_check``); (b) Qwen3-4B at tp 2 in two processes on the one card
+    (``_tp2_run``). Returns the sharded runs' launch counts."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mojo_opset_tpu_torch.modeling.qwen3 import (
+        Qwen3Config,
+        Qwen3ForCausalLM,
+        Qwen3MoeConfig,
+        Qwen3MoeForCausalLM,
+    )
+    from mojo_opset_tpu_torch.parallel import build_mesh, init_distributed, moe_ep_rules, qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.runtime.comm_context import model_groups
+
+    rendezvous = tempfile.mkdtemp(prefix="tp1_")
+    t0 = time.perf_counter()
+    init_distributed(0, 1, f"file://{rendezvous}/rendezvous", device="cuda")
+    mesh = build_mesh((1, 1), ("tp", "ep"))
+    log("parallel", f"one-rank NCCL world (NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}) and its (tp, ep) "
+                    f"groups in {time.perf_counter() - t0:.2f} s")
+
+    def pair(config, model_cls, rules):
+        def draw():
+            return model_cls(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        model = draw()
+        sharded = shard_model(draw(), mesh, rules)
+        if {dist.get_backend(g) for g in model_groups(sharded)} != {"nccl"}:
+            raise AssertionError("the sharded model does not communicate over the NCCL groups")
+        return model, sharded
+
+    counts = {}
+    config = Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16, kv_layout="NHD")
+    ids, lens = _prompts(config.vocab_size, PROMPT_LENS)
+    model, sharded = pair(config, Qwen3ForCausalLM, qwen3_tp_rules("tp"))
+    counts["parallel_tp1"] = _tp1_check(torch, "parallel tp 1", card, model, sharded, ids, lens, BF16_PATH_KERNELS)
+    reference = _tp_reference(torch, model, ids, lens)
+    del model, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_config = Qwen3MoeConfig(**dict(QWEN3_30B_A3B, num_hidden_layers=TP_MOE_LAYERS), dtype=torch.bfloat16)
+    model, sharded = pair(moe_config, Qwen3MoeForCausalLM, qwen3_tp_rules("tp") + moe_ep_rules("ep"))
+    if sharded.layers[0].mlp.ep_group is None:
+        raise AssertionError("the MoE blocks were not made expert-parallel")
+    counts["parallel_moe_tp1_ep1"] = _tp1_check(torch, "parallel moe tp 1 x ep 1", card, model, sharded, ids, lens,
+                                                MOE_PATH_KERNELS)
+    del model, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    shutil.rmtree(rendezvous, ignore_errors=True)
+    _tp2_run(torch, card, reference)
+    return counts
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
                  dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict, quant_counts: dict,
-                 t2v_counts: dict) -> list:
+                 t2v_counts: dict, parallel_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
     MoE run, for I from the DeepSeek run, for J, K, L, M and N from the
@@ -4922,7 +5231,7 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
     norm's run, for Q from the conv Function's and for R from phase 8's w8a8
     half (``quant_counts``: phase 8's w8a8 and w4a8 and phase 9's w8a8
     counts, by path), and J's and A's launches on phase 16's text -> DiT
-    path (``t2v_counts``) beside them; numbers of the main-path
+    path (``t2v_counts``) and on phase 18's sharded paths (``parallel_counts``) beside them; numbers of the main-path
     case (``ms`` replayed from a CUDA graph). C and D add their int8-page numbers, C its windowed cases
     at ctx 32768 beside the same cases without windows; A, F, G, H, I, K, M, P
     and Q their numbers at each shape (M: each layout and direction; P: pre
@@ -4959,7 +5268,7 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
                                   ("seed_oss_int8", seed_int8_counts), ("wan_dit", dit_counts),
                                   ("diffusion_function", fn_counts), ("residual_add_norm", res_counts),
                                   ("conv_function", conv_counts), ("wan_t2v", t2v_counts),
-                                  *quant_counts.items()):
+                                  *quant_counts.items(), *parallel_counts.items()):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
         launches = {"int4_matmul": spec_counts, "group_gemm": moe_counts, "mla_decode": deepseek_counts,
@@ -5012,9 +5321,10 @@ def main() -> int:
     res_counts = timed("residual add norm", phase_residual_add_norm, torch, card)
     conv_counts = timed("conv function", phase_conv_function, torch, card)
     timed("capture", phase_capture, torch)
+    parallel_counts = model_phase("parallel", phase_parallel, torch, card)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts,
-                        t2v_counts)
+                        t2v_counts, parallel_counts)
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
     next(k for k in line if k["name"] == KERNEL_INFO["group_quant_gemm"][0])["launches_by_route"] = R_ROUTES
     print(json.dumps({"kernels": line}))

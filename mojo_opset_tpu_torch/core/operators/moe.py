@@ -23,7 +23,17 @@ per-channel scales (E, N), or packed int4 (E, N / 2, K) in
 nibble) and 2r + 1 (high nibble). This is not ``gemm.pack_int4_rows``'s
 128-row blocked layout of the dense int4 projections.
 
-Expert parallelism (``ep_size > 1``) waits for the distributed slice.
+Expert parallelism (``ep_size > 1``, JAX ``_init_parallel`` :335 and the
+shard_map branch of ``_pipeline`` :350-412): rank ``r`` of ``ep_size``
+holds a contiguous range of experts, the first ``E % ep_size`` ranks one
+more than the rest. Every rank routes every token (the gate is whole);
+the rank takes the window of the expert-sorted rows that its experts own
+(found on the device from the counts' running sum, a fixed number of rows
+so no count is read back), zeroes the rows past its own, combines, and the
+ranks' partial outputs are summed over ``ep_group``. Under ``dp_input``
+each rank brings its own tokens: they are all-gathered before routing and
+the output reduce-scattered back. ``ep_group=None`` leaves the rank's
+partial output unsummed, as JAX's path outside ``shard_map`` does.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from torch import nn
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
 from mojo_opset_tpu_torch.core.operators.quantize import MojoMoEDynamicQuant
+from mojo_opset_tpu_torch.runtime import comm_context
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
@@ -142,6 +153,8 @@ class MojoExperts(MojoOperator):
             act = swiglu(x @ self.up_proj_weight[e].float().t())
             outs.append(act @ self.down_proj_weight[e].float().t())
             start += n
+        if not outs:
+            return sorted_hidden_states.new_zeros((0, self.down_proj_weight.shape[1]))
         return torch.cat(outs).to(sorted_hidden_states.dtype)
 
     def extra_repr(self) -> str:
@@ -224,54 +237,118 @@ def grouped_quant_matmul_reference(
     return out
 
 
+def expert_range(num_experts: int, ep_size: int, ep_rank: int) -> Tuple[int, int]:
+    """The experts ``[start, end)`` of rank ``ep_rank``: the first ``num_experts % ep_size`` ranks hold one more
+    (JAX ``_init_parallel`` :335-346)."""
+    base, rem = divmod(num_experts, ep_size)
+    start = base * ep_rank + min(ep_rank, rem)
+    return start, start + base + (1 if ep_rank < rem else 0)
+
+
+# the expert-major tensors of the experts (and of their quant steps), sliced on dim 0 under expert parallelism
+EXPERT_MAJOR = ("up_proj_weight", "down_proj_weight", "up_proj_weight_scale", "down_proj_weight_scale",
+                "inv_smooth_scale")
+
+
 class _MoEBase:
     """The pipeline shared by ``MojoMoE`` and ``MojoQuantMoE`` (JAX
     ``_MoEBase`` :328): gating, dispatch, the experts of ``experts_op``,
-    combine, each built in the op's tier. A mixin, not an op."""
+    combine, each built in the op's tier, and expert parallelism. A mixin,
+    not an op."""
 
     def _build_chain(self, name: str, experts_op: type, num_experts: int, top_k: int, hidden_size: int,
-                     intermediate_size: Optional[int], activation: str, ep_size: int, device, **experts_kwargs):
+                     intermediate_size: Optional[int], activation: str, ep_size: int, ep_rank: int, ep_group,
+                     dp_input: bool, device, **experts_kwargs):
         if activation != "swiglu":
             raise NotImplementedError(f"{name}: Activation {activation} is not supported.")
         if intermediate_size is None:
             raise ValueError(f"{name}: intermediate_size must be provided.")
-        if ep_size != 1:
-            raise NotImplementedError(f"{name}: expert parallelism (ep_size > 1) waits for the distributed slice "
-                                      "(ROADMAP.md, queue 1, \"Distributed\": expert parallelism)")
         self.num_experts = num_experts
         self.top_k = top_k
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
-        self.ep_size = ep_size
+        self._init_parallel(ep_size, ep_rank, ep_group, dp_input)
         tier = self._backend
         self.gating = MojoMoEGating.get_backend_impl(tier)(hidden_size, num_experts, top_k, device=device)
         self.dispatch = MojoMoEDispatch.get_backend_impl(tier)(num_experts)
         self.experts = experts_op.get_backend_impl(tier)(
-            num_experts, hidden_size, intermediate_size, activation, device=device, **experts_kwargs)
+            self.ep_end - self.ep_start, hidden_size, intermediate_size, activation, device=device, **experts_kwargs)
         self.combine = MojoMoECombine.get_backend_impl(tier)(multiply_by_gates=True)
 
+    def _init_parallel(self, ep_size: int, ep_rank: int, ep_group, dp_input: bool) -> None:
+        if ep_group is not None:
+            ep_size, ep_rank = comm_context.group_size(ep_group), comm_context.group_rank(ep_group)
+        if not 0 <= ep_rank < ep_size or ep_size > self.num_experts:
+            raise ValueError(f"expert parallelism over {ep_size} ranks of {self.num_experts} experts: rank "
+                             f"{ep_rank} is out of range")
+        self.ep_size, self.ep_rank, self.ep_group, self.dp_input = ep_size, ep_rank, ep_group, dp_input
+        self.ep_start, self.ep_end = expert_range(self.num_experts, ep_size, ep_rank)
+
+    @torch.no_grad()
+    def shard_experts(self, ep_size: int = 1, ep_rank: int = 0, ep_group=None, dp_input: bool = False) -> None:
+        """Keep this rank's experts of a whole MoE (every expert-major tensor, ``EXPERT_MAJOR``, sliced on dim
+        0) and run expert-parallel over ``ep_group`` from now on."""
+        if self.ep_end - self.ep_start != self.num_experts:
+            raise ValueError("shard_experts takes a MoE that holds every expert")
+        self._init_parallel(ep_size, ep_rank, ep_group, dp_input)
+        for module in self.experts.modules():
+            for pname, param in list(module.named_parameters(recurse=False)):
+                if pname in EXPERT_MAJOR:
+                    setattr(module, pname, nn.Parameter(param[self.ep_start:self.ep_end].clone(),
+                                                        requires_grad=False))
+            for attr in ("num_experts", "expert_num"):
+                if hasattr(module, attr):
+                    setattr(module, attr, self.ep_end - self.ep_start)
+
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        windowed = self.ep_size > 1  # a rank that holds every expert owns every row: no window
+        gathered = self.dp_input and windowed
+        if gathered:
+            hidden_states = comm_context.all_gather(hidden_states, self.ep_group, dim=0)
         top_k_indices, top_k_gates = self.gating(hidden_states)
         sorted_hidden, tokens_per_expert, sorted_gates, token_indices = self.dispatch(
             hidden_states, top_k_gates, top_k_indices)
+        if windowed:
+            # the rank's rows start where the experts before its own end: a window of every row, rolled to
+            # start there, keeps the shapes fixed; the rows past the rank's own are other ranks' work
+            rows = sorted_hidden.shape[0]
+            ends = torch.cumsum(tokens_per_expert.to(torch.int64), 0)
+            start = ends[self.ep_start - 1] if self.ep_start else torch.zeros((), dtype=torch.int64,
+                                                                               device=ends.device)
+            window = (torch.arange(rows, device=ends.device) + start) % rows
+            own = torch.arange(rows, device=ends.device) < ends[self.ep_end - 1] - start
+            sorted_hidden = sorted_hidden.index_select(0, window)
+            sorted_gates = sorted_gates.index_select(0, window)
+            token_indices = token_indices.index_select(0, window)
+            tokens_per_expert = tokens_per_expert[self.ep_start:self.ep_end]
         expert_outputs = self.experts(sorted_hidden, tokens_per_expert)
+        if windowed:
+            if expert_outputs.shape[0] < rows:  # the golden experts return only the rows their groups own
+                expert_outputs = torch.nn.functional.pad(expert_outputs, (0, 0, 0, rows - expert_outputs.shape[0]))
+            expert_outputs = torch.where(own[:, None], expert_outputs, torch.zeros((), dtype=expert_outputs.dtype,
+                                                                                   device=expert_outputs.device))
         # the buffer gives combine its shape only: empty, so no fill is launched
-        return self.combine(torch.empty_like(hidden_states), expert_outputs, sorted_gates, token_indices)
+        combined = self.combine(torch.empty_like(hidden_states), expert_outputs, sorted_gates, token_indices)
+        if gathered:
+            return comm_context.reduce_scatter(combined, self.ep_group, dim=0)
+        return comm_context.all_reduce(combined, self.ep_group)
 
     def extra_repr(self) -> str:
         return (f"num_experts={self.num_experts}, top_k={self.top_k}, hidden_size={self.hidden_size}, "
-                f"intermediate_size={self.intermediate_size}, ep_size={self.ep_size}")
+                f"intermediate_size={self.intermediate_size}, ep_size={self.ep_size}, dp_input={self.dp_input}")
 
 
 class MojoMoE(_MoEBase, MojoOperator):
     """The MoE block: gating, dispatch, experts and combine, each built in
-    this op's tier. ``ep_size > 1`` (expert parallelism) is not ported yet."""
+    this op's tier; with ``ep_size > 1`` (or an ``ep_group``) this rank's
+    experts only (``expert_range``)."""
 
     def __init__(self, num_experts: int, top_k: int, hidden_size: int, intermediate_size: Optional[int] = None,
-                 activation: str = "swiglu", ep_size: int = 1, *, device=None, dtype=None):
+                 activation: str = "swiglu", ep_size: int = 1, ep_rank: int = 0, ep_group=None,
+                 dp_input: bool = False, *, device=None, dtype=None):
         super().__init__()
         self._build_chain("MojoMoE", MojoExperts, num_experts, top_k, hidden_size, intermediate_size, activation,
-                          ep_size, device, dtype=dtype)
+                          ep_size, ep_rank, ep_group, dp_input, device, dtype=dtype)
 
 
 WEIGHT_DTYPES = (torch.int8, "int4")
@@ -375,9 +452,9 @@ class MojoQuantMoE(_MoEBase, MojoOperator):
     def __init__(self, num_experts: int, top_k: int, hidden_size: int, intermediate_size: Optional[int] = None,
                  activation: str = "swiglu", quant_dtype=torch.int8, up_quant_group_size: int = -1,
                  up_weight_dtype=torch.int8, down_quant_group_size: int = -1, down_weight_dtype=torch.int8,
-                 ep_size: int = 1, *, device=None):
+                 ep_size: int = 1, ep_rank: int = 0, ep_group=None, dp_input: bool = False, *, device=None):
         super().__init__()
         self._build_chain("MojoQuantMoE", MojoQuantExperts, num_experts, top_k, hidden_size, intermediate_size,
-                          activation, ep_size, device, quant_dtype=quant_dtype,
+                          activation, ep_size, ep_rank, ep_group, dp_input, device, quant_dtype=quant_dtype,
                           up_quant_group_size=up_quant_group_size, up_weight_dtype=up_weight_dtype,
                           down_quant_group_size=down_quant_group_size, down_weight_dtype=down_weight_dtype)

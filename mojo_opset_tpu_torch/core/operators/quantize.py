@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.runtime import comm_context
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 INT8_RANGE = (-128.0, 127.0)
@@ -40,11 +41,15 @@ def _require_int8(quant_dtype: torch.dtype) -> None:
         raise NotImplementedError(f"Unsupported quant_dtype: {quant_dtype}, expected torch.int8")
 
 
-def dynamic_quant(x: torch.Tensor, q_max: float = 127.0, q_min: float = -128.0):
+def dynamic_quant(x: torch.Tensor, q_max: float = 127.0, q_min: float = -128.0, amax_group=None):
     """Per-row symmetric int8 quant over the last dim; a row whose scale is
-    under 1e-6 (an all-zero row) gets scale 1. Returns ``(q, scale (..., 1))``."""
+    under 1e-6 (an all-zero row) gets scale 1. Returns ``(q, scale (..., 1))``.
+    With ``amax_group`` each rank holds a slice of the row (the input of a
+    row-parallel projection) and the row's amax is the max over the group, so
+    the slices quantize as the whole row would."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) / q_max
+    amax = comm_context.all_reduce(xf.abs().amax(dim=-1, keepdim=True), amax_group, op="max")
+    scale = amax.clamp(min=1e-12) / q_max
     scale = torch.where(scale < 1e-6, 1.0, scale)
     q = torch.round(xf / scale).clamp(q_min, q_max).to(torch.int8)
     return q, scale
@@ -88,7 +93,9 @@ class MojoDequant(MojoOperator):
 
 class MojoDynamicQuant(MojoOperator):
     """Per-token symmetric dynamic int8 quant with an optional SmoothQuant
-    ``inv_smooth_scale``; returns ``(q_int8, scale (..., 1))``."""
+    ``inv_smooth_scale``; returns ``(q_int8, scale (..., 1))``. A
+    tensor-parallel style sets ``amax_group`` when the input is one rank's
+    slice of each row (``dynamic_quant``)."""
 
     def __init__(self, input_size: Optional[int] = None, quant_dtype=torch.int8, *, device=None):
         super().__init__()
@@ -101,12 +108,13 @@ class MojoDynamicQuant(MojoOperator):
         )
         self.quant_dtype = quant_dtype
         self.q_min, self.q_max = INT8_RANGE
+        self.amax_group = None
 
     def forward(self, input: torch.Tensor):
         x = input.float()
         if self.inv_smooth_scale is not None:
             x = x * self.inv_smooth_scale
-        return dynamic_quant(x, self.q_max, self.q_min)
+        return dynamic_quant(x, self.q_max, self.q_min, self.amax_group)
 
     def extra_repr(self) -> str:
         return f"input_size={self.input_size}, quant_dtype={self.quant_dtype}"

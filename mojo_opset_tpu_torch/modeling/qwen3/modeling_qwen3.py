@@ -48,6 +48,7 @@ from mojo_opset_tpu_torch.core.operators import (
     MojoGemm,
     MojoPagedDecodeGQA,
     MojoPagedPrefillGQA,
+    MojoParallelEmbedding,
     MojoQuantGemm,
     MojoRMSNorm,
     MojoRMSNormQuant,
@@ -61,7 +62,7 @@ from mojo_opset_tpu_torch.experimental.operators import (
     MojoPagedPrefillGQAWithKVDequant,
     MojoStorePagedKVCacheC8,
 )
-from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig
+from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig, sharded_config
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
@@ -334,13 +335,22 @@ class Qwen3Model(nn.Module):
         return self.norm_train(hidden, self.norm.weight)
 
 
+def tied_logits(hidden: torch.Tensor, embedding) -> torch.Tensor:
+    """The tied LM head: ``hidden @ embedding.T``; a vocab-parallel embedding's column shards gathered."""
+    logits = torch.matmul(hidden, embedding.weight.t())
+    return embedding.gather_logits(logits) if isinstance(embedding, MojoParallelEmbedding) else logits
+
+
 class Qwen3ForCausalLM(nn.Module):
     """Paged-generation Qwen3.
 
     ``forward(input_ids, positions, metadata, caches, lm_head_indices)``
     returns fp32 logits and writes the step's K/V into ``caches``; with
     ``lm_head_indices`` only those rows (the last token of each prefill
-    sequence) hit the LM head. ``generator`` draws the weights
+    sequence) hit the LM head. Sharded by ``parallel`` (``shard_model``,
+    ``mojo_parallelize_module``) it runs the rank's heads and channels, its
+    collectives placed by the styles, and every rank returns the whole
+    logits (a vocab-parallel head gathers them). ``generator`` draws the weights
     (``utils.weights.init_random_``); otherwise torch's default RNG does.
     The model is built on the card unless ``device`` names another
     (``utils.platform.resolve_device``).
@@ -368,7 +378,7 @@ class Qwen3ForCausalLM(nn.Module):
 
     @property
     def config(self) -> MojoConfig:
-        return self._config.to_mojo()
+        return sharded_config(self._config.to_mojo(), self)
 
     @property
     def qwen3_config(self) -> Qwen3Config:
@@ -379,7 +389,7 @@ class Qwen3ForCausalLM(nn.Module):
         if lm_head_indices is not None:
             hidden = hidden[lm_head_indices]
         if self.lm_head is None:
-            logits = torch.matmul(hidden, self.model.embed_tokens.weight.t())
+            logits = tied_logits(hidden, self.model.embed_tokens)
         elif self.lm_head_quant is not None:
             logits = self.lm_head(*self.lm_head_quant(hidden))
         else:

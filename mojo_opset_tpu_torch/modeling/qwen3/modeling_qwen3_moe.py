@@ -47,8 +47,8 @@ from mojo_opset_tpu_torch.core.operators import (
     MojoRMSNormQuant,
     MojoRotaryEmbedding,
 )
-from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3 import Qwen3Attention, Qwen3Config, _quant_gemm
-from mojo_opset_tpu_torch.runtime.config import MojoConfig
+from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3 import Qwen3Attention, Qwen3Config, _quant_gemm, tied_logits
+from mojo_opset_tpu_torch.runtime.config import MojoConfig, sharded_config
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
@@ -120,7 +120,7 @@ class Qwen3MoeForCausalLM(nn.Module):
 
     @property
     def config(self) -> MojoConfig:
-        return self._config.to_mojo()
+        return sharded_config(self._config.to_mojo(), self)
 
     @property
     def qwen3_config(self) -> Qwen3MoeConfig:
@@ -136,7 +136,7 @@ class Qwen3MoeForCausalLM(nn.Module):
         if lm_head_indices is not None:
             hidden = hidden[lm_head_indices]
         if self.lm_head is None:
-            logits = torch.matmul(hidden, self.embed_tokens.weight.t())
+            logits = tied_logits(hidden, self.embed_tokens)
         elif self.lm_head_quant is not None:
             logits = self.lm_head(*self.lm_head_quant(hidden))
         else:

@@ -1,5 +1,11 @@
 from mojo_opset_tpu_torch.runtime.compile_cache import CompiledStepPool, round_up_bucket
-from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig
+from mojo_opset_tpu_torch.runtime.config import (
+    AFDRole,
+    MojoConfig,
+    MojoModelConfig,
+    MojoParallelConfig,
+    MojoRunTimeConfig,
+)
 from mojo_opset_tpu_torch.runtime.generation import (
     GeneratorHook,
     GreedySampler,
@@ -22,6 +28,7 @@ from mojo_opset_tpu_torch.runtime.continuous import (
 )
 
 __all__ = [
+    "AFDRole",
     "AttentionMetadata",
     "CompiledStepPool",
     "ContinuousBatchingGenerator",
@@ -32,6 +39,7 @@ __all__ = [
     "MojoConfig",
     "MojoGenerator",
     "MojoModelConfig",
+    "MojoParallelConfig",
     "MojoRunTimeConfig",
     "MojoSampler",
     "PagedAttentionGenerationModel",

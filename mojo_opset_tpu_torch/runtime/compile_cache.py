@@ -31,6 +31,10 @@ signature with the caches donated; here a signature keeps one
     runs eagerly in its place.
 
 Graphs need the card: ``get_runner`` raises ``ValueError`` on a CPU tensor.
+A sharded model's collectives are captured with its step: NCCL's can be
+(each key's eager warm-up runs them on the capture stream first), gloo's
+cannot, so asking for graphs of a model with a gloo group raises; nothing
+turns graphs off in silence.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from typing import Callable, Dict, Hashable, Optional
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import kernels
+from mojo_opset_tpu_torch.runtime import comm_context
 from mojo_opset_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -51,11 +56,19 @@ logger = get_logger(__name__)
 def resolve_device_graph(device_graph: Optional[bool], model) -> bool:
     """Whether an entry point serving ``model`` replays from CUDA graphs: ``device_graph`` when the caller gives
     it (``True`` raises for a model off the card), else the model config's ``runtime_config.use_device_graph``
-    (on when the model has no config) for a model on the card, and off elsewhere."""
+    (on when the model has no config) for a model on the card, and off elsewhere. Graphs of a model that
+    communicates over a group a graph cannot capture (gloo) raise."""
     device = next(model.parameters()).device
+    wanted = device_graph
     if device_graph is None:
         runtime = getattr(getattr(model, "config", None), "runtime_config", None)
-        return device.type == "cuda" and (runtime is None or runtime.use_device_graph)
+        wanted = device.type == "cuda" and (runtime is None or runtime.use_device_graph)
+    uncapturable = sorted({b for b in map(comm_context.capturable, comm_context.model_groups(model)) if b})
+    if wanted and uncapturable:
+        raise ValueError(f"a CUDA graph cannot capture the model's {'/'.join(uncapturable)} collectives: shard it "
+                         "over NCCL groups on the card, or pass device_graph=False")
+    if device_graph is None:
+        return wanted
     if device_graph and device.type != "cuda":
         raise ValueError(f"device_graph=True needs a model on the card (CUDA graphs replay only there); this one is "
                          f"on {device}: pass device_graph=None or False")

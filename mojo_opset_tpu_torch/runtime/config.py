@@ -8,11 +8,17 @@ points (``PagedAttentionGenerationModel``, ``FusedDecode``,
 from CUDA graphs when the caller passes no ``device_graph`` and the model's
 config sets it. The port's models set it (their ``to_mojo``); the
 dataclass default stays JAX's ``False``.
+
+``MojoParallelConfig`` and ``AFDRole`` (JAX :146-209) size the process
+groups that ``parallel.mesh`` builds; ``MojoModelConfig.local_num_kv_heads``
+(JAX :120) is the kv heads one tensor-parallel rank holds, which the
+session sizes its caches by.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from enum import Enum, auto
 from typing import Optional
 
 import torch
@@ -48,8 +54,13 @@ class MojoModelConfig:
 
     tie_word_embeddings: bool = False
 
-    # model-specific fields (DeepSeek's MLA: kv_lora_rank, qk_rope_head_dim)
+    # model-specific fields (DeepSeek's MLA: kv_lora_rank, qk_rope_head_dim; a sharded model's local_num_kv_heads)
     extra: dict = field(default_factory=dict)
+
+    @property
+    def local_num_kv_heads(self) -> int:
+        """The kv heads of one tensor-parallel rank's attention (all of them unsharded)."""
+        return self.extra.get("local_num_kv_heads", self.num_kv_heads)
 
 
 @dataclass
@@ -74,7 +85,80 @@ class MojoRunTimeConfig:
     preshard_checkpoint_path: Optional[str] = None
 
 
+class AFDRole(Enum):
+    """Attention-FFN disaggregation role."""
+
+    ATTN = auto()
+    FFN = auto()
+
+    def __str__(self):
+        return self.name
+
+
+@dataclass
+class MojoParallelConfig:
+    """Sizes of the parallel axes, which ``parallel.mesh`` turns into
+    process groups: (pp, dp, sp, tp) over the whole world; under AFD an
+    attention group (pp, dp, sp, tp) and an FFN group (pp, ep, tp) side by
+    side."""
+
+    AFD_ENABLED: bool = False
+    AFD_ROLE: AFDRole = AFDRole.FFN
+
+    PP_SIZE: int = 1
+
+    ATTN_DP_SIZE: int = 1
+    ATTN_SP_SIZE: int = 1
+    ATTN_TP_SIZE: int = 1
+    ATTN_PP_SIZE: int = 1  # AFD_ATTN only
+
+    FFN_EP_SIZE: int = 1
+    FFN_TP_SIZE: int = 1
+    FFN_PP_SIZE: int = 1  # AFD_FFN only
+
+    USE_ULISSES: bool = True
+
+    def __post_init__(self):
+        sizes = (
+            self.PP_SIZE, self.ATTN_DP_SIZE, self.ATTN_SP_SIZE, self.ATTN_TP_SIZE,
+            self.ATTN_PP_SIZE, self.FFN_EP_SIZE, self.FFN_TP_SIZE, self.FFN_PP_SIZE,
+        )
+        if any(s <= 0 for s in sizes):
+            raise ValueError("All parallel sizes must be positive integers")
+
+    @property
+    def world_size(self) -> int:
+        if not self.AFD_ENABLED:
+            return self.ATTN_DP_SIZE * self.ATTN_SP_SIZE * self.ATTN_TP_SIZE * self.PP_SIZE
+        return self.attn_world_size + self.ffn_world_size
+
+    @property
+    def attn_world_size(self) -> int:
+        if not self.AFD_ENABLED:
+            raise ValueError("ATTN world size is not defined when AFD is disabled")
+        return self.ATTN_DP_SIZE * self.ATTN_SP_SIZE * self.ATTN_TP_SIZE * self.ATTN_PP_SIZE
+
+    @property
+    def ffn_world_size(self) -> int:
+        if not self.AFD_ENABLED:
+            raise ValueError("FFN world size is not defined when AFD is disabled")
+        return self.FFN_EP_SIZE * self.FFN_TP_SIZE * self.FFN_PP_SIZE
+
+
 @dataclass
 class MojoConfig:
     model_config: Optional[MojoModelConfig] = None
+    parallel_config: MojoParallelConfig = field(default_factory=MojoParallelConfig)
     runtime_config: MojoRunTimeConfig = field(default_factory=MojoRunTimeConfig)
+
+
+def sharded_config(config: MojoConfig, model) -> MojoConfig:
+    """``config`` with what sharding ``model`` changed: the parallel sizes
+    and the local kv heads that ``parallel`` recorded on it
+    (``model.mojo_parallel``); unchanged for a model never sharded."""
+    info = getattr(model, "mojo_parallel", None)
+    if info is not None:
+        config.parallel_config = info["parallel_config"]
+        if info["local_num_kv_heads"] is not None:
+            config.model_config.extra["local_num_kv_heads"] = info["local_num_kv_heads"]
+    return config

@@ -121,7 +121,7 @@ class PagedAttentionRuntimeState:
         self.num_layers = mc.num_layers
         self.dtype = dtype or mc.dtype
         self.block_size = block_size
-        self.num_kv_heads = mc.num_kv_heads
+        self.num_kv_heads = mc.local_num_kv_heads  # a tensor-parallel rank's heads
         self.head_dim = mc.head_dim
         self.device = resolve_device(device)
 

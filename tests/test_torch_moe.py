@@ -270,8 +270,15 @@ def test_moe_matches_jax(E, K, T):
 
 
 def test_moe_refuses_expert_parallelism():
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tm.MojoMoE(4, 2, 8, 16, ep_size=2, device="cpu")
+    """Expert parallelism is ported (tests/test_torch_parallel_moe.py): a rank
+    of two holds half the experts; what cannot be laid out (more ranks than
+    experts, a rank outside the group) is refused."""
+    moe = tm.MojoMoE(4, 2, 8, 16, ep_size=2, ep_rank=1, device="cpu")
+    assert (moe.ep_start, moe.ep_end, moe.experts.up_proj_weight.shape[0]) == (2, 4, 2)
+    with pytest.raises(ValueError, match="expert parallelism"):
+        tm.MojoMoE(4, 2, 8, 16, ep_size=8, device="cpu")
+    with pytest.raises(ValueError, match="expert parallelism"):
+        tm.MojoMoE(4, 2, 8, 16, ep_size=2, ep_rank=2, device="cpu")
 
 
 # ---------------------------------------------------------------- the Qwen3-MoE model

@@ -74,6 +74,8 @@ def test_import_loads_no_jax():
         "import mojo_opset_tpu_torch.modeling.wan2_2, mojo_opset_tpu_torch.benchmark.dit_protocol\n"
         "import mojo_opset_tpu_torch.experimental.functions, mojo_opset_tpu_torch.core.operators.convolution\n"
         "import mojo_opset_tpu_torch.core.operators.mlp, mojo_opset_tpu_torch.backends.cuda.functions.convolution\n"
+        "import mojo_opset_tpu_torch.parallel, mojo_opset_tpu_torch.core.operators.compute_with_comm\n"
+        "import mojo_opset_tpu_torch.runtime.comm_context, mojo_opset_tpu_torch.runtime.parallel\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
         " or m.startswith('mojo_opset_tpu.')]\n"
         "assert not bad, bad\n"

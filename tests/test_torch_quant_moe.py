@@ -375,8 +375,14 @@ def test_quant_moe_matches_jax(E, K, T, int4):
 
 
 def test_quant_moe_refuses_expert_parallelism():
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tm.MojoQuantMoE(4, 2, 32, 16, ep_size=2, device="cpu")
+    """Expert parallelism is ported (tests/test_torch_parallel_moe.py): an
+    uneven split gives the first rank the extra expert, scales and smooth
+    scales included; more ranks than experts are refused."""
+    moe = tm.MojoQuantMoE(5, 2, 32, 16, ep_size=2, ep_rank=0, device="cpu")
+    assert (moe.ep_start, moe.ep_end) == (0, 3)
+    assert moe.experts.up_proj_weight_scale.shape[0] == moe.experts.up_proj_quantize.inv_smooth_scale.shape[0] == 3
+    with pytest.raises(ValueError, match="expert parallelism"):
+        tm.MojoQuantMoE(4, 2, 32, 16, ep_size=8, device="cpu")
 
 
 # ---------------------------------------------------------------- kernel R's launch plan
