@@ -360,6 +360,29 @@ is non-zero:
      over gloo must raise); both ranks one stream, which may part from the
      unsharded stream only at a near-tie (TP2_TIE_GAP), prefill logits'
      per-row cosine >= TP2_COSINE_BOUND. No golden route.
+ 19. The runtime tooling through the port's example entry points, under
+     MOJO_NATIVE=1 (the native block allocator built from
+     ``runtime/native/block_allocator.cpp`` into ``_build/``; a failed
+     build fails the phase): ``llm_inference --greedy --max-new-tokens
+     TOOLING_STEPS`` at its default width (JAX's ``Qwen3Config()``: hidden
+     4096, 32 layers, vocab 151936, bf16), each run a session on the native
+     allocator: (a) on graphs, counted (A-D must launch; these counts join
+     the kernels line as ``launches_tooling_path``); (b) eager under
+     ``--debug-compare TOOLING_COMPARE --debug-dump TOOLING_DUMP``: the
+     compare records by op equal to ``_expected_compare_records`` a forward,
+     each cos_sim >= TOOLING_COSINE_BOUND, no swallowed error, one dump a
+     forward, the worst max_abs by op printed; (c) on graphs with the
+     debugger enabled through its API: one capture warning, the tokens of
+     (a), records only from the prefill and the graph's eager warm-up step;
+     (d) ``--profile-dir`` and ``--trace-out``: kernels A-D named in the
+     profiler's chrome trace, the run's spans in the emitter's. Then
+     ``llm_inference --tiny`` with ``--quant w8a8 --quant-kv`` and with
+     ``--speculative 4``, ``continuous_serving`` and ``dit_inference`` at
+     their defaults (shapes, finiteness). Then two readings, not claims:
+     the host us of a decode step's reserve and metadata, native against
+     numpy, at ALLOC_BATCHES, ctx ALLOC_CTX, in turns; the bf16 Qwen3-4B
+     graph step on a session of each allocator at the same batches, each
+     step synchronized, in turns. No golden route.
 Decode runs on CUDA graphs by default (phases 4-9 and 11): a key's first
 call is its eager warm-up, its second captures. Phase 4 runs every graphed
 generator twice and checks it against device_graph=False; phases 5, 6, 8,
@@ -5219,6 +5242,404 @@ def phase_parallel(torch, card: str) -> dict:
     return counts
 
 
+# phase 19: the runtime tooling through the example entry points (mojo_opset_tpu_torch.examples)
+TOOLING_WIDTH = []  # llm_inference's own default width, JAX's Qwen3Config(): hidden 4096, 32 layers, vocab 151936
+TOOLING_LAYERS = 32  # that model's depth, which the expected compare records follow
+TOOLING_STEPS = 16  # --max-new-tokens of its runs
+TOOLING_COMPARE = "0:*,31:*"  # every op at its first and 32nd call a forward
+TOOLING_DUMP = "0:RMSNorm"
+# each compare record (the cuda tier against the golden on the same inputs) holds 1 - cos_sim <= TOOLING_COSINE_GAP
+# (readings on an H100: at most 4e-6) and max_abs <= TOOLING_ULPS roundings at the golden output's largest
+# element: of bf16 for a float output (the path's working type), one step for an integer one (E's int8 codes)
+TOOLING_COSINE_GAP = 1e-4
+TOOLING_ULPS = 2
+TOOLING_NORM_SPREAD = 0.25  # the runs' RMSNorm weights: 1 + this x N(0, 1), seeded (they start at ones)
+TOOLING_INT8_STEPS = 4  # --max-new-tokens of the w8a8 + C8 run at the default width, under the debugger
+# kernels A-D in the profiler's chrome trace, by the names of their CUDA kernels
+TOOLING_FAMILIES = {"A": A_KERNEL_NAMES, "B": ("rope_token_first",), "C": ("paged_decode_kernel",),
+                    "D": ("paged_prefill_",)}
+ALLOC_BATCHES = (8, 24)  # the host reading: a session at these batches, each sequence at ALLOC_CTX tokens
+ALLOC_CTX = 4000
+ALLOC_STEPS = 200  # reserves (and decode-step metadata) timed a turn
+ALLOC_TURNS = 5
+ALLOC_GRAPH_STEPS = 10  # graph steps of the bf16 Qwen3-4B a turn with each allocator, each taken back after it
+
+
+def _expected_compare_records(layers: int, rule_layers=(0, 31)) -> dict:
+    """The compare records one forward of the dense Qwen3 yields under rules on occurrences ``rule_layers`` of every
+    op, by op name. Its cuda-tier ops in call order: RMSNorm (input, q, k, post-attention: 4 a layer, then the final
+    norm), ApplyRoPE (one a layer, two outputs: q and k) and the paged attention (one a layer, PagedPrefillGQA in a
+    prefill, PagedDecodeGQA in a decode step); the embedding, GEMMs, store and SiLU have only the golden tier. A rule
+    on occurrence n matches an op called more than n times a forward."""
+    calls = {"RMSNorm": (4 * layers + 1, 1), "ApplyRoPE": (layers, 2), "attention": (layers, 1)}
+    return {op: outs * sum(n < count for n in rule_layers) for op, (count, outs) in calls.items()}
+
+
+def _record_limit(record: dict) -> float:
+    """The largest max_abs a compare record may read (see TOOLING_ULPS)."""
+    if record["dtype"].startswith(("int", "uint")):
+        return 1.0
+    if record["ref_max"] <= 0:
+        return 0.0
+    return TOOLING_ULPS * 2.0 ** (math.floor(math.log2(record["ref_max"])) - 7)
+
+
+def _check_records(what: str, records: list) -> None:
+    """Hold each compare record to TOOLING_COSINE_GAP and _record_limit."""
+    bad = [r for r in records if not (1 - r["cos_sim"] <= TOOLING_COSINE_GAP and r["max_abs"] <= _record_limit(r))]
+    if not records or bad:
+        raise AssertionError(f"tooling: {what}: {len(bad)} of {len(records)} compare records past their limits: "
+                             f"{bad[:8]}")
+
+
+def _worst_by_op(records: list) -> dict:
+    """By op: the largest max_abs, and the largest share of its limit any record reads."""
+    worst = {}
+    for r in records:
+        limit = _record_limit(r)
+        share = r["max_abs"] / limit if limit else float(r["max_abs"] > 0) * math.inf
+        got = worst.get(r["op"], (0.0, 0.0))
+        worst[r["op"]] = (max(got[0], r["max_abs"]), max(got[1], share))
+    return {op: f"{a} ({share:.2f} of its limit)" for op, (a, share) in worst.items()}
+
+
+def _random_norms(torch, build):
+    """``build`` (an example's model-building function) with every RMSNorm weight drawn as 1 + TOOLING_NORM_SPREAD x N(0, 1)
+    from seed 1 on the model's device, so a compare sees a kernel that drops or misapplies the weight."""
+    from mojo_opset_tpu_torch.core.operators.normalization import MojoRMSNorm, MojoRMSNormQuant
+
+    def built(args):
+        model = build(args)
+        gen = torch.Generator(device=args.device).manual_seed(1)
+        for mod in model.modules():
+            if isinstance(mod, (MojoRMSNorm, MojoRMSNormQuant)):
+                w = mod.weight
+                w.add_(TOOLING_NORM_SPREAD * torch.randn(w.shape, generator=gen, device=w.device).to(w.dtype))
+        return model
+
+    return built
+
+
+def _trace_kernels(path: str) -> set:
+    """The CUDA kernel names in a torch.profiler chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def _tooling_llm(torch, card: str) -> dict:
+    """``llm_inference --greedy`` at its default width on the card (see phase_tooling), its RMSNorm weights drawn
+    at random (``_random_norms``); returns the counted runs' launches by path: bf16 on graphs, and w8a8 + C8
+    eager under the debugger."""
+    from mojo_opset_tpu_torch.examples import llm_inference
+
+    build = llm_inference.build_model
+    llm_inference.build_model = _random_norms(torch, build)
+    try:
+        return _tooling_llm_runs(torch, card)
+    finally:
+        llm_inference.build_model = build
+
+
+def _tooling_llm_runs(torch, card: str) -> dict:
+    """The runs of ``_tooling_llm``."""
+    import logging
+    import shutil
+    import tempfile
+
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.examples import llm_inference
+    from mojo_opset_tpu_torch.utils import logging as mojo_logging
+    from mojo_opset_tpu_torch.utils.debugger import MojoDebugger
+
+    base = [*TOOLING_WIDTH, "--greedy", "--max-new-tokens", str(TOOLING_STEPS)]
+
+    def run(*flags, steps=TOOLING_STEPS):
+        t0 = time.perf_counter()
+        result = llm_inference.main([*base, *flags, "--max-new-tokens", str(steps)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        if result["allocator"] != "native":
+            raise AssertionError(f"tooling: the session's allocator is {result['allocator']}, not native")
+        if result["ids"].shape != (1, steps) or not ((result["ids"] >= 0) & (result["ids"] < 151936)).all():
+            raise AssertionError(f"tooling: llm_inference {flags} gave ids {result['ids']}")
+        log("tooling", f"llm_inference {' '.join(flags) or '(graphs)'}: {time.perf_counter() - t0:.1f} s with the "
+                       f"model's build, generate {result['seconds']:.2f} s; ids {result['ids'][0].tolist()}")
+        return result
+
+    # (a) on graphs, counted: the path launches A-D
+    kernels.reset_launch_counts()
+    plain = run()
+    counts = {k: v for k, v in kernels.launch_counts().items() if k in BF16_PATH_KERNELS}
+    log("tooling", f"launches of llm_inference's run (prefill, {TOOLING_STEPS - 1} decode steps on graphs): {counts}")
+    if not all(counts.get(k) for k in BF16_PATH_KERNELS):
+        raise AssertionError(f"tooling: a kernel of the path did not launch: {counts}")
+
+    # (b) eager, under the debugger: one compare record per output of every op the rules name, each against its
+    # golden twin on the same CUDA tensors, and one dump a forward
+    dump_dir = tempfile.mkdtemp(prefix="mojo_debug_")
+    MojoDebugger.dump_dir = dump_dir
+    debug = run("--debug-compare", TOOLING_COMPARE, "--debug-dump", TOOLING_DUMP)
+    forwards = debug["ids"].shape[1]  # the prefill and one decode step a later token
+    want = _expected_compare_records(TOOLING_LAYERS)
+    records = debug["debug"]["records"]
+    by_op = {}
+    for r in records:
+        op = "attention" if r["op"] in ("PagedPrefillGQA", "PagedDecodeGQA") else r["op"]
+        by_op[op] = by_op.get(op, 0) + 1
+    dumps = sorted(os.listdir(os.path.join(dump_dir, "rank0")))
+    shutil.rmtree(dump_dir, ignore_errors=True)
+    same = "equal" if np.array_equal(debug["ids"], plain["ids"]) else "differ from"
+    log("tooling", f"{card}: debugger '{TOOLING_COMPARE}' over {forwards} forwards: {len(records)} compare records "
+                   f"(expected {forwards} x {want}), counts {debug['debug']['counts']}; least cos_sim "
+                   f"{min(r['cos_sim'] for r in records):.7f}; worst max_abs by op "
+                   f"{_worst_by_op(records)}; {len(dumps)} dumps "
+                   f"('{TOOLING_DUMP}'); the eager tokens {same} the graph run's")
+    if by_op != {op: n * forwards for op, n in want.items()} or debug["debug"]["counts"] != {
+            "compare": len(records), "dump": forwards, "errors": 0} or len(dumps) != forwards:
+        raise AssertionError(f"tooling: compare records by op {by_op}, expected {forwards} x {want}; counts "
+                             f"{debug['debug']['counts']}; {len(dumps)} dump files")
+    _check_records("bf16 default width", records)
+
+    # (c) on graphs with the debugger enabled through its API: captures warn and replay as they would; the
+    # prefill and the first decode step (the graph's eager warm-up) compare
+    class Messages(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def emit(self, record):
+            self.seen.append(record.getMessage())
+
+    handler = Messages()
+    debug_logger = logging.getLogger("mojo_opset_tpu_torch.utils.debugger")
+    debug_logger.addHandler(handler)
+    mojo_logging._WARNED.clear()
+    MojoDebugger.enable(compare=TOOLING_COMPARE)
+    try:
+        graphed = run()
+    finally:
+        MojoDebugger.disable()
+        debug_logger.removeHandler(handler)
+    capture_warnings = sum("CUDA graph capture" in m for m in handler.seen)
+    log("tooling", f"graphs with the debugger on: {len(MojoDebugger.records)} compare records (the prefill and the "
+                   f"warm-up step), {capture_warnings} capture warning; tokens "
+                   f"{'equal' if np.array_equal(graphed['ids'], plain['ids']) else 'DIFFER from'} the run without it")
+    warm = 2 * sum(want.values())  # the prefill's records and the warm-up step's
+    if (not np.array_equal(graphed["ids"], plain["ids"]) or capture_warnings != 1
+            or len(MojoDebugger.records) != warm or MojoDebugger.counts["errors"]):
+        raise AssertionError(f"tooling: graphs under the debugger: tokens {graphed['ids']} vs {plain['ids']}, "
+                             f"{capture_warnings} capture warnings, {len(MojoDebugger.records)} records, counts "
+                             f"{MojoDebugger.counts}")
+
+    # (d) the profiler hook over the whole run (prefill on, wait=0) and the chrome-trace spans, in one run
+    out_dir = tempfile.mkdtemp(prefix="mojo_tools_")
+    spans_path = os.path.join(out_dir, "spans.json")
+    traced = run("--profile-dir", os.path.join(out_dir, "profile"), "--trace-out", spans_path)
+    names = _trace_kernels(traced["profile"][0])
+    found = {f: sorted({n for n in names if any(p in n for p in pats)})[:3] for f, pats in TOOLING_FAMILIES.items()}
+    with open(spans_path) as f:
+        spans = [(e["name"], e["ph"]) for e in json.load(f)["traceEvents"]]
+    size_mb = os.path.getsize(traced["profile"][0]) / 1e6
+    shutil.rmtree(out_dir, ignore_errors=True)
+    log("tooling", f"profiler trace ({size_mb:.1f} MB, {len(names)} kernel names): {found}; chrome-trace spans: "
+                   f"{spans.count(('llm_inference', 'B'))} run, {spans.count(('prefill', 'E'))} prefill, "
+                   f"{spans.count(('decode_step', 'E'))} decode_step")
+    if not all(found.values()):
+        raise AssertionError(f"tooling: kernels missing from the profiler's trace: {found}")
+    if (spans.count(("llm_inference", "E")), spans.count(("prefill", "E")), spans.count(("decode", "E")),
+            spans.count(("decode_step", "E"))) != (1, 1, 1, traced["ids"].shape[1]):
+        raise AssertionError(f"tooling: the chrome trace's spans: {spans}")
+
+    # (e) --quant w8a8 --quant-kv at the same width, eager under the debugger: E, F and C's int8 pages at their
+    # real shapes, each compared with its golden on the same inputs
+    kernels.reset_launch_counts()
+    int8 = run("--quant", "w8a8", "--quant-kv", "--debug-compare", TOOLING_COMPARE, steps=TOOLING_INT8_STEPS)
+    int8_counts = {k: v for k, v in kernels.launch_counts().items() if k in INT8_PATH_KERNELS}
+    records = int8["debug"]["records"]
+    log("tooling", f"{card}: w8a8 + C8, debugger '{TOOLING_COMPARE}' over {TOOLING_INT8_STEPS} forwards: "
+                   f"{len(records)} compare records, counts {int8['debug']['counts']}; least cos_sim "
+                   f"{min(r['cos_sim'] for r in records):.7f}; worst max_abs by op {_worst_by_op(records)}; "
+                   f"launches {int8_counts}")
+    if not all(int8_counts.get(k) for k in INT8_PATH_KERNELS) or int8["debug"]["counts"]["errors"]:
+        raise AssertionError(f"tooling: w8a8 + C8: launches {int8_counts}, counts {int8['debug']['counts']}")
+    if not {"RMSNormQuant", "QuantGemm", "PagedDecodeGQAWithKVDequant"} <= {r["op"] for r in records}:
+        raise AssertionError(f"tooling: w8a8 + C8: ops compared {sorted({r['op'] for r in records})}")
+    _check_records("w8a8 + C8 default width", records)
+    return {"tooling": counts, "tooling_w8a8": int8_counts}
+
+
+def _tooling_tiny(torch, card: str) -> None:
+    """The tiny examples on the card: llm_inference's int8 modes (shape and range) and greedy speculative decoding
+    held to the plain greedy run of the same model (lossless: a stream may leave it only at a bf16 tie,
+    ``_first_divergence``), continuous_serving held to the same batcher with device_graph=False, and
+    dit_inference at its defaults (shape, finiteness)."""
+    from mojo_opset_tpu_torch.examples import continuous_serving, dit_inference, llm_inference
+    from mojo_opset_tpu_torch.runtime import ContinuousBatchingGenerator, PagedAttentionGenerationModel
+
+    tiny = ["--tiny", "--greedy"]
+    results = {}
+    for name, flags in (("greedy", []), ("w8a8 + C8", ["--quant", "w8a8", "--quant-kv"]),
+                        ("speculative", ["--speculative", "4"])):
+        result = llm_inference.main([*tiny, *flags])
+        if result["ids"].shape != (1, 32) or not ((result["ids"] >= 0) & (result["ids"] < 32000)).all():
+            raise AssertionError(f"tooling: llm_inference --tiny {flags}: {result['ids']}")
+        results[name] = result
+        log("tooling", f"llm_inference --tiny {' '.join(flags) or '--greedy'}: 32 ids in {result['seconds']:.2f} s"
+                       + (f", {result['rounds']} verify rounds" if "rounds" in result else ""))
+    args = llm_inference._parser().parse_args(tiny)
+    model = llm_inference.build_model(args)
+    gm = PagedAttentionGenerationModel(model, block_size=args.block_size)
+    prompt = np.asarray(llm_inference._FallbackTokenizer()(args.prompt).input_ids[0], np.int32)
+    log("tooling", f"{card}: llm_inference --tiny --speculative 4 against --greedy: "
+                   + _first_divergence(torch, gm, prompt, results["greedy"]["ids"][0],
+                                       results["speculative"]["ids"][0]))
+
+    serving = continuous_serving.main([])
+    if sorted(len(v) for v in serving["requests"].values()) != [16] * 8:
+        raise AssertionError(f"tooling: continuous_serving: {serving['requests']}")
+    eager = ContinuousBatchingGenerator(model, batch_slots=4, block_size=32, max_new_tokens=16, device_graph=False)
+    rng = np.random.default_rng(0)  # continuous_serving's request stream
+    rids = [eager.submit(rng.integers(1, 32000, (int(n),)).astype(np.int32)) for n in rng.integers(4, 48, (8,))]
+    want = eager.run()
+    differ = [rid for rid in rids if not np.array_equal(serving["requests"][rid], np.asarray(want[rid]))]
+    log("tooling", f"continuous_serving: 8 requests, {serving['tokens']} tokens in {serving['seconds']:.2f} s "
+                   f"({serving['tokens_per_s']:.1f} tok/s aggregate, graphs); {8 - len(differ)} of 8 requests "
+                   f"equal to the batcher's with device_graph=False")
+    if differ or sorted(serving["requests"]) != sorted(rids):
+        raise AssertionError(f"tooling: continuous_serving on graphs against device_graph=False: requests {differ} "
+                             f"differ: {[(serving['requests'][r].tolist(), list(want[r])) for r in differ[:2]]}")
+    del model, gm, eager
+    dit = dit_inference.main([])
+    if dit["latent"].shape != (16, 2, 8, 8) or not torch.isfinite(dit["latent"]).all():
+        raise AssertionError(f"tooling: dit_inference: latent {tuple(dit['latent'].shape)}")
+    log("tooling", f"dit_inference: 10 steps in {dit['elapsed_seconds'][-1]:.2f} s, latent mean {dit['mean']:.4f} "
+                   f"std {dit['std']:.4f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _allocator_host_us(torch, card: str) -> None:
+    """A reading, not a claim: the host µs of a decode step's reserve and of its whole host metadata
+    (``decode_arrays``: the reserve, positions, lengths, the table's copy, the store's slots), the native allocator
+    against numpy, at ALLOC_BATCHES with every sequence at ALLOC_CTX tokens, ALLOC_STEPS a turn, in turns; a
+    one-layer session (the host work does not depend on depth). Both end on the same tables."""
+    from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig
+    from mojo_opset_tpu_torch.runtime.session import PagedAttentionRuntimeState
+
+    mc = MojoModelConfig(model_name="qwen3", hidden_size=QWEN3_4B["hidden_size"], head_dim=QWEN3_4B["head_dim"],
+                         num_heads=QWEN3_4B["num_attention_heads"], num_kv_heads=QWEN3_4B["num_key_value_heads"],
+                         num_layers=1, vocab_size=QWEN3_4B["vocab_size"],
+                         max_position_embeddings=QWEN3_4B["max_position_embeddings"], dtype=torch.bfloat16)
+    for batch in ALLOC_BATCHES:
+        sessions = {}
+        for mode in ("1", "0"):
+            os.environ["MOJO_NATIVE"] = mode
+            session = PagedAttentionRuntimeState(MojoConfig(model_config=mc), batch, block_size=BLOCK_SIZE,
+                                                 device="cuda")
+            sessions[session.allocator] = session
+        os.environ["MOJO_NATIVE"] = "1"
+        ones = np.ones(batch, np.int32)
+        times = {(name, what): [] for name in sessions for what in ("reserve", "step")}
+        for _ in range(ALLOC_TURNS):
+            for (name, what), got in times.items():
+                session = sessions[name]
+                session.renew()
+                session._reserve(np.full(batch, ALLOC_CTX, np.int32))
+                t0 = time.perf_counter()
+                for _ in range(ALLOC_STEPS):
+                    if what == "reserve":
+                        session._reserve(ones)
+                    else:
+                        session.decode_arrays()
+                got.append((time.perf_counter() - t0) / ALLOC_STEPS * 1e6)
+        if not np.array_equal(sessions["native"].block_tables, sessions["numpy"].block_tables):
+            raise AssertionError("tooling: the native and numpy allocators' tables differ")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log("tooling", f"{card}: host us a decode step at bs {batch}, ctx {ALLOC_CTX} ({ALLOC_TURNS} turns of "
+                       f"{ALLOC_STEPS}; median): reserve native {med['native', 'reserve']:.2f}, numpy "
+                       f"{med['numpy', 'reserve']:.2f}; reserve + metadata native {med['native', 'step']:.2f}, numpy "
+                       f"{med['numpy', 'step']:.2f}; turns "
+                       f"{ {f'{a} {b}': [round(x, 2) for x in v] for (a, b), v in times.items()} }")
+        del sessions
+
+
+def _allocator_graph_steps(torch, card: str) -> None:
+    """A reading, not a claim: the bf16 Qwen3-4B decode step on its CUDA graph at each of ALLOC_BATCHES, ctx
+    ALLOC_CTX, from a session on each allocator, in turns (ALLOC_GRAPH_STEPS steps of each a turn, GRAPH_TURNS turns;
+    each step synchronized, as the stepwise loop's token read is, and taken back after it); both sessions' logits and
+    tables must agree."""
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, PagedAttentionRuntimeState
+
+    config = Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16, kv_layout="NHD")
+    model = Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    gm = PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE)
+    for batch in ALLOC_BATCHES:
+        ids, lens = _prompts(config.vocab_size, [ALLOC_CTX] * batch)
+        runs = {}
+        for mode in ("1", "0"):
+            os.environ["MOJO_NATIVE"] = mode
+            session = PagedAttentionRuntimeState.from_model(model, batch, block_size=BLOCK_SIZE)
+            logits, _ = gm(ids, context_input_len=lens, session=session)
+            token = torch.argmax(logits, -1).to(torch.int32)
+            for _ in range(2):  # the graph's eager warm-up, then its capture
+                step_logits, _ = gm(token, session=session)
+                _rewind(session)
+            runs[session.allocator] = (session, token, step_logits)
+        os.environ["MOJO_NATIVE"] = "1"
+        (native, _, a), (numpy_, _, b) = runs["native"], runs["numpy"]
+        if not (torch.equal(a, b) and np.array_equal(native.block_tables, numpy_.block_tables)):
+            raise AssertionError("tooling: the graph step's logits or tables differ between the allocators")
+        times = {name: [] for name in runs}
+        for _ in range(GRAPH_TURNS):
+            for name, (session, token, _) in runs.items():
+                for _ in range(ALLOC_GRAPH_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    gm(token, session=session)
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                    _rewind(session)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log("tooling", f"{card}: bf16 Qwen3-4B graph step at bs {batch}, ctx {ALLOC_CTX}, synchronized ({GRAPH_TURNS} "
+                       f"turns of {ALLOC_GRAPH_STEPS}): median native {med['native']:.3f} ms, numpy "
+                       f"{med['numpy']:.3f} ms; quartiles native {np.percentile(times['native'], [25, 75]).round(3)}, "
+                       f"numpy {np.percentile(times['numpy'], [25, 75]).round(3)}")
+        del runs, native, numpy_, a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    del gm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_tooling(torch, card: str) -> dict:
+    """Phase 19: the runtime tooling through the port's example entry points, under MOJO_NATIVE=1 (a native
+    allocator that does not build fails the phase): ``llm_inference`` at its default width (``_tooling_llm``:
+    graphs, counted; eager under the debugger; graphs under the debugger; profiler and chrome trace), the tiny
+    examples (``_tooling_tiny``), then the allocator readings (``_allocator_host_us``, ``_allocator_graph_steps``).
+    Returns the counted runs' launches by path."""
+    from mojo_opset_tpu_torch.runtime import native
+
+    before = os.environ.get("MOJO_NATIVE")
+    os.environ["MOJO_NATIVE"] = "1"
+    try:
+        if not native.native_available():
+            raise AssertionError("tooling: the native allocator is not available under MOJO_NATIVE=1")
+        log("tooling", f"native allocator {native.library_path().relative_to(native.BUILD_DIR.parent.parent)}")
+        counts = _tooling_llm(torch, card)
+        _tooling_tiny(torch, card)
+        _allocator_host_us(torch, card)
+        _allocator_graph_steps(torch, card)
+    finally:
+        if before is None:
+            os.environ.pop("MOJO_NATIVE", None)
+        else:
+            os.environ["MOJO_NATIVE"] = before
+    return counts
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
                  dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict, quant_counts: dict,
@@ -5322,9 +5743,10 @@ def main() -> int:
     conv_counts = timed("conv function", phase_conv_function, torch, card)
     timed("capture", phase_capture, torch)
     parallel_counts = model_phase("parallel", phase_parallel, torch, card)
+    tooling_counts = model_phase("tooling", phase_tooling, torch, card)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts,
-                        t2v_counts, parallel_counts)
+                        t2v_counts, {**parallel_counts, **tooling_counts})
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
     next(k for k in line if k["name"] == KERNEL_INFO["group_quant_gemm"][0])["launches_by_route"] = R_ROUTES
     print(json.dumps({"kernels": line}))

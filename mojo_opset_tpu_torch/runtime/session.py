@@ -3,9 +3,15 @@
 Counterpart of the JAX package's ``runtime/session.py`` (``AttentionMetadata``
 :33, ``KVCaches`` :67, ``PagedAttentionRuntimeState`` :166,
 ``PagedAttentionGenerationModel`` :354, ``FusedDecode`` :447):
-  * the block allocator (free stack, block tables, sequence lengths) is
-    host-side numpy, ported as it stands, so its block tables equal the
-    JAX session's;
+  * the block allocator's state (free stack and its count, block tables,
+    sequence lengths) is the session's own numpy buffers, updated in
+    place, which each step's metadata copies. A reserve and a release run
+    in the native C++ allocator (``runtime/native/``) over those buffers
+    where it builds, as the JAX session picks it (``MOJO_NATIVE``), else
+    in numpy; both hand blocks out in one order, so their block tables
+    equal the JAX session's. A reserve is transactional: one that
+    overflows a sequence's table or runs out of blocks raises and changes
+    nothing;
   * the per-layer KV caches are device tensors that the store op writes
     in place;
   * each step's host values (``max_q_len``, ``max_total_seq_len``) and
@@ -32,6 +38,7 @@ import torch
 from mojo_opset_tpu_torch.core.operators.sampling import MojoTopKSampling
 from mojo_opset_tpu_torch.runtime.compile_cache import CompiledStepPool, resolve_device_graph
 from mojo_opset_tpu_torch.runtime.config import MojoConfig
+from mojo_opset_tpu_torch.runtime.native import NativeBlockAllocator, native_available
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
@@ -104,7 +111,9 @@ class PagedAttentionRuntimeState:
     """Session: host-side block allocator + device-side caches (int8 with
     channel scales, in HND, when the config sets ``kv_cache_quant``). The
     caches live on ``device``, the card unless the caller names another
-    (``utils.platform.resolve_device``); ``from_model`` takes the model's."""
+    (``utils.platform.resolve_device``); ``from_model`` takes the model's.
+    ``allocator`` says which allocator runs its reserves and releases:
+    ``"native"`` or ``"numpy"``."""
 
     def __init__(
         self,
@@ -132,8 +141,13 @@ class PagedAttentionRuntimeState:
 
         self.block_tables = np.full((batch_size, self.max_blocks_per_seq), -1, np.int32)
         self.total_seq_lens = np.zeros((batch_size,), np.int32)
+        # the free stack: free_blocks[:_num_free[0]] are free, the top handed out first
         self.free_blocks = np.arange(total_blocks, dtype=np.int32)
-        self.num_free_blocks = total_blocks
+        self._num_free = np.array([total_blocks], np.int32)
+        self._native = (NativeBlockAllocator(batch_size, self.max_blocks_per_seq, total_blocks, block_size,
+                                             self.free_blocks, self._num_free)
+                        if native_available() else None)
+        self.allocator = "numpy" if self._native is None else "native"
 
         self.kv_layout = mc.kv_layout
         self.caches = self._create_caches(total_blocks)
@@ -157,29 +171,47 @@ class PagedAttentionRuntimeState:
         return cls(model.config, batch_size, dtype=dtype, block_size=block_size, **kw)
 
     # -- allocator ------------------------------------------------------
+    @property
+    def num_free_blocks(self) -> int:
+        return int(self._num_free[0])
+
     def _allocate_blocks(self, num_blocks: int) -> np.ndarray:
-        if num_blocks > self.num_free_blocks:
+        free = self.num_free_blocks
+        if num_blocks > free:
             raise ValueError("PagedAttentionRuntimeState: Out of paged KV cache memory.")
-        allocated = self.free_blocks[self.num_free_blocks - num_blocks : self.num_free_blocks]
-        self.num_free_blocks -= num_blocks
-        return allocated
+        self._num_free[0] = free - num_blocks
+        return self.free_blocks[free - num_blocks : free].copy()
 
     def free_block_count(self) -> int:
         return self.num_free_blocks
 
     def _reserve(self, q_lens: np.ndarray) -> np.ndarray:
+        """Reserve ``q_lens[i]`` more tokens on each sequence; returns the
+        lengths before. Transactional, as the native allocator: a sequence
+        past its table (``ValueError("sequence exceeds
+        max_blocks_per_seq")``) or more blocks than are free raises before
+        anything changes."""
+        q_lens = np.ascontiguousarray(q_lens, np.int32)
+        if q_lens.shape != (self.batch_size,):
+            raise ValueError(f"q_lens must hold one length per sequence: {q_lens.shape} != ({self.batch_size},)")
+        if self._native is not None:
+            return self._native.reserve(q_lens, self.total_seq_lens, self.block_tables)
         previous = self.total_seq_lens.copy()
+        old_blocks = -(-previous // self.block_size)
+        new_blocks = -(-(previous + q_lens) // self.block_size)
+        if (new_blocks > self.max_blocks_per_seq).any():
+            raise ValueError("sequence exceeds max_blocks_per_seq")
+        # a valid entry past the length is a block this sequence still owns
+        # from a reserve that was rolled back: it is reused, not replaced
+        needed = sum(int((self.block_tables[i, old_blocks[i]:new_blocks[i]] < 0).sum())
+                     for i in range(self.batch_size))
+        if needed > self.num_free_blocks:
+            raise ValueError("PagedAttentionRuntimeState: Out of paged KV cache memory.")
         for batch_idx in range(self.batch_size):
-            context_len = int(previous[batch_idx])
-            append_len = int(q_lens[batch_idx])
-            old_blocks = -(-context_len // self.block_size)
-            new_blocks = -(-(context_len + append_len) // self.block_size)
-            for b in range(old_blocks, new_blocks):
-                # a valid entry is a block this sequence still owns from a
-                # reserve that was rolled back: reuse it instead of leaking
+            for b in range(old_blocks[batch_idx], new_blocks[batch_idx]):
                 if self.block_tables[batch_idx, b] < 0:
                     self.block_tables[batch_idx, b] = self._allocate_blocks(1)[0]
-        self.total_seq_lens = previous + q_lens
+        self.total_seq_lens += q_lens
         return previous
 
     def reset(self) -> None:
@@ -194,10 +226,10 @@ class PagedAttentionRuntimeState:
         the graphs that baked their addresses): every block free in its
         first order, no sequence, an int8 cache's channel scales 0
         (uncalibrated, as a new session's first prefill finds them)."""
+        self.free_blocks[:] = np.arange(self.free_blocks.size, dtype=np.int32)
+        self._num_free[0] = self.free_blocks.size
         self.block_tables.fill(-1)
         self.total_seq_lens[:] = 0
-        self.free_blocks = np.arange(self.free_blocks.size, dtype=np.int32)
-        self.num_free_blocks = self.free_blocks.size
         for scale in self.caches.key_scales + self.caches.value_scales:
             scale.zero_()
 
@@ -205,16 +237,22 @@ class PagedAttentionRuntimeState:
         """Return a finished sequence's blocks to the pool: every valid row
         entry, since a speculative rollback can leave reserved blocks past
         the rewound length."""
+        if self._native is not None:
+            self._native.release(batch_idx, self.total_seq_lens, self.block_tables)
+            return
         row = self.block_tables[batch_idx]
         valid = row[row >= 0]
-        self.free_blocks[self.num_free_blocks : self.num_free_blocks + valid.size] = valid[::-1]
-        self.num_free_blocks += valid.size
+        free = self.num_free_blocks
+        self.free_blocks[free : free + valid.size] = valid[::-1]
+        self._num_free[0] = free + valid.size
         self.block_tables[batch_idx, :] = -1
         self.total_seq_lens[batch_idx] = 0
 
     # -- step input preparation ------------------------------------------
     def _tensor(self, array: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(array), device=self.device)
+        """A copy on the session's device (never a view of the host
+        tables, which later reserves update in place)."""
+        return torch.tensor(array, device=self.device)
 
     def token_slots(self, positions: np.ndarray, batch: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
         """Cache (block, row) of the tokens at ``positions`` of sequences

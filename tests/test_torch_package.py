@@ -76,6 +76,10 @@ def test_import_loads_no_jax():
         "import mojo_opset_tpu_torch.core.operators.mlp, mojo_opset_tpu_torch.backends.cuda.functions.convolution\n"
         "import mojo_opset_tpu_torch.parallel, mojo_opset_tpu_torch.core.operators.compute_with_comm\n"
         "import mojo_opset_tpu_torch.runtime.comm_context, mojo_opset_tpu_torch.runtime.parallel\n"
+        "import mojo_opset_tpu_torch.utils.debugger, mojo_opset_tpu_torch.utils.tracing\n"
+        "import mojo_opset_tpu_torch.utils.profiler, mojo_opset_tpu_torch.runtime.native\n"
+        "import mojo_opset_tpu_torch.examples.llm_inference, mojo_opset_tpu_torch.examples.continuous_serving\n"
+        "import mojo_opset_tpu_torch.examples.dit_inference\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'mojo_opset_tpu'"
         " or m.startswith('mojo_opset_tpu.')]\n"
         "assert not bad, bad\n"
@@ -470,6 +474,12 @@ def test_entry_points_without_a_device_never_land_on_the_cpu(monkeypatch):
         held = [*op(*args, device="cpu").parameters(), *op(*args, device="cpu").buffers()]
         assert held and all(t.device.type == "cpu" for t in held), op
     assert tm.MojoRotaryEmbedding(1e4, 8, init_max_length=16, device="cpu").cos.device.type == "cpu"
+    # the example entry points: the card unless --device names another
+    from mojo_opset_tpu_torch.examples import continuous_serving, dit_inference, llm_inference
+
+    for example, argv in ((llm_inference, ["--tiny"]), (continuous_serving, []), (dit_inference, ["--layers", "1"])):
+        with pytest.raises(RuntimeError, match="pass --device cpu"):
+            example.main(argv)
 
 
 def test_dispatch_follows_mojo_backend(monkeypatch):

@@ -34,17 +34,24 @@ def spawn(workdir, world: int, scenarios, inputs: dict, timeout: int = 600) -> l
         pickle.dump(dict(inputs, scenarios=list(scenarios)), f)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     env.pop("MOJO_BACKEND", None)
+    # each rank writes to files of its own: a rank blocked on a full pipe
+    # would hold every other rank at its next collective
+    logs = [open(workdir / f"rank{r}.log", "w+") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, "-m", "tests.torch_parallel_workers", str(r), str(world),
-                               str(workdir)], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(world)]
-    outs = []
+                               str(workdir)], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+             for r, log in enumerate(logs)]
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=timeout))
+            p.wait(timeout=timeout)
     finally:
         for p in procs:
             p.kill()
-    failed = [(r, p.returncode, err[-4000:]) for r, (p, (_, err)) in enumerate(zip(procs, outs)) if p.returncode]
+    errs = []
+    for log in logs:
+        log.seek(0)
+        errs.append(log.read()[-4000:])
+        log.close()
+    failed = [(r, p.returncode, err) for r, (p, err) in enumerate(zip(procs, errs)) if p.returncode]
     if failed:
         raise AssertionError(f"rank processes failed: {failed}")
     results = []
@@ -118,6 +125,31 @@ def _chunk(a, n, r, axis):
 
 
 # ---------------------------------------------------------------- scenarios: dense Qwen3
+
+
+def debugger_tp2(meshes, inp):
+    """A tp 2 Qwen3's prefill logits and greedy tokens with the precision
+    debugger off, then on (every op compared, every Gemm dumped: the
+    row-parallel ones carry an all_reduce and the lm_head an all_gather as
+    forward hooks) in log and in replace mode."""
+    from mojo_opset_tpu_torch.parallel import qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.utils.debugger import MojoDebugger
+
+    d = inp["dense"]
+    model = shard_model(_qwen3(d["cfg"], d["state"]), meshes["tp2"], qwen3_tp_rules("tp"))
+    out = {"off": (_prefill_logits(model, d["ids"], d["lens"])[0], _generate(model, d["ids"], d["lens"]))}
+    for mode in ("log", "replace"):
+        MojoDebugger.enable(compare="*:*", dump="*:Gemm", dump_dir=os.path.join(inp["workdir"], f"dump_{mode}"),
+                            compare_mode=mode)
+        try:
+            out[mode] = (_prefill_logits(model, d["ids"], d["lens"])[0], _generate(model, d["ids"], d["lens"]))
+        finally:
+            MojoDebugger.disable()
+        out[f"{mode}_counts"] = dict(MojoDebugger.counts)
+        out[f"{mode}_worst"] = max(r["max_abs"] for r in MojoDebugger.records)
+    return out
+
+
 
 
 def dense_tp4(meshes, inp):
@@ -361,7 +393,7 @@ def moe_uneven_ep4(meshes, inp):
 SCENARIOS = {f.__name__: f for f in (
     dense_tp4, dense_tp2, styles_plan_tp4, kv_replicated_tp4, w8a8_tp2, graph_over_gloo, comm_ops,
     parallel_embedding, checkpoint_roundtrip, afd_meshes, moe_tp2_ep2, quant_moe_ep2, moe_dp_input_ep4,
-    moe_uneven_ep4)}
+    moe_uneven_ep4, debugger_tp2)}
 
 
 def main(rank: int, world: int, workdir: str) -> None:
@@ -375,8 +407,11 @@ def main(rank: int, world: int, workdir: str) -> None:
     with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
         inputs = pickle.load(f)
     inputs["workdir"] = workdir
-    meshes = {"tp4": build_mesh((4,), ("tp",)), "dp2_tp2": build_mesh((2, 2), ("dp", "tp")),
-              "tp2_ep2": build_mesh((2, 2), ("tp", "ep")), "ep4": build_mesh((4,), ("ep",))}
+    if world == 4:
+        meshes = {"tp4": build_mesh((4,), ("tp",)), "dp2_tp2": build_mesh((2, 2), ("dp", "tp")),
+                  "tp2_ep2": build_mesh((2, 2), ("tp", "ep")), "ep4": build_mesh((4,), ("ep",))}
+    else:
+        meshes = {f"tp{world}": build_mesh((world,), ("tp",))}
     results = {}
     for name in inputs["scenarios"]:
         try:
