@@ -383,6 +383,31 @@ is non-zero:
      numpy, at ALLOC_BATCHES, ctx ALLOC_CTX, in turns; the bf16 Qwen3-4B
      graph step on a session of each allocator at the same batches, each
      step synchronized, in turns. No golden route.
+ 20. The rest of the ops (``phase_rest_ops``), bf16 unless named, seed 0:
+     JAX's MojoQwen3MoeBlock at its defaults (REST_MOE_BLOCK: vocab 10000,
+     hidden 4096, 32 heads x 128, 8 experts, top-2; B 2 x S 1024) on its
+     cuda tier (A, J and H must launch, no golden route) against its ref
+     tier on the same tensors (tokens whose top-2 both tiers pick, at least
+     REST_ROUTE_SHARE of them, within the bf16 ladder); at Qwen3-4B's
+     attention geometry (32/8 heads x 128, block 64, PROMPT_LENS) the
+     masked paged decode (True = exclude) and prefill (True = keep), each
+     with a 2-D and a 3-D mask (golden routes, counted), MojoPagedPrefillSWA
+     and MojoPagedPrefillSWAWithKVDequant (int8 pages) with REST_WINDOWS,
+     MojoPagedDecodeNstepSWA at S REST_NSTEP, each against the same op in
+     fp32 on the CPU (REST_REL_LIMITS), windowless MojoPagedPrefillSWA
+     against kernel D and the one-step NstepSWA against kernel C; MojoIndexer
+     at JAX's defaults (REST_INDEXER) in fp32, a 2048-token causal prefill
+     and 4 single-token steps, its scores against the CPU's
+     (REST_INDEXER_LIMITS), its top-k against the CPU's (``_topk_agree``),
+     CudaApplyRoPE's golden route once a call; NSA at the NSA paper's
+     settings (REST_NSA) in fp32, paged decode at bs 4 over ctx 8192 and a
+     paged prefill of 128 tokens on a 2048-key sequence (REST_NSA_LIMITS);
+     Sage prefill at Qwen3-4B's geometry; MojoOverEncoding at Qwen3-4B's
+     vocabulary and width, dense and NF4, B 4 x T 512 and a varlen call,
+     its n-gram ids exactly; the rotate activation at 7168, the attention
+     gate, the group and in-place norms, MRoPE in place (one bf16 rounding
+     of the fp32 CPU run), StoreLowrank and the reduce-sum GEMM (exactly).
+     Each op logs its max error, its limit and its ms (CUDA events).
 Decode runs on CUDA graphs by default (phases 4-9 and 11): a key's first
 call is its eager warm-up, its second captures. Phase 4 runs every graphed
 generator twice and checks it against device_graph=False; phases 5, 6, 8,
@@ -5640,10 +5665,470 @@ def phase_tooling(torch, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 20: the rest of the ops
+
+# JAX's MojoQwen3MoeBlock defaults (mojo_opset_tpu/modeling/qwen3/modeling_qwen3_moe.py:67-75), B 2 x S 1024
+REST_MOE_BLOCK = dict(vocab_size=10000, hidden_size=4096, num_heads=32, head_dim=128, num_experts=8, top_k=2)
+REST_MOE_BATCH = (2, 1024)
+REST_ROUTE_SHARE = 0.99  # tokens whose top-2 experts the two tiers must agree on (a near-tie may flip one)
+# bf16 on the card against the same op in fp32 on the CPU: whole tensor, worst row (PAGED_PREFILL_REL_LIMITS' bf16)
+REST_REL_LIMITS = (1.5e-2, 3e-2)
+REST_WINDOWS = dict(local_window_size=256, global_window_size=64)
+REST_NSTEP = 4
+# JAX's MojoIndexer defaults (mojo_opset_tpu/experimental/operators/indexer.py:63-70): a 2048-token causal prefill at
+# bs 1, then 4 single-token steps. fp32 activations, as the module's weights: its int8 quant and its top-k are
+# discrete, and bf16 inputs would move both
+REST_INDEXER = dict(dim=7168, n_heads=128, head_dim=128, qk_rope_head_dim=64, topk=2048, q_lora_rank=1536)
+REST_INDEXER_PREFILL, REST_INDEXER_STEPS = 2048, 4
+# fp32 card against fp32 CPU: whole relative error of the finite scores; worst row's largest difference over the
+# row's largest score (a key's int8 level moved by a rounding difference moves its scores by ~2e-3 of themselves)
+REST_INDEXER_LIMITS = (1e-3, 5e-3)
+# NSA at the NSA paper's settings (arXiv 2502.11089, section 4.1: compression block 32, selection block 64, 16
+# selected blocks, window 512) with 64 heads of 128; paged decode at bs 4 over ctx 8192, a paged prefill of 128 new
+# tokens on a 2048-key sequence. fp32: the block selection is discrete and bf16 moves blocks across the cut
+REST_NSA = dict(num_heads=64, head_dim=128, compress_ratio=32, num_selected_blocks=16, block_size=64, window_size=512)
+REST_NSA_DECODE = (4, 8192)
+REST_NSA_PREFILL = (128, 2048)
+REST_NSA_LIMITS = (1e-4, 5e-3)  # whole relative error; share of (token, head) rows off by over 1e-4 of their norm
+# over-encoding at Qwen3-4B's vocabulary and width with JAX's perf descriptor's tables
+# (tests/perf_new/operators/over_encoding.py:33-35), B 4 x T 512, NF4 groups of 64
+REST_OE = dict(ori_vocab_size=151936, ori_embed_dim=2560, oe_embed_dim=256, oe_vocab_sizes=[100003, 100019],
+               oe_grams=[2, 3])
+REST_OE_BATCH, REST_OE_VARLEN, REST_NF4_GROUP = (4, 512), (300, 1, 211), 64
+ROUNDING = dict(atol=1e-5, rtol=2**-7)  # one bf16 rounding of an fp32 result (and fp32 noise near zero)
+
+
+def _rest_ms(torch, fn, iters: int = 3) -> float:
+    return cuda_ms(torch, fn, iters=iters, warmup=1)
+
+
+def _rest_cpu(t):
+    """A CUDA tensor's CPU copy, floats in fp32."""
+    return t.cpu().float() if t.is_floating_point() else t.cpu()
+
+
+def _rest_rel(name: str, got, want, ms: float, limits=REST_REL_LIMITS) -> None:
+    """Hold ``got`` (the card) to ``want`` (the CPU in fp32) relative to its size, and log the readings."""
+    got, want = got.float().cpu(), want.float().cpu()
+    whole, row, rms = rel_errors(got, want)
+    err = (got - want).abs().max().item()
+    if not (whole <= limits[0] and row <= limits[1]):
+        raise AssertionError(f"rest ops: {name}: relative {whole:.3g} (worst row {row:.3g}) over {limits}")
+    log("rest ops", f"{name}: max_abs_err {err:.3g}, relative {whole:.3g} / worst row {row:.3g} (limits {limits}, "
+                    f"rms {rms:.3g}); {ms:.3f} ms")
+
+
+def _rest_close(name: str, got, want, ms: float, tol: dict) -> None:
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+
+    got = [g.float().cpu() for g in (got if isinstance(got, (list, tuple)) else [got])]
+    want = [w.float().cpu() for w in (want if isinstance(want, (list, tuple)) else [want])]
+    for g, w in zip(got, want):
+        check_tol_diff(g, w, **tol)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    log("rest ops", f"{name}: max_abs_err {err:.3g} (limit {tol}); {ms:.3f} ms")
+
+
+def _rest_moe_block(torch, card: str) -> dict:
+    """MojoQwen3MoeBlock's cuda tier (kernels A, J and H, no golden route) against its ref tier on the same
+    tensors; returns the cuda run's launches."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaGroupGemm, CudaPrefillGQA, CudaRMSNorm
+    from mojo_opset_tpu_torch.modeling.qwen3 import MojoQwen3MoeBlock
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    block = MojoQwen3MoeBlock(**REST_MOE_BLOCK, device="cuda", generator=gen)
+    with plain_tier():
+        plain = MojoQwen3MoeBlock(**REST_MOE_BLOCK, device="cuda")
+    plain.load_state_dict(block.state_dict())
+    classes = (CudaRMSNorm, CudaPrefillGQA, CudaGroupGemm)
+    if not all(isinstance(op, cls) for op, cls in zip((block.pre_norm, block.attn, block.moe_gmm), classes)):
+        raise AssertionError("moe block: the cuda tier's block does not hold the cuda classes")
+    ids = torch.randint(0, REST_MOE_BLOCK["vocab_size"], REST_MOE_BATCH, device="cuda", generator=gen)
+    routes = {}
+    hooks = [m.moe_gate.register_forward_hook(lambda mod, inp, out, key=key: routes.__setitem__(key, out[0]))
+             for key, m in (("cuda", block), ("plain", plain))]
+    goldens = golden_counts()
+    kernels.reset_launch_counts()
+    got = block(ids)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if set(counts) != {"norms", "flash_swa_fwd", "group_gemm"}:
+        raise AssertionError(f"moe block: launched {counts}, want A, J and H")
+    if golden_counts() != goldens:
+        raise AssertionError(f"moe block: a golden route was taken: {golden_counts()} from {goldens}")
+    want = plain(ids)
+    for h in hooks:
+        h.remove()
+    agree = (routes["cuda"].sort(dim=-1).values == routes["plain"].sort(dim=-1).values).all(dim=-1)
+    share = agree.float().mean().item()
+    if share < REST_ROUTE_SHARE:
+        raise AssertionError(f"moe block: the tiers agree on {share:.4f} of the routes, under {REST_ROUTE_SHARE}")
+    g, w = got.reshape(-1, got.shape[-1])[agree], want.reshape(-1, want.shape[-1])[agree]
+    check_tol_diff(g, w, **tols_for(torch.bfloat16))
+    whole, row, _ = rel_errors(g, w)
+    ms, plain_ms = _rest_ms(torch, lambda: block(ids)), _rest_ms(torch, lambda: plain(ids))
+    log("rest ops", f"{card}: MojoQwen3MoeBlock {REST_MOE_BLOCK} at B {REST_MOE_BATCH[0]} x S {REST_MOE_BATCH[1]} "
+                    f"bf16: launches {counts}; routes agree on {share:.4f} of the tokens (bound {REST_ROUTE_SHARE}); "
+                    f"those rows: max_abs_err {(g.float() - w.float()).abs().max().item():.3g} (bf16 ladder), "
+                    f"relative {whole:.3g} / worst row {row:.3g}; {ms:.3f} ms on A, J and H, {plain_ms:.3f} ms on the "
+                    f"goldens")
+    del block, plain, got, want
+    return counts
+
+
+def _rest_paged(torch, card: str) -> dict:
+    """The masked paged ops, the windowed prefills and the n-step decode at Qwen3-4B's attention geometry in bf16,
+    each against the same op in fp32 on the CPU; windowless PagedPrefillSWA against kernel D and the one-step
+    NstepSWA against kernel C. Returns C's and D's launches in those cross-checks."""
+    from mojo_opset_tpu_torch import (MojoPagedDecodeGQA, MojoPagedDecodeSWA, MojoPagedPrefillGQA,
+                                      MojoPagedPrefillSWA)
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaPagedDecodeGQA, CudaPagedPrefillGQA
+    from mojo_opset_tpu_torch.experimental import MojoPagedDecodeNstepSWA, MojoPagedPrefillSWAWithKVDequant
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, H, Hkv, D, bs = torch.bfloat16, 32, 8, 128, BLOCK_SIZE
+    lens = list(PROMPT_LENS)
+    n_cols = -(-max(lens) // bs)
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    kc, vc = _cache(torch, n_blocks, Hkv, bs, D, "NHD", bf16, gen)
+    kh, vh = _cache(torch, n_blocks, Hkv, bs, D, "HND", bf16, gen)
+    (k8, v8), (ks, vs) = _int8_cache(torch, n_blocks, Hkv, bs, D, gen)
+    table = _tables(torch, lens, bs, n_cols, n_blocks, gen)
+    tl, cu = torch.tensor(lens, dtype=torch.int32, device="cuda"), _cu(torch, lens)
+    q_dec = torch.randn(len(lens), H, D, device="cuda", generator=gen).to(bf16)
+    q_pf = torch.randn(sum(lens), H, D, device="cuda", generator=gen).to(bf16)
+    q_nstep = torch.randn(len(lens), REST_NSTEP, H, D, device="cuda", generator=gen).to(bf16)
+    rows, cols = max(lens) + 1, n_cols * bs
+    masks = {"decode": {f: torch.rand(*s, rows, cols, device="cuda", generator=gen) < 0.2
+                        for f, s in (("2-D", ()), ("3-D", (len(lens),)))},
+             "prefill": {f: torch.rand(*s, rows, cols, device="cuda", generator=gen) < 0.8
+                         for f, s in (("2-D", ()), ("3-D", (len(lens),)))}}
+    golden_before = {cls: cls.golden_calls for cls in (CudaPagedDecodeGQA, CudaPagedPrefillGQA)}
+
+    def both(name, build, *args, ref_build=None):
+        """``build()``'s op on the card's args and the same op in fp32 on the CPU's copies."""
+        op = build()
+        got = op(*args)
+        want = (ref_build or build)()(*[_rest_cpu(a) if isinstance(a, torch.Tensor) else a for a in args])
+        _rest_rel(f"{card}: {name}", got, want, _rest_ms(torch, lambda: op(*args)))
+
+    for form, mask in masks["decode"].items():
+        both(f"MojoPagedDecodeGQA non-causal, {form} mask (True = exclude), bs 4 at ctx {lens}",
+             lambda: MojoPagedDecodeGQA(is_causal=False, kv_layout="NHD"), q_dec, kc, vc, tl, table, None, mask)
+    for form, mask in masks["prefill"].items():
+        both(f"MojoPagedPrefillGQA non-causal, {form} mask (True = keep), prompts {lens}",
+             lambda: MojoPagedPrefillGQA(is_causal=False, kv_layout="NHD"), q_pf, kc, vc, cu, table, None, None, mask)
+    for cls, n in ((CudaPagedDecodeGQA, 2), (CudaPagedPrefillGQA, 2)):
+        taken = cls.golden_calls - golden_before[cls]
+        if taken < n:
+            raise AssertionError(f"{cls.__name__}: {taken} golden routes counted, want the {n} masked calls and more")
+        log("rest ops", f"{cls.__name__}.golden_calls rose by {taken} (the masked calls, checked and timed)")
+    both(f"MojoPagedPrefillSWA {REST_WINDOWS}, prompts {lens}",
+         lambda: MojoPagedPrefillSWA(kv_layout="NHD", **REST_WINDOWS), q_pf, kc, vc, cu, table)
+    both(f"MojoPagedPrefillSWAWithKVDequant {REST_WINDOWS} on int8 pages",
+         lambda: MojoPagedPrefillSWAWithKVDequant(**REST_WINDOWS), q_pf, None, k8, ks, v8, vs, cu, table)
+    both(f"MojoPagedDecodeNstepSWA S {REST_NSTEP} {REST_WINDOWS}",
+         lambda: MojoPagedDecodeNstepSWA(**REST_WINDOWS), q_nstep, kh, vh, tl, table)
+
+    counts = {}
+    kernels.reset_launch_counts()
+    on_d = MojoPagedPrefillGQA(kv_layout="NHD")(q_pf, kc, vc, cu, table, max_q_len=max(lens))
+    counts["paged_prefill"] = kernels.launch_counts()["paged_prefill"]
+    windowless = MojoPagedPrefillSWA(kv_layout="NHD")(q_pf, kc, vc, cu, table)
+    _rest_rel(f"{card}: windowless MojoPagedPrefillSWA (golden) against CudaPagedPrefillGQA (D)", on_d, windowless,
+              _rest_ms(torch, lambda: MojoPagedPrefillSWA(kv_layout="NHD")(q_pf, kc, vc, cu, table)))
+    kernels.reset_launch_counts()
+    on_c = MojoPagedDecodeSWA(kv_layout="HND", **REST_WINDOWS)(q_nstep[:, 0].contiguous(), kh, vh, tl, table)
+    counts["paged_decode"] = kernels.launch_counts()["paged_decode"]
+    one_step = MojoPagedDecodeNstepSWA(**REST_WINDOWS)(q_nstep[:, :1], kh, vh, tl, table)[:, 0]
+    _rest_rel(f"{card}: MojoPagedDecodeNstepSWA S 1 (golden) against CudaPagedDecodeSWA (C)", on_c, one_step,
+              _rest_ms(torch, lambda: MojoPagedDecodeNstepSWA(**REST_WINDOWS)(q_nstep[:, :1], kh, vh, tl, table)))
+    if not (counts["paged_prefill"] and counts["paged_decode"]):
+        raise AssertionError(f"rest ops: the cross-checks launched {counts}, want C and D")
+    return counts
+
+
+def _rest_indexer(torch, card: str) -> None:
+    """MojoIndexer at JAX's defaults: a causal prefill then single-token steps, on the card and on the CPU in fp32;
+    scores to REST_INDEXER_LIMITS, the top-k as described at ``_topk_agree``."""
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaApplyRoPE
+    from mojo_opset_tpu_torch.experimental import MojoIndexer
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    S_all = REST_INDEXER_PREFILL + REST_INDEXER_STEPS
+    idx = MojoIndexer(**REST_INDEXER, max_batch_size=1, max_seq_len=S_all, device="cuda", generator=gen)
+    ref = MojoIndexer(**REST_INDEXER, max_batch_size=1, max_seq_len=S_all, device="cpu")
+    ref.load_state_dict({k: v.cpu() for k, v in idx.state_dict().items()})
+    caches, ref_caches = idx.init_cache(), ref.init_cache()
+    x = torch.randn(1, S_all, REST_INDEXER["dim"], device="cuda", generator=gen)
+    qr = torch.randn(1, S_all, REST_INDEXER["q_lora_rank"], device="cuda", generator=gen)
+    angles = torch.rand(S_all, REST_INDEXER["qk_rope_head_dim"] // 2, device="cuda", generator=gen) * 6
+    freqs = torch.polar(torch.ones_like(angles), angles)
+    P = REST_INDEXER_PREFILL
+    mask = torch.full((P, P), float("-inf"), device="cuda").triu(1)
+    rope_before = CudaApplyRoPE.golden_calls
+    for start, S in ((0, P), *((P + i, 1) for i in range(REST_INDEXER_STEPS))):
+        args = (x[:, start:start + S], qr[:, start:start + S], start, freqs[start:start + S],
+                mask if S > 1 else None)
+        t0 = time.perf_counter()
+        top, score, *caches = idx(*args, *caches)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        calls = CudaApplyRoPE.golden_calls
+        ref_top, ref_score, *ref_caches = ref(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args],
+                                              *ref_caches)
+        CudaApplyRoPE.golden_calls = calls  # the CPU run's RoPE calls are not the card's
+        score, top = score.cpu(), top.cpu()
+        finite = torch.isfinite(ref_score)
+        if not torch.equal(finite, torch.isfinite(score)):
+            raise AssertionError(f"indexer at {start}: the -inf entries differ")
+        diff = (score - ref_score).where(finite, torch.zeros(()))
+        whole = (diff.norm() / ref_score.where(finite, torch.zeros(())).norm()).item()
+        row_max = ref_score.where(finite, torch.zeros(())).abs().amax(dim=-1).clamp_min(1e-30)
+        worst = (diff.abs().amax(dim=-1) / row_max).max().item()
+        if not (whole <= REST_INDEXER_LIMITS[0] and worst <= REST_INDEXER_LIMITS[1]):
+            raise AssertionError(f"indexer at {start}: scores relative {whole:.3g} / worst row {worst:.3g} over "
+                                 f"{REST_INDEXER_LIMITS}")
+        same = _topk_agree(torch, f"indexer at {start}", top, ref_top, ref_score, row_max)
+        log("rest ops", f"{card}: MojoIndexer {REST_INDEXER} fp32, positions [{start}, {start + S}): index_score "
+                        f"max_abs_err {diff.abs().max().item():.3g}, relative {whole:.3g} / worst row {worst:.3g} "
+                        f"(limits {REST_INDEXER_LIMITS}); top-{top.shape[-1]}: {same:.6f} of the ranks hold the CPU's "
+                        f"index, the rest a CPU score within {REST_INDEXER_LIMITS[1]} of the row's largest of the "
+                        f"CPU's own; {ms:.1f} ms (one call, first)")
+    calls = CudaApplyRoPE.golden_calls - rope_before
+    if calls != 1 + REST_INDEXER_STEPS:
+        raise AssertionError(f"indexer: CudaApplyRoPE.golden_calls rose by {calls}, want one a call")
+    log("rest ops", f"CudaApplyRoPE.golden_calls rose by {calls} over the indexer's calls (partial 64-wide tables on "
+                    f"4-D token-first 128-wide heads: the golden route)")
+
+
+def _topk_agree(torch, name, top, ref_top, ref_score, row_max) -> float:
+    """The card's top-k against the CPU's: at every rank the CPU's score of the card's index is within
+    REST_INDEXER_LIMITS[1] x the row's largest score of the CPU's score at that rank (scores that close may take
+    either order across devices), and every ``-inf`` rank holds the CPU's index exactly (lower index first).
+    Returns the share of ranks holding the same index."""
+    card_scores, ref_scores = ref_score.gather(-1, top), ref_score.gather(-1, ref_top)
+    inf = torch.isinf(ref_scores)
+    if not torch.equal(torch.isinf(card_scores), inf) or not torch.equal(top[inf], ref_top[inf]):
+        raise AssertionError(f"{name}: the -inf ranks differ")
+    gap = (card_scores - ref_scores).where(~inf, torch.zeros(())).abs() / row_max[..., None]
+    if gap.max().item() > REST_INDEXER_LIMITS[1]:
+        raise AssertionError(f"{name}: a rank's score parts from the CPU's by {gap.max().item():.3g} of its row's "
+                             f"largest")
+    return (top == ref_top).float().mean().item()
+
+
+def _rest_nsa(torch, card: str) -> None:
+    """NSA's paged decode and paged prefill at the paper's settings, fp32 on the card and on the CPU."""
+    from mojo_opset_tpu_torch.experimental import MojoPagedDecodeNSA, MojoPagedPrefillNSA
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, D, bs = REST_NSA["num_heads"], REST_NSA["head_dim"], BLOCK_SIZE
+    B, ctx = REST_NSA_DECODE
+    n_blocks = B * ctx // bs
+    kc = torch.randn(n_blocks, H, bs, D, device="cuda", generator=gen)
+    vc = torch.randn(n_blocks, H, bs, D, device="cuda", generator=gen)
+    table = torch.randperm(n_blocks, device="cuda", generator=gen).to(torch.int32).reshape(B, ctx // bs)
+    ref_caches = (kc.cpu(), vc.cpu())
+    for cls, name in ((MojoPagedDecodeNSA, "decode"), (MojoPagedPrefillNSA, "prefill")):
+        op = cls(**REST_NSA, device="cuda", generator=gen)
+        ref = cls(**REST_NSA, device="cpu")
+        ref.load_state_dict({k: v.cpu() for k, v in op.state_dict().items()})
+        if name == "decode":
+            args = (torch.randn(B, H, D, device="cuda", generator=gen), kc, vc,
+                    torch.full((B,), ctx, dtype=torch.int32, device="cuda"), table)
+            what = f"paged decode bs {B} at ctx {ctx}"
+        else:
+            q_len, kv_len = REST_NSA_PREFILL
+            args = (torch.randn(q_len, H, D, device="cuda", generator=gen), kc, vc,
+                    torch.tensor([0, q_len], dtype=torch.int32, device="cuda"), table[:1, : kv_len // bs], None,
+                    torch.tensor([0, kv_len], dtype=torch.int32, device="cuda"))
+            what = f"paged prefill of {q_len} tokens on a {kv_len}-key sequence (the golden loops a token)"
+        t0 = time.perf_counter()
+        got = op(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu_args = [ref_caches[0] if a is kc else ref_caches[1] if a is vc else
+                    a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        want = ref(*cpu_args)
+        got = got.cpu()
+        whole = ((got - want).norm() / want.norm()).item()
+        rows = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp_min(1e-30)
+        off = (rows > 1e-4).float().mean().item()
+        if not (whole <= REST_NSA_LIMITS[0] and off <= REST_NSA_LIMITS[1]):
+            raise AssertionError(f"nsa {name}: relative {whole:.3g}, {off:.4f} of the rows off, over {REST_NSA_LIMITS}")
+        log("rest ops", f"{card}: NSA {REST_NSA} fp32 {what}: max_abs_err {(got - want).abs().max().item():.3g}, "
+                        f"relative {whole:.3g}, (token, head) rows off by over 1e-4: {off:.4f} (limits "
+                        f"{REST_NSA_LIMITS}); {ms:.1f} ms (one call, first)")
+
+
+def _rest_sage(torch, card: str) -> None:
+    """Sage prefill at Qwen3-4B's geometry, int8 q, k, v with their scales, on the card and on the CPU: the bf16
+    outputs within the bound argued in tests/test_torch_experimental_ops.py (one exp level and one bf16 rounding),
+    and 99% of them within one rounding."""
+    from mojo_opset_tpu_torch.experimental import MojoPagedPrefillSageGQA
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    H, Hkv, D, bs = 32, 8, 128, BLOCK_SIZE
+    lens = list(PROMPT_LENS)
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    T = sum(lens)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, device="cuda", generator=gen, dtype=torch.int8)
+
+    def scale(*shape):
+        return torch.rand(*shape, device="cuda", generator=gen) * 0.015 + 0.005
+
+    args = (i8(T, H, D), scale(H, T), i8(n_blocks, Hkv, bs, D), scale(n_blocks, Hkv, bs), i8(n_blocks, Hkv, bs, D),
+            scale(Hkv, D), _cu(torch, lens), _tables(torch, lens, bs, -(-max(lens) // bs), n_blocks, gen))
+    op = MojoPagedPrefillSageGQA()
+    got = op(*args)
+    want = op(*[a.cpu() for a in args])
+    vmax = float(args[4].abs().max().item() * args[5].max().item())
+    tol = dict(atol=2 * vmax / 127, rtol=2**-7)
+    check_tol_diff(got.cpu(), want, ptol=0.99, atol=1e-6, rtol=2**-7)
+    _rest_close(f"{card}: MojoPagedPrefillSageGQA prompts {lens}, 32/8 heads x 128 (99% within one bf16 "
+                       f"rounding)", got, want, _rest_ms(torch, lambda: op(*args)), tol)
+
+
+def _rest_over_encoding(torch, card: str) -> None:
+    """MojoOverEncoding at Qwen3-4B's vocabulary and width, dense and NF4, in bf16 on the card against fp32 on the
+    CPU; its n-gram ids exactly."""
+    from mojo_opset_tpu_torch import MojoOverEncoding, MojoOverEncodingNGram
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    V = REST_OE["ori_vocab_size"]
+    B, T = REST_OE_BATCH
+    ids = torch.randint(0, V, (B, T), device="cuda", generator=gen, dtype=torch.int32)
+    hist = torch.randint(0, V, (B, 2), device="cuda", generator=gen, dtype=torch.int32)
+    lens = torch.tensor(REST_OE_VARLEN, dtype=torch.int32)
+    packed = torch.randint(0, V, (int(lens.sum()),), device="cuda", generator=gen, dtype=torch.int32)
+    packed_hist = torch.randint(0, V, (len(REST_OE_VARLEN), 2), device="cuda", generator=gen, dtype=torch.int32)
+    ngram = MojoOverEncodingNGram(V, REST_OE["oe_vocab_sizes"], REST_OE["oe_grams"])
+    for a, h, n in ((ids, hist, None), (packed, packed_hist, lens)):
+        if not torch.equal(ngram(a, h, n).cpu(), ngram(a.cpu(), h.cpu(), n)):
+            raise AssertionError("over-encoding: the card's n-gram ids differ from the CPU's")
+    rows, dim = sum(REST_OE["oe_vocab_sizes"]), REST_OE["oe_embed_dim"]
+    nf4 = dict(_mega_embedding_weight=torch.randint(-128, 128, (rows, dim // 2), device="cuda", generator=gen,
+                                                    dtype=torch.int8),
+               _mega_embedding_scale=torch.rand(rows, dim // REST_NF4_GROUP, device="cuda", generator=gen) + 0.5,
+               _mega_embedding_mean=torch.randn(rows, dim // REST_NF4_GROUP, device="cuda", generator=gen) * 0.1,
+               _mega_embedding_group_size=REST_NF4_GROUP)
+    for label, extra in (("dense", {}), (f"NF4 (group {REST_NF4_GROUP})", nf4)):
+        op = MojoOverEncoding(**REST_OE, **extra, device="cuda", dtype=torch.bfloat16, generator=gen)
+        cpu_extra = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in extra.items()}
+        ref = MojoOverEncoding(**REST_OE, **cpu_extra, device="cpu", dtype=torch.float32)
+        ref.load_state_dict({k: v.cpu() for k, v in op.state_dict().items()})
+        for what, args in ((f"B {B} x T {T}", (ids, hist)), (f"varlen {REST_OE_VARLEN}", (packed, packed_hist, lens))):
+            got = op(*args)
+            want = ref(*[a.cpu() for a in args])
+            _rest_rel(f"{card}: MojoOverEncoding {label} bf16, {what}", got, want, _rest_ms(torch, lambda: op(*args)))
+        del op, ref
+
+
+def _rest_small_ops(torch, card: str) -> None:
+    """The rotate activation at DeepSeek-V3's 7168, the attention gate, the group and in-place norms and MRoPE in
+    place at Qwen3-4B's widths in bf16 (within one bf16 rounding of the fp32 CPU run: they compute in fp32 and round
+    once), StoreLowrank and the reduce-sum GEMM (exactly: copies; int8 sums exact in fp32 at K 1024)."""
+    from mojo_opset_tpu_torch.experimental import (MojoFusedAttnOutputGate, MojoGroupLayerNorm,
+                                                   MojoGroupRMSNormInplace, MojoMRoPEInplace,
+                                                   MojoQuantBatchGemmReduceSum, MojoRMSNormInplace,
+                                                   MojoRotateActivation, MojoStoreLowrank)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, T, hidden = torch.bfloat16, sum(PROMPT_LENS), 2560
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    def run(name, op, ref, args, tol=ROUNDING):
+        got = op(*args)
+        want = ref(*[[_rest_cpu(t) for t in a] if isinstance(a, list) and isinstance(a[0], torch.Tensor) else
+                     _rest_cpu(a) if isinstance(a, torch.Tensor) else a for a in args])
+        _rest_close(f"{card}: {name}", got, want, _rest_ms(torch, lambda: op(*args)), tol)
+
+    def pair(cls, *a, **kw):
+        op = cls(*a, **kw, device="cuda")
+        with torch.no_grad():
+            for p in op.parameters():
+                p.copy_(torch.randn(p.shape, device="cuda", generator=gen) * 0.2 + 1.0)
+        ref = cls(*a, **kw, device="cpu")
+        ref.load_state_dict({k: v.cpu().float() for k, v in op.state_dict().items()})
+        return op, ref
+
+    rot = MojoRotateActivation()
+    run("MojoRotateActivation at 7168 (padded to 8192), 1024 rows", rot, rot, (randn(1024, 7168),))
+    gate = MojoFusedAttnOutputGate(hidden, 16, 16, 128, bias=True, device="cuda", dtype=bf16, generator=gen)
+    gate_ref = MojoFusedAttnOutputGate(hidden, 16, 16, 128, bias=True, device="cpu")
+    gate_ref.load_state_dict({k: v.cpu().float() for k, v in gate.state_dict().items()})
+    run(f"MojoFusedAttnOutputGate hidden {hidden}, 16 + 16 heads x 128, T {T}", gate, gate_ref,
+        (randn(T, hidden), randn(T, 16, 128), randn(T, 16 * 128)))
+    for cls in (MojoGroupLayerNorm, MojoGroupRMSNormInplace):
+        op, ref = pair(cls, 2, hidden, 1e-6)
+        run(f"{cls.__name__} 2 groups of {hidden}, T {T}", op, ref, ([randn(T, hidden), randn(T, hidden) * 3 + 1],))
+    op, ref = pair(MojoRMSNormInplace, hidden, 1e-6, inplace=True)
+    run(f"MojoRMSNormInplace {hidden}, T {T}", op, ref, (randn(T, hidden),))
+    sections, mrope = [16, 24, 24], MojoMRoPEInplace(inplace=True)
+    run(f"MojoMRoPEInplace sections {sections} on 32/8 heads x 128, T {T}", mrope, mrope,
+        (randn(T, 32 * 128), randn(T, 8 * 128), randn(3, T, 64, dtype=torch.float32),
+         randn(3, T, 64, dtype=torch.float32), sections, False, 128))
+
+    n_blocks, heads, slots, d = 64, 8, 64, 128
+    perm = torch.randperm(n_blocks * slots, device="cuda", generator=gen)[:T]
+    blocks = (perm // slots).to(torch.int32)
+    blocks[torch.rand(T, device="cuda", generator=gen) < 0.1] = -1
+    tokens = (perm % slots).to(torch.int32)
+    cache, key_lr = randn(n_blocks, heads, slots, d), randn(T, heads, d)
+    want = cache.cpu()  # the writes of the valid tokens alone, each slot written once
+    valid = (blocks >= 0).cpu()
+    want[blocks.cpu()[valid].long(), :, tokens.cpu()[valid].long()] = key_lr.cpu()[valid]
+    store = MojoStoreLowrank()
+    got = store(cache, key_lr, blocks, tokens, T)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("StoreLowrank: the card's cache is not the valid tokens' writes (a -1 block written?)")
+    log("rest ops", f"{card}: MojoStoreLowrank ({n_blocks}, {heads}, {slots}, {d}) bf16, {T} tokens, "
+                    f"{(blocks < 0).sum().item()} on block -1: equal to the CPU's bit for bit; "
+                    f"{_rest_ms(torch, lambda: store(cache, key_lr, blocks, tokens, T)):.3f} ms")
+
+    B, M, K, N = 8, 1024, 1024, hidden
+    w = torch.randint(-128, 128, (B, K, N), device="cuda", generator=gen, dtype=torch.int8)
+    x = torch.randint(-128, 128, (B, M, K), device="cuda", generator=gen, dtype=torch.int8)
+    s1 = torch.rand(B, M, device="cuda", generator=gen) * 1e-3
+    s2 = torch.rand(N, device="cuda", generator=gen) * 1e-3
+    gemm, gemm_ref = MojoQuantBatchGemmReduceSum(w), MojoQuantBatchGemmReduceSum(w.cpu())
+    run(f"MojoQuantBatchGemmReduceSum B {B} x ({M}, {K}) x ({K}, {N}) int8 -> bf16 (exact)", gemm, gemm_ref,
+        (x, s1, s2), tol=dict(atol=0.0, rtol=0.0))
+
+
+def phase_rest_ops(torch, card: str) -> dict:
+    """Phase 20: the ops ported last (see the module docstring). Returns the launches of the MoE block's cuda run
+    (A, J, H) and of the C and D cross-checks."""
+    with torch.no_grad():
+        counts = _rest_moe_block(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts.update(_rest_paged(torch, card))
+        _rest_indexer(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _rest_nsa(torch, card)
+        _rest_sage(torch, card)
+        _rest_over_encoding(torch, card)
+        _rest_small_ops(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
                  dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict, quant_counts: dict,
-                 t2v_counts: dict, parallel_counts: dict) -> list:
+                 t2v_counts: dict, parallel_counts: dict, rest_counts: dict) -> list:
     """One entry per kernel: launches from the int8 full-width run (it runs
     the first six), for G from the w4a8 speculative run, for H from the
     MoE run, for I from the DeepSeek run, for J, K, L, M and N from the
@@ -5652,7 +6137,8 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
     norm's run, for Q from the conv Function's and for R from phase 8's w8a8
     half (``quant_counts``: phase 8's w8a8 and w4a8 and phase 9's w8a8
     counts, by path), and J's and A's launches on phase 16's text -> DiT
-    path (``t2v_counts``) and on phase 18's sharded paths (``parallel_counts``) beside them; numbers of the main-path
+    path (``t2v_counts``), on phase 18's sharded paths (``parallel_counts``) and A's, J's, H's, C's and D's on phase
+    20's runs (``rest_counts``) beside them; numbers of the main-path
     case (``ms`` replayed from a CUDA graph). C and D add their int8-page numbers, C its windowed cases
     at ctx 32768 beside the same cases without windows; A, F, G, H, I, K, M, P
     and Q their numbers at each shape (M: each layout and direction; P: pre
@@ -5688,7 +6174,7 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
                                   ("deepseek", deepseek_counts), ("train", train_counts), ("seed_oss", seed_counts),
                                   ("seed_oss_int8", seed_int8_counts), ("wan_dit", dit_counts),
                                   ("diffusion_function", fn_counts), ("residual_add_norm", res_counts),
-                                  ("conv_function", conv_counts), ("wan_t2v", t2v_counts),
+                                  ("conv_function", conv_counts), ("wan_t2v", t2v_counts), ("rest_ops", rest_counts),
                                   *quant_counts.items(), *parallel_counts.items()):
             if module in path_counts:
                 extra[f"launches_{path}_path"] = path_counts[module]
@@ -5744,9 +6230,10 @@ def main() -> int:
     timed("capture", phase_capture, torch)
     parallel_counts = model_phase("parallel", phase_parallel, torch, card)
     tooling_counts = model_phase("tooling", phase_tooling, torch, card)
+    rest_counts = timed("rest ops", phase_rest_ops, torch, card)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts,
-                        t2v_counts, {**parallel_counts, **tooling_counts})
+                        t2v_counts, {**parallel_counts, **tooling_counts}, rest_counts)
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
     next(k for k in line if k["name"] == KERNEL_INFO["group_quant_gemm"][0])["launches_by_route"] = R_ROUTES
     print(json.dumps({"kernels": line}))

@@ -8,15 +8,16 @@ the training path on kernel J (``csrc/flash_swa.cu``): ``CudaSWA``,
 ``CudaSdpa`` and ``CudaPrefillGQA`` run J's forward under its autograd
 Function, so they carry gradients; ``CudaSdpa`` with a bool mask runs
 kernel O (``csrc/flash_diffusion.cu``) under its own. The KV-dequant ops
-take no ``compute_dtype=torch.int8``, no ``query_scale`` and no ``mask``
-here: those raise, they do not fall back to the golden. Routes that take
-the golden, each counted in its class's ``golden_calls``: a non-causal
-windowed decode (:339-343) and ``CudaSdpa``'s additive float mask
-(:134-149), as in JAX; and in every op here, a head_dim the kernels do not
-take (``takes_head_dim``: a multiple of 16 up to 256; 16, 80 and 96 run
-on the kernels, padded to the next instantiated width), as JAX's Pallas
-ops send ``D % 128 != 0`` to their golden (:66, :101, :138, :200). A group
-of any size runs on the kernels."""
+take no ``compute_dtype=torch.int8`` and no ``query_scale`` here: those
+raise, they do not fall back to the golden. Routes that take the golden,
+each counted in its class's ``golden_calls``: a non-causal windowed decode
+(:339-343), ``CudaSdpa``'s additive float mask (:134-149), a custom mask on
+a non-causal paged decode (:65-72) and any custom mask on a paged prefill
+(:98-106), as in JAX (the int8-page ops alike); and in every op here, a
+head_dim the kernels do not take (``takes_head_dim``: a multiple of 16 up
+to 256; 16, 80 and 96 run on the kernels, padded to the next instantiated
+width), as JAX's Pallas ops send ``D % 128 != 0`` to their golden (:66,
+:101, :138, :200). A group of any size runs on the kernels."""
 
 from __future__ import annotations
 
@@ -55,10 +56,17 @@ def _golden_head_dim(cls, head_dim: int) -> bool:
     return True
 
 
-def _check_kernel_options(op, query_scale, mask) -> None:
+def _check_kernel_options(op, query_scale) -> None:
     if op.compute_dtype == torch.int8:
         raise NotImplementedError("compute_dtype=torch.int8 runs in the golden tier only (MOJO_BACKEND=ref)")
-    op._check_unported(query_scale, mask)
+    op._check_query_scale(query_scale)
+
+
+def _golden_mask(cls, takes_golden: bool) -> bool:
+    """Whether a call with a custom mask takes the golden (``takes_golden``);
+    counted in ``cls.golden_calls``."""
+    cls.golden_calls += takes_golden
+    return takes_golden
 
 
 class CudaPagedDecodeGQA(MojoPagedDecodeGQA):
@@ -72,11 +80,13 @@ class CudaPagedDecodeGQA(MojoPagedDecodeGQA):
         total_seq_lens: torch.Tensor,
         block_tables: torch.Tensor,
         softmax_scale: Optional[float] = None,
+        mask: Optional[torch.Tensor] = None,
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        if _golden_head_dim(CudaPagedDecodeGQA, query.shape[-1]):
-            return super().forward(query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale)
+        if (_golden_mask(CudaPagedDecodeGQA, mask is not None and not self.is_causal)
+                or _golden_head_dim(CudaPagedDecodeGQA, query.shape[-1])):
+            return super().forward(query, key_cache, value_cache, total_seq_lens, block_tables, softmax_scale, mask)
         return paged_decode_gqa(
             query, key_cache, value_cache, total_seq_lens, block_tables,
             softmax_scale, self.gqa_layout, self.kv_layout,
@@ -95,13 +105,14 @@ class CudaPagedPrefillGQA(MojoPagedPrefillGQA):
         block_tables: torch.Tensor,
         softmax_scale: Optional[float] = None,
         cu_total_seq_lens: Optional[torch.Tensor] = None,
-        *,
+        mask: Optional[torch.Tensor] = None,
         max_q_len: Optional[int] = None,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        if _golden_head_dim(CudaPagedPrefillGQA, query.shape[-1]):
+        if _golden_mask(CudaPagedPrefillGQA, mask is not None) or _golden_head_dim(CudaPagedPrefillGQA,
+                                                                                  query.shape[-1]):
             return super().forward(query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale,
-                                   cu_total_seq_lens, max_q_len=max_q_len, max_total_seq_len=max_total_seq_len)
+                                   cu_total_seq_lens, mask, max_q_len, max_total_seq_len)
         return paged_prefill_gqa(
             query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale, cu_total_seq_lens,
             self.gqa_layout, self.kv_layout, is_causal=self.is_causal, max_q_len=max_q_len,
@@ -126,8 +137,9 @@ class CudaPagedDecodeGQAWithKVDequant(MojoPagedDecodeGQAWithKVDequant):
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        _check_kernel_options(self, query_scale, mask)
-        if _golden_head_dim(CudaPagedDecodeGQAWithKVDequant, query.shape[-1]):
+        _check_kernel_options(self, query_scale)
+        if (_golden_mask(CudaPagedDecodeGQAWithKVDequant, mask is not None and not self.is_causal)
+                or _golden_head_dim(CudaPagedDecodeGQAWithKVDequant, query.shape[-1])):
             return super().forward(query, query_scale, key_cache, key_scale, value_cache, value_scale,
                                    total_seq_lens, block_tables, softmax_scale, mask)
         return paged_decode_gqa(
@@ -183,7 +195,7 @@ class CudaPagedDecodeSWAWithKVDequant(MojoPagedDecodeSWAWithKVDequant):
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        _check_kernel_options(self, query_scale, None)
+        _check_kernel_options(self, query_scale)
         if not self.is_causal or _golden_head_dim(CudaPagedDecodeSWAWithKVDequant, query.shape[-1]):
             CudaPagedDecodeSWAWithKVDequant.golden_calls += not self.is_causal
             return super().forward(query, query_scale, key_cache, key_scale, value_cache, value_scale,
@@ -213,8 +225,9 @@ class CudaPagedPrefillGQAWithKVDequant(MojoPagedPrefillGQAWithKVDequant):
         max_q_len: Optional[int] = None,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        _check_kernel_options(self, query_scale, mask)
-        if _golden_head_dim(CudaPagedPrefillGQAWithKVDequant, query.shape[-1]):
+        _check_kernel_options(self, query_scale)
+        if (_golden_mask(CudaPagedPrefillGQAWithKVDequant, mask is not None)
+                or _golden_head_dim(CudaPagedPrefillGQAWithKVDequant, query.shape[-1])):
             return super().forward(query, query_scale, key_cache, key_scale, value_cache, value_scale, cu_q_lens,
                                    block_tables, softmax_scale, cu_total_seq_lens, mask, max_q_len, max_total_seq_len)
         return paged_prefill_gqa(

@@ -5,7 +5,7 @@ Counterpart of the JAX package's ``core/operators/attention.py`` (helpers
 :51-151, ``window_mask_rows`` :113, ``MojoDecodeGQA`` :154,
 ``MojoPagedDecodeGQA`` :198, ``MojoPrefillGQA`` :272,
 ``MojoPagedPrefillGQA`` :308, ``MojoSdpa`` :401, ``_SWAConfigMixin``
-:440, ``MojoPagedDecodeSWA`` :532, ``MojoSWA`` :575).
+:440, ``MojoPagedPrefillSWA`` :471, ``MojoPagedDecodeSWA`` :532, ``MojoSWA`` :575).
 
 Shape contracts (identical to the JAX package):
   * paged caches: HND ``(n_blocks, n_kv_heads, block_size, head_dim)`` or
@@ -20,8 +20,16 @@ The decode golden is the JAX one, vectorized over the batch. The prefill
 golden loops over sequences on the host (it reads ``cu_q_lens`` back):
 the JAX golden's per-token gather of every sequence's keys is
 ``T * K * Hq * D`` elements, 14 GB per layer at a 1650-token batch of
-Qwen3-4B. The dense goldens are the JAX ones, vectorized with masks. The
-paged ops' custom masks and ``MojoPagedPrefillSWA`` are not ported yet.
+Qwen3-4B. The dense goldens are the JAX ones, vectorized with masks.
+
+Custom masks (``mask``, read only when ``is_causal`` is False) keep the JAX
+ops' two contracts, which deliberately differ (JAX :243-262, :378-391):
+the decode reads row ``total_seq_len`` of a 2-D ``(rows, Tm)`` or per-batch
+3-D ``(B, rows, Tm)`` mask with True = EXCLUDE; the prefill reads rows
+``q_abs`` (each query row's absolute position) with True = KEEP. Columns
+past ``Tm`` count as False in both (the decode keeps them, the prefill
+drops them). ``MojoPagedPrefillSWA`` (JAX :471) is the prefill with
+``window_mask_rows`` on absolute positions.
 """
 
 from __future__ import annotations
@@ -137,16 +145,38 @@ def _check_layouts(gqa_layout: str, kv_layout: str) -> None:
         raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got {kv_layout}")
 
 
+def _mask_columns(rows: torch.Tensor, width: int) -> torch.Tensor:
+    """Bool mask rows cut or padded with False to ``width`` columns."""
+    rows = rows.bool()[..., :width]
+    if rows.shape[-1] < width:
+        rows = torch.nn.functional.pad(rows, (0, width - rows.shape[-1]), value=False)
+    return rows
+
+
+def decode_mask_rows(mask: torch.Tensor, total_seq_lens: torch.Tensor, K: int) -> torch.Tensor:
+    """(B, K) keys the decode's custom mask EXCLUDES: row ``total_seq_lens``
+    (clamped to the mask's rows) of a 2-D mask, or of each batch's mask
+    (JAX :243-262)."""
+    if mask.ndim == 2:
+        rows = mask[total_seq_lens.clamp(0, mask.shape[0] - 1).long()]
+    else:
+        batch = torch.arange(mask.shape[0], device=mask.device)
+        rows = mask[batch, total_seq_lens.clamp(0, mask.shape[1] - 1).long()]
+    return _mask_columns(rows, K)
+
+
 def decode_keep_mask(total_seq_lens: torch.Tensor, K: int, local_window_size: Optional[int],
-                     global_window_size: Optional[int]) -> torch.Tensor:
+                     global_window_size: Optional[int], mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, K) keys a decode row sees: its first ``total_seq_lens`` keys and,
     with a window, ``window_mask_rows`` of them for the row at
-    ``total_seq_lens - 1``."""
+    ``total_seq_lens - 1``; with a custom ``mask``, none it excludes."""
     kv_pos = torch.arange(K, dtype=torch.int32, device=total_seq_lens.device)
     keep = kv_pos[None, :] < total_seq_lens[:, None]
     if local_window_size is not None or global_window_size is not None:
         keep = keep & window_mask_rows((total_seq_lens - 1)[:, None], kv_pos[None, :], local_window_size,
                                        global_window_size)[:, 0, :]
+    if mask is not None:
+        keep = keep & ~decode_mask_rows(mask.to(keep.device), total_seq_lens, K)
     return keep
 
 
@@ -161,10 +191,12 @@ def paged_decode_reference(
     kv_layout: str,
     local_window_size: Optional[int] = None,
     global_window_size: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Golden paged decode: gather the pages, expand GQA, fp32 softmax.
     With a window, the query row at ``total_seq_lens - 1`` keeps
-    ``window_mask_rows`` of its keys (JAX ``MojoPagedDecodeSWA`` :532)."""
+    ``window_mask_rows`` of its keys (JAX ``MojoPagedDecodeSWA`` :532); a
+    custom ``mask`` excludes the keys ``decode_mask_rows`` names."""
     assert_paged_decode_contract(block_tables, total_seq_lens)
     B, Hq, D = query.shape
     _, Hkv, _, _ = paged_cache_dims(key_cache, kv_layout)
@@ -177,7 +209,7 @@ def paged_decode_reference(
     K = k.shape[1]
 
     scores = torch.einsum("bhd,bkhd->bhk", query.float(), k.float()) * softmax_scale
-    valid = decode_keep_mask(total_seq_lens, K, local_window_size, global_window_size)[:, None, :]
+    valid = decode_keep_mask(total_seq_lens, K, local_window_size, global_window_size, mask)[:, None, :]
     probs = masked_softmax(scores, valid, query.dtype)
     out = torch.einsum("bhk,bkhd->bhd", probs, v.to(query.dtype))
     out = torch.where((total_seq_lens > 0)[:, None, None], out, 0)
@@ -192,17 +224,24 @@ def prefill_sequences(
     cu_total_seq_lens: Optional[torch.Tensor],
     kv_layout: str,
     is_causal: bool = True,
+    mask: Optional[torch.Tensor] = None,
+    local_window_size: Optional[int] = None,
+    global_window_size: Optional[int] = None,
 ):
     """The golden prefill's walk over sequences that have query and KV
     tokens: yields ``(q0, q1, k, v, keep)`` with k/v ``(kv_len, Hkv, D)``
     gathered from the pages and the keep-mask ``(q1 - q0, kv_len)``.
 
     Query row i of sequence b sits at absolute position
-    ``kv_len[b] - q_len[b] + i`` and (causal) sees keys at positions <= it.
+    ``q_abs = kv_len[b] - q_len[b] + i`` and (causal) sees
+    ``window_mask_rows`` of the keys (without a window: those at positions
+    <= it); non-causal, every key, or with a custom ``mask`` the columns of
+    its rows ``q_abs`` (2-D, or batch b's of a 3-D mask) that are True.
     """
     _, _, bs, _ = paged_cache_dims(key_cache, kv_layout)
     cu = cu_q_lens.tolist()
     kv_lens = seq_lens_from_cu(cu_q_lens if cu_total_seq_lens is None else cu_total_seq_lens).tolist()
+    mask = None if mask is None else mask.to(key_cache.device)
     for b, kv_len in enumerate(kv_lens):
         q0, q1 = cu[b], cu[b + 1]
         if q1 <= q0 or kv_len <= 0:
@@ -211,9 +250,12 @@ def prefill_sequences(
         k = gather_paged_kv(key_cache, table, kv_layout)[0, :kv_len]
         v = gather_paged_kv(value_cache, table, kv_layout)[0, :kv_len]
         kv_pos = torch.arange(kv_len, device=key_cache.device)
+        q_abs = kv_len - (q1 - q0) + torch.arange(q1 - q0, device=key_cache.device)
         if is_causal:
-            q_abs = kv_len - (q1 - q0) + torch.arange(q1 - q0, device=key_cache.device)
-            keep = kv_pos[None, :] <= q_abs[:, None]
+            keep = window_mask_rows(q_abs, kv_pos, local_window_size, global_window_size)
+        elif mask is not None:
+            rows = q_abs.clamp(0, mask.shape[-2] - 1)
+            keep = _mask_columns(mask[rows] if mask.ndim == 2 else mask[b, rows], kv_len)
         else:
             keep = torch.ones((q1 - q0, kv_len), dtype=torch.bool, device=key_cache.device)
         yield q0, q1, k, v, keep
@@ -230,9 +272,12 @@ def paged_prefill_reference(
     gqa_layout: str,
     kv_layout: str,
     is_causal: bool = True,
+    mask: Optional[torch.Tensor] = None,
+    local_window_size: Optional[int] = None,
+    global_window_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Golden varlen paged prefill, one sequence at a time
-    (``prefill_sequences``)."""
+    (``prefill_sequences``, which reads the mask and the windows)."""
     assert_paged_prefill_contract(cu_q_lens, block_tables, cu_total_seq_lens)
     T, Hq, D = query.shape
     _, Hkv, _, _ = paged_cache_dims(key_cache, kv_layout)
@@ -242,7 +287,8 @@ def paged_prefill_reference(
 
     out = torch.zeros_like(query)
     for q0, q1, k, v, keep in prefill_sequences(
-        key_cache, value_cache, cu_q_lens, block_tables, cu_total_seq_lens, kv_layout, is_causal
+        key_cache, value_cache, cu_q_lens, block_tables, cu_total_seq_lens, kv_layout, is_causal, mask,
+        local_window_size, global_window_size,
     ):
         k = expand_gqa(k, group, gqa_layout, 1)  # (K, Hq, D)
         v = expand_gqa(v, group, gqa_layout, 1)
@@ -254,7 +300,8 @@ def paged_prefill_reference(
 
 class MojoPagedDecodeGQA(MojoOperator):
     """Paged decode GQA: q (B, Hq, D), one token per sequence, over a
-    blocked KV cache. ``total_seq_lens`` counts the new token."""
+    blocked KV cache. ``total_seq_lens`` counts the new token. A non-causal
+    call reads ``mask`` (the decode contract: True = exclude)."""
 
     def __init__(self, is_causal: bool = True, gqa_layout: str = "AABB", kv_layout: str = "HND"):
         super().__init__()
@@ -271,12 +318,13 @@ class MojoPagedDecodeGQA(MojoOperator):
         total_seq_lens: torch.Tensor,
         block_tables: torch.Tensor,
         softmax_scale: Optional[float] = None,
+        mask: Optional[torch.Tensor] = None,
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
         return paged_decode_reference(
             query, key_cache, value_cache, total_seq_lens, block_tables,
-            softmax_scale, self.gqa_layout, self.kv_layout,
+            softmax_scale, self.gqa_layout, self.kv_layout, mask=None if self.is_causal else mask,
         )
 
     def extra_repr(self) -> str:
@@ -285,7 +333,8 @@ class MojoPagedDecodeGQA(MojoOperator):
 
 class MojoPagedPrefillGQA(MojoOperator):
     """Varlen paged prefill GQA: q (T, Hq, D) + cu_q_lens + paged cache.
-    Chunked prefill via ``cu_total_seq_lens`` (kv_len >= q_len)."""
+    Chunked prefill via ``cu_total_seq_lens`` (kv_len >= q_len). A
+    non-causal call reads ``mask`` (the prefill contract: True = keep)."""
 
     def __init__(self, is_causal: bool = True, gqa_layout: str = "AABB", kv_layout: str = "HND"):
         super().__init__()
@@ -303,13 +352,13 @@ class MojoPagedPrefillGQA(MojoOperator):
         block_tables: torch.Tensor,
         softmax_scale: Optional[float] = None,
         cu_total_seq_lens: Optional[torch.Tensor] = None,
-        *,
+        mask: Optional[torch.Tensor] = None,
         max_q_len: Optional[int] = None,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
         return paged_prefill_reference(
             query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale,
-            cu_total_seq_lens, self.gqa_layout, self.kv_layout, self.is_causal,
+            cu_total_seq_lens, self.gqa_layout, self.kv_layout, self.is_causal, mask,
         )
 
     def extra_repr(self) -> str:
@@ -477,6 +526,31 @@ class _SWAConfigMixin:
         return (
             f"is_causal={self.is_causal}, gqa_layout={self.gqa_layout}, "
             f"global_window_size={self.global_window_size}, local_window_size={self.local_window_size}"
+        )
+
+
+class MojoPagedPrefillSWA(_SWAConfigMixin, MojoOperator):
+    """Varlen paged prefill with the sliding/global window (JAX :471-529):
+    ``MojoPagedPrefillGQA`` whose query row at absolute position ``q_abs``
+    sees (causal) ``window_mask_rows`` of its sequence's keys; non-causal,
+    all of them. A sequence with no keys gives 0 rows."""
+
+    def forward(
+        self,
+        query: torch.Tensor,
+        key_cache: torch.Tensor,
+        value_cache: torch.Tensor,
+        cu_q_lens: torch.Tensor,
+        block_table: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        cu_total_seq_lens: Optional[torch.Tensor] = None,
+        *,
+        max_q_len: Optional[int] = None,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        return paged_prefill_reference(
+            query, key_cache, value_cache, cu_q_lens, block_table, softmax_scale, cu_total_seq_lens,
+            self.gqa_layout, self.kv_layout, self.is_causal, None, self.local_window_size, self.global_window_size,
         )
 
 

@@ -1,10 +1,15 @@
-"""Paged KV-cache store (counterpart of
-the JAX package's ``core/operators/kv_cache.py:93,129``).
+"""Paged KV-cache store (counterpart of the JAX package's
+``core/operators/kv_cache.py``: ``drop_invalid`` :26,
+``assert_paged_kv_store_contract`` :35, ``build_paged_kv_chunk_metadata``
+:41, ``build_paged_kv_token_indices`` :93, ``MojoStorePagedKVCache`` :129).
 
 The JAX op returns updated caches (in place under jit with donated
 buffers); this one writes into the caches it is given with one
-``index_put_`` per cache, and returns them. No host sync: destinations are
-computed on the device from the block table.
+``index_put_`` per cache, and returns them. No host sync on the table path:
+destinations are computed on the device from the block table. The
+``chunk_metadata`` path takes the JAX op's eager plan of
+``(src_start, dst_block, dst_offset, len)`` rows and expands it to tokens
+on the host, as the JAX op does (:178-190).
 """
 
 from __future__ import annotations
@@ -16,6 +21,74 @@ import torch
 from mojo_opset_tpu_torch.core.operator import MojoOperator
 
 KV_LAYOUTS = ("HND", "NHD")
+
+
+def drop_invalid(dst_block: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The ``-1`` sentinel (any negative block) remapped to ``n_rows``, a
+    block past the cache's last, so that a write that drops out-of-range
+    rows drops it; a negative index would name the LAST block instead
+    (Python-style wrap), which is what the JAX op's remap guards against."""
+    return torch.where(dst_block >= 0, dst_block, n_rows).to(torch.int32)
+
+
+def assert_paged_kv_store_contract(chunk_metadata: torch.Tensor) -> None:
+    """An int32 ``(rows, 4)`` plan."""
+    if chunk_metadata.dtype != torch.int32 or chunk_metadata.ndim != 2 or chunk_metadata.shape[1] != 4:
+        raise ValueError(f"chunk_metadata must be int32 (rows, 4), got {chunk_metadata.dtype} "
+                         f"{tuple(chunk_metadata.shape)}")
+
+
+def build_paged_kv_chunk_metadata(
+    block_table: torch.Tensor,
+    cu_q_lens: Optional[torch.Tensor],
+    context_kv_lens: torch.Tensor,
+    block_size: int,
+) -> torch.Tensor:
+    """Store plan: int32 rows ``(src_token_start, dst_block_id,
+    dst_block_offset, chunk_len)``, one for each (sequence, block) that new
+    tokens land in, sequences in order, blocks in table order (JAX :41-90).
+    Without ``cu_q_lens`` (decode) sequence i's one new token i lands at
+    position ``context_kv_lens[i]``. Tokens at a negative context, past the
+    table or on a ``-1`` block get no row. Built with torch on the table's
+    device; the row count depends on the data, so the call syncs."""
+    dev = block_table.device
+    bt = block_table.to(torch.int32)
+    ctx = context_kv_lens.to(device=dev, dtype=torch.int32)
+    batch_size, max_blocks = ctx.shape[0], bt.shape[1]
+    if batch_size == 0 or max_blocks == 0:
+        return torch.empty((0, 4), dtype=torch.int32, device=dev)
+    if cu_q_lens is None:
+        src = torch.arange(batch_size, dtype=torch.int32, device=dev)
+        safe_ctx = ctx.clamp(min=0)
+        logical = safe_ctx // block_size
+        physical = bt[src.long(), logical.clamp(0, max_blocks - 1).long()]
+        valid = (ctx >= 0) & (logical < max_blocks) & (physical >= 0)
+        rows = torch.stack([src, physical, safe_ctx % block_size, torch.ones_like(src)], dim=-1)
+        return rows[valid].to(torch.int32)
+    cu = cu_q_lens.to(device=dev, dtype=torch.int32)
+    q_lens = cu[1:] - cu[:-1]
+    block_start = torch.arange(max_blocks, dtype=torch.int32, device=dev)[None, :] * block_size
+    seq_start, seq_end = ctx[:, None], (ctx + q_lens)[:, None]
+    overlap_start = torch.maximum(seq_start, block_start)
+    chunk_lens = (torch.minimum(seq_end, block_start + block_size) - overlap_start).clamp(min=0)
+    valid = (q_lens > 0)[:, None] & (ctx >= 0)[:, None] & (chunk_lens > 0) & (bt >= 0)
+    rows = torch.stack([cu[:-1, None] + (overlap_start - seq_start), bt, overlap_start - block_start, chunk_lens],
+                       dim=-1)
+    return rows[valid].to(torch.int32)
+
+
+def chunk_token_indices(chunk_metadata: torch.Tensor, n_blocks: int, block_size: int):
+    """A chunk plan expanded to one ``(src, dst_block, dst_offset)`` a token,
+    on the host (JAX :178-190); tokens whose block or offset lies outside
+    the cache are dropped, as the JAX op's ``mode='drop'`` write drops them
+    (a ``-1`` block through ``drop_invalid``)."""
+    m = chunk_metadata.cpu().long()
+    lens = m[:, 3].clamp(min=0)
+    row = torch.repeat_interleave(torch.arange(m.shape[0]), lens)
+    step = torch.arange(row.shape[0]) - torch.repeat_interleave(lens.cumsum(0) - lens, lens)
+    src, blk, off = m[row, 0] + step, drop_invalid(m[row, 1], n_blocks).long(), m[row, 2] + step
+    keep = (blk < n_blocks) & (off >= 0) & (off < block_size)
+    return src[keep], blk[keep], off[keep]
 
 
 def build_paged_kv_token_indices(
@@ -84,13 +157,13 @@ def _write(cache: torch.Tensor, blk: torch.Tensor, off: torch.Tensor, rows: torc
 class MojoStorePagedKVCache(MojoOperator):
     """Scatter new K/V tokens ``(T, Hkv, D)`` into a paged cache, in place.
 
-    Destinations come either from ``(block_table, cu_q_lens,
-    context_kv_lens)`` (the JAX op's jittable contract: computed on the
-    device, tokens without a block are dropped), or precomputed as
-    ``token_indices = (dst_block, dst_offset)`` with one valid slot per
-    token (the counterpart of the JAX op's host-built ``chunk_metadata``
-    plan; the session builds it once per step, so the layers launch two
-    scatters and nothing else).
+    Destinations come from ``(block_table, cu_q_lens, context_kv_lens)``
+    (the JAX op's jittable contract: computed on the device, tokens without
+    a block are dropped), from the JAX op's ``chunk_metadata`` plan
+    (``build_paged_kv_chunk_metadata``; not mixed with the tables, an empty
+    plan writes nothing), or precomputed as ``token_indices = (dst_block,
+    dst_offset)`` with one valid slot per token (the session builds it once
+    per step, so the layers launch two scatters and nothing else).
 
     ``kv_layout``: "HND" = (N, Hkv, bs, D); "NHD" = (N, bs, Hkv, D), token
     rows contiguous (the Qwen3 default).
@@ -115,11 +188,12 @@ class MojoStorePagedKVCache(MojoOperator):
         cu_q_lens: Optional[torch.Tensor] = None,
         context_kv_lens: Optional[torch.Tensor] = None,
         *,
+        chunk_metadata: Optional[torch.Tensor] = None,
         token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         return store_paged_kv(
             key_states, value_states, key_cache, value_cache, self.kv_layout,
-            block_table, cu_q_lens, context_kv_lens, token_indices,
+            block_table, cu_q_lens, context_kv_lens, token_indices, chunk_metadata,
         )
 
 
@@ -133,13 +207,14 @@ def store_paged_kv(
     cu_q_lens: Optional[torch.Tensor] = None,
     context_kv_lens: Optional[torch.Tensor] = None,
     token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    chunk_metadata: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write K/V rows ``(T, Hkv, D)`` into the caches in place (see
     ``MojoStorePagedKVCache``); returns the caches."""
     if not (key_states.ndim == 3 and key_states.shape == value_states.shape):
         raise ValueError("key/value states must be (token_num, kv_head_num, head_dim)")
     store_paged_rows(((key_states, key_cache), (value_states, value_cache)), kv_layout,
-                     block_table, cu_q_lens, context_kv_lens, token_indices)
+                     block_table, cu_q_lens, context_kv_lens, token_indices, chunk_metadata)
     return key_cache, value_cache
 
 
@@ -150,11 +225,24 @@ def store_paged_rows(
     cu_q_lens: Optional[torch.Tensor] = None,
     context_kv_lens: Optional[torch.Tensor] = None,
     token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    chunk_metadata: Optional[torch.Tensor] = None,
 ) -> None:
     """Write each ``(states (T, Hkv, D), cache)`` pair's rows into its paged
     cache in place, all at the same token slots; the caches may differ in
     ``D`` (MLA's latent and rope caches)."""
     T = pairs[0][0].shape[0]
+    if chunk_metadata is not None:
+        if block_table is not None or cu_q_lens is not None or context_kv_lens is not None or token_indices is not None:
+            raise ValueError("chunk_metadata is not mixed with block_table/cu_q_lens/context_kv_lens/token_indices")
+        assert_paged_kv_store_contract(chunk_metadata)
+        cache0 = pairs[0][1]
+        block_size = cache0.shape[2] if kv_layout == "HND" else cache0.shape[1]
+        src, blk, off = (t.to(cache0.device) for t in chunk_token_indices(chunk_metadata, cache0.shape[0],
+                                                                            block_size))
+        if src.numel():
+            for states, cache in pairs:
+                _write(cache, blk, off, states[src], kv_layout)
+        return
     if T == 0:
         return
     if token_indices is not None:

@@ -1,9 +1,9 @@
-"""Experimental paged KV caches: the MLA latent store, and the int8 (C8)
-store with its dequantizing read-back.
+"""Experimental paged KV caches: the MLA latent store, the int8 (C8)
+store with its dequantizing read-back, and the low-rank label store.
 
 Counterpart of the JAX package's ``experimental/operators/kv_cache.py``
 (``MojoStorePagedMLAKVCache`` :24, ``MojoStorePagedKVCacheC8`` :52,
-``MojoDequantFromPagedKVCache`` :93). The C8 caches are int8 HND
+``MojoDequantFromPagedKVCache`` :93, ``MojoStoreLowrank`` :143). The C8 caches are int8 HND
 ``(N, Hkv, block_size, D)`` with per-channel fp32 scales ``(Hkv, D)``; the
 MLA caches are ``(N, 1, block_size, r)`` latents and ``(N, 1, block_size,
 dr)`` rope keys. The stores write in place, like the bf16 store, where the
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
-from mojo_opset_tpu_torch.core.operators.kv_cache import store_paged_kv, store_paged_rows
+from mojo_opset_tpu_torch.core.operators.kv_cache import drop_invalid, store_paged_kv, store_paged_rows
 
 
 class MojoStorePagedMLAKVCache(MojoOperator):
@@ -81,8 +81,11 @@ class MojoStorePagedKVCacheC8(MojoOperator):
         cu_q_lens: Optional[torch.Tensor] = None,
         context_kv_lens: Optional[torch.Tensor] = None,
         *,
+        chunk_metadata: Optional[torch.Tensor] = None,
         token_indices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if chunk_metadata is not None:  # as the JAX op (experimental/operators/kv_cache.py:72-76)
+            raise NotImplementedError("C8 store uses the per-token plan; pass block_table/cu_q_lens/context_kv_lens")
         if key_cache.dtype != torch.int8 or value_cache.dtype != torch.int8:
             raise ValueError(f"C8 caches must be int8, got {key_cache.dtype}, {value_cache.dtype}")
         return store_paged_kv(
@@ -139,3 +142,34 @@ class MojoDequantFromPagedKVCache(MojoOperator):
         if value is not None and value_cache is not None and value_cache_scale is not None:
             value = fill(value, value_cache, value_cache_scale)
         return key, value
+
+
+class MojoStoreLowrank(MojoOperator):
+    """Write low-rank latent states ``key_lr`` (T, N, D) into a BNSD label
+    cache ``(B, N, S, D)`` at ``(block_idxs[t], :, token_idxs[t])`` for the
+    first ``token_num`` tokens, in place; returns the cache. A ``-1`` (any
+    negative) block is dropped through ``drop_invalid``, never written to
+    the last block; a negative token index counts from the end, as a JAX
+    index does, and one still outside the cache is dropped (JAX
+    ``mode='drop'``)."""
+
+    def forward(
+        self,
+        label_cache: torch.Tensor,
+        key_lr: torch.Tensor,
+        block_idxs: torch.Tensor,
+        token_idxs: torch.Tensor,
+        token_num: int,
+    ) -> torch.Tensor:
+        if block_idxs.dtype != torch.int32 or token_idxs.dtype != torch.int32:
+            raise ValueError(f"block_idxs and token_idxs must be int32, got {block_idxs.dtype}, {token_idxs.dtype}")
+        if label_cache.ndim != 4 or key_lr.ndim != 3:
+            raise ValueError(f"label_cache must be BNSD and key_lr SND, got {tuple(label_cache.shape)}, "
+                             f"{tuple(key_lr.shape)}")
+        n_blocks, S = label_cache.shape[0], label_cache.shape[2]
+        blocks = drop_invalid(block_idxs[:token_num], n_blocks).long()
+        tokens = token_idxs[:token_num].long()
+        tokens = torch.where(tokens < 0, tokens + S, tokens)
+        keep = (blocks < n_blocks) & (tokens >= 0) & (tokens < S)
+        label_cache[blocks[keep], :, tokens[keep]] = key_lr[:token_num][keep].to(label_cache.dtype)
+        return label_cache

@@ -4,12 +4,16 @@ Counterpart of the JAX package's
 ``experimental/operators/kv_quant_attention.py`` (``dynamic_quantize``
 :36, ``_KVDequantConfig`` :45, ``MojoPagedDecodeGQAWithKVDequant`` :109,
 ``MojoPagedPrefillGQAWithKVDequant`` :169, ``_SWADequantMixin`` :231,
-``MojoPagedDecodeSWAWithKVDequant`` :243). The caches are int8 HND with
+``MojoPagedDecodeSWAWithKVDequant`` :243, ``MojoPagedPrefillSWAWithKVDequant``
+:283, ``MojoPagedDecodeNstepSWA`` :336). The caches are int8 HND with
 per-channel fp32 scales ``(Hkv, D)``; the golden dequantizes K and V in
 fp32. ``compute_dtype=torch.int8`` re-quantizes the key-scaled query and
 the probabilities per row, so both products run on int8 values (golden
-tier only). Custom masks, the SWA prefill and the n-step SWA decode are
-not ported yet.
+tier only). A non-causal call reads a custom ``mask`` with the contracts of
+``core/operators/attention.py`` (decode: row ``total_seq_len``, True =
+exclude; prefill: rows ``q_abs``, True = keep; JAX :121, :180). The n-step
+decode reads bf16/fp32 pages, not int8 ones: it is the speculative
+verify's windowed decode of S rows a sequence.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from mojo_opset_tpu_torch.core.operators.attention import (
     gather_paged_kv,
     masked_softmax,
     prefill_sequences,
+    window_mask_rows,
 )
 from mojo_opset_tpu_torch.core.operators.quantize import dynamic_quant
 
@@ -76,10 +81,11 @@ def paged_decode_dequant_reference(
     compute_dtype: Optional[torch.dtype] = None,
     local_window_size: Optional[int] = None,
     global_window_size: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Golden decode over int8 HND pages: q (B, Hq, D) against the first
     ``total_seq_lens[b]`` tokens, K and V dequantized by their scales; with
-    a window, the keys ``decode_keep_mask`` keeps."""
+    a window or a custom mask, the keys ``decode_keep_mask`` keeps."""
     assert_paged_decode_contract(block_tables, total_seq_lens)
     B, Hq, D = query.shape
     Hkv = key_cache.shape[1]
@@ -91,7 +97,7 @@ def paged_decode_dequant_reference(
     k = expand_gqa(gather_paged_kv(key_cache, block_tables), group, gqa_layout, 2)  # (B, K, Hq, D)
     v = expand_gqa(gather_paged_kv(value_cache, block_tables), group, gqa_layout, 2)
     scores = _scores("bhd,bkhd->bhk", query, k, ks, softmax_scale, int8_compute)
-    valid = decode_keep_mask(total_seq_lens, k.shape[1], local_window_size, global_window_size)[:, None, :]
+    valid = decode_keep_mask(total_seq_lens, k.shape[1], local_window_size, global_window_size, mask)[:, None, :]
     probs = masked_softmax(scores, valid, query.dtype)
     out = _pv("bhk,bkhd->bhd", probs, v, vs, int8_compute)
     out = torch.where((total_seq_lens > 0)[:, None, None], out, 0)
@@ -111,9 +117,13 @@ def paged_prefill_dequant_reference(
     gqa_layout: str = "AABB",
     is_causal: bool = True,
     compute_dtype: Optional[torch.dtype] = None,
+    mask: Optional[torch.Tensor] = None,
+    local_window_size: Optional[int] = None,
+    global_window_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Golden varlen prefill over int8 HND pages, one sequence at a time
-    (``prefill_sequences``); chunked prefill through ``cu_total_seq_lens``."""
+    (``prefill_sequences``, which reads the mask and the windows); chunked
+    prefill through ``cu_total_seq_lens``."""
     assert_paged_prefill_contract(cu_q_lens, block_tables, cu_total_seq_lens)
     T, Hq, D = query.shape
     Hkv = key_cache.shape[1]
@@ -124,7 +134,8 @@ def paged_prefill_dequant_reference(
     ks, vs = _expand_scales(key_scale, value_scale, Hq, Hkv, gqa_layout)
     out = torch.zeros_like(query)
     for q0, q1, k, v, keep in prefill_sequences(
-        key_cache, value_cache, cu_q_lens, block_tables, cu_total_seq_lens, "HND", is_causal
+        key_cache, value_cache, cu_q_lens, block_tables, cu_total_seq_lens, "HND", is_causal, mask,
+        local_window_size, global_window_size,
     ):
         k = expand_gqa(k, group, gqa_layout, 1)  # (K, Hq, D)
         v = expand_gqa(v, group, gqa_layout, 1)
@@ -149,12 +160,9 @@ class _KVDequantConfig:
         self.compute_dtype = compute_dtype
 
     @staticmethod
-    def _check_unported(query_scale, mask) -> None:
+    def _check_query_scale(query_scale) -> None:
         if query_scale is not None:
             raise NotImplementedError("query_scale: a quantized query is not implemented")
-        if mask is not None:
-            raise NotImplementedError("custom masks are not ported yet (ROADMAP.md queue 1, 'The rest of the paged "
-                                      "SWA ops')")
 
     def extra_repr(self) -> str:
         return (
@@ -184,10 +192,10 @@ class MojoPagedDecodeGQAWithKVDequant(_KVDequantConfig, MojoOperator):
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        self._check_unported(query_scale, mask)
+        self._check_query_scale(query_scale)
         return paged_decode_dequant_reference(
             query, key_cache, key_scale, value_cache, value_scale, total_seq_lens, block_tables,
-            softmax_scale, self.gqa_layout, self.compute_dtype,
+            softmax_scale, self.gqa_layout, self.compute_dtype, mask=None if self.is_causal else mask,
         )
 
 
@@ -228,7 +236,7 @@ class MojoPagedDecodeSWAWithKVDequant(_SWADequantMixin, MojoOperator):
         *,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        self._check_unported(query_scale, None)
+        self._check_query_scale(query_scale)
         windows = (self.local_window_size, self.global_window_size) if self.is_causal else (None, None)
         return paged_decode_dequant_reference(
             query, key_cache, key_scale, value_cache, value_scale, total_seq_lens, block_table,
@@ -258,8 +266,99 @@ class MojoPagedPrefillGQAWithKVDequant(_KVDequantConfig, MojoOperator):
         max_q_len: Optional[int] = None,
         max_total_seq_len: Optional[int] = None,
     ) -> torch.Tensor:
-        self._check_unported(query_scale, mask)
+        self._check_query_scale(query_scale)
         return paged_prefill_dequant_reference(
             query, key_cache, key_scale, value_cache, value_scale, cu_q_lens, block_tables, softmax_scale,
-            cu_total_seq_lens, self.gqa_layout, self.is_causal, self.compute_dtype,
+            cu_total_seq_lens, self.gqa_layout, self.is_causal, self.compute_dtype, mask,
+        )
+
+
+class MojoPagedPrefillSWAWithKVDequant(_SWADequantMixin, MojoOperator):
+    """``MojoPagedPrefillGQAWithKVDequant`` with the sliding/global window of
+    ``MojoPagedPrefillSWA`` (causal only; non-causal sees every key)."""
+
+    def __init__(self, is_causal: bool = True, gqa_layout: str = "AABB",
+                 global_window_size: Optional[int] = None, local_window_size: Optional[int] = None,
+                 query_dtype=torch.bfloat16, context_dtype=torch.int8, compute_dtype=torch.bfloat16):
+        super().__init__()
+        self._init_dequant(is_causal, gqa_layout, query_dtype, context_dtype, compute_dtype)
+        self._init_swa(global_window_size, local_window_size)
+
+    def forward(
+        self,
+        query: torch.Tensor,  # (T, Hq, D)
+        query_scale: Optional[torch.Tensor],
+        key_cache: torch.Tensor,
+        key_scale: torch.Tensor,
+        value_cache: torch.Tensor,
+        value_scale: torch.Tensor,
+        cu_q_lens: torch.Tensor,
+        block_table: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        cu_total_seq_lens: Optional[torch.Tensor] = None,
+        *,
+        max_q_len: Optional[int] = None,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        self._check_query_scale(query_scale)
+        return paged_prefill_dequant_reference(
+            query, key_cache, key_scale, value_cache, value_scale, cu_q_lens, block_table, softmax_scale,
+            cu_total_seq_lens, self.gqa_layout, self.is_causal, self.compute_dtype, None,
+            self.local_window_size, self.global_window_size,
+        )
+
+
+class MojoPagedDecodeNstepSWA(MojoOperator):
+    """Multi-token (speculative N-step) windowed decode over HND pages: q
+    (B, S, Hq, D), row s of sequence b at absolute position
+    ``total_seq_lens[b] - S + s``; causal rows see ``window_mask_rows`` of
+    the sequence's first ``total_seq_lens[b]`` keys, non-causal rows all of
+    them. A sequence with ``total_seq_lens == 0`` gives 0."""
+
+    def __init__(self, is_causal: bool = True, gqa_layout: str = "AABB",
+                 global_window_size: Optional[int] = None, local_window_size: Optional[int] = None):
+        super().__init__()
+        if gqa_layout not in GQA_LAYOUTS:
+            raise ValueError(f"gqa_layout must be one of {GQA_LAYOUTS}, got {gqa_layout}")
+        self.is_causal = is_causal
+        self.gqa_layout = gqa_layout
+        self.global_window_size = global_window_size
+        self.local_window_size = local_window_size
+
+    def forward(
+        self,
+        query: torch.Tensor,  # (B, S, Hq, D)
+        key_cache: torch.Tensor,
+        value_cache: torch.Tensor,
+        total_seq_lens: torch.Tensor,
+        block_table: torch.Tensor,
+        softmax_scale: Optional[float] = None,
+        *,
+        max_total_seq_len: Optional[int] = None,
+    ) -> torch.Tensor:
+        assert_paged_decode_contract(block_table, total_seq_lens)
+        if query.ndim != 4:
+            raise ValueError(f"NstepSWA expects a 4-D query (B, S, Hq, D), got {tuple(query.shape)}")
+        B, S, Hq, D = query.shape
+        group = Hq // key_cache.shape[1]
+        if softmax_scale is None:
+            softmax_scale = 1.0 / math.sqrt(D)
+        k = expand_gqa(gather_paged_kv(key_cache, block_table), group, self.gqa_layout, 2)  # (B, K, Hq, D)
+        v = expand_gqa(gather_paged_kv(value_cache, block_table), group, self.gqa_layout, 2)
+        K = k.shape[1]
+        scores = torch.einsum("bshd,bkhd->bhsk", query.float(), k.float()) * softmax_scale
+        kv_pos = torch.arange(K, dtype=torch.int32, device=query.device)
+        keep = (kv_pos[None, None, :] < total_seq_lens[:, None, None]).expand(B, S, K)
+        if self.is_causal:
+            q_abs = total_seq_lens[:, None] - S + torch.arange(S, dtype=torch.int32, device=query.device)[None, :]
+            keep = keep & window_mask_rows(q_abs, kv_pos[None, :], self.local_window_size, self.global_window_size)
+        probs = masked_softmax(scores, keep[:, None], query.dtype)
+        out = torch.einsum("bhsk,bkhd->bshd", probs, v.to(query.dtype))
+        out = torch.where((total_seq_lens > 0)[:, None, None, None], out, 0)
+        return out.to(query.dtype)
+
+    def extra_repr(self) -> str:
+        return (
+            f"is_causal={self.is_causal}, gqa_layout={self.gqa_layout}, "
+            f"global_window_size={self.global_window_size}, local_window_size={self.local_window_size}"
         )

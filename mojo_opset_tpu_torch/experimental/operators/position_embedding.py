@@ -1,9 +1,9 @@
-"""Experimental position embeddings: the T5 relative position bias and the
-Wan DiT's 3-D grid RoPE.
+"""Experimental position embeddings: the T5 relative position bias, the
+Wan DiT's 3-D grid RoPE and the "in place" MRoPE.
 
 Counterpart of the JAX package's ``experimental/operators/position_embedding.py``
-(``MojoRelativeEmbedding`` :21, ``MojoGridRoPE`` :76). ``MojoMRoPEInplace``
-is not ported yet.
+(``MojoRelativeEmbedding`` :21, ``MojoGridRoPE`` :76, ``MojoMRoPEInplace``
+:103).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from mojo_opset_tpu_torch.core.operator import MojoOperator
+from mojo_opset_tpu_torch.core.operators.position_embedding import MojoMRoPE
 from mojo_opset_tpu_torch.utils.platform import resolve_device
 
 
@@ -103,3 +104,17 @@ class MojoGridRoPE(MojoOperator):
             rotated = torch.view_as_real(xc * freqs_list[i]).reshape(n, N, D)
             outs.append(torch.cat([rotated.to(x.dtype), x[i, n:]], dim=0))
         return torch.stack(outs)
+
+
+class MojoMRoPEInplace(MojoOperator):
+    """``MojoMRoPE`` with the ``inplace`` flag, which is API parity, as in
+    the JAX op: the rotated q and k are new tensors."""
+
+    def __init__(self, inplace: bool = False):
+        super().__init__()
+        self.inplace = inplace
+        self.mrope = MojoMRoPE()
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, cos_table: torch.Tensor, sin_table: torch.Tensor,
+                mrope_section: List[int], is_interleaved: bool = False, head_dim: Optional[int] = None):
+        return self.mrope(query, key, cos_table, sin_table, mrope_section, is_interleaved, head_dim)

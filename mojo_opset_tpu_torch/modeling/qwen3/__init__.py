@@ -7,6 +7,7 @@ from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3 import (
     Qwen3Model,
 )
 from mojo_opset_tpu_torch.modeling.qwen3.modeling_qwen3_moe import (
+    MojoQwen3MoeBlock,
     Qwen3MoeConfig,
     Qwen3MoeDecoderLayer,
     Qwen3MoeForCausalLM,
@@ -22,6 +23,7 @@ from mojo_opset_tpu_torch.modeling.qwen3.quantize import (
 )
 
 __all__ = [
+    "MojoQwen3MoeBlock",
     "Qwen3Attention",
     "Qwen3Config",
     "Qwen3DecoderLayer",

@@ -25,8 +25,12 @@ experts' ``{up,down}_proj_weight_scale`` and
 ``{up,down}_proj_quantize.inv_smooth_scale`` and the projections'
 ``weight_scale``.
 
-The toy ``MojoQwen3MoeBlock`` waits for ROADMAP.md queue 1, "The rest of
-the experimental ops".
+The toy ``MojoQwen3MoeBlock`` (JAX :55-121) chains the decomposed ops once:
+embedding, a qkv ``MojoGemm``, ``MojoRMSNorm``, the dense causal
+``MojoPrefillGQA``, ``MojoRMSNorm``, then gating, dispatch, one
+``MojoGroupGemm`` as the experts and the combine. Its ``state_dict()`` keys
+are the JAX block's: ``embedding.weight``, ``qkv_proj.{weight,bias}``,
+``{pre,post}_norm.weight``, ``moe_gate.gate_weight`` and ``moe_gmm.weight``.
 """
 
 from __future__ import annotations
@@ -41,7 +45,12 @@ from mojo_opset_tpu_torch.core.operators import (
     MojoDynamicQuant,
     MojoEmbedding,
     MojoGemm,
+    MojoGroupGemm,
     MojoMoE,
+    MojoMoECombine,
+    MojoMoEDispatch,
+    MojoMoEGating,
+    MojoPrefillGQA,
     MojoQuantMoE,
     MojoRMSNorm,
     MojoRMSNormQuant,
@@ -65,6 +74,58 @@ class Qwen3MoeConfig(Qwen3Config):
         cfg.model_config.moe_topk = self.num_experts_per_tok
         cfg.model_config.moe_ffn_internal_dim = self.moe_intermediate_size
         return cfg
+
+
+class MojoQwen3MoeBlock(nn.Module):
+    """The composed MoE block: ``forward(input_ids (B, S))`` -> (B, S,
+    hidden). The qkv projection's output (3 x heads x head_dim wide) is
+    normed whole, split into q, k and v, and attended causally as B
+    sequences of S; the attention output is normed and routed to
+    ``num_experts`` one-matrix experts (``MojoGroupGemm``, (E, heads x
+    head_dim, hidden)), ``top_k`` a token. Weights in ``dtype`` (the norms
+    and the gate fp32, as in the JAX block) on ``device`` (the card unless
+    another is named), drawn from ``generator``: embedding N(0, 1), qkv
+    U(+-1/sqrt(hidden)), gate N(0, 0.02), experts N(0, 1) / sqrt(heads x
+    head_dim)."""
+
+    def __init__(self, vocab_size: int = 10000, hidden_size: int = 4096, num_heads: int = 32, head_dim: int = 128,
+                 num_experts: int = 8, top_k: int = 2, *, device=None, dtype=torch.bfloat16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        width = num_heads * head_dim
+        self.num_heads = num_heads
+        self.head_dim = head_dim
+        self.embedding = MojoEmbedding(vocab_size, hidden_size, device=device, dtype=dtype)
+        self.qkv_proj = MojoGemm(hidden_size, width * 3, bias=True, device=device, dtype=dtype)
+        self.pre_norm = MojoRMSNorm(width * 3, device=device)
+        self.attn = MojoPrefillGQA()
+        self.post_norm = MojoRMSNorm(width, device=device)
+        self.moe_gate = MojoMoEGating(width, num_experts, top_k, device=device)
+        self.moe_dispatch = MojoMoEDispatch(num_experts)
+        experts = torch.randn((num_experts, width, hidden_size), generator=generator, device=device)
+        self.moe_gmm = MojoGroupGemm((experts * width**-0.5).to(dtype))
+        self.moe_combine = MojoMoECombine()
+        for op in (self.embedding, self.qkv_proj, self.moe_gate):
+            op.reset_parameters(generator=generator)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        B, S = input_ids.shape
+        qkv = self.pre_norm(self.qkv_proj(self.embedding(input_ids)))
+        q, k, v = qkv.chunk(3, dim=-1)
+
+        def heads(x):  # (B, S, H * D) -> (B, H, S, D)
+            return x.reshape(B, S, self.num_heads, self.head_dim).transpose(1, 2)
+
+        cu_q_lens = torch.arange(B + 1, dtype=torch.int32, device=input_ids.device) * S
+        attn = self.attn(heads(q), heads(k), heads(v), cu_q_lens)  # (B, S, Hq, D)
+        tokens = self.post_norm(attn.reshape(B, S, -1)).reshape(B * S, -1)
+        indices, gates = self.moe_gate(tokens)
+        sorted_hidden, tokens_per_expert, sorted_gates, token_indices = self.moe_dispatch(tokens, gates, indices)
+        expert_out = self.moe_gmm(sorted_hidden, tokens_per_expert)
+        out = self.moe_combine(torch.zeros((tokens.shape[0], expert_out.shape[-1]), dtype=expert_out.dtype,
+                                           device=expert_out.device), expert_out, sorted_gates, token_indices)
+        return out.reshape(B, S, -1)
 
 
 class Qwen3MoeDecoderLayer(nn.Module):

@@ -62,8 +62,16 @@ The VAE (``WanVAE_``) has ``{encoder,decoder}.*.{weight,bias}`` of every
 conv (5-D causal convs, 4-D resample and attention convs), the channel
 norms' ``(C, 1, 1, 1)`` weights (``(C, 1, 1)`` in the mid attention), and
 the top-level ``conv1`` and ``conv2``. A single op loads the same
-way under the JAX op's names: a norm op's ``weight`` and ``bias``,
-``MojoSwiGLUMLP``'s ``fc1.weight`` and ``fc2.weight``.
+way under the JAX op's names: a norm op's ``weight`` and ``bias`` (the
+group norms' ``(num_groups, norm_size)`` rows too), ``MojoSwiGLUMLP``'s
+``fc1.weight`` and ``fc2.weight``, NSA's ``gate_proj``, the attention
+gate's ``{full,swa}_gate_{weight,bias}``, ``MojoOverEncoding``'s
+``ori_embedding.weight``, ``oe_up_proj.weight`` and
+``oe_mega_embedding.weight`` (dense, or NF4 bytes with ``.scale`` and
+``.mean``; the NF4 ``codebook`` is recomputed, not loaded),
+``MojoIndexer``'s ``wq_b``, ``wk``, ``weights_proj`` and ``k_norm``
+leaves, and ``MojoQwen3MoeBlock``'s ``embedding``, ``qkv_proj``,
+``{pre,post}_norm``, ``moe_gate.gate_weight`` and ``moe_gmm.weight``.
 """
 
 from __future__ import annotations
@@ -75,7 +83,7 @@ import torch
 from torch import nn
 
 # buffers recomputed at construction, never loaded
-IGNORED_SUFFIXES = ("inv_freq", "freqs")
+IGNORED_SUFFIXES = ("inv_freq", "freqs", "codebook")
 
 
 @torch.no_grad()

@@ -275,3 +275,74 @@ def test_experts_take_the_golden_off_whole_16_byte_rows():
     before = CudaExperts.golden_calls
     assert torch.equal(ops[0](x, counts), ops[1](x, counts))
     assert CudaExperts.golden_calls == before + 1
+
+
+# ---------------------------------------------------------------- RoPE's golden routes
+
+# (q shape, k shape, table (rows, width), head_first): the forms JAX's Pallas tier sends to its golden
+# (backends/pallas/operators/position_embedding.py:33-67) and kernels B and M do not take
+ROPE_GOLDEN_FORMS = {
+    "token-first partial": ((8, 4, 128), (8, 2, 128), (8, 64), False),
+    "token-first 4-D": ((2, 8, 4, 128), (2, 8, 1, 128), (8, 128), False),
+    "token-first 4-D partial": ((2, 8, 4, 128), (2, 8, 1, 128), (8, 64), False),
+    "head-first partial": ((2, 4, 8, 128), (2, 2, 8, 128), (8, 64), True),
+    "head-first 3-D partial": ((4, 8, 128), (2, 8, 128), (8, 32), True),
+    "token-first (1, T, D) table": ((8, 4, 64), (8, 2, 64), (1, 8, 64), False),
+}
+
+
+def _rope_inputs(q_shape, k_shape, table):
+    rng = np.random.default_rng(sum(q_shape) + table[-1])
+    q, k = (rng.standard_normal(s).astype(np.float32) for s in (q_shape, k_shape))
+    ang = rng.uniform(0.0, 6.0, table).astype(np.float32)
+    return q, k, np.cos(ang), np.sin(ang)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", sorted(ROPE_GOLDEN_FORMS))
+def test_rope_golden_forms_match_jax_pallas_and_count(form, dtype, monkeypatch):
+    """Each form takes the golden, counted once a call in
+    ``CudaApplyRoPE.golden_calls``, and equals JAX's Pallas tier (interpret
+    mode; its golden for these forms): fp32 at atol = rtol = 1e-5, bf16
+    within the bf16 ladder (both goldens round the fp32-table product to
+    bf16 once, XLA and PyTorch may fuse the sum differently)."""
+    import jax.numpy as jnp
+
+    import mojo_opset_tpu as jm
+    from mojo_opset_tpu_torch import MojoApplyRoPE
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaApplyRoPE
+    from mojo_opset_tpu_torch.utils.acc import tols_for
+
+    monkeypatch.setenv("MOJO_PALLAS_INTERPRET", "1")
+    q_shape, k_shape, table, head_first = ROPE_GOLDEN_FORMS[form]
+    q, k, cos, sin = _rope_inputs(q_shape, k_shape, table)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jm.MojoApplyRoPE.get_backend_impl("pallas", strict=True)()(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(cos), jnp.asarray(sin), head_first=head_first)
+    op = MojoApplyRoPE()
+    assert isinstance(op, CudaApplyRoPE)
+    before = CudaApplyRoPE.golden_calls
+    got = op(torch.from_numpy(q).to(tdt), torch.from_numpy(k).to(tdt), torch.from_numpy(cos), torch.from_numpy(sin),
+             head_first=head_first)
+    assert CudaApplyRoPE.golden_calls == before + 1
+    tol = F32 if dtype == "float32" else tols_for(tdt)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt and g.shape == w.shape
+        check_tol_diff(g, np.asarray(w, np.float32), **tol)
+
+
+@pytest.mark.parametrize("q_shape, table, head_first", [((8, 4, 128), (8, 128), False),
+                                                        ((2, 4, 8, 128), (8, 128), True),
+                                                        ((2, 4, 8, 64), (2, 8, 64), True),
+                                                        ((4, 8, 64), (8, 64), True)])
+def test_rope_full_tables_stay_on_kernels_b_and_m(q_shape, table, head_first, no_build):
+    """Full-width tables in the kernels' layouts reach kernel B or M (on
+    ``meta`` tensors: the stubbed build raises) and count no golden route."""
+    from mojo_opset_tpu_torch import MojoApplyRoPE
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaApplyRoPE
+
+    k_shape = (*q_shape[:-3], 2, *q_shape[-2:]) if head_first else (*q_shape[:-2], 2, q_shape[-1])
+    before = CudaApplyRoPE.golden_calls
+    with pytest.raises(RuntimeError, match=NO_BUILD):
+        MojoApplyRoPE()(meta(*q_shape), meta(*k_shape), meta(*table), meta(*table), head_first=head_first)
+    assert CudaApplyRoPE.golden_calls == before

@@ -243,8 +243,8 @@ def test_rope_function_refuses_mixed_dtypes():
 def test_cuda_apply_rope_head_first_runs_kernel_m(shape):
     """``CudaApplyRoPE`` sends head-first to kernel M (here its plain version,
     launching nothing), against JAX's ``rope_head_first`` in interpret mode
-    and the golden op; partial-rope tables raise instead of taking the
-    golden."""
+    and the golden op; partial-rope tables take the golden, counted in
+    ``CudaApplyRoPE.golden_calls``, as JAX's Pallas tier takes its golden."""
     rng = np.random.default_rng(3)
     S, D = shape[-2:]
     q = rng.standard_normal(shape).astype(np.float32)
@@ -260,8 +260,12 @@ def test_cuda_apply_rope_head_first_runs_kernel_m(shape):
         want = [w[0] for w in want]
     for g, w in zip(got, want):
         close(g, w, TOL["f32"])
-    with pytest.raises(ValueError, match="full-rope"):
-        op(*map(torch.from_numpy, (q, k, cos[:, : D // 2], sin[:, : D // 2])), head_first=True)
+    partial = [torch.from_numpy(a) for a in (q, k, cos[:, : D // 2], sin[:, : D // 2])]
+    before = type(op).golden_calls
+    got = op(*partial, head_first=True)
+    assert type(op).golden_calls == before + 1
+    for g, w in zip(got, tm.MojoApplyRoPE.get_backend_impl("ref")()(*partial, head_first=True)):
+        close(g, w, TOL["f32"])
 
 
 def test_rope_head_first_plain_keeps_strides_and_negates_sin():
