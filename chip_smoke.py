@@ -408,6 +408,29 @@ is non-zero:
      gate, the group and in-place norms, MRoPE in place (one bf16 rounding
      of the fp32 CPU run), StoreLowrank and the reduce-sum GEMM (exactly).
      Each op logs its max error, its limit and its ms (CUDA events).
+ 21. HF checkpoints on disk (``phase_hf_checkpoint``), a model phase: a
+     bf16 Qwen3 at Qwen3-4B's published config.json (HF_QWEN3_4B: tied,
+     rope_theta 1e6), weights drawn on the card from seed 0, written by
+     this script's own minimal safetensors writer as two shards with
+     ``model.safetensors.index.json`` and ``config.json`` in a temporary
+     directory beside this script (free disk checked first), loaded by
+     ``apply_mojo_to_qwen3(dir, device="cuda", strict=True)``: every state
+     tensor bit-equal to the source model's; HF_PROMPTS (mixed lengths,
+     the byte-level fallback tokenizer) through ``MojoGenerator.__call__``,
+     greedy, HF_STEPS tokens, stepwise and fused, on the source and the
+     loaded model: tokens and every step's logits bit-identical; the
+     loaded model's stepwise serve counted (A-D must launch), then again
+     with the typewriter on (the same launches and tokens). A child
+     process under MOJO_DETERMINISTIC=1 loads the checkpoint and serves
+     it twice stepwise and once fused, greedy, then twice stepwise and
+     twice fused with top-HF_TOP_K sampling from seed 0
+     (``_deterministic_serve``): each pair bit-identical, tokens and
+     logits. Then Qwen3-30B-A3B's
+     config.json cut to HF_MOE_LAYERS layers (reduced depth), the experts
+     under HF's per-expert names and the router as ``mlp.gate.weight`` in
+     bf16, through ``apply_mojo_to_qwen3_moe(strict=True)``, the same
+     checks, H among the kernels that must launch. Logs the bytes, write
+     and load seconds and GB/s; the directory is removed at the end.
 Decode runs on CUDA graphs by default (phases 4-9 and 11): a key's first
 call is its eager warm-up, its second captures. Phase 4 runs every graphed
 generator twice and checks it against device_graph=False; phases 5, 6, 8,
@@ -419,9 +442,9 @@ bit, else per-row cosine >= GRAPH_COSINE_BOUND), and time GRAPH_TURNS graph
 and eager steps in turns (``_graph_vs_eager``: device busy and idle share
 of a graph step, capture ms, the graph pool's memory); phase 7 does the
 same for vanilla and speculative decoding (``_speculative_turns``).
-Phases 5-12 (the models, the quantized halves of 8 and 9 among them) must
-leave every cuda-tier class's golden_calls where it was: a golden route on
-a model path fails its phase.
+Phases 5-12, 18, 19 and 21 (the models, the quantized halves of 8 and 9
+among them) must leave every cuda-tier class's golden_calls where it was: a
+golden route on a model path fails its phase.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -6125,6 +6148,318 @@ def phase_rest_ops(torch, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 21: an HF checkpoint on disk
+
+# huggingface.co/Qwen/Qwen3-4B config.json (published values; weights drawn from seed 0, not the published ones)
+HF_QWEN3_4B = dict(
+    architectures=["Qwen3ForCausalLM"], model_type="qwen3", hidden_size=2560, intermediate_size=9728,
+    num_hidden_layers=36, num_attention_heads=32, num_key_value_heads=8, head_dim=128, vocab_size=151936,
+    max_position_embeddings=40960, rope_theta=1000000, rms_norm_eps=1e-6, tie_word_embeddings=True,
+    attention_bias=False, hidden_act="silu", torch_dtype="bfloat16", bos_token_id=151643, eos_token_id=151645,
+)
+# huggingface.co/Qwen/Qwen3-30B-A3B config.json, its 48 layers cut to HF_MOE_LAYERS (reduced depth only)
+HF_QWEN3_30B_A3B = dict(
+    architectures=["Qwen3MoeForCausalLM"], model_type="qwen3_moe", hidden_size=2048, intermediate_size=6144,
+    num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4, head_dim=128, vocab_size=151936,
+    max_position_embeddings=40960, rope_theta=1000000, rms_norm_eps=1e-6, tie_word_embeddings=False,
+    attention_bias=False, hidden_act="silu", torch_dtype="bfloat16", num_experts=128, num_experts_per_tok=8,
+    moe_intermediate_size=768, norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+    bos_token_id=151643, eos_token_id=151645,
+)
+HF_MOE_LAYERS = 4
+# mixed-length prompts through the byte-level fallback tokenizer (a byte a token): 316, 44, 9 and 1 tokens
+HF_PROMPTS = ["Paged attention keeps each sequence's keys and values in fixed-size blocks. " * 4 + "Go on:" * 2,
+              "The quick brown fox jumps over the lazy dog.", "Hi there!", "a"]
+HF_STEPS = 16
+HF_TOP_K = 50  # the deterministic child's sampled serves (llm_inference's default sampler)
+HF_DISK_MARGIN = 1.25  # free space wanted beyond the checkpoint's bytes
+HF_CHILD_TIMEOUT_S = 300
+
+
+def _safetensors_file(torch, path: str, tensors: dict) -> int:
+    """A minimal safetensors writer: the 8-byte little-endian header length,
+    the JSON header (padded with spaces to 8 bytes), then each tensor's
+    bytes in header order. Returns the bytes written."""
+    import struct
+
+    names = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32", torch.int8: "I8"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + size]}
+        offset += size
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
+
+
+def _write_hf_checkpoint(torch, path: str, tensors: dict, hf_config: dict) -> int:
+    """``tensors`` as two shards split at half the bytes, with
+    ``model.safetensors.index.json`` and ``config.json``; returns the shards' bytes."""
+    import itertools
+
+    names = list(tensors)
+    cumulative = list(itertools.accumulate(tensors[n].numel() * tensors[n].element_size() for n in names))
+    total = cumulative[-1]
+    split = next(i for i, c in enumerate(cumulative) if c >= total / 2) + 1
+    shards = {"model-00001-of-00002.safetensors": names[:split], "model-00002-of-00002.safetensors": names[split:]}
+    written = sum(_safetensors_file(torch, os.path.join(path, shard), {n: tensors[n] for n in keys})
+                  for shard, keys in shards.items())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": {n: shard for shard, keys in shards.items() for n in keys}}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config, f)
+    return written
+
+
+def _hf_moe_tensors(torch, model) -> dict:
+    """A Qwen3-MoE model's state under HF's names: the ``model.`` prefix,
+    the experts per expert (``mlp.experts.{e}.{gate,up,down}_proj.weight``),
+    the router as ``mlp.gate.weight`` (E, H), in the model's dtype."""
+    import re
+
+    out = {}
+    for name, t in model.state_dict().items():
+        m = re.fullmatch(r"layers\.(\d+)\.mlp\.(experts\.up_proj_weight|experts\.down_proj_weight|gating\.gate_weight)",
+                         name)
+        if m is None:
+            out[name if name.startswith("lm_head.") else f"model.{name}"] = t
+            continue
+        prefix = f"model.layers.{m.group(1)}.mlp"
+        if m.group(2) == "gating.gate_weight":
+            out[f"{prefix}.gate.weight"] = t.T.to(torch.bfloat16)
+        elif m.group(2) == "experts.up_proj_weight":  # (E, 2I, H): the gate rows, then the up rows
+            inter = t.shape[1] // 2
+            for e in range(t.shape[0]):
+                out[f"{prefix}.experts.{e}.gate_proj.weight"] = t[e, :inter]
+                out[f"{prefix}.experts.{e}.up_proj.weight"] = t[e, inter:]
+        else:
+            for e in range(t.shape[0]):
+                out[f"{prefix}.experts.{e}.down_proj.weight"] = t[e]
+    return out
+
+
+def _bit_equal(torch, a, b) -> bool:
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return a.numel() == 0 or torch.equal(a.contiguous().view(ints[a.element_size()]),
+                                         b.contiguous().view(ints[b.element_size()]))
+
+
+def _hf_serve(torch, model, fused: bool, typewriter: bool = False, top_k: int = 0):
+    """HF_PROMPTS through ``MojoGenerator.__call__`` (the fallback
+    tokenizer, greedy or with ``top_k`` top-k sampling from the generator's
+    seed 0, HF_STEPS tokens, graphs as the entry point serves by default):
+    (tokens, kept logits). The typewriter's text goes to a buffer."""
+    import io
+
+    from mojo_opset_tpu_torch.examples.llm_inference import _FallbackTokenizer
+    from mojo_opset_tpu_torch.runtime import GreedySampler, MojoGenerator, PagedAttentionGenerationModel, TopKSampler
+
+    keep = _keep_logits()
+    sampler = TopKSampler(top_k) if top_k else GreedySampler()
+    gen = MojoGenerator(PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE), _FallbackTokenizer(),
+                        sampler, max_new_tokens=HF_STEPS, enable_typewriter=typewriter, hooks=[keep])
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        tokens = gen(HF_PROMPTS, ignore_eos=True, fused_decode=fused)
+    torch.cuda.synchronize()
+    if typewriter and "Generation is done." not in printed.getvalue():
+        raise AssertionError("hf checkpoint: the typewriter printed no text")
+    return tokens, keep.steps
+
+
+def _hf_round_trip(torch, card: str, tag: str, source, path: str, tensors: dict, hf_config: dict, load, path_kernels,
+                   typewriter_check: bool = False) -> dict:
+    """Write ``tensors`` as an HF checkpoint, load it with ``load`` (strict),
+    hold every parameter to ``source``'s bit for bit, then serve both
+    (stepwise and fused) and hold tokens and logits bit for bit; the loaded
+    model's stepwise serve counted (every kernel of ``path_kernels`` must
+    launch). Returns the counts."""
+    import shutil
+
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+
+    need = sum(t.numel() * t.element_size() for t in tensors.values())
+    free = shutil.disk_usage(path).free
+    if free < need * HF_DISK_MARGIN:
+        raise AssertionError(f"{tag}: {free / 1e9:.2f} GB free under {path}, the checkpoint needs "
+                             f"{need / 1e9:.2f} GB (x{HF_DISK_MARGIN})")
+    t0 = time.perf_counter()
+    written = _write_hf_checkpoint(torch, path, tensors, hf_config)
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load(path, device="cuda", strict=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(tag, f"{card}: {written / 1e9:.3f} GB in 2 shards written in {write_s:.1f} s ({written / 1e9 / write_s:.2f} "
+             f"GB/s, from the card through the host), loaded onto the card in {load_s:.1f} s "
+             f"({written / 1e9 / load_s:.2f} GB/s; the read warm, from the page cache just written)")
+    src_state, state = source.state_dict(), model.state_dict()
+    if set(src_state) != set(state):
+        raise AssertionError(f"{tag}: state names differ: {sorted(set(src_state) ^ set(state))[:6]}")
+    off = [n for n in src_state if not _bit_equal(torch, src_state[n], state[n])]
+    if off:
+        raise AssertionError(f"{tag}: {len(off)} tensors differ from the source model's: {off[:6]}")
+    log(tag, f"all {len(state)} state tensors bit-equal to the source model's "
+             f"({sum(t.numel() for t in state.values()) / 1e9:.3f} B elements)")
+
+    results = {}
+    for fused in (False, True):
+        want_tokens, want_logits = _hf_serve(torch, source, fused)
+        if not fused:
+            kernels.reset_launch_counts()
+        tokens, logits = _hf_serve(torch, model, fused)
+        if not fused:
+            counts = {k: v for k, v in kernels.launch_counts().items() if k in path_kernels}
+        results[fused] = tokens
+        what = "fused" if fused else "stepwise"
+        if not np.array_equal(tokens, want_tokens):
+            raise AssertionError(f"{tag}: {what} tokens differ from the source model's: {tokens.tolist()} vs "
+                                 f"{want_tokens.tolist()}")
+        if len(logits) != len(want_logits) or not all(_bit_equal(torch, a, b) for a, b in zip(logits, want_logits)):
+            raise AssertionError(f"{tag}: {what} logits differ from the source model's")
+        if not all(bool(torch.isfinite(x).all()) for x in logits):
+            raise AssertionError(f"{tag}: non-finite logits")
+    if not np.array_equal(results[False], results[True]):
+        raise AssertionError(f"{tag}: the fused window's tokens differ from the stepwise serve's")
+    if tokens.shape != (len(HF_PROMPTS), HF_STEPS):
+        raise AssertionError(f"{tag}: generated ids shape {tokens.shape}")
+    log(tag, f"launches of the loaded model's stepwise serve: {counts}")
+    if min(counts.values()) <= 0 or set(counts) != set(path_kernels):
+        raise AssertionError(f"{tag}: a kernel of the path never launched: {counts}")
+    if typewriter_check:
+        kernels.reset_launch_counts()
+        typed, _ = _hf_serve(torch, model, False, typewriter=True)
+        typed_counts = {k: v for k, v in kernels.launch_counts().items() if k in path_kernels}
+        if typed_counts != counts or not np.array_equal(typed, results[False]):
+            raise AssertionError(f"{tag}: the typewriter changed the launches {typed_counts} vs {counts}")
+        log(tag, "with the typewriter on: the same tokens and the same launches")
+    log(tag, f"{len(HF_PROMPTS)} prompts of {[len(p.encode()) for p in HF_PROMPTS]} tokens, {HF_STEPS} greedy "
+             f"tokens through MojoGenerator.__call__ stepwise and fused: tokens and every step's logits bit-identical "
+             f"to the source model's serve; tokens of the 1-token prompt {results[False][-1].tolist()}")
+    del model
+    return counts
+
+
+def _deterministic_serve(path: str) -> None:
+    """Phase 21's child, run with MOJO_DETERMINISTIC=1: the checkpoint at
+    ``path`` loaded on the card and served twice stepwise (graphs) and once
+    fused, greedy; then twice stepwise and twice fused with top-k sampling
+    (HF_TOP_K, the generator's seed 0); prints one JSON line.
+    Fails unless each pair of serves agrees bit for bit (tokens and every
+    step's logits) and the greedy fused tokens equal the stepwise ones."""
+    import torch
+
+    import mojo_opset_tpu_torch  # noqa: F401  (applies MOJO_DETERMINISTIC=1)
+    from mojo_opset_tpu_torch.utils.patching import apply_mojo_to_qwen3
+    from mojo_opset_tpu_torch.utils.platform import is_deterministic
+
+    if not (is_deterministic() and torch.are_deterministic_algorithms_enabled()):
+        raise AssertionError("deterministic mode is not on")
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("deterministic mode left cuBLAS's workspace or TF32 as they were")
+    t0 = time.perf_counter()
+    model = apply_mojo_to_qwen3(path, device="cuda", strict=True)
+    load_s = time.perf_counter() - t0
+    if not model.config.runtime_config.is_deterministic:
+        raise AssertionError("MojoRunTimeConfig.is_deterministic does not follow MOJO_DETERMINISTIC=1")
+    runs, times = [], []
+    for fused in (False, False, True):
+        t0 = time.perf_counter()
+        runs.append(_hf_serve(torch, model, fused))
+        times.append(time.perf_counter() - t0)
+    (a, la), (b, lb), (c, _) = runs
+    same_logits = len(la) == len(lb) and all(_bit_equal(torch, x, y) for x, y in zip(la, lb))
+    if not (np.array_equal(a, b) and same_logits and np.array_equal(a, c)):
+        raise AssertionError(f"deterministic serves differ: tokens equal {np.array_equal(a, b)}, logits equal "
+                             f"{same_logits}, fused tokens equal {np.array_equal(a, c)}")
+    if not all(bool(torch.isfinite(x).all()) for x in la):
+        raise AssertionError("deterministic serve: non-finite logits")
+    sampled = {}
+    for fused in (False, True):
+        (s1, l1), (s2, l2) = (_hf_serve(torch, model, fused, top_k=HF_TOP_K) for _ in range(2))
+        if not (np.array_equal(s1, s2) and all(_bit_equal(torch, x, y) for x, y in zip(l1, l2))):
+            raise AssertionError(f"deterministic top-k serves differ ({'fused' if fused else 'stepwise'})")
+        sampled["fused" if fused else "stepwise"] = s1.tolist()
+    print(json.dumps({"tokens": a.tolist(), "load_s": load_s, "serve_s": times, "top_k": sampled}), flush=True)
+
+
+def phase_hf_checkpoint(torch, card: str) -> dict:
+    """Phase 21: HF checkpoints on disk into the port's models. Qwen3-4B's
+    published config with seeded bf16 weights, written in two shards by
+    ``_safetensors_file`` and loaded by ``apply_mojo_to_qwen3(strict=True)``;
+    Qwen3-30B-A3B cut to HF_MOE_LAYERS layers in HF's per-expert layout,
+    loaded by ``apply_mojo_to_qwen3_moe(strict=True)`` (``_hf_round_trip``
+    each); a child under MOJO_DETERMINISTIC=1 serving the Qwen3-4B
+    checkpoint twice (``_deterministic_serve``). Returns the launches by path."""
+    import shutil
+    import tempfile
+
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3ForCausalLM, Qwen3MoeForCausalLM
+    from mojo_opset_tpu_torch.utils.hf import qwen3_config_from_hf, qwen3_moe_config_from_hf
+    from mojo_opset_tpu_torch.utils.patching import apply_mojo_to_qwen3, apply_mojo_to_qwen3_moe
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    counts = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = tempfile.mkdtemp(prefix=".hf_checkpoint_", dir=here)
+    try:
+        source = Qwen3ForCausalLM(qwen3_config_from_hf(HF_QWEN3_4B), device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(0))
+        tensors = dict(source.state_dict())
+        if "lm_head.weight" in tensors or source.lm_head is not None:
+            raise AssertionError("hf checkpoint: Qwen3-4B is tied; its checkpoint has no lm_head.weight")
+        counts["hf_qwen3_4b"] = _hf_round_trip(torch, card, "hf qwen3-4b", source, path, tensors, HF_QWEN3_4B,
+                                               apply_mojo_to_qwen3, BF16_PATH_KERNELS, typewriter_check=True)
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-c", f"import chip_smoke as s; s._deterministic_serve({path!r})"],
+                               cwd=here, env=dict(os.environ, MOJO_DETERMINISTIC="1"), capture_output=True,
+                               text=True, timeout=HF_CHILD_TIMEOUT_S)
+        if child.returncode != 0:
+            raise AssertionError(f"hf deterministic: the child failed ({child.returncode}): "
+                                 f"{(child.stdout + child.stderr)[-4000:]}")
+        got = json.loads(child.stdout.strip().splitlines()[-1])
+        plain_tokens, _ = _hf_serve(torch, source, False)
+        same = np.array_equal(np.asarray(got["tokens"]), plain_tokens)
+        log("hf deterministic", f"{card}: MOJO_DETERMINISTIC=1 in a child: loaded in {got['load_s']:.1f} s, two "
+                                f"stepwise serves bit-identical (tokens and every step's logits), the fused "
+                                f"window's tokens the same; serves {[round(s, 2) for s in got['serve_s']]} s; tokens "
+                                f"{'==' if same else '!='} the default mode's; top-{HF_TOP_K} sampling from seed 0 "
+                                f"twice stepwise and twice fused, each pair bit-identical; "
+                                f"{time.perf_counter() - t0:.1f} s with the child's start")
+        del source, tensors
+        shutil.rmtree(path)
+        os.mkdir(path)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        hf_cfg = dict(HF_QWEN3_30B_A3B, num_hidden_layers=HF_MOE_LAYERS)
+        source = Qwen3MoeForCausalLM(qwen3_moe_config_from_hf(hf_cfg), device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+        with torch.no_grad():  # HF stores the router in bf16: make the source's fp32 router bf16-exact
+            for layer in source.layers:
+                gate = layer.mlp.gating.gate_weight
+                gate.copy_(gate.to(torch.bfloat16).float())
+        counts["hf_qwen3_30b_a3b"] = _hf_round_trip(torch, card, "hf qwen3-30b-a3b", source, path,
+                                                    _hf_moe_tensors(torch, source), hf_cfg, apply_mojo_to_qwen3_moe,
+                                                    MOE_PATH_KERNELS)
+        del source
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
                  dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict, quant_counts: dict,
@@ -6204,7 +6539,7 @@ def main() -> int:
     record = timed("kernels", phase_kernels, torch)
     timed("small models", phase_small_model, torch)
     def model_phase(name, phase, *args):
-        """A model phase (5-12): no op of the path may take a golden route."""
+        """A model phase (5-12, 18, 19, 21): no op of the path may take a golden route."""
         before = golden_counts()
         result = timed(name, phase, *args)
         after = golden_counts()
@@ -6231,9 +6566,10 @@ def main() -> int:
     parallel_counts = model_phase("parallel", phase_parallel, torch, card)
     tooling_counts = model_phase("tooling", phase_tooling, torch, card)
     rest_counts = timed("rest ops", phase_rest_ops, torch, card)
+    hf_counts = model_phase("hf checkpoint", phase_hf_checkpoint, torch, card)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts,
-                        t2v_counts, {**parallel_counts, **tooling_counts}, rest_counts)
+                        t2v_counts, {**parallel_counts, **tooling_counts, **hf_counts}, rest_counts)
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
     next(k for k in line if k["name"] == KERNEL_INFO["group_quant_gemm"][0])["launches_by_route"] = R_ROUTES
     print(json.dumps({"kernels": line}))

@@ -1,16 +1,18 @@
 """Wan2.2 DiT denoising-loop example.
 
 Counterpart of the JAX package's ``examples/dit_inference.py``: Euler
-sampling of random latents with the Wan DiT backbone (random weights, a
-random text context), then, with ``--decode-vae``, a small causal video
-VAE's decode of the result.
+sampling of random latents with the Wan DiT backbone (random weights, or
+with ``--ckpt-dir DIR`` a Wan2.2 DiT checkpoint in safetensors under the
+official module names, every weight required, into the model the flags
+describe; a random text context), then, with ``--decode-vae``, a small
+causal video VAE's decode of the result.
 
 Usage::
 
     python -m mojo_opset_tpu_torch.examples.dit_inference [--steps 10]
         [--frames 2] [--size 64] [--dim 512] [--layers 8] [--decode-vae]
-        [--device cuda|cpu] [--debug-compare RULES] [--debug-dump RULES]
-        [--profile-dir DIR] [--trace-out PATH]
+        [--ckpt-dir DIR] [--device cuda|cpu] [--debug-compare RULES]
+        [--debug-dump RULES] [--profile-dir DIR] [--trace-out PATH]
 
 ``main(argv)`` returns what it prints: the denoised latent with its mean
 and std, the decoded video's shape, the seconds elapsed after each step,
@@ -27,6 +29,8 @@ import torch
 
 from mojo_opset_tpu_torch.examples._tools import add_tool_flags, example_device, model_dtype, report, run_tools
 from mojo_opset_tpu_torch.modeling.wan2_2 import WanConfig, WanModel, WanVAE_
+from mojo_opset_tpu_torch.utils.hf import load_sharded_safetensors
+from mojo_opset_tpu_torch.utils.patching import apply_mojo_to_wan2_2
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -37,6 +41,7 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--dim", type=int, default=512)
     parser.add_argument("--layers", type=int, default=8)
     parser.add_argument("--decode-vae", action="store_true")
+    parser.add_argument("--ckpt-dir", default=None, help="Wan2.2 DiT checkpoint dir (safetensors, official names)")
     add_tool_flags(parser)
     return parser
 
@@ -49,7 +54,12 @@ def main(argv=None) -> dict:
         ffn_dim=args.dim * 4, freq_dim=256, text_dim=512, out_dim=16,
         num_heads=args.dim // 64, num_layers=args.layers, dtype=model_dtype(device),
     )
-    model = WanModel(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    generator = torch.Generator(device=device).manual_seed(0)
+    if args.ckpt_dir:
+        model = apply_mojo_to_wan2_2(load_sharded_safetensors(args.ckpt_dir), config=cfg, device=device,
+                                     generator=generator, strict=True)
+    else:
+        model = WanModel(cfg, device=device, generator=generator)
 
     F, H, W = args.frames, args.size // 8, args.size // 8
     seq_len = F * (H // 2) * (W // 2)

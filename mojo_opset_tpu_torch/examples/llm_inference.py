@@ -1,16 +1,21 @@
 """Qwen3 LLM inference example.
 
 Counterpart of the JAX package's ``examples/llm_inference.py``: build a
-Qwen3 model with random weights (``--tiny``: 4 layers, 256 wide; else
-``Qwen3Config()``'s 32 layers, 4096 wide), run paged prefill and decode
-generation, print the tokens. Without a tokenizer the byte-level fallback
-encodes the prompt.
+Qwen3 model from an HF checkpoint directory (``--checkpoint DIR``: its
+``config.json`` and safetensors, every weight required) or with random
+weights (``--tiny``: 4 layers, 256 wide; else ``Qwen3Config()``'s 32
+layers, 4096 wide), run the prompt through ``MojoGenerator.__call__``
+(paged prefill and decode), print the tokens and the text.
+``--tokenizer DIR`` loads a Hugging Face tokenizer (``transformers``
+needed for this flag only); without one the byte-level fallback encodes
+the prompt.
 
 Usage::
 
-    python -m mojo_opset_tpu_torch.examples.llm_inference [--prompt TEXT]
-        [--max-new-tokens N] [--block-size N] [--greedy] [--fused] [--tiny]
-        [--quant w8a8] [--quant-kv] [--speculative K] [--device cuda|cpu]
+    python -m mojo_opset_tpu_torch.examples.llm_inference [--checkpoint DIR]
+        [--tokenizer DIR] [--prompt TEXT] [--max-new-tokens N]
+        [--block-size N] [--greedy] [--fused] [--tiny] [--quant w8a8]
+        [--quant-kv] [--speculative K] [--device cuda|cpu]
         [--debug-compare RULES] [--debug-dump RULES] [--profile-dir DIR]
         [--trace-out PATH]
 
@@ -22,6 +27,7 @@ decoded text, the session's allocator, and the tooling's records and files.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -46,6 +52,7 @@ from mojo_opset_tpu_torch.runtime import (
 )
 from mojo_opset_tpu_torch.runtime.native import native_available
 from mojo_opset_tpu_torch.utils.debugger import MojoDebugger
+from mojo_opset_tpu_torch.utils.patching import apply_mojo_to_qwen3
 from mojo_opset_tpu_torch.utils.profiler import create_cuda_profiler, profiler_activities
 
 TINY = dict(hidden_size=256, intermediate_size=512, num_attention_heads=8, num_key_value_heads=4,
@@ -53,12 +60,21 @@ TINY = dict(hidden_size=256, intermediate_size=512, num_attention_heads=8, num_k
 
 
 def build_model(args) -> Qwen3ForCausalLM:
-    """Random weights from seed 0, drawn on ``args.device``; the int8 modes
-    as the flags ask."""
+    """The ``--checkpoint`` weights in the checkpoint's dtype, or random
+    weights from seed 0 drawn on ``args.device``; the int8 modes as the
+    flags ask."""
     device = example_device(args)
-    shape = TINY if args.tiny else {}
-    cfg = Qwen3Config(**shape, dtype=model_dtype(device), quant_kv=args.quant_kv)
-    model = Qwen3ForCausalLM(cfg, device=device, generator=torch.Generator(device=device).manual_seed(0))
+    generator = torch.Generator(device=device).manual_seed(0)
+    if args.checkpoint:
+        model = apply_mojo_to_qwen3(args.checkpoint, device=device, generator=generator, strict=True)
+        if args.quant_kv:  # the int8 KV cache rewires the attention; the parameters carry over one for one
+            kv_model = Qwen3ForCausalLM(dataclasses.replace(model.qwen3_config, quant_kv=True), device=device)
+            kv_model.load_state_dict(model.state_dict())
+            model = kv_model
+    else:
+        shape = TINY if args.tiny else {}
+        cfg = Qwen3Config(**shape, dtype=model_dtype(device), quant_kv=args.quant_kv)
+        model = Qwen3ForCausalLM(cfg, device=device, generator=generator)
     if args.quant == "w8a8":
         model = quantize_qwen3(model)
     return model
@@ -79,6 +95,15 @@ class _FallbackTokenizer:
 
     def decode(self, ids):
         return "".join(chr(max(int(i) - 1, 32) % 128) for i in np.asarray(ids).ravel())
+
+
+def load_tokenizer(args):
+    """``--tokenizer``'s Hugging Face tokenizer, else the byte-level fallback."""
+    if args.tokenizer:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(args.tokenizer)
+    return _FallbackTokenizer()
 
 
 class _RunHook(GeneratorHook):
@@ -117,12 +142,14 @@ class _RunHook(GeneratorHook):
 
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--checkpoint", default=None, help="HF Qwen3 checkpoint directory (config.json, safetensors)")
+    parser.add_argument("--tokenizer", default=None, help="HF tokenizer directory (needs transformers)")
     parser.add_argument("--prompt", default="The quick brown fox")
     parser.add_argument("--max-new-tokens", type=int, default=32)
     parser.add_argument("--block-size", type=int, default=64)
     parser.add_argument("--greedy", action="store_true")
     parser.add_argument("--fused", action="store_true", help="decode the whole window as one FusedDecode call")
-    parser.add_argument("--tiny", action="store_true", help="small random model")
+    parser.add_argument("--tiny", action="store_true", help="small random model (no checkpoint)")
     parser.add_argument("--quant", default=None, choices=(None, "w8a8"),
                         help="post-training int8 weight+activation serving mode")
     parser.add_argument("--quant-kv", action="store_true",
@@ -137,13 +164,13 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     model = build_model(args)
-    tokenizer = _FallbackTokenizer()
-    ids = np.asarray(tokenizer(args.prompt).input_ids[0], np.int32)
-    lens = np.array([ids.size], np.int32)
+    tokenizer = load_tokenizer(args)
     result = {}
     with run_tools(args, result, "llm_inference", profile_whole_run=False) as tracer:
         t0 = time.perf_counter()
         if args.speculative:
+            ids = np.asarray(tokenizer([args.prompt]).input_ids[0], np.int32)
+            lens = np.array([ids.size], np.int32)
             spec = SpeculativeDecoder(model, quantize_qwen3(model), k=args.speculative, mode="greedy",
                                       block_size=args.block_size,
                                       device_graph=False if debugging(args) else None)
@@ -162,7 +189,7 @@ def main(argv=None) -> dict:
             gen = MojoGenerator(gm, tokenizer, sampler, max_new_tokens=args.max_new_tokens, hooks=hooks)
             if MojoDebugger.enabled():  # by the flags, MOJO_DEBUG=1 or the caller: each forward counts from layer 0
                 MojoDebugger.attach(gen)
-            out = gen.generate_from_ids(ids, lens, fused_decode=args.fused)
+            out = gen(args.prompt, fused_decode=args.fused)
             result["allocator"] = run.allocator
             if args.profile_dir:
                 result["profile"] = hooks[1].traces

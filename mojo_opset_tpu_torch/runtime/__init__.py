@@ -2,6 +2,7 @@ from mojo_opset_tpu_torch.runtime.compile_cache import CompiledStepPool, round_u
 from mojo_opset_tpu_torch.runtime.config import (
     AFDRole,
     MojoConfig,
+    MojoDynamicConfig,
     MojoModelConfig,
     MojoParallelConfig,
     MojoRunTimeConfig,
@@ -11,6 +12,7 @@ from mojo_opset_tpu_torch.runtime.generation import (
     GreedySampler,
     MojoGenerator,
     MojoSampler,
+    MojoSession,
     PerfHook,
     TopKSampler,
 )
@@ -20,6 +22,13 @@ from mojo_opset_tpu_torch.runtime.session import (
     KVCaches,
     PagedAttentionGenerationModel,
     PagedAttentionRuntimeState,
+)
+from mojo_opset_tpu_torch.runtime.comm_context import MojoComputeCommContext, MojoSymmetricMemoryManager
+from mojo_opset_tpu_torch.runtime.parallel import (
+    dp_allreduce,
+    dp_gather,
+    dp_scatter,
+    merge_group_and_share_ffn,
 )
 from mojo_opset_tpu_torch.runtime.speculative import SpeculativeDecoder
 from mojo_opset_tpu_torch.runtime.continuous import (
@@ -36,17 +45,25 @@ __all__ = [
     "GeneratorHook",
     "GreedySampler",
     "KVCaches",
+    "MojoComputeCommContext",
     "MojoConfig",
+    "MojoDynamicConfig",
     "MojoGenerator",
     "MojoModelConfig",
     "MojoParallelConfig",
     "MojoRunTimeConfig",
     "MojoSampler",
+    "MojoSession",
+    "MojoSymmetricMemoryManager",
     "PagedAttentionGenerationModel",
     "PagedAttentionRuntimeState",
     "PerfHook",
     "SpeculativeContinuousBatchingGenerator",
     "SpeculativeDecoder",
     "TopKSampler",
+    "dp_allreduce",
+    "dp_gather",
+    "dp_scatter",
+    "merge_group_and_share_ffn",
     "round_up_bucket",
 ]

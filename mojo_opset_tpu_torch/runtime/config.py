@@ -13,19 +13,57 @@ dataclass default stays JAX's ``False``.
 groups that ``parallel.mesh`` builds; ``MojoModelConfig.local_num_kv_heads``
 (JAX :120) is the kv heads one tensor-parallel rank holds, which the
 session sizes its caches by.
+
+``MojoDynamicConfig`` (JAX :32-54), the base of ``MojoModelConfig``, takes
+unknown keys as plain attributes through ``from_dict``.
+``MojoRunTimeConfig.is_deterministic`` follows ``MOJO_DETERMINISTIC=1``
+(``utils.platform.is_deterministic``) when the config is made.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from enum import Enum, auto
 from typing import Optional
 
 import torch
 
+from mojo_opset_tpu_torch.utils.platform import is_deterministic
+
+
+_DTYPE_MAPPING = {"float16": torch.float16, "bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _as_dtype(value):
+    if isinstance(value, str):
+        if value not in _DTYPE_MAPPING:
+            raise ValueError(f"unsupported dtype: {value}")
+        return _DTYPE_MAPPING[value]
+    return value
+
+
+class MojoDynamicConfig:
+    """Config base allowing extra fields: dataclass subclasses gain a
+    tolerant constructor, :meth:`from_dict`, whose unknown keys become
+    plain attributes instead of raising."""
+
+    @classmethod
+    def from_dict(cls, values: dict):
+        known = {f.name for f in dataclasses.fields(cls)} if dataclasses.is_dataclass(cls) else set()
+        obj = cls(**{k: v for k, v in values.items() if k in known})
+        for k, v in values.items():
+            if k not in known:
+                setattr(obj, k, v)
+        return obj
+
+    def extra_fields(self) -> dict:
+        known = {f.name for f in dataclasses.fields(self)} if dataclasses.is_dataclass(self) else set()
+        return {k: v for k, v in self.__dict__.items() if k not in known}
+
 
 @dataclass
-class MojoModelConfig:
+class MojoModelConfig(MojoDynamicConfig):
     hidden_size: int = 0
     head_dim: int = 0
     num_heads: int = 0
@@ -57,6 +95,9 @@ class MojoModelConfig:
     # model-specific fields (DeepSeek's MLA: kv_lora_rank, qk_rope_head_dim; a sharded model's local_num_kv_heads)
     extra: dict = field(default_factory=dict)
 
+    def __post_init__(self):
+        self.dtype = _as_dtype(self.dtype)
+
     @property
     def local_num_kv_heads(self) -> int:
         """The kv heads of one tensor-parallel rank's attention (all of them unsharded)."""
@@ -66,7 +107,7 @@ class MojoModelConfig:
 @dataclass
 class MojoRunTimeConfig:
     preshard_only: bool = False
-    is_deterministic: bool = False
+    is_deterministic: bool = False  # also True whenever MOJO_DETERMINISTIC=1 (__post_init__)
 
     use_device_graph: bool = False  # decode steps replayed from CUDA graphs (runtime/compile_cache.py)
     use_paged_attention: bool = False
@@ -83,6 +124,9 @@ class MojoRunTimeConfig:
 
     vanilla_checkpoint_path: Optional[str] = None
     preshard_checkpoint_path: Optional[str] = None
+
+    def __post_init__(self):
+        self.is_deterministic = self.is_deterministic or is_deterministic()
 
 
 class AFDRole(Enum):

@@ -1,10 +1,15 @@
-"""Generation loop: prefill -> sample -> decode, with hooks.
+"""Generation loop: tokenize -> prefill -> sample -> decode, with hooks.
 
-Counterpart of the JAX package's ``runtime/generation.py`` (``MojoSampler``
-:39, ``GreedySampler`` :44, ``TopKSampler`` :49, ``GeneratorHook`` :60,
-``PerfHook`` :68, ``MojoGenerator`` :199). The sampler runs on the device;
-the stepwise loop reads each step's tokens back for EOS handling, the
-fused loop (``FusedDecode``) only at the end. Randomness comes from one
+Counterpart of the JAX package's ``runtime/generation.py`` (``MojoSession``
+:33, ``MojoSampler`` :39, ``GreedySampler`` :44, ``TopKSampler`` :49,
+``GeneratorHook`` :60, ``PerfHook`` :68, ``_Typewriter`` :165,
+``MojoGenerator`` :199). ``MojoGenerator.__call__`` tokenizes prompts, packs
+them varlen and generates. The sampler runs on the device; the stepwise
+loop reads each step's tokens back for EOS handling, the fused loop
+(``FusedDecode``) only at the end. The typewriter
+(``enable_typewriter=True``) decodes text on a daemon thread from those
+same host copies, every ``typewriter_buffer`` steps, so it adds no device
+read to the loop. Randomness comes from one
 ``torch.Generator`` that the generator holds on the model's device, where
 the JAX package splits a key chain. With the model's decode graphs on
 (``PagedAttentionGenerationModel.device_graph``) the generator keeps one
@@ -15,6 +20,8 @@ of the calls before it (a graph holds its session's cache addresses).
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from abc import ABC, abstractmethod
 from typing import List, Optional
@@ -27,6 +34,12 @@ from mojo_opset_tpu_torch.runtime.session import FusedDecode
 from mojo_opset_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+
+class MojoSession(ABC):
+    @property
+    @abstractmethod
+    def kv_cache(self): ...
 
 
 class MojoSampler(ABC):
@@ -127,8 +140,43 @@ class PerfHook(GeneratorHook):
             )
 
 
+class _Typewriter:
+    """Streams decoded text from a daemon thread so the tokenizer's decode
+    stays off the decode loop."""
+
+    def __init__(self, tokenizer):
+        self._tokenizer = tokenizer
+        self._q: queue.Queue = queue.Queue()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        full_output = None
+        while True:
+            item = self._q.get()
+            if item is None:
+                print("\nGeneration is done.")
+                return
+            ids = np.concatenate(item, axis=-1)
+            texts = [self._tokenizer.decode(row) for row in ids]
+            if full_output is None:
+                full_output = [f"[{i}] {t}" for i, t in enumerate(texts)]
+            else:
+                full_output = [a + b for a, b in zip(full_output, texts)]
+            print("\033[H\033[0J" + "\n".join(full_output), end="", flush=True)
+
+    def send(self, generated_ids):
+        """``generated_ids``: host arrays (B, n) of consecutive steps."""
+        self._q.put([np.asarray(g) for g in generated_ids])
+
+    def close(self):
+        self._q.put(None)
+        self._thread.join(timeout=5)
+
+
 class MojoGenerator:
-    """Prefill + sampler + decode loop with EOS masking and a hook bus."""
+    """Prefill + sampler + decode loop with EOS masking, a hook bus and an
+    optional typewriter."""
 
     def __init__(
         self,
@@ -136,6 +184,8 @@ class MojoGenerator:
         tokenizer,
         sampler: MojoSampler,
         max_new_tokens: int = 128,
+        enable_typewriter: bool = False,
+        typewriter_buffer: int = 4,
         hooks: Optional[List[GeneratorHook]] = None,
         seed: int = 0,
     ):
@@ -143,6 +193,8 @@ class MojoGenerator:
         self.tokenizer = tokenizer
         self.max_new_tokens = max_new_tokens
         self.sampler = sampler
+        self._enable_typewriter = enable_typewriter
+        self._typewriter_buffer = typewriter_buffer
         self._hooks = hooks or []
         device = next(model.model.parameters()).device
         self.generator = torch.Generator(device=device).manual_seed(seed)
@@ -168,20 +220,34 @@ class MojoGenerator:
         eos_id = getattr(self.tokenizer, "eos_token_id", -1)
         return -1 if eos_id is None else eos_id
 
+    def __call__(self, prompts, **kwargs) -> np.ndarray:
+        """Tokenize ``prompts`` (a string or a list of them), pack them
+        varlen, print them and generate (``kwargs`` as
+        ``generate_from_ids``)."""
+        batch = [prompts] if isinstance(prompts, str) else prompts
+        encoded = self.tokenizer(batch, return_tensors=None).input_ids
+        context_input_len = np.asarray([len(seq) for seq in encoded], np.int32)
+        input_ids = np.concatenate([np.asarray(seq, np.int32) for seq in encoded])
+        print(f"Prompt: {prompts}")
+        print("-" * 40)
+        return self.generate_from_ids(input_ids, context_input_len, **kwargs)
+
     def generate_from_ids(
         self,
         input_ids,
         context_input_len,
         max_decode_steps: Optional[int] = None,
         ignore_eos: bool = False,
+        silent: bool = False,
         fused_decode: bool = False,
     ) -> np.ndarray:
-        """Returns the generated ids (B, steps) as numpy int32."""
+        """Returns the generated ids (B, steps) as numpy int32. ``silent``
+        keeps the typewriter quiet."""
         if max_decode_steps is None:
             max_decode_steps = self.max_new_tokens
         if fused_decode:
             return self._generate_fused(input_ids, context_input_len, max_decode_steps, ignore_eos)
-        return self._generate_stepwise(input_ids, context_input_len, max_decode_steps, ignore_eos)
+        return self._generate_stepwise(input_ids, context_input_len, max_decode_steps, ignore_eos, silent)
 
     def _generate_fused(self, input_ids, context_input_len, max_decode_steps, ignore_eos):
         """Decode window through ``FusedDecode`` (greedy, or top-k for any
@@ -208,8 +274,9 @@ class MojoGenerator:
             out = np.where(after, eos_id, out)
         return out
 
-    def _generate_stepwise(self, input_ids, context_input_len, max_decode_steps, ignore_eos):
+    def _generate_stepwise(self, input_ids, context_input_len, max_decode_steps, ignore_eos, silent=False):
         eos_id = self._eos_id()
+        typewriter = _Typewriter(self.tokenizer) if (self._enable_typewriter and not silent) else None
         self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
         logits, session = self.model(input_ids, context_input_len=context_input_len,
                                      session=self._session_for(context_input_len))
@@ -218,6 +285,7 @@ class MojoGenerator:
         next_token_id = self.sampler(logits, session, generator=self.generator)
         next_np = next_token_id.cpu().numpy()
         all_generated = [next_np]
+        pending = [next_np]  # the typewriter's steps not sent yet
         should_end = next_np == eos_id
         decode_steps = 0
 
@@ -236,8 +304,16 @@ class MojoGenerator:
                 next_np = np.where(prev_end, eos_id, next_np).astype(np.int32)
                 next_token_id = torch.as_tensor(next_np, device=next_token_id.device)
             all_generated.append(next_np)
+            pending.append(next_np)
             if not ignore_eos and bool(np.all(should_end)):
                 break
+            if typewriter is not None and len(pending) >= self._typewriter_buffer:
+                typewriter.send([g[:, None] for g in pending])
+                pending = []
 
         self._run_hooks("after_decode", decode_steps=decode_steps, generated_ids=all_generated)
+        if typewriter is not None:
+            if pending:
+                typewriter.send([g[:, None] for g in pending])
+            typewriter.close()
         return np.stack(all_generated, axis=-1)

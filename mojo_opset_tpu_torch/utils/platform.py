@@ -12,10 +12,13 @@ on a machine with a GPU and without one alike.
 
 The entry points (the models, the session) run on the card unless the
 caller names another device: :func:`resolve_device` never falls back to
-the CPU.
+the CPU. :func:`is_deterministic` reads ``MOJO_DETERMINISTIC`` (JAX :68);
+``backends.enable_deterministic`` applies it.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -35,3 +38,7 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def is_deterministic() -> bool:
+    return os.environ.get("MOJO_DETERMINISTIC", "0") == "1"

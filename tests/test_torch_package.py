@@ -88,6 +88,29 @@ def test_import_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, env=env, cwd=REPO, timeout=120)
 
 
+# the HF glue, the generator surface and deterministic mode: the card has neither transformers nor safetensors
+HF_SURFACE_MODULES = ["utils.hf", "utils.patching", "utils.platform", "runtime.config", "runtime.generation",
+                      "runtime", "backends", "examples.llm_inference", "examples.dit_inference",
+                      "examples.qwen3_patch"]
+
+
+def test_hf_surface_imports_load_no_jax_transformers_or_safetensors():
+    """Each module imported in turn in one fresh interpreter, the loaded
+    modules checked after each import (none of the four may load before)."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {HF_SURFACE_MODULES!r}:\n"
+        "    importlib.import_module('mojo_opset_tpu_torch.' + name)\n"
+        "    bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                 ('jax', 'mojo_opset_tpu', 'transformers', 'safetensors', 'tokenizers'))\n"
+        "    assert not bad, (name, bad[:5])\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO, timeout=120, capture_output=True, text=True)
+    assert out.returncode == 0 and out.stdout.startswith("ok"), out.stderr[-2000:]
+
+
 @pytest.mark.parametrize("name", KERNEL_MODULES)
 def test_kernel_modules_import_without_nvcc(name):
     module = importlib.import_module(f"mojo_opset_tpu_torch.backends.cuda.kernels.{name}")
