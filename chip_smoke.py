@@ -431,6 +431,28 @@ is non-zero:
      bf16, through ``apply_mojo_to_qwen3_moe(strict=True)``, the same
      checks, H among the kernels that must launch. Logs the bytes, write
      and load seconds and GB/s; the directory is removed at the end.
+ 22. the perf harness and protocols (``phase_harness``): (a) ``run_perf``'s
+     smoke preset in process over all 52 descriptors
+     (``benchmark/specs``), tiers ref and cuda, on the card, chains from
+     HARNESS_ITERS calls: any case that raises fails the phase, every
+     time above 0, each spec that names kernels (C's, D's) timed by the
+     profiler on its cuda records or the reason printed, each cuda
+     record's route printed and a golden one failing the phase; then each cuda-tier op's
+     output held to its golden's on the same inputs and weights (each
+     dtype's ladder; int8 within one step on at most HARNESS_INT8_STEPS;
+     kernel M's Function on RoPE tables, HARNESS_ROPE_TABLES); (b)
+     ``PerfMojoGenerator`` at Qwen3-4B's geometry (random bf16 weights
+     from seed 0, block 64): prefill at HARNESS_PREFILL, decode at
+     HARNESS_DECODE_BS at ctx 4000, HARNESS_NEW_TOKENS new tokens, fused
+     windows; every rate above 0, no golden route, A-D launched; then
+     one HARNESS_PREFILL[0]-token prefill's model call timed with and
+     without a sync and one recorded prefill traced by the profiler hook
+     (device busy ms, the host's costliest runtime calls and ops); (c)
+     ``run_dit_perf`` at the JAX package's defaults (dim 2048, 32 layers,
+     bf16, ``PerfDiTRunner.SIZES``, 4 steps); (d) ``launch``: the mesh
+     sweep on a one-rank NCCL group at 4096 (a child process), the
+     per-device fan-out on the one card with ``--ops RMSNorm``. The
+     in-process launches of (a)-(c) go into the kernels line by path.
 Decode runs on CUDA graphs by default (phases 4-9 and 11): a key's first
 call is its eager warm-up, its second captures. Phase 4 runs every graphed
 generator twice and checks it against device_graph=False; phases 5, 6, 8,
@@ -6460,6 +6482,299 @@ def phase_hf_checkpoint(torch, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 22: the perf harness and protocols
+
+HARNESS_ITERS = 2  # run_perf's chains start at 2 calls (its CLI's default is 16) and double while the fixed cost shows
+HARNESS_PREFILL = (512, 2048, 8192)
+HARNESS_DECODE_BS = (1, 8, 24)
+HARNESS_NEW_TOKENS = 32
+# Qwen3-4B's geometry with positions for the 8192-token prefill and a window after it
+HARNESS_QWEN3_4B = dict(QWEN3_4B, max_position_embeddings=8224)
+HARNESS_INT8_STEPS = 1e-3  # the share of int8 values that may sit one step apart (a tie rounded the other way)
+# specs whose cuda-vs-ref check runs on RoPE tables (equal halves) in place of the descriptor's random ones: kernel
+# M's backward is its forward with -sin, the transpose of a rotation only (the TPU kernel's, rope.py:153-159)
+HARNESS_ROPE_TABLES = ("ApplyRoPEFunction",)
+
+
+def _harness_close(torch, where: str, got, want) -> float:
+    """``got`` (the cuda tier) against ``want`` (the golden) on the same inputs: float tensors to their dtype's
+    ladder (``utils/acc.py``), int8 values within one step on at most HARNESS_INT8_STEPS of them, the rest
+    equal; returns the largest float difference."""
+    from mojo_opset_tpu_torch.utils.acc import check_tol_diff, tols_for
+
+    if isinstance(want, (tuple, list)):
+        if not isinstance(got, (tuple, list)) or len(got) != len(want):
+            raise AssertionError(f"harness {where}: output structure differs from the golden's")
+        return max([_harness_close(torch, f"{where}[{i}]", g, w) for i, (g, w) in enumerate(zip(got, want))],
+                   default=0.0)
+    if not isinstance(want, torch.Tensor):
+        if got != want:
+            raise AssertionError(f"harness {where}: {got!r} != golden {want!r}")
+        return 0.0
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"harness {where}: {tuple(got.shape)} {got.dtype} vs golden {tuple(want.shape)} "
+                             f"{want.dtype}")
+    if not want.is_floating_point():
+        diff = (got.long() - want.long()).abs()
+        moved = int((diff != 0).sum())
+        if int(diff.max()) > 1 or moved > HARNESS_INT8_STEPS * want.numel():
+            raise AssertionError(f"harness {where}: {moved} integers differ, by up to {int(diff.max())}")
+        return 0.0
+    try:
+        check_tol_diff(got, want, **tols_for(want.dtype))
+    except AssertionError as err:
+        raise AssertionError(f"harness {where}: {err}") from None
+    return float((got.float() - want.float()).abs().max())
+
+
+def _harness_sweep(torch, card: str) -> tuple:
+    """(a) ``run_perf``'s smoke preset in process over every spec, ref and cuda tiers, on the card: a case that
+    raises fails the phase (``strict``), every time > 0; then each cuda op's output against the golden's on the same
+    inputs and weights. Returns the sweep's launches and records."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.benchmark import run_perf
+    from mojo_opset_tpu_torch.benchmark.api import discover_perf_specs
+
+    specs = discover_perf_specs()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    records = run_perf.run_sweep(None, ("ref", "cuda"), "smoke", HARNESS_ITERS, device="cuda", strict=True)
+    counts = kernels.launch_counts()
+    log("harness", f"{card}: run_perf smoke preset, {len(specs)} specs, {len(records)} records in "
+                   f"{time.perf_counter() - t0:.1f} s")
+    for r in records:
+        log("harness", " | ".join(f"{k}={r[k]}" for k in ("op", "case", "provider", "us", "timing", "tflops", "gbps",
+                                                           "route") if k in r))
+    bad = [r for r in records if not r["us"] > 0]
+    if bad:
+        raise AssertionError(f"harness: times not above 0: {bad}")
+    for name, spec in specs.items():
+        if spec.profiling.kernels is None:
+            continue
+        for r in records:
+            if r["op"] == name and r["provider"] == "cuda" and r["timing"] != "profiler":
+                log("harness", f"{name}/{r['case']}: the profiler's trace held no whole set of kernels matching "
+                               f"{spec.profiling.kernels} (the timing log says which); the chain's {r['timing']} "
+                               f"time stands")
+    routes = {f"{r['op']}/{r['case']}": r["route"] for r in records if r["provider"] == "cuda"}
+    log("harness", f"cuda routes: {routes}")
+    # every smoke case's form is one the JAX package's Pallas tier runs on a kernel, or one its op has no Pallas
+    # form for: a golden route here would time plain PyTorch under the cuda tier's name
+    golden = sorted(case for case, route in routes.items() if route == "golden")
+    if golden:
+        raise AssertionError(f"harness: cuda records on the golden route: {golden}")
+    log("harness", f"timers: { {t: sum(r['timing'] == t for r in records) for t in ('graph', 'events', 'profiler')} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    worst = {}
+    for spec, case in run_perf.selected_cases(None, "smoke"):
+        if "cuda" not in spec.target.get_registered_backends():
+            continue
+        ref = run_perf.prepare_case(spec, "ref", case, "cuda")
+        cuda = run_perf.prepare_case(spec, "cuda", case, "cuda")
+        cuda.op.load_state_dict(ref.op.state_dict())  # the weights the op draws for itself
+        if spec.name in HARNESS_ROPE_TABLES:
+            for prepared in (ref, cuda):
+                for table in (prepared.tensors["cos"], prepared.tensors["sin"]):
+                    half = table.shape[-1] // 2
+                    table[..., half:] = table[..., :half]
+        err = _harness_close(torch, f"{spec.name}/{case.id}", cuda.call(), ref.call())
+        worst[spec.name] = max(worst.get(spec.name, 0.0), err)
+        del ref, cuda
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("harness", f"cuda against ref on the same inputs, each dtype's ladder; largest |diff| by op: "
+                   f"{ {k: float(f'{v:.4g}') for k, v in worst.items()} }")
+    return counts, records
+
+
+def _harness_prefill_grid(torch, card: str) -> None:
+    """Kernel D on the PagedPrefillGQA smoke case two ways, each chain replayed from a CUDA graph: ``max_q_len``
+    omitted (the op bounds D's grid by the packed token count, read from shapes) and given (the longest segment,
+    read back here once); the outputs equal."""
+    from mojo_opset_tpu_torch.benchmark import run_perf
+    from mojo_opset_tpu_torch.benchmark.timing import timed_us
+
+    (spec, case), = run_perf.selected_cases(["PagedPrefillGQA"], "smoke")
+    prepared = run_perf.prepare_case(spec, "cuda", case, "cuda")
+    cu = prepared.tensors["cu_q_lens"]
+    longest = int((cu[1:] - cu[:-1]).max())
+    op, args = prepared.op, prepared.args
+
+    def given(*a):
+        return op(*a, max_q_len=longest)
+
+    with torch.no_grad():
+        if not torch.equal(op(*args), given(*args)):
+            raise AssertionError("harness: D's output depends on its grid bound")
+        times = {name: timed_us(fn, *args, iters=HARNESS_ITERS) for name, fn in (("packed", op), ("given", given))}
+    log("harness", f"{card}: D on PagedPrefillGQA/{case.id}: grid bound {prepared.tensors['query'].shape[0]} "
+                   f"(packed, the default) {times['packed'][0]:.3f} us ({times['packed'][1]}), {longest} (given) "
+                   f"{times['given'][0]:.3f} us ({times['given'][1]})")
+
+
+def _harness_generator(torch, card: str) -> dict:
+    """(b) ``PerfMojoGenerator`` at Qwen3-4B's geometry (random bf16 weights from seed 0, block 64): prefill at
+    HARNESS_PREFILL, decode at HARNESS_DECODE_BS at its ctx 4000, HARNESS_NEW_TOKENS new tokens, fused windows;
+    every rate above 0, no golden route, A-D launched. Returns the launches."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+    from mojo_opset_tpu_torch.runtime import GreedySampler, PagedAttentionGenerationModel, PerfMojoGenerator
+
+    model = Qwen3ForCausalLM(Qwen3Config(**HARNESS_QWEN3_4B, dtype=torch.bfloat16), device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+    gen = PerfMojoGenerator(PagedAttentionGenerationModel(model, block_size=64), None, GreedySampler(),
+                            max_new_tokens=HARNESS_NEW_TOKENS)
+    golden = golden_counts()
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    out = gen(prefill_seqlens=HARNESS_PREFILL, decode_batch_sizes=HARNESS_DECODE_BS, fused=True)
+    counts = kernels.launch_counts()
+    seconds = time.perf_counter() - t0
+    if golden_counts() != golden:
+        raise AssertionError("harness generator: a golden route was taken")
+    missing = [k for k in BF16_PATH_KERNELS if not counts[k]]
+    if missing:
+        raise AssertionError(f"harness generator: kernels {missing} never launched")
+    for r in out["prefill"]:
+        log("harness", f"{card}: PerfMojoGenerator prefill {r['in_tok']} tokens bs 1: {r['prefill_ms']:.3f} ms")
+    for r in out["decode"]:
+        log("harness", f"{card}: PerfMojoGenerator decode bs {r['batch_size']} ctx {gen.DECODE_CONTEXT}: "
+                       f"{r['decode_steps']} steps {r['decode_avg_ms']:.3f} ms/step {r['throughput']:.1f} tok/s "
+                       f"(prefill {r['prefill_ms']:.1f} ms)")
+    for r in out["fused_decode"]:
+        log("harness", f"{card}: PerfMojoGenerator fused window bs {r['batch_size']}: {r['decode_steps']} steps "
+                       f"{r['decode_avg_ms']:.3f} ms/step {r['throughput']:.1f} tok/s ({r['timer']})")
+    rates = [r["prefill_ms"] for r in out["prefill"]] + [r["throughput"] for r in out["decode"] + out["fused_decode"]]
+    if not (len(rates) == 9 and all(v > 0 for v in rates)):
+        raise AssertionError(f"harness generator: rates not above 0: {out}")
+    log("harness", f"PerfMojoGenerator sweep {seconds:.1f} s; launches {dict((k, counts[k]) for k in BF16_PATH_KERNELS)}")
+    _harness_prefill_trace(torch, gen, card)
+    del gen, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _harness_prefill_trace(torch, gen, card: str) -> dict:
+    """What a recorded HARNESS_PREFILL[0]-token prefill's span holds: the prefill's model call timed with no sync
+    (the host's enqueue) against the same call synchronized (best of 3 each), then one recorded prefill traced by
+    the port's profiler hook (``CUDAProfilerHook`` from before the prefill to the end of its one-step decode): the
+    device's busy time (the union of its kernels, copies and sets), their count, and the host's costliest CUDA
+    runtime calls and ops. Returns the readings."""
+    import tempfile
+
+    from mojo_opset_tpu_torch.utils.profiler import CUDAProfilerHook
+
+    ids, lens = gen._random_prompts(1, HARNESS_PREFILL[0])
+    enqueue, done = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, session = gen.model(ids, context_input_len=lens)
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        done.append(time.perf_counter() - t0)
+        del logits, session
+    with tempfile.TemporaryDirectory(prefix="mojo_prefill_trace_") as tmp:
+        hook = CUDAProfilerHook(log_dir=tmp, wait=0, active=1)
+        gen._hooks.insert(0, hook)  # the profiler starts before PerfHook's stamp opens the span
+        try:
+            gen.generate_from_ids(ids, lens, max_decode_steps=1, ignore_eos=True, silent=True)
+        finally:
+            gen._hooks.remove(hook)
+        with open(hook.traces[-1]) as f:
+            events = json.load(f)["traceEvents"]
+    span_ms = gen.perf_hook.records[-1]["prefill_ms"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, -math.inf
+    for a, b in device:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    runtime = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "dur" in e:
+            n, t = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, t + e["dur"])
+    top_runtime = sorted(runtime.items(), key=lambda kv: -kv[1][1])[:5]
+    top_ops = sorted((a for a in hook.profile.key_averages() if a.self_cpu_time_total > 0),
+                     key=lambda a: -a.self_cpu_time_total)[:8]
+    out = {"enqueue_ms": 1e3 * min(enqueue), "synchronized_ms": 1e3 * min(done), "traced_span_ms": span_ms,
+           "device_busy_ms": busy / 1e3, "device_launches": len(device)}
+    log("harness", f"{card}: prefill {HARNESS_PREFILL[0]} tokens, model call untraced: enqueue "
+                   f"{out['enqueue_ms']:.3f} ms, synchronized {out['synchronized_ms']:.3f} ms (best of 3); traced "
+                   f"PerfHook span {span_ms:.3f} ms, device busy {out['device_busy_ms']:.3f} ms over "
+                   f"{len(device)} kernels, copies and sets")
+    log("harness", "prefill trace, CUDA runtime calls by host time (calls, ms): "
+                   + "; ".join(f"{name} {n} {t / 1e3:.3f}" for name, (n, t) in top_runtime))
+    log("harness", "prefill trace, host ops by self time (calls, ms): "
+                   + "; ".join(f"{a.key} {a.count} {a.self_cpu_time_total / 1e3:.3f}" for a in top_ops))
+    if not (busy > 0 and len(device) > 0):
+        raise AssertionError(f"harness prefill trace: no device work in the trace: {out}")
+    return out
+
+
+def _harness_dit(torch, card: str) -> dict:
+    """(c) ``run_dit_perf`` at the JAX package's defaults (dim 2048, 32 layers, bf16, ``PerfDiTRunner.SIZES``, 4
+    steps): ms a step above 0 and finite TFLOP/s. Returns the launches."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.benchmark.dit_protocol import run_dit_perf
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    records = run_dit_perf(dim=2048, layers=32, steps=4, dtype=torch.bfloat16)
+    counts = kernels.launch_counts()
+    for r in records:
+        log("harness", f"{card}: run_dit_perf latent {r['latent']} {r['tokens']} tokens: {r['denoise_ms']:.3f} "
+                       f"ms/step {r['tflops']:.1f} TFLOP/s ({r['timer']})")
+    if len(records) != 3 or not all(r["denoise_ms"] > 0 and math.isfinite(r["tflops"]) for r in records):
+        raise AssertionError(f"harness dit: {records}")
+    log("harness", f"run_dit_perf {time.perf_counter() - t0:.1f} s; launches "
+                   f"{ {k: v for k, v in counts.items() if v} }")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _harness_launch(torch, card: str) -> None:
+    """(d) ``launch``: the mesh sweep on a one-rank NCCL group at the full shapes (a time at the timer's 1e-3 us
+    floor is a marginal lost in noise, not a measurement), then the per-device fan-out on the one card with
+    ``--ops RMSNorm`` (each a child process: its launches are its own)."""
+    from mojo_opset_tpu_torch.benchmark import launch
+
+    t0 = time.perf_counter()
+    mesh = launch.main(["--mode", "mesh", "--num-devices", "1"])
+    if [r["op"] for r in mesh] != ["GemmAllReduce", "AllGatherGemm", "GemmReduceScatter", "GemmAll2All"] or \
+            not all(r["provider"] == "nccl" and r["us"] > 1e-3 and r["timing"] == "events" for r in mesh):
+        raise AssertionError(f"harness mesh: {mesh}")
+    for r in mesh:
+        log("harness", f"{card}: launch mesh {r['op']} {r['case']} ({r['provider']}): {r['us']} us "
+                       f"{r['tflops']} TFLOP/s")
+    fan = launch.main(["--mode", "device", "--ops", "RMSNorm", "--iters", str(HARNESS_ITERS)])
+    if len(fan) != 6 or not all(r["device"] == 0 and r["us"] > 0 for r in fan):
+        raise AssertionError(f"harness fan-out: {fan}")
+    for r in fan:
+        log("harness", f"{card}: launch device 0 {r['op']}/{r['case']}/{r['provider']}: {r['us']} us ({r['timing']}"
+                       f"{', ' + r['route'] if 'route' in r else ''})")
+    log("harness", f"launch {time.perf_counter() - t0:.1f} s with its children")
+
+
+def phase_harness(torch, card: str) -> dict:
+    """Phase 22: the per-op perf harness and the perf protocols (see the module docstring). Returns the in-process
+    launches by path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = {}
+    counts["harness_sweep"], _ = _harness_sweep(torch, card)
+    _harness_prefill_grid(torch, card)
+    counts["harness_generator"] = _harness_generator(torch, card)
+    counts["harness_dit"] = _harness_dit(torch, card)
+    _harness_launch(torch, card)
+    return counts
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
                  dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict, quant_counts: dict,
@@ -6567,9 +6882,10 @@ def main() -> int:
     tooling_counts = model_phase("tooling", phase_tooling, torch, card)
     rest_counts = timed("rest ops", phase_rest_ops, torch, card)
     hf_counts = model_phase("hf checkpoint", phase_hf_checkpoint, torch, card)
+    harness_counts = timed("harness", phase_harness, torch, card)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts,
-                        t2v_counts, {**parallel_counts, **tooling_counts, **hf_counts}, rest_counts)
+                        t2v_counts, {**parallel_counts, **tooling_counts, **hf_counts, **harness_counts}, rest_counts)
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
     next(k for k in line if k["name"] == KERNEL_INFO["group_quant_gemm"][0])["launches_by_route"] = R_ROUTES
     print(json.dumps({"kernels": line}))

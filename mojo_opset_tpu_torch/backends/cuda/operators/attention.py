@@ -93,6 +93,15 @@ class CudaPagedDecodeGQA(MojoPagedDecodeGQA):
         )
 
 
+def _max_q_len(query: torch.Tensor, max_q_len: Optional[int]) -> int:
+    """``max_q_len`` as given, else the packed token count ``query.shape[0]``:
+    an upper bound on every segment's length, read from shapes as the JAX op
+    does, with no host read of ``cu_q_lens`` (so the call stays capturable).
+    Kernel D's grid needs a host int; its query tiles past a segment's
+    length exit at once."""
+    return query.shape[0] if max_q_len is None else max_q_len
+
+
 class CudaPagedPrefillGQA(MojoPagedPrefillGQA):
     golden_calls = 0
 
@@ -115,7 +124,7 @@ class CudaPagedPrefillGQA(MojoPagedPrefillGQA):
                                    cu_total_seq_lens, mask, max_q_len, max_total_seq_len)
         return paged_prefill_gqa(
             query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale, cu_total_seq_lens,
-            self.gqa_layout, self.kv_layout, is_causal=self.is_causal, max_q_len=max_q_len,
+            self.gqa_layout, self.kv_layout, is_causal=self.is_causal, max_q_len=_max_q_len(query, max_q_len),
         )
 
 
@@ -232,7 +241,7 @@ class CudaPagedPrefillGQAWithKVDequant(MojoPagedPrefillGQAWithKVDequant):
                                    block_tables, softmax_scale, cu_total_seq_lens, mask, max_q_len, max_total_seq_len)
         return paged_prefill_gqa(
             query, key_cache, value_cache, cu_q_lens, block_tables, softmax_scale, cu_total_seq_lens,
-            self.gqa_layout, "HND", is_causal=self.is_causal, max_q_len=max_q_len,
+            self.gqa_layout, "HND", is_causal=self.is_causal, max_q_len=_max_q_len(query, max_q_len),
             key_scale=key_scale, value_scale=value_scale,
         )
 

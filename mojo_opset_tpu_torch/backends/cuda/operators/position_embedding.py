@@ -2,6 +2,9 @@
 (``csrc/rope.cu``), head-first (B, H, S, D) or (H, T, D) on kernel M
 (``csrc/rope_head_first.cu``), as the JAX tier sends the head-first layout
 to ``rope_head_first`` (``backends/pallas/operators/position_embedding.py:41-57``).
+Token-first (T, H, D) with tables in another dtype than q's (fp32 tables
+beside bf16 rows, which the TPU kernel casts to fp32, rope.py:90-92) goes
+to M through its token-first view (B takes tables in q's dtype only).
 
 Forms neither kernel takes go to the golden ``MojoApplyRoPE.forward``, as
 the JAX tier sends them to its golden (:33-67), each call counted in
@@ -54,6 +57,6 @@ class CudaApplyRoPE(MojoApplyRoPE):
         if not kernel_takes(q, k, cos, head_first):
             CudaApplyRoPE.golden_calls += 1
             return super().forward(q, k, cos, sin, head_first)
-        if head_first:
-            return rotate_layout(rope_head_first, q, k, cos, sin, head_first=True)
+        if head_first or cos.dtype != q.dtype:
+            return rotate_layout(rope_head_first, q, k, cos, sin, head_first)
         return rope_token_first(q, k, cos, sin)

@@ -20,12 +20,13 @@ class MojoFunction(MojoOperator, dispatch_root=True):
     def value_and_grad(self, *args, argnums=0, **kwargs):
         """The sum of every output, and its gradients with respect to the
         positional arguments ``argnums`` (an int or a tuple), as JAX's
-        ``jax.value_and_grad`` of the summed outputs gives them."""
+        ``jax.value_and_grad`` of the summed outputs gives them (a None
+        output, such as a final state not asked for, is no leaf there)."""
         nums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
         args = [a.detach().requires_grad_(True) if i in nums else a for i, a in enumerate(args)]
         with torch.enable_grad():
             out = self(*args, **kwargs)
             leaves = out if isinstance(out, (tuple, list)) else (out,)
-            total = sum(leaf.sum() for leaf in leaves)
+            total = sum(leaf.sum() for leaf in leaves if leaf is not None)  # None: an output not asked for
             grads = torch.autograd.grad(total, [args[i] for i in nums], allow_unused=True)
         return total.detach(), (grads[0] if isinstance(argnums, int) else tuple(grads))

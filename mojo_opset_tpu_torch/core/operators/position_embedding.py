@@ -262,10 +262,12 @@ class MojoVisionRotaryEmbedding2D(MojoOperator):
 
 class MojoApplyVisionRoPE2D(MojoOperator):
     """Full-head-dim RoPE on packed vision tokens q, k (T, N, D) with
-    prebuilt cos/sin (T, D), in fp32, cast back to each input's dtype."""
+    prebuilt cos/sin (T, D), in fp32, cast back to each input's dtype.
+    (The JAX op's helper is ``_apply``; here that name is
+    ``nn.Module._apply``, which ``.to()`` calls.)"""
 
     @staticmethod
-    def _apply(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         return (xf * cos[:, None, :] + rotate_half(xf) * sin[:, None, :]).to(x.dtype)
 
@@ -278,4 +280,4 @@ class MojoApplyVisionRoPE2D(MojoOperator):
             raise ValueError("q, k and the tables must have the same number of tokens")
         if q.shape[-1] != cos.shape[-1]:
             raise ValueError("vision rope rotates the full head_dim")
-        return self._apply(q, cos, sin), self._apply(k, cos, sin)
+        return self._rotate(q, cos, sin), self._rotate(k, cos, sin)

@@ -5,7 +5,10 @@ Qwen3 model from an HF checkpoint directory (``--checkpoint DIR``: its
 ``config.json`` and safetensors, every weight required) or with random
 weights (``--tiny``: 4 layers, 256 wide; else ``Qwen3Config()``'s 32
 layers, 4096 wide), run the prompt through ``MojoGenerator.__call__``
-(paged prefill and decode), print the tokens and the text.
+(paged prefill and decode), print the tokens and the text. ``--perf`` runs
+the ``PerfMojoGenerator`` sweep instead (prefill at 512, 1024 and 2048
+tokens, decode at bs 1, 2, 4 and 8 at ctx 4000; ``--fused`` adds
+``FusedDecode`` windows) and returns its records under ``perf``.
 ``--tokenizer DIR`` loads a Hugging Face tokenizer (``transformers``
 needed for this flag only); without one the byte-level fallback encodes
 the prompt.
@@ -14,7 +17,7 @@ Usage::
 
     python -m mojo_opset_tpu_torch.examples.llm_inference [--checkpoint DIR]
         [--tokenizer DIR] [--prompt TEXT] [--max-new-tokens N]
-        [--block-size N] [--greedy] [--fused] [--tiny] [--quant w8a8]
+        [--block-size N] [--greedy] [--fused] [--perf] [--tiny] [--quant w8a8]
         [--quant-kv] [--speculative K] [--device cuda|cpu]
         [--debug-compare RULES] [--debug-dump RULES] [--profile-dir DIR]
         [--trace-out PATH]
@@ -47,6 +50,7 @@ from mojo_opset_tpu_torch.runtime import (
     GreedySampler,
     MojoGenerator,
     PagedAttentionGenerationModel,
+    PerfMojoGenerator,
     SpeculativeDecoder,
     TopKSampler,
 )
@@ -149,6 +153,7 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--block-size", type=int, default=64)
     parser.add_argument("--greedy", action="store_true")
     parser.add_argument("--fused", action="store_true", help="decode the whole window as one FusedDecode call")
+    parser.add_argument("--perf", action="store_true", help="run the PerfMojoGenerator sweep")
     parser.add_argument("--tiny", action="store_true", help="small random model (no checkpoint)")
     parser.add_argument("--quant", default=None, choices=(None, "w8a8"),
                         help="post-training int8 weight+activation serving mode")
@@ -165,6 +170,11 @@ def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     model = build_model(args)
     tokenizer = load_tokenizer(args)
+    if args.perf:
+        gm = PagedAttentionGenerationModel(model, block_size=args.block_size)
+        sampler = GreedySampler() if args.greedy else TopKSampler(top_k=50)
+        gen = PerfMojoGenerator(gm, tokenizer, sampler, max_new_tokens=args.max_new_tokens)
+        return {"perf": gen(prefill_seqlens=(512, 1024, 2048), decode_batch_sizes=(1, 2, 4, 8), fused=args.fused)}
     result = {}
     with run_tools(args, result, "llm_inference", profile_whole_run=False) as tracer:
         t0 = time.perf_counter()

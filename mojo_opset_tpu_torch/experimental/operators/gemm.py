@@ -23,9 +23,11 @@ class MojoQuantBatchGemmReduceSum(MojoOperator):
 
     def forward(self, input: torch.Tensor, x1_scale: torch.Tensor, x2_scale: torch.Tensor) -> torch.Tensor:
         """(B, M, K) int8 x (B, K, N) int8 in fp32, times ``x2_scale`` (N,)
-        and ``x1_scale`` (B, M), then summed over B one batch at a time in
-        bf16, each batch's product rounded to bf16 before its add, as the
-        JAX op does (:37-40) -> (M, N) bf16."""
+        or (B, N) (a scale a batch's weight column) and ``x1_scale`` (B, M),
+        then summed over B one batch at a time in bf16, each batch's product
+        rounded to bf16 before its add, as the JAX op does (:37-40) -> (M, N)
+        bf16. The JAX op broadcasts (N,) alone, though its perf descriptor
+        passes (B, N) (ROADMAP.md queue 3, "JAX-side notes")."""
         if input.ndim != 3 or self.weight.ndim != 3:
             raise ValueError(f"input and weight must be 3-D, got {tuple(input.shape)}, {tuple(self.weight.shape)}")
         weight = self.weight.transpose(1, 2) if self.trans_weight else self.weight
@@ -33,7 +35,8 @@ class MojoQuantBatchGemmReduceSum(MojoOperator):
         if weight.shape[0] != b or weight.shape[1] != k:
             raise ValueError(f"weight {tuple(weight.shape)} does not match input {tuple(input.shape)}")
         out = torch.einsum("bmk,bkn->bmn", input.float(), weight.float())
-        out = out * x2_scale.float()[None, None, :] * x1_scale.float()[:, :, None]
+        x2 = x2_scale.float()[:, None, :] if x2_scale.ndim == 2 else x2_scale.float()[None, None, :]
+        out = out * x2 * x1_scale.float()[:, :, None]
         acc = torch.zeros((m, weight.shape[2]), dtype=torch.bfloat16, device=input.device)
         for i in range(b):
             acc = acc + out[i].to(torch.bfloat16)

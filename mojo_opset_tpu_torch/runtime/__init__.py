@@ -8,12 +8,14 @@ from mojo_opset_tpu_torch.runtime.config import (
     MojoRunTimeConfig,
 )
 from mojo_opset_tpu_torch.runtime.generation import (
+    DumpHook,
     GeneratorHook,
     GreedySampler,
     MojoGenerator,
     MojoSampler,
     MojoSession,
     PerfHook,
+    PerfMojoGenerator,
     TopKSampler,
 )
 from mojo_opset_tpu_torch.runtime.session import (
@@ -41,6 +43,7 @@ __all__ = [
     "AttentionMetadata",
     "CompiledStepPool",
     "ContinuousBatchingGenerator",
+    "DumpHook",
     "FusedDecode",
     "GeneratorHook",
     "GreedySampler",
@@ -58,6 +61,7 @@ __all__ = [
     "PagedAttentionGenerationModel",
     "PagedAttentionRuntimeState",
     "PerfHook",
+    "PerfMojoGenerator",
     "SpeculativeContinuousBatchingGenerator",
     "SpeculativeDecoder",
     "TopKSampler",

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's ``runtime/generation.py`` (``MojoSession``
 :33, ``MojoSampler`` :39, ``GreedySampler`` :44, ``TopKSampler`` :49,
-``GeneratorHook`` :60, ``PerfHook`` :68, ``_Typewriter`` :165,
-``MojoGenerator`` :199). ``MojoGenerator.__call__`` tokenizes prompts, packs
+``GeneratorHook`` :60, ``PerfHook`` :68, ``DumpHook`` :145,
+``_Typewriter`` :165, ``MojoGenerator`` :199, ``PerfMojoGenerator`` :353).
+``MojoGenerator.__call__`` tokenizes prompts, packs
 them varlen and generates. The sampler runs on the device; the stepwise
 loop reads each step's tokens back for EOS handling, the fused loop
 (``FusedDecode``) only at the end. The typewriter
@@ -16,6 +17,10 @@ the JAX package splits a key chain. With the model's decode graphs on
 session per batch size and one ``FusedDecode`` per sampler, renewing the
 session each call, so a call's decode steps and window replay the graphs
 of the calls before it (a graph holds its session's cache addresses).
+``PerfMojoGenerator`` is the end-to-end protocol: prefill ms at seqlens
+512-8192 (bs 1) and decode tok/s at bs 1-24 (ctx 4000), each case run once
+warm and once recorded, and optionally whole ``FusedDecode`` windows, timed
+with CUDA events on the card.
 """
 
 from __future__ import annotations
@@ -24,14 +29,16 @@ import queue
 import threading
 import time
 from abc import ABC, abstractmethod
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from mojo_opset_tpu_torch.benchmark.timing import chain_seconds
 from mojo_opset_tpu_torch.core.operators.sampling import MojoTopKSampling
 from mojo_opset_tpu_torch.runtime.session import FusedDecode
-from mojo_opset_tpu_torch.utils.logging import get_logger
+from mojo_opset_tpu_torch.utils.logging import get_logger, log_table
 
 logger = get_logger(__name__)
 
@@ -138,6 +145,29 @@ class PerfHook(GeneratorHook):
                 "%(throughput).1ftok/s",
                 rec,
             )
+
+
+class DumpHook(GeneratorHook):
+    """Writes each step's logits as ``.npy`` for offline diffing:
+    ``prefill_logits.npy``, then ``decode_step_NNN_logits.npy`` for decode
+    steps up to ``max_decode_steps``. bf16 logits are saved as fp32 (numpy
+    has no bf16)."""
+
+    def __init__(self, dump_dir: str, max_decode_steps: int = 20):
+        self._dir = Path(dump_dir)
+        self._dir.mkdir(parents=True, exist_ok=True)
+        self._budget = max_decode_steps
+
+    def _save(self, stem: str, logits: torch.Tensor) -> None:
+        host = logits.detach().cpu()
+        np.save(self._dir / f"{stem}.npy", (host.float() if host.dtype == torch.bfloat16 else host).numpy())
+
+    def after_prefill(self, *, logits, session):
+        self._save("prefill_logits", logits)
+
+    def after_decode_step(self, *, step, logits, next_token_id):
+        if step <= self._budget:
+            self._save(f"decode_step_{step:03d}_logits", logits)
 
 
 class _Typewriter:
@@ -317,3 +347,97 @@ class MojoGenerator:
                 typewriter.send([g[:, None] for g in pending])
             typewriter.close()
         return np.stack(all_generated, axis=-1)
+
+
+class PerfMojoGenerator(MojoGenerator):
+    """The end-to-end perf protocol: prefill latency at each of
+    ``PREFILL_SEQLENS`` at bs 1 and decode throughput at each of
+    ``DECODE_BATCH_SIZES`` at ``DECODE_CONTEXT`` tokens of context, from
+    random prompts (``np.random.default_rng(0)``, as the JAX package draws
+    them). Each case runs once warm (kernel builds, graph captures), left
+    out of the records, then once recorded by ``PerfHook`` (host clock, the
+    device synchronized at each phase boundary). ``fused=True`` adds whole
+    ``FusedDecode`` windows of ``max_new_tokens`` steps at each batch size,
+    timed with CUDA events on the card (the host clock on the CPU)."""
+
+    PREFILL_SEQLENS = (512, 1024, 2048, 4096, 8192)
+    DECODE_BATCH_SIZES = (1, 2, 4, 8, 16, 24)
+    DECODE_CONTEXT = 4000
+
+    def __init__(self, *args, **kwargs):
+        hooks = list(kwargs.pop("hooks", None) or [])
+        self.perf_hook = PerfHook(silent=True)
+        hooks.append(self.perf_hook)
+        super().__init__(*args, hooks=hooks, **kwargs)
+
+    def _random_prompts(self, batch_size: int, seqlen: int):
+        config = getattr(getattr(self.model, "model", None), "config", None)
+        vocab_size = getattr(getattr(config, "model_config", None), "vocab_size", 0) or 32000
+        rng = np.random.default_rng(0)
+        ids = rng.integers(0, vocab_size, (batch_size * seqlen,)).astype(np.int32)
+        return ids, np.full((batch_size,), seqlen, np.int32)
+
+    def _run_perf_case(self, batch_size: int, seqlen: int, max_decode_steps: int) -> None:
+        ids, lens = self._random_prompts(batch_size, seqlen)
+        n_before = len(self.perf_hook.records)
+        self.generate_from_ids(ids, lens, max_decode_steps=max_decode_steps, ignore_eos=True, silent=True)
+        del self.perf_hook.records[n_before:]  # the warm run
+        self.generate_from_ids(ids, lens, max_decode_steps=max_decode_steps, ignore_eos=True, silent=True)
+
+    def _run_fused_decode_case(self, batch_size: int) -> dict:
+        """A whole FusedDecode window after the context's prefill, twice
+        warm (capture and settle), then timed."""
+        ids, lens = self._random_prompts(batch_size, self.DECODE_CONTEXT)
+        logits, session = self.model(ids, context_input_len=lens)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        steps = self.max_new_tokens
+        fused = FusedDecode(self.model.model, sample_method="greedy",
+                            device_graph=getattr(self.model, "device_graph", None))
+        for _ in range(2):
+            tok = fused(session, tok, steps)[-1]
+        timer = "events" if tok.is_cuda else "host"
+        seconds = chain_seconds(lambda: fused(session, tok, steps), tok.device, timer)
+        return {"batch_size": batch_size, "decode_steps": steps, "decode_avg_ms": seconds / steps * 1e3,
+                "throughput": batch_size * steps / seconds, "timer": timer}
+
+    def __call__(self, prompts=None, prefill_seqlens=None, decode_batch_sizes=None, fused: bool = False) -> dict:
+        """Returns ``{"prefill": [...], "decode": [...], "fused_decode": [...]}``
+        (``PerfHook`` records; the fused ones as ``_run_fused_decode_case``)."""
+        logger.info("Starting Prefill Latency Tests...")
+        self.perf_hook.records.clear()
+        for seqlen in prefill_seqlens or self.PREFILL_SEQLENS:
+            self._run_perf_case(batch_size=1, seqlen=seqlen, max_decode_steps=1)
+        prefill_records = list(self.perf_hook.records)
+
+        log_table(logger, "=" * 60)
+        log_table(logger, f"{'Prefill Latency Tests':^60}")
+        log_table(logger, f"{'SeqLen':<15} | {'Batch Size':<15} | {'Prefill Latency (ms)':<20}")
+        for r in prefill_records:
+            log_table(logger, f"{r['in_tok']:<15} | {r['batch_size']:<15} | {r['prefill_ms']:<20.2f}")
+
+        logger.info("Starting Decode Throughput Tests...")
+        self.perf_hook.records.clear()
+        for bs in decode_batch_sizes or self.DECODE_BATCH_SIZES:
+            self._run_perf_case(batch_size=bs, seqlen=self.DECODE_CONTEXT, max_decode_steps=self.max_new_tokens)
+        decode_records = list(self.perf_hook.records)
+
+        header = (f"{'Batch Size':<12} | {'Decode Steps':<15} | {'Avg Latency (ms/step)':<22} | "
+                  f"{'Throughput (tok/s)':<20}")
+        fused_records = []
+        if fused:
+            logger.info("Starting FUSED Decode Throughput Tests...")
+            fused_records = [self._run_fused_decode_case(bs) for bs in decode_batch_sizes or self.DECODE_BATCH_SIZES]
+            log_table(logger, "=" * 80)
+            log_table(logger, f"{'Fused Decode Throughput (one FusedDecode window)':^80}")
+            log_table(logger, header)
+            for r in fused_records:
+                log_table(logger, f"{r['batch_size']:<12} | {r['decode_steps']:<15} | "
+                                  f"{r['decode_avg_ms']:<22.2f} | {r['throughput']:<20.2f}")
+
+        log_table(logger, "=" * 80)
+        log_table(logger, f"{'Decode Throughput Tests (Context Len = %d)' % self.DECODE_CONTEXT:^80}")
+        log_table(logger, header)
+        for r in decode_records:
+            log_table(logger, f"{r['batch_size']:<12} | {r['decode_steps']:<15} | "
+                              f"{r['decode_avg_ms']:<22.2f} | {r['throughput']:<20.2f}")
+        return {"prefill": prefill_records, "decode": decode_records, "fused_decode": fused_records}

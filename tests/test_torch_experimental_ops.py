@@ -84,6 +84,34 @@ def test_quant_batch_gemm_reduce_sum_matches_jax_exactly(trans):
     assert not torch.equal(got, fp32_sum)
 
 
+@pytest.mark.parametrize("trans", [False, True])
+def test_quant_batch_gemm_reduce_sum_per_batch_weight_scale(trans):
+    """``x2_scale`` (B, N), one weight scale a batch (the form the perf
+    descriptor passes; the JAX op broadcasts (N,) alone), against a plain
+    reference exactly: the int8 products in fp32, times ``x2[b]`` and
+    ``x1[b]``, summed over B in bf16 one batch at a time. The scales differ
+    by batch, so one batch's scale applied to all lands elsewhere."""
+    rng = np.random.default_rng(5)
+    B, M, K, N = 8, 4, 64, 6
+    w = torch.from_numpy(rng.integers(-128, 128, (B, N, K) if trans else (B, K, N)).astype(np.int8))
+    x = torch.from_numpy(rng.integers(-128, 128, (B, M, K)).astype(np.int8))
+    s1 = torch.from_numpy(rng.uniform(0.001, 0.01, (B, M)).astype(np.float32))
+    s2 = torch.from_numpy(rng.uniform(0.001, 0.01, (B, N)).astype(np.float32))
+    got = texp.MojoQuantBatchGemmReduceSum(w, trans)(x, s1, s2)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+
+    def reference(x2):
+        prod = torch.einsum("bmk,bkn->bmn", x.float(), (w.transpose(1, 2) if trans else w).float())
+        scaled = prod * x2[:, None, :] * s1[:, :, None]
+        acc = torch.zeros((M, N), dtype=torch.bfloat16)
+        for b in range(B):
+            acc = acc + scaled[b].to(torch.bfloat16)
+        return acc
+
+    check_tol_diff(got, reference(s2), **EXACT)
+    assert not torch.equal(got, reference(s2[:1].expand(B, N)))  # batch 0's scale on every batch
+
+
 # ---------------------------------------------------------------- gate and norms
 
 

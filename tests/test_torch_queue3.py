@@ -187,6 +187,25 @@ def test_paged_attention_ops_take_the_golden_off_the_kernels_head_dims(d, golden
     check_tol_diff(got, MojoPagedPrefillGQA.get_backend_impl("ref")()(qp, kc, vc, cu, bt, None, cu), **F32)
 
 
+@pytest.mark.parametrize("given, grid", [(None, 25), (20, 20)])
+def test_paged_prefill_ops_bound_kernel_d_by_the_packed_length(given, grid, monkeypatch):
+    """Without ``max_q_len`` the prefill ops give kernel D the packed token
+    count as its grid bound, read from shapes (no host read of
+    ``cu_q_lens``: a CUDA-graph capture would refuse one); a given value
+    passes through. Both ops, on ``meta`` tensors, where a host read
+    raises."""
+    from mojo_opset_tpu_torch.backends.cuda.operators import attention
+    from mojo_opset_tpu_torch.backends.cuda.operators.attention import CudaPagedPrefillGQAWithKVDequant
+
+    seen = []
+    monkeypatch.setattr(attention, "paged_prefill_gqa", lambda *a, max_q_len, **kw: seen.append(max_q_len))
+    q, kc, cu, bt = meta(25, 4, 128), meta(4, 2, 16, 128), i32(3), i32(2, 2)
+    CudaPagedPrefillGQA()(q, kc, kc, cu, bt, None, cu, max_q_len=given)
+    k8, scale = meta(4, 2, 16, 128, dtype=torch.int8), meta(2, 128, dtype=torch.float32)
+    CudaPagedPrefillGQAWithKVDequant()(q, None, k8, scale, k8, scale, cu, bt, None, cu, max_q_len=given)
+    assert seen == [grid, grid]
+
+
 @pytest.mark.parametrize("d, golden", [(8, 1), (96, 0)])
 def test_dense_attention_ops_take_the_golden_off_the_kernels_head_dims(d, golden):
     cu = torch.tensor([0, 9, 14], dtype=torch.int32)
@@ -346,3 +365,46 @@ def test_rope_full_tables_stay_on_kernels_b_and_m(q_shape, table, head_first, no
     with pytest.raises(RuntimeError, match=NO_BUILD):
         MojoApplyRoPE()(meta(*q_shape), meta(*k_shape), meta(*table), meta(*table), head_first=head_first)
     assert CudaApplyRoPE.golden_calls == before
+
+
+def test_rope_token_first_fp32_tables_take_kernel_m(no_build, monkeypatch):
+    """Token-first (T, H, D) bf16 rows with fp32 (T, D) tables, the form
+    JAX's Pallas tier runs on ``rope_token_first`` (its kernel casts the
+    tables to fp32), reach kernel M through its token-first view: on
+    ``meta`` tensors the stubbed build raises and no golden route is
+    counted; on the CPU M's plain version gets the (1, H, T, D) views and
+    the result equals JAX's Pallas tier (interpret mode) within the bf16
+    ladder."""
+    import jax.numpy as jnp
+
+    import mojo_opset_tpu as jm
+    from mojo_opset_tpu_torch import MojoApplyRoPE
+    from mojo_opset_tpu_torch.backends.cuda.operators import CudaApplyRoPE
+    from mojo_opset_tpu_torch.backends.cuda.operators import position_embedding as pe
+    from mojo_opset_tpu_torch.utils.acc import tols_for
+
+    before = CudaApplyRoPE.golden_calls
+    with pytest.raises(RuntimeError, match=NO_BUILD):
+        MojoApplyRoPE()(meta(16, 4, 128), meta(16, 2, 128), meta(16, 128, dtype=torch.float32),
+                        meta(16, 128, dtype=torch.float32), head_first=False)
+    assert CudaApplyRoPE.golden_calls == before
+
+    monkeypatch.setenv("MOJO_PALLAS_INTERPRET", "1")
+    seen, kernel_m = [], pe.rope_head_first
+
+    def rotate(q, k, cos, sin, negate_sin=False):
+        seen.append((tuple(q.shape), tuple(k.shape), cos.dtype))
+        return kernel_m(q, k, cos, sin, negate_sin)
+
+    monkeypatch.setattr(pe, "rope_head_first", rotate)
+    q, k, cos, sin = _rope_inputs((16, 4, 128), (16, 2, 128), (16, 128))
+    want = jm.MojoApplyRoPE.get_backend_impl("pallas", strict=True)()(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16), jnp.asarray(cos), jnp.asarray(sin),
+        head_first=False)
+    got = MojoApplyRoPE()(torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(), torch.from_numpy(cos),
+                          torch.from_numpy(sin), head_first=False)
+    assert seen == [((1, 4, 16, 128), (1, 2, 16, 128), torch.float32)]
+    assert CudaApplyRoPE.golden_calls == before
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        check_tol_diff(g, np.asarray(w, np.float32), **tols_for(torch.bfloat16))
