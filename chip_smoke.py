@@ -119,7 +119,10 @@ is non-zero:
      and as (T, H, D) rows; each output to its ladder and, relative to its
      size, to TRAIN_KERNEL_REL_LIMITS. Kernel N (fused linear + CE: stats, dz,
      dx, dw) at the train step's lm_head (N 4096, H 2560, V 151936, bf16),
-     then fp16, fp32, every option of JAX's test matrix, ragged N and V,
+     at the vocab-parallel loss's shards of it (V 75968 at tp 2 with label
+     smoothing over the whole vocabulary, V 37984 at tp 4; targets drawn
+     over the whole vocabulary and shifted, so most fall outside the
+     shard; both timed), then fp16, fp32, every option of JAX's test matrix, ragged N and V,
      every row ignored, one row and the chunked-dz backward (4 runs); each
      output to its ladder and, relative to its size, to FLCE_REL_LIMITS;
      dz, dx, dw bit for bit over two runs; the main cases beside the cuBLAS
@@ -189,8 +192,9 @@ is non-zero:
      FusedDecode window, counters as in 5; all six kernels must launch.
      Last-token logits: finite, per-row cosine >= 0.999 against the plain
      path; the cosine against the bf16 model is printed, with no bound.
-  7. w4a8 speculative decoding at full width (bench.py:298-331): a bf16
-     Qwen3-4B target from seed 0, its w4a8 twin quantized on the card as
+  7. w4a8 speculative decoding at full width (bench.py:298-331), depth cut
+     36 -> SPEC_LAYERS: a bf16 Qwen3-4B target from seed 0, its w4a8 twin
+     quantized on the card as
      the draft, bs 1, a 512-token prompt, 64 new tokens, k = 4, block 64.
      The draft's last-token logits hold per-row cosine >= 0.999 against its
      plain path. Counters as in 5 over vanilla greedy (stepwise and
@@ -267,7 +271,7 @@ is non-zero:
      device time of J, A, K, L, M and N, and each loss tier's step ms, loss
      ms and peak memory.
  11. Seed-OSS at Seed-OSS-36B widths (SEED_OSS_36B: hidden 5120, 80/8
-     heads, q/k/v biases, vocab 155136), depth cut 64 -> 32, bf16, random
+     heads, q/k/v biases, vocab 155136), depth cut 64 -> 16, bf16, random
      weights from seed 0, block 64, a plain twin on the same tensors; phase
      5's prompts, steps and FusedDecode window on A-D (logit cosine >= 0.999
      against the plain path), then its w8a8 twin from quantize_seed_oss
@@ -359,7 +363,14 @@ is non-zero:
      one device, so gloo carries the CUDA tensors, eager (a graph asked for
      over gloo must raise); both ranks one stream, which may part from the
      unsharded stream only at a near-tie (TP2_TIE_GAP), prefill logits'
-     per-row cosine >= TP2_COSINE_BOUND. No golden route.
+     per-row cosine >= TP2_COSINE_BOUND. The same spawn runs phase 23's tp
+     2 checks: greedy speculative decoding of the sharded target with its
+     w8a8 draft (``quantize_qwen3`` of the whole model, then sharded; k
+     TP2_SPEC_K; graphs asked for over gloo must raise, so eager), and the
+     w8a8 + C8 twin (``quantize_qwen3(quant_kv=True)``, then sharded): both
+     streams under the near-tie rule against the unsharded model's and
+     twin's, each rank's C8 channel scales against the unsharded twin's
+     rows of its kv heads (C8_TP2_SCALE_REL_BOUND). No golden route.
  19. The runtime tooling through the port's example entry points, under
      MOJO_NATIVE=1 (the native block allocator built from
      ``runtime/native/block_allocator.cpp`` into ``_build/``; a failed
@@ -464,9 +475,36 @@ bit, else per-row cosine >= GRAPH_COSINE_BOUND), and time GRAPH_TURNS graph
 and eager steps in turns (``_graph_vs_eager``: device busy and idle share
 of a graph step, capture ms, the graph pool's memory); phase 7 does the
 same for vanilla and speculative decoding (``_speculative_turns``).
-Phases 5-12, 18, 19 and 21 (the models, the quantized halves of 8 and 9
+Phases 5-12, 18, 19, 21 and 23 (the models, the quantized halves of 8 and 9
 among them) must leave every cuda-tier class's golden_calls where it was: a
 golden route on a model path fails its phase.
+ 23. dp x tp training and the rest of the distributed layer
+     (``phase_train_parallel``), a model phase: (a) one-rank NCCL groups
+     (dp 1 x tp 1, the port's ``init_distributed``): Qwen3-4B's widths cut
+     to TRAIN_TP_LAYERS layers, B TRAIN_BATCH x S TRAIN_SEQ, the sharded
+     train step (``train_forward`` under the styles, the vocab-parallel
+     loss on kernel N, backward, ``finish_gradients``, fused AdamW at
+     optax.adamw(1e-4)'s settings) against the unsharded step on the same
+     weights and batch, in turns: the loss and every gradient of the first
+     turn and every parameter after the last, bit for bit or the gap
+     printed (the loss within TRAIN_LOSS_REL_BOUND, each gradient's cosine
+     >= TRAIN_GRAD_COSINE_BOUND), the sharded step's launches exactly
+     ``_train_launches``, step ms in turns and a profiled step's NCCL
+     kernels; greedy speculative decoding of SMALL sharded with its w8a8
+     draft, draft rounds and verifies replayed from graphs (the NCCL
+     collectives captured), == the unsharded greedy stream; the ring
+     AllGatherGemm and GemmReduceScatter (cuda tier) on the group of one,
+     the plain GEMM bit for bit (as in JAX), timed. (b) dp 2 x tp 2 in four
+     processes on the one card over gloo: Qwen3-4B's widths cut to
+     TRAIN_DP_LAYERS layers, B TRAIN_BATCH x S TRAIN_DP_SEQ a dp rank,
+     against the unsharded step on the whole batch in each process: the
+     dp-mean loss within TRAIN_DP_LOSS_REL_BOUND, every parameter's
+     gradient against its shard of the unsharded gradient at a cosine of
+     at least TRAIN_DP_COSINE_BOUND; J, K, L, M, N and A launched on every
+     rank, no golden route; the ring ops refuse CUDA tensors over gloo.
+     The ring's arithmetic across ranks is checked on the CPU only (NCCL
+     refuses two ranks on one card). Its launches join the kernels line
+     by path.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -635,6 +673,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # the bs-1 speculative run of bench.py:298-331: prompt, new tokens, drafts per round
 SPEC_PROMPT, SPEC_NEW, SPEC_K = 512, 64, 4
+# its depth: Qwen3-4B's 36 layers cut to 18, for the smoke's clock once phase 23 came (PERF.md section 4)
+SPEC_LAYERS = 18
 SPEC_TIE_GAP = 0.05  # a stream may leave vanilla greedy only where the target's two best logits are this close
 # phase 10: AdamW steps of Qwen3 at Qwen3-4B geometry on one repeated batch of B x S tokens
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 5
@@ -712,10 +752,11 @@ FLCE_CONFIGS = (dict(reduction="sum"), dict(label_smoothing=0.1), dict(lse_squar
 # the training step's shapes: B x S tokens, Qwen3-4B's hidden and MLP widths, 32/8 heads of 128
 TRAIN_TOKENS = 2 * 2048
 # Seed-OSS-36B (huggingface.co/ByteDance-Seed/Seed-OSS-36B-Instruct, config.json) at full width: q/k/v biases, no
-# o or MLP bias, an untied lm_head. The depth is cut 64 -> 32 (18.9 B params, 35 GiB in bf16; ~52 GiB with the w8a8
-# twin beside it) and the positions 524288 -> 1088 (the KV pool: the longest prompt, its decode steps and one more)
+# o or MLP bias, an untied lm_head. The depth is cut 64 -> 16 (about 10.2 B params, 19 GiB in bf16; 32 layers until
+# phase 23 came, halved for the smoke's clock) and the positions 524288 -> 1088 (the KV pool: the longest prompt, its
+# decode steps and one more)
 SEED_OSS_36B = dict(
-    hidden_size=5120, intermediate_size=27648, num_attention_heads=80, num_key_value_heads=8, num_hidden_layers=32,
+    hidden_size=5120, intermediate_size=27648, num_attention_heads=80, num_key_value_heads=8, num_hidden_layers=16,
     head_dim=128, vocab_size=155136, max_position_embeddings=1088, rope_theta=1e7, attention_bias=True,
     attention_out_bias=False, mlp_bias=False, tie_word_embeddings=False,
 )
@@ -2442,7 +2483,9 @@ def flce_rel_errors(got, want):
 def _flce_cases(torch, compare, gen, record) -> None:
     """N: fused linear + cross-entropy, each entry point against its plain version: at the train step's lm_head
     (main: N 4096 x H 2560 x V 151936 bf16, targets drawn over V with a quarter ignored, a and c of the mean
-    reduction; timed from a CUDA graph beside the bound and the cuBLAS time of the same product), then fp16 and
+    reduction; timed from a CUDA graph beside the bound and the cuBLAS time of the same product), at the
+    vocab-parallel loss's tp 2 and tp 4 shards of it (timed the same way; dz's smoothing over the whole vocabulary,
+    the targets shifted by the shard's first row), then fp16 and
     fp32, every option of JAX's test matrix (softcap, label smoothing, z-loss, sum), ragged N and V (V not a
     multiple of 8: dz's row pitch is padded), every row ignored, one row, and flce_backward's chunked-dz route
     forced by a small budget (dw added over 4 runs in fp32) against the plain backward. Every output to its dtype
@@ -2469,43 +2512,46 @@ def _flce_cases(torch, compare, gen, record) -> None:
             return " / ".join(notes)
         return check
 
-    def inputs(n, h, v, dtype, ignore_frac=0.25, cfg=None):
+    def inputs(n, h, v, dtype, ignore_frac=0.25, cfg=None, shard=None):
         cfg = dict(cfg or {})
         x = torch.randn(n, h, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(v, h, device="cuda", generator=gen) * 0.02).to(dtype)
-        t = torch.randint(0, v, (n,), device="cuda", generator=gen, dtype=torch.int32)
+        start, vocab = shard or (0, v)  # a vocab shard: the targets drawn over the whole vocabulary, then shifted
+        t = torch.randint(0, vocab, (n,), device="cuda", generator=gen, dtype=torch.int32) - start
         t[torch.rand(n, device="cuda", generator=gen) < ignore_frac] = -100
         lse, _, _ = flce.flce_stats_plain(x, w, t, cfg.get("softcap"))
         a, c = flce.backward_coefficients(torch.ones((), device="cuda"), torch.zeros((), device="cuda"), lse, t,
                                           -100, cfg.get("lse_square_scale", 0.0), cfg.get("reduction", "mean"))
         return x, w, t, lse, a, c
 
-    def case(label, n, h, v, dtype, cfg=None, ignore_frac=0.25, main=False, budget=None):
+    def case(label, n, h, v, dtype, cfg=None, ignore_frac=0.25, main=False, budget=None, shard=None, key=None):
         cfg = dict(cfg or {})
         cap, ls = cfg.get("softcap"), cfg.get("label_smoothing", 0.0)
-        x, w, t, lse, a, c = inputs(n, h, v, dtype, ignore_frac, cfg)
+        vs = None if shard is None else shard[1]  # the whole vocabulary, which the smoothing spreads over
+        x, w, t, lse, a, c = inputs(n, h, v, dtype, ignore_frac, cfg, shard)
         isz, kind, ops = x.element_size(), _kind(torch, dtype), 2 * n * h * v
         in_bytes = (n * h + v * h) * isz
-        name = f"{label} N={n} H={h} V={v} {cfg or ''}"
+        name = f"{label} N={n} H={h} V={v} {cfg or ''}{'' if shard is None else f' shard {shard}'}"
         dz_buf = flce._dz_buffer(n, v, x)
         dw_out = torch.empty_like(w)
         lib = (lambda: x @ w.t()) if main else None  # noqa: E731
         compare("flce_stats", lambda: flce.flce_stats(x, w, t, cap), lambda: flce.flce_stats_plain(x, w, t, cap),
                 dtype, "stats " + name, main, check=checker(f32, f32, f32),
-                bound=(in_bytes + 4 * n + 12 * n, ops, kind), library=lib, library_graph=False)
-        compare("flce_dz", lambda: flce._dz_kernel(x, w, t, lse, a, c, cap or 0.0, ls, 0, n, dz_buf),
-                lambda: flce.flce_dz_plain(x, w, t, lse, a, c, cap, ls), dtype, "dz " + name, main,
+                bound=(in_bytes + 4 * n + 12 * n, ops, kind), library=lib, library_graph=False, key=key)
+        compare("flce_dz", lambda: flce._dz_kernel(x, w, t, lse, a, c, cap or 0.0, ls, 0, n, dz_buf, vs),
+                lambda: flce.flce_dz_plain(x, w, t, lse, a, c, cap, ls, vs), dtype, "dz " + name, main,
                 check=checker(dtype), bound=(in_bytes + 16 * n + n * v * isz, ops, kind), library=lib,
-                library_graph=False)
-        dz = flce.flce_dz(x, w, t, lse, a, c, cap, ls)
+                library_graph=False, key=key)
+        dz = flce.flce_dz(x, w, t, lse, a, c, cap, ls, vs)
         compare("flce_dx", lambda: flce.flce_dx(dz, w), lambda: flce.flce_dx_plain(dz, w), dtype, "dx " + name, main,
                 check=checker(dtype), bound=(n * v * isz + v * h * isz + n * h * isz, ops, kind),
-                library=(lambda: dz @ w) if main else None, library_graph=False)
+                library=(lambda: dz @ w) if main else None, library_graph=False, key=key)
         compare("flce_dw", lambda: flce._dw_kernel(dz, x, dw_out, None, 0) or dw_out,
                 lambda: flce.flce_dw_plain(dz, x), dtype, "dw " + name, main, check=checker(dtype),
                 bound=(n * v * isz + n * h * isz + v * h * isz, ops, kind),
-                library=(lambda: dz.t() @ x) if main else None, library_graph=False)
-        runs = [(flce.flce_dz(x, w, t, lse, a, c, cap, ls), flce.flce_dx(dz, w), flce.flce_dw(dz, x)) for _ in range(2)]
+                library=(lambda: dz.t() @ x) if main else None, library_graph=False, key=key)
+        runs = [(flce.flce_dz(x, w, t, lse, a, c, cap, ls, vs), flce.flce_dx(dz, w), flce.flce_dw(dz, x))
+                for _ in range(2)]
         if not all(torch.equal(p, q) for p, q in zip(*runs)):
             raise AssertionError(f"flce {name}: two runs of dz, dx, dw on the same inputs differ")
         if budget is not None:
@@ -2524,6 +2570,13 @@ def _flce_cases(torch, compare, gen, record) -> None:
                       for name in ("flce_stats", "flce_dz", "flce_dx", "flce_dw"))
     log("kernel flce", f"at the step's lm_head, TFLOP/s of each product (kernel; one cuBLAS matmul): {rates}; main "
                        f"cases took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    # the vocab-parallel loss's shards of the step's lm_head (phase 23): V 75968 at tp 2 (rank 1's rows, the
+    # smoothing over the whole vocabulary), 37984 at tp 4; neither V a multiple of 128, so the last V tile is ragged
+    case("tp 2 vocab shard", TRAIN_TOKENS, 2560, 151936 // 2, bf16, dict(label_smoothing=0.1), main=True,
+         shard=(151936 // 2, 151936), key="vocab_shard_tp2")
+    case("tp 4 vocab shard", TRAIN_TOKENS, 2560, 151936 // 4, bf16, main=True, shard=(151936 // 4, 151936),
+         key="vocab_shard_tp4")
     torch.cuda.empty_cache()
     case("fp16", 300, 256, 1000, f16)
     case("fp32", 300, 256, 1000, f32)
@@ -3172,7 +3225,7 @@ def _first_divergence(torch, gm, ids, want, got) -> str:
 
 def phase_w4a8_speculative(torch, card: str) -> tuple:
     """bench.py:298-331 on the card: bs 1, a 512-token prompt, 64 new tokens,
-    a bf16 Qwen3-4B target and its w4a8 twin as the draft, k = 4. Returns the
+    a bf16 Qwen3-4B target (depth SPEC_LAYERS) and its w4a8 twin as the draft, k = 4. Returns the
     path's launches and G's by route and M."""
     from mojo_opset_tpu_torch.backends.cuda import kernels
     from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
@@ -3183,12 +3236,13 @@ def phase_w4a8_speculative(torch, card: str) -> tuple:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    target = Qwen3ForCausalLM(Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16), device="cuda",
-                              generator=torch.Generator(device="cuda").manual_seed(0))
+    target = Qwen3ForCausalLM(Qwen3Config(**dict(QWEN3_4B, num_hidden_layers=SPEC_LAYERS), dtype=torch.bfloat16),
+                              device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
     draft, plain_draft = _quantized_pair(torch, target, quant_kv=False, weight_dtype="int4")
     int4_bytes = sum(m.weight.numel() for m in draft.modules() if getattr(m, "weight_dtype", None) == "int4")
     int8_bytes = sum(m.weight.numel() for m in draft.modules() if getattr(m, "weight_dtype", None) == torch.int8)
-    log("w4a8 speculative", f"bf16 Qwen3-4B target and its w4a8 draft, quantized on the card in "
+    log("w4a8 speculative", f"bf16 Qwen3-4B target (depth cut {QWEN3_4B['num_hidden_layers']} -> {SPEC_LAYERS}) "
+                            f"and its w4a8 draft, quantized on the card in "
                             f"{time.perf_counter() - t0:.1f} s: {int4_bytes / 1e9:.3f} GB packed int4 weights, "
                             f"{int8_bytes / 1e9:.3f} GB int8 (the lm_head)")
     ids = np.random.default_rng(0).integers(1, QWEN3_4B["vocab_size"], SPEC_PROMPT).astype(np.int32)
@@ -3748,7 +3802,7 @@ def phase_deepseek_full_width(torch, card: str) -> tuple:
 
 
 def phase_seed_oss_full_width(torch, card: str) -> tuple:
-    """Seed-OSS at Seed-OSS-36B widths, depth cut to 32: the bf16 model on A-D
+    """Seed-OSS at Seed-OSS-36B widths, depth cut to 16: the bf16 model on A-D
     and its w8a8 twin, quantized on the card, on A-F, each through phase 5's
     batch against a plain twin on the same tensors."""
     from mojo_opset_tpu_torch.modeling.seed_oss import SeedOssConfig, SeedOssForCausalLM, quantize_seed_oss
@@ -5029,6 +5083,12 @@ TP_MOE_LAYERS = 6  # Qwen3-30B-A3B's depth cut 48 -> 6 for phase 18's MoE run
 TP2_COSINE_BOUND = 0.999
 TP2_TIE_GAP = 0.05  # a tp 2 stream may leave the unsharded stream only where the unsharded top-2 logits lie this close
 TP2_TIMEOUT_S = 420
+TP2_SPEC_K = 3  # draft tokens a round of the tp 2 speculative run (JAX tests/distributed/test_parallel_styles.py:259)
+# the tp 2 C8 cache's channel scales against the unsharded model's rows of the rank's kv heads, the worst channel's
+# relative gap: layer 0 reads the same int8 GEMM sums (bit for bit); deeper layers read a residual stream whose bf16
+# row-parallel sums ran in another order (the probe that set it, on an H100 80GB HBM3 at 700 W, read 0.0485, layer 0
+# exact)
+C8_TP2_SCALE_REL_BOUND = 0.1
 
 
 def _keep_logits():
@@ -5147,27 +5207,69 @@ def _tp1_check(torch, tag, card, model, sharded, ids, lens, path_kernels) -> dic
 
 
 def _tp_reference(torch, model, ids, lens) -> dict:
-    """The unsharded model's eager stream, its logits of every step kept (on the host), for the tp 2 run."""
+    """The unsharded model's eager stream, its logits of every step kept (on the host), for the tp 2 run; and the
+    same of its w8a8 + C8 twin (``quantize_qwen3(quant_kv=True)``) with the channel scales its prefill calibrated
+    (layers x (key, value) x (8 kv heads, 128))."""
+    from mojo_opset_tpu_torch.modeling.qwen3 import quantize_qwen3
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel
+
     hook = _keep_logits()
     tokens, gm = _tp_stream(model, ids, lens, device_graph=False, hook=hook)
-    return dict(tokens=tokens, steps=[s.float().cpu() for s in hook.steps])
+    c8 = quantize_qwen3(model, quant_kv=True)
+    gm = PagedAttentionGenerationModel(c8, block_size=BLOCK_SIZE, device_graph=False)
+    _, session = gm(ids, context_input_len=lens)
+    scales = _c8_scales(session)
+    c8_hook = _keep_logits()
+    c8_tokens, _ = _tp_stream(c8, ids, lens, device_graph=False, hook=c8_hook)
+    del c8, session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tokens=tokens, steps=[s.float().cpu() for s in hook.steps],
+                c8=dict(tokens=c8_tokens, steps=[s.float().cpu() for s in c8_hook.steps], scales=scales))
+
+
+def _c8_scales(session) -> np.ndarray:
+    """A C8 session's channel scales, (layers, 2, kv heads, head_dim): key then value."""
+    caches = session.caches
+    return np.stack([np.stack([caches.key_scale(i).cpu().numpy(), caches.value_scale(i).cpu().numpy()])
+                     for i in range(len(caches.key_scales))])
+
+
+def _tie_note(tag: str, tokens, ref_tokens, ref_steps) -> str:
+    """``tokens`` against the unsharded stream ``ref_tokens`` (its logits of every step ``ref_steps``): equal, or
+    parting first where the unsharded top-2 logits lie within TP2_TIE_GAP (a near-tie); else raises."""
+    if np.array_equal(tokens, ref_tokens):
+        return "== the unsharded stream"
+    parted = np.argwhere(tokens != ref_tokens)
+    row, step = (int(i) for i in parted[np.argmin(parted[:, 1])])
+    top2 = np.sort(ref_steps[step][row].numpy())[-2:]
+    gap = float(top2[1] - top2[0])
+    note = (f"parts from the unsharded stream at step {step} of row {row}, where the unsharded top-2 gap is "
+            f"{gap:.4g} (a near-tie, bound {TP2_TIE_GAP})")
+    if gap >= TP2_TIE_GAP:
+        raise AssertionError(f"{tag}: tokens {tokens.tolist()} differ from {ref_tokens.tolist()}: {note}")
+    return note
 
 
 def _tp2_worker(rank: int, workdir: str) -> None:
     """One of phase 18's two ranks on the one card (gloo carries CUDA tensors; NCCL refuses two ranks on one
-    device): Qwen3-4B at full width and tp 2, eager; writes its prefill logits, tokens and step times."""
+    device): Qwen3-4B at full width and tp 2, eager; writes its prefill logits, tokens and step times. Then (phase
+    23's part of this spawn) greedy speculative decoding of that target with its w8a8 draft (``quantize_qwen3``,
+    then sharded, as JAX does), and the w8a8 + C8 twin's stream and channel scales, each run counted."""
     import torch
 
-    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM, quantize_qwen3
     from mojo_opset_tpu_torch.parallel import build_mesh, init_distributed, qwen3_tp_rules, shard_model
-    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel, SpeculativeDecoder
 
     torch.backends.cuda.matmul.allow_tf32 = False
     init_distributed(rank, 2, f"file://{workdir}/rendezvous", device="cuda", backend="gloo")
     mesh = build_mesh((2,), ("tp",))
     config = Qwen3Config(**QWEN3_4B, dtype=torch.bfloat16, kv_layout="NHD")
     model = Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
-    model = shard_model(model, mesh, qwen3_tp_rules("tp"))
+    draft, c8 = quantize_qwen3(model), quantize_qwen3(model, quant_kv=True)  # quantized whole, then sharded
+    model, draft, c8 = (shard_model(m, mesh, qwen3_tp_rules("tp")) for m in (model, draft, c8))
     torch.cuda.empty_cache()
     try:
         PagedAttentionGenerationModel(model, block_size=BLOCK_SIZE)
@@ -5187,20 +5289,42 @@ def _tp2_worker(rank: int, workdir: str) -> None:
         ms.append((time.perf_counter() - t) * 1e3)
         _rewind(session)
     tokens = _tp_stream(model, ids, lens, device_graph=False)[0]
+    try:
+        SpeculativeDecoder(model, draft, k=TP2_SPEC_K, block_size=BLOCK_SIZE)  # graphs by default on the card
+        spec_refused = None
+    except ValueError as err:
+        spec_refused = str(err)
+    spec = SpeculativeDecoder(model, draft, k=TP2_SPEC_K, mode="greedy", block_size=BLOCK_SIZE, device_graph=False)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    spec_tokens = spec.generate(ids, lens, max_new_tokens=TP_STEPS)
+    spec_s = time.perf_counter() - t0
+    spec_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    _, session = PagedAttentionGenerationModel(c8, block_size=BLOCK_SIZE, device_graph=False)(ids,
+                                                                                             context_input_len=lens)
+    c8_tokens = _tp_stream(c8, ids, lens, device_graph=False)[0]
+    c8_counts = kernels.launch_counts()
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), logits=logits.float().cpu().numpy(), tokens=tokens,
              step_ms=np.asarray(ms), refused=np.asarray(refused or ""),
              weights_gib=np.asarray(sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30),
-             peak_gib=np.asarray(torch.cuda.max_memory_allocated() / 2**30))
+             spec_tokens=spec_tokens, spec_rounds=np.asarray(spec.last_rounds), spec_s=np.asarray(spec_s),
+             spec_refused=np.asarray(spec_refused or ""), spec_counts=json.dumps(spec_counts),
+             c8_tokens=c8_tokens, c8_scales=_c8_scales(session), c8_kv_heads=np.asarray(session.num_kv_heads),
+             c8_counts=json.dumps(c8_counts), peak_gib=np.asarray(torch.cuda.max_memory_allocated() / 2**30))
     import torch.distributed as dist
 
     dist.barrier()
     dist.destroy_process_group()
 
 
-def _tp2_run(torch, card, reference) -> None:
+def _tp2_run(torch, card, reference) -> dict:
     """Qwen3-4B at tp 2 in two processes on the one card (gloo), eager, against the unsharded ``reference``: each
     rank's greedy tokens equal, or part from the unsharded stream only at a near-tie (TP2_TIE_GAP), and its
-    prefill logits' per-row cosine >= TP2_COSINE_BOUND."""
+    prefill logits' per-row cosine >= TP2_COSINE_BOUND. Phase 23's part: the speculative stream (a w8a8 draft,
+    graphs refused over gloo) and the w8a8 + C8 twin's stream under the same rule, each rank's C8 scales against
+    the unsharded twin's rows of its kv heads (C8_TP2_SCALE_REL_BOUND). Returns rank 0's launches of those two
+    runs."""
     import shutil
     import tempfile
 
@@ -5232,17 +5356,7 @@ def _tp2_run(torch, card, reference) -> None:
     cos = (got * want).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(want, axis=-1)
     if cos.min() < TP2_COSINE_BOUND:
         raise AssertionError(f"tp 2: prefill logits part from the unsharded model's: cosine {cos.tolist()}")
-    tokens, ref_tokens = ranks[0]["tokens"], reference["tokens"]
-    note = "== the unsharded stream"
-    if not np.array_equal(tokens, ref_tokens):
-        parted = np.argwhere(tokens != ref_tokens)
-        row, step = (int(i) for i in parted[np.argmin(parted[:, 1])])
-        top2 = np.sort(reference["steps"][step][row].numpy())[-2:]
-        gap = float(top2[1] - top2[0])
-        note = (f"parts from the unsharded stream at step {step} of row {row}, where the unsharded top-2 gap is "
-                f"{gap:.4g} (a near-tie, bound {TP2_TIE_GAP})")
-        if gap >= TP2_TIE_GAP:
-            raise AssertionError(f"tp 2: tokens {tokens.tolist()} differ from {ref_tokens.tolist()}: {note}")
+    note = _tie_note("tp 2", ranks[0]["tokens"], reference["tokens"], reference["steps"])
     log("parallel tp 2", f"{card}: Qwen3-4B at full width, tp 2 in two processes on the one card over gloo "
                          f"(NCCL refuses two ranks on one device), eager (graphs refused over gloo); both ranks one "
                          f"stream, {TP_STEPS} greedy steps {note}; prefill logits per-row cosine vs unsharded "
@@ -5250,6 +5364,41 @@ def _tp2_run(torch, card, reference) -> None:
                          f"{ranks[0]['step_ms'].round(3).tolist()} (rank 0); a rank's weights "
                          f"{float(ranks[0]['weights_gib']):.2f} GiB, peak {float(ranks[0]['peak_gib']):.1f} GiB; "
                          f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    return _tp2_spec_c8(card, ranks, reference)
+
+
+def _tp2_spec_c8(card, ranks, reference) -> dict:
+    """Phase 23's checks of the tp 2 ranks' speculative and C8 runs (``_tp2_run``)."""
+    if not all("gloo" in str(r["spec_refused"]) for r in ranks):
+        raise AssertionError(f"tp 2: speculative graphs over gloo were not refused: "
+                             f"{[str(r['spec_refused']) for r in ranks]}")
+    for what, key in (("speculative", "spec_tokens"), ("C8", "c8_tokens")):
+        if not np.array_equal(ranks[0][key], ranks[1][key]):
+            raise AssertionError(f"tp 2 {what}: the two ranks hold other tokens")
+    spec_note = _tie_note("tp 2 speculative", ranks[0]["spec_tokens"], reference["tokens"], reference["steps"])
+    c8_ref = reference["c8"]
+    c8_note = _tie_note("tp 2 C8", ranks[0]["c8_tokens"], c8_ref["tokens"], c8_ref["steps"])
+    worst, layer0 = 0.0, True
+    for rank, r in enumerate(ranks):
+        kv = int(r["c8_kv_heads"])
+        want = c8_ref["scales"][:, :, rank * kv:(rank + 1) * kv]
+        got = r["c8_scales"]
+        if got.shape != want.shape:
+            raise AssertionError(f"tp 2 C8: rank {rank} scales {got.shape}, want {want.shape}")
+        worst = max(worst, float(np.max(np.abs(got - want) / np.abs(want))))
+        layer0 = layer0 and np.array_equal(got[0], want[0])
+    counts = [{k: v for k, v in json.loads(str(ranks[0][key])).items() if v} for key in ("spec_counts", "c8_counts")]
+    log("parallel tp 2", f"{card}: greedy speculative decoding (w8a8 draft quantized whole then sharded, bf16 target, "
+                         f"k {TP2_SPEC_K}, eager: graphs refused over gloo) {TP_STEPS} tokens x {len(PROMPT_LENS)} in "
+                         f"{int(ranks[0]['spec_rounds'])} rounds, {float(ranks[0]['spec_s']):.2f} s: {spec_note}; "
+                         f"launches (rank 0) {counts[0]}")
+    log("parallel tp 2", f"{card}: w8a8 + C8 twin at tp 2 ({int(ranks[0]['c8_kv_heads'])} kv heads a rank): "
+                         f"{TP_STEPS} greedy steps {c8_note}; each rank's channel scales against the unsharded twin's "
+                         f"rows of its kv heads: worst relative gap {worst:.3g} (bound {C8_TP2_SCALE_REL_BOUND}), "
+                         f"layer 0 bit for bit: {layer0}; launches (rank 0) {counts[1]}")
+    if worst > C8_TP2_SCALE_REL_BOUND:
+        raise AssertionError(f"tp 2 C8: channel scales part from the unsharded twin's by {worst}")
+    return {"parallel_tp2_speculative": counts[0], "parallel_tp2_c8": counts[1]}
 
 
 def phase_parallel(torch, card: str) -> dict:
@@ -5308,7 +5457,7 @@ def phase_parallel(torch, card: str) -> dict:
     torch.cuda.empty_cache()
     dist.destroy_process_group()
     shutil.rmtree(rendezvous, ignore_errors=True)
-    _tp2_run(torch, card, reference)
+    counts.update(_tp2_run(torch, card, reference))
     return counts
 
 
@@ -6775,6 +6924,329 @@ def phase_harness(torch, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 23: dp x tp training and the rest of the
+# distributed layer
+TRAIN_TP_LAYERS = 4  # (a) the one-rank NCCL step: Qwen3-4B widths, depth 36 -> 4, B TRAIN_BATCH x S TRAIN_SEQ
+TRAIN_TP_TURNS = 4  # sharded and unsharded steps in turns, of each; the first keeps its gradients for the checks
+TRAIN_DP_LAYERS = 2  # (b) dp 2 x tp 2 in four gloo processes on the one card: depth 36 -> 2
+TRAIN_DP_SEQ = 1024  # a dp rank's batch, TRAIN_BATCH x TRAIN_DP_SEQ; the unsharded step takes both ranks' rows
+TRAIN_DP_TIMEOUT_S = 480
+# (b) against the unsharded step on the whole batch: the bf16 row-parallel sums, the dp mean of two bf16 gradients
+# and the loss's tp combine all run in another order than the unsharded step's; phase 10's bounds hold (the probe,
+# on an H100 80GB HBM3 at 700 W: loss gap 1.89e-6, the lowest cosine 0.999962, a q_norm weight's)
+TRAIN_DP_LOSS_REL_BOUND = TRAIN_LOSS_REL_BOUND
+TRAIN_DP_COSINE_BOUND = TRAIN_GRAD_COSINE_BOUND
+SPEC_NCCL_LENS = (96, 33, 9, 2)  # prompts of the one-rank speculative run on SMALL (its 256 positions)
+SPEC_NCCL_STEPS = 24
+RING_SHAPE = (TRAIN_TOKENS, 2560, 9728)  # rows, K, N of the one-rank ring ops: the train step's up projection
+
+
+def _train_tp1(torch, card, mesh) -> dict:
+    """(a) The sharded train step on the one-rank NCCL groups (dp 1 x tp 1) against the unsharded step on the same
+    weights (both from seed 0) and batch, each with fused AdamW at optax.adamw(1e-4)'s settings, in turns: the
+    loss and every gradient of the first turn, and every parameter after the last, bit for bit or the gap stated;
+    the sharded step's launches exactly ``_train_launches``; step ms in turns; the NCCL kernels of a profiled step.
+    Returns the sharded step's launches."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.parallel import qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.parallel.training import ADAMW, finish_gradients, train_loss, valid_tokens
+
+    model, ids = _train_model(torch, TRAIN_TP_LAYERS)
+    sharded, _ = _train_model(torch, TRAIN_TP_LAYERS)
+    sharded = shard_model(sharded, mesh, qwen3_tp_rules("tp"))
+    vocab = sharded.lm_head_vocab
+    if vocab is None or vocab.group is None or vocab.vocab_size != model.qwen3_config.vocab_size:
+        raise AssertionError(f"train tp 1: the sharded LM head is not vocab-parallel: {vocab}")
+    loss_fn, _ = _loss_ops()
+    inputs, targets = ids[:, :-1], ids[:, 1:]
+    models = {"unsharded": model, "sharded": sharded}
+    opts = {k: torch.optim.AdamW([p for p in m.parameters() if p.requires_grad], fused=True, **ADAMW)
+            for k, m in models.items()}
+
+    def step(name, keep=False):
+        m = models[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "sharded":
+            loss = train_loss(m, inputs, targets, loss_fn)
+            loss.backward()
+            finish_gradients(m, mesh.group("dp"), valid_tokens(targets))
+        else:
+            hidden = m.train_forward(inputs)
+            loss = loss_fn(hidden.reshape(-1, hidden.shape[-1]), m.lm_head_weight, targets.reshape(-1))
+            loss.backward()
+        grads = {n: p.grad.clone() for n, p in m.named_parameters()} if keep else None
+        opts[name].step()
+        opts[name].zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        return loss.detach().float(), (time.perf_counter() - t0) * 1e3, grads
+
+    golden = golden_counts()
+    loss_u, _, grads_u = step("unsharded", keep=True)
+    kernels.reset_launch_counts()
+    loss_s, _, grads_s = step("sharded", keep=True)
+    counts = kernels.launch_counts()
+    want = _train_launches(TRAIN_TP_LAYERS)
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"train tp 1: the sharded step launched {counts}, want {want}")
+    if golden_counts() != golden:
+        raise AssertionError("train tp 1: a golden route was taken")
+    if set(grads_u) != set(grads_s):
+        raise AssertionError(f"train tp 1: other parameters: {sorted(set(grads_u) ^ set(grads_s))}")
+    same = [n for n in grads_u if torch.equal(grads_u[n], grads_s[n])]
+    cos = sorted(((n, _cosine(torch, grads_s[n], grads_u[n])) for n in grads_u), key=lambda kv: kv[1])
+    loss_gap = abs(loss_s.item() - loss_u.item()) / abs(loss_u.item())
+    del grads_u, grads_s
+    times = {"unsharded": [], "sharded": []}
+    for _ in range(TRAIN_TP_TURNS - 1):
+        for name in times:
+            times[name].append(step(name)[1])
+    busy, nccl = _nccl_profile(torch, lambda: step("sharded"))
+    plain_busy, _ = _nccl_profile(torch, lambda: step("unsharded"))
+    params = {n: p for n, p in model.named_parameters()}
+    after = [n for n, p in sharded.named_parameters() if torch.equal(p, params[n])]
+    medians = {k: float(np.median(v)) for k, v in times.items()}
+    log("train parallel", f"{card}: (a) one-rank NCCL groups (dp 1 x tp 1), {TRAIN_TP_LAYERS} layers at Qwen3-4B "
+                          f"width, B {TRAIN_BATCH} x S {TRAIN_SEQ}: loss {loss_s.item():.9g} sharded vs "
+                          f"{loss_u.item():.9g} unsharded (bit for bit: {bool(torch.equal(loss_s, loss_u))}, "
+                          f"relative gap {loss_gap:.3g}); "
+                          f"gradients bit for bit {len(same)} of {len(cos)}, lowest cosine "
+                          f"{[(n, round(c, 9)) for n, c in cos[:2]]}; parameters after {TRAIN_TP_TURNS + 1} AdamW "
+                          f"steps bit for bit {len(after)} of {len(params)}; launches {dict(counts)}")
+    log("train parallel", f"{card}: (a) step ms in turns (fused AdamW included): sharded {times['sharded']}, unsharded "
+                          f"{times['unsharded']}; medians {medians['sharded']:.3f} vs {medians['unsharded']:.3f}; "
+                          f"device busy of a profiled step {busy:.3f} vs {plain_busy:.3f} ms; NCCL kernels of a "
+                          f"sharded step {nccl} (a one-rank all_reduce in place launches nothing)")
+    if not loss_gap <= TRAIN_LOSS_REL_BOUND or cos[0][1] < TRAIN_GRAD_COSINE_BOUND:
+        raise AssertionError(f"train tp 1: the sharded step parts from the unsharded: loss gap {loss_gap}, {cos[:3]}")
+    del model, sharded, opts, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
+def _speculative_nccl(torch, card, mesh) -> dict:
+    """(a) Greedy speculative decoding on the one-rank NCCL group: the SMALL fp32 Qwen3 target sharded (fp32, as
+    phase 4's speculative runs: in bf16 the verify's prefill and the decode step part at near-ties) and its w8a8
+    draft (``quantize_qwen3`` of the whole model, then sharded), draft rounds and verifies on CUDA graphs (the NCCL
+    collectives captured; the second call replays), against the unsharded model's vanilla greedy stream, bit for
+    bit. Returns the replayed call's launches."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM, quantize_qwen3
+    from mojo_opset_tpu_torch.parallel import qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.runtime import SpeculativeDecoder
+
+    config = Qwen3Config(**SMALL, dtype=torch.float32)
+
+    def draw():
+        return Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+
+    model = draw()
+    target = shard_model(draw(), mesh, qwen3_tp_rules("tp"))
+    draft = shard_model(quantize_qwen3(draw()), mesh, qwen3_tp_rules("tp"))
+    ids, lens = _prompts(config.vocab_size, SPEC_NCCL_LENS)
+    want = _standalone_greedy(model, ids, lens, SPEC_NCCL_STEPS)
+    spec = SpeculativeDecoder(target, draft, k=TP2_SPEC_K, mode="greedy", block_size=16)
+    if not spec.device_graph:
+        raise AssertionError("speculative decoding over NCCL groups did not take graphs")
+    spec.generate(ids, lens, max_new_tokens=SPEC_NCCL_STEPS)  # warm-up and capture
+    kernels.reset_launch_counts()
+    got = spec.generate(ids, lens, max_new_tokens=SPEC_NCCL_STEPS)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    if not all(r.graph is not None for pool in (spec._draft_pool, spec._verify_pool) for r in pool.runners()):
+        raise AssertionError("speculative decoding over NCCL groups: a round never replayed from its graph")
+    if not np.array_equal(got, want):
+        raise AssertionError(f"speculative decoding over NCCL groups: {got.tolist()} differ from the unsharded "
+                             f"greedy {want.tolist()}")
+    log("train parallel", f"{card}: (a) greedy speculative decoding on the one-rank NCCL group (SMALL fp32 target, its "
+                          f"w8a8 draft, both sharded, k {TP2_SPEC_K}): draft rounds and verifies replayed from graphs, "
+                          f"{SPEC_NCCL_STEPS} tokens x {len(lens)} == the unsharded greedy stream in "
+                          f"{spec.last_rounds} rounds; launches {counts}")
+    return counts
+
+
+def _ring_one_rank(torch, card, mesh) -> None:
+    """(a) The ring AllGatherGemm and GemmReduceScatter (the cuda tier's) on the one-rank NCCL group: a ring of one
+    is the plain GEMM, as in JAX (:32, :66), bit for bit with the golden's; timed beside it."""
+    import mojo_opset_tpu_torch as tm
+    from mojo_opset_tpu_torch.core.operators.compute_with_comm import _gemm
+
+    rows, K, N = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(rows, K, device="cuda", generator=gen).to(torch.bfloat16)
+    w = torch.randn(N, K, device="cuda", generator=gen).to(torch.bfloat16)
+    want = _gemm(x, w, None, False)
+    times = {}
+    for op in (tm.MojoAllGatherGemm(w, group=mesh.group("tp")), tm.MojoGemmReduceScatter(w, group=mesh.group("tp"))):
+        name = type(op).__name__
+        if not name.startswith("Cuda"):
+            raise AssertionError(f"ring ops: {name} is not the cuda tier's")
+        with torch.no_grad():
+            if not torch.equal(op(x), want):
+                raise AssertionError(f"ring ops: {name} on one rank differs from the plain GEMM")
+            times[name] = cuda_ms(torch, lambda: op(x), iters=5)
+    plain = cuda_ms(torch, lambda: _gemm(x, w, None, False), iters=5)
+    log("train parallel", f"{card}: (a) the ring ops on the one-rank NCCL group at ({rows}, {K}) x ({N}, {K}) bf16: a "
+                          f"ring of one is the plain GEMM (JAX :32, :66), bit for bit; ms {times}, plain {plain:.3f}. "
+                          f"NCCL refuses two ranks on one card: the ring's arithmetic is checked on the CPU only "
+                          f"(tests/test_torch_parallel_train.py, gloo, world 2 and 4)")
+
+
+def _train_dp_worker(rank: int, workdir: str) -> None:
+    """One of (b)'s four ranks on the one card (gloo carries CUDA tensors): the unsharded step on the whole batch,
+    its gradients cut as this rank holds its parameters (``shard_model`` of a model whose weights are those
+    gradients, on a groupless view of the rank's coordinates), then the sharded step on this dp rank's rows; writes
+    the losses, each parameter's gradient cosine, the launches and the ring ops' refusal over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    import mojo_opset_tpu_torch as tm
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.modeling.qwen3 import Qwen3Config, Qwen3ForCausalLM
+    from mojo_opset_tpu_torch.parallel import MojoMesh, build_mesh, init_distributed, qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.parallel.training import finish_gradients, train_loss, valid_tokens
+    from mojo_opset_tpu_torch.runtime import comm_context
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(rank, 4, f"file://{workdir}/rendezvous", device="cuda", backend="gloo")
+    mesh = build_mesh((2, 2), ("dp", "tp"))
+    config = Qwen3Config(**dict(QWEN3_4B, num_hidden_layers=TRAIN_DP_LAYERS), dtype=torch.bfloat16)
+
+    def draw():
+        m = Qwen3ForCausalLM(config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+        return m.requires_grad_(True)
+
+    ids = torch.randint(1, config.vocab_size, (2 * TRAIN_BATCH, TRAIN_DP_SEQ + 1), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    loss_fn = tm.MojoFusedLinearCrossEntropyFunction()
+    ref = draw()
+    hidden = ref.train_forward(ids[:, :-1])
+    ref_loss = loss_fn(hidden.reshape(-1, hidden.shape[-1]), ref.lm_head_weight, ids[:, 1:].reshape(-1))
+    ref_loss.backward()
+    del hidden
+    with torch.no_grad():
+        for p in ref.parameters():
+            p.copy_(p.grad)
+    ref.zero_grad(set_to_none=True)
+    want = dict(shard_model(ref, MojoMesh.local(mesh.shape, mesh.coords), qwen3_tp_rules("tp")).named_parameters())
+    model = shard_model(draw(), mesh, qwen3_tp_rules("tp"))
+    torch.cuda.empty_cache()
+    d = mesh.rank("dp")
+    rows = ids[d * TRAIN_BATCH:(d + 1) * TRAIN_BATCH]
+    golden = golden_counts()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = train_loss(model, rows[:, :-1], rows[:, 1:], loss_fn)
+    loss.backward()
+    weight = valid_tokens(rows[:, 1:])
+    finish_gradients(model, mesh.group("dp"), weight)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    golden_moved = golden_counts() != golden
+    global_loss = comm_context.mean_over_group(loss.detach().float(), mesh.group("dp"), weight)
+    cos = {n: _cosine(torch, p.grad, want[n]) for n, p in model.named_parameters()}
+    try:
+        x = torch.ones(8, 16, device="cuda", dtype=torch.bfloat16)
+        tm.MojoAllGatherGemm(torch.ones(4, 16, device="cuda", dtype=torch.bfloat16), group=mesh.group("tp"))(x)
+        ring = ""
+    except RuntimeError as err:
+        ring = str(err)
+    np.savez(os.path.join(workdir, f"rank{rank}.npz"), loss=np.asarray(global_loss.item()),
+             ref_loss=np.asarray(ref_loss.item()), cos_names=np.asarray(list(cos)),
+             cos=np.asarray(list(cos.values())), counts=json.dumps(counts), golden_moved=np.asarray(golden_moved),
+             ring=np.asarray(ring), step_ms=np.asarray(step_ms), vocab=np.asarray(model.lm_head_vocab[1:]),
+             peak_gib=np.asarray(torch.cuda.max_memory_allocated() / 2**30))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _train_dp2_tp2(torch, card) -> dict:
+    """(b) dp 2 x tp 2 in four processes on the one card over gloo (NCCL refuses two ranks on one device): Qwen3-4B
+    widths cut to TRAIN_DP_LAYERS layers, B TRAIN_BATCH x S TRAIN_DP_SEQ a dp rank, against the unsharded step on
+    the whole batch: the dp-mean loss within TRAIN_DP_LOSS_REL_BOUND, every parameter's gradient (after
+    ``finish_gradients``) at a cosine of at least TRAIN_DP_COSINE_BOUND against its shard of the unsharded one; J,
+    K, L, M, N and A launched on every rank, no golden route; the ring ops refuse CUDA tensors over gloo. Returns
+    rank 0's launches."""
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="train_dp_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke as s; s._train_dp_worker({r}, {workdir!r})"],
+                              cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(4)]
+    t0 = time.perf_counter()
+    try:
+        outs = [p.communicate(timeout=TRAIN_DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode, o[-3000:]) for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode]
+    if failed:
+        raise AssertionError(f"train dp 2 x tp 2: rank processes failed: {failed}")
+    ranks = [dict(np.load(os.path.join(workdir, f"rank{r}.npz"))) for r in range(4)]
+    shutil.rmtree(workdir, ignore_errors=True)
+    counts = [json.loads(str(r["counts"])) for r in ranks]
+    need = ("norms", "rmsnorm_vjp", "silu_fwd", "silu_bwd", "rope_head_first", "flash_swa_fwd", "flash_swa_dq",
+            "flash_swa_dkv", "flce_stats", "flce_dz", "flce_dx", "flce_dw")
+    missing = [(r, k) for r, c in enumerate(counts) for k in need if not c.get(k)]
+    if missing or any(bool(r["golden_moved"]) for r in ranks):
+        raise AssertionError(f"train dp 2 x tp 2: kernels not launched {missing} or a golden route taken")
+    if not all("gloo" in str(r["ring"]) for r in ranks):
+        raise AssertionError(f"train dp 2 x tp 2: the ring ops did not refuse CUDA tensors over gloo: "
+                             f"{[str(r['ring']) for r in ranks]}")
+    losses = [float(r["loss"]) for r in ranks]
+    ref_loss = float(ranks[0]["ref_loss"])
+    gap = max(abs(v - ref_loss) / abs(ref_loss) for v in losses)
+    worst = min(((float(c), str(n), rank) for rank, r in enumerate(ranks) for n, c in zip(r["cos_names"], r["cos"])))
+    per_rank = [round(float(r["cos"].min()), 6) for r in ranks]
+    log("train parallel", f"{card}: (b) dp 2 x tp 2 in four processes on the one card over gloo, {TRAIN_DP_LAYERS} "
+                          f"layers at Qwen3-4B width, B {TRAIN_BATCH} x S {TRAIN_DP_SEQ} a dp rank: dp-mean loss "
+                          f"{losses} vs the unsharded step's {ref_loss:.9g} on the whole batch (relative gap "
+                          f"{gap:.3g}, bound {TRAIN_DP_LOSS_REL_BOUND}); gradient cosine against the unsharded "
+                          f"gradient's shard, lowest a rank {per_rank}, worst {worst} (bound {TRAIN_DP_COSINE_BOUND}); "
+                          f"vocab shards {[tuple(int(v) for v in r['vocab']) for r in ranks]}; launches (rank 0) "
+                          f"{ {k: v for k, v in counts[0].items() if v} }; the ring ops refuse CUDA tensors over gloo; "
+                          f"sharded step ms {[round(float(r['step_ms']), 1) for r in ranks]} (gloo through the host); "
+                          f"peak GiB {[round(float(r['peak_gib']), 1) for r in ranks]}; "
+                          f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    if gap > TRAIN_DP_LOSS_REL_BOUND or worst[0] < TRAIN_DP_COSINE_BOUND:
+        raise AssertionError(f"train dp 2 x tp 2: the step parts from the unsharded: loss gap {gap}, worst {worst}")
+    return {k: v for k, v in counts[0].items() if v}
+
+
+def phase_train_parallel(torch, card: str) -> dict:
+    """Phase 23: dp x tp training and the rest of the distributed layer (see the module docstring): (a) on one-rank
+    NCCL groups the sharded train step against the unsharded one, speculative decoding on graphs, the ring ops;
+    (b) dp 2 x tp 2 in four gloo processes. (Its tp 2 speculative and C8 runs ride phase 18's spawn.) Returns the
+    launches by path."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mojo_opset_tpu_torch.parallel import build_mesh, init_distributed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rendezvous = tempfile.mkdtemp(prefix="train_tp1_")
+    init_distributed(0, 1, f"file://{rendezvous}/rendezvous", device="cuda")
+    mesh = build_mesh((1, 1), ("dp", "tp"))
+    counts = {"train_tp1": _train_tp1(torch, card, mesh)}
+    counts["speculative_nccl"] = _speculative_nccl(torch, card, mesh)
+    _ring_one_rank(torch, card, mesh)
+    dist.destroy_process_group()
+    shutil.rmtree(rendezvous, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["train_dp2_tp2"] = _train_dp2_tp2(torch, card)
+    return counts
+
+
 def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dict, moe_counts: dict,
                  deepseek_counts: dict, train_counts: dict, seed_counts: dict, seed_int8_counts: dict,
                  dit_counts: dict, fn_counts: dict, res_counts: dict, conv_counts: dict, quant_counts: dict,
@@ -6815,7 +7287,8 @@ def kernels_line(record: dict, counts: dict, bf16_counts: dict, spec_counts: dic
             if module in ("norms", "int4_matmul", "group_gemm", "group_quant_gemm", "mla_decode", "rmsnorm_vjp",
                           "rope_head_first", "residual_add_rmsnorm", "conv1d_fwd", "conv1d_bwd"):
                 rec["max_abs_err"] = max(r["max_abs_err"] for r in extra["by_shape"].values())
-        for key in ("int8_pages", "wan_dit_sdpa", "wan_dit_clip_sdpa", "window_ctx32k", "no_window_ctx32k",
+        for key in ("int8_pages", "vocab_shard_tp2", "vocab_shard_tp4", "wan_dit_sdpa", "wan_dit_clip_sdpa",
+                    "window_ctx32k", "no_window_ctx32k",
                     "window_ctx32k_int8", "no_window_ctx32k_int8", "sdar_gqa", "wan_dit_key_padding",
                     *(f"bs{bs}_ctx4000" for bs in DECODE_GRID_BS)):
             if key in rec:
@@ -6854,7 +7327,7 @@ def main() -> int:
     record = timed("kernels", phase_kernels, torch)
     timed("small models", phase_small_model, torch)
     def model_phase(name, phase, *args):
-        """A model phase (5-12, 18, 19, 21): no op of the path may take a golden route."""
+        """A model phase (5-12, 18, 19, 21, 23): no op of the path may take a golden route."""
         before = golden_counts()
         result = timed(name, phase, *args)
         after = golden_counts()
@@ -6883,9 +7356,11 @@ def main() -> int:
     rest_counts = timed("rest ops", phase_rest_ops, torch, card)
     hf_counts = model_phase("hf checkpoint", phase_hf_checkpoint, torch, card)
     harness_counts = timed("harness", phase_harness, torch, card)
+    train_parallel_counts = model_phase("train parallel", phase_train_parallel, torch, card)
     line = kernels_line(record, counts, bf16_counts, spec_counts, moe_counts, deepseek_counts, train_counts,
                         seed_counts, seed_int8_counts, dit_counts, fn_counts, res_counts, conv_counts, quant_counts,
-                        t2v_counts, {**parallel_counts, **tooling_counts, **hf_counts, **harness_counts}, rest_counts)
+                        t2v_counts, {**parallel_counts, **tooling_counts, **hf_counts, **harness_counts,
+                                     **train_parallel_counts}, rest_counts)
     next(k for k in line if k["name"] == KERNEL_INFO["int4_matmul"][0])["launches_by_route"] = spec_routes
     next(k for k in line if k["name"] == KERNEL_INFO["group_quant_gemm"][0])["launches_by_route"] = R_ROUTES
     print(json.dumps({"kernels": line}))

@@ -63,7 +63,7 @@ SIGNATURES = {
     "mojo_silu_bwd": (_P, _P, _P, _L) + (_I,) * 4 + (_P,),
     "mojo_rope_head_first": (_P,) * 7 + (_I,) * 9 + (_P,),
     "mojo_flce_stats": (_P,) * 7 + (_I,) * 4 + (_F, _I, _P),
-    "mojo_flce_dz": (_P,) * 7 + (_I,) * 5 + (_F, _F, _I, _P),
+    "mojo_flce_dz": (_P,) * 7 + (_I,) * 5 + (_F, _F, _F, _I, _P),
     "mojo_flce_dx": (_P,) * 4 + (_I,) * 6 + (_P,),
     "mojo_flce_dw": (_P,) * 4 + (_I,) * 6 + (_P,),
     "mojo_conv1d_fwd": (_P,) * 5 + (_I,) * 12 + (_P,),

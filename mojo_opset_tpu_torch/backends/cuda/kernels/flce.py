@@ -21,15 +21,20 @@ autograd Function saves x, w, target and lse (JAX :350-355).
 ``loss_from_stats`` (JAX :303-320) and ``backward_coefficients`` (JAX
 :358-372) are plain tensor math, as they are in JAX.
 
-A target outside ``[0, V)`` that is not ``ignore_index`` is out of
-contract: both versions find no target logit for it (0) and give its dz no
-one-hot term.
+A target outside ``[0, V)`` finds no target logit (0) and gives its dz no
+one-hot term, in both versions: a vocab-parallel loss passes the targets
+shifted by its shard's first row, so each rank reads the targets its rows
+hold. ``vocab_size`` (the dz's and the backward's) is the vocabulary the
+label smoothing spreads over, ``w.shape[0]`` unless a shard's ``w`` holds
+part of it (``core.functions.loss.combine_row_stats`` merges the shards'
+statistics over their group: plain torch around N).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from mojo_opset_tpu_torch.backends.cuda import build
@@ -63,6 +68,11 @@ def _in_vocab(target: torch.Tensor, V: int) -> torch.Tensor:
     return (target >= 0) & (target < V)
 
 
+def _spread(label_smoothing: float, vocab_size: int) -> float:
+    """``s / Vs`` rounded once to fp32, as the kernel computed it before taking it from the caller."""
+    return float(np.float32(label_smoothing) / np.float32(vocab_size))
+
+
 def flce_stats_plain(x: torch.Tensor, w: torch.Tensor, target: torch.Tensor, softcap: Optional[float] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(lse, target logit, zsum)``, (N,) fp32 each, from z in fp32."""
@@ -73,16 +83,16 @@ def flce_stats_plain(x: torch.Tensor, w: torch.Tensor, target: torch.Tensor, sof
     return torch.logsumexp(z, dim=1), tl, z.sum(1)
 
 
-def flce_dz_plain(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0) -> torch.Tensor:
-    """``dz = p a - c ((1 - s) onehot + s / V)``, times ``1 - (zc / cap)^2``
-    under a softcap, in x's dtype: (N, V)."""
+def flce_dz_plain(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0, vocab_size=None) -> torch.Tensor:
+    """``dz = p a - c ((1 - s) onehot + s / Vs)``, times ``1 - (zc / cap)^2``
+    under a softcap, in x's dtype: (N, V); ``Vs`` is ``vocab_size``, V by default."""
     V = w.shape[0]
     zc = _logits(x, w, softcap)
     p = torch.exp(zc - lse[:, None])
     onehot = torch.zeros_like(zc)
     hit = _in_vocab(target, V)
     onehot[hit, target[hit].long()] = 1.0
-    dz = p * a[:, None] - c[:, None] * ((1.0 - label_smoothing) * onehot + label_smoothing / V)
+    dz = p * a[:, None] - c[:, None] * ((1.0 - label_smoothing) * onehot + label_smoothing / (vocab_size or V))
     if softcap is not None:
         dz = dz * (1.0 - (zc / softcap) ** 2)
     return dz.to(x.dtype)
@@ -96,10 +106,10 @@ def flce_dw_plain(dz: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (dz.float().t() @ x.float()).to(x.dtype)
 
 
-def flce_backward_plain(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0, need_dx=True, need_dw=True
-                        ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+def flce_backward_plain(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0, need_dx=True, need_dw=True,
+                        vocab_size=None) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``(dx, dw)`` through the plain dz, in one run."""
-    dz = flce_dz_plain(x, w, target, lse, a, c, softcap, label_smoothing)
+    dz = flce_dz_plain(x, w, target, lse, a, c, softcap, label_smoothing, vocab_size)
     return (flce_dx_plain(dz, w) if need_dx else None), (flce_dw_plain(dz, x).to(w.dtype) if need_dw else None)
 
 
@@ -197,30 +207,31 @@ def _dz_buffer(rows: int, V: int, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(rows, ldz, dtype=like.dtype, device=like.device)[:, :V]
 
 
-def _dz_kernel(x, w, target, lse, a, c, cap, label_smoothing, r0, rows, out):
+def _dz_kernel(x, w, target, lse, a, c, cap, label_smoothing, r0, rows, out, vocab_size=None):
     global launches_dz
     build.launch("mojo_flce_dz", x.device, x.data_ptr(), w.data_ptr(), target.data_ptr(), lse.data_ptr(),
                  a.data_ptr(), c.data_ptr(), out.data_ptr(), r0, rows, x.shape[1], w.shape[0], out.stride(0),
-                 cap, float(label_smoothing), build.dtype_code(x))
+                 cap, float(label_smoothing), _spread(label_smoothing, vocab_size or w.shape[0]), build.dtype_code(x))
     launches_dz += 1
     return out
 
 
-def flce_dz(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0) -> torch.Tensor:
+def flce_dz(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0, vocab_size=None) -> torch.Tensor:
     """``dz`` (N, V) in x's dtype from the saved ``lse`` and the per-row
-    ``a``, ``c`` (fp32). A CPU tensor takes the plain version; a CUDA tensor
-    the kernel (its rows on a pitch of a multiple of 8 elements)."""
+    ``a``, ``c`` (fp32), the smoothing spread over ``vocab_size`` (V by
+    default). A CPU tensor takes the plain version; a CUDA tensor the kernel
+    (its rows on a pitch of a multiple of 8 elements)."""
     build.require_no_grad("flce_dz", x, w)
     _check_inputs("flce_dz", x, w, target)
     cap = _check_softcap(softcap)
     if x.device.type == "cpu":
-        return flce_dz_plain(x, w, target, lse, a, c, softcap, label_smoothing)
+        return flce_dz_plain(x, w, target, lse, a, c, softcap, label_smoothing, vocab_size)
     _check_kernel_inputs("flce_dz", x, w, target)
     _f32(lse, a, c)
     out = _dz_buffer(x.shape[0], w.shape[0], x)
     if x.shape[0] == 0:
         return out
-    return _dz_kernel(x, w, target, lse, a, c, cap, label_smoothing, 0, x.shape[0], out)
+    return _dz_kernel(x, w, target, lse, a, c, cap, label_smoothing, 0, x.shape[0], out, vocab_size)
 
 
 def dx_splits(rows: int, H: int, V: int, sms: int) -> int:
@@ -303,18 +314,19 @@ def run_rows(N: int, V: int, itemsize: int, dz_budget: int) -> int:
 
 
 def flce_backward(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0, dz_budget: int = DZ_BUDGET_BYTES,
-                  need_dx: bool = True, need_dw: bool = True
+                  need_dx: bool = True, need_dw: bool = True, vocab_size: Optional[int] = None
                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """``(dx, dw)`` of the loss from the saved ``lse`` and the per-row ``a``,
     ``c``: dz for runs of rows within ``dz_budget`` bytes, each run's dx,
-    and dw added over the runs (in an fp32 buffer when there are several).
-    A CPU tensor takes the plain version; a CUDA tensor the kernels."""
+    and dw added over the runs (in an fp32 buffer when there are several);
+    the smoothing spread over ``vocab_size`` (V by default). A CPU tensor
+    takes the plain version; a CUDA tensor the kernels."""
     build.require_no_grad("flce_backward", x, w)
     _check_inputs("flce_backward", x, w, target)
     cap = _check_softcap(softcap)
     if x.device.type == "cpu":
         return flce_backward_plain(x, w, target, lse, a, c, softcap, label_smoothing, need_dx=need_dx,
-                                   need_dw=need_dw)
+                                   need_dw=need_dw, vocab_size=vocab_size)
     _check_kernel_inputs("flce_backward", x, w, target)
     _f32(lse, a, c)
     N, V = x.shape[0], w.shape[0]
@@ -328,7 +340,7 @@ def flce_backward(x, w, target, lse, a, c, softcap=None, label_smoothing=0.0, dz
     dz = _dz_buffer(rows, V, x)
     for i, r0 in enumerate(starts):
         n = min(rows, N - r0)
-        run = _dz_kernel(x, w, target, lse, a, c, cap, label_smoothing, r0, n, dz[:n])
+        run = _dz_kernel(x, w, target, lse, a, c, cap, label_smoothing, r0, n, dz[:n], vocab_size)
         if need_dx:
             _dx_kernel(run, w, dx[r0:r0 + n])
         if need_dw:

@@ -9,6 +9,7 @@ from mojo_opset_tpu_torch.backends.cuda.operators.attention import (
     CudaSdpa,
     CudaSWA,
 )
+from mojo_opset_tpu_torch.backends.cuda.operators.compute_with_comm import CudaAllGatherGemm, CudaGemmReduceScatter
 from mojo_opset_tpu_torch.backends.cuda.operators.gemm import CudaGroupGemm, CudaQuantGemm
 from mojo_opset_tpu_torch.backends.cuda.operators.mla import CudaPagedDecodeMLA, CudaPagedPrefillMLA
 from mojo_opset_tpu_torch.backends.cuda.operators.moe import CudaExperts, CudaMoE, CudaQuantExperts, CudaQuantMoE
@@ -20,8 +21,10 @@ from mojo_opset_tpu_torch.backends.cuda.operators.normalization import (
 from mojo_opset_tpu_torch.backends.cuda.operators.position_embedding import CudaApplyRoPE
 
 __all__ = [
+    "CudaAllGatherGemm",
     "CudaApplyRoPE",
     "CudaExperts",
+    "CudaGemmReduceScatter",
     "CudaGroupGemm",
     "CudaMoE",
     "CudaPagedDecodeGQA",

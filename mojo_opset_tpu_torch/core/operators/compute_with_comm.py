@@ -15,8 +15,8 @@ and ``trans_weight=True`` means ``(K, N)``. The GEMMs sum in fp32 and round
 once to the input dtype; the int8 GEMMs take exact integer sums (float64)
 and dequantize in fp32. These ops are the golden (``ref``) tier; the JAX
 xla tier's overlapped forms of ``MojoAllGatherGemm`` and
-``MojoGemmReduceScatter`` (a decomposition that computes the same thing)
-are not ported (ROADMAP.md, queue 1, "Distributed").
+``MojoGemmReduceScatter`` (a ring that computes the same thing) are their
+``cuda`` tier (``backends/cuda/operators/compute_with_comm.py``).
 """
 
 from __future__ import annotations

@@ -64,9 +64,14 @@ class MojoParallelEmbedding(MojoOperator):
     one nonzero row over the ranks. ``group=None`` with one shard is the
     plain lookup; with ``group`` the shard count and index are the group's.
 
+    In training the sum is Megatron's *g* (``comm_context.sum_over_group``:
+    the identity backward), so the shard's rows get their gradient.
+
     ``gather_logits`` is the tied LM head's other half: ``hidden @
     weight.T`` gives this shard's logit columns, gathered here over the
-    ranks and cut to the vocabulary."""
+    ranks and cut to the vocabulary. A vocab-parallel loss reads
+    ``vocab_rows`` instead: the shard's rows inside the vocabulary, so the
+    zero rows past it add nothing to a log-sum-exp."""
 
     def __init__(
         self,
@@ -116,8 +121,18 @@ class MojoParallelEmbedding(MojoOperator):
         local = torch.zeros((out.local_num_embeddings, w.shape[1]), dtype=w.dtype, device=w.device)
         rows = w[out.vocab_start:out.vocab_start + out.local_num_embeddings]
         local[:rows.shape[0]] = rows
-        out.weight = nn.Parameter(local, requires_grad=False)
+        out.weight = nn.Parameter(local, requires_grad=w.requires_grad)
         return out
+
+    @property
+    def num_vocab_rows(self) -> int:
+        """The shard's rows inside the vocabulary (the last shard of an uneven split holds fewer)."""
+        return max(0, min(self.local_num_embeddings, self.num_embeddings - self.vocab_start))
+
+    @property
+    def vocab_rows(self) -> torch.Tensor:
+        """The shard's first ``num_vocab_rows`` rows: a view of the weight, gradients flow to it."""
+        return self.weight[:self.num_vocab_rows]
 
     def forward(self, input: torch.Tensor) -> torch.Tensor:
         if self.group is None and self.num_shards == 1:
@@ -126,7 +141,7 @@ class MojoParallelEmbedding(MojoOperator):
         in_range = (local >= 0) & (local < self.local_num_embeddings)
         rows = self.weight[local.clamp(0, self.local_num_embeddings - 1)]
         rows = torch.where(in_range[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-        return comm_context.all_reduce(rows, self.group)
+        return comm_context.sum_over_group(rows, self.group)
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """This shard's logit columns (``hidden @ weight.T``) gathered over the ranks, cut to the vocabulary."""

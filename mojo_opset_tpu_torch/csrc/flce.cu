@@ -10,9 +10,11 @@
 // set:
 //   stats  per row, over the columns < V: lse = log sum exp zc, the target's
 //          zc (0 when the target is not in [0, V)) and zsum = sum zc;
-//   dz     dz = p a - c ((1 - s) onehot + s / V), p = exp(zc - lse), times
+//   dz     dz = p a - c ((1 - s) onehot + s / Vs), p = exp(zc - lse), times
 //          (1 - (zc / softcap)^2) under a softcap, rounded to x's dtype
-//          (a and c are the per-row coefficients of the caller's assembly);
+//          (a and c are the per-row coefficients of the caller's assembly;
+//          Vs is the whole vocabulary, V where w holds all of it, the
+//          caller's spread s / Vs);
 //   dx     dx = dz w, fp32 sums, in x's dtype;
 //   dw     dw = dz^T x, fp32 sums, in w's dtype.
 //
@@ -356,7 +358,8 @@ flce_stats_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, 
 __global__ void __launch_bounds__(kThreads)
 flce_dz_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, const int* __restrict__ target,
                    const float* __restrict__ lse, const float* __restrict__ a, const float* __restrict__ c,
-                   float* __restrict__ dz, int r0, int rows, int H, int V, int ldz, float softcap, float smoothing) {
+                   float* __restrict__ dz, int r0, int rows, int H, int V, int ldz, float softcap, float smoothing,
+                   float spread) {
   extern __shared__ __align__(16) unsigned char flce_smem_raw[];
   float* smem = reinterpret_cast<float*>(flce_smem_raw);
   const Lane ln;
@@ -364,7 +367,6 @@ flce_dz_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, con
   const Operand A{x, H, r_end, H}, B{w, H, V, H};
   float acc[kMT][kNT][4];
   tile_product<true, true>(acc, smem, A, B, m0, n0, H, ln);
-  const float spread = smoothing / static_cast<float>(V);
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -444,12 +446,13 @@ int stats(const float* x, const float* w, const int* target, float* part, float*
 }
 
 int dz(const float* x, const float* w, const int* target, const float* lse, const float* a, const float* c,
-       float* out, int r0, int rows, int H, int V, int ldz, float softcap, float smoothing, cudaStream_t s) {
+       float* out, int r0, int rows, int H, int V, int ldz, float softcap, float smoothing, float spread,
+       cudaStream_t s) {
   static const cudaError_t attr = allow_smem(flce_dz_f32_kernel, SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((rows + kBM - 1) / kBM, (V + kBN - 1) / kBN);
   flce_dz_f32_kernel<<<grid, kThreads, SMEM, s>>>(x, w, target, lse, a, c, out, r0, rows, H, V, ldz, softcap,
-                                                  smoothing);
+                                                  smoothing, spread);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,7 +524,7 @@ struct Epi {
   int M, N;            // valid rows and columns of the output (stats, dz: N = V)
   int64_t ld;
   int splits, mode;
-  float softcap, smoothing;
+  float softcap, smoothing, spread;  // dz: spread = smoothing / the vocabulary's size (a shard's V is less)
 };
 
 template <typename T, int BN, bool AMN, bool BMN>
@@ -555,7 +558,6 @@ __device__ __forceinline__ void store_tile(const Epi& p, float (&acc)[BN / 2], i
       cr = p.c[r];
       t = p.target[r];
     }
-    const float spread = p.smoothing / static_cast<float>(p.N);
     T* out = static_cast<T*>(p.out) + r * p.ld;
     float* buf = p.buf + (static_cast<int64_t>(ks) * p.M + r) * p.ld;
 #pragma unroll
@@ -564,8 +566,8 @@ __device__ __forceinline__ void store_tile(const Epi& p, float (&acc)[BN / 2], i
       if (v >= p.N) continue;
       float x = acc[4 * j + 2 * h], y = acc[4 * j + 2 * h + 1];
       if constexpr (KIND == kDz) {
-        x = dz_of(x, v, t, l, ar, cr, p.softcap, p.smoothing, spread);
-        y = dz_of(y, v + 1, t, l, ar, cr, p.softcap, p.smoothing, spread);
+        x = dz_of(x, v, t, l, ar, cr, p.softcap, p.smoothing, p.spread);
+        y = dz_of(y, v + 1, t, l, ar, cr, p.softcap, p.smoothing, p.spread);
       } else if (p.mode == 1 || p.mode == 2) {
         if (v + 1 < p.N) {
           float2 old = p.mode == 2 ? *reinterpret_cast<const float2*>(buf + v) : make_float2(0.f, 0.f);
@@ -783,7 +785,7 @@ int stats(const T* x, const T* w, const int* target, float* part, float* lse, fl
 
 template <typename T>
 int dz(const T* x, const T* w, const int* target, const float* lse, const float* a, const float* c, T* out, int r0,
-       int rows, int H, int V, int ldz, float softcap, float smoothing, cudaStream_t s) {
+       int rows, int H, int V, int ldz, float softcap, float smoothing, float spread, cudaStream_t s) {
   CUtensorMap ma, mb;
   int rc = maps<T>(&ma, x + static_cast<int64_t>(r0) * H, H, rows, H, kBM);
   if (rc == 0) rc = maps<T>(&mb, w, H, V, H, kDzBN);
@@ -801,6 +803,7 @@ int dz(const T* x, const T* w, const int* target, const float* lse, const float*
   epi.ld = ldz;
   epi.softcap = softcap;
   epi.smoothing = smoothing;
+  epi.spread = spread;
   return launch<T, kDzBN, false, false, kDz>(ma, mb, sched, epi, min(sched.units(), sm_count()), s);
 }
 
@@ -889,15 +892,15 @@ int stats_route(const void* x, const void* w, const int* t, float* p, float* l, 
 
 template <typename T>
 int dz_route(const void* x, const void* w, const int* t, const float* l, const float* a, const float* c, void* dz,
-             int r0, int rows, int H, int V, int ldz, float softcap, float smoothing, cudaStream_t s) {
+             int r0, int rows, int H, int V, int ldz, float softcap, float smoothing, float spread, cudaStream_t s) {
   if (!rows_ok<T>(H)) return static_cast<int>(cudaErrorInvalidValue);
   if constexpr (std::is_same_v<T, float>) {
     return f32::dz(static_cast<const float*>(x), static_cast<const float*>(w), t, l, a, c, static_cast<float*>(dz),
-                   r0, rows, H, V, ldz, softcap, smoothing, s);
+                   r0, rows, H, V, ldz, softcap, smoothing, spread, s);
   } else {
     if (!rows_ok<T>(ldz)) return static_cast<int>(cudaErrorInvalidValue);
     return wg::dz<T>(static_cast<const T*>(x), static_cast<const T*>(w), t, l, a, c, static_cast<T*>(dz), r0, rows,
-                     H, V, ldz, softcap, smoothing, s);
+                     H, V, ldz, softcap, smoothing, spread, s);
   }
 }
 
@@ -949,17 +952,18 @@ extern "C" int mojo_flce_stats(const void* x, const void* w, const void* target,
 }
 
 // dz (rows, ldz) for rows [r0, r0 + rows) of x, target, lse, a and c (the
-// full arrays); ldz % 8 == 0 and ldz >= V.
+// full arrays); ldz % 8 == 0 and ldz >= V. spread is label_smoothing over the
+// whole vocabulary's size, which a vocab shard's V is not.
 extern "C" int mojo_flce_dz(const void* x, const void* w, const void* target, const void* lse, const void* a,
                             const void* c, void* dz, int r0, int rows, int H, int V, int ldz, float softcap,
-                            float label_smoothing, int dtype, void* stream) {
+                            float label_smoothing, float spread, int dtype, void* stream) {
   if (rows <= 0) return static_cast<int>(cudaSuccess);
   if (V <= 0 || H <= 0 || ldz < V || !aligned16(x) || !aligned16(w)) return static_cast<int>(cudaErrorInvalidValue);
   int rc = static_cast<int>(cudaErrorInvalidValue);
   MOJO_DISPATCH_DTYPE(dtype, T, {
     rc = dz_route<T>(x, w, static_cast<const int*>(target), static_cast<const float*>(lse),
                      static_cast<const float*>(a), static_cast<const float*>(c), dz, r0, rows, H, V, ldz, softcap,
-                     label_smoothing, static_cast<cudaStream_t>(stream));
+                     label_smoothing, spread, static_cast<cudaStream_t>(stream));
   });
   return rc;
 }

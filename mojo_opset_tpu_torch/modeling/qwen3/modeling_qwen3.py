@@ -41,6 +41,7 @@ from mojo_opset_tpu_torch.core.functions import (
     MojoSiluFunction,
     MojoSWAFunction,
 )
+from mojo_opset_tpu_torch.core.functions.loss import VocabShard
 from mojo_opset_tpu_torch.core.operators import (
     MojoApplyRoPE,
     MojoDynamicQuant,
@@ -62,6 +63,7 @@ from mojo_opset_tpu_torch.experimental.operators import (
     MojoPagedPrefillGQAWithKVDequant,
     MojoStorePagedKVCacheC8,
 )
+from mojo_opset_tpu_torch.runtime import comm_context
 from mojo_opset_tpu_torch.runtime.config import MojoConfig, MojoModelConfig, MojoRunTimeConfig, sharded_config
 from mojo_opset_tpu_torch.runtime.session import AttentionMetadata, KVCaches
 from mojo_opset_tpu_torch.utils.platform import resolve_device
@@ -200,7 +202,9 @@ class Qwen3Attention(nn.Module):
         return self.o_proj(attn)
 
     def dense_forward(self, hidden: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-        """Causal self-attention for training over a padded batch, (B, S, hidden) in and out."""
+        """Causal self-attention for training over a padded batch, (B, S, hidden) in and out; sharded, the rank's
+        heads, the input's gradient summed over the group (``block_input``) and the output's summed forward."""
+        hidden = comm_context.block_input(self, hidden)
         B, S, _ = hidden.shape
         q = self.q_proj(hidden).reshape(B, S, self.num_heads, self.head_dim)
         k = self.k_proj(hidden).reshape(B, S, self.num_kv_heads, self.head_dim)
@@ -268,7 +272,9 @@ class Qwen3MLP(nn.Module):
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
     def dense_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The training forward: the SiLU under its Function."""
+        """The training forward: the SiLU under its Function (sharded: the rank's channels, as ``dense_forward`` of
+        the attention)."""
+        x = comm_context.block_input(self, x)
         return self.down_proj(self.act_train(self.gate_proj(x)) * self.up_proj(x))
 
 
@@ -398,11 +404,31 @@ class Qwen3ForCausalLM(nn.Module):
 
     @property
     def lm_head_weight(self) -> torch.Tensor:
-        """The LM head's (vocab, hidden) weight, tied or owned."""
-        return self.model.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
+        """The LM head's (vocab, hidden) weight, tied or owned; sharded by vocabulary, this rank's rows inside the
+        vocabulary (``lm_head_vocab`` says which)."""
+        if self.lm_head is not None:
+            return self.lm_head.weight
+        embed = self.model.embed_tokens
+        return embed.vocab_rows if isinstance(embed, MojoParallelEmbedding) else embed.weight
+
+    @property
+    def lm_head_vocab(self) -> Optional[VocabShard]:
+        """The vocab shard ``lm_head_weight`` is, for the loss's ``vocab_shard``: None for a whole head. A tied head
+        reads the vocab-parallel embedding's shard; an owned one the shard its style recorded (its logits are
+        all-gathered when served, never in the training loss)."""
+        if self.lm_head is not None:
+            return getattr(self.lm_head, "mojo_vocab_shard", None)
+        embed = self.model.embed_tokens
+        if isinstance(embed, MojoParallelEmbedding) and (embed.group is not None or embed.num_shards > 1):
+            return VocabShard(embed.group, embed.vocab_start, embed.num_embeddings)
+        return None
 
     def train_forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Dense (non-paged) training forward over padded (B, S) ids: the
         final hidden states (B, S, hidden), for
-        ``fused_linear_cross_entropy(hidden, lm_head_weight, targets)``."""
+        ``fused_linear_cross_entropy(hidden, lm_head_weight, targets,
+        vocab_shard=lm_head_vocab)``. Sharded (``parallel.shard_model``), each
+        rank runs its heads and channels with the collectives autograd sees,
+        and returns the whole hidden states; ``parallel.training`` completes
+        the gradients."""
         return self.model.dense_forward(input_ids)

@@ -39,6 +39,18 @@ plain tensors. The result is the unsharded model's function:
   * experts (``MojoExpertParallel``): the MoE keeps the rank's experts and
     sums the ranks' outputs (``core.operators.moe``).
 
+Training (JAX: GSPMD places the backward's collectives too): a shard keeps
+its parameter's gradient flag; under autograd the output collectives are
+differentiable (``comm_context.sum_over_group``, Megatron's *g*, and
+``gather_from_group``); a block whose first projections are column-parallel
+is marked (``mark_block_input``) so its training forward reads its input
+through *f* (``comm_context.block_input``); and each parameter whose
+gradient a rank holds only part of is recorded (``record_partial_grad``:
+the q/k norms, a replicated kv head's rows, a rank-0-only bias) for
+``parallel.training.finish_gradients``. An LM head whose logits are
+gathered records its vocab shard (``mojo_vocab_shard``), which the model's
+``lm_head_vocab`` gives the vocab-parallel loss.
+
 ``spec_for`` gives each parameter's JAX-style spec (a tuple of axis names
 or None per dim; ``()`` for replicated) where the port shards the way JAX
 does. A ``MojoMesh`` without groups (``MojoMesh.local``) slices for a rank
@@ -53,6 +65,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from mojo_opset_tpu_torch.core.functions.loss import VocabShard
 from mojo_opset_tpu_torch.core.operators.embedding import MojoEmbedding, MojoParallelEmbedding
 from mojo_opset_tpu_torch.core.operators.gemm import INT4_BLOCK, MojoGemm, MojoQuantGemm
 from mojo_opset_tpu_torch.core.operators.moe import EXPERT_MAJOR, MojoMoE, MojoQuantMoE
@@ -71,7 +84,9 @@ LINEAR = (MojoGemm, MojoQuantGemm)
 
 
 def _set(module: nn.Module, name: str, value: torch.Tensor) -> None:
-    setattr(module, name, nn.Parameter(value.contiguous(), requires_grad=False))
+    """``module.name`` becomes ``value``, a parameter that keeps the gradient flag of the one it replaces."""
+    trains = bool(getattr(getattr(module, name, None), "requires_grad", False))
+    setattr(module, name, nn.Parameter(value.contiguous(), requires_grad=trains))
 
 
 def _chunk(n: int, size: int, rank: int) -> torch.Tensor:
@@ -119,13 +134,36 @@ def select_in(op: nn.Module, channels: torch.Tensor, keep_bias: bool = True) -> 
     _set(op, "weight", op.weight.index_select(dim, ch))
     if getattr(op, "bias", None) is not None and not keep_bias:
         _set(op, "bias", torch.zeros_like(op.bias))
+        record_partial_grad(op, "bias", "zero")  # the sum adds rank 0's bias once; the others' zeros stay zero
     op.in_features = int(channels.numel())
+
+
+def record_partial_grad(module: nn.Module, name: str, kind: str, group=None, head: Optional[Tuple[int, int]] = None
+                        ) -> None:
+    """Note on ``module`` that the gradient of its parameter ``name`` is not
+    whole on this rank after the backward (``parallel.training``
+    ``sum_partial_gradients`` completes it): ``"sum"`` over ``group``, a
+    parameter every rank holds whole but reads for part of the work (the
+    q/k norms, read by the rank's heads); ``"head"``, the rows of kv head
+    ``head = (index, count)`` that several ranks of ``group`` hold (kv
+    replication), summed over those; ``"zero"``, a bias kept on rank 0
+    only, whose zeros elsewhere must not train."""
+    if kind not in ("sum", "head", "zero"):
+        raise ValueError(f"unknown partial gradient {kind!r}")
+    module.__dict__.setdefault("mojo_partial_grads", []).append((name, kind, group, head))
+
+
+def mark_block_input(block: nn.Module, group) -> None:
+    """The block's input is replicated and its first projections column-parallel: its training forward reads the
+    input through ``comm_context.block_input`` (Megatron's *f*), so the ranks' partial input gradients are summed."""
+    block.mojo_input_group = group
 
 
 class OutputCollective:
     """A forward hook: the collective a sharded module's output needs
     (``all_reduce`` of partial sums, or ``all_gather`` of column shards
-    along ``dim``)."""
+    along ``dim``); under autograd their differentiable forms (the sum's
+    backward the identity, the gather's this rank's block)."""
 
     def __init__(self, kind: str, group, dim: int = -1):
         if kind not in ("all_reduce", "all_gather"):
@@ -134,8 +172,8 @@ class OutputCollective:
 
     def __call__(self, module, args, output):
         if self.kind == "all_reduce":
-            return comm_context.all_reduce(output, self.group)
-        return comm_context.all_gather(output, self.group, dim=self.dim)
+            return comm_context.sum_over_group(output, self.group)
+        return comm_context.gather_from_group(output, self.group, dim=self.dim)
 
     def __repr__(self):
         return f"OutputCollective({self.kind}, dim={self.dim})"
@@ -157,9 +195,11 @@ def colwise(op: nn.Module, size: int, rank: int, group, gather_output: bool = Fa
         logger.warning("colwise: %s with %d outputs does not split over %d ranks; replicating",
                        type(op).__name__, op.out_features, size)
         return False
+    total = op.out_features
     select_out(op, channels)
     if gather_output:
         install(op, "all_gather", group, -1)
+        op.mojo_vocab_shard = VocabShard(group, int(channels[0]), total)  # what a vocab-parallel loss reads
     return True
 
 
@@ -237,6 +277,14 @@ def shard_attention(attn: nn.Module, size: int, rank: int, group, layout: str = 
     select_in(attn.o_proj, q_ch, keep_bias=rank == 0)
     install(attn.o_proj, "all_reduce", group)
     _reduce_amax(attn, group)
+    mark_block_input(attn, group)
+    for norm in (getattr(attn, "q_norm", None), getattr(attn, "k_norm", None)):
+        if norm is not None:  # shared by all heads; a rank's gradient covers its own heads
+            record_partial_grad(norm, "weight", "sum", group)
+    if size > attn.num_kv_heads:  # kv replication: each holder's queries give part of the head's dK and dV
+        for proj in (attn.k_proj, attn.v_proj):
+            for name, _ in proj.named_parameters(recurse=False):
+                record_partial_grad(proj, name, "head", group, (kv_heads[0], attn.num_kv_heads))
     attn.num_heads, attn.num_kv_heads = len(q_heads), len(kv_heads)
     return True
 
@@ -256,6 +304,7 @@ def shard_mlp(mlp: nn.Module, size: int, rank: int, group, col=("gate_proj", "up
         select_in(getattr(mlp, name), channels, keep_bias=rank == 0)
         install(getattr(mlp, name), "all_reduce", group)
     _reduce_amax(mlp, group)
+    mark_block_input(mlp, group)
     return True
 
 
@@ -269,6 +318,7 @@ def shard_swiglu(mlp: nn.Module, size: int, rank: int, group) -> bool:
     select_out(mlp.fc1, torch.cat([channels, channels + width]))
     select_in(mlp.fc2, channels, keep_bias=rank == 0)
     install(mlp.fc2, "all_reduce", group)
+    mark_block_input(mlp, group)
     return True
 
 

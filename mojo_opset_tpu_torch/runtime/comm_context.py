@@ -13,6 +13,13 @@ JAX's tiled semantics: ``all_gather`` concatenates the ranks' blocks along
 ``r``-th block, ``all_to_all`` sends block ``i`` of ``split_dim`` to rank
 ``i`` and concatenates what it receives along ``concat_dim``.
 
+Training needs collectives that autograd sees (JAX's GSPMD places the
+backward ones itself): ``sum_over_group`` (Megatron's *g*),
+``copy_to_group`` (*f*), ``gather_from_group`` and ``mean_over_group`` (the
+data-parallel mean, weighted by each rank's share) are
+``torch.autograd.Function``s; the first three fall back to the in-place
+calls where autograd is off, so serving and its CUDA graphs run what they ran.
+
 A module that runs a collective keeps its group in an attribute, so
 ``model_groups`` finds every group a model communicates over: the CUDA-graph
 pool asks it whether the model's collectives can be captured (NCCL's can,
@@ -92,6 +99,114 @@ def all_to_all(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch
     dist.all_to_all_single(recv, send, group=group)
     blocks = recv.reshape((n, front.shape[0] // n) + tuple(front.shape[1:]))
     return torch.cat([b.movedim(0, split_dim) for b in blocks.unbind(0)], dim=concat_dim)
+
+
+# ---------------------------------------------------------------- autograd-aware forms
+#
+# A collective in place on a tensor that autograd tracks is the identity to
+# the backward. The training path runs these instead: each a
+# ``torch.autograd.Function`` whose backward is the collective the forward's
+# transpose needs, in Megatron's terms (every rank of ``group`` computes the
+# same loss, so a gradient that reaches a replicated tensor is replicated too).
+# ``group=None`` is the identity, forward and backward.
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Megatron's *g*: the sum over the group forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's *f*: the identity forward, the sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), ctx.group), None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """``all_gather`` along ``dim`` forward; the backward keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = group_rank(ctx.group) * ctx.size
+        return grad.narrow(ctx.dim, start, ctx.size).contiguous(), None, None
+
+
+class _MeanOverGroup(torch.autograd.Function):
+    """The mean over the group weighted by each rank's ``weight`` (its share of
+    the work, e.g. of the valid tokens): ``sum_r w_r x_r / sum_r w_r``. The
+    backward gives each rank its share of the gradient, ``w_r / sum_r w_r``."""
+
+    @staticmethod
+    def forward(ctx, x, group, weight):
+        w = torch.as_tensor(weight, dtype=torch.float32, device=x.device).reshape(())
+        total = all_reduce(w.clone(), group)
+        ctx.share = (w / total.clamp(min=1e-30)).to(x.dtype)  # no weight anywhere: 0
+        return all_reduce((x * ctx.share).contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.share, None, None
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x`` (*g*: identity backward); the in-place ``all_reduce`` where autograd is off."""
+    if group is None:
+        return x
+    return _SumOverGroup.apply(x, group) if _tracked(x) else all_reduce(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``group`` (*f*): the input of a column-parallel block."""
+    if group is None or not _tracked(x):
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """``all_gather`` along ``dim``, whose backward keeps this rank's block; the plain gather where autograd is off."""
+    if group is None:
+        return x
+    dim = dim % x.ndim
+    return _GatherFromGroup.apply(x, group, dim) if _tracked(x) else all_gather(x, group, dim=dim)
+
+
+def mean_over_group(x: torch.Tensor, group, weight=1.0) -> torch.Tensor:
+    """The mean of ``x`` over ``group``, rank ``r`` weighted by its ``weight``
+    (a number or a 0-d tensor): the data-parallel mean of a loss or of a
+    gradient. Every rank's weights 1 give the plain mean; a group of one
+    rank gives ``x`` bit for bit."""
+    if group is None:
+        return x
+    return _MeanOverGroup.apply(x, group, weight)
+
+
+def block_input(block: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the training forward of ``block`` reads it: through *f* (``copy_to_group``) where a parallel style
+    marked the block's input as the replicated input of column-parallel projections (``mojo_input_group``)."""
+    return copy_to_group(x, getattr(block, "mojo_input_group", None))
 
 
 def model_groups(model: torch.nn.Module) -> list:

@@ -46,11 +46,17 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
-from mojo_opset_tpu_torch.backends.cuda import kernels
 from mojo_opset_tpu_torch.runtime import comm_context
 from mojo_opset_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+
+def _kernels():
+    """The cuda tier's launch counters (imported on first use: the tier's ops import the runtime)."""
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+
+    return kernels
 
 
 def resolve_device_graph(device_graph: Optional[bool], model) -> bool:
@@ -165,7 +171,7 @@ class StepRunner:
             if self.graph is None:
                 self._capture(inputs)
             self.graph.replay()
-            kernels.credit_counts(self.credit)
+            _kernels().credit_counts(self.credit)
             self.calls += 1
             return _map(torch.Tensor.clone, self.out)
 
@@ -193,7 +199,7 @@ class StepRunner:
         collecting = gc.isenabled()
         gc.disable()  # a collection inside the capture could free a dead pool's graph, which ends the capture
         try:
-            with kernels.recorded_counts() as record, path:
+            with _kernels().recorded_counts() as record, path:
                 with torch.cuda.graph(graph, pool=self.pool.mempool(), stream=self.pool.stream(self.device)):
                     out = self.pool._step_fn(*inputs)
         except Exception as err:

@@ -390,10 +390,134 @@ def moe_uneven_ep4(meshes, inp):
     return out
 
 
+# ---------------------------------------------------------------- scenarios: training and the rest of the layer
+
+
+def _numpy(params) -> dict:
+    return {name: p.detach().numpy().copy() for name, p in params}
+
+
+def _train(mesh, d: dict, loss_kw: dict, split_embedding: bool = False) -> dict:
+    """One step of ``d``'s model on ``mesh`` (this dp rank's rows of the batch): the loss and every gradient after
+    ``finish_gradients`` by name, then every parameter after one AdamW step at optax.adamw(1e-4)'s settings."""
+    torch = _torch()
+    import mojo_opset_tpu_torch as tm
+    from mojo_opset_tpu_torch.backends.cuda import kernels
+    from mojo_opset_tpu_torch.parallel import qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.parallel.styles import replace_module, shard_embedding
+    from mojo_opset_tpu_torch.parallel.training import adamw, finish_gradients, train_loss, valid_tokens
+    from mojo_opset_tpu_torch.runtime import comm_context
+
+    model = shard_model(_qwen3(d["cfg"], d["state"]), mesh, qwen3_tp_rules("tp"))
+    if split_embedding:  # a vocabulary the rules leave whole (it does not divide): the ceil split by hand
+        replace_module(model, "model.embed_tokens", shard_embedding(model.model.embed_tokens, mesh.size("tp"),
+                                                                    mesh.rank("tp"), mesh.group("tp")))
+    model.requires_grad_(True)
+    dp, dp_rank = (mesh.size("dp"), mesh.rank("dp")) if "dp" in mesh.shape else (1, 0)
+    dp_group = mesh.group("dp") if "dp" in mesh.shape else None
+    B = d["ids"].shape[0]
+    rows = slice(dp_rank * B // dp, (dp_rank + 1) * B // dp)
+    ids, targets = torch.from_numpy(d["ids"][rows]), torch.from_numpy(d["targets"][rows])
+    golden = sum(cls.golden_calls for cls in kernels.golden_classes())
+    loss = train_loss(model, ids, targets, tm.MojoFusedLinearCrossEntropyFunction(**loss_kw))
+    loss.backward()
+    weight = valid_tokens(targets)
+    finish_gradients(model, dp_group, weight)
+    out = dict(loss=float(comm_context.mean_over_group(loss.detach(), dp_group, weight)), coords=dict(mesh.coords),
+               grads=_numpy((n, p.grad) for n, p in model.named_parameters()),
+               golden=sum(cls.golden_calls for cls in kernels.golden_classes()) - golden,
+               vocab=tuple(model.lm_head_vocab[1:]) if model.lm_head_vocab is not None else None)
+    adamw(model).step()
+    out["params"] = _numpy(model.named_parameters())
+    return out
+
+
+def train_dp2_tp2(meshes, inp):
+    return _train(meshes["dp2_tp2"], inp["train"], {})
+
+
+def train_kv_replicated_tp4(meshes, inp):
+    return _train(meshes["tp4"], inp["train_kv2"], {})
+
+
+def train_tied_uneven_tp4(meshes, inp):
+    return _train(meshes["tp4"], inp["train_tied"], {}, split_embedding=True)
+
+
+def train_options_dp2_tp2(meshes, inp):
+    d = inp["train_options"]
+    return _train(meshes["dp2_tp2"], d, d["loss_kw"])
+
+
+def speculative_tp4(meshes, inp):
+    from mojo_opset_tpu_torch.modeling.qwen3 import quantize_qwen3
+    from mojo_opset_tpu_torch.parallel import qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.runtime import SpeculativeDecoder
+
+    d = inp["speculative"]
+    model = _qwen3(d["cfg"], d["state"])
+    draft = shard_model(quantize_qwen3(model), meshes["tp4"], qwen3_tp_rules("tp"))  # quantized, then sharded
+    target = shard_model(model, meshes["tp4"], qwen3_tp_rules("tp"))
+    spec = SpeculativeDecoder(target, draft, k=3, mode="greedy", block_size=BLOCK)
+    got = spec.generate(d["ids"], d["lens"], max_new_tokens=d["steps"])
+    return dict(tokens=np.asarray(got), draft=type(draft.model.layers[0].self_attn.q_proj).__name__,
+                draft_rows=tuple(draft.model.layers[0].self_attn.q_proj.weight.shape), rounds=spec.last_rounds)
+
+
+def _c8(mesh, d):
+    from mojo_opset_tpu_torch.parallel import qwen3_tp_rules, shard_model
+    from mojo_opset_tpu_torch.runtime import PagedAttentionGenerationModel
+
+    model = shard_model(_qwen3(d["cfg"], d["state"], quant="w8a8"), mesh, qwen3_tp_rules("tp"))
+    _, session = PagedAttentionGenerationModel(model, block_size=BLOCK)(d["ids"], context_input_len=d["lens"])
+    layers = range(len(session.caches.key_scales))
+    return dict(tokens=_generate(model, d["ids"], d["lens"]), cache=tuple(session.caches.key(0).shape),
+                key_scales=[session.caches.key_scale(i).numpy() for i in layers],
+                value_scales=[session.caches.value_scale(i).numpy() for i in layers],
+                kv_heads=model.config.model_config.local_num_kv_heads)
+
+
+def c8_tp2(meshes, inp):
+    return _c8(meshes["dp2_tp2"], inp["c8"])
+
+
+def c8_kv_replicated_tp4(meshes, inp):
+    return _c8(meshes["tp4"], inp["c8_kv2"])
+
+
+def ring_ops(meshes, inp):
+    """The ring AllGatherGemm and GemmReduceScatter (the cuda tier's; the ring on gloo CPU tensors) at world 4 and
+    2, each rank's input its shard of JAX's case; and a gather dim 1, which takes the golden."""
+    torch = _torch()
+    import mojo_opset_tpu_torch as tm
+
+    o = inp["ring"]
+    t = torch.from_numpy
+    out = {}
+    for world, mesh, axis in ((4, meshes["tp4"], "tp"), (2, meshes["dp2_tp2"], "tp")):
+        group, n, r = mesh.group(axis), mesh.size(axis), mesh.rank(axis)
+        gather = tm.MojoAllGatherGemm(t(o["w"]), bias=t(o["b"]), group=group)
+        scatter = tm.MojoGemmReduceScatter(t(_chunk(o["w"], n, r, 1)), bias=t(o["b"]), group=group)
+        out[world] = dict(all_gather_gemm=gather(t(_chunk(o["x"], n, r, 0))).numpy(),
+                          gemm_reduce_scatter=scatter(t(_chunk(o["x"], n, r, 1))).numpy(),
+                          tiers=(type(gather).__name__, type(scatter).__name__))
+    mesh = meshes["tp4"]
+    out["gather_dim1"] = tm.MojoAllGatherGemm(t(o["w"]), bias=t(o["b"]), group=mesh.group("tp"), gather_dim=1)(
+        t(np.ascontiguousarray(_chunk(o["x"], 4, mesh.rank("tp"), 1)))).numpy()
+    return out
+
+
+def dryrun(meshes, inp):
+    from mojo_opset_tpu_torch.parallel.training import dryrun_step
+
+    return dryrun_step(meshes["dp2_tp2"], "cpu")
+
+
 SCENARIOS = {f.__name__: f for f in (
     dense_tp4, dense_tp2, styles_plan_tp4, kv_replicated_tp4, w8a8_tp2, graph_over_gloo, comm_ops,
     parallel_embedding, checkpoint_roundtrip, afd_meshes, moe_tp2_ep2, quant_moe_ep2, moe_dp_input_ep4,
-    moe_uneven_ep4, debugger_tp2)}
+    moe_uneven_ep4, debugger_tp2, train_dp2_tp2, train_kv_replicated_tp4, train_tied_uneven_tp4,
+    train_options_dp2_tp2, speculative_tp4, c8_tp2, c8_kv_replicated_tp4, ring_ops, dryrun)}
 
 
 def main(rank: int, world: int, workdir: str) -> None:
