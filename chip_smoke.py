@@ -386,7 +386,10 @@ is non-zero:
      debugger enabled through its API: one capture warning, the tokens of
      (a), records only from the prefill and the graph's eager warm-up step;
      (d) ``--profile-dir`` and ``--trace-out``: kernels A-D named in the
-     profiler's chrome trace, the run's spans in the emitter's. Then
+     profiler's chrome trace, with one ``mojo.graph.replay`` a graphed
+     decode step beside them, and the runtime's spans in the emitter's
+     (one ``mojo.generate``, one ``mojo.prefill``, one
+     ``mojo.decode_step`` a decode step). Then
      ``llm_inference --tiny`` with ``--quant w8a8 --quant-kv`` and with
      ``--speculative 4``, ``continuous_serving`` and ``dit_inference`` at
      their defaults (shapes, finiteness). Then two readings, not claims:
@@ -5659,16 +5662,24 @@ def _tooling_llm_runs(torch, card: str) -> dict:
     found = {f: sorted({n for n in names if any(p in n for p in pats)})[:3] for f, pats in TOOLING_FAMILIES.items()}
     with open(spans_path) as f:
         spans = [(e["name"], e["ph"]) for e in json.load(f)["traceEvents"]]
+    with open(traced["profile"][0]) as f:  # the runtime's spans beside the kernels, on the profiler's clock
+        replays = sum(e.get("name") == "mojo.graph.replay" for e in json.load(f)["traceEvents"])
     size_mb = os.path.getsize(traced["profile"][0]) / 1e6
     shutil.rmtree(out_dir, ignore_errors=True)
-    log("tooling", f"profiler trace ({size_mb:.1f} MB, {len(names)} kernel names): {found}; chrome-trace spans: "
-                   f"{spans.count(('llm_inference', 'B'))} run, {spans.count(('prefill', 'E'))} prefill, "
-                   f"{spans.count(('decode_step', 'E'))} decode_step")
+    steps = traced["ids"].shape[1] - 1  # decode steps: the first warms the graph up, each later one replays it
+    log("tooling", f"profiler trace ({size_mb:.1f} MB, {len(names)} kernel names): {found}, {replays} "
+                   f"mojo.graph.replay over {steps} decode steps; chrome-trace spans: "
+                   f"{spans.count(('llm_inference', 'E'))} run, {spans.count(('mojo.generate', 'E'))} mojo.generate, "
+                   f"{spans.count(('mojo.prefill', 'E'))} mojo.prefill, "
+                   f"{spans.count(('mojo.decode_step', 'E'))} mojo.decode_step")
     if not all(found.values()):
         raise AssertionError(f"tooling: kernels missing from the profiler's trace: {found}")
-    if (spans.count(("llm_inference", "E")), spans.count(("prefill", "E")), spans.count(("decode", "E")),
-            spans.count(("decode_step", "E"))) != (1, 1, 1, traced["ids"].shape[1]):
+    if (spans.count(("llm_inference", "E")), spans.count(("mojo.generate", "E")), spans.count(("mojo.prefill", "E")),
+            spans.count(("mojo.decode_step", "E"))) != (1, 1, 1, steps):
         raise AssertionError(f"tooling: the chrome trace's spans: {spans}")
+    if replays != steps - 1:
+        raise AssertionError(f"tooling: {replays} mojo.graph.replay in the profiler's trace, not one a graphed "
+                             f"step ({steps - 1})")
 
     # (e) --quant w8a8 --quant-kv at the same width, eager under the debugger: E, F and C's int8 pages at their
     # real shapes, each compared with its golden on the same inputs

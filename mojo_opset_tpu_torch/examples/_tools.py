@@ -11,7 +11,8 @@
   * ``--profile-dir DIR``: a ``torch.profiler`` chrome trace of the run
     under ``DIR`` (``utils/profiler.py``);
   * ``--trace-out PATH``: the run's host-side spans as chrome-trace JSON
-    (``utils/tracing.py``).
+    (``utils/tracing.py``): the example's own and, with the emitter
+    installed while the run lasts, the runtime's ``mojo.*`` spans.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import os
 
 import torch
 
+from mojo_opset_tpu_torch.utils import tracing
 from mojo_opset_tpu_torch.utils.debugger import MojoDebugger
 from mojo_opset_tpu_torch.utils.profiler import profiler_activities
 from mojo_opset_tpu_torch.utils.tracing import MojoTracingGenerator
@@ -59,9 +61,10 @@ def debugging(args) -> bool:
 @contextlib.contextmanager
 def run_tools(args, result: dict, name: str, profile_whole_run: bool = True):
     """Enable what the flags ask for around the run and fill ``result``:
-    ``tracer`` (a ``MojoTracingGenerator``, or None) while it runs; after
-    it, ``debug`` (the debugger's records and counts), ``trace`` and
-    ``profile`` (the files written). ``profile_whole_run=False`` leaves
+    ``tracer`` (a ``MojoTracingGenerator``, or None, installed as the
+    runtime's span emitter) while it runs; after it, ``debug`` (the
+    debugger's records and counts), ``trace`` and ``profile`` (the files
+    written). ``profile_whole_run=False`` leaves
     the profiler to a generator hook."""
     tracer = MojoTracingGenerator(process_name=name) if args.trace_out else None
     result["tracer"] = tracer
@@ -71,10 +74,14 @@ def run_tools(args, result: dict, name: str, profile_whole_run: bool = True):
     if args.profile_dir and profile_whole_run:
         profile = torch.profiler.profile(activities=profiler_activities(args.device))
         profile.__enter__()
+    if tracer is not None:
+        tracing.install(tracer)
     try:
         with tracer.span(name) if tracer else contextlib.nullcontext():
             yield tracer
     finally:
+        if tracer is not None:
+            tracing.uninstall()
         if profile is not None:
             if torch.device(args.device).type == "cuda":
                 torch.cuda.synchronize()

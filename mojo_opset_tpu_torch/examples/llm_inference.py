@@ -111,37 +111,14 @@ def load_tokenizer(args):
 
 
 class _RunHook(GeneratorHook):
-    """Notes the session's allocator and, with a tracer, the run's spans:
-    ``prefill``, then ``decode`` holding a ``decode_step`` span a step
-    (the last one closing when the decode loop does)."""
+    """Notes the session's allocator (the run's spans come from the
+    runtime's own, ``utils.tracing.span``, under ``--trace-out``)."""
 
-    def __init__(self, tracer):
-        self.tracer = tracer
+    def __init__(self):
         self.allocator = None
-
-    def before_prefill(self, **kwargs):
-        if self.tracer:
-            self.tracer.begin("prefill")
 
     def after_prefill(self, *, logits, session):
         self.allocator = session.allocator
-        if self.tracer:
-            self.tracer.end("prefill")
-
-    def before_decode(self):
-        if self.tracer:
-            self.tracer.begin("decode")
-            self.tracer.begin("decode_step")
-
-    def after_decode_step(self, *, step, logits, next_token_id):
-        if self.tracer:
-            self.tracer.end("decode_step")
-            self.tracer.begin("decode_step")
-
-    def after_decode(self, **kwargs):
-        if self.tracer:
-            self.tracer.end("decode_step")
-            self.tracer.end("decode")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -176,7 +153,7 @@ def main(argv=None) -> dict:
         gen = PerfMojoGenerator(gm, tokenizer, sampler, max_new_tokens=args.max_new_tokens)
         return {"perf": gen(prefill_seqlens=(512, 1024, 2048), decode_batch_sizes=(1, 2, 4, 8), fused=args.fused)}
     result = {}
-    with run_tools(args, result, "llm_inference", profile_whole_run=False) as tracer:
+    with run_tools(args, result, "llm_inference", profile_whole_run=False):
         t0 = time.perf_counter()
         if args.speculative:
             ids = np.asarray(tokenizer([args.prompt]).input_ids[0], np.int32)
@@ -191,7 +168,7 @@ def main(argv=None) -> dict:
             gm = PagedAttentionGenerationModel(model, block_size=args.block_size,
                                                device_graph=False if debugging(args) else None)
             sampler = GreedySampler() if args.greedy else TopKSampler(top_k=50)
-            run = _RunHook(tracer)
+            run = _RunHook()
             hooks = [run]
             if args.profile_dir:
                 hooks.append(create_cuda_profiler(args.profile_dir, wait=0, active=args.max_new_tokens,

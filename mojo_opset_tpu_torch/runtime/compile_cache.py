@@ -28,7 +28,12 @@ signature with the caches donated; here a signature keeps one
     ``golden_calls`` is taken back off and credited on every replay
     (``backends.cuda.kernels.recorded_counts``);
   * a capture that fails raises, naming the module it failed in; nothing
-    runs eagerly in its place.
+    runs eagerly in its place;
+  * each call is spanned (``utils.tracing.span``): ``mojo.graph.lookup``
+    (the signature and its runner), ``mojo.graph.warm_up``,
+    ``mojo.graph.capture`` and ``mojo.graph.replay``, the last holding
+    ``mojo.graph.inputs`` (the copies into the static buffers), the
+    graph's launch and ``mojo.graph.outputs`` (the outputs' clone).
 
 Graphs need the card: ``get_runner`` raises ``ValueError`` on a CPU tensor.
 A sharded model's collectives are captured with its step: NCCL's can be
@@ -48,6 +53,7 @@ import torch
 
 from mojo_opset_tpu_torch.runtime import comm_context
 from mojo_opset_tpu_torch.utils.logging import get_logger
+from mojo_opset_tpu_torch.utils.tracing import span
 
 logger = get_logger(__name__)
 
@@ -164,16 +170,28 @@ class StepRunner:
 
     def __call__(self, *args):
         with torch.inference_mode():
-            inputs = self._inputs(args)
             if self.calls == 0:
-                self.calls = 1
-                return self._warm_up(inputs)
+                with span("mojo.graph.warm_up"):
+                    self.calls = 1
+                    return self._warm_up(self._inputs(args))
             if self.graph is None:
-                self._capture(inputs)
+                with span("mojo.graph.capture"):
+                    self._capture(self._inputs(args))
+                return self._replay(None)
+            return self._replay(args)
+
+    def _replay(self, args):
+        """Copy ``args`` into the static buffers (None: they hold this call's inputs already), replay, and
+        return a clone of the outputs."""
+        with span("mojo.graph.replay"):
+            if args is not None:
+                with span("mojo.graph.inputs"):
+                    self._inputs(args)
             self.graph.replay()
             _kernels().credit_counts(self.credit)
             self.calls += 1
-            return _map(torch.Tensor.clone, self.out)
+            with span("mojo.graph.outputs"):
+                return _map(torch.Tensor.clone, self.out)
 
     def _warm_up(self, inputs):
         current, side = torch.cuda.current_stream(self.device), self.pool.stream(self.device)
@@ -257,19 +275,20 @@ class CompiledStepPool:
         return tuple(sig)
 
     def get_runner(self, *args) -> StepRunner:
-        for key in self._dead:
-            self._pool.pop(key, None)
-        self._dead.clear()
-        key = self.signature(*args)
-        runner = self._pool.get(key)
-        if runner is None:
-            runner = self._pool[key] = StepRunner(self, args, self._device(args))
-            pool = weakref.ref(self)
-            for i in self._donate:  # the key's graph goes with the first of its donated state to be freed
-                anchor = args[i] if hasattr(args[i], "__weakref__") or isinstance(args[i], torch.Tensor) else (
-                    _tensors(args[i])[0])
-                weakref.finalize(anchor, _forget, pool, key)
-        return runner
+        with span("mojo.graph.lookup"):
+            for key in self._dead:
+                self._pool.pop(key, None)
+            self._dead.clear()
+            key = self.signature(*args)
+            runner = self._pool.get(key)
+            if runner is None:
+                runner = self._pool[key] = StepRunner(self, args, self._device(args))
+                pool = weakref.ref(self)
+                for i in self._donate:  # the key's graph goes with the first of its donated state to be freed
+                    anchor = args[i] if hasattr(args[i], "__weakref__") or isinstance(args[i], torch.Tensor) else (
+                        _tensors(args[i])[0])
+                    weakref.finalize(anchor, _forget, pool, key)
+            return runner
 
     def _device(self, args) -> torch.device:
         """The card the step runs on: its donated state's (every donated tensor on the card), else its inputs'."""

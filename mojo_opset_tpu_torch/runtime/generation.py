@@ -17,6 +17,12 @@ the JAX package splits a key chain. With the model's decode graphs on
 session per batch size and one ``FusedDecode`` per sampler, renewing the
 session each call, so a call's decode steps and window replay the graphs
 of the calls before it (a graph holds its session's cache addresses).
+The loop's spans (``utils.tracing.span``, recorded only while tracing is
+on): ``mojo.generate`` a call, ``mojo.prefill`` the model's prefill call,
+``mojo.decode_step`` a stepwise iteration's whole body,
+``mojo.decode_window`` a fused window, ``mojo.sample`` each sampler call,
+``mojo.host_sync`` each read of tokens to the host, ``mojo.hooks`` each
+run of the hooks.
 ``PerfMojoGenerator`` is the end-to-end protocol: prefill ms at seqlens
 512-8192 (bs 1) and decode tok/s at bs 1-24 (ctx 4000), each case run once
 warm and once recorded, and optionally whole ``FusedDecode`` windows, timed
@@ -39,6 +45,7 @@ from mojo_opset_tpu_torch.benchmark.timing import chain_seconds
 from mojo_opset_tpu_torch.core.operators.sampling import MojoTopKSampling
 from mojo_opset_tpu_torch.runtime.session import FusedDecode
 from mojo_opset_tpu_torch.utils.logging import get_logger, log_table
+from mojo_opset_tpu_torch.utils.tracing import span
 
 logger = get_logger(__name__)
 
@@ -230,6 +237,7 @@ class MojoGenerator:
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self._session = None
         self._fused: dict = {}  # (sample method, top_k) -> FusedDecode
+        self._calls = 0  # generate calls so far: the spans' ``call``
 
     def _session_for(self, context_input_len):
         """None (the model makes a new session) or, with decode graphs, the
@@ -243,8 +251,24 @@ class MojoGenerator:
         return self._session
 
     def _run_hooks(self, method: str, **kwargs):
-        for hook in self._hooks:
-            getattr(hook, method)(**kwargs)
+        with span("mojo.hooks"):
+            for hook in self._hooks:
+                getattr(hook, method)(**kwargs)
+
+    def _prefill(self, input_ids, context_input_len):
+        session = self._session_for(context_input_len)
+        with span("mojo.prefill"):
+            return self.model(input_ids, context_input_len=context_input_len, session=session)
+
+    def _sample(self, logits, session) -> torch.Tensor:
+        with span("mojo.sample"):
+            return self.sampler(logits, session, generator=self.generator)
+
+    @staticmethod
+    def _to_host(tokens: torch.Tensor) -> np.ndarray:
+        """The tokens read back to the host: waits for the device."""
+        with span("mojo.host_sync"):
+            return tokens.cpu().numpy()
 
     def _eos_id(self) -> int:
         eos_id = getattr(self.tokenizer, "eos_token_id", -1)
@@ -275,9 +299,12 @@ class MojoGenerator:
         keeps the typewriter quiet."""
         if max_decode_steps is None:
             max_decode_steps = self.max_new_tokens
-        if fused_decode:
-            return self._generate_fused(input_ids, context_input_len, max_decode_steps, ignore_eos)
-        return self._generate_stepwise(input_ids, context_input_len, max_decode_steps, ignore_eos, silent)
+        self._calls += 1
+        with span("mojo.generate", call=self._calls, batch=int(np.asarray(context_input_len).size),
+                  prompt_tokens=int(np.asarray(context_input_len).sum())):
+            if fused_decode:
+                return self._generate_fused(input_ids, context_input_len, max_decode_steps, ignore_eos)
+            return self._generate_stepwise(input_ids, context_input_len, max_decode_steps, ignore_eos, silent)
 
     def _generate_fused(self, input_ids, context_input_len, max_decode_steps, ignore_eos):
         """Decode window through ``FusedDecode`` (greedy, or top-k for any
@@ -285,19 +312,19 @@ class MojoGenerator:
         afterwards."""
         eos_id = self._eos_id()
         self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
-        logits, session = self.model(input_ids, context_input_len=context_input_len,
-                                     session=self._session_for(context_input_len))
+        logits, session = self._prefill(input_ids, context_input_len)
         self._run_hooks("after_prefill", logits=logits, session=session)
 
-        first = self.sampler(logits, session, generator=self.generator)
+        first = self._sample(logits, session)
         self._run_hooks("before_decode")
         method = "greedy" if isinstance(self.sampler, GreedySampler) else "topk"
         top_k = getattr(getattr(self.sampler, "op", None), "top_k", 50)
         if (method, top_k) not in self._fused:
             self._fused[method, top_k] = FusedDecode(self.model.model, sample_method=method, top_k=top_k,
                                                      device_graph=getattr(self.model, "device_graph", None))
-        toks = self._fused[method, top_k](session, first, max_decode_steps - 1, generator=self.generator)
-        out = torch.cat([first[None], toks], dim=0).T.cpu().numpy()  # (B, steps); waits for the device
+        with span("mojo.decode_window", call=self._calls, steps=max_decode_steps - 1):
+            toks = self._fused[method, top_k](session, first, max_decode_steps - 1, generator=self.generator)
+        out = self._to_host(torch.cat([first[None], toks], dim=0).T)  # (B, steps)
         self._run_hooks("after_decode", decode_steps=max_decode_steps - 1, generated_ids=list(out.T))
         if not ignore_eos and eos_id >= 0:
             after = np.cumsum(out == eos_id, axis=1) > 0
@@ -308,12 +335,11 @@ class MojoGenerator:
         eos_id = self._eos_id()
         typewriter = _Typewriter(self.tokenizer) if (self._enable_typewriter and not silent) else None
         self._run_hooks("before_prefill", input_ids=input_ids, context_input_len=context_input_len)
-        logits, session = self.model(input_ids, context_input_len=context_input_len,
-                                     session=self._session_for(context_input_len))
+        logits, session = self._prefill(input_ids, context_input_len)
         self._run_hooks("after_prefill", logits=logits, session=session)
 
-        next_token_id = self.sampler(logits, session, generator=self.generator)
-        next_np = next_token_id.cpu().numpy()
+        next_token_id = self._sample(logits, session)
+        next_np = self._to_host(next_token_id)
         all_generated = [next_np]
         pending = [next_np]  # the typewriter's steps not sent yet
         should_end = next_np == eos_id
@@ -321,25 +347,26 @@ class MojoGenerator:
 
         self._run_hooks("before_decode")
         for step in range(1, max_decode_steps):
-            logits, session = self.model(next_token_id, session=session)
-            next_token_id = self.sampler(logits, session, generator=self.generator)
-            decode_steps += 1
-            self._run_hooks("after_decode_step", step=step, logits=logits, next_token_id=next_token_id)
-            next_np = next_token_id.cpu().numpy()
-            prev_end = should_end
-            should_end = should_end | (next_np == eos_id)
-            if not ignore_eos:
-                # sequences that ended earlier stay clamped to EOS; the step
-                # that produces a sequence's first EOS is still emitted
-                next_np = np.where(prev_end, eos_id, next_np).astype(np.int32)
-                next_token_id = torch.as_tensor(next_np, device=next_token_id.device)
-            all_generated.append(next_np)
-            pending.append(next_np)
-            if not ignore_eos and bool(np.all(should_end)):
-                break
-            if typewriter is not None and len(pending) >= self._typewriter_buffer:
-                typewriter.send([g[:, None] for g in pending])
-                pending = []
+            with span("mojo.decode_step", call=self._calls, step=step):
+                logits, session = self.model(next_token_id, session=session)
+                next_token_id = self._sample(logits, session)
+                decode_steps += 1
+                self._run_hooks("after_decode_step", step=step, logits=logits, next_token_id=next_token_id)
+                next_np = self._to_host(next_token_id)
+                prev_end = should_end
+                should_end = should_end | (next_np == eos_id)
+                if not ignore_eos:
+                    # sequences that ended earlier stay clamped to EOS; the step
+                    # that produces a sequence's first EOS is still emitted
+                    next_np = np.where(prev_end, eos_id, next_np).astype(np.int32)
+                    next_token_id = torch.as_tensor(next_np, device=next_token_id.device)
+                all_generated.append(next_np)
+                pending.append(next_np)
+                if not ignore_eos and bool(np.all(should_end)):
+                    break
+                if typewriter is not None and len(pending) >= self._typewriter_buffer:
+                    typewriter.send([g[:, None] for g in pending])
+                    pending = []
 
         self._run_hooks("after_decode", decode_steps=decode_steps, generated_ids=all_generated)
         if typewriter is not None:

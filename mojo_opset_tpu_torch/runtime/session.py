@@ -24,7 +24,9 @@ Counterpart of the JAX package's ``runtime/session.py`` (``AttentionMetadata``
     the graph's static buffers take a copy. Inside a graph no host int may
     vary, so a decode step's ``max_total_seq_len`` is the block table's
     capacity (no decode kernel reads it; kernel C sizes its split from the
-    table's width). Prefill stays eager.
+    table's width). Prefill stays eager;
+  * a step's host preparation is spanned (``utils.tracing.span``):
+    ``mojo.session.prefill_inputs`` and ``mojo.session.decode_arrays``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from mojo_opset_tpu_torch.runtime.compile_cache import CompiledStepPool, resolve
 from mojo_opset_tpu_torch.runtime.config import MojoConfig
 from mojo_opset_tpu_torch.runtime.native import NativeBlockAllocator, native_available
 from mojo_opset_tpu_torch.utils.platform import resolve_device
+from mojo_opset_tpu_torch.utils.tracing import span
 
 
 @dataclass
@@ -274,34 +277,39 @@ class PagedAttentionRuntimeState:
         )
 
     def prepare_prefill_inputs(self, input_ids, q_lens):
-        input_ids = np.asarray(input_ids).reshape(-1).astype(np.int32)
-        q_lens = np.ones(self.batch_size, np.int32) if q_lens is None else np.asarray(q_lens, np.int32)
-        if int(q_lens.sum()) != input_ids.size:
-            raise ValueError(
-                "Prefill input_ids length must match the sum of q_lens: "
-                f"{input_ids.size} != {int(q_lens.sum())}"
+        with span("mojo.session.prefill_inputs"):
+            input_ids = np.asarray(input_ids).reshape(-1).astype(np.int32)
+            q_lens = np.ones(self.batch_size, np.int32) if q_lens is None else np.asarray(q_lens, np.int32)
+            if int(q_lens.sum()) != input_ids.size:
+                raise ValueError(
+                    "Prefill input_ids length must match the sum of q_lens: "
+                    f"{input_ids.size} != {int(q_lens.sum())}"
+                )
+            context_kv_lens = self._reserve(q_lens)
+            positions = np.concatenate(
+                [np.arange(c, c + n, dtype=np.int32) for c, n in zip(context_kv_lens, q_lens)]
+                or [np.empty(0, np.int32)]
             )
-        context_kv_lens = self._reserve(q_lens)
-        positions = np.concatenate(
-            [np.arange(c, c + n, dtype=np.int32) for c, n in zip(context_kv_lens, q_lens)] or [np.empty(0, np.int32)]
-        )
-        cu_q_lens = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
-        meta = self._metadata(cu_q_lens, q_lens, positions)
-        return self._tensor(input_ids), self._tensor(positions), meta
+            cu_q_lens = np.concatenate([[0], np.cumsum(q_lens)]).astype(np.int32)
+            meta = self._metadata(cu_q_lens, q_lens, positions)
+            return self._tensor(input_ids), self._tensor(positions), meta
 
     def decode_arrays(self, n_steps: int = 1) -> Tuple[np.ndarray, ...]:
         """Reserve ``n_steps`` tokens per sequence; the host arrays of those
         steps' inputs, each (n_steps, B) but the table: positions, lengths
-        after each step, the block table and the KV store's (block, row)."""
-        lens0 = self.total_seq_lens.copy()
-        ones = np.ones(self.batch_size, np.int32)
-        for _ in range(n_steps):
-            self._reserve(ones)
-        positions = lens0[None, :] + np.arange(n_steps, dtype=np.int32)[:, None]
-        batch = np.broadcast_to(np.arange(self.batch_size), positions.shape)
-        blocks = self.block_tables[batch, positions // self.block_size].astype(np.int64)
-        rows = (positions % self.block_size).astype(np.int64)
-        return positions, positions + 1, self.block_tables.copy(), blocks, rows
+        after each step, the block table and the KV store's (block, row).
+        Its span's args are the allocator's state before the reserve."""
+        free = self.num_free_blocks
+        with span("mojo.session.decode_arrays", blocks_allocated=self.free_blocks.size - free, free_blocks=free):
+            lens0 = self.total_seq_lens.copy()
+            ones = np.ones(self.batch_size, np.int32)
+            for _ in range(n_steps):
+                self._reserve(ones)
+            positions = lens0[None, :] + np.arange(n_steps, dtype=np.int32)[:, None]
+            batch = np.broadcast_to(np.arange(self.batch_size), positions.shape)
+            blocks = self.block_tables[batch, positions // self.block_size].astype(np.int64)
+            rows = (positions % self.block_size).astype(np.int64)
+            return positions, positions + 1, self.block_tables.copy(), blocks, rows
 
 
 def decode_step(model, block_size: int, caches: KVCaches, tokens, positions, lens, block_tables, slot_blocks,

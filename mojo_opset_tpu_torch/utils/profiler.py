@@ -13,7 +13,7 @@ Counterpart of the JAX package's ``utils/profiler.py`` (``create_tpu_profiler``,
     before the trace stops, so the profiled steps have finished;
   * :func:`create_cuda_profiler` (JAX's ``create_tpu_profiler``) returns one;
   * :func:`trace_annotation` (JAX's ``jax.profiler.TraceAnnotation``) is a
-    named span in the trace: ``torch.profiler.record_function``.
+    named span in the trace: the runtime's ``utils.tracing.span``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 
 from mojo_opset_tpu_torch.runtime.generation import GeneratorHook
 from mojo_opset_tpu_torch.utils.logging import get_logger
+from mojo_opset_tpu_torch.utils.tracing import span
 
 logger = get_logger(__name__)
 
@@ -98,5 +99,5 @@ class CUDAProfilerHook(GeneratorHook):
 
 def trace_annotation(name: str):
     """Named span visible in the profiler's trace (JAX's
-    ``jax.profiler.TraceAnnotation``)."""
-    return torch.profiler.record_function(name)
+    ``jax.profiler.TraceAnnotation``): ``utils.tracing.span``."""
+    return span(name)

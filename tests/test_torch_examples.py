@@ -74,7 +74,9 @@ def test_llm_inference_tooling_flags(tmp_path, monkeypatch):
     assert len(list((tmp_path / "dumps" / "rank0").glob("RMSNorm_L0_*.npz"))) == forwards
     spans = json.loads((tmp_path / "spans.json").read_text())["traceEvents"]
     names = [(e["name"], e["ph"]) for e in spans]
-    assert ("prefill", "B") in names and names.count(("decode_step", "E")) == forwards
+    # the runtime's spans: one call, one prefill, one decode step a later token
+    assert (names.count(("llm_inference", "E")), names.count(("mojo.generate", "E")),
+            names.count(("mojo.prefill", "E")), names.count(("mojo.decode_step", "E"))) == (1, 1, 1, forwards - 1)
     assert result["profile"] == [str(tmp_path / "profile" / "trace.json")]
     assert json.loads((tmp_path / "profile" / "trace.json").read_text())["traceEvents"]
     assert not MojoDebugger.enabled()
